@@ -194,9 +194,11 @@ def dense_layer(
     num_seqs: torch.Tensor,
     cfg: ModelConfig,
     rope_cs: tuple[torch.Tensor, torch.Tensor],
+    attention=ragged_paged_attention,
 ) -> torch.Tensor:
     """One transformer block over a ragged token batch: attn-norm → fused
-    qkv → rope → page scatter → ragged paged attention → wo → mlp."""
+    qkv → rope → page scatter → ragged paged attention → wo → mlp.
+    ``attention`` has the operands of :func:`ragged_paged_attention`."""
     T = x.shape[0]
     y = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     qkv = _dot(y, lp["wqkv"])
@@ -206,7 +208,7 @@ def dense_layer(
     q = rope_apply(q.reshape(T, cfg.num_heads, cfg.head_dim), *rope_cs)
     k = rope_apply(k.reshape(T, cfg.num_kv_heads, cfg.head_dim), *rope_cs)
     write_kv(cache_l, write_pages, write_offs, _interleave_kv(k.reshape(T, cfg.kv_size), v, cfg))
-    attn = ragged_paged_attention(
+    attn = attention(
         q, cache_l, kv_lens, block_tables, cu_q_lens, num_seqs,
         sm_scale=cfg.head_dim ** -0.5,
     )
@@ -228,6 +230,7 @@ def forward_hidden(
     cu_q_lens: torch.Tensor,     # [S+1] i32
     num_seqs: torch.Tensor,      # [1] i32
     cfg: ModelConfig,
+    attention=ragged_paged_attention,
 ) -> torch.Tensor:
     """The transformer stack up to the final norm: hidden states [T, h].
     The cache is written in place."""
@@ -239,7 +242,7 @@ def forward_hidden(
         lp = {name: w[l] for name, w in layers.items()}
         x = dense_layer(
             x, lp, cache[l], wp, wo, kv_lens, block_tables, cu_q_lens,
-            num_seqs, cfg, rope_cs,
+            num_seqs, cfg, rope_cs, attention,
         )
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
@@ -257,12 +260,13 @@ def forward_tokens(
     num_seqs: torch.Tensor,
     last_rows: torch.Tensor,     # [S] — row of each sequence's last token
     cfg: ModelConfig,
+    attention=ragged_paged_attention,
 ) -> torch.Tensor:
     """One step over every scheduled token: last-token logits [S, V] f32.
     Prefill chunks, decode tokens and mixed batches are all this call."""
     x = forward_hidden(
         params, cache, tokens, positions, write_pages, write_offs,
-        kv_lens, block_tables, cu_q_lens, num_seqs, cfg,
+        kv_lens, block_tables, cu_q_lens, num_seqs, cfg, attention,
     )
     return _logits(x[last_rows.long()], params, cfg)
 

@@ -3,8 +3,7 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point (no PyTorch headers),
 so ``nvcc`` compiles it in seconds into ``_build/<name>-<hash>.so``; the
 hash covers the source text and the flags, so an edited source rebuilds
-and an unchanged one is reused. ``_build/`` is git-ignored. Sources build
-in parallel, one ``nvcc`` each, all started together.
+and an unchanged one is reused. ``_build/`` is git-ignored.
 
 Importing this module runs nothing: the compiler is looked up and started
 only when a kernel is first needed on a CUDA tensor.
@@ -18,26 +17,19 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-# Every kernel source of the package, built together by build_all().
-KERNEL_SOURCES = ("ragged_paged_attention",)
-
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# name -> (build seconds, ptxas report); filled by build_all().
-build_reports: dict[str, tuple[float, str]] = {}
 
 
 def nvcc_path() -> str:
@@ -53,39 +45,20 @@ def nvcc_path() -> str:
     )
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
-
-
-def build_all(names: tuple[str, ...] = KERNEL_SOURCES) -> dict[str, Path]:
-    """Compile every named source that has no up-to-date library yet, one
-    ``nvcc`` per source, all running at once. Raises with the compiler's
-    output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _lib_path(n) for n in names}
-    todo = [n for n in names if not paths[n].is_file()]
-    nvcc = nvcc_path() if todo else ""
-    procs = {}
-    t0 = time.time()
-    for n in todo:
-        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
-    failed = []
-    for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
-            continue
-        os.replace(tmp, paths[n])
-        build_reports[n] = (time.time() - t0, out)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return paths
+def build(src: Path, out: Path) -> None:
+    """Compile one source into the shared library ``out``; raises with the
+    compiler's output if nvcc fails. The library appears under its name
+    only once complete, so a concurrent process never loads half a file."""
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on {src.name} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -93,6 +66,13 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all((name,))[name]))
-            _libs[name] = lib
+            src = CSRC_DIR / f"{name}.cu"
+            digest = hashlib.sha256(
+                src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            ).hexdigest()[:16]
+            path = BUILD_DIR / f"{name}-{digest}.so"
+            if not path.is_file():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                build(src, path)
+            lib = _libs[name] = ctypes.CDLL(str(path))
         return lib

@@ -148,33 +148,53 @@ def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs
         raise ValueError("q and kv_pages must be 16-byte aligned")
 
 
-def ragged_paged_attention_cuda(
-    q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *, sm_scale: float,
-) -> torch.Tensor:
-    """Launch the hand-written Hopper kernel on the current stream."""
-    global launches
-    if not q.is_cuda:
-        raise ValueError("ragged_paged_attention_cuda needs CUDA tensors")
-    _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs)
-    T, n_q, _ = q.shape
-    out = torch.empty_like(q)
-    if T == 0:
-        return out
-    lib = _build.load("ragged_paged_attention")
+def bind(lib: ctypes.CDLL):
+    """The C entry point of a built ``ragged_paged_attention.cu``, typed."""
     fn = lib.ragged_paged_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
+    return fn
+
+
+_kernel = None  # bound once, at the first CUDA call
+
+
+def launch(fn, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
+           sm_scale: float) -> torch.Tensor:
+    """Run the C entry point ``fn`` on checked operands, on the current
+    stream, into a fresh output."""
+    out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(
         q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
         page_indices.data_ptr(), cu_q_lens.data_ptr(), num_seqs.data_ptr(),
-        out.data_ptr(), T, n_q, kv_pages.shape[2] // 2, kv_pages.shape[1],
-        page_indices.shape[1], page_indices.shape[0], float(sm_scale), stream,
+        out.data_ptr(), q.shape[0], q.shape[1], kv_pages.shape[2] // 2,
+        kv_pages.shape[1], page_indices.shape[1], page_indices.shape[0],
+        float(sm_scale), stream,
     )
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def ragged_paged_attention_cuda(
+    q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *, sm_scale: float,
+) -> torch.Tensor:
+    """Launch the hand-written Hopper kernel on the current stream."""
+    global launches, _kernel
+    if not q.is_cuda:
+        raise ValueError("ragged_paged_attention_cuda needs CUDA tensors")
+    _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs)
+    if q.shape[0] == 0:
+        return torch.empty_like(q)
+    if _kernel is None:
+        _kernel = bind(_build.load("ragged_paged_attention"))
+    out = launch(
+        _kernel, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+        sm_scale=sm_scale,
+    )
     launches += 1
     return out
 

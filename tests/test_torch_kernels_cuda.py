@@ -6,8 +6,10 @@ PyTorch; ``tests/conftest.py`` imports jax, so there run it without it::
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: atol = rtol = 2e-2 in f32 — the kernel writes bf16 (one ulp is
-~4e-3 at |x| <= 1) and sums in another order than the plain version.
+Tolerance: the largest relative L2 error of one output vector (one query
+row, one head) is at most 1e-2. Both sides round to bf16 (~1e-3 per vector)
+and sum in other orders; the limit scales with the output, which shrinks as
+1/sqrt(visible positions), so a dropped tile of a 4096-position row fails.
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ from dynamo_tpu_torch.ops import ragged_attention as ra
 
 D = 128
 PAGE = 32
-TOL = 2e-2
+ROW_REL_TOL = 1e-2
 
 CASES = {
     # q_lens, kv_lens, S, pages_per_seq, n_kv, group
@@ -76,8 +78,11 @@ def test_kernel_matches_plain(case):
     got = ra.ragged_paged_attention(*args, sm_scale=D ** -0.5)
     assert ra.launches == before + 1
     want = ra.ragged_paged_attention_ref(*args, sm_scale=D ** -0.5)
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
-    assert not got[sum(q_lens) :].any(), "rows past the last sequence are zero"
+    n = sum(q_lens)
+    g, w = got[:n].float(), want[:n].float()
+    rel = (g - w).norm(dim=-1) / w.norm(dim=-1)
+    assert rel.max().item() <= ROW_REL_TOL, f"max row relative error {rel.max().item():.3e}"
+    assert not got[n:].any(), "rows past the last sequence are zero"
 
 
 @pytest.mark.cuda

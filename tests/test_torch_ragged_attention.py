@@ -79,7 +79,7 @@ def test_cpu_call_never_touches_the_build(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a CPU call reached the kernel build")
 
-    for name in ("load", "build_all", "nvcc_path"):
+    for name in ("load", "build", "nvcc_path"):
         monkeypatch.setattr(_build, name, boom)
     q, kv, lens, tables, cu, ns = make_batch([3, 1], [5, 7], 2, 2, 4, 2, seed=3)
     before = ra.launches
