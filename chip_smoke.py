@@ -6,22 +6,31 @@ Run from the repository root on a machine with one CUDA card::
     python3 chip_smoke.py
 
 It (1) prints the card's name and power limit, (2) builds every kernel of
-the port from ``dynamo_tpu_torch/csrc`` with nvcc, (3) holds each kernel
-against its plain PyTorch version on the card at llama3-8b head shapes and
-times both, and shows that the comparison fails kernels built with
-planted faults, (4) serves 8 requests through ``build_engine("llama3-8b")`` and
-``TorchEngine.generate`` at full width and depth with random weights,
-checking token counts, finish reasons, the prefix cache, the kernel's
-launch count, finite logits and megastep k=1 == k=8 greedy streams, and
-(5) prints a JSON line of kernel measurements and, last, a JSON status
-line. Any failed check raises and the script exits non-zero. Without a
-card it exits non-zero at once and prints no result.
+the port from ``dynamo_tpu_torch/csrc`` with nvcc, together with copies
+holding planted faults (one nvcc per source, all started at once), (3)
+holds each kernel against its plain PyTorch version on the card and times
+both: K1 (ragged paged attention) with bf16 and with int8 pages at
+llama3-8b head shapes and the serving prefill wave's shape, K2 (paged
+decode attention) with bf16 and int8 pages, with and without the self
+position, at the int8-against-bf16 comparison's shape and llama3-8b decode
+shapes; and shows that the comparison fails every planted fault, (4) runs
+K2's own path, that int8-page against bf16-page decode-attention
+comparison, through ``paged_attention``, (5) serves 8 requests through
+``build_engine("llama3-8b")`` and ``TorchEngine.generate`` at full width
+and depth with random weights, bf16 first, then, with the bf16 engine
+freed, int8 weights and int8 KV pages (``{"kv_dtype": "int8"}``,
+``quant="int8"``), checking token counts, finish reasons, the prefix
+cache, the kernel's launch counts, finite logits and megastep k=1 == k=8
+greedy streams, and (6) prints a JSON line of kernel measurements and,
+last, a JSON status line. Any failed check raises and the script exits
+non-zero. Without a card it exits non-zero at once and prints no result.
 """
 
 from __future__ import annotations
 
 import asyncio
 import ctypes
+import gc
 import json
 import subprocess
 import sys
@@ -35,6 +44,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+SCALE_BYTES = 4             # one f32 scale per (slot, combined head) of int8 pages
 N_Q, N_KV, HEAD_DIM, PAGE = 32, 8, 128, 32  # llama3-8b attention geometry
 # Kernel against plain version: the largest relative L2 error of one
 # output vector (one query row, one head) over the real rows. Both sides
@@ -82,7 +93,8 @@ def compare(got, want, n_real: int) -> tuple[float, float, bool]:
 def attention_batch(q_lens, kv_lens, S, pages_per_seq, T, gen):
     """Ragged operands on the card: sequence s owns q rows cu[s]..cu[s+1]-1
     and its own pages; rows past cu[num_seqs] and table entries past a
-    sequence's pages point at the garbage page."""
+    sequence's pages point at the garbage page. Returns the positional
+    operands and the keyword ones (none for bf16 pages)."""
     dev = "cuda"
     n_pages = sum(-(-L // PAGE) for L in kv_lens) + 1
     q = torch.randn(T, N_Q, HEAD_DIM, device=dev, generator=gen).bfloat16()
@@ -101,19 +113,29 @@ def attention_batch(q_lens, kv_lens, S, pages_per_seq, T, gen):
     cu[len(q_lens) + 1 :] = cu[len(q_lens)]
     as_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return (q, kv, as_dev(lens), tables, as_dev(cu),
-            as_dev(np.array([len(q_lens)], np.int32)))
+            as_dev(np.array([len(q_lens)], np.int32))), {}
 
 
-def attention_bound(q_lens, kv_lens, T):
+def quantized(args, kw):
+    """The same batch with its pages quantized to int8 plus scales."""
+    from dynamo_tpu_torch.engine.kv_quant import quantize_kv
+
+    kv8, scales = quantize_kv(args[1])
+    return (args[0], kv8, *args[2:]), {**kw, "kv_scales": scales}
+
+
+def attention_bound(q_lens, kv_lens, T, int8=False):
     """Least time for this call's work: each input byte the data needs
-    read once (q rows, the visible K/V rows, the table entries in use),
-    the output written once; operations 4 * visible positions * n_q * d
-    (QK^T and PV, a multiply-add counted as 2)."""
+    read once (q rows, the visible K/V rows and, for int8 pages, their
+    scales, the table entries in use), the output written once; operations
+    4 * visible positions * n_q * d (QK^T and PV, a multiply-add counted
+    as 2)."""
     kv_rows = sum(kv_lens)
     pages = sum(-(-L // PAGE) for L in kv_lens)
+    row_bytes = HEAD_DIM + SCALE_BYTES if int8 else HEAD_DIM * 2
     nbytes = (
         sum(q_lens) * N_Q * HEAD_DIM * 2        # q (bf16)
-        + kv_rows * 2 * N_KV * HEAD_DIM * 2     # K and V rows (bf16)
+        + kv_rows * 2 * N_KV * row_bytes        # K and V rows (+ scales)
         + T * N_Q * HEAD_DIM * 2                # out (bf16)
         + 4 * (pages + 2 * len(kv_lens) + 2)    # tables, kv_lens, cu, num_seqs
     )
@@ -125,14 +147,16 @@ def attention_bound(q_lens, kv_lens, T):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_attention_kernel(ra) -> tuple[list[dict], list[tuple]]:
+def check_attention_kernel(ra, int8=False) -> tuple[list[dict], list[tuple]]:
     """The kernel against ragged_paged_attention_ref on several ragged
-    batches at llama3-8b head shapes; returns the measurements and, for the
+    batches at llama3-8b head shapes, with bf16 pages or (``int8``) the
+    same pages quantized; returns the measurements and, for the
     planted-fault check, each batch with its plain output. pages_per_seq
     stays <= 128: the plain version materialises [T, pages_per_seq*32, 16,
     128] f32 (decode64: 64 * 4096 * 16 * 128 * 4 B = 2.1 GB; mixed_padded:
     512 * 2048 * 16 * 128 * 4 B = 8.6 GB)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    tag = "attention int8" if int8 else "attention"
     rng = np.random.default_rng(0)
     cases = [
         # name, q_lens, kv_lens, S, pages_per_seq, T (bucket)
@@ -144,33 +168,35 @@ def check_attention_kernel(ra) -> tuple[list[dict], list[tuple]]:
     scale = HEAD_DIM ** -0.5
     results, batches = [], []
     for name, q_lens, kv_lens, S, pps, T in cases:
-        args = attention_batch(q_lens, kv_lens, S, pps, T, gen)
-        kernel = lambda: ra.ragged_paged_attention(*args, sm_scale=scale)  # noqa: E731
-        plain = lambda: ra.ragged_paged_attention_ref(*args, sm_scale=scale)  # noqa: E731
+        args, kw = attention_batch(q_lens, kv_lens, S, pps, T, gen)
+        if int8:
+            args, kw = quantized(args, kw)
+        kernel = lambda: ra.ragged_paged_attention(*args, sm_scale=scale, **kw)  # noqa: E731
+        plain = lambda: ra.ragged_paged_attention_ref(*args, sm_scale=scale, **kw)  # noqa: E731
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
         rel, err, ok = compare(got, want, sum(q_lens))
         ms = cuda_ms(kernel, 50)
         plain_ms = cuda_ms(plain, 3)
-        bound_ms, bound_by = attention_bound(q_lens, kv_lens, T)
+        bound_ms, bound_by = attention_bound(q_lens, kv_lens, T, int8)
         results.append(dict(
             shape=name, T=T, S=S, num_seqs=len(q_lens), max_kv_len=max(kv_lens),
             ok=ok, max_row_rel_err=rel, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by,
         ))
-        print(f"attention {name}: ok={ok} max_row_rel_err={rel:.3e} max_abs_err={err:.3e} "
+        print(f"{tag} {name}: ok={ok} max_row_rel_err={rel:.3e} max_abs_err={err:.3e} "
               f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
-        batches.append((name, args, want, sum(q_lens)))
+        batches.append((name, args, kw, want, sum(q_lens)))
         del got
         torch.cuda.empty_cache()
         if not ok:
-            raise AssertionError(f"attention kernel disagrees with its plain version on {name}")
+            raise AssertionError(f"{tag} kernel disagrees with its plain version on {name}")
     return results, batches
 
 
-# Faults planted in copies of the kernel's source: (text, replacement).
+# Faults planted in copies of the kernels' sources: (text, replacement).
 PLANTED_FAULTS = {
     "drops_second_tile": (
         "const int n = min(kTile, n_vis - base);",
@@ -185,45 +211,65 @@ PLANTED_FAULTS = {
         "const int n_vis = min(abs_pos + 2, kv_len);",
     ),
 }
+# K1's int8 instance: V rows dequantized with K's scale.
+PLANTED_FAULTS_INT8 = {
+    "v_takes_k_scale": ("vs_s[tid] = sc[1];", "vs_s[tid] = sc[0];"),
+}
+# K2: the self position left out.
+PLANTED_FAULTS_K2 = {
+    "drops_self_position": ("if (k_self != nullptr) {", "if (false) {"),
+}
 
 
-def check_planted_faults(ra, batches) -> dict:
-    """Build each planted fault's copy of the kernel in a scratch directory
-    and run it on the batches above: the comparison must fail every one on
-    at least one batch, or its limit is too loose to mean anything."""
+def build_planted(tmp: str) -> dict:
+    """Start one nvcc per planted fault (each a copy of its kernel's source
+    with one edit) and return ``{fault: future of the loaded library}``."""
     from dynamo_tpu_torch.ops import _build
 
-    text = (_build.CSRC_DIR / "ragged_paged_attention.cu").read_text()
-    found = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        def build(name):
-            old, new = PLANTED_FAULTS[name]
-            if text.count(old) != 1:
-                raise AssertionError(f"planted fault {name}: its anchor is not in the source once")
-            src = Path(tmp, f"{name}.cu")
-            src.write_text(text.replace(old, new))
-            _build.build(src, src.with_suffix(".so"))
-            return name, ra.bind(ctypes.CDLL(str(src.with_suffix(".so"))))
+    def build(source, name, old, new):
+        text = (_build.CSRC_DIR / source).read_text()
+        if text.count(old) != 1:
+            raise AssertionError(f"planted fault {name}: its anchor is not in {source} once")
+        src = Path(tmp, f"{name}.cu")
+        src.write_text(text.replace(old, new))
+        _build.build(src, src.with_suffix(".so"))
+        return ctypes.CDLL(str(src.with_suffix(".so")))
 
-        with ThreadPoolExecutor(len(PLANTED_FAULTS)) as pool:
-            kernels = dict(pool.map(build, PLANTED_FAULTS))
-        for name, fn in kernels.items():
-            rels = {
-                shape: compare(
-                    ra.launch(fn, *args, sm_scale=HEAD_DIM ** -0.5), want, n_real
-                )[0]
-                for shape, args, want, n_real in batches
-            }
-            found[name] = max(rels.values())
-            print(f"planted fault {name}: max_row_rel_err by batch "
-                  + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-                  + f"; caught={found[name] > ROW_REL_TOL}", flush=True)
-            if found[name] <= ROW_REL_TOL:
-                raise AssertionError(f"the comparison passes planted fault {name}")
+    pool = ThreadPoolExecutor(8)
+    jobs = [("ragged_paged_attention.cu", PLANTED_FAULTS),
+            ("ragged_paged_attention.cu", PLANTED_FAULTS_INT8),
+            ("paged_attention.cu", PLANTED_FAULTS_K2)]
+    futures = {
+        name: pool.submit(build, source, name, old, new)
+        for source, faults in jobs for name, (old, new) in faults.items()
+    }
+    pool.shutdown(wait=False)
+    return futures
+
+
+def check_planted_faults(ra, batches, libs, faults, int8=False) -> dict:
+    """Run each planted fault's copy of K1 on the batches above: the
+    comparison must fail every one on at least one batch, or its limit is
+    too loose to mean anything."""
+    found = {}
+    for name in faults:
+        fn = ra.bind(libs[name].result(), int8)
+        rels = {
+            shape: compare(
+                ra.launch(fn, *args, sm_scale=HEAD_DIM ** -0.5, **kw), want, n_real
+            )[0]
+            for shape, args, kw, want, n_real in batches
+        }
+        found[name] = max(rels.values())
+        print(f"planted fault {name}: max_row_rel_err by batch "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f"; caught={found[name] > ROW_REL_TOL}", flush=True)
+        if found[name] <= ROW_REL_TOL:
+            raise AssertionError(f"the comparison passes planted fault {name}")
     return found
 
 
-def plain_by_row_chunks(ra, args, q_lens, rows=64):
+def plain_by_row_chunks(ra, args, kw, q_lens, rows=64):
     """The plain version over a batch too large for it in one call: each
     run of ``rows`` query rows of a sequence goes through it alone, as the
     last rows of that sequence cut at the chunk's end (same absolute
@@ -240,35 +286,191 @@ def plain_by_row_chunks(ra, args, q_lens, rows=64):
             r0, r1 = cu_h[s] + a, cu_h[s] + b
             out[r0:r1] = ra.ragged_paged_attention_ref(
                 q[r0:r1], kv, i32([kv_len]), tables[s : s + 1, : -(-kv_len // PAGE)],
-                i32([0, b - a]), i32([1]), sm_scale=HEAD_DIM ** -0.5,
+                i32([0, b - a]), i32([1]), sm_scale=HEAD_DIM ** -0.5, **kw,
             )
     return out
 
 
-def check_serving_prefill_shape(ra, prompt_lens) -> dict:
+def check_serving_prefill_shape(ra, prompt_lens, int8=False) -> dict:
     """The kernel at the serving prefill wave's shape (bucket 8192, S = 8,
     pages_per_seq 256), held against the plain version run in row chunks
     (in one call it would materialise 8192 x 8192 x 16 x 128 f32)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    args = attention_batch(prompt_lens, prompt_lens, 8, 256, 8192, gen)
-    kernel = lambda: ra.ragged_paged_attention(*args, sm_scale=HEAD_DIM ** -0.5)  # noqa: E731
-    plain = lambda: plain_by_row_chunks(ra, args, prompt_lens)  # noqa: E731
+    args, kw = attention_batch(prompt_lens, prompt_lens, 8, 256, 8192, gen)
+    if int8:
+        args, kw = quantized(args, kw)
+    tag = "attention int8" if int8 else "attention"
+    kernel = lambda: ra.ragged_paged_attention(*args, sm_scale=HEAD_DIM ** -0.5, **kw)  # noqa: E731
+    plain = lambda: plain_by_row_chunks(ra, args, kw, prompt_lens)  # noqa: E731
     got = kernel()
     want = plain()
     rel, err, ok = compare(got, want, sum(prompt_lens))
     ms = cuda_ms(kernel, 5)
     plain_ms = cuda_ms(plain, 1)
-    bound_ms, bound_by = attention_bound(prompt_lens, prompt_lens, 8192)
-    print(f"attention prefill_wave8192: ok={ok} max_row_rel_err={rel:.3e} "
+    bound_ms, bound_by = attention_bound(prompt_lens, prompt_lens, 8192, int8)
+    print(f"{tag} prefill_wave8192: ok={ok} max_row_rel_err={rel:.3e} "
           f"max_abs_err={err:.3e} kernel {ms:.4f} ms plain (row chunks) {plain_ms:.3f} ms "
           f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    del args, got, want
+    del args, kw, got, want
     torch.cuda.empty_cache()
     if not ok:
-        raise AssertionError("attention kernel disagrees with its plain version on prefill_wave8192")
+        raise AssertionError(f"{tag} kernel disagrees with its plain version on prefill_wave8192")
     return dict(shape="prefill_wave8192", T=8192, S=8, num_seqs=len(prompt_lens),
                 max_kv_len=max(prompt_lens), ok=ok, max_row_rel_err=rel, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# -- K2: paged decode attention ----------------------------------------------
+
+# The int8-page against bf16-page comparison (JAX bench.py:2104-2158):
+# B 16, 8 kv heads of group 4, block 32, 8 blocks each, 251 cached tokens.
+K2_BENCH = dict(B=16, n_kv=8, group=4, bs=32, max_blocks=8, lens=[251] * 16, q_dtype=torch.float32)
+
+
+def k2_operands(B, n_kv, group, bs, max_blocks, lens, q_dtype, gen, *, int8, with_self):
+    """Head-major flat caches on the card, each sequence on its own
+    scattered blocks (one spare block past them), as the positional and
+    keyword operands of ``paged_attention``."""
+    from dynamo_tpu_torch.engine.kv_quant import quantize_kv
+
+    dev = "cuda"
+    total = (B * max_blocks + 1) * bs
+    q = torch.randn(B, n_kv * group, HEAD_DIM, device=dev, generator=gen).to(q_dtype)
+    k = torch.randn(n_kv, total, HEAD_DIM, device=dev, generator=gen).bfloat16()
+    v = torch.randn(n_kv, total, HEAD_DIM, device=dev, generator=gen).bfloat16()
+    tables = torch.randperm(B * max_blocks, device=dev, generator=gen).to(torch.int32)
+    tables = tables.reshape(B, max_blocks).contiguous()
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = {"block_size": bs}
+    if int8:
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_kv(k), quantize_kv(v)
+    if with_self:
+        kw["k_self"] = torch.randn(B, n_kv, HEAD_DIM, device=dev, generator=gen).to(q_dtype)
+        kw["v_self"] = torch.randn(B, n_kv, HEAD_DIM, device=dev, generator=gen).to(q_dtype)
+    return (q, k, v, tables, seq_lens), kw
+
+
+def k2_bound(B, n_kv, group, bs, lens, q_dtype, *, int8, with_self):
+    """Least time for this call's work: q, the visible K/V rows (and their
+    scales for int8 pages), the self rows, the table entries in use and
+    seq_lens read once, the output written once; operations 4 * (visible
+    positions + self) * n_q * d at the rate of q's type (the f32 units for
+    f32 q, the bf16 tensor cores for bf16 q)."""
+    q_item = 4 if q_dtype == torch.float32 else 2
+    n_q = n_kv * group
+    visible = sum(lens)
+    row_bytes = HEAD_DIM + SCALE_BYTES if int8 else HEAD_DIM * 2
+    nbytes = (
+        2 * B * n_q * HEAD_DIM * q_item                      # q and out
+        + visible * 2 * n_kv * row_bytes                     # K and V rows (+ scales)
+        + (2 * B * n_kv * HEAD_DIM * q_item if with_self else 0)
+        + 4 * (sum(-(-n // bs) for n in lens) + B)           # tables in use, seq_lens
+    )
+    ops = 4 * (visible + (B if with_self else 0)) * n_q * HEAD_DIM
+    rate = F32_OPS_PER_S if q_dtype == torch.float32 else BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k2_cases():
+    rng = np.random.default_rng(2)
+    llama = dict(n_kv=N_KV, group=N_Q // N_KV, bs=PAGE, max_blocks=128, q_dtype=torch.bfloat16)
+    return [
+        ("bench_kvquant", K2_BENCH),
+        ("decode8", dict(B=8, lens=[4096, 3000, 2048, 1500, 1024, 700, 300, 33], **llama)),
+        ("decode64", dict(B=64, lens=[int(x) for x in rng.integers(1, 4097, 64)], **llama)),
+    ]
+
+
+def check_paged_attention_kernel(pa) -> tuple[list[dict], list[tuple]]:
+    """K2 against paged_attention_reference with bf16 and int8 pages, with
+    and without the self position; returns the measurements and the
+    with-self batches with their plain outputs (for the planted fault)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results, batches = [], []
+    for shape, c in k2_cases():
+        for int8 in (False, True):
+            for with_self in (False, True):
+                args, kw = k2_operands(c["B"], c["n_kv"], c["group"], c["bs"], c["max_blocks"],
+                                       c["lens"], c["q_dtype"], gen, int8=int8, with_self=with_self)
+                kernel = lambda: pa.paged_attention(*args, **kw)  # noqa: E731
+                plain = lambda: pa.paged_attention_reference(*args, **kw)  # noqa: E731
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                rel, err, ok = compare(got, want, c["B"])
+                ms = cuda_ms(kernel, 50)
+                plain_ms = cuda_ms(plain, 3)
+                bound_ms, bound_by = k2_bound(c["B"], c["n_kv"], c["group"], c["bs"], c["lens"],
+                                              c["q_dtype"], int8=int8, with_self=with_self)
+                pages = "int8" if int8 else "bf16"
+                results.append(dict(
+                    shape=shape, pages=pages, self=with_self, B=c["B"], q_dtype=str(c["q_dtype"]),
+                    max_seq_len=max(c["lens"]), ok=ok, max_row_rel_err=rel, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                ))
+                print(f"paged_attention {shape} {pages} pages self={with_self}: ok={ok} "
+                      f"max_row_rel_err={rel:.3e} max_abs_err={err:.3e} kernel {ms:.4f} ms "
+                      f"plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                if with_self:
+                    batches.append((f"{shape}_{pages}", args, kw, want))
+                if not ok:
+                    raise AssertionError(f"paged_attention kernel disagrees with its plain "
+                                         f"version on {shape} ({pages} pages, self={with_self})")
+                del got
+            torch.cuda.empty_cache()
+    return results, batches
+
+
+def check_k2_planted_fault(pa, batches, libs) -> dict:
+    """K2 with its self position left out must fail the limit."""
+    found = {}
+    for name in PLANTED_FAULTS_K2:
+        fn = pa.bind(libs[name].result())
+        rels = {shape: compare(pa.launch(fn, *args, **kw), want, args[0].shape[0])[0]
+                for shape, args, kw, want in batches}
+        found[name] = max(rels.values())
+        print(f"planted fault {name}: max_row_rel_err by batch "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f"; caught={found[name] > ROW_REL_TOL}", flush=True)
+        if found[name] <= ROW_REL_TOL:
+            raise AssertionError(f"the comparison passes planted fault {name}")
+    return found
+
+
+INT8_VS_BF16_MAX_ROW_REL = 5e-2  # int8 pages against bf16 pages: quantization error
+
+
+def k2_path(pa, reps=20) -> dict:
+    """K2's own path: the int8-page against bf16-page decode-attention
+    comparison of the JAX package's bench (bench.py:2104-2158) through the
+    dispatcher ``paged_attention``, with both launch counts at 0 just
+    before it. Times each page dtype over ``reps`` calls after a warm-up
+    and holds the int8 output to the bf16 one within the quantization
+    error."""
+    from dynamo_tpu_torch.engine.kv_quant import quantize_kv
+
+    c = K2_BENCH
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    (q, k, v, tables, lens), kw = k2_operands(c["B"], c["n_kv"], c["group"], c["bs"], c["max_blocks"],
+                                              c["lens"], c["q_dtype"], gen, int8=False, with_self=False)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    pa.launches = pa.launches_int8 = 0
+    bf16_ms = cuda_ms(lambda: pa.paged_attention(q, k, v, tables, lens, **kw), reps)
+    int8_ms = cuda_ms(lambda: pa.paged_attention(q, k8, v8, tables, lens, k_scale=ks, v_scale=vs, **kw), reps)
+    out_bf16 = pa.paged_attention(q, k, v, tables, lens, **kw)
+    out_int8 = pa.paged_attention(q, k8, v8, tables, lens, k_scale=ks, v_scale=vs, **kw)
+    launches = {"bf16": pa.launches, "int8": pa.launches_int8}
+    rel = ((out_int8 - out_bf16).norm(dim=-1) / out_bf16.norm(dim=-1)).max().item()
+    finite = bool(torch.isfinite(out_int8).all().item())
+    print(f"paged_attention path (int8-page vs bf16-page comparison, B 16, seq_len 251): "
+          f"bf16 pages {bf16_ms:.4f} ms, int8 pages {int8_ms:.4f} ms, int8_vs_bf16 "
+          f"{int8_ms / bf16_ms:.3f}; int8 against bf16 output max_row_rel {rel:.3e}; "
+          f"launches {launches}", flush=True)
+    if min(launches.values()) == 0 or not finite or rel > INT8_VS_BF16_MAX_ROW_REL:
+        raise AssertionError(f"K2 path: launches {launches}, finite={finite}, int8 error {rel:.3e}")
+    return {"bf16_page_ms": bf16_ms, "int8_page_ms": int8_ms, "int8_vs_bf16": int8_ms / bf16_ms,
+            "int8_vs_bf16_output_max_row_rel": rel, "launches": launches}
 
 
 # -- the serving path -------------------------------------------------------
@@ -339,7 +541,7 @@ def check_logits(core, prompt) -> dict:
     from dynamo_tpu_torch.ops import ragged_attention as ra
 
     cfg = core.cfg
-    eng = EngineConfig(num_kv_blocks=8, max_model_len=256)
+    eng = EngineConfig(num_kv_blocks=8, max_model_len=256, kv_dtype=core.engine.kv_dtype)
     n, bs = len(prompt), eng.block_size
     dev = core.device
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
@@ -364,26 +566,33 @@ def check_logits(core, prompt) -> dict:
     return {"cosine": cos}
 
 
-def serve(ra, card: str) -> tuple[int, dict]:
+def serve(ra, card: str, int8=False) -> tuple[int, dict]:
+    """The main path: 8 requests through the llama3-8b engine, bf16, or
+    (``int8``) with int8 weights and int8 KV pages."""
     from dynamo_tpu_torch.backends.torch.main import build_engine
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.runtime.engine import Context
 
+    overrides = {"kv_dtype": "int8"} if int8 else {}
+    mode = "int8 weights + int8 KV" if int8 else "bf16"
     t0 = time.time()
-    core, engine = build_engine("llama3-8b", seed=0, device="cuda")
+    core, engine = build_engine(
+        "llama3-8b", overrides, seed=0, device="cuda", quant="int8" if int8 else None
+    )
     torch.cuda.synchronize()
-    print(f"built {core.cfg.name} engine ({core.cfg.num_layers} layers, {core.cfg.dtype}, random weights, "
-          f"{core.engine.num_kv_blocks} x {core.engine.block_size}-token KV blocks) "
+    print(f"built {core.cfg.name} engine ({core.cfg.num_layers} layers, {mode}, random weights, "
+          f"{core.engine.num_kv_blocks} x {core.engine.block_size}-token KV blocks of "
+          f"{core.kv_cache_stats()['bytes_per_block']} bytes) "
           f"in {time.time() - t0:.1f} s; allocated "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     reqs, late, solo = serving_requests(core.cfg.vocab_size)
 
     # The main path, with every kernel launch count at 0 just before it.
-    ra.launches = 0
+    ra.launches = ra.launches_int8 = 0
     t_serve = time.time()
     results = asyncio.run(serve_concurrent(engine, Context, reqs, late))
     serve_s = time.time() - t_serve
-    launches = ra.launches
+    launches, other = (ra.launches_int8, ra.launches) if int8 else (ra.launches, ra.launches_int8)
     st = core.scheduler_stats()
     forwards = st["forwards"]
 
@@ -392,20 +601,21 @@ def serve(ra, card: str) -> tuple[int, dict]:
               f"cached_tokens={meta.get('cached_tokens')}", flush=True)
         if len(toks) != MAX_TOKENS or fin != "length":
             raise AssertionError(f"{rid}: {len(toks)} tokens, finish {fin!r}")
-    if launches != core.cfg.num_layers * forwards or launches == 0:
+    if launches != core.cfg.num_layers * forwards or launches == 0 or other != 0:
         raise AssertionError(
-            f"attention launches {launches} != {core.cfg.num_layers} x {forwards} forwards"
+            f"{mode} attention launches {launches} != {core.cfg.num_layers} x {forwards} "
+            f"forwards, or the other page dtype's kernel ran ({other} launches)"
         )
     kv = core.kv_cache_stats()
     if results["prefix_b"][2].get("cached_tokens") != SHARED_PREFIX or kv["admitted_hits"] < 1:
         raise AssertionError(f"shared prefix missed the prefix cache: {kv}")
-    print(f"main path: {len(results)} requests in {serve_s:.2f} s; forwards {forwards} "
+    print(f"main path ({mode}): {len(results)} requests in {serve_s:.2f} s; forwards {forwards} "
           f"(prefill waves + decode iterations), attention launches {launches} = "
           f"{core.cfg.num_layers} x {forwards}; dispatches {st['dispatches']} "
           f"(megastep {st['megastep_dispatches']})", flush=True)
     prefill_tps = st["prefill_tokens"] / st["prefill_s"]
     decode_ms = 1e3 * st["decode_s"] / st["decode_iterations"]
-    print(f"serving on {card}: prefill {prefill_tps:.0f} tokens/s "
+    print(f"serving {mode} on {card}: prefill {prefill_tps:.0f} tokens/s "
           f"({st['prefill_tokens']} tokens in {st['prefill_s']:.3f} s), decode "
           f"{decode_ms:.2f} ms per iteration ({st['decode_iterations']} iterations, "
           f"{st['decode_s']:.3f} s)", flush=True)
@@ -414,21 +624,45 @@ def serve(ra, card: str) -> tuple[int, dict]:
 
     # Megastep k=1 against k=8: a second engine on the same weight tensors.
     # Each event loop gets its own facade (asyncio objects bind to a loop).
-    _, engine1 = build_engine("llama3-8b", {"megastep_k": 1}, device="cuda", params=core.params)
+    _, engine1 = build_engine(
+        "llama3-8b", {**overrides, "megastep_k": 1}, device="cuda", params=core.params
+    )
 
     async def solo_on(eng):
         return await collect(eng, Context, *solo)
 
     k8 = asyncio.run(solo_on(TorchEngine(core)))[1]
     k1 = asyncio.run(solo_on(engine1))[1]
-    print(f"greedy solo request: k=8 and k=1 streams equal={k8 == k1} "
+    print(f"greedy solo request ({mode}): k=8 and k=1 streams equal={k8 == k1} "
           f"({len(k8)} tokens)", flush=True)
     if k8 != k1 or len(k8) != MAX_TOKENS:
         raise AssertionError("megastep k=8 and k=1 greedy streams differ")
     return launches, {
-        "requests": len(results), "serve_s": serve_s, "forwards": forwards,
+        "mode": mode, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
+        "bytes_per_block": core.kv_cache_stats()["bytes_per_block"],
         "prefill_tokens_per_s": prefill_tps, "decode_ms_per_iteration": decode_ms,
         "logits_cosine": logit_check["cosine"],
+    }
+
+
+def kernel_entry(name, source, replaces, launches, shapes, main_shape, **extra) -> dict:
+    """One kernel's record for the kernels line: the contract's keys from
+    the main path's launch count and the main shape's measurements, then
+    every shape measured."""
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+        # No single PyTorch call computes paged attention over a block table.
+        "library_ms": None,
+        "ok": all(s["ok"] for s in shapes),
+        "max_row_rel_err": max(s["max_row_rel_err"] for s in shapes),
+        "row_rel_tol": ROW_REL_TOL,
+        "shape": main_shape["shape"],
+        **extra,
+        "shapes": shapes,
     }
 
 
@@ -438,6 +672,7 @@ def main() -> int:
         return 2
     from dynamo_tpu_torch.engine.config import llama3_8b
     from dynamo_tpu_torch.ops import _build
+    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import ragged_attention as ra
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
@@ -447,40 +682,70 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    t0 = time.time()
-    _build.load("ragged_paged_attention")
-    print(f"kernel build: ragged_paged_attention.cu in {time.time() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        # Every kernel and every planted fault's copy: one nvcc each, all
+        # started together.
+        t0 = time.time()
+        planted = build_planted(tmp)
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(_build.load, ("ragged_paged_attention", "paged_attention")))
+        for fut in planted.values():
+            fut.result()
+        print(f"kernel build: ragged_paged_attention.cu, paged_attention.cu and "
+              f"{len(planted)} planted-fault copies in {time.time() - t0:.1f} s", flush=True)
 
-    shapes, batches = check_attention_kernel(ra)
-    faults = check_planted_faults(ra, batches)
-    del batches
-    reqs, _, _ = serving_requests(llama3_8b().vocab_size)
-    shapes.append(check_serving_prefill_shape(ra, [len(p) for _, p, _ in reqs]))
-    torch.cuda.empty_cache()
+        shapes, batches = check_attention_kernel(ra)
+        faults = check_planted_faults(ra, batches, planted, PLANTED_FAULTS)
+        del batches
+        shapes8, batches8 = check_attention_kernel(ra, int8=True)
+        faults8 = check_planted_faults(ra, batches8, planted, PLANTED_FAULTS_INT8, int8=True)
+        del batches8
+        reqs, _, _ = serving_requests(llama3_8b().vocab_size)
+        prompt_lens = [len(p) for _, p, _ in reqs]
+        shapes.append(check_serving_prefill_shape(ra, prompt_lens))
+        shapes8.append(check_serving_prefill_shape(ra, prompt_lens, int8=True))
+        k2_shapes, k2_batches = check_paged_attention_kernel(pa)
+        k2_faults = check_k2_planted_fault(pa, k2_batches, planted)
+        del k2_batches
+        torch.cuda.empty_cache()
 
+    k2 = k2_path(pa)
     launches, summary = serve(ra, card)
     print(f"serving summary: {json.dumps(summary)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"bf16 engine freed: allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    launches8, summary8 = serve(ra, card, int8=True)
+    print(f"serving summary: {json.dumps(summary8)}", flush=True)
+    print(f"int8 against bf16 on {card}: prefill {summary8['prefill_tokens_per_s']:.0f} vs "
+          f"{summary['prefill_tokens_per_s']:.0f} tokens/s, decode "
+          f"{summary8['decode_ms_per_iteration']:.2f} vs {summary['decode_ms_per_iteration']:.2f} "
+          f"ms per iteration", flush=True)
 
-    main_shape = shapes[0]  # decode width 8, the serving decode width
-    print(json.dumps({"kernels": [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "dynamo_tpu/ops/ragged_attention.py:163",
-        "launches": launches,
-        "ok": all(s.get("ok", True) for s in shapes),
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "max_row_rel_err": max(s["max_row_rel_err"] for s in shapes),
-        "row_rel_tol": ROW_REL_TOL,
-        "planted_faults_row_rel_err": faults,
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": None,
-        "shape": main_shape["shape"],
-        "shapes": shapes,
-    }]}), flush=True)
+    def k2_shapes_of(pages):
+        return [s for s in k2_shapes if s["pages"] == pages]
+
+    def k2_main(pages):  # K2's path: the bench comparison, no self position
+        return next(s for s in k2_shapes_of(pages) if s["shape"] == "bench_kvquant" and not s["self"])
+
+    k1_src, k2_src = ("dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
+                      "dynamo_tpu_torch/csrc/paged_attention.cu")
+    # Main shapes: decode width 8 for K1 (the serving decode width), the
+    # int8-against-bf16 comparison for K2 (its path).
+    print(json.dumps({"kernels": [
+        kernel_entry("ragged_paged_attention", k1_src, "dynamo_tpu/ops/ragged_attention.py:163",
+                     launches, shapes, shapes[0], pages="bf16", planted_faults_row_rel_err=faults),
+        kernel_entry("ragged_paged_attention_int8", k1_src, "dynamo_tpu/ops/ragged_attention.py:163",
+                     launches8, shapes8, shapes8[0], pages="int8",
+                     int8_vs_bf16=shapes8[0]["ms"] / shapes[0]["ms"],
+                     planted_faults_row_rel_err=faults8),
+        kernel_entry("paged_attention", k2_src, "dynamo_tpu/ops/paged_attention.py:216",
+                     k2["launches"]["bf16"], k2_shapes_of("bf16"), k2_main("bf16"), pages="bf16",
+                     planted_faults_row_rel_err=k2_faults),
+        kernel_entry("paged_attention_int8", k2_src, "dynamo_tpu/ops/paged_attention.py:216",
+                     k2["launches"]["int8"], k2_shapes_of("int8"), k2_main("int8"), pages="int8",
+                     int8_vs_bf16=k2["int8_vs_bf16"], planted_faults_row_rel_err=k2_faults),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

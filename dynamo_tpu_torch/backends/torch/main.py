@@ -12,6 +12,7 @@ from typing import Any
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig, tiny_engine
 from dynamo_tpu_torch.engine.core import EngineCore, resolve_device
 from dynamo_tpu_torch.engine.engine import TorchEngine
+from dynamo_tpu_torch.engine.model import init_params_quantized
 
 
 def build_engine(
@@ -21,14 +22,18 @@ def build_engine(
     eos_token_ids: tuple[int, ...] = (),
     device="cuda",
     params: dict | None = None,
+    quant: str | None = None,
 ) -> tuple[EngineCore, TorchEngine]:
     """Construct (EngineCore, TorchEngine) for a model preset.
 
     Runs on the card unless the caller passes ``device="cpu"``; with
     ``device="cuda"`` and no card it raises. ``params`` takes converted
     weights (``engine/convert.py``) or another engine's ``core.params``;
-    None draws random weights from ``seed``. The tiny presets use the tiny
-    engine shape, every other preset the ``EngineConfig`` defaults.
+    None draws random weights from ``seed``. ``quant="int8"`` draws them
+    straight into the int8 weight-only layout (``model.init_params_quantized``,
+    as the JAX ``build_engine`` does); int8 KV pages are the engine
+    override ``{"kv_dtype": "int8"}``. The tiny presets use the tiny engine
+    shape, every other preset the ``EngineConfig`` defaults.
     """
     dev = resolve_device(device)
     model_cfg = PRESETS[preset]()
@@ -37,6 +42,12 @@ def build_engine(
         engine_cfg = tiny_engine(**overrides)
     else:
         engine_cfg = EngineConfig(**overrides)
+    if quant == "int8":
+        if params is not None:
+            raise ValueError("quant='int8' draws random weights; pass params or quant, not both")
+        params = init_params_quantized(model_cfg, seed, dev)
+    elif quant:
+        raise ValueError(f"unknown quantization {quant!r}")
     core = EngineCore(
         model_cfg, engine_cfg, params=params, seed=seed,
         eos_token_ids=eos_token_ids, device=dev,

@@ -4,7 +4,13 @@ The input is the JAX params pytree mapped through ``np.asarray`` (or any
 tree of numpy arrays with the same names): ``embed``, ``layers.{attn_norm,
 mlp_norm, wqkv, bqkv?, wo, wgu, w_down}``, ``final_norm``, ``lm_head?`` and
 the ``fuse_tp`` marker. The port keeps the same ``[in, out]`` layouts, so
-every leaf converts as it is.
+every leaf converts as it is. int8-quantized weights (``{"w": int8,
+"scale": f32}`` leaves, JAX ``quantize_params`` / ``init_params_quantized``)
+and int8 cache pages (``{"kv": int8, "scale": f32}`` per layer) cross as
+dicts of tensors, byte for byte.
+
+Every function here puts its tensors on the card unless the caller passes
+``device="cpu"``.
 
 bf16 arrays come out of JAX as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects; they travel as a ``uint16`` view and are
@@ -22,7 +28,7 @@ from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.model import Params
 
 
-def tensor_from_numpy(a: Any, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a: Any, device="cuda") -> torch.Tensor:
     """One array to a tensor on ``device``; bf16 keeps its exact bits."""
     a = np.array(a)  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
@@ -32,7 +38,14 @@ def tensor_from_numpy(a: Any, device="cpu") -> torch.Tensor:
     return t.to(torch.device(device))
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu") -> Params:
+def _leaf(a: Any, device):
+    """One leaf: an array, or a ``{name: array}`` dict of int8 storage."""
+    if isinstance(a, dict):
+        return {k: tensor_from_numpy(v, device) for k, v in a.items()}
+    return tensor_from_numpy(a, device)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
     """The JAX params pytree (numpy leaves) as the port's parameter dict."""
     tp = int(np.asarray(tree.get("fuse_tp", 1)))
     if tp != 1:
@@ -42,24 +55,17 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cpu") -> Params:
         )
     if cfg.is_moe:
         raise ValueError("MoE presets are not ported yet (ROADMAP.md A11)")
-    for name, w in tree["layers"].items():
-        if isinstance(w, dict):
-            raise ValueError(
-                f"layers.{name} is int8-quantized; int8 weights are not "
-                "ported yet (ROADMAP.md A9)"
-            )
     params: Params = {
         "embed": tensor_from_numpy(tree["embed"], device),
-        "layers": {
-            name: tensor_from_numpy(w, device) for name, w in tree["layers"].items()
-        },
+        "layers": {name: _leaf(w, device) for name, w in tree["layers"].items()},
         "final_norm": tensor_from_numpy(tree["final_norm"], device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = tensor_from_numpy(tree["lm_head"], device)
+        params["lm_head"] = _leaf(tree["lm_head"], device)
     return params
 
 
-def cache_from_numpy(pages: tuple, device="cpu") -> tuple[torch.Tensor, ...]:
-    """A per-layer page tuple (``init_cache`` layout) as the port's cache."""
-    return tuple(tensor_from_numpy(p, device) for p in pages)
+def cache_from_numpy(pages: tuple, device="cuda") -> tuple:
+    """A per-layer page tuple (``init_cache`` layout, bf16 pages or int8
+    ``{kv, scale}`` dicts) as the port's cache."""
+    return tuple(_leaf(p, device) for p in pages)

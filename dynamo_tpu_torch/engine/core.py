@@ -1,11 +1,12 @@
 """EngineCore: synchronous continuous-batching scheduler on one device.
 
 Counterpart of ``dynamo_tpu/engine/core.py`` for the engine's default
-path: waves scheduling, synchronous execution, bf16 (model-dtype) KV, no
-speculation, decode megasteps of k iterations. One ``step()`` is one
-engine iteration: drain new requests, admit under a free-block watermark
-(reusing cached prefix blocks), then either run one ragged prefill wave or
-one decode megastep for every running sequence. Both ride the SAME ragged
+path: waves scheduling, synchronous execution, bf16 (model-dtype) or int8
+KV pages, plain or int8 weights, no speculation, decode megasteps of k
+iterations. One ``step()`` is one engine iteration: drain new requests,
+admit under a free-block watermark (reusing cached prefix blocks), then
+either run one ragged prefill wave or one decode megastep for every
+running sequence. Both ride the SAME ragged
 forward (``model.forward_tokens``); total prefill tokens snap to
 ``prefill_buckets`` and decode width to ``decode_buckets``, exactly as the
 JAX engine pads them, so both engines run the same shapes and the same
@@ -35,6 +36,7 @@ import torch
 from dynamo_tpu_torch.engine.block_allocator import DeviceBlockAllocator, OutOfBlocksError
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
 from dynamo_tpu_torch.engine.fair_queue import FairQueue
+from dynamo_tpu_torch.engine.kv_quant import KV_DTYPES, kv_page_bytes
 from dynamo_tpu_torch.engine.model import (
     decode_tokens,
     forward_tokens,
@@ -76,14 +78,17 @@ def resolve_device(device) -> torch.device:
 
 def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig) -> None:
     """Refuse every setting the port does not serve yet, naming the
-    ``ROADMAP.md`` item that brings it."""
+    ``ROADMAP.md`` item that brings it, and a KV dtype that does not exist."""
+    if engine_cfg.kv_dtype not in KV_DTYPES:
+        raise ValueError(
+            f"unknown kv_dtype {engine_cfg.kv_dtype!r} (expected one of {KV_DTYPES})"
+        )
     refusals = [
         (engine_cfg.scheduling != "waves",
          f"scheduling={engine_cfg.scheduling!r}", "A8"),
         (engine_cfg.async_exec, "async_exec=True", "A8"),
         (engine_cfg.spec_decode != "off",
          f"spec_decode={engine_cfg.spec_decode!r}", "A8"),
-        (engine_cfg.kv_dtype != "bf16", f"kv_dtype={engine_cfg.kv_dtype!r}", "A9"),
         (engine_cfg.host_kv_blocks > 0 or bool(engine_cfg.disk_kv_dir),
          "host/disk KV tiers (host_kv_blocks, disk_kv_dir)", "A10"),
         (engine_cfg.ring_prefill_threshold > 0,
@@ -96,16 +101,23 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig) -> None:
 
 
 def _check_params(params: dict, device: torch.device) -> None:
-    for name, w in params["layers"].items():
-        if not isinstance(w, torch.Tensor):
-            raise ValueError(
-                f"layers.{name} is not a plain tensor: quantized weights "
-                "are not ported yet (ROADMAP.md A9)"
-            )
+    """Every leaf is a tensor, or an int8 ``{w: int8, scale: f32}`` pair,
+    on the engine's device."""
     leaves = [params["embed"], params["final_norm"], *params["layers"].values()]
     if "lm_head" in params:
         leaves.append(params["lm_head"])
+    tensors = []
     for w in leaves:
+        if isinstance(w, dict):
+            if set(w) != {"w", "scale"} or w["w"].dtype != torch.int8:
+                raise ValueError(
+                    f"a quantized weight is {{w: int8, scale: f32}}, got "
+                    f"{ {k: getattr(v, 'dtype', type(v)) for k, v in w.items()} }"
+                )
+            tensors += [w["w"], w["scale"]]
+        else:
+            tensors.append(w)
+    for w in tensors:
         if w.device.type != device.type:
             raise ValueError(f"params live on {w.device}, the engine on {device}")
 
@@ -333,7 +345,7 @@ class EngineCore:
             "committed_tokens": 0,
             # Model forwards: one per prefill wave, one per decode
             # iteration. Every forward runs the attention kernel once per
-            # layer on the card.
+            # layer on the card (its int8 instance for int8 pages).
             "forwards": 0,
             "prefill_tokens": 0,
             "decode_iterations": 0,
@@ -1001,7 +1013,8 @@ class EngineCore:
 
     def scheduler_stats(self) -> dict:
         """Scheduler gauges plus the execution counters, including the
-        attention kernel's launch count (0 on the CPU)."""
+        attention kernel's launch counts, bf16 and int8 pages apart (0 on
+        the CPU)."""
         st = dict(self.sched_stats)
         st["waiting"] = len(self.waiting) + len(self._inbox)
         st["running"] = len(self.running)
@@ -1010,6 +1023,7 @@ class EngineCore:
         st.update(self.exec_stats)
         st["megastep_k"] = self.engine.megastep
         st["attention_launches"] = ragged_attention.launches
+        st["attention_launches_int8"] = ragged_attention.launches_int8
         return st
 
     def kv_cache_stats(self) -> dict:
@@ -1018,10 +1032,11 @@ class EngineCore:
         a = self.allocator
         return {
             "kv_dtype": self.engine.kv_dtype,
-            "bytes_per_block": (
-                self.cfg.num_layers * self.engine.block_size * 2
-                * self.cfg.num_kv_heads * self.cfg.head_dim
-                * self.cfg.torch_dtype.itemsize
+            "kv_dtype_int8": 1 if self.engine.kv_quantized else 0,
+            "bytes_per_block": kv_page_bytes(
+                self.cfg.num_layers, self.engine.block_size,
+                self.cfg.num_kv_heads, self.cfg.head_dim,
+                self.engine.kv_dtype, self.cfg.torch_dtype.itemsize,
             ),
             "capacity_blocks": a.capacity,
             "resident_blocks": a.used_blocks,

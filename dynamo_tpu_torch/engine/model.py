@@ -12,12 +12,18 @@ layouts, so the JAX params pytree converts leaf for leaf
   only), ``wo [L, q, h]``, ``wgu [L, h, 2i]`` (fused ``[gate | up]``),
   ``w_down [L, i, h]``. Weights are ``[in, out]`` so ``x @ w`` is
   ``jnp.dot(x, w)``.
+- int8 weight-only quantization (``quant="int8"``): the projections and
+  ``lm_head`` become ``{"w": int8, "scale": f32 [..., 1, out]}`` leaves,
+  per output channel (:func:`quantize_weight`); embeddings, norms and
+  biases stay in the model dtype.
 
 The cache is a TUPLE of per-layer pages ``[n_pages, page_size, 2*n_kv, d]``
 with K at even and V at odd combined heads; the last page is the garbage
-page that absorbs padded-position writes. JAX's functions are pure and
-donate the cache; here :func:`write_kv` scatters the new rows into the
-layer's pages IN PLACE, which is what the donation bought there.
+page that absorbs padded-position writes. With ``kv_dtype="int8"`` each
+element is ``{"kv": int8 pages, "scale": f32 [n_pages, page_size, 2*n_kv]}``
+(``engine/kv_quant.py``). JAX's functions are pure and donate the cache;
+here :func:`write_kv` scatters the new rows into the layer's pages IN
+PLACE, which is what the donation bought there.
 
 Order of operations mirrors the JAX code exactly: products accumulate in
 f32 and are cast back to the model dtype at the same points, rms_norm
@@ -32,15 +38,33 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+from dynamo_tpu_torch.engine.kv_quant import INV_127, quantize_kv
 from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
 
 Params = dict[str, Any]
 
 
-def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+# -- int8 weight-only quantization ------------------------------------------
+
+def quantize_weight(w: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Per-output-channel symmetric int8: ``w ~= w_int8 * scale[out]``,
+    amax over the input axis (-2). The arithmetic of the JAX function as
+    XLA compiles it (``/ 127`` as a product with ``f32(1/127)``)."""
+    w32 = w.float()
+    scale = w32.abs().amax(dim=-2, keepdim=True) * INV_127
+    scale = torch.clamp_min(scale, 1e-8)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return {"w": q, "scale": scale}
+
+
+def _dot(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` with an f32 result (``jnp.dot(..., preferred_element_type=
     f32)``). bf16 operands on the card accumulate in f32 and return f32
-    without an upcast copy of the weight."""
+    without an upcast copy of the weight. An int8 ``{w, scale}`` leaf is
+    cast to ``x``'s dtype and its product scaled per output column, as in
+    JAX (a plain matrix product, left to ``torch.matmul``)."""
+    if isinstance(w, dict):
+        return _dot(x, w["w"].to(x.dtype)) * w["scale"].reshape(1, -1)
     if x.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
@@ -112,15 +136,93 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     return params
 
 
-def init_cache(cfg: ModelConfig, engine: EngineConfig, device="cuda") -> tuple[torch.Tensor, ...]:
+def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random init straight into the int8 layout (JAX
+    ``init_params_quantized``): each stacked projection is drawn one layer
+    at a time at the model dtype, as :func:`init_params` draws it, and
+    quantized at once, so the model-dtype transient is one layer's worth.
+    Embeddings and norms stay in the model dtype; ``lm_head`` (untied
+    only) is quantized too."""
+    if cfg.is_moe:
+        raise ValueError("MoE presets are not ported yet (ROADMAP.md A11)")
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.torch_dtype
+    h, i, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    qkv = cfg.q_size + 2 * cfg.kv_size
+
+    def draw(shape, fan_in):
+        noise = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (noise * fan_in ** -0.5).to(dt)
+
+    def qdense(shape, fan_in):
+        out = {
+            "w": torch.empty((L, *shape), dtype=torch.int8, device=dev),
+            "scale": torch.empty((L, 1, shape[-1]), dtype=torch.float32, device=dev),
+        }
+        for l in range(L):
+            q = quantize_weight(draw(shape, fan_in))
+            out["w"][l].copy_(q["w"])
+            out["scale"][l].copy_(q["scale"])
+        return out
+
+    layers: dict[str, Any] = {
+        "attn_norm": torch.ones((L, h), dtype=dt, device=dev),
+        "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
+        "wqkv": qdense((h, qkv), h),
+        "wo": qdense((cfg.q_size, h), cfg.q_size),
+        "wgu": qdense((h, 2 * i), h),
+        "w_down": qdense((i, h), i),
+    }
+    if cfg.attn_qkv_bias:
+        layers["bqkv"] = draw((L, qkv), 1)  # biases stay unquantized
+    params: Params = {
+        "embed": draw((v, h), h),
+        "layers": layers,
+        "final_norm": torch.ones((h,), dtype=dt, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = quantize_weight(draw((h, v), h))
+    return params
+
+
+def quantize_params(params: Params) -> Params:
+    """int8-quantize the layer projections (wqkv/wo/wgu/w_down) and
+    lm_head; embeddings and norms stay in the model dtype. Stacked
+    weights are quantized one layer at a time (the f32 transient is one
+    layer's), which gives the scales of the whole-tensor JAX call."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for k in ("wqkv", "wo", "wgu", "w_down"):
+        if k in layers and not isinstance(layers[k], dict):
+            per_layer = [quantize_weight(w) for w in layers[k]]
+            layers[k] = {
+                name: torch.stack([q[name] for q in per_layer]) for name in ("w", "scale")
+            }
+    out["layers"] = layers
+    if "lm_head" in params and not isinstance(params["lm_head"], dict):
+        out["lm_head"] = quantize_weight(params["lm_head"])
+    return out
+
+
+def init_cache(cfg: ModelConfig, engine: EngineConfig, device="cuda") -> tuple:
     """Combined KV cache: a tuple of per-layer page tensors
     ``[n_pages, page_size, 2*n_kv, d]``; the last page is the garbage page.
-    Per-layer tensors hand the attention kernel its own contiguous buffer."""
-    if engine.kv_quantized:
-        raise ValueError("int8 KV pages are not ported yet (ROADMAP.md A9)")
+    Per-layer tensors hand the attention kernel its own contiguous buffer.
+    With ``engine.kv_dtype == "int8"`` each layer is instead
+    ``{"kv": int8 pages, "scale": f32 [n_pages, page_size, 2*n_kv]}``."""
+    dev = torch.device(device)
     shape = (engine.num_kv_blocks + 1, engine.block_size, 2 * cfg.num_kv_heads, cfg.head_dim)
+    if engine.kv_quantized:
+        return tuple(
+            {
+                "kv": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "scale": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+            }
+            for _ in range(cfg.num_layers)
+        )
     return tuple(
-        torch.zeros(shape, dtype=cfg.torch_dtype, device=torch.device(device))
+        torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
         for _ in range(cfg.num_layers)
     )
 
@@ -163,9 +265,16 @@ def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
     return _dot(x, params["lm_head"])
 
 
-def write_kv(cache_l: torch.Tensor, write_pages, write_offs, kvn: torch.Tensor) -> torch.Tensor:
+def write_kv(cache_l, write_pages, write_offs, kvn: torch.Tensor):
     """Scatter this step's interleaved K/V rows ``[T, 2*n_kv, d]`` into one
-    layer's pages, in place. Indices are int64 tensors."""
+    layer's pages, in place. Indices are int64 tensors. A quantized
+    ``{kv, scale}`` layer quantizes the rows HERE, the one and only
+    quantization a row ever sees."""
+    if isinstance(cache_l, dict):
+        q8, sc = quantize_kv(kvn)
+        cache_l["kv"][write_pages, write_offs] = q8
+        cache_l["scale"][write_pages, write_offs] = sc
+        return cache_l
     cache_l[write_pages, write_offs] = kvn
     return cache_l
 
@@ -185,7 +294,7 @@ def _interleave_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig) -> torch.
 def dense_layer(
     x: torch.Tensor,             # [T, h]
     lp: dict,                    # ONE layer's params
-    cache_l: torch.Tensor,       # ONE layer's pages (written in place)
+    cache_l,                     # ONE layer's pages or {kv, scale} (in place)
     write_pages: torch.Tensor,   # [T] int64
     write_offs: torch.Tensor,    # [T] int64
     kv_lens: torch.Tensor,
@@ -208,9 +317,13 @@ def dense_layer(
     q = rope_apply(q.reshape(T, cfg.num_heads, cfg.head_dim), *rope_cs)
     k = rope_apply(k.reshape(T, cfg.num_kv_heads, cfg.head_dim), *rope_cs)
     write_kv(cache_l, write_pages, write_offs, _interleave_kv(k.reshape(T, cfg.kv_size), v, cfg))
+    if isinstance(cache_l, dict):
+        kv_pages, kv_scales = cache_l["kv"], cache_l["scale"]
+    else:
+        kv_pages, kv_scales = cache_l, None
     attn = attention(
-        q, cache_l, kv_lens, block_tables, cu_q_lens, num_seqs,
-        sm_scale=cfg.head_dim ** -0.5,
+        q, kv_pages, kv_lens, block_tables, cu_q_lens, num_seqs,
+        sm_scale=cfg.head_dim ** -0.5, kv_scales=kv_scales,
     )
     x = x + _dot(attn.reshape(T, cfg.q_size), lp["wo"]).to(x.dtype)
     return x + _mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
@@ -239,7 +352,10 @@ def forward_hidden(
     wp, wo = write_pages.long(), write_offs.long()
     layers = params["layers"]
     for l in range(cfg.num_layers):
-        lp = {name: w[l] for name, w in layers.items()}
+        lp = {
+            name: {k: t[l] for k, t in w.items()} if isinstance(w, dict) else w[l]
+            for name, w in layers.items()
+        }
         x = dense_layer(
             x, lp, cache[l], wp, wo, kv_lens, block_tables, cu_q_lens,
             num_seqs, cfg, rope_cs, attention,

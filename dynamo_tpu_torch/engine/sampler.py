@@ -8,14 +8,19 @@ Masking works on a ``k_cap``-sized ``topk`` slice instead of a full-vocab
 sort: top-k is exact for k <= k_cap and the nucleus is computed within
 those candidates, exactly as the JAX sampler does.
 
-Seeded draws. JAX keys each lane with ``fold_in(fold_in(PRNGKey(0), seed),
-counter)`` and draws through threefry; the port does not reproduce those
-bits. Each lane's key is its ``(seed, counter)`` pair, and its Gumbel noise
-comes from a counter-based integer hash of ``(seed, counter, vocab index)``
-computed with integer tensor ops on the device. A lane's draw therefore
-depends on its own seed and counter only — never on its batch neighbours,
-the scheduler or the megastep length — which is the property the engine
-relies on. Greedy streams are the parity gate with the JAX package.
+Seeded draws reproduce JAX's bits. Each lane's key is
+``fold_in(fold_in(PRNGKey(0), seed), counter)`` and its noise is
+``jax.random.gumbel(key, (V,))`` as ``jax.random.categorical`` draws it:
+threefry2x32, ``fold_in``, the partitionable 32-bit random bits (element
+``j`` is threefry of the counter pair ``(0, j)``, so it depends on ``j``
+alone and a ``[:cap]`` slice is the draw of shape ``(cap,)``), the mantissa
+trick of ``_uniform`` and ``-log(-log(u))``. All of it is int64 tensor
+arithmetic masked to 32 bits, the same on the CPU and the card. The
+random bits and uniforms are bit-identical to JAX's; the Gumbel values
+can differ from XLA's in the last bit of ``log``, so a sampled token can
+differ only where two candidates tie to that precision. A lane's draw
+depends on its own seed and counter only, never on its batch neighbours,
+the scheduler or the megastep length.
 """
 
 from __future__ import annotations
@@ -29,29 +34,70 @@ DEFAULT_TOP_CAP = 64
 LOGPROBS_K = 20
 
 _M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
 
 
-def _fmix32(h: torch.Tensor) -> torch.Tensor:
-    """MurmurHash3's 32-bit finalizer on int64 tensors holding uint32
-    values. Products are masked back to 32 bits, so the int64 wrap of a
-    large product never reaches the result."""
-    h = h ^ (h >> 16)
-    h = (h * 0x85EBCA6B) & _M32
-    h = h ^ (h >> 13)
-    h = (h * 0xC2B2AE35) & _M32
-    return h ^ (h >> 16)
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block (20 rounds) of ``jax._src.prng``, on int64
+    tensors holding uint32 values; operands broadcast. Every sum is masked
+    back to 32 bits, so the int64 never wraps."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl32(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x1, x2
+
+
+def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``jax.random.fold_in`` for per-lane keys ``[B, 2]`` and data ``[B]``:
+    threefry of the counter pair ``(0, data)``."""
+    k = key.to(torch.int64) & _M32
+    d = data.to(torch.int64) & _M32
+    y1, y2 = threefry2x32(k[:, 0], k[:, 1], torch.zeros_like(d), d)
+    return torch.stack([y1, y2], dim=1)
+
+
+def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,))`` (uint32, partitionable threefry) for
+    each lane of ``key`` ``[B, 2]``: ``[B, n]`` int64 holding uint32."""
+    k = key.to(torch.int64) & _M32
+    j = torch.arange(n, dtype=torch.int64, device=key.device)[None, :]
+    b1, b2 = threefry2x32(k[:, :1], k[:, 1:], torch.zeros_like(j), j)
+    return b1 ^ b2
+
+
+def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(key_b, (n,), minval=tiny, maxval=1)`` (f32) for
+    each lane of ``key`` ``[B, 2]``, as ``jax._src.random._uniform`` builds
+    it: 23 random mantissa bits OR'd into 1.0, minus 1, scaled to
+    ``[tiny, 1)`` and clamped at ``tiny``. Bit-identical to JAX's."""
+    mant = (random_bits(key, n) >> 9) | 0x3F800000
+    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    tiny = torch.tensor(_F32_TINY, dtype=torch.float32, device=key.device)
+    return torch.maximum(floats * (1.0 - tiny) + tiny, tiny)
 
 
 def gumbel_noise(key: torch.Tensor, n: int) -> torch.Tensor:
-    """Standard Gumbel noise ``[B, n]`` f32 for per-lane keys ``key``
-    ``[B, 2]`` (seed, counter): entry ``(b, j)`` is a pure function of
-    ``(seed_b, counter_b, j)``."""
-    k = key.to(torch.int64) & _M32
-    lane = _fmix32((_fmix32(k[:, 0] ^ 0x9E3779B9) + k[:, 1] * 0x85EBCA77) & _M32)
-    idx = _fmix32(torch.arange(n, dtype=torch.int64, device=key.device) + 0x7F4A7C15)
-    bits = _fmix32(lane[:, None] ^ idx[None, :])
-    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))  # (0, 1)
-    return -torch.log(-torch.log(u))
+    """``jax.random.gumbel(key_b, (n,))`` (f32, mode "low"):
+    ``-log(-log(u))`` of :func:`uniform`, ``[B, n]``."""
+    return -torch.log(-torch.log(uniform(key, n)))
+
+
+def lane_keys(seeds: torch.Tensor, counters: torch.Tensor) -> torch.Tensor:
+    """Per-lane keys ``fold_in(fold_in(PRNGKey(0), seed), counter)``
+    ``[B, 2]``, as the JAX sampler builds them."""
+    base = torch.zeros((seeds.shape[0], 2), dtype=torch.int64, device=seeds.device)
+    return fold_in(fold_in(base, seeds), counters)
 
 
 def sample_seeded(
@@ -66,16 +112,19 @@ def sample_seeded(
     all_greedy: bool = False,
 ) -> torch.Tensor:              # [B] int32
     """The seeded-sampling entry of the prefill wave and the decode
-    megastep: lane ``b`` draws with key ``(seeds[b], counters[b])``, so any
-    path that samples position ``counter`` of request ``seed`` draws the
-    same token — which is why megastep output at k=8 matches k=1."""
+    megastep: lane ``b`` draws with JAX's key ``fold_in(fold_in(PRNGKey(0),
+    seeds[b]), counters[b])``, so any path that samples position
+    ``counter`` of request ``seed`` draws the same token — which is why
+    megastep output at k=8 matches k=1."""
     if all_greedy:
         return sample(
             logits, None, temperature, top_k, top_p,
             need_mask=False, all_greedy=True,
         )
-    key = torch.stack([seeds.to(torch.int64), counters.to(torch.int64)], dim=1)
-    return sample(logits, key, temperature, top_k, top_p, need_mask=need_mask)
+    return sample(
+        logits, lane_keys(seeds, counters), temperature, top_k, top_p,
+        need_mask=need_mask,
+    )
 
 
 def stop_flags(
@@ -127,7 +176,7 @@ def top_candidates(
 
 def sample(
     logits: torch.Tensor,        # [B, V] float32
-    key: torch.Tensor | None,    # [B, 2] per-lane (seed, counter) keys
+    key: torch.Tensor | None,    # [B, 2] per-lane threefry keys
     temperature: torch.Tensor,   # [B] float32; 0 => greedy
     top_k: torch.Tensor,         # [B] int; <= 0 => disabled
     top_p: torch.Tensor,         # [B] float32; >= 1 => disabled

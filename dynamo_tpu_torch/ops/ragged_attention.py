@@ -13,6 +13,8 @@ operands and semantics:
   chunk); ``page_indices``: ``[S, pages_per_seq]`` block table.
 - ``cu_q_lens``: ``[S + 1]`` cumulative query lengths; entries past
   ``num_seqs`` repeat ``cu[num_seqs]``. ``num_seqs``: ``i32[1]``.
+- ``kv_scales``: ``[n_pages, page_size, 2 * n_kv_heads]`` f32 marks int8
+  pages (``engine/kv_quant.py``): ``kv ~= kv_pages * kv_scales[..., None]``.
 
 Query token ``i`` of sequence ``s`` sits at ``kv_lens[s] - q_len_s + i``
 and attends every cache position ``<=`` its own.
@@ -20,7 +22,8 @@ and attends every cache position ``<=`` its own.
 :func:`ragged_paged_attention` dispatches on the tensors' device: CPU
 tensors take the plain PyTorch version :func:`ragged_paged_attention_ref`
 (the tests), CUDA tensors launch the hand-written kernel
-``csrc/ragged_paged_attention.cu`` or raise. Nothing falls back.
+``csrc/ragged_paged_attention.cu`` (its bf16 or its int8 instance) or
+raise. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import ctypes
 
 import torch
 
+from dynamo_tpu_torch.engine.kv_quant import dequantize_kv
 from dynamo_tpu_torch.ops import _build
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -37,9 +41,11 @@ _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIM = 128
 KERNEL_MAX_GROUP = 8
 
-# Kernel launches since the last reset: the wrapper adds one per launch
-# and nowhere else, so a run can show which path it took.
+# Kernel launches since the last reset, bf16 pages and int8 pages apart:
+# the wrapper adds one per launch and nowhere else, so a run can show
+# which path it took.
 launches = 0
+launches_int8 = 0
 
 
 def ragged_paged_attention_ref(
@@ -55,10 +61,12 @@ def ragged_paged_attention_ref(
 ) -> torch.Tensor:               # [T, n_q, d]
     """Plain PyTorch version: gathers each row's whole block table and
     masks, exactly as the JAX reference does (materialises
-    ``[T, pages_per_seq * page_size, 2*n_kv, d]`` in f32)."""
-    if kv_scales is not None:
-        raise NotImplementedError(
-            "int8 KV pages (kv_scales) are not ported yet (ROADMAP.md A9)"
+    ``[T, pages_per_seq * page_size, 2*n_kv, d]`` in f32). int8 pages are
+    dequantized on the gather with their scales."""
+    if kv_scales is not None and kv_scales.shape != kv_pages.shape[:-1]:
+        raise ValueError(
+            f"kv_scales must be [n_pages, page_size, 2*n_kv] = "
+            f"{tuple(kv_pages.shape[:-1])}, got {tuple(kv_scales.shape)}"
         )
     T, n_q, d = q.shape
     n_pages, page_size, n_comb, _ = kv_pages.shape
@@ -82,7 +90,11 @@ def ragged_paged_attention_ref(
     offs = torch.arange(page_size, dtype=torch.long, device=dev)
     slots = (tables_t[:, :, None] * page_size + offs[None, None, :]).reshape(T, span)
     flat = kv_pages.reshape(n_pages * page_size, n_comb, d)
-    kvf = flat[slots].float()                              # [T, span, 2*n_kv, d]
+    if kv_scales is not None:
+        scf = kv_scales.reshape(n_pages * page_size, n_comb)[slots]
+        kvf = dequantize_kv(flat[slots], scf)              # [T, span, 2*n_kv, d]
+    else:
+        kvf = flat[slots].float()
     k = kvf[:, :, 0::2, :]
     v = kvf[:, :, 1::2, :]
 
@@ -98,13 +110,26 @@ def ragged_paged_attention_ref(
     return out.reshape(T, n_q, d).to(q.dtype)
 
 
-def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs):
+def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+                         kv_scales=None):
     dev = q.device
-    if q.dtype != torch.bfloat16 or kv_pages.dtype != torch.bfloat16:
+    page_dtype = torch.bfloat16 if kv_scales is None else torch.int8
+    if q.dtype != torch.bfloat16 or kv_pages.dtype != page_dtype:
         raise TypeError(
-            f"ragged_paged_attention kernel takes bf16 q and pages, got "
+            f"ragged_paged_attention kernel takes bf16 q and {page_dtype} pages "
+            f"{'with' if kv_scales is not None else 'without'} kv_scales, got "
             f"{q.dtype} / {kv_pages.dtype}"
         )
+    if kv_scales is not None:
+        if kv_scales.dtype != torch.float32:
+            raise TypeError(f"kv_scales must be float32, got {kv_scales.dtype}")
+        if kv_scales.shape != kv_pages.shape[:-1]:
+            raise ValueError(
+                f"kv_scales must be [n_pages, page_size, 2*n_kv] = "
+                f"{tuple(kv_pages.shape[:-1])}, got {tuple(kv_scales.shape)}"
+            )
+        if kv_scales.device != dev or not kv_scales.is_contiguous():
+            raise ValueError(f"kv_scales must be contiguous on {dev}")
     for name, a in (
         ("kv_lens", kv_lens), ("page_indices", page_indices),
         ("cu_q_lens", cu_q_lens), ("num_seqs", num_seqs),
@@ -148,27 +173,38 @@ def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs
         raise ValueError("q and kv_pages must be 16-byte aligned")
 
 
-def bind(lib: ctypes.CDLL):
-    """The C entry point of a built ``ragged_paged_attention.cu``, typed."""
-    fn = lib.ragged_paged_attention_launch
+def bind(lib: ctypes.CDLL, int8: bool = False):
+    """A C entry point of a built ``ragged_paged_attention.cu``, typed: the
+    bf16-page one, or with ``int8`` the one that also takes ``kv_scales``."""
+    if int8:
+        fn = lib.ragged_paged_attention_int8_launch
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+    else:
+        fn = lib.ragged_paged_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p,
-    ]
     return fn
 
 
-_kernel = None  # bound once, at the first CUDA call
+_kernels: dict[bool, object] = {}  # bound once each, at the first CUDA call
 
 
 def launch(fn, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
-           sm_scale: float) -> torch.Tensor:
-    """Run the C entry point ``fn`` on checked operands, on the current
-    stream, into a fresh output."""
+           sm_scale: float, kv_scales=None) -> torch.Tensor:
+    """Run the C entry point ``fn`` (bound with ``int8=kv_scales is not
+    None``) on checked operands, on the current stream, into a fresh
+    output."""
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    pages = [kv_pages.data_ptr()]
+    if kv_scales is not None:
+        pages.append(kv_scales.data_ptr())
     rc = fn(
-        q.data_ptr(), kv_pages.data_ptr(), kv_lens.data_ptr(),
+        q.data_ptr(), *pages, kv_lens.data_ptr(),
         page_indices.data_ptr(), cu_q_lens.data_ptr(), num_seqs.data_ptr(),
         out.data_ptr(), q.shape[0], q.shape[1], kv_pages.shape[2] // 2,
         kv_pages.shape[1], page_indices.shape[1], page_indices.shape[0],
@@ -181,21 +217,28 @@ def launch(fn, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
 
 def ragged_paged_attention_cuda(
     q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *, sm_scale: float,
+    kv_scales=None,
 ) -> torch.Tensor:
-    """Launch the hand-written Hopper kernel on the current stream."""
-    global launches, _kernel
+    """Launch the hand-written Hopper kernel on the current stream: the
+    bf16-page instance, or the int8 one when ``kv_scales`` is given."""
+    global launches, launches_int8
     if not q.is_cuda:
         raise ValueError("ragged_paged_attention_cuda needs CUDA tensors")
-    _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs)
+    _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, kv_scales)
     if q.shape[0] == 0:
         return torch.empty_like(q)
-    if _kernel is None:
-        _kernel = bind(_build.load("ragged_paged_attention"))
+    int8 = kv_scales is not None
+    fn = _kernels.get(int8)
+    if fn is None:
+        fn = _kernels[int8] = bind(_build.load("ragged_paged_attention"), int8)
     out = launch(
-        _kernel, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
-        sm_scale=sm_scale,
+        fn, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+        sm_scale=sm_scale, kv_scales=kv_scales,
     )
-    launches += 1
+    if int8:
+        launches_int8 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -204,18 +247,14 @@ def ragged_paged_attention(
     sm_scale: float, kv_scales=None,
 ) -> torch.Tensor:
     """Device dispatch: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (or an error). ``kv_scales`` (int8 pages) is refused
-    on both until the int8 slice lands."""
+    for CUDA tensors (or an error). ``kv_scales`` selects int8 pages on
+    both."""
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
             q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
             sm_scale=sm_scale, kv_scales=kv_scales,
         )
-    if kv_scales is not None:
-        raise NotImplementedError(
-            "int8 KV pages (kv_scales) are not ported yet (ROADMAP.md A9)"
-        )
     return ragged_paged_attention_cuda(
         q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
-        sm_scale=sm_scale,
+        sm_scale=sm_scale, kv_scales=kv_scales,
     )

@@ -2,10 +2,11 @@
 
 Run from the repository root on a machine with one CUDA card::
 
-    python3 -m dynamo_tpu_torch.tools.profile_serving [--traces DIR]
+    python3 -m dynamo_tpu_torch.tools.profile_serving [--int8] [--traces DIR]
 
 Builds ``build_engine("llama3-8b")`` (random weights, default
-``EngineConfig``), warms it up with one short request, then runs seven
+``EngineConfig``; with ``--int8`` int8 weights and int8 KV pages, the
+capacity mode), warms it up with one short request, then runs seven
 prompts (100–2000 tokens, greedy, 64 new tokens each) through
 ``EngineCore.step`` and traces two phases with ``torch.profiler``: the
 prefill wave, and the first two decode megasteps (k = 8 at width 8). For
@@ -81,6 +82,7 @@ def _phase(core, n_steps: int, name: str, trace_dir: Path | None) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--traces", type=Path, default=None, help="write Chrome traces here")
+    ap.add_argument("--int8", action="store_true", help="int8 weights and int8 KV pages")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA card", file=sys.stderr)
@@ -97,7 +99,10 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(f"card: {card}", flush=True)
-    core, _ = build_engine("llama3-8b", seed=0, device="cuda")
+    if args.int8:
+        core, _ = build_engine("llama3-8b", {"kv_dtype": "int8"}, seed=0, device="cuda", quant="int8")
+    else:
+        core, _ = build_engine("llama3-8b", seed=0, device="cuda")
     rng = np.random.default_rng(7)
 
     def request(rid, n, max_tokens):
@@ -121,7 +126,7 @@ def main() -> int:
         print(json.dumps(p), flush=True)
     while core.has_work():
         core.step()
-    print(json.dumps({"card": card, "phases": [
+    print(json.dumps({"card": card, "int8": args.int8, "phases": [
         {k: p[k] for k in ("phase", "wall_ms", "kernel_ms", "idle_share", "groups_ms")}
         for p in phases
     ]}), flush=True)

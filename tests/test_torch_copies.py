@@ -1,7 +1,9 @@
 """The port keeps its own copies of jax-free modules of the JAX package.
 Each copy is held to its original: the code (everything but the module
 docstring) parses to the same syntax tree, apart from the package name in
-its imports, and the block hashes it computes are the same."""
+its imports, and the block hashes it computes are the same. Where the port
+copies only the jax-free definitions of a module (``engine/kv_quant.py``),
+each copied definition parses to the same tree as its original."""
 
 import ast
 from pathlib import Path
@@ -31,6 +33,34 @@ def _code_tree(path: Path, package: str) -> str:
         if isinstance(node, ast.ImportFrom) and node.module:
             node.module = node.module.replace(package, "PKG", 1)
     return ast.dump(ast.Module(body=body, type_ignores=[]))
+
+
+# Definitions the port copies out of a module it otherwise rewrites.
+COPIED_DEFINITIONS = [
+    ("engine/kv_quant.py", name)
+    for name in (
+        "KV_DTYPES", "SCALE_BYTES", "_SCALE_FLOOR", "kv_page_bytes",
+        "kv_byte_ratio", "pack_kv_page", "unpack_kv_page",
+    )
+]
+
+
+def _definition(path: Path, name: str) -> str:
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.dump(node)
+        if isinstance(node, ast.Assign) and any(
+            isinstance(t, ast.Name) and t.id == name for t in node.targets
+        ):
+            return ast.dump(node)
+    raise AssertionError(f"{name} is not defined at the top of {path}")
+
+
+@pytest.mark.parametrize("rel, name", COPIED_DEFINITIONS, ids=[n for _, n in COPIED_DEFINITIONS])
+def test_copied_definition_matches_original(rel, name):
+    assert _definition(ROOT / "dynamo_tpu_torch" / rel, name) == _definition(
+        ROOT / "dynamo_tpu" / rel, name
+    )
 
 
 @pytest.mark.parametrize("rel", COPIES)

@@ -53,7 +53,7 @@ async def _clear(engine, make_context):
 
 def test_facade_matches_tpu_engine():
     jparams = jmodel.init_params(jax.random.PRNGKey(3), j_tiny_model())
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tiny_model())
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tiny_model(), device="cpu")
     jax_engine = TpuEngine(JaxCore(j_tiny_model(), j_tiny_engine(), params=jparams))
     core, torch_engine = build_engine("tiny", device="cpu", params=tparams)
 

@@ -40,7 +40,7 @@ LATE = ("p3", SHARED + [4], 7)  # arrives after the prefix is cached
 @pytest.fixture(scope="module")
 def weights():
     jparams = jmodel.init_params(jax.random.PRNGKey(0), j_tiny_model())
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tiny_model())
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tiny_model(), device="cpu")
     return jparams, tparams
 
 

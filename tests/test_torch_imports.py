@@ -54,7 +54,7 @@ def test_cpu_engine_leaves_jax_unimported():
         ({"scheduling": "chunked"}, "A8"),
         ({"async_exec": True}, "A8"),
         ({"spec_decode": "ngram"}, "A8"),
-        ({"kv_dtype": "int8"}, "A9"),
+        ({"kv_dtype": "int8", "host_kv_blocks": 16}, "A10"),
         ({"host_kv_blocks": 16}, "A10"),
         ({"ring_prefill_threshold": 64}, "A12"),
     ],
@@ -64,6 +64,15 @@ def test_unported_settings_refused(overrides, item):
 
     with pytest.raises(ValueError, match=item):
         build_engine("tiny", overrides, device="cpu")
+
+
+def test_unknown_kv_dtype_and_quant_refused():
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        build_engine("tiny", {"kv_dtype": "fp8"}, device="cpu")
+    with pytest.raises(ValueError, match="unknown quantization"):
+        build_engine("tiny", device="cpu", quant="int4")
 
 
 def test_unported_models_and_meshes_refused():

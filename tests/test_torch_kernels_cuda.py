@@ -10,12 +10,16 @@ Tolerance: the largest relative L2 error of one output vector (one query
 row, one head) is at most 1e-2. Both sides round to bf16 (~1e-3 per vector)
 and sum in other orders; the limit scales with the output, which shrinks as
 1/sqrt(visible positions), so a dropped tile of a 4096-position row fails.
+The kernels' int8 modes are held to the plain versions on the same int8
+pages and scales, at the same limit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu_torch.engine.kv_quant import quantize_kv
+from dynamo_tpu_torch.ops import paged_attention as pa
 from dynamo_tpu_torch.ops import ragged_attention as ra
 
 D = 128
@@ -69,6 +73,11 @@ def make_batch(q_lens, kv_lens, S, pages_per_seq, n_kv, group, seed):
     return on_card
 
 
+def _row_rel(got, want):
+    g, w = got.float(), want.float()
+    return ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-12)).max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_matches_plain(case):
@@ -86,10 +95,77 @@ def test_kernel_matches_plain(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_int8_kernel_matches_plain(case):
+    q_lens = CASES[case][0]
+    q, kv, *rest = make_batch(*CASES[case], seed=2)
+    kv8, scales = quantize_kv(kv)
+    before = ra.launches_int8
+    got = ra.ragged_paged_attention(q, kv8, *rest, sm_scale=D ** -0.5, kv_scales=scales)
+    assert ra.launches_int8 == before + 1
+    want = ra.ragged_paged_attention_ref(q, kv8, *rest, sm_scale=D ** -0.5, kv_scales=scales)
+    n = sum(q_lens)
+    rel = _row_rel(got[:n], want[:n])
+    assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
+    assert not got[n:].any(), "rows past the last sequence are zero"
+
+
+K2_CASES = {
+    # B, n_kv, group, bs, max_blocks, seq_lens (None: random up to the span)
+    "bench_kvquant": (16, 8, 4, 32, 8, [251] * 16),
+    "decode8_llama": (8, 8, 4, 32, 128, [4096, 3000, 2048, 1500, 1024, 700, 300, 0]),
+    "group1_edges": (3, 4, 1, 16, 5, [1, 80, 95]),
+    "group8": (4, 2, 8, 32, 3, [31, 32, 33, 96]),
+}
+
+
+def k2_operands(B, n_kv, group, bs, max_blocks, seq_lens, *, q_dtype, quant, with_self, seed):
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    total = (B * max_blocks + 1) * bs
+    q = torch.randn(B, n_kv * group, D, device=dev, generator=gen).to(q_dtype)
+    k = torch.randn(n_kv, total, D, device=dev, generator=gen).bfloat16()
+    v = torch.randn(n_kv, total, D, device=dev, generator=gen).bfloat16()
+    perm = torch.randperm(B * max_blocks, device=dev, generator=gen).to(torch.int32)
+    tables = perm.reshape(B, max_blocks).contiguous()
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
+    kw = {}
+    if quant:
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_kv(k), quantize_kv(v)
+    if with_self:
+        kw["k_self"] = torch.randn(B, n_kv, D, device=dev, generator=gen).to(q_dtype)
+        kw["v_self"] = torch.randn(B, n_kv, D, device=dev, generator=gen).to(q_dtype)
+    return (q, k, v, tables, lens), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_self", [False, True], ids=["cache_only", "with_self"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16_pages", "int8_pages"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16], ids=["q_f32", "q_bf16"])
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_paged_attention_kernel_matches_plain(case, q_dtype, quant, with_self):
+    B, n_kv, group, bs, max_blocks, lens = K2_CASES[case]
+    if not with_self and 0 in lens:
+        lens = [max(1, n) for n in lens]  # nothing to attend: the plain version averages garbage
+    args, kw = k2_operands(B, n_kv, group, bs, max_blocks, lens, q_dtype=q_dtype,
+                           quant=quant, with_self=with_self, seed=3)
+    counter = "launches_int8" if quant else "launches"
+    before = getattr(pa, counter)
+    got = pa.paged_attention(*args, block_size=bs, **kw)
+    assert getattr(pa, counter) == before + 1
+    assert got.dtype == q_dtype
+    want = pa.paged_attention_reference(*args, block_size=bs, **kw)
+    rel = _row_rel(got, want)
+    assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take():
     args = make_batch([3, 1], [5, 7], 2, 1, 8, 4, seed=1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ra.ragged_paged_attention(*args, sm_scale=0.1, kv_scales=torch.ones(1, device=args[0].device))
+    with pytest.raises(TypeError, match="without kv_scales"):
+        ra.ragged_paged_attention(*args[:1], args[1].to(torch.int8), *args[2:], sm_scale=0.1)
+    with pytest.raises(TypeError, match="int8"):
+        ra.ragged_paged_attention(*args, sm_scale=0.1, kv_scales=torch.ones(args[1].shape[:-1], device=args[0].device))
     with pytest.raises(TypeError, match="bf16"):
         ra.ragged_paged_attention(args[0].float(), *args[1:], sm_scale=0.1)
     with pytest.raises(ValueError, match="on cpu"):

@@ -62,11 +62,11 @@ def test_forward_matches_jax(variant):
     tcfg = dataclasses.replace(tiny_model(), **VARIANTS[variant])
     jeng, teng = j_tiny_engine(), tiny_engine()
     jparams = jmodel.init_params(jax.random.PRNGKey(7), jcfg)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     assert ("lm_head" in tparams) == (not tcfg.tie_embeddings)
     assert ("bqkv" in tparams["layers"]) == tcfg.attn_qkv_bias
     jcache = jmodel.init_cache(jcfg, jeng)
-    tcache = cache_from_numpy(tuple(np.asarray(c) for c in jcache))
+    tcache = cache_from_numpy(tuple(np.asarray(c) for c in jcache), device="cpu")
     launches = ra.launches
 
     rng = np.random.default_rng(11)
@@ -147,7 +147,7 @@ def test_building_blocks_match():
 def test_bf16_params_convert_bit_exact():
     cfg = dataclasses.replace(j_tiny_model(), dtype="bfloat16")
     jparams = jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(1), cfg))
-    tparams = params_from_numpy(jparams, dataclasses.replace(tiny_model(), dtype="bfloat16"))
+    tparams = params_from_numpy(jparams, dataclasses.replace(tiny_model(), dtype="bfloat16"), device="cpu")
     assert tparams["embed"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         tparams["layers"]["wqkv"].view(torch.int16).numpy(),

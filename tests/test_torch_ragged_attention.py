@@ -1,14 +1,17 @@
 """Ragged paged attention: the port's plain version against the JAX
-package's reference, and the dispatch rules around the CUDA kernel.
+package's reference, with bf16-layout pages and with int8 pages and their
+scales (``kv_scales``), and the dispatch rules around the CUDA kernel.
 
 Tolerance: atol = rtol = 1e-5 in f32 — both compute the same masked
 softmax in f32; only the order of the sums differs."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu.engine.kv_quant import quantize_kv
 from dynamo_tpu.ops.ragged_attention import ragged_paged_attention_ref as jax_ref
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops import ragged_attention as ra
@@ -75,6 +78,29 @@ def test_plain_matches_jax_reference(case, seed):
     assert ra.launches == before
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_int8_matches_jax_reference(case):
+    """int8 pages: the same quantized bytes and scales through both plain
+    versions (dequantize on gather)."""
+    q_lens, kv_lens, S, pps, n_q, n_kv = CASES[case]
+    q, kv, lens, tables, cu, ns = make_batch(q_lens, kv_lens, S, pps, n_q, n_kv, seed=5)
+    kv8, scales = (np.asarray(a) for a in jax.jit(quantize_kv)(jnp.asarray(kv)))
+    before = (ra.launches, ra.launches_int8)
+    want = np.asarray(
+        jax_ref(
+            *(jnp.asarray(a) for a in (q, kv8, lens, tables, cu, ns)),
+            sm_scale=D ** -0.5, kv_scales=jnp.asarray(scales),
+        )
+    )
+    got = ra.ragged_paged_attention(
+        *(torch.from_numpy(a) for a in (q, kv8, lens, tables, cu, ns)),
+        sm_scale=D ** -0.5, kv_scales=torch.from_numpy(scales),
+    )
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    assert not got[int(cu[len(q_lens)]) :].any(), "rows past the last sequence are zero"
+    assert (ra.launches, ra.launches_int8) == before
+
+
 def test_cpu_call_never_touches_the_build(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("a CPU call reached the kernel build")
@@ -91,11 +117,12 @@ def test_cpu_call_never_touches_the_build(monkeypatch):
 
 
 def test_kv_scales_refused():
+    """Scales that are not one per (slot, combined head) are refused."""
     q, kv, lens, tables, cu, ns = make_batch([2], [4], 1, 1, 4, 2, seed=4)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="kv_scales must be"):
         ra.ragged_paged_attention(
-            *(torch.from_numpy(a) for a in (q, kv, lens, tables, cu, ns)),
-            sm_scale=0.25, kv_scales=torch.ones(kv.shape[:-1]),
+            *(torch.from_numpy(a) for a in (q, kv.astype(np.int8), lens, tables, cu, ns)),
+            sm_scale=0.25, kv_scales=torch.ones(kv.shape[:-2]),
         )
 
 
@@ -106,18 +133,23 @@ def test_kv_scales_refused():
         ({"d": 64}, "head_dim"),
         ({"n_q": 36}, "head layout"),
         ({"table_dtype": torch.int64}, "int32"),
+        ({"scales": torch.ones(3, 32, 16)}, "int8 pages"),
+        ({"page_dtype": torch.int8}, "without kv_scales"),
+        ({"page_dtype": torch.int8, "scales": torch.ones(3, 32, 16, dtype=torch.float64)}, "float32"),
+        ({"page_dtype": torch.int8, "scales": torch.ones(3, 32, 8)}, "kv_scales must be"),
     ],
-    ids=["dtype", "head_dim", "group", "index_dtype"],
+    ids=["dtype", "head_dim", "group", "index_dtype", "bf16_pages_with_scales",
+         "int8_pages_without_scales", "scale_dtype", "scale_shape"],
 )
 def test_kernel_operand_checks(bad, match):
     d = bad.get("d", 128)
     n_q = bad.get("n_q", 32)
     dt = bad.get("dtype", torch.bfloat16)
     q = torch.zeros(4, n_q, d, dtype=dt)
-    kv = torch.zeros(3, 32, 16, d, dtype=dt)
+    kv = torch.zeros(3, 32, 16, d, dtype=bad.get("page_dtype", dt))
     tables = torch.zeros(2, 2, dtype=bad.get("table_dtype", torch.int32))
     lens = torch.ones(2, dtype=torch.int32)
     cu = torch.tensor([0, 2, 4], dtype=torch.int32)
     ns = torch.tensor([2], dtype=torch.int32)
     with pytest.raises((TypeError, ValueError), match=match):
-        ra._check_cuda_operands(q, kv, lens, tables, cu, ns)
+        ra._check_cuda_operands(q, kv, lens, tables, cu, ns, bad.get("scales"))

@@ -2,9 +2,14 @@
 
 Greedy choices, stop flags and logprob alternatives match exactly
 (logprob values at 1e-5: f32 logsumexp in a different order). Seeded
-draws use the port's own counter-based noise, so they are held to their
-contract instead: a lane's draw depends on its (seed, counter) alone, and
-the draws follow the softmax distribution."""
+draws reproduce JAX's: the threefry keys (``fold_in``) and the random bits
+are identical, the Gumbel noise agrees to 2e-6 absolute (``log`` of XLA
+and of torch may differ in the last bit; the uniforms under it are
+identical), and the sampled tokens of temperature, top-k and top-p lanes
+are identical to ``sample_seeded``, as are the token streams of an engine
+serving requests with seeds at temperature > 0, at megastep k=1 and k=8.
+A lane's draw also depends on its (seed, counter) alone, and the draws
+follow the softmax distribution."""
 
 import jax
 import jax.numpy as jnp
@@ -12,8 +17,18 @@ import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu.engine import EngineCore as JaxCore
+from dynamo_tpu.engine import model as jmodel
 from dynamo_tpu.engine import sampler as jsampler
+from dynamo_tpu.engine.config import tiny_engine as j_tiny_engine
+from dynamo_tpu.engine.config import tiny_model as j_tiny_model
+from dynamo_tpu.llm.protocols.common import PreprocessedRequest as JaxRequest
+from dynamo_tpu_torch.backends.torch.main import build_engine
 from dynamo_tpu_torch.engine import sampler as tsampler
+from dynamo_tpu_torch.engine.config import tiny_model
+from dynamo_tpu_torch.engine.convert import params_from_numpy
+from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+from tests.test_torch_engine_core import drive
 
 V = 384
 
@@ -145,3 +160,94 @@ def test_seeded_draws_follow_softmax():
     freq = np.bincount(draws.numpy(), minlength=4) / n
     probs = np.exp(logits[0]) / np.exp(logits[0]).sum()
     np.testing.assert_allclose(freq, probs, atol=0.025)
+
+
+# -- bit-exact seeded draws -------------------------------------------------
+
+SEEDS = np.array([0, 1, 7, 11, 123456, 2**31 - 1], np.int32)
+COUNTERS = np.array([0, 5, 3, 64, 2**20, 2**30], np.int32)
+
+
+def _jax_keys(seeds, counters):
+    base = jax.random.PRNGKey(0)
+    return jax.vmap(lambda s, c: jax.random.fold_in(jax.random.fold_in(base, s), c))(
+        jnp.asarray(seeds), jnp.asarray(counters)
+    )
+
+
+def test_threefry_keys_and_bits_match_jax():
+    jkeys = _jax_keys(SEEDS, COUNTERS)
+    tkeys = tsampler.lane_keys(torch.from_numpy(SEEDS), torch.from_numpy(COUNTERS))
+    np.testing.assert_array_equal(tkeys.numpy(), np.asarray(jkeys).astype(np.int64))
+    one = tsampler.fold_in(tkeys, torch.full((len(SEEDS),), 9))
+    np.testing.assert_array_equal(
+        one.numpy(), np.asarray(jax.vmap(lambda k: jax.random.fold_in(k, 9))(jkeys)).astype(np.int64)
+    )
+    n = 1000
+    want = np.asarray(jax.vmap(lambda k: jax.random.bits(k, (n,)))(jkeys)).astype(np.int64)
+    np.testing.assert_array_equal(tsampler.random_bits(tkeys, n).numpy(), want)
+    # Element j depends on j alone: a shorter draw is a prefix.
+    np.testing.assert_array_equal(tsampler.random_bits(tkeys, 64).numpy(), want[:, :64])
+
+
+def test_gumbel_noise_matches_jax():
+    n = 4096
+    jkeys = _jax_keys(SEEDS, COUNTERS)
+    tkeys = tsampler.lane_keys(torch.from_numpy(SEEDS), torch.from_numpy(COUNTERS))
+    want = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (n,)))(jkeys))
+    got = tsampler.gumbel_noise(tkeys, n).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+    tiny = np.finfo(np.float32).tiny
+    want_u = np.asarray(
+        jax.vmap(lambda k: jax.random.uniform(k, (n,), minval=tiny, maxval=1.0))(jkeys)
+    )
+    got_u = tsampler.uniform(tkeys, n).numpy()
+    np.testing.assert_array_equal(got_u.view(np.uint32), want_u.view(np.uint32))
+
+
+@pytest.mark.parametrize("need_mask", [False, True], ids=["temperature", "top_k_top_p"])
+def test_seeded_tokens_match_jax(need_mask):
+    B = len(SEEDS)
+    logits = _logits(21, B=B, v=V)
+    temp = np.array([0.0, 0.7, 1.0, 1.5, 0.9, 2.0], np.float32)
+    top_k = np.array([0, 5, 0, 40, 1, 0], np.int32) if need_mask else np.zeros(B, np.int32)
+    top_p = np.array([1.0, 1.0, 0.8, 0.95, 1.0, 0.3], np.float32) if need_mask else np.ones(B, np.float32)
+    for step in range(25):
+        counters = COUNTERS + step
+        want = np.asarray(
+            jsampler.sample_seeded(
+                *map(jnp.asarray, (logits, SEEDS, counters, temp, top_k, top_p)),
+                need_mask=need_mask,
+            )
+        )
+        got = tsampler.sample_seeded(
+            *map(torch.from_numpy, (logits, SEEDS, counters, temp, top_k, top_p)),
+            need_mask=need_mask,
+        )
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"step {step}")
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_seeded_engine_streams_match_jax(k):
+    """Requests at temperature > 0 with seeds (one with top-k and top-p)
+    stream the same tokens from both engines."""
+    jparams = jmodel.init_params(jax.random.PRNGKey(2), j_tiny_model())
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tiny_model(), device="cpu")
+    rng = np.random.default_rng(8)
+    samplings = [
+        {"temperature": 0.8, "seed": 7},
+        {"temperature": 1.0, "top_p": 0.9, "seed": 11},
+        {"temperature": 1.2, "top_k": 20, "seed": 3},
+        {"temperature": 0.0},
+    ]
+    wires = [
+        {"model": "tiny", "token_ids": [int(t) for t in rng.integers(1, 384, n)],
+         "request_id": f"s{i}", "sampling": smp, "stop": {"max_tokens": m}}
+        for i, (smp, n, m) in enumerate(zip(samplings, (9, 30, 17, 4), (20, 13, 24, 9)))
+    ]
+    jcore = JaxCore(j_tiny_model(), j_tiny_engine(megastep_k=k), params=jparams)
+    tcore, _ = build_engine("tiny", {"megastep_k": k}, device="cpu", params=tparams)
+    want = drive(jcore, wires, JaxRequest.from_wire)
+    got = drive(tcore, wires, PreprocessedRequest.from_wire)
+    assert got == want
