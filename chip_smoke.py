@@ -9,21 +9,27 @@ It (1) prints the card's name and power limit, (2) builds every kernel of
 the port from ``dynamo_tpu_torch/csrc`` with nvcc, together with copies
 holding planted faults (one nvcc per source, all started at once), (3)
 holds each kernel against its plain PyTorch version on the card and times
-both: K1 (ragged paged attention) with bf16 and with int8 pages at
-llama3-8b head shapes and the serving prefill wave's shape, K2 (paged
-decode attention) with bf16 and int8 pages, with and without the self
-position, at the int8-against-bf16 comparison's shape and llama3-8b decode
-shapes; and shows that the comparison fails every planted fault, (4) runs
-K2's own path, that int8-page against bf16-page decode-attention
-comparison, through ``paged_attention``, (5) serves 8 requests through
+both, each launch with the L2 flushed before it (as a layer's pages are
+on the serving path): K1's two kernels (split-KV decode and query-tiled),
+each forced, with bf16 and with int8 pages, at llama3-8b head shapes,
+among them the serving decode form's and the prefill wave's, beside a
+yardstick of a different function (dense causal
+``scaled_dot_product_attention`` on the same rows laid out
+contiguously); K2 (paged decode attention) with bf16 and int8
+pages, with and without the self position, at the int8-against-bf16
+comparison's shape and llama3-8b decode shapes; and shows that the
+comparison fails every planted fault, (4) runs K2's own path, that
+int8-page against bf16-page decode-attention comparison, through
+``paged_attention``, (5) serves 8 requests through
 ``build_engine("llama3-8b")`` and ``TorchEngine.generate`` at full width
 and depth with random weights, bf16 first, then, with the bf16 engine
 freed, int8 weights and int8 KV pages (``{"kv_dtype": "int8"}``,
 ``quant="int8"``), checking token counts, finish reasons, the prefix
-cache, the kernel's launch counts, finite logits and megastep k=1 == k=8
-greedy streams, and (6) prints a JSON line of kernel measurements and,
-last, a JSON status line. Any failed check raises and the script exits
-non-zero. Without a card it exits non-zero at once and prints no result.
+cache, the launch counts of K1 and of each of its kernels, finite logits
+and megastep k=1 == k=8 greedy streams, and (6) prints a JSON line of
+kernel measurements (one record per C entry point) and, last, a JSON
+status line. Any failed check raises and the script exits non-zero.
+Without a card it exits non-zero at once and prints no result.
 """
 
 from __future__ import annotations
@@ -65,8 +71,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
+    """Mean device time of ``fn`` over ``reps`` back-to-back launches
+    (CUDA events), after one warm-up call, the L2 warm: only K2's own
+    int8-against-bf16 comparison, which runs that way."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -76,6 +83,29 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_FLUSH: list = []  # a 256 MB buffer, five times the 50 MB L2
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Mean device time of one call of ``fn`` with the L2 flushed before
+    it, as a layer's pages are on the serving path: each of ``reps`` calls
+    runs after a read and write of a 256 MB buffer, timed by its own event
+    pair (the flush is outside the pair); one warm-up call first."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    for start, end in pairs:
+        _FLUSH[0].add_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
 
 
 # -- kernel against its plain version --------------------------------------
@@ -147,19 +177,109 @@ def attention_bound(q_lens, kv_lens, T, int8=False):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_attention_kernel(ra, int8=False) -> tuple[list[dict], list[tuple]]:
-    """The kernel against ragged_paged_attention_ref on several ragged
+K1_KERNELS = ("decode", "tiled")
+
+
+def sdpa_yardstick(args, kw, q_lens, kv_lens):
+    """A yardstick of a different function: dense causal
+    ``scaled_dot_product_attention`` on the same rows with each sequence's
+    K/V laid out contiguously (bf16; int8 pages dequantized; kv heads
+    repeated for the group). A decode batch is one call, padded to the
+    longest row with a key mask; other batches one call per sequence
+    (``is_causal`` where q_len == kv_len, a lower-right mask otherwise).
+    Returns the call to time. The port never calls it."""
+    from dynamo_tpu_torch.engine.kv_quant import dequantize_kv
+
+    F = torch.nn.functional
+    q, kv, _, tables, cu, _ = args
+    group = N_Q // N_KV
+    cu_h = cu.tolist()
+
+    def contiguous(s, L):
+        pos = torch.arange(L, device=q.device)
+        slots = tables[s].long()[pos // PAGE] * PAGE + pos % PAGE
+        rows = kv.reshape(-1, 2 * N_KV, HEAD_DIM)[slots]
+        if "kv_scales" in kw:
+            rows = dequantize_kv(rows, kw["kv_scales"].reshape(-1, 2 * N_KV)[slots]).bfloat16()
+        k, v = (rows[:, i::2].repeat_interleave(group, dim=1).transpose(0, 1) for i in (0, 1))
+        return k, v                                                    # [n_q, L, d]
+
+    if all(n == 1 for n in q_lens):
+        B, L = len(q_lens), max(kv_lens)
+        k = torch.zeros(B, N_Q, L, HEAD_DIM, dtype=torch.bfloat16, device=q.device)
+        v = torch.zeros_like(k)
+        for s, n in enumerate(kv_lens):
+            k[s, :, :n], v[s, :, :n] = contiguous(s, n)
+        mask = (torch.arange(L, device=q.device)[None, :]
+                < torch.tensor(kv_lens, device=q.device)[:, None])[:, None, None, :]
+        qs = q[:B].unsqueeze(2)                                        # [B, n_q, 1, d]
+        return lambda: F.scaled_dot_product_attention(qs, k, v, attn_mask=mask)
+    calls = []
+    for s, (n, L) in enumerate(zip(q_lens, kv_lens)):
+        if n == 0:
+            continue
+        k, v = contiguous(s, L)
+        qs = q[cu_h[s]:cu_h[s] + n].transpose(0, 1).unsqueeze(0)     # [1, n_q, n, d]
+        if n == L:
+            calls.append((qs, k[None], v[None], None, True))
+        else:
+            i = torch.arange(n, device=q.device)[:, None]
+            p = torch.arange(L, device=q.device)[None, :]
+            calls.append((qs, k[None], v[None], p <= L - n + i, False))
+    return lambda: [F.scaled_dot_product_attention(qq, kk, vv, attn_mask=m, is_causal=c)
+                    for qq, kk, vv, m, c in calls]
+
+
+def hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms, tag):
+    """Both K1 kernels, forced, on one batch against the plain output
+    ``want``, each timed with the L2 flushed; the yardstick beside them.
+    Raises if either disagrees."""
+    scale = HEAD_DIM ** -0.5
+    bound_ms, bound_by = attention_bound(q_lens, kv_lens, T, int8)
+    sdpa_ms = cold_ms(sdpa_yardstick(args, kw, q_lens, kv_lens), reps)
+    torch.cuda.empty_cache()
+    out = []
+    for kernel in K1_KERNELS:
+        run = lambda: ra.ragged_paged_attention_cuda(*args, sm_scale=scale, kernel=kernel, **kw)  # noqa: E731
+        got = run()
+        torch.cuda.synchronize()
+        rel, err, ok = compare(got, want, sum(q_lens))
+        del got
+        ms = cold_ms(run, reps)
+        out.append(dict(
+            shape=name, kernel=kernel, T=T, S=args[3].shape[0], num_seqs=len(q_lens),
+            max_kv_len=max(kv_lens), ok=ok, max_row_rel_err=rel, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            yardstick_sdpa_ms=sdpa_ms,
+        ))
+        print(f"{tag} {kernel} {name}: ok={ok} max_row_rel_err={rel:.3e} max_abs_err={err:.3e} "
+              f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by}); "
+              f"kernel/bound {ms / bound_ms:.1f}x; kernel/plain {ms / plain_ms:.4f}", flush=True)
+        if not ok:
+            raise AssertionError(f"{tag} {kernel} kernel disagrees with its plain version on {name}")
+    print(f"{tag} {name}: yardstick (a different function: dense causal "
+          f"scaled_dot_product_attention on the rows laid out contiguously) {sdpa_ms:.4f} ms",
+          flush=True)
+    return out
+
+
+def check_attention_kernel(ra, decode_lens, int8=False) -> tuple[list[dict], list[tuple]]:
+    """Both K1 kernels against ragged_paged_attention_ref on several ragged
     batches at llama3-8b head shapes, with bf16 pages or (``int8``) the
     same pages quantized; returns the measurements and, for the
-    planted-fault check, each batch with its plain output. pages_per_seq
-    stays <= 128: the plain version materialises [T, pages_per_seq*32, 16,
-    128] f32 (decode64: 64 * 4096 * 16 * 128 * 4 B = 2.1 GB; mixed_padded:
-    512 * 2048 * 16 * 128 * 4 B = 8.6 GB)."""
+    planted-fault check, each batch with its plain output. One batch is the
+    main path's decode form: T == S == 8, pages_per_seq 256 as the engine
+    has it (the serving plan's 32 splits and its combine), kv lengths
+    ``decode_lens``. The plain version materialises [T, pages_per_seq * 32,
+    16, 128] f32 (decode_serving8: 8 * 8192 * 16 * 128 * 4 B = 0.5 GB;
+    decode64: 64 * 4096 * 16 * 128 * 4 B = 2.1 GB; mixed_padded: 512 *
+    2048 * 16 * 128 * 4 B = 8.6 GB)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     tag = "attention int8" if int8 else "attention"
     rng = np.random.default_rng(0)
     cases = [
         # name, q_lens, kv_lens, S, pages_per_seq, T (bucket)
+        ("decode_serving8", [1] * 8, decode_lens, 8, 256, 8),
         ("decode8", [1] * 8, [4096, 3000, 2048, 1500, 1024, 700, 300, 33], 8, 128, 8),
         ("decode64", [1] * 64, [int(x) for x in rng.integers(1, 4097, 64)], 64, 128, 64),
         ("mixed_padded", [256, 64, 1, 1, 1, 1], [256, 1024, 2000, 1500, 64, 500], 8, 64, 512),
@@ -171,49 +291,66 @@ def check_attention_kernel(ra, int8=False) -> tuple[list[dict], list[tuple]]:
         args, kw = attention_batch(q_lens, kv_lens, S, pps, T, gen)
         if int8:
             args, kw = quantized(args, kw)
-        kernel = lambda: ra.ragged_paged_attention(*args, sm_scale=scale, **kw)  # noqa: E731
         plain = lambda: ra.ragged_paged_attention_ref(*args, sm_scale=scale, **kw)  # noqa: E731
-        got = kernel()
-        torch.cuda.synchronize()
         want = plain()
-        rel, err, ok = compare(got, want, sum(q_lens))
-        ms = cuda_ms(kernel, 50)
-        plain_ms = cuda_ms(plain, 3)
-        bound_ms, bound_by = attention_bound(q_lens, kv_lens, T, int8)
-        results.append(dict(
-            shape=name, T=T, S=S, num_seqs=len(q_lens), max_kv_len=max(kv_lens),
-            ok=ok, max_row_rel_err=rel, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
-        ))
-        print(f"{tag} {name}: ok={ok} max_row_rel_err={rel:.3e} max_abs_err={err:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
-        batches.append((name, args, kw, want, sum(q_lens)))
-        del got
+        plain_ms = cold_ms(plain, 3)
         torch.cuda.empty_cache()
-        if not ok:
-            raise AssertionError(f"{tag} kernel disagrees with its plain version on {name}")
+        results += hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, 20, plain_ms, tag)
+        batches.append((name, args, kw, want, sum(q_lens)))
+        torch.cuda.empty_cache()
     return results, batches
 
 
 # Faults planted in copies of the kernels' sources: (text, replacement).
+# K1, by kernel: each copy runs its kernel, forced, on every batch.
 PLANTED_FAULTS = {
-    "drops_second_tile": (
-        "const int n = min(kTile, n_vis - base);",
-        "const int n = min(kTile, n_vis - base);\n    if (base == kTile) continue;",
-    ),
-    "misses_own_position": (
-        "const int n_vis = min(abs_pos + 1, kv_len);",
-        "const int n_vis = min(abs_pos, kv_len);",
-    ),
-    "sees_next_position": (
-        "const int n_vis = min(abs_pos + 1, kv_len);",
-        "const int n_vis = min(abs_pos + 2, kv_len);",
-    ),
+    "decode": {
+        "decode_drops_second_tile": (
+            "    const unsigned char* st = ring + (it % kDecStages) * kStageBytes;",
+            "    if (it == 1) continue;\n    const unsigned char* st = ring + (it % kDecStages) * kStageBytes;",
+        ),
+        "decode_misses_own_position": (
+            "dec_vis = min(abs_pos + 1, kv_len);", "dec_vis = min(abs_pos, kv_len);",
+        ),
+        "decode_sees_next_position": (
+            "dec_vis = min(abs_pos + 1, kv_len);", "dec_vis = min(abs_pos + 2, kv_len);",
+        ),
+        "combine_drops_last_split": (
+            "min(n_splits, (row_vis + split_len - 1) / split_len)",
+            "max(1, min(n_splits, (row_vis + split_len - 1) / split_len) - 1)",
+        ),
+    },
+    "tiled": {
+        "tiled_drops_second_tile": (
+            "    // S = Q K^T: 16 M rows x 64 positions per warp.",
+            "    if (kt == 1) continue;\n    // S = Q K^T: 16 M rows x 64 positions per warp.",
+        ),
+        "tiled_misses_own_position": (
+            "vis_row[i] = min(abs0 + r + 1, kv_len);", "vis_row[i] = min(abs0 + r, kv_len);",
+        ),
+        "tiled_sees_next_position": (
+            "vis_row[i] = min(abs0 + r + 1, kv_len);", "vis_row[i] = min(abs0 + r + 2, kv_len);",
+        ),
+        "diagonal_tile_skips_mask": (
+            "const bool need_mask = (kt + 1) * kTileN > vis_first;",
+            "const bool need_mask = (kt + 1) * kTileN > kv_len;",
+        ),
+    },
 }
-# K1's int8 instance: V rows dequantized with K's scale.
+# K1's int8 instances: V rows dequantized with K's scale.
 PLANTED_FAULTS_INT8 = {
-    "v_takes_k_scale": ("vs_s[tid] = sc[1];", "vs_s[tid] = sc[0];"),
+    "decode": {
+        "decode_v_takes_k_scale": (
+            "const float vsc = kQuant ? sc[p * 2 + 1] : 1.f;",
+            "const float vsc = kQuant ? sc[p * 2] : 1.f;",
+        ),
+    },
+    "tiled": {
+        "tiled_v_takes_k_scale": (
+            "x *= tsc[((2 * kk + half) * 8 + 2 * (lane & 3) + (e & 1)) * 2 + 1];",
+            "x *= tsc[((2 * kk + half) * 8 + 2 * (lane & 3) + (e & 1)) * 2];",
+        ),
+    },
 }
 # K2: the self position left out.
 PLANTED_FAULTS_K2 = {
@@ -235,10 +372,10 @@ def build_planted(tmp: str) -> dict:
         _build.build(src, src.with_suffix(".so"))
         return ctypes.CDLL(str(src.with_suffix(".so")))
 
-    pool = ThreadPoolExecutor(8)
-    jobs = [("ragged_paged_attention.cu", PLANTED_FAULTS),
-            ("ragged_paged_attention.cu", PLANTED_FAULTS_INT8),
-            ("paged_attention.cu", PLANTED_FAULTS_K2)]
+    pool = ThreadPoolExecutor(16)
+    jobs = [("ragged_paged_attention.cu", f) for table in (PLANTED_FAULTS, PLANTED_FAULTS_INT8)
+            for f in table.values()]
+    jobs.append(("paged_attention.cu", PLANTED_FAULTS_K2))
     futures = {
         name: pool.submit(build, source, name, old, new)
         for source, faults in jobs for name, (old, new) in faults.items()
@@ -248,24 +385,27 @@ def build_planted(tmp: str) -> dict:
 
 
 def check_planted_faults(ra, batches, libs, faults, int8=False) -> dict:
-    """Run each planted fault's copy of K1 on the batches above: the
-    comparison must fail every one on at least one batch, or its limit is
-    too loose to mean anything."""
+    """Run each planted fault's copy of its K1 kernel, forced, on the
+    batches above: the comparison must fail every one on at least one
+    batch, or its limit is too loose to mean anything."""
     found = {}
-    for name in faults:
-        fn = ra.bind(libs[name].result(), int8)
-        rels = {
-            shape: compare(
-                ra.launch(fn, *args, sm_scale=HEAD_DIM ** -0.5, **kw), want, n_real
-            )[0]
-            for shape, args, kw, want, n_real in batches
-        }
-        found[name] = max(rels.values())
-        print(f"planted fault {name}: max_row_rel_err by batch "
-              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-              + f"; caught={found[name] > ROW_REL_TOL}", flush=True)
-        if found[name] <= ROW_REL_TOL:
-            raise AssertionError(f"the comparison passes planted fault {name}")
+    for kernel, table in faults.items():
+        for name in table:
+            entries = ra.bind(libs[name].result(), int8)
+            rels = {
+                shape: compare(
+                    ra.launch(entries, *args, sm_scale=HEAD_DIM ** -0.5, kernel=kernel, **kw),
+                    want, n_real,
+                )[0]
+                for shape, args, kw, want, n_real in batches
+            }
+            found[name] = max(rels.values())
+            caught = not found[name] <= ROW_REL_TOL  # a NaN fails the limit too
+            print(f"planted fault {name} ({kernel} kernel): max_row_rel_err by batch "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+                  + f"; caught={caught}", flush=True)
+            if not caught:
+                raise AssertionError(f"the comparison passes planted fault {name}")
     return found
 
 
@@ -291,33 +431,23 @@ def plain_by_row_chunks(ra, args, kw, q_lens, rows=64):
     return out
 
 
-def check_serving_prefill_shape(ra, prompt_lens, int8=False) -> dict:
-    """The kernel at the serving prefill wave's shape (bucket 8192, S = 8,
-    pages_per_seq 256), held against the plain version run in row chunks
-    (in one call it would materialise 8192 x 8192 x 16 x 128 f32)."""
+def check_serving_prefill_shape(ra, prompt_lens, int8=False) -> list[dict]:
+    """Both K1 kernels at the serving prefill wave's shape (bucket 8192, S
+    = 8, pages_per_seq 256), held against the plain version run in row
+    chunks (in one call it would materialise 8192 x 8192 x 16 x 128 f32)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     args, kw = attention_batch(prompt_lens, prompt_lens, 8, 256, 8192, gen)
     if int8:
         args, kw = quantized(args, kw)
     tag = "attention int8" if int8 else "attention"
-    kernel = lambda: ra.ragged_paged_attention(*args, sm_scale=HEAD_DIM ** -0.5, **kw)  # noqa: E731
     plain = lambda: plain_by_row_chunks(ra, args, kw, prompt_lens)  # noqa: E731
-    got = kernel()
     want = plain()
-    rel, err, ok = compare(got, want, sum(prompt_lens))
-    ms = cuda_ms(kernel, 5)
-    plain_ms = cuda_ms(plain, 1)
-    bound_ms, bound_by = attention_bound(prompt_lens, prompt_lens, 8192, int8)
-    print(f"{tag} prefill_wave8192: ok={ok} max_row_rel_err={rel:.3e} "
-          f"max_abs_err={err:.3e} kernel {ms:.4f} ms plain (row chunks) {plain_ms:.3f} ms "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
-    del args, kw, got, want
+    plain_ms = cold_ms(plain, 1)
+    out = hold_k1(ra, "prefill_wave8192", args, kw, want, prompt_lens, prompt_lens, 8192,
+                  int8, 5, plain_ms, tag)
+    del args, kw, want
     torch.cuda.empty_cache()
-    if not ok:
-        raise AssertionError(f"{tag} kernel disagrees with its plain version on prefill_wave8192")
-    return dict(shape="prefill_wave8192", T=8192, S=8, num_seqs=len(prompt_lens),
-                max_kv_len=max(prompt_lens), ok=ok, max_row_rel_err=rel, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return out
 
 
 # -- K2: paged decode attention ----------------------------------------------
@@ -399,8 +529,8 @@ def check_paged_attention_kernel(pa) -> tuple[list[dict], list[tuple]]:
                 torch.cuda.synchronize()
                 want = plain()
                 rel, err, ok = compare(got, want, c["B"])
-                ms = cuda_ms(kernel, 50)
-                plain_ms = cuda_ms(plain, 3)
+                ms = cold_ms(kernel, 20)
+                plain_ms = cold_ms(plain, 3)
                 bound_ms, bound_by = k2_bound(c["B"], c["n_kv"], c["group"], c["bs"], c["lens"],
                                               c["q_dtype"], int8=int8, with_self=with_self)
                 pages = "int8" if int8 else "bf16"
@@ -588,11 +718,13 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     reqs, late, solo = serving_requests(core.cfg.vocab_size)
 
     # The main path, with every kernel launch count at 0 just before it.
-    ra.launches = ra.launches_int8 = 0
+    ra.reset_launches()
     t_serve = time.time()
     results = asyncio.run(serve_concurrent(engine, Context, reqs, late))
     serve_s = time.time() - t_serve
     launches, other = (ra.launches_int8, ra.launches) if int8 else (ra.launches, ra.launches_int8)
+    by_entry = {ra.ENTRY_NAMES[k, int8]: ra.kernel_launches[ra.ENTRY_NAMES[k, int8]]
+                for k in K1_KERNELS}
     st = core.scheduler_stats()
     forwards = st["forwards"]
 
@@ -601,18 +733,20 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
               f"cached_tokens={meta.get('cached_tokens')}", flush=True)
         if len(toks) != MAX_TOKENS or fin != "length":
             raise AssertionError(f"{rid}: {len(toks)} tokens, finish {fin!r}")
-    if launches != core.cfg.num_layers * forwards or launches == 0 or other != 0:
+    if (launches != core.cfg.num_layers * forwards or other != 0 or min(by_entry.values()) == 0
+            or sum(by_entry.values()) != launches):
         raise AssertionError(
             f"{mode} attention launches {launches} != {core.cfg.num_layers} x {forwards} "
-            f"forwards, or the other page dtype's kernel ran ({other} launches)"
+            f"forwards, or the other page dtype's kernels ran ({other} launches), or a K1 "
+            f"kernel never ran: {by_entry}"
         )
     kv = core.kv_cache_stats()
     if results["prefix_b"][2].get("cached_tokens") != SHARED_PREFIX or kv["admitted_hits"] < 1:
         raise AssertionError(f"shared prefix missed the prefix cache: {kv}")
     print(f"main path ({mode}): {len(results)} requests in {serve_s:.2f} s; forwards {forwards} "
           f"(prefill waves + decode iterations), attention launches {launches} = "
-          f"{core.cfg.num_layers} x {forwards}; dispatches {st['dispatches']} "
-          f"(megastep {st['megastep_dispatches']})", flush=True)
+          f"{core.cfg.num_layers} x {forwards}, by kernel {by_entry}; dispatches "
+          f"{st['dispatches']} (megastep {st['megastep_dispatches']})", flush=True)
     prefill_tps = st["prefill_tokens"] / st["prefill_s"]
     decode_ms = 1e3 * st["decode_s"] / st["decode_iterations"]
     print(f"serving {mode} on {card}: prefill {prefill_tps:.0f} tokens/s "
@@ -637,8 +771,8 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
           f"({len(k8)} tokens)", flush=True)
     if k8 != k1 or len(k8) != MAX_TOKENS:
         raise AssertionError("megastep k=8 and k=1 greedy streams differ")
-    return launches, {
-        "mode": mode, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
+    return by_entry, {
+        "mode": mode, "attention_launches": launches, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
         "bytes_per_block": core.kv_cache_stats()["bytes_per_block"],
         "prefill_tokens_per_s": prefill_tps, "decode_ms_per_iteration": decode_ms,
         "logits_cosine": logit_check["cosine"],
@@ -694,28 +828,30 @@ def main() -> int:
         print(f"kernel build: ragged_paged_attention.cu, paged_attention.cu and "
               f"{len(planted)} planted-fault copies in {time.time() - t0:.1f} s", flush=True)
 
-        shapes, batches = check_attention_kernel(ra)
+        reqs, late, _ = serving_requests(llama3_8b().vocab_size)
+        prompt_lens = [len(p) for _, p, _ in reqs]
+        # The serving batch 48 tokens into decode (2000 + 48 ends on a split edge).
+        decode_lens = [n + 48 for n in prompt_lens + [len(late[1])]]
+        shapes, batches = check_attention_kernel(ra, decode_lens)
         faults = check_planted_faults(ra, batches, planted, PLANTED_FAULTS)
         del batches
-        shapes8, batches8 = check_attention_kernel(ra, int8=True)
+        shapes8, batches8 = check_attention_kernel(ra, decode_lens, int8=True)
         faults8 = check_planted_faults(ra, batches8, planted, PLANTED_FAULTS_INT8, int8=True)
         del batches8
-        reqs, _, _ = serving_requests(llama3_8b().vocab_size)
-        prompt_lens = [len(p) for _, p, _ in reqs]
-        shapes.append(check_serving_prefill_shape(ra, prompt_lens))
-        shapes8.append(check_serving_prefill_shape(ra, prompt_lens, int8=True))
+        shapes += check_serving_prefill_shape(ra, prompt_lens)
+        shapes8 += check_serving_prefill_shape(ra, prompt_lens, int8=True)
         k2_shapes, k2_batches = check_paged_attention_kernel(pa)
         k2_faults = check_k2_planted_fault(pa, k2_batches, planted)
         del k2_batches
         torch.cuda.empty_cache()
 
     k2 = k2_path(pa)
-    launches, summary = serve(ra, card)
+    counts, summary = serve(ra, card)
     print(f"serving summary: {json.dumps(summary)}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"bf16 engine freed: allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
-    launches8, summary8 = serve(ra, card, int8=True)
+    counts8, summary8 = serve(ra, card, int8=True)
     print(f"serving summary: {json.dumps(summary8)}", flush=True)
     print(f"int8 against bf16 on {card}: prefill {summary8['prefill_tokens_per_s']:.0f} vs "
           f"{summary['prefill_tokens_per_s']:.0f} tokens/s, decode "
@@ -730,19 +866,34 @@ def main() -> int:
 
     k1_src, k2_src = ("dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
                       "dynamo_tpu_torch/csrc/paged_attention.cu")
-    # Main shapes: decode width 8 for K1 (the serving decode width), the
-    # int8-against-bf16 comparison for K2 (its path).
-    print(json.dumps({"kernels": [
-        kernel_entry("ragged_paged_attention", k1_src, "dynamo_tpu/ops/ragged_attention.py:163",
-                     launches, shapes, shapes[0], pages="bf16", planted_faults_row_rel_err=faults),
-        kernel_entry("ragged_paged_attention_int8", k1_src, "dynamo_tpu/ops/ragged_attention.py:163",
-                     launches8, shapes8, shapes8[0], pages="int8",
-                     int8_vs_bf16=shapes8[0]["ms"] / shapes[0]["ms"],
-                     planted_faults_row_rel_err=faults8),
-        kernel_entry("paged_attention", k2_src, "dynamo_tpu/ops/paged_attention.py:216",
+    # One record per C entry point. Main shapes: K1's decode kernel at the
+    # serving decode form, its tiled kernel at the serving prefill wave
+    # (the shapes each runs on the main path); K2 at the int8-against-bf16
+    # comparison (its path).
+    k1 = []
+    for int8, got, counts_of, planted_of, table in (
+        (False, shapes, counts, faults, PLANTED_FAULTS),
+        (True, shapes8, counts8, faults8, PLANTED_FAULTS_INT8),
+    ):
+        for kernel, main_shape in (("decode", "decode_serving8"), ("tiled", "prefill_wave8192")):
+            own = [x for x in got if x["kernel"] == kernel]
+            main_rec = next(x for x in own if x["shape"] == main_shape)
+            extra = {}
+            if int8:
+                bf16 = next(x for x in shapes if x["kernel"] == kernel and x["shape"] == main_shape)
+                extra["int8_vs_bf16"] = main_rec["ms"] / bf16["ms"]
+            name = ra.ENTRY_NAMES[kernel, int8]
+            k1.append(kernel_entry(
+                name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
+                main_rec, pages="int8" if int8 else "bf16", **extra,
+                planted_faults_row_rel_err={f: planted_of[f] for f in table[kernel]},
+            ))
+    print(json.dumps({"kernels": k1 + [
+        kernel_entry("paged_attention_launch", k2_src, "dynamo_tpu/ops/paged_attention.py:216",
                      k2["launches"]["bf16"], k2_shapes_of("bf16"), k2_main("bf16"), pages="bf16",
                      planted_faults_row_rel_err=k2_faults),
-        kernel_entry("paged_attention_int8", k2_src, "dynamo_tpu/ops/paged_attention.py:216",
+        kernel_entry("paged_attention_launch (int8 pages)", k2_src,
+                     "dynamo_tpu/ops/paged_attention.py:216",
                      k2["launches"]["int8"], k2_shapes_of("int8"), k2_main("int8"), pages="int8",
                      int8_vs_bf16=k2["int8_vs_bf16"], planted_faults_row_rel_err=k2_faults),
     ]}), flush=True)

@@ -21,14 +21,23 @@ and attends every cache position ``<=`` its own.
 
 :func:`ragged_paged_attention` dispatches on the tensors' device: CPU
 tensors take the plain PyTorch version :func:`ragged_paged_attention_ref`
-(the tests), CUDA tensors launch the hand-written kernel
+(the tests), CUDA tensors launch a hand-written kernel of
 ``csrc/ragged_paged_attention.cu`` (its bf16 or its int8 instance) or
-raise. Nothing falls back.
+raise. Nothing falls back. The source has two kernels, picked from the
+shapes alone (:func:`kernel_for`, no host sync): ``T == S``, the engine's
+decode form, takes the split-KV decode kernel, planned by
+:func:`decode_split_plan`; anything else the query-tiled tensor-core
+kernel, planned by :func:`tiled_plan`. The planning functions are plain
+Python so the CPU tests reach them; :func:`ragged_paged_attention_split_ref`
+is the plain version of the split-and-combine arithmetic (tests only).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -37,15 +46,75 @@ from dynamo_tpu_torch.ops import _build
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
-# The kernel's fixed geometry (csrc/ragged_paged_attention.cu).
+# The kernels' fixed geometry (csrc/ragged_paged_attention.cu).
 KERNEL_HEAD_DIM = 128
 KERNEL_MAX_GROUP = 8
+TILE_M = 128               # tiled kernel: query rows x group heads per block
+DECODE_BLOCKS_PER_SM = 16  # decode plan: blocks it aims for, per SM
+MIN_SPLIT_POSITIONS = 256  # decode plan: the least cache positions per split
 
-# Kernel launches since the last reset, bf16 pages and int8 pages apart:
-# the wrapper adds one per launch and nowhere else, so a run can show
-# which path it took.
-launches = 0
-launches_int8 = 0
+# The C entry point of each (kernel, int8 pages) pair.
+ENTRY_NAMES = {
+    (kernel, int8): f"ragged_paged_attention_{'int8_' if int8 else ''}{kernel}_launch"
+    for kernel in ("decode", "tiled") for int8 in (False, True)
+}
+# Kernel launches since the last reset, by C entry point: the wrapper adds
+# one per launch and nowhere else, so a run can show which path it took.
+# ``launches`` and ``launches_int8`` (module attributes) are their sums by
+# page type.
+kernel_launches = dict.fromkeys(ENTRY_NAMES.values(), 0)
+
+
+def reset_launches() -> None:
+    for name in kernel_launches:
+        kernel_launches[name] = 0
+
+
+def __getattr__(name: str) -> int:
+    if name in ("launches", "launches_int8"):
+        int8 = name == "launches_int8"
+        return sum(kernel_launches[e] for (_, i8), e in ENTRY_NAMES.items() if i8 == int8)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def kernel_for(num_tokens: int, max_seqs: int) -> str:
+    """The kernel the wrapper picks from the shapes: ``T == S`` is the
+    engine's decode form (``model.decode_tokens``) and takes the split-KV
+    decode kernel; anything else the tiled kernel."""
+    return "decode" if num_tokens == max_seqs else "tiled"
+
+
+def decode_split_plan(num_tokens: int, n_kv: int, pages_per_seq: int, page_size: int,
+                      sm_count: int) -> tuple[int, int]:
+    """``(n_splits, pages_per_split)`` of the split-KV decode grid
+    ``(T, n_kv, n_splits)``: enough splits for about
+    ``DECODE_BLOCKS_PER_SM`` blocks per SM if every row were full, each a
+    whole number of pages and at least ``MIN_SPLIT_POSITIONS`` positions;
+    ``n_splits * pages_per_split`` covers the block table."""
+    pairs = max(1, num_tokens * n_kv)
+    want = -(-DECODE_BLOCKS_PER_SM * sm_count // pairs)
+    min_pages = max(1, -(-MIN_SPLIT_POSITIONS // page_size))
+    n = max(1, min(want, pages_per_seq // min_pages))
+    per = -(-pages_per_seq // n)
+    return -(-pages_per_seq // per), per
+
+
+def decode_scratch_shapes(num_tokens: int, n_q: int, n_kv: int,
+                          n_splits: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Shapes of the decode kernel's f32 partials: ``o`` and ``(m, l)`` of
+    every (row, kv head, split, group head)."""
+    head = (num_tokens, n_kv, n_splits, n_q // n_kv)
+    return (*head, KERNEL_HEAD_DIM), (*head, 2)
+
+
+def tiled_plan(num_tokens: int, max_seqs: int, group: int) -> tuple[int, int]:
+    """``(n_blocks, rows_per_tile)`` of the tiled grid ``(n_blocks, n_kv)``:
+    a block takes ``rows_per_tile = TILE_M // group`` query rows of one
+    sequence; sequence s has ``ceil(q_len_s / rows_per_tile)`` tiles, at
+    most ``ceil(T / rows_per_tile) + S`` in all, and the blocks past the
+    real tiles zero the padded rows."""
+    rows = TILE_M // group
+    return -(-num_tokens // rows) + max_seqs, rows
 
 
 def ragged_paged_attention_ref(
@@ -110,6 +179,67 @@ def ragged_paged_attention_ref(
     return out.reshape(T, n_q, d).to(q.dtype)
 
 
+def ragged_paged_attention_split_ref(
+    q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *, sm_scale: float,
+    n_splits: int, pages_per_split: int, kv_scales=None,
+) -> torch.Tensor:
+    """Plain version of the split-KV decode arithmetic on the same plan:
+    each split's partial ``(m, l, o)`` over its chunk of the visible
+    positions, then the log-sum-exp merge of the splits that hold one.
+    Rows with no visible position and rows past ``cu[num_seqs]`` are zeros
+    (the kernels' rule; the reference averages over the masked span). Tests
+    only: nothing on the main path calls it."""
+    T, n_q, d = q.shape
+    n_pages, page_size, n_comb, _ = kv_pages.shape
+    n_kv = n_comb // 2
+    group = n_q // n_kv
+    S, pps = page_indices.shape
+    split_len = pages_per_split * page_size
+    span = n_splits * split_len
+    if span < pps * page_size:
+        raise ValueError(f"{n_splits} splits of {pages_per_split} pages miss the table's {pps}")
+    dev = q.device
+    cu, lens = cu_q_lens.long(), kv_lens.long()
+    t = torch.arange(T, dtype=torch.long, device=dev)
+    seq_id = (t[:, None] >= cu[None, 1:]).sum(dim=1).clamp(max=S - 1)
+    valid_row = t < cu.index_select(0, num_seqs.long())
+    abs_pos = lens[seq_id] - (cu[seq_id + 1] - cu[seq_id]) + (t - cu[seq_id])
+    n_vis = torch.minimum(abs_pos + 1, lens[seq_id]).clamp(min=0) * valid_row
+
+    # The table padded with its own garbage entries to the plan's span.
+    pages = page_indices.long()[seq_id]                                 # [T, pps]
+    pages = torch.cat([pages, pages[:, -1:].expand(T, span // page_size - pps)], dim=1)
+    offs = torch.arange(page_size, dtype=torch.long, device=dev)
+    slots = (pages[:, :, None] * page_size + offs).reshape(T, span)
+    flat = kv_pages.reshape(n_pages * page_size, n_comb, d)
+    if kv_scales is not None:
+        kvf = dequantize_kv(flat[slots], kv_scales.reshape(-1, n_comb)[slots])
+    else:
+        kvf = flat[slots].float()
+    k = kvf[:, :, 0::2].reshape(T, n_splits, split_len, n_kv, d)
+    v = kvf[:, :, 1::2].reshape(T, n_splits, split_len, n_kv, d)
+    qg = q.reshape(T, n_kv, group, d).float()
+    s = torch.einsum("thgd,tcphd->tchgp", qg, k) * sm_scale            # [T, c, h, g, p]
+    pos = torch.arange(span, dtype=torch.long, device=dev).reshape(n_splits, split_len)
+    seen = pos[None] < n_vis[:, None, None]                             # [T, c, p]
+    s = s.masked_fill(~seen[:, :, None, None, :], float("-inf"))
+
+    # Partials per split; a split with no visible position has l = 0.
+    has = seen.any(dim=-1)                                              # [T, c]
+    m = s.amax(dim=-1).masked_fill(~has[:, :, None, None], 0.0)         # [T, c, h, g]
+    p = torch.exp(s - m[..., None])
+    l_part = p.sum(dim=-1)
+    o_part = torch.einsum("tchgp,tcphd->tchgd", p, v)
+    # Merge by log-sum-exp over the splits that hold a position.
+    m_all = m.masked_fill(~has[:, :, None, None], float("-inf")).amax(dim=1, keepdim=True)
+    m_all = torch.nan_to_num(m_all, neginf=0.0)                        # rows with none
+    w = torch.where(has[:, :, None, None], torch.exp(m - m_all), 0.0)
+    num = (w[..., None] * o_part).sum(dim=1)                            # [T, h, g, d]
+    den = (w * l_part).sum(dim=1)
+    out = torch.where(den[..., None] > 0, num / den.clamp(min=1e-30)[..., None], 0.0)
+    return out.reshape(T, n_q, d).to(q.dtype)
+
+
 def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
                          kv_scales=None):
     dev = q.device
@@ -128,8 +258,8 @@ def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs
                 f"kv_scales must be [n_pages, page_size, 2*n_kv] = "
                 f"{tuple(kv_pages.shape[:-1])}, got {tuple(kv_scales.shape)}"
             )
-        if kv_scales.device != dev or not kv_scales.is_contiguous():
-            raise ValueError(f"kv_scales must be contiguous on {dev}")
+        if kv_scales.device != dev or not kv_scales.is_contiguous() or kv_scales.data_ptr() % 8:
+            raise ValueError(f"kv_scales must be contiguous and 8-byte aligned on {dev}")
     for name, a in (
         ("kv_lens", kv_lens), ("page_indices", page_indices),
         ("cu_q_lens", cu_q_lens), ("num_seqs", num_seqs),
@@ -173,72 +303,113 @@ def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs
         raise ValueError("q and kv_pages must be 16-byte aligned")
 
 
-def bind(lib: ctypes.CDLL, int8: bool = False):
-    """A C entry point of a built ``ragged_paged_attention.cu``, typed: the
-    bf16-page one, or with ``int8`` the one that also takes ``kv_scales``."""
-    if int8:
-        fn = lib.ragged_paged_attention_int8_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-    else:
-        fn = lib.ragged_paged_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-    fn.restype = ctypes.c_int
-    return fn
+class Entries(NamedTuple):
+    """The two C entry points of one page type of a built
+    ``ragged_paged_attention.cu``, typed."""
+
+    decode: object  # split-KV decode (+ combine)
+    tiled: object   # query-tiled tensor-core kernel
 
 
-_kernels: dict[bool, object] = {}  # bound once each, at the first CUDA call
+def bind(lib: ctypes.CDLL, int8: bool = False) -> Entries:
+    """The C entry points of a built ``ragged_paged_attention.cu``: the
+    bf16-page ones, or with ``int8`` the ones that also take ``kv_scales``."""
+    pages = [ctypes.c_void_p] * (2 if int8 else 1)
+    decode = getattr(lib, ENTRY_NAMES["decode", int8])
+    decode.argtypes = [ctypes.c_void_p] + pages + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    tiled = getattr(lib, ENTRY_NAMES["tiled", int8])
+    tiled.argtypes = [ctypes.c_void_p] + pages + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    for fn in (decode, tiled):
+        fn.restype = ctypes.c_int
+    return Entries(decode, tiled)
 
 
-def launch(fn, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
-           sm_scale: float, kv_scales=None) -> torch.Tensor:
-    """Run the C entry point ``fn`` (bound with ``int8=kv_scales is not
-    None``) on checked operands, on the current stream, into a fresh
-    output."""
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(kernel: str, num_tokens: int, n_q: int, n_kv: int, page_size: int,
+                pages_per_seq: int, max_seqs: int, sms: int) -> tuple[tuple[int, ...], int, int]:
+    """What ``kernel``'s C entry point takes besides pointers, worked out
+    once per shape: its int arguments (the dims, then the plan), and the
+    f32 counts of the decode plan's ``o`` and ``(m, l)`` partials (0 when
+    it writes the output directly, and for the tiled kernel)."""
+    dims = (num_tokens, n_q, n_kv, page_size, pages_per_seq, max_seqs)
+    if kernel == "tiled":
+        return (*dims, *tiled_plan(num_tokens, max_seqs, n_q // n_kv)), 0, 0
+    if kernel != "decode":
+        raise ValueError(f"kernel must be 'decode' or 'tiled', got {kernel!r}")
+    n_splits, per = decode_split_plan(num_tokens, n_kv, pages_per_seq, page_size, sms)
+    if n_splits == 1:
+        return (*dims, n_splits, per), 0, 0
+    o_shape, ml_shape = decode_scratch_shapes(num_tokens, n_q, n_kv, n_splits)
+    return (*dims, n_splits, per), math.prod(o_shape), math.prod(ml_shape)
+
+
+def launch(entries: Entries, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
+           sm_scale: float, kernel: str, kv_scales=None) -> torch.Tensor:
+    """Run ``kernel`` ("decode" or "tiled") from ``entries`` (bound with
+    ``int8=kv_scales is not None``) on checked operands, on the current
+    stream, into a fresh output; the decode plan's scratch is one f32
+    allocation here, ``(m, l)`` after ``o``."""
+    T, n_q, _ = q.shape
+    S, pps = page_indices.shape
+    ints, n_o, n_ml = launch_plan(kernel, T, n_q, kv_pages.shape[2] // 2, kv_pages.shape[1],
+                                  pps, S, sm_count(q.get_device()))
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    pages = [kv_pages.data_ptr()]
+    ptrs = [q.data_ptr(), kv_pages.data_ptr()]
     if kv_scales is not None:
-        pages.append(kv_scales.data_ptr())
-    rc = fn(
-        q.data_ptr(), *pages, kv_lens.data_ptr(),
-        page_indices.data_ptr(), cu_q_lens.data_ptr(), num_seqs.data_ptr(),
-        out.data_ptr(), q.shape[0], q.shape[1], kv_pages.shape[2] // 2,
-        kv_pages.shape[1], page_indices.shape[1], page_indices.shape[0],
-        float(sm_scale), stream,
-    )
+        ptrs.append(kv_scales.data_ptr())
+    ptrs += [kv_lens.data_ptr(), page_indices.data_ptr(), cu_q_lens.data_ptr(),
+             num_seqs.data_ptr(), out.data_ptr()]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if kernel == "decode":
+        part = [None, None]
+        if n_o:
+            scratch = torch.empty(n_o + n_ml, dtype=torch.float32, device=q.device)
+            part = [scratch.data_ptr(), scratch.data_ptr() + 4 * n_o]
+        rc = entries.decode(*ptrs, *part, *ints, float(sm_scale), stream)
+    else:
+        rc = entries.tiled(*ptrs, *ints, float(sm_scale), stream)
     if rc != 0:
-        raise RuntimeError(f"ragged_paged_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"ragged_paged_attention {kernel} kernel launch failed: CUDA error {rc}"
+        )
     return out
+
+
+_kernels: dict[bool, Entries] = {}  # bound once each, at the first CUDA call
 
 
 def ragged_paged_attention_cuda(
     q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *, sm_scale: float,
-    kv_scales=None,
+    kv_scales=None, kernel: str | None = None,
 ) -> torch.Tensor:
-    """Launch the hand-written Hopper kernel on the current stream: the
-    bf16-page instance, or the int8 one when ``kv_scales`` is given."""
-    global launches, launches_int8
+    """Launch a hand-written Hopper kernel on the current stream: the
+    bf16-page instance, or the int8 one when ``kv_scales`` is given; the
+    split-KV decode kernel when ``T == S``, else the tiled one (``kernel``
+    forces either)."""
     if not q.is_cuda:
         raise ValueError("ragged_paged_attention_cuda needs CUDA tensors")
     _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, kv_scales)
     if q.shape[0] == 0:
         return torch.empty_like(q)
     int8 = kv_scales is not None
-    fn = _kernels.get(int8)
-    if fn is None:
-        fn = _kernels[int8] = bind(_build.load("ragged_paged_attention"), int8)
+    entries = _kernels.get(int8)
+    if entries is None:
+        entries = _kernels[int8] = bind(_build.load("ragged_paged_attention"), int8)
+    kernel = kernel or kernel_for(q.shape[0], page_indices.shape[0])
     out = launch(
-        fn, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
-        sm_scale=sm_scale, kv_scales=kv_scales,
+        entries, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+        sm_scale=sm_scale, kv_scales=kv_scales, kernel=kernel,
     )
-    if int8:
-        launches_int8 += 1
-    else:
-        launches += 1
+    kernel_launches[ENTRY_NAMES[kernel, int8]] += 1
     return out
 
 

@@ -6,16 +6,28 @@ Run from the repository root on a machine with one CUDA card::
 
 Builds ``build_engine("llama3-8b")`` (random weights, default
 ``EngineConfig``; with ``--int8`` int8 weights and int8 KV pages, the
-capacity mode), warms it up with one short request, then runs seven
-prompts (100–2000 tokens, greedy, 64 new tokens each) through
-``EngineCore.step`` and traces two phases with ``torch.profiler``: the
-prefill wave, and the first two decode megasteps (k = 8 at width 8). For
-each phase it prints the host wall time (every step ends in the
+capacity mode) and first times the attention wrapper's host cost per call
+at the serving decode shape with trivial device work (8 rows that see one
+position each, bf16 pages). It warms the engine up with one short
+request, then runs seven prompts (100–2000 tokens, greedy, 64 new tokens
+each) through ``EngineCore.step`` twice. The first batch runs untraced:
+the prefill wave's wall time and each decode megastep's wall time per
+iteration (k = 8 at width 8), each step followed by a sync. The second
+batch (new prompts of the same lengths) traces two phases with
+``torch.profiler``: the prefill wave, and the first two decode
+megasteps. For each it prints the host wall time (every step ends in the
 device-to-host copy of its tokens, so wall time covers the device work),
 the device time from CUDA events, the summed kernel time by group
-(attention kernel, matrix products, everything else), the device's idle
+(attention kernel, matrix products, everything else; the attention kernel
+also by its kernels: split-KV decode, combine, tiled), the device's idle
 share (1 - kernel time / wall time) and the top kernels. ``--traces``
 also writes each phase's Chrome trace there (the decode phase's is ~60 MB).
+
+The script uses only the package's entry points, so it also measures
+another checkout's package, for a parent-against-change A/B in one call
+(parent, change, change, parent)::
+
+    PYTHONPATH=<other checkout> python3 dynamo_tpu_torch/tools/profile_serving.py
 """
 
 from __future__ import annotations
@@ -66,8 +78,14 @@ def _phase(core, n_steps: int, name: str, trace_dir: Path | None) -> dict:
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     groups: dict[str, float] = {}
-    for key, ms, _ in kernels:
+    attention: dict[str, list] = {}  # K1 by kernel: [ms, launches]
+    for key, ms, calls in kernels:
         groups[_group(key)] = groups.get(_group(key), 0.0) + ms
+        if _group(key) == "attention":
+            part = next((k for k in ("decode", "combine", "tiled") if f"_{k}_kernel" in key), key)
+            got = attention.setdefault(part, [0.0, 0])
+            got[0] += ms
+            got[1] += calls
     busy = sum(groups.values())
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     return {
@@ -75,8 +93,58 @@ def _phase(core, n_steps: int, name: str, trace_dir: Path | None) -> dict:
         "device_event_ms": start.elapsed_time(end), "kernel_ms": busy,
         "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
         "groups_ms": groups,
+        "attention_by_kernel": {k: {"ms": v[0], "launches": v[1]} for k, v in attention.items()},
         "top": [{"kernel": k[:90], "ms": ms, "calls": c} for k, ms, c in top],
     }
+
+
+def wrapper_host_us(reps: int = 500, rounds: int = 5) -> list[float]:
+    """The attention wrapper's host cost per call, ``rounds`` means of
+    ``reps`` back-to-back calls at the serving decode shape (T == S == 8,
+    pages_per_seq 256, 2049 pages of 32) where each row sees one position,
+    so the device keeps up and the host sets the pace."""
+    from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
+
+    dev = "cuda"
+    q = torch.randn(8, 32, 128, device=dev).bfloat16()
+    kv = torch.randn(2049, 32, 16, 128, device=dev).bfloat16()
+    lens = torch.ones(8, dtype=torch.int32, device=dev)
+    tables = (torch.arange(8 * 256, dtype=torch.int32, device=dev) % 2048).reshape(8, 256)
+    cu = torch.arange(9, dtype=torch.int32, device=dev)
+    ns = torch.tensor([8], dtype=torch.int32, device=dev)
+    call = lambda: ragged_paged_attention(q, kv, lens, tables, cu, ns, sm_scale=128 ** -0.5)  # noqa: E731
+    for _ in range(50):
+        call()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        out.append((time.perf_counter() - t0) * 1e6 / reps)
+        torch.cuda.synchronize()
+    return out
+
+
+def untraced_walls(core) -> dict:
+    """Run the queued batch to its end untraced: the prefill wave's wall
+    time and each full decode megastep's wall time per iteration, each
+    step followed by a sync."""
+    k = core.engine.megastep
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    core.step()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    per_iter = []
+    while core.has_work():
+        t0 = time.perf_counter()
+        core.step()
+        torch.cuda.synchronize()
+        per_iter.append((time.perf_counter() - t0) * 1e3 / k)
+    full = per_iter[:-1]  # the last step may run fewer than k iterations
+    return {"prefill_wave_ms": prefill_ms, "decode_ms_per_iteration": full,
+            "decode_median_ms_per_iteration": float(np.median(full))}
 
 
 def main() -> int:
@@ -87,6 +155,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA card", file=sys.stderr)
         return 2
+    import dynamo_tpu_torch
     from dynamo_tpu_torch.backends.torch.main import build_engine
     from dynamo_tpu_torch.llm.protocols.common import (
         PreprocessedRequest, SamplingOptions, StopConditions,
@@ -99,6 +168,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(f"card: {card}", flush=True)
+    host_us = wrapper_host_us()
+    print(f"attention wrapper host us per call (serving decode shape): "
+          + " ".join(f"{x:.1f}" for x in host_us), flush=True)
     if args.int8:
         core, _ = build_engine("llama3-8b", {"kv_dtype": "int8"}, seed=0, device="cuda", quant="int8")
     else:
@@ -117,6 +189,10 @@ def main() -> int:
     while core.has_work():
         core.step()
     for i, n in enumerate(PROMPT_LENS):
+        core.add_request(request(f"u{i}", n, 64))
+    walls = untraced_walls(core)
+    print(json.dumps({"untraced": walls}), flush=True)
+    for i, n in enumerate(PROMPT_LENS):
         core.add_request(request(f"r{i}", n, 64))
     phases = [
         _phase(core, 1, "prefill_wave", args.traces),
@@ -126,8 +202,10 @@ def main() -> int:
         print(json.dumps(p), flush=True)
     while core.has_work():
         core.step()
-    print(json.dumps({"card": card, "int8": args.int8, "phases": [
-        {k: p[k] for k in ("phase", "wall_ms", "kernel_ms", "idle_share", "groups_ms")}
+    print(json.dumps({"card": card, "int8": args.int8, "package": dynamo_tpu_torch.__file__,
+                      "wrapper_host_us": host_us, "untraced": walls, "phases": [
+        {k: p[k] for k in ("phase", "wall_ms", "kernel_ms", "idle_share", "groups_ms",
+                           "attention_by_kernel")}
         for p in phases
     ]}), flush=True)
     return 0

@@ -6,6 +6,9 @@ PyTorch; ``tests/conftest.py`` imports jax, so there run it without it::
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
+K1 has two kernels (split-KV decode and query-tiled); each runs forced on
+every case, plus the edges of their plans.
+
 Tolerance: the largest relative L2 error of one output vector (one query
 row, one head) is at most 1e-2. Both sides round to bf16 (~1e-3 per vector)
 and sum in other orders; the limit scales with the output, which shrinks as
@@ -45,14 +48,14 @@ def _card():
     return torch.device("cuda")
 
 
-def make_batch(q_lens, kv_lens, S, pages_per_seq, n_kv, group, seed):
+def make_batch(q_lens, kv_lens, S, pages_per_seq, n_kv, group, seed, pad=5):
     """bf16 operands on the card: sequence s owns q rows cu[s]..cu[s+1]-1
-    and its own pages; table entries past its pages and rows past the last
-    sequence point at the garbage page (the last one)."""
+    and its own pages; table entries past its pages and the ``pad`` rows
+    past the last sequence point at the garbage page (the last one)."""
     dev = _card()
     rng = np.random.default_rng(seed)
     n_pages = S * pages_per_seq + 1
-    T = sum(q_lens) + 5  # padded rows past cu[num_seqs]
+    T = sum(q_lens) + pad
     q = rng.standard_normal((T, n_kv * group, D)).astype(np.float32)
     kv = rng.standard_normal((n_pages, PAGE, 2 * n_kv, D)).astype(np.float32)
     perm = rng.permutation(n_pages - 1).astype(np.int32)
@@ -108,6 +111,81 @@ def test_int8_kernel_matches_plain(case):
     rel = _row_rel(got[:n], want[:n])
     assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
     assert not got[n:].any(), "rows past the last sequence are zero"
+
+
+def _split_edge_lens():
+    """kv lengths at the decode plan's split edge and one past it, for the
+    plan the wrapper picks at this case's shape (T = 4 + 5 padded rows)."""
+    n, per = ra.decode_split_plan(9, 8, 128, PAGE, ra.sm_count(_card().index or 0))
+    edge = per * PAGE
+    return [edge, edge + 1, 2 * edge, 2 * edge + 1]
+
+
+# Edges of the two kernels' plans (llama3-8b heads unless stated).
+EDGE_CASES = {
+    # q_lens, kv_lens (None: from the decode plan), S, pages_per_seq, n_kv, group
+    "split_edges": ([1, 1, 1, 1], None, 4, 128, 8, 4),
+    "page_edges": ([1, 1, 1, 1], [32, 33, 64, 31], 4, 4, 8, 4),
+    "tile_straddles_sequences": ([10, 30, 7], [10, 45, 200], 3, 8, 8, 4),
+    "shorter_than_a_tile": ([5, 1, 3], [5, 70, 3], 3, 4, 8, 4),
+    "prefill": ([100, 37, 64], [100, 37, 64], 3, 4, 8, 4),
+    "q_len_zero_prefill": ([0, 40, 0, 16], [30, 40, 9, 80], 4, 4, 8, 4),
+    "num_seqs_below_S_prefill": ([17, 64], [17, 100], 5, 4, 8, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("kernel", ["decode", "tiled"])
+@pytest.mark.parametrize("case", list(CASES) + list(EDGE_CASES))
+def test_each_kernel_matches_plain(case, kernel, pages):
+    """Both kernels, forced, in both page types, on every case: each is
+    right on every ragged batch, not only the ones the wrapper picks it
+    for."""
+    q_lens, kv_lens, *rest = {**CASES, **EDGE_CASES}[case]
+    if kv_lens is None:
+        kv_lens = _split_edge_lens()
+    q, kv, *ops = make_batch(q_lens, kv_lens, *rest, seed=4)
+    kw = {}
+    if pages == "int8":
+        kv, kw["kv_scales"] = quantize_kv(kv)
+    name = ra.ENTRY_NAMES[kernel, pages == "int8"]
+    before = ra.kernel_launches[name]
+    got = ra.ragged_paged_attention_cuda(q, kv, *ops, sm_scale=D ** -0.5, kernel=kernel, **kw)
+    assert ra.kernel_launches[name] == before + 1
+    want = ra.ragged_paged_attention_ref(q, kv, *ops, sm_scale=D ** -0.5, **kw)
+    n = sum(q_lens)
+    rel = _row_rel(got[:n], want[:n])
+    assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
+    assert not got[n:].any(), "rows past the last sequence are zero"
+
+
+# The smoke's serving prompts (100-2000 tokens) 48 tokens into decode;
+# 2000 + 48 ends on a split edge of the serving plan (8 pages a split).
+SERVING_DECODE_LENS = [n + 48 for n in (2000, 1124, 100, 700, 1500, 300, 1800, 1074)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_serving_decode_shape(pages):
+    """The engine's decode form at its serving shape: T == S == 8, no padded
+    rows, pages_per_seq 256 (the default EngineConfig), so the dispatch
+    takes the decode kernel with the serving plan's many splits and its
+    combine."""
+    dev = _card()
+    n, per = ra.decode_split_plan(8, 8, 256, PAGE, ra.sm_count(dev.index or 0))
+    assert n > 16 and n * per >= 256, (n, per)
+    q, kv, *ops = make_batch([1] * 8, SERVING_DECODE_LENS, 8, 256, 8, 4, seed=6, pad=0)
+    kw = {}
+    if pages == "int8":
+        kv, kw["kv_scales"] = quantize_kv(kv)
+    name = ra.ENTRY_NAMES["decode", pages == "int8"]
+    before = ra.kernel_launches[name]
+    got = ra.ragged_paged_attention(q, kv, *ops, sm_scale=D ** -0.5, **kw)
+    assert ra.kernel_launches[name] == before + 1
+    want = ra.ragged_paged_attention_ref(q, kv, *ops, sm_scale=D ** -0.5, **kw)
+    rel = _row_rel(got, want)
+    assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
 
 
 K2_CASES = {
