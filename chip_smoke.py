@@ -15,10 +15,13 @@ each forced, with bf16 and with int8 pages, at llama3-8b head shapes,
 among them the serving decode form's and the prefill wave's, beside a
 yardstick of a different function (dense causal
 ``scaled_dot_product_attention`` on the same rows laid out
-contiguously); K2 (paged decode attention) with bf16 and int8
-pages, with and without the self position, at the int8-against-bf16
-comparison's shape and llama3-8b decode shapes; and shows that the
-comparison fails every planted fault, (4) runs K2's own path, that
+contiguously); K2 (split-KV paged decode attention and its combine)
+with bf16 and int8 pages, with and without the self position, at the
+int8-against-bf16 comparison's shape and llama3-8b decode shapes, each
+with its planned split count; and shows that the comparison fails every
+planted fault (K2: the self position dropped, a tile dropped, the combine
+dropping the last split, two splits overlapping by a page, int8 V with
+K's scale), (4) runs K2's own path, that
 int8-page against bf16-page decode-attention comparison, through
 ``paged_attention``, (5) serves 8 requests through
 ``build_engine("llama3-8b")`` and ``TorchEngine.generate`` at full width
@@ -352,9 +355,28 @@ PLANTED_FAULTS_INT8 = {
         ),
     },
 }
-# K2: the self position left out.
+# K2: each fault runs on every with-self batch of its page types.
 PLANTED_FAULTS_K2 = {
-    "drops_self_position": ("if (k_self != nullptr) {", "if (false) {"),
+    "drops_self_position": ("if (s_self != nullptr) {", "if (false) {"),
+    "k2_drops_a_tile": (
+        "    const unsigned char* st = ring + (it % kStages) * kStageBytes;",
+        "    if (it == 1) continue;\n    const unsigned char* st = ring + (it % kStages) * kStageBytes;",
+    ),
+    "k2_combine_drops_last_split": (
+        "min(n_splits, (n_vis + split_len - 1) / split_len)",
+        "max(1, min(n_splits, (n_vis + split_len - 1) / split_len) - 1)",
+    ),
+    "k2_splits_overlap_by_a_page": (
+        "const int c0 = split * split_len;",
+        "const int c0 = max(0, split * split_len - block_size);",
+    ),
+}
+# K2's int8 instances only: V rows dequantized with K's scale.
+PLANTED_FAULTS_K2_INT8 = {
+    "k2_int8_v_takes_k_scale": (
+        "const float vsc = kQuant ? sc[kTile + p] : 1.f;",
+        "const float vsc = kQuant ? sc[p] : 1.f;",
+    ),
 }
 
 
@@ -372,10 +394,13 @@ def build_planted(tmp: str) -> dict:
         _build.build(src, src.with_suffix(".so"))
         return ctypes.CDLL(str(src.with_suffix(".so")))
 
-    pool = ThreadPoolExecutor(16)
     jobs = [("ragged_paged_attention.cu", f) for table in (PLANTED_FAULTS, PLANTED_FAULTS_INT8)
             for f in table.values()]
-    jobs.append(("paged_attention.cu", PLANTED_FAULTS_K2))
+    jobs += [("paged_attention.cu", PLANTED_FAULTS_K2), ("paged_attention.cu", PLANTED_FAULTS_K2_INT8)]
+    names = [name for _, faults in jobs for name in faults]
+    if len(set(names)) != len(names):
+        raise AssertionError(f"planted-fault names repeat: {sorted(names)}")
+    pool = ThreadPoolExecutor(len(names))
     futures = {
         name: pool.submit(build, source, name, old, new)
         for source, faults in jobs for name, (old, new) in faults.items()
@@ -534,16 +559,21 @@ def check_paged_attention_kernel(pa) -> tuple[list[dict], list[tuple]]:
                 bound_ms, bound_by = k2_bound(c["B"], c["n_kv"], c["group"], c["bs"], c["lens"],
                                               c["q_dtype"], int8=int8, with_self=with_self)
                 pages = "int8" if int8 else "bf16"
+                n_splits = pa.launch_plan(c["B"], c["n_kv"] * c["group"], c["n_kv"], c["bs"],
+                                          c["max_blocks"], pa.sm_count(0))[0][-2]
                 results.append(dict(
                     shape=shape, pages=pages, self=with_self, B=c["B"], q_dtype=str(c["q_dtype"]),
+                    n_splits=n_splits,
                     max_seq_len=max(c["lens"]), ok=ok, max_row_rel_err=rel, max_abs_err=err,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 ))
                 print(f"paged_attention {shape} {pages} pages self={with_self}: ok={ok} "
                       f"max_row_rel_err={rel:.3e} max_abs_err={err:.3e} kernel {ms:.4f} ms "
-                      f"plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                      f"plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by}); {n_splits} "
+                      f"splits; kernel/bound {ms / bound_ms:.1f}x; kernel/plain {ms / plain_ms:.4f}",
+                      flush=True)
                 if with_self:
-                    batches.append((f"{shape}_{pages}", args, kw, want))
+                    batches.append((shape, pages, args, kw, want))
                 if not ok:
                     raise AssertionError(f"paged_attention kernel disagrees with its plain "
                                          f"version on {shape} ({pages} pages, self={with_self})")
@@ -552,19 +582,24 @@ def check_paged_attention_kernel(pa) -> tuple[list[dict], list[tuple]]:
     return results, batches
 
 
-def check_k2_planted_fault(pa, batches, libs) -> dict:
-    """K2 with its self position left out must fail the limit."""
+def check_k2_planted_faults(pa, batches, libs) -> dict:
+    """Each of K2's planted faults, run with the planned split count on the
+    with-self batches (the int8-only fault on the int8 ones), must fail the
+    limit on at least one of them."""
     found = {}
-    for name in PLANTED_FAULTS_K2:
-        fn = pa.bind(libs[name].result())
-        rels = {shape: compare(pa.launch(fn, *args, **kw), want, args[0].shape[0])[0]
-                for shape, args, kw, want in batches}
-        found[name] = max(rels.values())
-        print(f"planted fault {name}: max_row_rel_err by batch "
-              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-              + f"; caught={found[name] > ROW_REL_TOL}", flush=True)
-        if found[name] <= ROW_REL_TOL:
-            raise AssertionError(f"the comparison passes planted fault {name}")
+    for table, pages in ((PLANTED_FAULTS_K2, ("bf16", "int8")), (PLANTED_FAULTS_K2_INT8, ("int8",))):
+        for name in table:
+            fn = pa.bind(libs[name].result())
+            rels = {f"{shape}_{p}": compare(pa.launch(fn, *args, **kw), want, args[0].shape[0])[0]
+                    for shape, p, args, kw, want in batches if p in pages}
+            torch.cuda.synchronize()
+            found[name] = max(rels.values())
+            caught = not found[name] <= ROW_REL_TOL  # a NaN fails the limit too
+            print(f"planted fault {name} (paged_attention): max_row_rel_err by batch "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+                  + f"; caught={caught}", flush=True)
+            if not caught:
+                raise AssertionError(f"the comparison passes planted fault {name}")
     return found
 
 
@@ -841,7 +876,7 @@ def main() -> int:
         shapes += check_serving_prefill_shape(ra, prompt_lens)
         shapes8 += check_serving_prefill_shape(ra, prompt_lens, int8=True)
         k2_shapes, k2_batches = check_paged_attention_kernel(pa)
-        k2_faults = check_k2_planted_fault(pa, k2_batches, planted)
+        k2_faults = check_k2_planted_faults(pa, k2_batches, planted)
         del k2_batches
         torch.cuda.empty_cache()
 
@@ -891,7 +926,7 @@ def main() -> int:
     print(json.dumps({"kernels": k1 + [
         kernel_entry("paged_attention_launch", k2_src, "dynamo_tpu/ops/paged_attention.py:216",
                      k2["launches"]["bf16"], k2_shapes_of("bf16"), k2_main("bf16"), pages="bf16",
-                     planted_faults_row_rel_err=k2_faults),
+                     planted_faults_row_rel_err={f: k2_faults[f] for f in PLANTED_FAULTS_K2}),
         kernel_entry("paged_attention_launch (int8 pages)", k2_src,
                      "dynamo_tpu/ops/paged_attention.py:216",
                      k2["launches"]["int8"], k2_shapes_of("int8"), k2_main("int8"), pages="int8",

@@ -7,7 +7,9 @@ PyTorch; ``tests/conftest.py`` imports jax, so there run it without it::
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
 K1 has two kernels (split-KV decode and query-tiled); each runs forced on
-every case, plus the edges of their plans.
+every case, plus the edges of their plans. K2 (split-KV paged decode and
+its combine) runs its planned split count and, forced, one split and one
+page per split on every case.
 
 Tolerance: the largest relative L2 error of one output vector (one query
 row, one head) is at most 1e-2. Both sides round to bf16 (~1e-3 per vector)
@@ -194,6 +196,7 @@ K2_CASES = {
     "decode8_llama": (8, 8, 4, 32, 128, [4096, 3000, 2048, 1500, 1024, 700, 300, 0]),
     "group1_edges": (3, 4, 1, 16, 5, [1, 80, 95]),
     "group8": (4, 2, 8, 32, 3, [31, 32, 33, 96]),
+    "decode64": (64, 8, 4, 32, 128, [int(x) for x in np.random.default_rng(2).integers(1, 4097, 64)]),
 }
 
 
@@ -235,6 +238,56 @@ def test_paged_attention_kernel_matches_plain(case, q_dtype, quant, with_self):
     want = pa.paged_attention_reference(*args, block_size=bs, **kw)
     rel = _row_rel(got, want)
     assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits", ["one", "many"])
+@pytest.mark.parametrize("with_self", [False, True], ids=["cache_only", "with_self"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16_pages", "int8_pages"])
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_paged_attention_forced_splits(case, quant, with_self, n_splits):
+    """Each K2 case with the plan forced to one split (the block writes the
+    output, folding in self) and to one page per split (partials and the
+    combine), with bf16 q (f32 q at the comparison's shape)."""
+    B, n_kv, group, bs, max_blocks, lens = K2_CASES[case]
+    if not with_self:
+        lens = [max(1, n) for n in lens]
+    q_dtype = torch.float32 if case == "bench_kvquant" else torch.bfloat16
+    args, kw = k2_operands(B, n_kv, group, bs, max_blocks, lens, q_dtype=q_dtype,
+                           quant=quant, with_self=with_self, seed=5)
+    counter = "launches_int8" if quant else "launches"
+    before = getattr(pa, counter)
+    forced = 1 if n_splits == "one" else max_blocks
+    got = pa.paged_attention_cuda(*args, block_size=bs, n_splits=forced, **kw)
+    assert getattr(pa, counter) == before + 1
+    want = pa.paged_attention_reference(*args, block_size=bs, **kw)
+    rel = _row_rel(got, want)
+    assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits", [1, 3, None], ids=["one", "three", "planned"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16_pages", "int8_pages"])
+def test_paged_attention_sequence_that_sees_nothing(quant, n_splits):
+    """seq_len 0: zeros without self, the self value with it (every head of
+    the group); the other rows still match the plain version."""
+    B, n_kv, group, bs, max_blocks = 4, 8, 4, 32, 6
+    lens = [0, 100, 0, 192]
+    for with_self in (False, True):
+        args, kw = k2_operands(B, n_kv, group, bs, max_blocks, lens, q_dtype=torch.bfloat16,
+                               quant=quant, with_self=with_self, seed=9)
+        counter = "launches_int8" if quant else "launches"
+        before = getattr(pa, counter)
+        got = pa.paged_attention_cuda(*args, block_size=bs, n_splits=n_splits, **kw)
+        assert getattr(pa, counter) == before + 1
+        want = pa.paged_attention_reference(*args, block_size=bs, **kw)
+        assert _row_rel(got[[1, 3]], want[[1, 3]]) <= ROW_REL_TOL
+        for b in (0, 2):
+            if with_self:
+                v_self = kw["v_self"][b].float().repeat_interleave(group, dim=0)
+                assert _row_rel(got[b], v_self) <= ROW_REL_TOL
+            else:
+                assert not got[b].any(), "no position and no self: zeros"
 
 
 @pytest.mark.cuda
