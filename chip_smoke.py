@@ -29,7 +29,23 @@ and depth with random weights, bf16 first, then, with the bf16 engine
 freed, int8 weights and int8 KV pages (``{"kv_dtype": "int8"}``,
 ``quant="int8"``), checking token counts, finish reasons, the prefix
 cache, the launch counts of K1 and of each of its kernels, finite logits
-and megastep k=1 == k=8 greedy streams, and (6) prints a JSON line of
+and megastep k=1 == k=8 greedy streams, (6) runs the worker process:
+the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
+``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
+--preset llama3-8b --seed 0`` as subprocesses, waits for the model card
+through the port's discovery and sends requests through the port's
+data-plane client: 4 greedy prompts one at a time, whose streams must
+equal those of ``build_engine("llama3-8b", seed=0)`` in this process
+(run first with the same traffic, and freed), then all 8 at once, then,
+with the prefix cache cleared, all 8 again staggered (one, and the other
+7 0.1 s later, an arrival pattern neither path shapes), with time to
+first token and decode ms per iteration printed beside the in-process
+engine's, then one prompt again, which must report cached tokens and
+whose full blocks' hashes must be among the worker's KV events; the
+worker's own counters must show K1's two kernels launched once per layer
+of every forward; it also times the data plane alone, a server process
+replaying the batch's recorded chunks to a client in this process, and
+(7) prints a JSON line of
 kernel measurements (one record per C entry point) and, last, a JSON
 status line. Any failed check raises and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
@@ -41,6 +57,9 @@ import asyncio
 import ctypes
 import gc
 import json
+import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -814,6 +833,376 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     }
 
 
+# -- the worker process --------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+WORKER_SOLO = ("long", "prefix_a", "mid", "short")  # greedy prompts sent one at a time
+WORKER_RESEND = "mid"
+# The staggered batch: STAGGER_FIRST alone, the other 7 STAGGER_DELAY_S
+# later. Its prefill step ends at ~25 ms and its first decode megastep
+# lasts 8 iterations of 20 ms or more, so the 7 arrive inside that
+# megastep through either path and share the next wave.
+STAGGER_FIRST, STAGGER_DELAY_S = "short", 0.1
+DATAPLANE_REPEATS = 40  # replays of the worker's batch chunks per stream
+
+
+async def timed_stream(open_stream, rid, prompt, sampling) -> dict:
+    """One request's output chunks with the client's clock: time to the
+    first chunk, and ms per token after the first."""
+    t0 = time.perf_counter()
+    outs, stamps = [], []
+    async for out in await open_stream(wire(rid, prompt, sampling)):
+        outs.append(out)
+        stamps.append(time.perf_counter())
+    tokens = [t for o in outs for t in o["token_ids"]]
+    meta = {k: v for o in outs for k, v in o.get("meta", {}).items()}
+    return {
+        "rid": rid, "outs": outs, "tokens": tokens, "finish": outs[-1].get("finish_reason"),
+        "cached_tokens": meta.get("cached_tokens"),
+        "first_iteration": meta.get("iteration"),  # the engine step that emitted it
+        "ttft_ms": 1e3 * (stamps[0] - t0),
+        "tpot_ms": 1e3 * (stamps[-1] - stamps[0]) / max(1, len(tokens) - 1),
+    }
+
+
+async def staggered_batch(open_stream, by_id: dict) -> list[dict]:
+    """The 8 serving prompts in an arrival pattern that neither path
+    shapes: ``STAGGER_FIRST`` alone, the other 7 ``STAGGER_DELAY_S``
+    later."""
+    first = asyncio.create_task(timed_stream(open_stream, *by_id[STAGGER_FIRST]))
+    await asyncio.sleep(STAGGER_DELAY_S)
+    rest = asyncio.gather(
+        *(timed_stream(open_stream, *r) for rid, r in by_id.items() if rid != STAGGER_FIRST))
+    return [await first, *await rest]
+
+
+async def worker_traffic(open_stream, vocab: int) -> dict:
+    """What the worker phase sends, the same through either path: the
+    ``WORKER_SOLO`` prompts one at a time; all 8 serving prompts at once;
+    a ``clear_kv_blocks`` request, so that the next batch prefills what
+    the first did; the 8 staggered (:func:`staggered_batch`); then
+    ``WORKER_RESEND`` again."""
+    reqs, late, _ = serving_requests(vocab)
+    by_id = {r[0]: r for r in reqs + [late]}
+    solo = [await timed_stream(open_stream, *by_id[rid]) for rid in WORKER_SOLO]
+    batch = await asyncio.wait_for(
+        asyncio.gather(*(timed_stream(open_stream, *r) for r in by_id.values())), timeout=600
+    )
+    cleared = [out async for out in await open_stream(
+        {"request_id": "clear", "clear_kv_blocks": True})]
+    if not cleared or not cleared[-1].get("cleared_blocks"):
+        raise AssertionError(f"clear_kv_blocks answered {cleared}")
+    staggered = await asyncio.wait_for(staggered_batch(open_stream, by_id), timeout=600)
+    resend = await timed_stream(open_stream, *by_id[WORKER_RESEND])
+    for r in solo + list(batch) + staggered + [resend]:
+        if len(r["tokens"]) != MAX_TOKENS or r["finish"] != "length":
+            raise AssertionError(f"{r['rid']}: {len(r['tokens'])} tokens, finish {r['finish']!r}")
+    return {"solo": solo, "batch": list(batch), "staggered": staggered, "resend": resend,
+            "prompts": {rid: r[1] for rid, r in by_id.items()}}
+
+
+def replay_server(address: str, chunks_path: str) -> None:
+    """The data-plane probe's server, run by :func:`dataplane_cost` in a
+    process of its own (``python -c``): serves ``dataplane_probe/replay``,
+    which streams a request's recorded chunks ``DATAPLANE_REPEATS`` times,
+    or, asked for ``cpu``, this process's CPU seconds; until it is killed."""
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+
+    chunks = json.loads(Path(chunks_path).read_text())
+
+    async def handler(request, context):
+        if request.get("cpu"):
+            yield {"cpu_s": time.process_time()}
+            return
+        for _ in range(DATAPLANE_REPEATS):
+            for out in chunks[request["rid"]]:
+                yield out
+
+    async def serve():
+        rt = await DistributedRuntime.create(address)
+        await rt.namespace("dynamo").component("dataplane_probe").endpoint("replay").serve(handler)
+        await asyncio.Event().wait()
+
+    asyncio.run(serve())
+
+
+async def dataplane_cost(rt, address: str, chunks: dict[str, list[dict]]) -> dict:
+    """The data plane's host cost per streamed chunk and token, with no
+    engine: a server process (:func:`replay_server`) replays each
+    request's recorded chunks ``DATAPLANE_REPEATS`` times to this
+    process's client, one stream per request, all at once, as a worker
+    streams to a frontend. Each end's CPU time is its whole host cost of
+    the chunks: the handler and encoding and framing on the server,
+    reading and decoding on the client."""
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "chunks.json").write_text(json.dumps(chunks))
+        with open(Path(tmp) / "server.log", "w") as log_file:
+            server = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.replay_server(*sys.argv[1:])",
+                 address, str(Path(tmp) / "chunks.json")],
+                cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT,
+            )
+        try:
+            client = await rt.namespace("dynamo").component("dataplane_probe").endpoint(
+                "replay").client()
+            await client.wait_for_instances(1, timeout=120)
+
+            async def stream(request) -> list[dict]:
+                return [out async for out in await client.round_robin(request)]
+
+            await stream({"rid": next(iter(chunks))})  # opens the connection
+            server_c0 = (await stream({"cpu": True}))[0]["cpu_s"]
+            t0, c0 = time.perf_counter(), time.process_time()
+            outs = await asyncio.wait_for(
+                asyncio.gather(*(stream({"rid": rid}) for rid in chunks)), timeout=300)
+            wall_s, client_s = time.perf_counter() - t0, time.process_time() - c0
+            server_s = (await stream({"cpu": True}))[0]["cpu_s"] - server_c0
+        except BaseException:
+            print(f"replay server log:\n{(Path(tmp) / 'server.log').read_text()[-4000:]}",
+                  file=sys.stderr)
+            raise
+        finally:
+            stop_process(server, signal.SIGKILL, 10)
+    n = sum(len(o) for o in outs)
+    tokens = sum(len(c["token_ids"]) for o in outs for c in o)
+    if n != DATAPLANE_REPEATS * sum(len(c) for c in chunks.values()):
+        raise AssertionError(f"the replay streamed {n} chunks")
+    return {"streams": len(chunks), "chunks": n, "tokens": tokens,
+            "wall_ms_per_chunk": 1e3 * wall_s / n,
+            "server_cpu_ms_per_chunk": 1e3 * server_s / n,
+            "server_cpu_ms_per_token": 1e3 * server_s / tokens,
+            "client_cpu_ms_per_chunk": 1e3 * client_s / n,
+            "client_cpu_ms_per_token": 1e3 * client_s / tokens}
+
+
+def in_process_traffic(preset: str, device: str) -> tuple[dict, dict]:
+    """The worker phase's traffic through ``build_engine`` in this process,
+    warmed up as the worker warms up; the engine is freed on return."""
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    core, engine = build_engine(preset, seed=0, device=device)
+    core.warm_up()
+
+    async def open_stream(req):
+        return engine.generate(req, Context(req["request_id"]))
+
+    got = asyncio.run(worker_traffic(open_stream, core.cfg.vocab_size))
+    stats = core.scheduler_stats()
+    del core, engine
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return got, stats
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_for_port(port: int, proc, timeout: float) -> None:
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise RuntimeError(f"store exited with {proc.returncode}")
+        with socket.socket() as s:
+            if s.connect_ex(("127.0.0.1", port)) == 0:
+                return
+        time.sleep(0.1)
+    raise TimeoutError(f"store never listened on port {port}")
+
+
+async def drive_worker(address: str, worker, vocab: int) -> tuple[dict, list, object]:
+    """Wait for the worker's model card through the port's discovery, send
+    the worker phase's traffic through the port's data-plane client, and
+    collect the KV events the worker put on the store."""
+    from dynamo_tpu_torch.llm.discovery import ModelWatcher
+    from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent, kv_events_subject
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+
+    rt = await DistributedRuntime.create(address)
+    try:
+        events = await rt.store.subscribe(kv_events_subject("dynamo", "backend"))
+        received: list = []
+
+        async def collect_events():
+            async for ev in events:
+                received.append(RouterEvent.from_wire(ev["p"]))
+
+        collector = asyncio.create_task(collect_events())
+        cards: list = []
+        watcher = ModelWatcher(rt.store)
+
+        async def on_added(entry, card):
+            cards.append(card)
+
+        watcher.on_model_added.append(on_added)
+        await watcher.start()
+        t0 = time.time()
+        while not cards:
+            if worker.poll() is not None:
+                raise RuntimeError(f"worker exited with {worker.returncode} before registering")
+            if time.time() - t0 > 600:
+                raise TimeoutError("the worker's model card never appeared")
+            await asyncio.sleep(0.5)
+        print(f"worker registered model {cards[0].name!r} after {time.time() - t0:.1f} s "
+              f"(kv_block_size {cards[0].kv_block_size}, "
+              f"{cards[0].runtime_config.total_kv_blocks} blocks)", flush=True)
+        client = await rt.namespace("dynamo").component("backend").endpoint("generate").client()
+        await client.wait_for_instances(1, timeout=30)
+
+        async def open_stream(req):
+            return await client.round_robin(req)
+
+        got = await worker_traffic(open_stream, vocab)
+        await asyncio.sleep(1.0)  # the last KV events are in flight
+        collector.cancel()
+        await watcher.stop()
+        got["dataplane"] = await dataplane_cost(
+            rt, address, {r["rid"]: r["outs"] for r in got["batch"]})
+        return got, received, cards[0]
+    finally:
+        await rt.shutdown()
+
+
+def stop_process(proc, sig=signal.SIGINT, timeout=60.0) -> None:
+    if proc.poll() is None:
+        proc.send_signal(sig)
+        try:
+            proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def worker_stats(log_path: Path) -> dict:
+    """The counters the worker logs as it stops."""
+    for line in reversed(log_path.read_text().splitlines()):
+        if " stopping: " in line:
+            return json.loads(line.split(" stopping: ", 1)[1])
+    raise AssertionError(f"the worker logged no counters; log tail:\n{log_path.read_text()[-4000:]}")
+
+
+def summarize(name: str, got: dict) -> dict:
+    row = {"path": name, "solo_ttft_ms": {r["rid"]: r["ttft_ms"] for r in got["solo"]}}
+    for key in ("batch", "staggered"):
+        runs = sorted(got[key], key=lambda r: r["rid"])
+        first = min(r["first_iteration"] for r in runs)
+        row |= {
+            f"{key}_ttft_ms": {r["rid"]: r["ttft_ms"] for r in runs},
+            f"{key}_tpot_ms": {r["rid"]: r["tpot_ms"] for r in runs},
+            # The engine step (1 = the batch's first) that emitted each first token.
+            f"{key}_first_step": {r["rid"]: r["first_iteration"] - first + 1 for r in runs},
+            f"{key}_tpot_ms_median": float(np.median([r["tpot_ms"] for r in runs])),
+        }
+    row["resend_cached_tokens"] = got["resend"]["cached_tokens"]
+    return row
+
+
+def serve_worker(card: str, preset: str = "llama3-8b", device: str = "cuda") -> dict:
+    """The worker process: the port's store and
+    ``python -m dynamo_tpu_torch.backends.torch`` as subprocesses, driven
+    through the port's discovery and data-plane client. Its solo greedy
+    streams must equal the in-process engine's (run first, and freed, so
+    one engine is on the card at a time); the 8-request batch's times are
+    printed beside the in-process engine's; a resent prompt must report
+    cached tokens, and the worker's KV events must carry the block hashes
+    of the prompt's full blocks."""
+    from dynamo_tpu_torch.engine.config import PRESETS
+    from dynamo_tpu_torch.tokens import compute_seq_hashes
+
+    cfg = PRESETS[preset]()
+    ref, ref_stats = in_process_traffic(preset, device)
+    print(f"worker phase: in-process reference done ({len(ref['solo'])} solo, "
+          f"{len(ref['batch'])} concurrent, 1 resent)", flush=True)
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_worker_"))
+    port = free_port()
+    with open(logs / "store.log", "w") as store_log, open(logs / "worker.log", "w") as worker_log:
+        store = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(port)],
+            cwd=ROOT, stdout=store_log, stderr=subprocess.STDOUT,
+        )
+        worker = None
+        try:
+            wait_for_port(port, store, 30)
+            t0 = time.time()
+            worker = subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.backends.torch",
+                 "--model-name", preset, "--preset", preset, "--seed", "0", "--device", device],
+                cwd=ROOT, stdout=worker_log, stderr=subprocess.STDOUT,
+                env={**os.environ, "DYN_STORE_ADDRESS": f"127.0.0.1:{port}"},
+            )
+            got, events, mdc = asyncio.run(drive_worker(f"127.0.0.1:{port}", worker, cfg.vocab_size))
+            stop_process(worker)
+            if worker.returncode != 0:
+                raise AssertionError(f"worker exited with {worker.returncode}")
+            print(f"worker phase: worker up and served in {time.time() - t0:.1f} s", flush=True)
+        except BaseException:
+            print(f"worker log tail:\n{(logs / 'worker.log').read_text()[-6000:]}", file=sys.stderr)
+            raise
+        finally:
+            if worker is not None:
+                stop_process(worker, signal.SIGKILL, 10)
+            stop_process(store, signal.SIGTERM, 10)
+    stats = worker_stats(logs / "worker.log")
+
+    for w, r in zip(got["solo"], ref["solo"]):
+        same = w["outs"] == r["outs"]
+        print(f"worker solo {w['rid']}: {len(w['tokens'])} tokens, greedy stream equal to "
+              f"the in-process engine's: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{w['rid']}: the worker's greedy stream differs from build_engine's")
+    resend = got["resend"]
+    prompt = got["prompts"][WORKER_RESEND]
+    full = compute_seq_hashes(prompt, mdc.kv_block_size)
+    stored = {h for ev in events if ev.event.op == "stored" for h in ev.event.block_hashes}
+    if not resend["cached_tokens"] or not set(full) <= stored:
+        raise AssertionError(
+            f"resent {WORKER_RESEND}: cached_tokens {resend['cached_tokens']}, "
+            f"{len(set(full) & stored)} of its {len(full)} full blocks in the worker's KV events"
+        )
+    print(f"worker resend {WORKER_RESEND}: cached_tokens {resend['cached_tokens']}; all "
+          f"{len(full)} full-block hashes of the prompt among the {len(stored)} stored hashes "
+          f"of {len(events)} KV events", flush=True)
+    kernels = stats["kernel_launches"]
+    if (device == "cuda" and (
+            stats["attention_launches"]
+            != cfg.num_layers * (stats["forwards"] + stats["warm_up_forwards"])
+            or stats["attention_launches_int8"] != 0
+            or min(kernels[k] for k in ("ragged_paged_attention_decode_launch",
+                                        "ragged_paged_attention_tiled_launch")) == 0)):
+        raise AssertionError(f"the worker's K1 launches do not match its forwards: {stats}")
+    decode_ms = {"worker": 1e3 * stats["decode_s"] / stats["decode_iterations"],
+                 "in_process": 1e3 * ref_stats["decode_s"] / ref_stats["decode_iterations"]}
+    rows = [summarize("worker", got), summarize("in_process", ref)]
+    for key in ("batch", "staggered"):
+        for rid in sorted(rows[0][f"{key}_ttft_ms"]):
+            print(f"{key} {rid}: TTFT worker {rows[0][f'{key}_ttft_ms'][rid]:.1f} ms, in-process "
+                  f"{rows[1][f'{key}_ttft_ms'][rid]:.1f} ms; first token from the batch's step "
+                  f"{rows[0][f'{key}_first_step'][rid]} vs {rows[1][f'{key}_first_step'][rid]}"
+                  f"; ms per token after the first {rows[0][f'{key}_tpot_ms'][rid]:.2f} vs "
+                  f"{rows[1][f'{key}_tpot_ms'][rid]:.2f}", flush=True)
+    dp = got["dataplane"]
+    print(f"worker against in-process on {card}: decode {decode_ms['worker']:.2f} vs "
+          f"{decode_ms['in_process']:.2f} ms per iteration (engine counters over the same "
+          f"traffic); median ms per token after the first, batch "
+          f"{rows[0]['batch_tpot_ms_median']:.2f} vs {rows[1]['batch_tpot_ms_median']:.2f}, "
+          f"staggered {rows[0]['staggered_tpot_ms_median']:.2f} vs "
+          f"{rows[1]['staggered_tpot_ms_median']:.2f}; worker K1 launches {kernels}", flush=True)
+    print(f"data plane on this host, no engine: {dp['chunks']} chunks ({dp['tokens']} tokens) "
+          f"in {dp['streams']} streams, {dp['wall_ms_per_chunk']:.4f} ms of wall per chunk; "
+          f"CPU ms per chunk (per token): server {dp['server_cpu_ms_per_chunk']:.4f} "
+          f"({dp['server_cpu_ms_per_token']:.4f}), client {dp['client_cpu_ms_per_chunk']:.4f} "
+          f"({dp['client_cpu_ms_per_token']:.4f})", flush=True)
+    return {"decode_ms_per_iteration": decode_ms, "dataplane": dp,
+            "worker": rows[0], "in_process": rows[1],
+            "worker_attention_launches": stats["attention_launches"],
+            "worker_forwards": stats["forwards"],
+            "worker_warm_up_forwards": stats["warm_up_forwards"], "kv_events": len(events)}
+
+
 def kernel_entry(name, source, replaces, launches, shapes, main_shape, **extra) -> dict:
     """One kernel's record for the kernels line: the contract's keys from
     the main path's launch count and the main shape's measurements, then
@@ -892,6 +1281,9 @@ def main() -> int:
           f"{summary['prefill_tokens_per_s']:.0f} tokens/s, decode "
           f"{summary8['decode_ms_per_iteration']:.2f} vs {summary['decode_ms_per_iteration']:.2f} "
           f"ms per iteration", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"worker summary: {json.dumps(serve_worker(card))}", flush=True)
 
     def k2_shapes_of(pages):
         return [s for s in k2_shapes if s["pages"] == pages]

@@ -7,5 +7,6 @@ that package it keeps its own copy. Plain tensor code is PyTorch; the one
 TPU kernel on the serving path (ragged paged attention) is a hand-written
 CUDA kernel under ``csrc/``, built at first use (``ops/_build.py``).
 
-Entry point: :func:`dynamo_tpu_torch.backends.torch.main.build_engine`.
+Entry points: the worker process ``python -m dynamo_tpu_torch.backends.torch``
+and, in process, :func:`dynamo_tpu_torch.backends.torch.main.build_engine`.
 """

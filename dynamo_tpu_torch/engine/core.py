@@ -28,7 +28,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -55,6 +55,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
     SamplingOptions,
     StopConditions,
 )
+from dynamo_tpu_torch.llm.kv_router.protocols import ForwardPassMetrics, KvStats, WorkerStats
 from dynamo_tpu_torch.ops import ragged_attention
 from dynamo_tpu_torch.runtime.engine import EngineOverloadedError
 from dynamo_tpu_torch.tokens import TokenBlockSequence, compute_seq_hashes
@@ -147,6 +148,7 @@ class Sequence:
     cancelled: bool = False
     emitted_first: bool = False
     t_queued: float = 0.0       # wall-clock at enqueue into the scheduler
+    t_first_sched: float = 0.0  # first chunk dispatched to the device
     # -- overload robustness --
     tenant_id: str = ""
     priority: int = 0
@@ -278,11 +280,16 @@ class EngineCore:
         eos_token_ids: tuple[int, ...] = (),
         device="cuda",
         mesh: Any = None,
+        on_stored: Callable[[list[int], int | None], None] | None = None,
+        on_removed: Callable[[list[int]], None] | None = None,
     ):
         """``params`` is a parameter dict on ``device`` (``engine/convert``
         or a previous engine's ``core.params``); None initialises random
         weights from ``seed``. ``mesh`` exists to be refused: the port
-        serves one device until parallelism lands."""
+        serves one device until parallelism lands. ``on_stored`` and
+        ``on_removed`` receive the allocator's KV events (block hashes
+        committed under a parent, hashes evicted), called on the thread
+        that runs ``step()``."""
         if mesh is not None:
             raise ValueError("device meshes are not ported yet (ROADMAP.md A12)")
         check_slice(model_cfg, engine_cfg)
@@ -316,6 +323,8 @@ class EngineCore:
             engine_cfg.num_kv_blocks,
             bs,
             enable_prefix_caching=engine_cfg.enable_prefix_caching,
+            on_stored=on_stored,
+            on_removed=on_removed,
         )
         self._inbox: deque[Sequence] = deque()   # thread-safe enqueue
         self.waiting: FairQueue = FairQueue(
@@ -334,8 +343,20 @@ class EngineCore:
         self._step_lock = threading.Lock()
         self.sched_stats = {
             "preemptions": 0,
+            # Set by mixed (chunked) steps only, which wait for A8; waves
+            # leave it at 0.0 as the JAX engine does.
+            "last_step_budget_utilization": 0.0,
             "shed_total": 0,
             "deadline_expired_total": 0,
+        }
+        # Disaggregated KV transfer accounting, reported in
+        # ForwardPassMetrics.transfer; the transfer path waits for A10.
+        self.transfer_stats = {
+            "transfers": 0,
+            "imported_blocks": 0,
+            "skipped_cached_blocks": 0,
+            "dropped_blocks": 0,
+            "partial_transfers": 0,
         }
         self.exec_stats = {
             "dispatches": 0,
@@ -619,7 +640,11 @@ class EngineCore:
         if not chosen:
             return None
         t_disp = time.time()
-        rows = [(seq, seq.prompt[p0 : p0 + chunk], p0, p0 + chunk) for seq, p0, chunk in chosen]
+        rows: list[tuple[Sequence, list[int], int, int]] = []
+        for seq, p0, chunk in chosen:
+            # The end of the sequence's queue wait (TorchEngine's sched_admit span).
+            seq.t_first_sched = seq.t_first_sched or t_disp
+            rows.append((seq, seq.prompt[p0 : p0 + chunk], p0, p0 + chunk))
         toks_dev, lps_dev = self._dispatch_ragged(rows, S)
 
         def commit() -> list[tuple[Sequence, LLMEngineOutput]]:
@@ -1009,6 +1034,55 @@ class EngineCore:
         with self._step_lock:
             return len(self.allocator.clear_cache())
 
+    def warm_up(self) -> int:
+        """Run every shape the engine serves once before it serves: one
+        prefill wave per prefill bucket and one decode iteration per decode
+        width, greedy and again through the masked sampler with logprobs,
+        every row writing only the garbage block. A shape's first run on
+        the card loads its kernels (CUDA loads modules lazily) and settles
+        cuBLAS's choices; done here, no request pays for it. On the card
+        the waves run K1's tiled kernel and the decode iterations its
+        split-KV decode kernel. Scheduler state, the prefix cache and the
+        execution counters are left as they were; the kernels' launch
+        counters count these launches. Returns the forwards it ran."""
+        g, bs = self.engine.garbage_block, self.engine.block_size
+        forwards = 0
+        with self._step_lock:
+            saved = dict(self.exec_stats)
+            for sampling, logprobs in (
+                (SamplingOptions(temperature=0.0), None),
+                (SamplingOptions(temperature=1.0, top_k=50, top_p=0.9), 1),
+            ):
+                for bucket in self.engine.prefill_buckets:
+                    n = min(bucket, self.engine.max_model_len)
+                    seq = Sequence("warm-up", [0] * n, sampling, StopConditions(), seed=0,
+                                   logprobs=logprobs)
+                    seq.block_ids = [g] * -(-n // bs)
+                    toks, _ = self._dispatch_ragged(
+                        [(seq, seq.prompt, 0, n)], self.engine.prefill_batch
+                    )
+                    _to_host(toks)
+                seq.block_ids, seq.pending, seq.processed = [g], 0, 1
+                for width in self.engine.decode_buckets:
+                    chained, _ = self._dispatch_megastep([seq] * width, 1)
+                    _to_host(chained)
+                forwards += len(self.engine.prefill_buckets) + len(self.engine.decode_buckets)
+            self.exec_stats.update(saved)
+        return forwards
+
+    def cached_prefix_tokens(self, token_ids: list[int]) -> int:
+        """Locally cached leading tokens."""
+        hashes = compute_seq_hashes(token_ids, self.engine.block_size)
+        with self._step_lock:
+            return self.allocator.match_prefix(hashes) * self.engine.block_size
+
+    def kv_inventory(self) -> list[tuple[str, int, int | None]]:
+        """(tier, hash, parent) of every cached block: the payload the KV
+        event publisher re-publishes after an indexer reports a gap. Only
+        the device tier exists until the host and disk tiers land (A10)."""
+        with self._step_lock:
+            return [("device", h, parent) for h, parent in self.allocator.snapshot()]
+
     # -- observability -----------------------------------------------------
 
     def scheduler_stats(self) -> dict:
@@ -1050,3 +1124,59 @@ class EngineCore:
                 else 0.0
             ),
         }
+
+    def spec_decode_stats(self) -> dict:
+        """Speculation gauges with the JAX engine's keys; speculative
+        decoding waits for A8, so every counter is 0."""
+        return dict(_SPEC_OFF_STATS)
+
+    def fair_queue_stats(self) -> dict[str, dict[str, float]]:
+        """Per-tenant admission-queue depth and DRR deficit."""
+        return self.waiting.stats()
+
+    def metrics(self) -> ForwardPassMetrics:
+        """Load metrics as the JAX engine reports them. ``spec_decode``
+        and ``net`` stay None: speculation (A8) and peer pulls (A10) are
+        not ported."""
+        alloc = self.allocator
+        return ForwardPassMetrics(
+            worker=WorkerStats(
+                request_active_slots=len(self.running),
+                request_total_slots=self.engine.max_num_seqs,
+                num_requests_waiting=len(self.waiting) + len(self._inbox),
+                queue_limit=self._max_waiting,
+                requests_shed_total=(
+                    self.sched_stats["shed_total"]
+                    + self.sched_stats["deadline_expired_total"]
+                ),
+                budget_utilization=self.sched_stats["last_step_budget_utilization"],
+            ),
+            kv=KvStats(
+                kv_active_blocks=alloc.used_blocks,
+                kv_total_blocks=alloc.capacity,
+                gpu_cache_usage_perc=alloc.usage_perc,
+                gpu_prefix_cache_hit_rate=(
+                    alloc.prefix_hits / alloc.prefix_queries
+                    if alloc.prefix_queries
+                    else 0.0
+                ),
+            ),
+            transfer=dict(self.transfer_stats),
+        )
+
+
+# ``SpecStats().as_dict()`` of the JAX engine with speculation off.
+_SPEC_OFF_STATS = {
+    "verify_steps": 0,
+    "verify_rows": 0,
+    "drafted_tokens": 0,
+    "accepted_tokens": 0,
+    "wasted_tokens": 0,
+    "emitted_tokens": 0,
+    "acceptance_rate": 0.0,
+    "mean_accepted_len": 0.0,
+    "device_rounds": 0,
+    "device_hits": 0,
+    "dispatches_per_accepted_token": 0.0,
+    "enabled": 0,
+}

@@ -6,16 +6,20 @@ dicts``. The engine loop runs each ``step()`` in a worker thread
 (``asyncio.to_thread``) — device work blocks, and the event loop must stay
 live to accept requests and stream tokens. Host-side scheduler state is
 only touched inside ``step()``; intake goes through the core's inbox.
-Request tracing spans come with the tracing slice of the port.
+Each request files the JAX engine's three spans (``sched_admit``,
+``prefill``, ``decode``) under the "engine" service, parented through the
+data plane's headers.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 import uuid
 from typing import AsyncIterator
 
+from dynamo_tpu_torch import tracing
 from dynamo_tpu_torch.engine.core import EngineCore
 from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.runtime.engine import Context, DeadlineExceededError
@@ -31,6 +35,7 @@ class TorchEngine:
         self._queues: dict[str, asyncio.Queue] = {}
         self._wakeup = asyncio.Event()
         self._loop_task: asyncio.Task | None = None
+        self._tracer = tracing.get_tracer("engine")
 
     async def generate(self, request: dict, context: Context) -> AsyncIterator[dict]:
         if request.get("clear_kv_blocks"):
@@ -45,6 +50,8 @@ class TorchEngine:
             # Client-supplied ids are not guaranteed unique; engine state is
             # keyed by id, so uniquify locally rather than clobber a stream.
             pre.request_id = f"{pre.request_id}#{uuid.uuid4().hex[:6]}"
+        t_submit = time.time()
+        t_first = t_last = 0.0
         seq = self.core.add_request(pre)
         queue: asyncio.Queue = asyncio.Queue()
         self._queues[seq.request_id] = queue
@@ -61,6 +68,9 @@ class TorchEngine:
                     raise DeadlineExceededError(
                         item["meta"].get("detail", "deadline exceeded in queue")
                     )
+                t_last = time.time()
+                if not t_first:
+                    t_first = t_last
                 yield item
                 if context.is_stopped:
                     self.core.cancel_request(seq)
@@ -68,6 +78,39 @@ class TorchEngine:
         finally:
             self.core.cancel_request(seq)
             self._queues.pop(seq.request_id, None)
+            if t_first:
+                self._record_spans(seq, context, t_submit, t_first, t_last)
+
+    def _record_spans(self, seq, context: Context, t_submit, t_first, t_last) -> None:
+        """Per-request phase attribution: ``sched_admit`` is submit to
+        first chunk dispatched (queue wait, nested in prefill), ``prefill``
+        ends at the first emitted chunk, ``decode`` covers the rest."""
+        tenant = seq.tenant_id or "default"
+        if seq.t_first_sched:
+            self._tracer.record(
+                "sched_admit", t_submit, seq.t_first_sched, headers=context.headers,
+                attrs={
+                    "request_id": seq.request_id,
+                    "prompt_tokens": seq.prompt_len,
+                    "tenant": tenant,
+                },
+            )
+        self._tracer.record(
+            "prefill", t_submit, t_first, headers=context.headers,
+            attrs={
+                "request_id": seq.request_id,
+                "prompt_tokens": seq.prompt_len,
+                "cached_tokens": seq.num_cached_tokens,
+                "tenant": tenant,
+            },
+        )
+        self._tracer.record(
+            "decode", t_first, t_last, headers=context.headers,
+            attrs={"request_id": seq.request_id, "tokens": seq.generated, "tenant": tenant},
+        )
+
+    def metrics(self):
+        return self.core.metrics()
 
     # -- engine loop -------------------------------------------------------
 
