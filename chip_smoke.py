@@ -28,8 +28,16 @@ int8-page against bf16-page decode-attention comparison, through
 and depth with random weights, bf16 first, then, with the bf16 engine
 freed, int8 weights and int8 KV pages (``{"kv_dtype": "int8"}``,
 ``quant="int8"``), checking token counts, finish reasons, the prefix
-cache, the launch counts of K1 and of each of its kernels, finite logits
-and megastep k=1 == k=8 greedy streams, (6) runs the worker process:
+cache, the launch counts of K1 and of each of its kernels (counted
+across graph replays), finite logits and megastep k=1 == k=8 greedy
+streams; each engine first runs ``warm_up()``, which captures the CUDA
+graphs, so every prefill wave and decode megastep of the main path is a
+graph replay (checked: replays == dispatches); then one decode megastep
+(width 8, k = 8) is replayed from its graph and run as the eager body
+from the same cache copy and inputs (tokens equal, both timed per
+iteration), and the traffic runs again through the warm engine and an
+async engine on the same weights (streams equal, decode ms per
+iteration and TTFT printed for each), (6) runs the worker process:
 the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
 ``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
 --preset llama3-8b --seed 0`` as subprocesses, waits for the model card
@@ -43,7 +51,9 @@ first token and decode ms per iteration printed beside the in-process
 engine's, then one prompt again, which must report cached tokens and
 whose full blocks' hashes must be among the worker's KV events; the
 worker's own counters must show K1's two kernels launched once per layer
-of every forward; it also times the data plane alone, a server process
+of every forward; a second worker with ``--async-exec on`` answers the 4
+solo prompts with the sync worker's chunks (but for the engine step the
+first chunk names); it also times the data plane alone, a server process
 replaying the batch's recorded chunks to a client in this process, and
 (7) prints a JSON line of
 kernel measurements (one record per C entry point) and, last, a JSON
@@ -689,10 +699,14 @@ def wire(rid, prompt, sampling):
 
 async def collect(engine, Context, rid, prompt, sampling, first=None):
     tokens, finish, meta = [], None, {}
-    async for out in engine.generate(wire(rid, prompt, sampling), Context(rid)):
-        tokens += out["token_ids"]
-        meta.update(out.get("meta", {}))
-        finish = out.get("finish_reason")
+    try:
+        async for out in engine.generate(wire(rid, prompt, sampling), Context(rid)):
+            tokens += out["token_ids"]
+            meta.update(out.get("meta", {}))
+            finish = out.get("finish_reason")
+            if first is not None:
+                first.set()
+    finally:  # a stream that ends early releases the late request too
         if first is not None:
             first.set()
     return rid, tokens, finish, meta
@@ -750,9 +764,179 @@ def check_logits(core, prompt) -> dict:
     return {"cosine": cos}
 
 
+GRAPH_WIDTH, GRAPH_K = 8, 8  # the megastep held against its eager body: width 8, k = 8
+
+
+def memory_line() -> str:
+    return (f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB, reserved "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
+
+
+def warm_up(core, mode: str) -> dict:
+    """``EngineCore.warm_up()``: one eager forward of every shape in each
+    sampling variant, then the capture of every graph key the engine can
+    dispatch (each prefill bucket, and each decode width at k = 1, 2, 4
+    and 8, in six sampling variants). Returns its wall time, the graphs it
+    captured and the card memory it took (the graph pool, mostly)."""
+    torch.cuda.synchronize()
+    reserved, t0 = torch.cuda.memory_reserved(), time.time()
+    forwards = core.warm_up()
+    torch.cuda.synchronize()
+    st = core.scheduler_stats()
+    out = {"warm_up_s": time.time() - t0, "warm_up_forwards": forwards,
+           "graph_captures": st["graph_captures"], "graph_capture_s": st["graph_capture_s"],
+           "warm_up_reserved_gb": (torch.cuda.memory_reserved() - reserved) / 1e9}
+    print(f"warm-up ({mode}): {forwards} eager forwards, {out['graph_captures']} graphs "
+          f"captured in {out['graph_capture_s']:.2f} s of {out['warm_up_s']:.2f} s; reserved "
+          f"memory grew by {out['warm_up_reserved_gb']:.2f} GB; {memory_line()}", flush=True)
+    return out
+
+
+def decode_to_width(core, reqs) -> list:
+    """Admit the serving prompts (greedy and seeded) and step until every
+    one has its first token and none is prefilling: GRAPH_WIDTH decode
+    lanes with real contexts (100 to 2000 positions)."""
+    from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+    if len(reqs) < GRAPH_WIDTH:
+        raise ValueError(f"{len(reqs)} prompts for a width of {GRAPH_WIDTH}")
+    for rid, prompt, sampling in reqs[:GRAPH_WIDTH]:
+        core.add_request(PreprocessedRequest.from_wire(wire(f"graph_{rid}", prompt, sampling)))
+    for _ in range(16):
+        core.step()
+        ready = core._decode_candidates()
+        if len(ready) == GRAPH_WIDTH and core._inflight is None:
+            return ready
+    raise AssertionError(f"{len(ready)} decode lanes after 16 steps, not {GRAPH_WIDTH}")
+
+
+def graph_against_eager(core, reqs, mode: str) -> dict:
+    """One decode megastep (width 8, k = 8) from the same cache copy and
+    inputs: the replay of its CUDA graph against an eager ``_megastep_body``
+    call, the parent's way of running it. Tokens must be equal; each is
+    timed per iteration on the host's wall clock, sync to sync."""
+    ready = decode_to_width(core, reqs)
+    core._grow_or_preempt(ready, GRAPH_K)
+    launch = core._megastep_launch(ready, GRAPH_K)
+    if launch.key not in core._graphs:
+        raise AssertionError(f"{mode}: warm_up() did not capture {launch.key}")
+    saved = [{k: t.clone() for k, t in c.items()} if isinstance(c, dict) else c.clone()
+             for c in core.cache]
+
+    def restore():
+        for c, s in zip(core.cache, saved):
+            pairs = [(c[k], s[k]) for k in c] if isinstance(c, dict) else [(c, s)]
+            for dst, src in pairs:
+                dst.copy_(src)
+
+    def timed(run, reps):
+        walls, out = [], None
+        for _ in range(reps):
+            restore()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / GRAPH_K)
+        return out, walls
+
+    eager, eager_ms = timed(lambda: launch.body(torch.from_numpy(launch.packed).cuda()), 3)
+    graph, graph_ms = timed(lambda: core._graphs.replay(launch), 10)
+    restore()
+    del saved
+    same = torch.equal(eager[0], graph[0])
+    res = {"eager_ms_per_iteration": float(np.median(eager_ms)),
+           "graph_ms_per_iteration": float(np.median(graph_ms)),
+           "eager_ms": eager_ms, "graph_ms": graph_ms, "tokens_equal": same}
+    print(f"megastep graph against eager body ({mode}, width {GRAPH_WIDTH}, k = {GRAPH_K}): "
+          f"tokens equal={same}; ms per iteration, median: eager {res['eager_ms_per_iteration']:.3f} "
+          f"graph {res['graph_ms_per_iteration']:.3f} (eager {[round(x, 3) for x in eager_ms]}, "
+          f"graph {[round(x, 3) for x in graph_ms]})", flush=True)
+    if not same:
+        raise AssertionError(f"{mode}: the replayed megastep's tokens differ from the eager body's")
+    for seq in ready:  # the lanes go on to finish as ordinary requests
+        core.cancel_request(seq)
+    while core.has_work():
+        core.step()
+    return res
+
+
+async def timed_engine_batch(engine, Context, reqs) -> dict:
+    """All requests sent at once (before the engine's first step), each
+    with its time to first token on this clock."""
+    async def one(rid, prompt, sampling):
+        t0, ttft, toks = time.perf_counter(), None, []
+        async for out in engine.generate(wire(rid, prompt, sampling), Context(rid)):
+            ttft = ttft or 1e3 * (time.perf_counter() - t0)
+            toks += out["token_ids"]
+        return rid, toks, ttft
+
+    done = await asyncio.wait_for(asyncio.gather(*(one(*r) for r in reqs)), timeout=600)
+    return {rid: {"tokens": toks, "ttft_ms": ttft} for rid, toks, ttft in done}
+
+
+def sync_against_async(core, overrides, reqs, mode: str) -> dict:
+    """The serving traffic (all 8 prompts at once, prefix caches cleared)
+    through the warm sync engine and through an async engine on the same
+    weights, twice each, the second pass measured: identical streams;
+    decode ms per iteration (the engine loop's wall over its decode
+    iterations) and TTFT for each."""
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    acore, _ = build_engine("llama3-8b", {**overrides, "async_exec": True}, device="cuda",
+                            params=core.params)
+    warm = warm_up(acore, f"{mode}, async")
+    rows = {}
+    for name, c in (("sync", core), ("async", acore)):
+        # A first pass warms the loop, the second is measured; neither
+        # captures a graph. Each event loop gets its own facade.
+        captures = c.scheduler_stats()["graph_captures"]
+        c.clear_kv_cache()
+        first = asyncio.run(timed_engine_batch(TorchEngine(c), Context, reqs))
+        c.clear_kv_cache()
+        before = dict(c.scheduler_stats())
+        got = asyncio.run(timed_engine_batch(TorchEngine(c), Context, reqs))
+        if {r: g["tokens"] for r, g in first.items()} != {r: g["tokens"] for r, g in got.items()}:
+            raise AssertionError(f"{mode} {name}: the two passes' streams differ")
+        st = c.scheduler_stats()
+        d = {k: st[k] - before[k] for k in ("decode_loop_s", "decode_iterations", "dispatches",
+                                            "graph_replays", "decode_s")}
+        if d["graph_replays"] != d["dispatches"] or st["graph_captures"] != captures:
+            raise AssertionError(f"{mode} {name}: {d['graph_replays']} replays for "
+                                 f"{d['dispatches']} dispatches, "
+                                 f"{st['graph_captures'] - captures} graphs captured serving")
+        rows[name] = {"streams": {r: g["tokens"] for r, g in got.items()},
+                      "ttft_ms": {r: g["ttft_ms"] for r, g in got.items()},
+                      "decode_ms_per_iteration": 1e3 * d["decode_loop_s"] / d["decode_iterations"],
+                      "decode_dispatch_to_landing_ms_per_iteration":
+                          1e3 * d["decode_s"] / d["decode_iterations"],
+                      "dispatches": d["dispatches"]}
+    same = rows["sync"]["streams"] == rows["async"]["streams"]
+    for name in ("sync", "async"):
+        r = rows[name]
+        print(f"serving {mode} graphs {name}: decode {r['decode_ms_per_iteration']:.3f} ms per "
+              f"iteration (engine loop; dispatch to landing "
+              f"{r['decode_dispatch_to_landing_ms_per_iteration']:.3f}), {r['dispatches']} "
+              f"dispatches, all replays; TTFT ms "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(r["ttft_ms"].items())), flush=True)
+    print(f"serving {mode}: async streams equal to sync streams: {same}", flush=True)
+    if not same or any(len(t) != MAX_TOKENS for t in rows["async"]["streams"].values()):
+        raise AssertionError(f"{mode}: async execution changed the streams")
+    del acore
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"async_warm_up": warm, **{name: {k: v for k, v in r.items() if k != "streams"}
+                                      for name, r in rows.items()}}
+
+
 def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     """The main path: 8 requests through the llama3-8b engine, bf16, or
-    (``int8``) with int8 weights and int8 KV pages."""
+    (``int8``) with int8 weights and int8 KV pages, after ``warm_up()``
+    (so every prefill wave and decode megastep is a graph replay); then
+    the graph-against-eager megastep, k = 1 against k = 8, and the
+    traffic with async execution off and on."""
     from dynamo_tpu_torch.backends.torch.main import build_engine
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.runtime.engine import Context
@@ -767,8 +951,8 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     print(f"built {core.cfg.name} engine ({core.cfg.num_layers} layers, {mode}, random weights, "
           f"{core.engine.num_kv_blocks} x {core.engine.block_size}-token KV blocks of "
           f"{core.kv_cache_stats()['bytes_per_block']} bytes) "
-          f"in {time.time() - t0:.1f} s; allocated "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+          f"in {time.time() - t0:.1f} s; {memory_line()}", flush=True)
+    warm = warm_up(core, mode)
     reqs, late, solo = serving_requests(core.cfg.vocab_size)
 
     # The main path, with every kernel launch count at 0 just before it.
@@ -794,25 +978,36 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
             f"forwards, or the other page dtype's kernels ran ({other} launches), or a K1 "
             f"kernel never ran: {by_entry}"
         )
+    if st["graph_replays"] != st["dispatches"]:
+        raise AssertionError(f"{mode}: {st['graph_replays']} graph replays for "
+                             f"{st['dispatches']} dispatches after warm_up()")
+    if st["graph_captures"] != warm["graph_captures"]:
+        raise AssertionError(f"{mode}: {st['graph_captures'] - warm['graph_captures']} graphs "
+                             f"captured while serving, after warm_up()")
     kv = core.kv_cache_stats()
     if results["prefix_b"][2].get("cached_tokens") != SHARED_PREFIX or kv["admitted_hits"] < 1:
         raise AssertionError(f"shared prefix missed the prefix cache: {kv}")
     print(f"main path ({mode}): {len(results)} requests in {serve_s:.2f} s; forwards {forwards} "
           f"(prefill waves + decode iterations), attention launches {launches} = "
-          f"{core.cfg.num_layers} x {forwards}, by kernel {by_entry}; dispatches "
-          f"{st['dispatches']} (megastep {st['megastep_dispatches']})", flush=True)
+          f"{core.cfg.num_layers} x {forwards} counted across graph replays, by kernel "
+          f"{by_entry}; dispatches {st['dispatches']} (megastep {st['megastep_dispatches']}), "
+          f"graph_replays {st['graph_replays']}, graph_captures {st['graph_captures']} "
+          f"({warm['graph_captures']} at warm-up)", flush=True)
     prefill_tps = st["prefill_tokens"] / st["prefill_s"]
-    decode_ms = 1e3 * st["decode_s"] / st["decode_iterations"]
+    decode_ms = 1e3 * st["decode_loop_s"] / st["decode_iterations"]
     print(f"serving {mode} on {card}: prefill {prefill_tps:.0f} tokens/s "
           f"({st['prefill_tokens']} tokens in {st['prefill_s']:.3f} s), decode "
-          f"{decode_ms:.2f} ms per iteration ({st['decode_iterations']} iterations, "
-          f"{st['decode_s']:.3f} s)", flush=True)
+          f"{decode_ms:.2f} ms per iteration (engine loop: {st['decode_iterations']} iterations "
+          f"in {st['decode_loop_s']:.3f} s; dispatch to landing "
+          f"{1e3 * st['decode_s'] / st['decode_iterations']:.2f})", flush=True)
 
     logit_check = check_logits(core, reqs[5][1][:64])
+    graph_check = graph_against_eager(core, reqs + [late], mode)
 
-    # Megastep k=1 against k=8: a second engine on the same weight tensors.
-    # Each event loop gets its own facade (asyncio objects bind to a loop).
-    _, engine1 = build_engine(
+    # Megastep k=1 against k=8: a second engine on the same weight tensors,
+    # not warmed up (its graphs are captured at first use). Each event
+    # loop gets its own facade (asyncio objects bind to a loop).
+    core1, engine1 = build_engine(
         "llama3-8b", {**overrides, "megastep_k": 1}, device="cuda", params=core.params
     )
 
@@ -822,14 +1017,21 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     k8 = asyncio.run(solo_on(TorchEngine(core)))[1]
     k1 = asyncio.run(solo_on(engine1))[1]
     print(f"greedy solo request ({mode}): k=8 and k=1 streams equal={k8 == k1} "
-          f"({len(k8)} tokens)", flush=True)
+          f"({len(k8)} tokens; k=1 engine captured {core1.scheduler_stats()['graph_captures']} "
+          f"graphs at first use)", flush=True)
     if k8 != k1 or len(k8) != MAX_TOKENS:
         raise AssertionError("megastep k=8 and k=1 greedy streams differ")
+    del core1, engine1
+    gc.collect()
+    torch.cuda.empty_cache()
+    modes = sync_against_async(core, overrides, reqs + [late], mode)
     return by_entry, {
         "mode": mode, "attention_launches": launches, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
         "bytes_per_block": core.kv_cache_stats()["bytes_per_block"],
         "prefill_tokens_per_s": prefill_tps, "decode_ms_per_iteration": decode_ms,
-        "logits_cosine": logit_check["cosine"],
+        "logits_cosine": logit_check["cosine"], "warm_up": warm,
+        "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
+        "graph_against_eager": graph_check, "graphs_sync_async": modes,
     }
 
 
@@ -983,12 +1185,16 @@ def in_process_traffic(preset: str, device: str) -> tuple[dict, dict]:
 
     core, engine = build_engine(preset, seed=0, device=device)
     core.warm_up()
+    captures = core.scheduler_stats()["graph_captures"]
 
     async def open_stream(req):
         return engine.generate(req, Context(req["request_id"]))
 
     got = asyncio.run(worker_traffic(open_stream, core.cfg.vocab_size))
     stats = core.scheduler_stats()
+    if stats["graph_captures"] != captures:
+        raise AssertionError(f"{stats['graph_captures'] - captures} graphs captured serving "
+                             f"the worker traffic in process, after warm_up()")
     del core, engine
     gc.collect()
     if device == "cuda":
@@ -1014,10 +1220,19 @@ def wait_for_port(port: int, proc, timeout: float) -> None:
     raise TimeoutError(f"store never listened on port {port}")
 
 
-async def drive_worker(address: str, worker, vocab: int) -> tuple[dict, list, object]:
+async def solo_traffic(open_stream, vocab: int) -> dict:
+    """The ``WORKER_SOLO`` prompts one at a time."""
+    reqs, late, _ = serving_requests(vocab)
+    by_id = {r[0]: r for r in reqs + [late]}
+    return {"solo": [await timed_stream(open_stream, *by_id[rid]) for rid in WORKER_SOLO]}
+
+
+async def drive_worker(address: str, worker, vocab: int,
+                       solo_only=False) -> tuple[dict, list, object]:
     """Wait for the worker's model card through the port's discovery, send
-    the worker phase's traffic through the port's data-plane client, and
-    collect the KV events the worker put on the store."""
+    the worker phase's traffic (or, ``solo_only``, the solo prompts alone)
+    through the port's data-plane client, and collect the KV events the
+    worker put on the store."""
     from dynamo_tpu_torch.llm.discovery import ModelWatcher
     from dynamo_tpu_torch.llm.kv_router.protocols import RouterEvent, kv_events_subject
     from dynamo_tpu_torch.runtime import DistributedRuntime
@@ -1056,12 +1271,13 @@ async def drive_worker(address: str, worker, vocab: int) -> tuple[dict, list, ob
         async def open_stream(req):
             return await client.round_robin(req)
 
-        got = await worker_traffic(open_stream, vocab)
+        got = await (solo_traffic if solo_only else worker_traffic)(open_stream, vocab)
         await asyncio.sleep(1.0)  # the last KV events are in flight
         collector.cancel()
         await watcher.stop()
-        got["dataplane"] = await dataplane_cost(
-            rt, address, {r["rid"]: r["outs"] for r in got["batch"]})
+        if not solo_only:
+            got["dataplane"] = await dataplane_cost(
+                rt, address, {r["rid"]: r["outs"] for r in got["batch"]})
         return got, received, cards[0]
     finally:
         await rt.shutdown()
@@ -1101,6 +1317,53 @@ def summarize(name: str, got: dict) -> dict:
     return row
 
 
+def without_iteration(outs: list[dict]) -> list[dict]:
+    """Chunks without the engine step the first one names (one step later
+    per request under async execution, as in the JAX engine)."""
+    return [{**o, "meta": {k: v for k, v in o.get("meta", {}).items() if k != "iteration"}}
+            for o in outs]
+
+
+def worker_process(cfg, preset: str, device: str, extra_args: list[str],
+                   solo_only=False) -> tuple[dict, list, object, dict]:
+    """The port's store and ``python -m dynamo_tpu_torch.backends.torch``
+    (with ``extra_args``) as subprocesses, driven by :func:`drive_worker`;
+    returns its traffic, KV events, model card and exit counters."""
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_worker_"))
+    port = free_port()
+    with open(logs / "store.log", "w") as store_log, open(logs / "worker.log", "w") as worker_log:
+        store = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(port)],
+            cwd=ROOT, stdout=store_log, stderr=subprocess.STDOUT,
+        )
+        worker = None
+        try:
+            wait_for_port(port, store, 30)
+            t0 = time.time()
+            worker = subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.backends.torch",
+                 "--model-name", preset, "--preset", preset, "--seed", "0", "--device", device,
+                 *extra_args],
+                cwd=ROOT, stdout=worker_log, stderr=subprocess.STDOUT,
+                env={**os.environ, "DYN_STORE_ADDRESS": f"127.0.0.1:{port}"},
+            )
+            got, events, mdc = asyncio.run(
+                drive_worker(f"127.0.0.1:{port}", worker, cfg.vocab_size, solo_only))
+            stop_process(worker)
+            if worker.returncode != 0:
+                raise AssertionError(f"worker exited with {worker.returncode}")
+            print(f"worker phase: worker {' '.join(extra_args)} up and served in "
+                  f"{time.time() - t0:.1f} s", flush=True)
+        except BaseException:
+            print(f"worker log tail:\n{(logs / 'worker.log').read_text()[-6000:]}", file=sys.stderr)
+            raise
+        finally:
+            if worker is not None:
+                stop_process(worker, signal.SIGKILL, 10)
+            stop_process(store, signal.SIGTERM, 10)
+    return got, events, mdc, worker_stats(logs / "worker.log")
+
+
 def serve_worker(card: str, preset: str = "llama3-8b", device: str = "cuda") -> dict:
     """The worker process: the port's store and
     ``python -m dynamo_tpu_torch.backends.torch`` as subprocesses, driven
@@ -1117,43 +1380,26 @@ def serve_worker(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
     ref, ref_stats = in_process_traffic(preset, device)
     print(f"worker phase: in-process reference done ({len(ref['solo'])} solo, "
           f"{len(ref['batch'])} concurrent, 1 resent)", flush=True)
-    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_worker_"))
-    port = free_port()
-    with open(logs / "store.log", "w") as store_log, open(logs / "worker.log", "w") as worker_log:
-        store = subprocess.Popen(
-            [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(port)],
-            cwd=ROOT, stdout=store_log, stderr=subprocess.STDOUT,
-        )
-        worker = None
-        try:
-            wait_for_port(port, store, 30)
-            t0 = time.time()
-            worker = subprocess.Popen(
-                [sys.executable, "-m", "dynamo_tpu_torch.backends.torch",
-                 "--model-name", preset, "--preset", preset, "--seed", "0", "--device", device],
-                cwd=ROOT, stdout=worker_log, stderr=subprocess.STDOUT,
-                env={**os.environ, "DYN_STORE_ADDRESS": f"127.0.0.1:{port}"},
-            )
-            got, events, mdc = asyncio.run(drive_worker(f"127.0.0.1:{port}", worker, cfg.vocab_size))
-            stop_process(worker)
-            if worker.returncode != 0:
-                raise AssertionError(f"worker exited with {worker.returncode}")
-            print(f"worker phase: worker up and served in {time.time() - t0:.1f} s", flush=True)
-        except BaseException:
-            print(f"worker log tail:\n{(logs / 'worker.log').read_text()[-6000:]}", file=sys.stderr)
-            raise
-        finally:
-            if worker is not None:
-                stop_process(worker, signal.SIGKILL, 10)
-            stop_process(store, signal.SIGTERM, 10)
-    stats = worker_stats(logs / "worker.log")
+    got, events, mdc, stats = worker_process(cfg, preset, device, [])
+    got_async, _, _, stats_async = worker_process(cfg, preset, device, ["--async-exec", "on"],
+                                                  solo_only=True)
 
-    for w, r in zip(got["solo"], ref["solo"]):
+    for w, r, a in zip(got["solo"], ref["solo"], got_async["solo"]):
         same = w["outs"] == r["outs"]
+        same_async = without_iteration(a["outs"]) == without_iteration(w["outs"])
         print(f"worker solo {w['rid']}: {len(w['tokens'])} tokens, greedy stream equal to "
-              f"the in-process engine's: {same}", flush=True)
+              f"the in-process engine's: {same}; the async worker's chunks equal the sync "
+              f"worker's (but for the engine step named in the first): {same_async}", flush=True)
         if not same:
             raise AssertionError(f"{w['rid']}: the worker's greedy stream differs from build_engine's")
+        if not same_async:
+            raise AssertionError(f"{w['rid']}: the async worker's stream differs from the sync one's")
+    if not stats_async["async_exec"] or stats_async["graph_replays"] != stats_async["dispatches"]:
+        raise AssertionError(f"the async worker's counters: {stats_async}")
+    if not stats["graph_captures"] == stats_async["graph_captures"] == ref_stats["graph_captures"]:
+        raise AssertionError(  # the in-process engine captured at warm-up only
+            f"graphs captured: worker {stats['graph_captures']}, async worker "
+            f"{stats_async['graph_captures']}, in process {ref_stats['graph_captures']}")
     resend = got["resend"]
     prompt = got["prompts"][WORKER_RESEND]
     full = compute_seq_hashes(prompt, mdc.kv_block_size)
@@ -1174,8 +1420,10 @@ def serve_worker(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
             or min(kernels[k] for k in ("ragged_paged_attention_decode_launch",
                                         "ragged_paged_attention_tiled_launch")) == 0)):
         raise AssertionError(f"the worker's K1 launches do not match its forwards: {stats}")
-    decode_ms = {"worker": 1e3 * stats["decode_s"] / stats["decode_iterations"],
-                 "in_process": 1e3 * ref_stats["decode_s"] / ref_stats["decode_iterations"]}
+    decode_ms = {"worker": 1e3 * stats["decode_loop_s"] / stats["decode_iterations"],
+                 "in_process": 1e3 * ref_stats["decode_loop_s"] / ref_stats["decode_iterations"],
+                 "async_worker_solo": 1e3 * stats_async["decode_loop_s"]
+                 / stats_async["decode_iterations"]}
     rows = [summarize("worker", got), summarize("in_process", ref)]
     for key in ("batch", "staggered"):
         for rid in sorted(rows[0][f"{key}_ttft_ms"]):
@@ -1196,6 +1444,9 @@ def serve_worker(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
           f"CPU ms per chunk (per token): server {dp['server_cpu_ms_per_chunk']:.4f} "
           f"({dp['server_cpu_ms_per_token']:.4f}), client {dp['client_cpu_ms_per_chunk']:.4f} "
           f"({dp['client_cpu_ms_per_token']:.4f})", flush=True)
+    print(f"async worker (solo prompts): decode {decode_ms['async_worker_solo']:.2f} ms per "
+          f"iteration; graph_replays {stats_async['graph_replays']} = dispatches "
+          f"{stats_async['dispatches']}, graph_captures {stats_async['graph_captures']}", flush=True)
     return {"decode_ms_per_iteration": decode_ms, "dataplane": dp,
             "worker": rows[0], "in_process": rows[1],
             "worker_attention_launches": stats["attention_launches"],
@@ -1281,6 +1532,13 @@ def main() -> int:
           f"{summary['prefill_tokens_per_s']:.0f} tokens/s, decode "
           f"{summary8['decode_ms_per_iteration']:.2f} vs {summary['decode_ms_per_iteration']:.2f} "
           f"ms per iteration", flush=True)
+    for summ in (summary, summary8):
+        ge, sa = summ["graph_against_eager"], summ["graphs_sync_async"]
+        print(f"decode on {card} ({summ['mode']}, ms per iteration): eager body "
+              f"{ge['eager_ms_per_iteration']:.3f}, graph replay {ge['graph_ms_per_iteration']:.3f} "
+              f"(width {GRAPH_WIDTH}, k = {GRAPH_K}); serving graphs sync "
+              f"{sa['sync']['decode_ms_per_iteration']:.3f}, graphs async "
+              f"{sa['async']['decode_ms_per_iteration']:.3f}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"worker summary: {json.dumps(serve_worker(card))}", flush=True)

@@ -171,6 +171,7 @@ async def run_torch_worker(
     )
     if core_out is not None:
         core_out.append(core)
+    core.flight.name = f"worker-{worker_id}"
 
     kv_pub.inventory_source = core.kv_inventory
     await kv_pub.start()
@@ -268,8 +269,8 @@ def _parser() -> argparse.ArgumentParser:
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise on the first flag value the port does not serve, naming the
     ``ROADMAP.md`` item that brings it. Engine settings outside the slice
-    (chunked scheduling, async execution, speculation, ring prefill, MoE
-    presets) are refused by ``build_engine`` the same way."""
+    (chunked scheduling, speculation, ring prefill, MoE presets) are
+    refused by ``build_engine`` the same way."""
     refusals = [
         (args.model_path is not None, "--model-path (checkpoints)", "A7"),
         ((args.tokenizer or "").endswith(".gguf"), "--tokenizer *.gguf", "A7"),

@@ -83,8 +83,11 @@ def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
     ``[tiny, 1)`` and clamped at ``tiny``. Bit-identical to JAX's."""
     mant = (random_bits(key, n) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.tensor(_F32_TINY, dtype=torch.float32, device=key.device)
-    return torch.maximum(floats * (1.0 - tiny) + tiny, tiny)
+    # Python scalars, not a tensor made here: a host-to-device copy cannot
+    # sit inside a captured CUDA graph. ``1 - tiny`` is 1.0 in f32 and in
+    # f64 alike, and ``tiny`` is an f32 value, so the arithmetic is the
+    # f32 arithmetic of JAX's, bit for bit.
+    return torch.clamp(floats * (1.0 - _F32_TINY) + _F32_TINY, min=_F32_TINY)
 
 
 def gumbel_noise(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -98,6 +101,22 @@ def lane_keys(seeds: torch.Tensor, counters: torch.Tensor) -> torch.Tensor:
     ``[B, 2]``, as the JAX sampler builds them."""
     base = torch.zeros((seeds.shape[0], 2), dtype=torch.int64, device=seeds.device)
     return fold_in(fold_in(base, seeds), counters)
+
+
+def gather_feedback(
+    prev_tokens: torch.Tensor,  # previous dispatch's sampled tokens, any shape
+    host_tokens: torch.Tensor,  # [T] int32 — host-assembled token buffer
+    src_idx: torch.Tensor,      # [T] int32 — flat index into prev_tokens, or -1
+) -> torch.Tensor:              # [T] int32
+    """Device-resident token feedback (async execution): slots of the next
+    step's token buffer whose value is a just-sampled token read it
+    straight from the previous dispatch's device output, so the sampled id
+    never makes a device-to-host-to-device round trip on the critical
+    path. Slots with ``src_idx < 0`` keep the host value. A gather and a
+    select on the current stream; the host never waits on it."""
+    flat = prev_tokens.reshape(-1)
+    fed = flat[torch.clamp(src_idx, 0, flat.shape[0] - 1).long()]
+    return torch.where(src_idx >= 0, fed, host_tokens)
 
 
 def sample_seeded(

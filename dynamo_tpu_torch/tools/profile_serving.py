@@ -8,20 +8,24 @@ Builds ``build_engine("llama3-8b")`` (random weights, default
 ``EngineConfig``; with ``--int8`` int8 weights and int8 KV pages, the
 capacity mode) and first times the attention wrapper's host cost per call
 at the serving decode shape with trivial device work (8 rows that see one
-position each, bf16 pages). It warms the engine up with one short
-request, then runs seven prompts (100–2000 tokens, greedy, 64 new tokens
-each) through ``EngineCore.step`` twice. The first batch runs untraced:
-the prefill wave's wall time and each decode megastep's wall time per
-iteration (k = 8 at width 8), each step followed by a sync. The second
-batch (new prompts of the same lengths) traces two phases with
-``torch.profiler``: the prefill wave, and the first two decode
-megasteps. For each it prints the host wall time (every step ends in the
-device-to-host copy of its tokens, so wall time covers the device work),
-the device time from CUDA events, the summed kernel time by group
-(attention kernel, matrix products, everything else; the attention kernel
-also by its kernels: split-KV decode, combine, tiled), the device's idle
-share (1 - kernel time / wall time) and the top kernels. ``--traces``
-also writes each phase's Chrome trace there (the decode phase's is ~60 MB).
+position each, bf16 pages); with CUDA graphs the engine pays it only at
+capture. Then, for synchronous and then asynchronous execution (a second
+engine on the same weights), it runs ``warm_up()`` (which captures the
+engine's CUDA graphs) and one short request, then seven prompts
+(100–2000 tokens, greedy, 64 new tokens each) through ``EngineCore.step``
+twice. The first batch runs untraced: the prefill wave's wall time and
+each decode step's wall time per iteration (k = 8 at width 8); sync steps
+are each followed by a device sync, async steps are not (each step
+dispatches a megastep and commits the one before). The second batch (new
+prompts of the same lengths) traces two phases with ``torch.profiler``:
+the prefill wave, and the next two decode steps, each phase ended by a
+device sync. For each it prints the host wall time, the device time from
+CUDA events, the summed kernel time by group (attention kernel, matrix
+products, everything else; the attention kernel also by its kernels:
+split-KV decode, combine, tiled), the device's idle share (1 - kernel
+time / wall time) and the top kernels; kernels that run inside a graph
+replay are recorded one by one, as eager launches are. ``--traces`` also
+writes each phase's Chrome trace there.
 
 The script uses only the package's entry points, so it also measures
 another checkout's package, for a parent-against-change A/B in one call
@@ -127,24 +131,62 @@ def wrapper_host_us(reps: int = 500, rounds: int = 5) -> list[float]:
 
 
 def untraced_walls(core) -> dict:
-    """Run the queued batch to its end untraced: the prefill wave's wall
-    time and each full decode megastep's wall time per iteration, each
-    step followed by a sync."""
+    """Run the queued batch to its end untraced: the first step's wall
+    time (a sync engine's prefill wave; an async engine only dispatches
+    it) and each full decode step's wall time per iteration. A sync
+    engine's steps each end in a device sync; an async engine's steps are
+    timed as the loop runs them (each lands the step before)."""
     k = core.engine.megastep
+    sync = not core.engine.async_exec
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     core.step()
-    torch.cuda.synchronize()
+    if sync:
+        torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     per_iter = []
     while core.has_work():
         t0 = time.perf_counter()
         core.step()
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         per_iter.append((time.perf_counter() - t0) * 1e3 / k)
-    full = per_iter[:-1]  # the last step may run fewer than k iterations
+    full = per_iter[1:-2]  # the first lands the prefill (async); the last may run < k
     return {"prefill_wave_ms": prefill_ms, "decode_ms_per_iteration": full,
             "decode_median_ms_per_iteration": float(np.median(full))}
+
+
+def profile_mode(core, request, trace_dir: Path | None, tag: str) -> dict:
+    """Warm ``core`` up (capturing its graphs), then the untraced batch and
+    the two traced phases."""
+    t0 = time.perf_counter()
+    core.warm_up()
+    torch.cuda.synchronize()
+    warm = {"warm_up_s": time.perf_counter() - t0,
+            "graph_captures": core.scheduler_stats()["graph_captures"]}
+    core.add_request(request("warmup", 600, 16))  # one request through the graphs
+    while core.has_work():
+        core.step()
+    for i, n in enumerate(PROMPT_LENS):
+        core.add_request(request(f"u{i}", n, 64))
+    walls = untraced_walls(core)
+    print(json.dumps({"mode": tag, "warm_up": warm, "untraced": walls}), flush=True)
+    for i, n in enumerate(PROMPT_LENS):
+        core.add_request(request(f"r{i}", n, 64))
+    phases = [
+        _phase(core, 1, f"prefill_wave_{tag}", trace_dir),
+        _phase(core, 2, f"decode_megasteps_{tag}", trace_dir),
+    ]
+    for p in phases:
+        print(json.dumps(p), flush=True)
+    while core.has_work():
+        core.step()
+    st = core.scheduler_stats()
+    return {"mode": tag, "warm_up": warm, "untraced": walls, "graph_replays": st["graph_replays"],
+            "dispatches": st["dispatches"], "phases": [
+                {k: p[k] for k in ("phase", "wall_ms", "kernel_ms", "idle_share", "groups_ms",
+                                   "attention_by_kernel")}
+                for p in phases]}
 
 
 def main() -> int:
@@ -171,43 +213,28 @@ def main() -> int:
     host_us = wrapper_host_us()
     print(f"attention wrapper host us per call (serving decode shape): "
           + " ".join(f"{x:.1f}" for x in host_us), flush=True)
-    if args.int8:
-        core, _ = build_engine("llama3-8b", {"kv_dtype": "int8"}, seed=0, device="cuda", quant="int8")
-    else:
-        core, _ = build_engine("llama3-8b", seed=0, device="cuda")
+    overrides = {"kv_dtype": "int8"} if args.int8 else {}
+    core, _ = build_engine("llama3-8b", overrides, seed=0, device="cuda",
+                           quant="int8" if args.int8 else None)
     rng = np.random.default_rng(7)
+    vocab = core.cfg.vocab_size
 
     def request(rid, n, max_tokens):
         return PreprocessedRequest(
             model="llama3-8b", request_id=rid,
-            token_ids=[int(t) for t in rng.integers(0, core.cfg.vocab_size, n)],
+            token_ids=[int(t) for t in rng.integers(0, vocab, n)],
             sampling=SamplingOptions(temperature=0.0),
             stop=StopConditions(max_tokens=max_tokens),
         )
 
-    core.add_request(request("warmup", 600, 16))  # cuBLAS/allocator warm-up
-    while core.has_work():
-        core.step()
-    for i, n in enumerate(PROMPT_LENS):
-        core.add_request(request(f"u{i}", n, 64))
-    walls = untraced_walls(core)
-    print(json.dumps({"untraced": walls}), flush=True)
-    for i, n in enumerate(PROMPT_LENS):
-        core.add_request(request(f"r{i}", n, 64))
-    phases = [
-        _phase(core, 1, "prefill_wave", args.traces),
-        _phase(core, 2, "decode_megasteps", args.traces),
-    ]
-    for p in phases:
-        print(json.dumps(p), flush=True)
-    while core.has_work():
-        core.step()
+    modes = [profile_mode(core, request, args.traces, "sync")]
+    acore, _ = build_engine("llama3-8b", {**overrides, "async_exec": True}, device="cuda",
+                            params=core.params)
+    del core
+    torch.cuda.empty_cache()
+    modes.append(profile_mode(acore, request, args.traces, "async"))
     print(json.dumps({"card": card, "int8": args.int8, "package": dynamo_tpu_torch.__file__,
-                      "wrapper_host_us": host_us, "untraced": walls, "phases": [
-        {k: p[k] for k in ("phase", "wall_ms", "kernel_ms", "idle_share", "groups_ms",
-                           "attention_by_kernel")}
-        for p in phases
-    ]}), flush=True)
+                      "wrapper_host_us": host_us, "modes": modes}), flush=True)
     return 0
 
 

@@ -55,9 +55,9 @@ def test_cpu_engine_leaves_jax_unimported():
 @pytest.mark.parametrize(
     "overrides, item",
     [
-        ({"scheduling": "chunked"}, "A8"),
-        ({"async_exec": True}, "A8"),
-        ({"spec_decode": "ngram"}, "A8"),
+        ({"scheduling": "chunked"}, "A8b"),
+        ({"disk_kv_dir": "kv"}, "A10"),
+        ({"spec_decode": "ngram"}, "A8c"),
         ({"kv_dtype": "int8", "host_kv_blocks": 16}, "A10"),
         ({"host_kv_blocks": 16}, "A10"),
         ({"ring_prefill_threshold": 64}, "A12"),

@@ -433,9 +433,9 @@ async def test_graceful_drain_publishes_cleared():
         (["--pp", "2"], "A12"),
         (["--nnodes", "2", "--dist-init-addr", "127.0.0.1:1"], "A12"),
         (["--obs-publish", "on"], "A6b"),
-        (["--scheduling", "chunked"], "A8"),
-        (["--async-exec", "on"], "A8"),
-        (["--spec-decode", "ngram"], "A8"),
+        (["--scheduling", "chunked"], "A8b"),
+        (["--local-cpu-devices", "4"], "A12"),
+        (["--spec-decode", "ngram"], "A8c"),
         (["--ring-prefill-threshold", "64"], "A12"),
         (["--preset", "tiny-moe"], "A11"),
     ],
