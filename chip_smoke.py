@@ -54,8 +54,23 @@ worker's own counters must show K1's two kernels launched once per layer
 of every forward; a second worker with ``--async-exec on`` answers the 4
 solo prompts with the sync worker's chunks (but for the engine step the
 first chunk names); it also times the data plane alone, a server process
-replaying the batch's recorded chunks to a client in this process, and
-(7) prints a JSON line of
+replaying the batch's recorded chunks to a client in this process (the
+worker phase's requests ask for each token's log-probability; its main
+worker runs without its status server and snapshots), (7) runs the
+frontend phase (:func:`serve_frontend`): the port's store, two workers
+started together (each with its status server and obs snapshots, as by
+default) and ``python -m dynamo_tpu_torch.frontend --router-mode kv``,
+each a process, spoken to over HTTP: ``/health`` on all three, a
+shared-prefix chat routed to the worker holding the prefix (cached
+tokens, the worker's prefix-hit gauge), a fresh prompt routed away from
+a busy worker, the worker phase's solo prompts as pre-tokenized
+completions, streamed and not, with the tokens and log-probabilities of
+the data-plane client's streams, its 8 requests at once timed beside the
+same 8 sent by the data-plane client straight to the same worker and
+beside the worker phase's, the frontend's request counters and each worker's
+series under its ``worker_id`` on the frontend's ``/metrics``, each
+worker's scheduler gauges against the counters it logs on exit, and K1's
+launches in each worker, and (8) prints a JSON line of
 kernel measurements (one record per C entry point) and, last, a JSON
 status line. Any failed check raises and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
@@ -68,6 +83,7 @@ import ctypes
 import gc
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -692,9 +708,12 @@ def serving_requests(vocab: int):
     return reqs, late, solo
 
 
-def wire(rid, prompt, sampling):
-    return {"model": "llama3-8b", "token_ids": prompt, "request_id": rid,
-            "sampling": sampling, "stop": {"max_tokens": MAX_TOKENS}}
+def wire(rid, prompt, sampling, logprobs=None):
+    req = {"model": "llama3-8b", "token_ids": prompt, "request_id": rid,
+           "sampling": sampling, "stop": {"max_tokens": MAX_TOKENS}}
+    if logprobs is not None:
+        req["output"] = {"logprobs": logprobs}
+    return req
 
 
 async def collect(engine, Context, rid, prompt, sampling, first=None):
@@ -1049,11 +1068,14 @@ DATAPLANE_REPEATS = 40  # replays of the worker's batch chunks per stream
 
 
 async def timed_stream(open_stream, rid, prompt, sampling) -> dict:
-    """One request's output chunks with the client's clock: time to the
-    first chunk, and ms per token after the first."""
+    """One request's output chunks, each token with its log-probability,
+    with the client's clock: time to the first chunk, and ms per token
+    after the first. (The frontend phase sends the same requests over
+    HTTP, where a completion streams a chunk only for a token that has
+    text or a log-probability.)"""
     t0 = time.perf_counter()
     outs, stamps = [], []
-    async for out in await open_stream(wire(rid, prompt, sampling)):
+    async for out in await open_stream(wire(rid, prompt, sampling, logprobs=1)):
         outs.append(out)
         stamps.append(time.perf_counter())
     tokens = [t for o in outs for t in o["token_ids"]]
@@ -1325,10 +1347,11 @@ def without_iteration(outs: list[dict]) -> list[dict]:
 
 
 def worker_process(cfg, preset: str, device: str, extra_args: list[str],
-                   solo_only=False) -> tuple[dict, list, object, dict]:
+                   solo_only=False, env=None) -> tuple[dict, list, object, dict]:
     """The port's store and ``python -m dynamo_tpu_torch.backends.torch``
-    (with ``extra_args``) as subprocesses, driven by :func:`drive_worker`;
-    returns its traffic, KV events, model card and exit counters."""
+    (with ``extra_args`` and the environment variables ``env``) as
+    subprocesses, driven by :func:`drive_worker`; returns its traffic, KV
+    events, model card and exit counters."""
     logs = Path(tempfile.mkdtemp(prefix="chip_smoke_worker_"))
     port = free_port()
     with open(logs / "store.log", "w") as store_log, open(logs / "worker.log", "w") as worker_log:
@@ -1345,7 +1368,7 @@ def worker_process(cfg, preset: str, device: str, extra_args: list[str],
                  "--model-name", preset, "--preset", preset, "--seed", "0", "--device", device,
                  *extra_args],
                 cwd=ROOT, stdout=worker_log, stderr=subprocess.STDOUT,
-                env={**os.environ, "DYN_STORE_ADDRESS": f"127.0.0.1:{port}"},
+                env={**os.environ, **(env or {}), "DYN_STORE_ADDRESS": f"127.0.0.1:{port}"},
             )
             got, events, mdc = asyncio.run(
                 drive_worker(f"127.0.0.1:{port}", worker, cfg.vocab_size, solo_only))
@@ -1364,7 +1387,8 @@ def worker_process(cfg, preset: str, device: str, extra_args: list[str],
     return got, events, mdc, worker_stats(logs / "worker.log")
 
 
-def serve_worker(card: str, preset: str = "llama3-8b", device: str = "cuda") -> dict:
+def serve_worker(card: str, preset: str = "llama3-8b",
+                 device: str = "cuda") -> tuple[dict, dict, dict]:
     """The worker process: the port's store and
     ``python -m dynamo_tpu_torch.backends.torch`` as subprocesses, driven
     through the port's discovery and data-plane client. Its solo greedy
@@ -1372,7 +1396,11 @@ def serve_worker(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
     one engine is on the card at a time); the 8-request batch's times are
     printed beside the in-process engine's; a resent prompt must report
     cached tokens, and the worker's KV events must carry the block hashes
-    of the prompt's full blocks."""
+    of the prompt's full blocks. The worker runs without its status server
+    and obs snapshots (``DYN_SYSTEM_ENABLED=0``, ``--obs-publish off``),
+    the frontend phase's workers with them, so the two phases' decode
+    times compare the two. Returns the summary, and the worker's traffic
+    and exit counters, which the frontend phase is held to."""
     from dynamo_tpu_torch.engine.config import PRESETS
     from dynamo_tpu_torch.tokens import compute_seq_hashes
 
@@ -1380,7 +1408,8 @@ def serve_worker(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
     ref, ref_stats = in_process_traffic(preset, device)
     print(f"worker phase: in-process reference done ({len(ref['solo'])} solo, "
           f"{len(ref['batch'])} concurrent, 1 resent)", flush=True)
-    got, events, mdc, stats = worker_process(cfg, preset, device, [])
+    got, events, mdc, stats = worker_process(cfg, preset, device, ["--obs-publish", "off"],
+                                             env={"DYN_SYSTEM_ENABLED": "0"})
     got_async, _, _, stats_async = worker_process(cfg, preset, device, ["--async-exec", "on"],
                                                   solo_only=True)
 
@@ -1451,7 +1480,483 @@ def serve_worker(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
             "worker": rows[0], "in_process": rows[1],
             "worker_attention_launches": stats["attention_launches"],
             "worker_forwards": stats["forwards"],
-            "worker_warm_up_forwards": stats["warm_up_forwards"], "kv_events": len(events)}
+            "worker_warm_up_forwards": stats["warm_up_forwards"], "kv_events": len(events)}, got, stats
+
+
+# -- the frontend ----------------------------------------------------------------
+
+# The shared-prefix check's chat prompts: one long system text (well over
+# 4 full blocks of 16 byte tokens), then a question of their own.
+ROUTE_SHARED_TEXT = ("Every request of this tenant opens with the same long system prompt, "
+                     "so the blocks that hold it are worth routing to. ") * 3
+ROUTE_SETTLE_S = 1.0  # for the KV events of a finished request to reach the router
+BUSY_PROMPT_LENS = (2000, 300)  # the busy worker's request, and the fresh one
+
+
+def metric_samples(text: str) -> dict[str, float]:
+    """``name{labels}`` -> value of every sample of a Prometheus page."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def metric(samples: dict[str, float], name: str, *labels: str) -> float:
+    """The sum of the samples of ``name`` whose labels hold every one of
+    ``labels`` (``'key="value"'``)."""
+    return sum(v for k, v in samples.items()
+               if k.split("{", 1)[0] == name and all(lab in k for lab in labels))
+
+
+def proc_cpu_s(pid: int) -> float:
+    """A process's user and system CPU seconds, from ``/proc``."""
+    fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+async def wait_for_log(path: Path, pattern: str, proc, timeout: float):
+    """The first match of ``pattern`` in the log, once it appears."""
+    deadline = time.time() + timeout
+    while True:
+        m = re.search(pattern, path.read_text(errors="replace"))
+        if m:
+            return m
+        if proc.poll() is not None:
+            raise RuntimeError(f"{path.name}: the process exited with {proc.returncode}")
+        if time.time() > deadline:
+            raise TimeoutError(f"{path.name}: no {pattern!r} after {timeout:.0f} s")
+        await asyncio.sleep(0.5)
+
+
+async def http_stream(session, url: str, body: dict) -> dict:
+    """POST a streamed completion or chat request and read its server-sent
+    events with the client's clock: every chunk, the log-probabilities of
+    its tokens, its usage and finish reason, the time to the first chunk
+    and ms per token after the first."""
+    t0 = time.perf_counter()
+    chunks, stamps, lps, tops = [], [], [], []
+    async with session.post(url, json={**body, "stream": True}) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"{url}: {resp.status} {await resp.text()}")
+        async for line in resp.content:
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            if line == b"data: [DONE]":
+                chunks.append("[DONE]")
+                break
+            chunk = json.loads(line[6:])
+            if "error" in chunk:
+                raise AssertionError(f"{url}: {chunk['error']}")
+            chunks.append(chunk)
+            lp = (chunk["choices"] or [{}])[0].get("logprobs") or {}
+            if lp.get("token_logprobs"):
+                stamps.append(time.perf_counter())
+                lps += lp["token_logprobs"]
+                tops += lp["top_logprobs"]
+    if chunks[-1] != "[DONE]":
+        raise AssertionError(f"{url}: the stream ended without [DONE]")
+    final = chunks[-2]
+    return {"chunks": chunks, "logprobs": lps, "top_logprobs": tops,
+            "usage": final.get("usage") or {},
+            "finish": next((c["choices"][0].get("finish_reason") for c in chunks[:-1]
+                            if c["choices"] and c["choices"][0].get("finish_reason")), None),
+            "ttft_ms": 1e3 * (stamps[0] - t0) if stamps else None,
+            "tpot_ms": 1e3 * (stamps[-1] - stamps[0]) / max(1, len(lps) - 1) if stamps else None}
+
+
+async def http_json(session, url: str, body: dict) -> dict:
+    async with session.post(url, json=body) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"{url}: {resp.status} {await resp.text()}")
+        return await resp.json()
+
+
+def completion_body(model: str, prompt, sampling: dict, pin=None) -> dict:
+    """A pre-tokenized ``/v1/completions`` request of the worker phase's
+    prompt and sampling, with one log-probability per token; ``pin`` names
+    the worker it must run on."""
+    body = {"model": model, "prompt": prompt, "max_tokens": MAX_TOKENS, "logprobs": 1,
+            **sampling}
+    if pin is not None:
+        body["dyn"] = {"router": {"backend_instance_id": pin}}
+    return body
+
+
+def held_to_direct(rid: str, got: dict, direct: dict) -> None:
+    """An HTTP completion against the same request through the data-plane
+    client: the same count of tokens, finish reason, and log-probability
+    of each token and of its top alternative."""
+    want = [e for o in direct["outs"] for e in o.get("logprobs") or []]
+    want_lps = [e["logprob"] for e in want]
+    want_tops = [[lp for _, lp in e["top"]] for e in want]
+    tops = [list(t.values()) for t in got["top_logprobs"]]
+    if (len(got["logprobs"]) != len(direct["tokens"]) or got["finish"] != direct["finish"]
+            or got["logprobs"] != want_lps or tops != want_tops):
+        raise AssertionError(
+            f"{rid}: over HTTP {len(got['logprobs'])} tokens, finish {got['finish']!r}; "
+            f"direct {len(direct['tokens'])} tokens, finish {direct['finish']!r}; first "
+            f"log-probabilities {got['logprobs'][:4]} against {want_lps[:4]}")
+
+
+async def worker_metrics(session, workers: dict) -> dict[str, dict[str, float]]:
+    out = {}
+    for name, w in workers.items():
+        async with session.get(f"http://127.0.0.1:{w['status_port']}/metrics") as resp:
+            if resp.status != 200:
+                raise AssertionError(f"{name} /metrics answered {resp.status}")
+            out[name] = metric_samples(await resp.text())
+    return out
+
+
+def admitted(samples: dict[str, dict[str, float]]) -> dict[str, tuple[float, float]]:
+    """Each worker's admitted sequences and prefix-cache hits among them."""
+    return {name: (metric(s, "dynamo_kv_prefix_cache_admitted_queries_total"),
+                   metric(s, "dynamo_kv_prefix_cache_admitted_hits_total"))
+            for name, s in samples.items()}
+
+
+async def registered_workers(procs: dict, logs: Path) -> dict:
+    """Each worker's id and status-server port, from its log once it
+    serves."""
+    workers = {}
+    for name in ("worker_a", "worker_b"):
+        m = await wait_for_log(logs / f"{name}.log",
+                               r"torch aggregated worker (\d+) serving model", procs[name], 900)
+        port = await wait_for_log(logs / f"{name}.log", r"status server on http://[^:]+:(\d+)",
+                                  procs[name], 10)
+        workers[name] = {"id": int(m.group(1)), "status_port": int(port.group(1))}
+    return workers
+
+
+async def check_health(s, base: str, model: str, workers: dict) -> None:
+    """Wait until the frontend lists the model and its fleet aggregator
+    has both workers' snapshots, then ``/health`` must answer 200 on the
+    frontend and on each worker's status server."""
+    deadline = time.time() + 120
+    while True:
+        async with s.get(f"{base}/v1/models") as r:
+            models = [m["id"] for m in (await r.json())["data"]] if r.status == 200 else []
+        async with s.get(f"{base}/metrics") as r:
+            live = metric(metric_samples(await r.text()), "dynamo_obs_live_workers")
+        if model in models and live == 2:
+            break
+        if time.time() > deadline:
+            raise TimeoutError(f"frontend: models {models}, {live} live workers")
+        await asyncio.sleep(0.5)
+    health = {}
+    for name, url in [(n, f"http://127.0.0.1:{w['status_port']}/health")
+                      for n, w in workers.items()] + [("frontend", f"{base}/health")]:
+        async with s.get(url) as r:
+            health[name] = (r.status, (await r.json())["status"])
+    if any(code != 200 for code, _ in health.values()):
+        raise AssertionError(f"/health: {health}")
+    print(f"frontend phase: /health {health}; worker ids and status ports "
+          f"{ {n: (w['id'], w['status_port']) for n, w in workers.items()} }", flush=True)
+
+
+async def check_routing(s, base: str, model: str, vocab: int, workers: dict) -> dict:
+    """KV routing, unpinned and streamed (a streamed response frees its
+    router load as it ends): a chat, then one sharing its first blocks,
+    which must land on the worker holding them with cached tokens; then a
+    fresh prompt sent while one worker decodes a long request, which must
+    land on the other. Which worker admitted a request is read off the
+    workers' ``/metrics``."""
+    chat = f"{base}/v1/chat/completions"
+    usage = {"stream_options": {"include_usage": True}, "max_tokens": 8, "temperature": 0.0}
+    before = admitted(await worker_metrics(s, workers))
+    first = await http_stream(s, chat, {"model": model, "messages": [
+        {"role": "user", "content": ROUTE_SHARED_TEXT + "What is the first question?"}],
+        **usage})
+    mid = admitted(await worker_metrics(s, workers))
+    (holder,) = [n for n in workers if mid[n][0] == before[n][0] + 1]
+    await asyncio.sleep(ROUTE_SETTLE_S)
+    second = await http_stream(s, chat, {"model": model, "messages": [
+        {"role": "user", "content": ROUTE_SHARED_TEXT + "And which is the second one?"}],
+        **usage})
+    after = admitted(await worker_metrics(s, workers))
+    cached = (second["usage"].get("prompt_tokens_details") or {}).get("cached_tokens", 0)
+    other = next(n for n in workers if n != holder)
+    if (after[holder] != (mid[holder][0] + 1, mid[holder][1] + 1) or after[other] != mid[other]
+            or not cached or (first["usage"].get("prompt_tokens_details") or {}).get("cached_tokens")):
+        raise AssertionError(f"shared prefix: holder {holder}, admitted (queries, hits) "
+                             f"{before} -> {mid} -> {after}, cached_tokens {cached}")
+    print(f"frontend routing: the shared-prefix chat landed on its holder {holder} "
+          f"(worker {workers[holder]['id']}), cached_tokens {cached} of "
+          f"{second['usage']['prompt_tokens']}, its admitted prefix hits "
+          f"{mid[holder][1]:.0f} -> {after[holder][1]:.0f}", flush=True)
+
+    rng = np.random.default_rng(77)
+    long_prompt, fresh_prompt = ([int(t) for t in rng.integers(0, vocab, n)]
+                                 for n in BUSY_PROMPT_LENS)
+    url = f"{base}/v1/completions"
+    greedy = {"temperature": 0.0}
+    started = asyncio.Event()
+    base_counts = admitted(await worker_metrics(s, workers))
+
+    async def busy():
+        async with s.post(url, json={**completion_body(model, long_prompt, greedy),
+                                     "stream": True}) as resp:
+            async for line in resp.content:
+                if line.startswith(b"data: {"):
+                    started.set()
+        started.set()
+
+    busy_task = asyncio.create_task(busy())
+    await started.wait()
+    busy_counts = admitted(await worker_metrics(s, workers))
+    (busy_name,) = [n for n in workers if busy_counts[n][0] == base_counts[n][0] + 1]
+    await http_stream(s, url, completion_body(model, fresh_prompt, greedy))
+    fresh_counts = admitted(await worker_metrics(s, workers))
+    await busy_task
+    free_name = next(n for n in workers if n != busy_name)
+    if (fresh_counts[free_name][0] != busy_counts[free_name][0] + 1
+            or fresh_counts[busy_name][0] != busy_counts[busy_name][0]):
+        raise AssertionError(f"busy routing: {busy_name} busy, admitted {busy_counts} -> "
+                             f"{fresh_counts}")
+    print(f"frontend routing: a fresh prompt sent while {busy_name} decoded a long one "
+          f"landed on {free_name}; both workers served "
+          f"{sum(1 for n in workers if fresh_counts[n][0] > 0)} of 2", flush=True)
+    return {"requests": 4, "holder": holder, "cached_tokens": cached, "busy": busy_name,
+            "fresh_to": free_name}
+
+
+async def check_parity(s, base: str, model: str, pin: int, direct: dict, sampling: dict) -> int:
+    """The worker phase's solo prompts, one at a time on worker ``pin``
+    with its KV cache cleared, streamed, then again after a clear, not
+    streamed: each held to the data-plane client's stream of the same
+    request (:func:`held_to_direct`). Returns the requests sent."""
+    url = f"{base}/v1/completions"
+    by_rid = {r["rid"]: r for r in direct["solo"]}
+    for stream in (True, False):
+        cleared = await http_json(s, f"{base}/clear_kv_blocks", {})
+        if len(cleared["cleared"][model]) != 2 or min(cleared["cleared"][model].values()) < 0:
+            raise AssertionError(f"clear_kv_blocks: {cleared}")
+        for rid in WORKER_SOLO:
+            body = completion_body(model, direct["prompts"][rid], sampling[rid], pin)
+            if stream:
+                got = await http_stream(s, url, body)
+            else:
+                out = await http_json(s, url, body)
+                lp = out["choices"][0]["logprobs"]
+                got = {"logprobs": lp["token_logprobs"], "top_logprobs": lp["top_logprobs"],
+                       "finish": out["choices"][0]["finish_reason"]}
+                if out["usage"]["completion_tokens"] != len(got["logprobs"]):
+                    raise AssertionError(f"{rid}: usage {out['usage']}")
+            held_to_direct(rid, got, by_rid[rid])
+    print(f"frontend parity: {len(WORKER_SOLO)} prompts, streamed and not, each "
+          f"{MAX_TOKENS} tokens with the log-probabilities of the data-plane client's "
+          f"stream, on worker {pin}", flush=True)
+    return 2 * len(WORKER_SOLO)
+
+
+async def direct_batch(store: str, pin: int, by_id: dict) -> list[dict]:
+    """The solo prompts and then the 8 at once through the port's
+    data-plane client, straight to worker ``pin`` (its cache cleared
+    first): the same worker's figures without the frontend."""
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+
+    rt = await DistributedRuntime.create(store)
+    try:
+        client = await rt.namespace("dynamo").component("backend").endpoint("generate").client()
+        await client.wait_for_instances(2, timeout=30)
+
+        async def open_stream(req):
+            return await client.direct(pin, req)
+
+        for rid in WORKER_SOLO:
+            await timed_stream(open_stream, *by_id[rid])
+        return await asyncio.wait_for(
+            asyncio.gather(*(timed_stream(open_stream, *r) for r in by_id.values())), 600)
+    finally:
+        await rt.shutdown()
+
+
+async def drive_frontend(base: str, store: str, model: str, vocab: int, procs: dict,
+                         logs: Path, direct: dict) -> dict:
+    """The frontend phase's traffic (see :func:`serve_frontend`)."""
+    import aiohttp
+
+    workers = await registered_workers(procs, logs)
+    t_registered = time.time()
+    reqs, late, _ = serving_requests(vocab)
+    sampling = {rid: samp for rid, _, samp in reqs + [late]}
+    pin = workers["worker_a"]["id"]
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+        await check_health(s, base, model, workers)
+        routing = await check_routing(s, base, model, vocab, workers)
+        n_requests = routing.pop("requests") + await check_parity(
+            s, base, model, pin, direct, sampling)
+
+        # The worker phase's 8 requests at once, on the worker that holds
+        # the solo prompts' blocks as the worker phase's worker did.
+        cpu0 = proc_cpu_s(procs["frontend"].pid)
+        batch = await asyncio.gather(*(
+            http_stream(s, f"{base}/v1/completions",
+                        completion_body(model, prompt, sampling[rid], pin))
+            for rid, prompt in direct["prompts"].items()))
+        frontend_cpu_s = proc_cpu_s(procs["frontend"].pid) - cpu0
+        n_requests += len(batch)
+        batch = dict(zip(direct["prompts"], batch))
+        for rid, r in batch.items():
+            if len(r["logprobs"]) != MAX_TOKENS or r["finish"] != "length":
+                raise AssertionError(f"{rid}: {len(r['logprobs'])} tokens, finish {r['finish']}")
+        streamed = sum(len(r["logprobs"]) for r in batch.values())
+
+        # The same 8 from the same cache state through the data-plane
+        # client, on the same worker.
+        await http_json(s, f"{base}/clear_kv_blocks", {})
+        same_worker = await direct_batch(store, pin, {r[0]: r for r in reqs + [late]})
+
+        # The frontend's own series, and each worker's under its worker_id.
+        async with s.get(f"{base}/metrics") as r:
+            front = metric_samples(await r.text())
+        requests_total = metric(front, "dynamo_frontend_requests_total")
+        per_worker = {n: metric(front, "dynamo_scheduler_megastep_k", f'worker_id="{w["id"]}"')
+                      for n, w in workers.items()}
+        if requests_total != n_requests or not all(per_worker.values()):
+            raise AssertionError(f"frontend /metrics: {requests_total} requests counted of "
+                                 f"{n_requests}; scheduler_megastep_k by worker {per_worker}")
+        final = await worker_metrics(s, workers)
+    return {"workers": workers, "registered_s": t_registered, "batch": batch,
+            "same_worker_batch": {r["rid"]: r for r in same_worker},
+            "frontend_cpu_ms_per_token": 1e3 * frontend_cpu_s / streamed,
+            "streamed_tokens": streamed, "requests": n_requests, "worker_metrics": final,
+            "routing": routing}
+
+
+def serve_frontend(card: str, direct: dict, direct_stats: dict,
+                   preset: str = "llama3-8b", device: str = "cuda") -> dict:
+    """The port's whole serving stack, each part a process of its own and
+    spoken to over HTTP: the store, two workers
+    (``python -m dynamo_tpu_torch.backends.torch``, started together, each
+    with its status server and obs snapshots on) and
+    ``python -m dynamo_tpu_torch.frontend --router-mode kv``. It checks
+    ``/health`` on all three; KV routing (a shared-prefix chat lands on
+    the worker that holds the prefix, with cached tokens, and a fresh
+    prompt sent while one worker is busy lands on the other); the worker
+    phase's solo prompts as pre-tokenized completions, streamed and not,
+    against the data-plane client's streams (``direct``: tokens, finish
+    reasons, log-probabilities); its 8 requests at once, timed beside the
+    same 8 from the same cache state through the data-plane client
+    straight to the same worker, and beside the worker phase's; the
+    frontend's request counters and each worker's
+    series under its ``worker_id`` on the frontend's ``/metrics``; each
+    worker's scheduler gauges against the counters it logs on exit; and
+    K1's launches in each worker."""
+    from dynamo_tpu_torch.engine.config import PRESETS
+    from dynamo_tpu_torch.runtime.status_server import SCHEDULER_GAUGES
+
+    cfg = PRESETS[preset]()
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_frontend_"))
+    store_port, http_port = free_port(), free_port()
+    env = {**os.environ, "DYN_STORE_ADDRESS": f"127.0.0.1:{store_port}"}
+    t0 = time.time()
+    procs: dict = {}
+    files = {name: open(logs / f"{name}.log", "w")
+             for name in ("store", "worker_a", "worker_b", "frontend")}
+    try:
+        procs["store"] = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(store_port)],
+            cwd=ROOT, stdout=files["store"], stderr=subprocess.STDOUT)
+        wait_for_port(store_port, procs["store"], 30)
+        for name in ("worker_a", "worker_b"):
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", "--model-name", preset,
+                 "--preset", preset, "--seed", "0", "--device", device],
+                cwd=ROOT, stdout=files[name], stderr=subprocess.STDOUT,
+                env={**env, "DYN_SYSTEM_ENABLED": "1"})
+        procs["frontend"] = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1",
+             "--http-port", str(http_port), "--router-mode", "kv"],
+            cwd=ROOT, stdout=files["frontend"], stderr=subprocess.STDOUT, env=env)
+        got = asyncio.run(drive_frontend(f"http://127.0.0.1:{http_port}",
+                                         f"127.0.0.1:{store_port}", preset, cfg.vocab_size,
+                                         procs, logs, direct))
+        stats = {}
+        for name in ("worker_a", "worker_b"):
+            stop_process(procs[name])
+            if procs[name].returncode != 0:
+                raise AssertionError(f"{name} exited with {procs[name].returncode}")
+            stats[name] = worker_stats(logs / f"{name}.log")
+        stop_process(procs["frontend"])
+        frontend_log = (logs / "frontend.log").read_text(errors="replace")
+    except BaseException:
+        for name in files:
+            print(f"{name} log tail:\n{(logs / f'{name}.log').read_text(errors='replace')[-4000:]}",
+                  file=sys.stderr)
+        raise
+    finally:
+        for name, proc in procs.items():
+            stop_process(proc, signal.SIGKILL if name != "store" else signal.SIGTERM, 10)
+        for f in files.values():
+            f.close()
+    wall_s = time.time() - t0
+
+    for name, st in stats.items():
+        gauges = {key: metric(got["worker_metrics"][name], f"dynamo_{metric_name}")
+                  for key, (metric_name, _) in SCHEDULER_GAUGES.items()}
+        want = {key: float(st.get(key, 0) or 0) for key in SCHEDULER_GAUGES}
+        if gauges != want:
+            raise AssertionError(f"{name}: /metrics scheduler gauges {gauges}, counters {want}")
+        if st["graph_captures"] != direct_stats["graph_captures"]:
+            raise AssertionError(f"{name}: {st['graph_captures']} graphs captured, the worker "
+                                 f"phase's worker {direct_stats['graph_captures']} (warm-up)")
+        if (device == "cuda" and (
+                st["attention_launches"] != cfg.num_layers * (st["forwards"] + st["warm_up_forwards"])
+                or st["attention_launches_int8"] != 0)):
+            raise AssertionError(f"{name}: K1 launches do not match its forwards: {st}")
+    kernels = stats["worker_a"]["kernel_launches"]  # the worker that served the parity and batch
+    if device == "cuda" and min(kernels[k] for k in ("ragged_paged_attention_decode_launch",
+                                                     "ragged_paged_attention_tiled_launch")) == 0:
+        raise AssertionError(f"worker_a launched a K1 kernel no time: {kernels}")
+    tree = "python" if "native radix unavailable" in frontend_log else "native"
+    decode_ms = {name: 1e3 * st["decode_loop_s"] / st["decode_iterations"]
+                 for name, st in stats.items() if st["decode_iterations"]}
+    decode_ms["worker_phase"] = 1e3 * direct_stats["decode_loop_s"] / direct_stats["decode_iterations"]
+    phase_batch = {r["rid"]: r for r in direct["batch"]}
+    same = got["same_worker_batch"]
+    for rid, r in sorted(got["batch"].items()):
+        d, w = same[rid], phase_batch[rid]
+        print(f"frontend batch {rid}: TTFT HTTP {r['ttft_ms']:.1f} ms, direct to the same worker "
+              f"{d['ttft_ms']:.1f} ms, the worker phase's {w['ttft_ms']:.1f} ms; ms per token "
+              f"after the first {r['tpot_ms']:.2f}, {d['tpot_ms']:.2f}, {w['tpot_ms']:.2f}",
+              flush=True)
+
+    def median_tpot(runs) -> float:
+        return float(np.median([r["tpot_ms"] for r in runs]))
+
+    summary = {
+        "radix_tree": tree,
+        "wall_s": wall_s,
+        "workers_registered_s": got["registered_s"] - t0,
+        "routing": got["routing"],
+        "requests": got["requests"],
+        "batch_ttft_ms": {rid: r["ttft_ms"] for rid, r in got["batch"].items()},
+        "batch_tpot_ms": {rid: r["tpot_ms"] for rid, r in got["batch"].items()},
+        "batch_tpot_ms_median": median_tpot(got["batch"].values()),
+        "same_worker_batch_ttft_ms": {rid: r["ttft_ms"] for rid, r in same.items()},
+        "same_worker_batch_tpot_ms_median": median_tpot(same.values()),
+        "worker_phase_batch_ttft_ms": {rid: r["ttft_ms"] for rid, r in phase_batch.items()},
+        "worker_phase_batch_tpot_ms_median": median_tpot(phase_batch.values()),
+        "frontend_cpu_ms_per_streamed_token": got["frontend_cpu_ms_per_token"],
+        "streamed_tokens": got["streamed_tokens"],
+        "decode_ms_per_iteration": decode_ms,
+        "attention_launches": {n: st["attention_launches"] for n, st in stats.items()},
+        "forwards": {n: st["forwards"] + st["warm_up_forwards"] for n, st in stats.items()},
+        "graph_captures": {n: st["graph_captures"] for n, st in stats.items()},
+        "kernel_launches": {n: st["kernel_launches"] for n, st in stats.items()},
+    }
+    print(f"frontend phase on {card}: radix tree {tree}; {got['requests']} HTTP requests; "
+          f"8 at once, median ms per token after the first: HTTP "
+          f"{summary['batch_tpot_ms_median']:.2f}, direct to the same worker "
+          f"{summary['same_worker_batch_tpot_ms_median']:.2f}, the worker phase's "
+          f"{summary['worker_phase_batch_tpot_ms_median']:.2f}; frontend CPU {summary['frontend_cpu_ms_per_streamed_token']:.4f} ms per "
+          f"streamed token; decode ms per iteration {json.dumps(decode_ms)}; workers registered "
+          f"after {summary['workers_registered_s']:.1f} s; phase wall {wall_s:.1f} s", flush=True)
+    return summary
 
 
 def kernel_entry(name, source, replaces, launches, shapes, main_shape, **extra) -> dict:
@@ -1541,7 +2046,12 @@ def main() -> int:
               f"{sa['async']['decode_ms_per_iteration']:.3f}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"worker summary: {json.dumps(serve_worker(card))}", flush=True)
+    worker_summary, direct, direct_stats = serve_worker(card)
+    print(f"worker summary: {json.dumps(worker_summary)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontend = serve_frontend(card, direct, direct_stats)
+    print(f"frontend summary: {json.dumps(frontend)}", flush=True)
 
     def k2_shapes_of(pages):
         return [s for s in k2_shapes if s["pages"] == pages]
@@ -1568,6 +2078,10 @@ def main() -> int:
                 bf16 = next(x for x in shapes if x["kernel"] == kernel and x["shape"] == main_shape)
                 extra["int8_vs_bf16"] = main_rec["ms"] / bf16["ms"]
             name = ra.ENTRY_NAMES[kernel, int8]
+            # The frontend phase's two workers, warm-up included (their
+            # processes start with the counts at 0).
+            extra["frontend_phase_launches"] = sum(
+                w[name] for w in frontend["kernel_launches"].values())
             k1.append(kernel_entry(
                 name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
                 main_rec, pages="int8" if int8 else "bf16", **extra,

@@ -4,15 +4,17 @@
 --preset llama3-8b`` starts a worker process shaped like the JAX
 package's (``dynamo_tpu/backends/jax/main.py``), in its aggregated role:
 connect to the control-plane store named by ``DYN_STORE_ADDRESS``, build
-the engine on the card, publish KV events and load metrics, register the
-model card and serve the ``generate`` endpoint over the TCP data plane.
-Its wire is the JAX worker's, so a JAX frontend and KV router route to it
-as to a JAX worker.
+the engine on the card, publish KV events, load metrics and metric
+snapshots, serve ``/health`` and ``/metrics`` on its status server,
+register the model card and serve the ``generate`` endpoint over the TCP
+data plane. Its wire is the JAX worker's, so the port's frontend and KV
+router (``python -m dynamo_tpu_torch.frontend``) and the JAX package's
+route to it as to a JAX worker.
 
 :func:`build_engine` is the in-process entry point the worker wraps.
 The CLI takes the JAX worker's flags, less the tuning values of features
 it refuses (``--prefill-chunk``, ``--spec-k``, ``--spec-device-draft``,
-``--obs-interval-s``, ``--node-rank``, ``--max-local-prefill-length``),
+``--node-rank``, ``--max-local-prefill-length``),
 which argparse rejects; a value the port does not serve yet raises a
 ``ValueError`` naming the ``ROADMAP.md`` item that brings it.
 """
@@ -25,6 +27,7 @@ import json
 import logging
 from typing import Any, AsyncIterator
 
+from dynamo_tpu_torch import tracing
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig, ModelConfig, tiny_engine
 from dynamo_tpu_torch.engine.core import EngineCore, check_slice, resolve_device
 from dynamo_tpu_torch.engine.engine import TorchEngine
@@ -32,8 +35,18 @@ from dynamo_tpu_torch.engine.model import init_params_quantized
 from dynamo_tpu_torch.llm.discovery import register_llm
 from dynamo_tpu_torch.llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard, ModelRuntimeConfig
+from dynamo_tpu_torch.obs.slo import PhaseScanner
+from dynamo_tpu_torch.obs.snapshot import SnapshotPublisher
 from dynamo_tpu_torch.ops import ragged_attention
 from dynamo_tpu_torch.runtime import Context, DistributedRuntime
+from dynamo_tpu_torch.runtime.status_server import (
+    bind_fair_queue_gauges,
+    bind_kv_cache_gauges,
+    bind_kv_pool_gauges,
+    bind_scheduler_gauges,
+    bind_spec_gauges,
+    bind_store_gauges,
+)
 from dynamo_tpu_torch.runtime.worker import dynamo_worker
 
 log = logging.getLogger("dynamo_tpu_torch.backends.torch")
@@ -141,12 +154,17 @@ async def run_torch_worker(
     quant: str | None = None,
     device="cuda",
     params: dict | None = None,
+    obs_publish: bool = True,
+    obs_interval_s: float = 1.0,
 ) -> None:
     """Serve one aggregated worker until the runtime shuts down.
 
     The aggregated path of the JAX package's ``run_jax_worker``: KV events
     hop from the engine thread onto the loop, a graceful drain retracts
-    the published inventory, load metrics are published every 0.5 s, and
+    the published inventory, load metrics are published every 0.5 s, the
+    core's scheduler, speculation, KV-cache, fair-queue and KV-pool
+    counters are gauges on the status server (when the runtime has one)
+    and, with ``obs_publish``, metric snapshots every ``obs_interval_s``;
     the model card is registered only once the engine is built and has
     run its warm-up forwards, one of every shape it serves (off the loop,
     so the store lease's keepalive keeps running through the weights'
@@ -186,6 +204,41 @@ async def run_torch_worker(
         runtime.store, namespace, component, worker_id, engine.metrics, interval_s=0.5
     )
     await metrics_pub.start()
+
+    # Gauges on this worker's /metrics, read from the live core at scrape
+    # time, as the JAX worker binds them (the disaggregation gauges wait
+    # for the roles, ROADMAP.md A10).
+    bind_store_gauges(runtime.status, runtime.store)
+    bind_scheduler_gauges(runtime.status, core.scheduler_stats)
+    bind_spec_gauges(runtime.status, core.spec_decode_stats)
+    bind_kv_cache_gauges(runtime.status, core.kv_cache_stats)
+    bind_fair_queue_gauges(runtime.status, core.fair_queue_stats)
+    bind_kv_pool_gauges(runtime.status, kv_pub.stats)
+
+    # Metric snapshots for the fleet aggregator: a loop task reading the
+    # same host dicts, nothing on the engine thread. A graceful drain
+    # publishes the retraction, so the series leave the fleet view at once.
+    if obs_publish:
+        snap_pub = SnapshotPublisher(
+            runtime.store, namespace, worker_id,
+            role="worker", component=component, interval_s=obs_interval_s,
+        )
+        snap_pub.collectors = {
+            "scheduler": core.scheduler_stats,
+            "spec": core.spec_decode_stats,
+            "kv_cache": core.kv_cache_stats,
+            "kv_pool": kv_pub.stats,
+        }
+        snap_pub.tenant_source = core.fair_queue_stats
+        collector = tracing.get_collector()
+        snap_pub.phase_source = collector.phase_totals
+        snap_pub.request_source = PhaseScanner(collector).scan
+        await snap_pub.start()
+
+        async def _retire_snapshot() -> None:
+            await snap_pub.retire(timeout=5.0)
+
+        runtime.on_drain.append(_retire_snapshot)
 
     endpoint = runtime.namespace(namespace).component(component).endpoint("generate")
 
@@ -256,8 +309,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--sp", type=int, default=1)
     ap.add_argument("--ring-prefill-threshold", type=int, default=None)
     ap.add_argument("--pp", type=int, default=1)
-    ap.add_argument("--obs-publish", default="off", choices=["on", "off"],
-                    help="metric snapshots on the event plane (not ported: A6b)")
+    ap.add_argument("--obs-publish", default="on", choices=["on", "off"],
+                    help="publish periodic metric snapshots on the event plane "
+                         "for the fleet aggregator")
+    ap.add_argument("--obs-interval-s", type=float, default=1.0,
+                    help="metric-snapshot publish interval")
     ap.add_argument("--role", default="aggregated",
                     choices=["aggregated", "prefill", "decode"])
     ap.add_argument("--dist-init-addr", default=None)
@@ -280,7 +336,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         (args.nnodes > 1 or args.dist_init_addr is not None
          or args.local_cpu_devices is not None,
          "multi-host (--nnodes, --dist-init-addr, --local-cpu-devices)", "A12"),
-        (args.obs_publish == "on", "--obs-publish on", "A6b"),
     ]
     for refused, what, item in refusals:
         if refused:
@@ -331,6 +386,8 @@ def main(argv: list[str] | None = None) -> None:
             seed=args.seed,
             quant=args.quant,
             device=args.device,
+            obs_publish=args.obs_publish == "on",
+            obs_interval_s=args.obs_interval_s,
         )
 
     entry()

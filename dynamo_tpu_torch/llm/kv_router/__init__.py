@@ -1,21 +1,31 @@
-"""The worker side of KV-aware routing: the KV event and load-metrics
-publishers and their wire types.
+"""KV-aware routing: the indexer, the router and its scheduler, and the
+worker-side KV event and load-metrics publishers.
 
-The router, the indexer and the scheduler of ``dynamo_tpu/llm/kv_router``
-run in the frontend, which the port does not have yet (``ROADMAP.md`` A6b).
+The port's copy of ``dynamo_tpu/llm/kv_router/__init__.py``, held to it by
+``tests/test_torch_copies.py``.
 """
 
+from dynamo_tpu_torch.llm.kv_router.indexer import KvIndexer, RadixTree
 from dynamo_tpu_torch.llm.kv_router.protocols import (
     ForwardPassMetrics,
     KvCacheEvent,
+    RouterConfig,
     RouterEvent,
 )
-from dynamo_tpu_torch.llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
+from dynamo_tpu_torch.llm.kv_router.router import KvPushRouter, KvRouter
+from dynamo_tpu_torch.llm.kv_router.scheduler import DefaultWorkerSelector, softmax_sample
+from dynamo_tpu_torch.llm.kv_router.sequence import ActiveSequences
 
 __all__ = [
+    "ActiveSequences",
+    "DefaultWorkerSelector",
     "ForwardPassMetrics",
     "KvCacheEvent",
-    "KvEventPublisher",
+    "KvIndexer",
+    "KvPushRouter",
+    "KvRouter",
+    "RadixTree",
+    "RouterConfig",
     "RouterEvent",
-    "WorkerMetricsPublisher",
+    "softmax_sample",
 ]

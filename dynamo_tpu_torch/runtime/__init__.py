@@ -1,8 +1,7 @@
 """The distributed runtime: store client, data plane, components, workers.
 
-The port's copy of ``dynamo_tpu/runtime/__init__.py`` with its exports
-except ``MetricsRegistry``: the Prometheus registry and the status server
-wait for ``ROADMAP.md`` A6b.
+The port's copy of ``dynamo_tpu/runtime/__init__.py``, held to it by
+``tests/test_torch_copies.py``.
 """
 
 from dynamo_tpu_torch.runtime.component import (
@@ -16,6 +15,7 @@ from dynamo_tpu_torch.runtime.component import (
 )
 from dynamo_tpu_torch.runtime.engine import Annotated, AsyncEngine, Context
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
+from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from dynamo_tpu_torch.runtime.worker import dynamo_worker
 
 __all__ = [
@@ -27,6 +27,7 @@ __all__ = [
     "Endpoint",
     "EndpointClient",
     "Instance",
+    "MetricsRegistry",
     "Namespace",
     "NoInstancesError",
     "RuntimeConfig",

@@ -1,10 +1,7 @@
 """Worker process entrypoint helpers.
 
 The port's copy of ``dynamo_tpu/runtime/worker.py``, held to it by
-``tests/test_torch_copies.py``, with one difference: the status server,
-which waits for ``ROADMAP.md`` A6b, is not started. Asked for through
-``DYN_SYSTEM_ENABLED`` it is refused with a ``ValueError``; left at the
-knob's default (on) the worker logs that it serves without it.
+``tests/test_torch_copies.py``.
 
 ``@dynamo_worker`` turns an ``async def main(runtime, ...)`` into a process
 entry: builds the DistributedRuntime from env/config, installs SIGINT/SIGTERM
@@ -23,7 +20,6 @@ import logging
 import signal
 from typing import Any, Awaitable, Callable
 
-from dynamo_tpu_torch import knobs
 from dynamo_tpu_torch.runtime.component import DistributedRuntime
 from dynamo_tpu_torch.runtime.config import RuntimeConfig
 from dynamo_tpu_torch.runtime.logging_setup import setup_logging
@@ -62,13 +58,11 @@ async def _run(fn: Callable[..., Awaitable[Any]], cfg: RuntimeConfig, *args, **k
         cfg.store_address, lease_ttl=cfg.lease_ttl_s, ingress_host=cfg.ingress_host
     )
     if cfg.system_enabled:
-        if knobs.raw("DYN_SYSTEM_ENABLED") is not None:
-            await runtime.shutdown()
-            raise ValueError(
-                "DYN_SYSTEM_ENABLED: the status server is not ported yet "
-                "(ROADMAP.md A6b); unset it to serve without /health and /metrics"
-            )
-        log.warning("no status server: /health and /metrics are not ported yet (ROADMAP.md A6b)")
+        from dynamo_tpu_torch.runtime.status_server import SystemStatusServer, bind_egress_gauges
+
+        runtime.status = SystemStatusServer(port=cfg.system_port)
+        await runtime.status.start()
+        bind_egress_gauges(runtime.status, runtime.egress)
     loop = asyncio.get_running_loop()
     # SIGINT: immediate shutdown. SIGTERM: graceful drain — deregister
     # from discovery, stop admitting, finish (or migrate) in-flight

@@ -1,8 +1,7 @@
 """The port keeps its own copies of jax-free modules of the JAX package.
 Each copy is held to its original: the code (everything but the module
 docstring) parses to the same syntax tree, apart from the package name in
-its imports and the differences named in ``ALLOWED_DIFFERENCES``, and the
-block hashes it computes are the same. Where the port
+its imports, and the block hashes it computes are the same. Where the port
 copies only the jax-free definitions of a module (``engine/kv_quant.py``),
 each copied definition parses to the same tree as its original."""
 
@@ -47,53 +46,46 @@ COPIES = [
     "llm/kv_router/protocols.py",
     "llm/kv_router/publisher.py",
     "llm/tokenizer.py",
+    # The status server and the obs snapshots.
+    "runtime/metrics.py",
+    "runtime/status_server.py",
+    "obs/slo.py",
+    "obs/snapshot.py",
+    # The frontend's request path.
+    "llm/protocols/openai.py",
+    "llm/detokenizer.py",
+    "llm/preprocessor.py",
+    "llm/multimodal.py",
+    # The KV router.
+    "llm/kv_pool/__init__.py",
+    "llm/kv_pool/global_index.py",
+    "llm/kv_pool/peer_client.py",
+    "llm/kv_router/indexer.py",
+    "llm/kv_router/native_radix.py",
+    "llm/kv_router/scheduler.py",
+    "llm/kv_router/sequence.py",
+    "llm/kv_router/netcost.py",
+    "llm/kv_router/replica_sync.py",
+    "llm/kv_router/router.py",
+    "llm/kv_router/__init__.py",
+    # The service pipeline, the HTTP service and the fleet aggregator.
+    "runtime/pipeline.py",
+    "runtime/worker_monitor.py",
+    "llm/migration.py",
+    "llm/admission.py",
+    "llm/model_manager.py",
+    "llm/http_service.py",
+    "obs/aggregator.py",
+    "obs/service.py",
+    "obs/__init__.py",
+    # The frontend process.
+    "frontend/__init__.py",
+    "frontend/__main__.py",
+    "frontend/main.py",
 ]
 
 
-def _blank_status_server(tree: ast.Module) -> bool:
-    """``runtime/worker.py``: the ``if cfg.system_enabled:`` statement and
-    the import of the knob table it reads in the port. The original
-    starts the status server there; the port, which does not have it yet
-    (ROADMAP.md A6b), refuses it when ``DYN_SYSTEM_ENABLED`` is set and
-    logs a warning when the knob is at its default."""
-    tree.body = [
-        n for n in tree.body
-        if not (isinstance(n, ast.ImportFrom) and n.module == "PKG"
-                and [a.name for a in n.names] == ["knobs"])
-    ]
-    for node in ast.walk(tree):
-        if isinstance(node, ast.If) and ast.unparse(node.test) == "cfg.system_enabled":
-            node.body = [ast.Pass()]
-            return True
-    return False
-
-
-def _drop_metrics_registry(tree: ast.Module) -> bool:
-    """``runtime/__init__.py``: the export of ``MetricsRegistry``, whose
-    Prometheus registry waits for ROADMAP.md A6b."""
-    found = False
-    body = []
-    for node in tree.body:
-        if isinstance(node, ast.ImportFrom) and node.module.endswith("runtime.metrics"):
-            found = True
-            continue
-        if isinstance(node, ast.Assign) and ast.unparse(node.targets[0]) == "__all__":
-            node.value.elts = [e for e in node.value.elts if e.value != "MetricsRegistry"]
-        body.append(node)
-    tree.body = body
-    return found
-
-
-# The only differences a copy may have from its original, each removed
-# from both trees before they are compared. The function returns whether
-# it found its target, which the original must still have.
-ALLOWED_DIFFERENCES = {
-    "runtime/worker.py": _blank_status_server,
-    "runtime/__init__.py": _drop_metrics_registry,
-}
-
-
-def _code_tree(path: Path, package: str, allowed=None, original: bool = False) -> str:
+def _code_tree(path: Path, package: str) -> str:
     tree = ast.parse(path.read_text())
     body = tree.body
     if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
@@ -102,9 +94,6 @@ def _code_tree(path: Path, package: str, allowed=None, original: bool = False) -
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom) and node.module:
             node.module = node.module.replace(package, "PKG", 1)
-    if allowed is not None:
-        found = allowed(tree)
-        assert found or not original, f"{path}: the allowed difference is gone from the original"
     return ast.dump(tree)
 
 
@@ -138,10 +127,9 @@ def test_copied_definition_matches_original(rel, name):
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_matches_original(rel):
-    allowed = ALLOWED_DIFFERENCES.get(rel)
-    assert _code_tree(
-        ROOT / "dynamo_tpu_torch" / rel, "dynamo_tpu_torch", allowed
-    ) == _code_tree(ROOT / "dynamo_tpu" / rel, "dynamo_tpu", allowed, original=True)
+    assert _code_tree(ROOT / "dynamo_tpu_torch" / rel, "dynamo_tpu_torch") == _code_tree(
+        ROOT / "dynamo_tpu" / rel, "dynamo_tpu"
+    )
 
 
 @pytest.mark.parametrize("block_size", [1, 4, 16, 32, 64])

@@ -40,7 +40,8 @@ def test_cpu_engine_leaves_jax_unimported():
         "import dynamo_tpu_torch.runtime, dynamo_tpu_torch.runtime.store\n"
         "import dynamo_tpu_torch.llm.discovery, dynamo_tpu_torch.llm.kv_router\n"
         "import dynamo_tpu_torch.llm.tokenizer, dynamo_tpu_torch.obs.flight_recorder\n"
-        "import dynamo_tpu_torch.backends.torch.main\n"
+        "import dynamo_tpu_torch.backends.torch.main, dynamo_tpu_torch.frontend.main\n"
+        "import dynamo_tpu_torch.llm.kv_router.native_radix, dynamo_tpu_torch.llm.kv_pool\n"
         "core, engine = build_engine('tiny', device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu')]\n"
         "print('LEAKED', bad) if bad else print('CLEAN')\n"

@@ -432,7 +432,6 @@ async def test_graceful_drain_publishes_cleared():
         (["--tp", "2"], "A12"),
         (["--pp", "2"], "A12"),
         (["--nnodes", "2", "--dist-init-addr", "127.0.0.1:1"], "A12"),
-        (["--obs-publish", "on"], "A6b"),
         (["--scheduling", "chunked"], "A8b"),
         (["--local-cpu-devices", "4"], "A12"),
         (["--spec-decode", "ngram"], "A8c"),
@@ -447,25 +446,72 @@ def test_unported_cli_flags_refused(argv, item):
 
 
 async def test_status_server_refused_when_asked_for(monkeypatch):
-    """``DYN_SYSTEM_ENABLED`` set: the worker refuses to start. Left at
-    the knob's default (on), it starts without the status server."""
+    """``DYN_SYSTEM_ENABLED`` set, and left at its default (on): the
+    runtime starts its status server, which answers ``/health`` and
+    ``/metrics`` while the worker function runs; set to 0, there is none."""
     store = StoreServer()
     await store.start()
-    called = []
+    seen = []
 
     async def fn(runtime):
-        called.append(runtime.primary_lease_id)
+        if runtime.status is None:
+            seen.append(None)
+            return
+        base = f"http://127.0.0.1:{runtime.status.port}"
+        async with aiohttp.ClientSession() as s:
+            async with s.get(f"{base}/health") as r:
+                seen.append((r.status, (await r.json())["status"]))
+            async with s.get(f"{base}/metrics") as r:
+                assert r.status == 200
+                assert b"dynamo_system_uptime_seconds" in await r.read()
 
     try:
         monkeypatch.setenv("DYN_STORE_ADDRESS", store.address)
         monkeypatch.setenv("DYN_SYSTEM_ENABLED", "1")
-        with pytest.raises(ValueError, match="A6b"):
-            await runtime_worker._run(fn, RuntimeConfig.from_env())
-        assert not called
+        await runtime_worker._run(fn, RuntimeConfig.from_env())
         monkeypatch.delenv("DYN_SYSTEM_ENABLED")
         cfg = RuntimeConfig.from_env()
         assert cfg.system_enabled
         await runtime_worker._run(fn, cfg)
-        assert len(called) == 1
+        monkeypatch.setenv("DYN_SYSTEM_ENABLED", "0")
+        await runtime_worker._run(fn, RuntimeConfig.from_env())
+        # No endpoint is served yet, so the server reports "starting".
+        assert seen == [(503, "starting"), (503, "starting"), None]
     finally:
+        await store.stop()
+
+
+async def test_worker_publishes_obs_snapshots_at_its_default():
+    """At its defaults the worker publishes metric snapshots of its core's
+    counters on the namespace's obs subject; a graceful drain publishes
+    the retraction."""
+    from dynamo_tpu_torch.obs.snapshot import MetricSnapshot, obs_subject
+
+    store = StoreServer()
+    await store.start()
+    rt = await DistributedRuntime.create(store.address)
+    probe = await DistributedRuntime.create(store.address)
+    snaps = await probe.store.subscribe(obs_subject("dynamo"))
+    served = asyncio.Event()
+    cores: list = []
+    task = asyncio.create_task(run_torch_worker(
+        rt, model_name=MODEL, preset="tiny", seed=0, served_event=served,
+        core_out=cores, device="cpu", obs_interval_s=0.05,
+    ))
+    try:
+        await asyncio.wait_for(served.wait(), 60)
+        snap = MetricSnapshot.from_wire((await snaps.get(timeout=10))["p"])
+        assert snap.worker_id == rt.primary_lease_id
+        assert (snap.role, snap.component, snap.retired) == ("worker", "backend", False)
+        assert set(snap.families) >= {"scheduler", "kv_cache", "kv_pool"}
+        assert snap.families["kv_cache"]["capacity_blocks"] == cores[0].engine.num_kv_blocks
+        assert await rt.drain(timeout=5.0)
+        while not snap.retired:
+            snap = MetricSnapshot.from_wire((await snaps.get(timeout=10))["p"])
+        assert snap.worker_id == rt.primary_lease_id
+        await asyncio.wait_for(task, 10)
+    finally:
+        task.cancel()
+        await probe.shutdown()
+        await rt.shutdown()
         await store.stop()
