@@ -37,7 +37,21 @@ graph replay (checked: replays == dispatches); then one decode megastep
 from the same cache copy and inputs (tokens equal, both timed per
 iteration), and the traffic runs again through the warm engine and an
 async engine on the same weights (streams equal, decode ms per
-iteration and TTFT printed for each), (6) runs the worker process:
+iteration and TTFT printed for each); then the chunked phase
+(:func:`serve_chunked`, bf16, on the same weights): a chunked engine's
+``warm_up()`` (its graph keys by kind, capture seconds, memory), K1's
+kernels held against the plain version at the mixed steps the chunked
+planners dispatch (T 8192 with a 2048-token chunk and T 2048 with a 512
+chunk, each next to 7 decode rows), a mixed batch at T == S through the
+model's forward (every layer's attention against the plain version), one
+mixed step and one fused megastep replayed against their eager bodies
+(tokens equal), a prompt prefilled in three chunks beside decode rows
+against one wave (logits' cosine), and the traffic of 7 decoding streams
+joined by a 2124-token prompt under waves, chunked at the defaults (sync
+and async) and chunked with ``max_num_batched_tokens`` 2048: the streams'
+largest and p99 gap between tokens, the long prompt's TTFT, the
+real-token share of the mixed steps' token buckets, K1 launches = 32 x
+forwards and no capture after warm-up, (6) runs the worker process:
 the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
 ``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
 --preset llama3-8b --seed 0`` as subprocesses, waits for the model card
@@ -1044,6 +1058,7 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     modes = sync_against_async(core, overrides, reqs + [late], mode)
+    chunked = None if int8 else serve_chunked(ra, card, core)
     return by_entry, {
         "mode": mode, "attention_launches": launches, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
         "bytes_per_block": core.kv_cache_stats()["bytes_per_block"],
@@ -1051,7 +1066,419 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
         "logits_cosine": logit_check["cosine"], "warm_up": warm,
         "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
         "graph_against_eager": graph_check, "graphs_sync_async": modes,
+        "chunked": chunked,
     }
+
+
+# -- chunked scheduling ---------------------------------------------------------
+
+# The chunked phase's traffic: 7 streams decoding (greedy, these prompt
+# lengths), then a long prompt arriving; the long prompt's chunks ride next
+# to the streams' decode rows.
+CHUNKED_STREAM_LENS = (100, 250, 400, 550, 700, 850, 1000)
+CHUNKED_STREAM_TOKENS = 160  # enough to decode past the long prompt's last chunk
+CHUNKED_LONG = 2124
+
+
+def chunked_prompts(vocab: int) -> tuple[list[list[int]], list[int]]:
+    rng = np.random.default_rng(4321)
+    ids = lambda n: [int(t) for t in rng.integers(0, vocab, n)]  # noqa: E731
+    return [ids(n) for n in CHUNKED_STREAM_LENS], ids(CHUNKED_LONG)
+
+
+def check_mixed_shapes(ra) -> list[dict]:
+    """K1 at the mixed steps the chunked planners dispatch for this phase's
+    traffic, the 7 streams' decode rows first and the long prompt's first
+    chunk last, as ``_plan_mixed`` orders them (S 8, pages_per_seq 256):
+    T 8192 with a 2048-token chunk (the default token budget) and T 2048
+    with a 512-token chunk (``max_num_batched_tokens`` 2048). Both kernels,
+    forced, against the plain version run in row chunks, L2 flushed: the
+    tiled kernel is the one the engine's forward asks for, the decode
+    kernel the one the shapes alone would pick at T == S."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ctx = [n + 48 for n in CHUNKED_STREAM_LENS]
+    out = []
+    for name, chunk, T in (("mixed8192_chunk2048", 2048, 8192), ("mixed2048_chunk512", 512, 2048)):
+        q_lens, kv_lens = [1] * 7 + [chunk], ctx + [chunk]
+        args, kw = attention_batch(q_lens, kv_lens, 8, 256, T, gen)
+        plain = lambda: plain_by_row_chunks(ra, args, kw, q_lens)  # noqa: E731
+        want = plain()
+        plain_ms = cold_ms(plain, 1)
+        out += hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, False, 10, plain_ms,
+                       "attention")
+        del args, kw, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def ragged_ops(rows, T, S, eng, dev) -> tuple:
+    """``model.forward_tokens``' operands for ``rows`` of (tokens, first
+    position, page ids), packed as ``EngineCore._assemble_ragged`` packs a
+    mixed step: tokens padded to T, table rows to S, padded slots on the
+    garbage block."""
+    bs, g = eng.block_size, eng.garbage_block
+    tokens, positions = np.zeros(T, np.int32), np.zeros(T, np.int32)
+    write_pages, write_offs = np.full(T, g, np.int32), np.zeros(T, np.int32)
+    kv_lens, tables = np.zeros(S, np.int32), np.full((S, eng.max_blocks_per_seq), g, np.int32)
+    cu, last = np.zeros(S + 1, np.int32), np.zeros(S, np.int32)
+    t = 0
+    for i, (toks, p0, pages) in enumerate(rows):
+        n = len(toks)
+        pos = np.arange(p0, p0 + n)
+        tokens[t : t + n], positions[t : t + n] = toks, pos
+        write_pages[t : t + n] = np.asarray(pages)[pos // bs]
+        write_offs[t : t + n] = pos % bs
+        kv_lens[i], tables[i, : len(pages)] = p0 + n, pages
+        t += n
+        cu[i + 1], last[i] = t, t - 1
+    cu[len(rows) + 1 :] = t
+    arrays = (tokens, positions, write_pages, write_offs, kv_lens, tables, cu,
+              np.array([len(rows)], np.int32), last)
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def scratch_cache(core, eng, seed: int):
+    """A cache of ``eng``'s shape for ``core``'s model, every page random
+    (bf16 normal), the same for the same seed."""
+    from dynamo_tpu_torch.engine import model
+
+    cache = model.init_cache(core.cfg, eng, core.device)
+    gen = torch.Generator(device=core.device).manual_seed(seed)
+    for c in cache:
+        c.normal_(generator=gen)
+    return cache
+
+
+def page_runs(lens, bs: int, first: int = 0) -> list[list[int]]:
+    """Consecutive page ids for sequences of these lengths."""
+    out, nxt = [], first
+    for n in lens:
+        k = -(-n // bs)
+        out.append(list(range(nxt, nxt + k)))
+        nxt += k
+    return out
+
+
+def check_t_equal_s_forward(ra, core) -> dict:
+    """A mixed batch at T == S == 64 through the engine's own forward
+    (``model.forward_tokens`` on ``core``'s weights, a scratch cache of
+    random pages): a 37-token chunk next to 27 decode rows, as a mixed
+    step runs where a prefill bucket equals a decode width. Every layer's
+    attention, in the form the forward states (tiled), is held against the
+    plain version on the same inputs; on layer 0's inputs the decode
+    kernel, which the shapes alone would pick, is held too, and both are
+    timed with the L2 flushed."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import EngineConfig
+
+    eng = EngineConfig(num_kv_blocks=1024, max_model_len=1024)
+    rng = np.random.default_rng(5)
+    ctx = [int(x) for x in rng.integers(2, 1000, 27)]
+    pages = page_runs([37] + ctx, eng.block_size)
+    rows = [([int(t) for t in rng.integers(0, core.cfg.vocab_size, 37)], 0, pages[0])]
+    rows += [([int(rng.integers(0, core.cfg.vocab_size))], n - 1, pg)
+             for n, pg in zip(ctx, pages[1:])]
+    ops = ragged_ops(rows, 64, 64, eng, core.device)
+    cache = scratch_cache(core, eng, 5)
+    held, layer0 = [], {}
+
+    def attention(q, kv, lens, tables, cu, ns, *, sm_scale, kv_scales=None, kernel):
+        got = ra.ragged_paged_attention(q, kv, lens, tables, cu, ns, sm_scale=sm_scale,
+                                        kernel=kernel)
+        want = ra.ragged_paged_attention_ref(q, kv, lens, tables, cu, ns, sm_scale=sm_scale)
+        held.append((kernel, *compare(got, want, 64)))
+        if not layer0:
+            layer0.update(args=(q.clone(), kv.clone(), lens, tables, cu, ns), want=want)
+        return got
+
+    tiled = ra.ENTRY_NAMES["tiled", False]
+    before = ra.kernel_launches[tiled]
+    logits = model.forward_tokens(core.params, cache, *ops, core.cfg, attention=attention)
+    launched = ra.kernel_launches[tiled] - before
+    args = layer0["args"]
+    scale = core.cfg.head_dim ** -0.5
+    dec = ra.ragged_paged_attention_cuda(*args, sm_scale=scale, kernel="decode")
+    dec_rel, _, dec_ok = compare(dec, layer0["want"], 64)
+    ms = {k: cold_ms(lambda k=k: ra.ragged_paged_attention_cuda(*args, sm_scale=scale, kernel=k), 20)
+          for k in K1_KERNELS}
+    worst = max(h[1] for h in held)
+    res = {"layers": len(held), "forms": sorted({h[0] for h in held}), "max_row_rel_err": worst,
+           "tiled_launches": launched, "decode_kernel_row_rel_err": dec_rel,
+           "tiled_ms": ms["tiled"], "decode_kernel_ms": ms["decode"]}
+    print(f"T == S mixed forward (64 rows: a 37-token chunk + 27 decode rows, S 64): "
+          f"{len(held)} layers asked for {res['forms']}, {launched} tiled launches, largest row "
+          f"relative error against the plain version {worst:.3e}; on layer 0's inputs the decode "
+          f"kernel {dec_rel:.3e} in {ms['decode']:.4f} ms, the tiled kernel {ms['tiled']:.4f} ms "
+          f"(L2 flushed)", flush=True)
+    if (not all(h[3] for h in held) or res["forms"] != ["tiled"] or launched != core.cfg.num_layers
+            or not dec_ok or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"T == S mixed forward: {res}")
+    return res
+
+
+def chunked_prefill_logits(core) -> dict:
+    """A 1100-token prompt prefilled in chunks of 512, 512 and 76 tokens,
+    each forward with 7 decode rows beside it (a mixed step's packing,
+    through ``model.forward_tokens`` on ``core``'s weights and a scratch
+    cache), against the same prompt prefilled in one forward: the last
+    position's logits point the same way (``check_logits``' cosine)."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import EngineConfig
+
+    eng = EngineConfig(num_kv_blocks=512, max_model_len=2048)
+    rng = np.random.default_rng(6)
+    vocab = core.cfg.vocab_size
+    prompt = [int(t) for t in rng.integers(0, vocab, 1100)]
+    ctx = [n + 48 for n in CHUNKED_STREAM_LENS]
+    pages = page_runs([len(prompt)] + [n + 8 for n in ctx], eng.block_size)
+
+    def last_logits(chunks):
+        cache = scratch_cache(core, eng, 6)
+        out, p0 = None, 0
+        for step, n in enumerate(chunks):
+            rows = [([int(rng.integers(0, vocab))], c - 1 + step, pg)
+                    for c, pg in zip(ctx, pages[1:])] if len(chunks) > 1 else []
+            rows.append((prompt[p0 : p0 + n], p0, pages[0]))
+            total = sum(len(r[0]) for r in rows)
+            T = next(b for b in core.engine.prefill_buckets if b >= total)
+            out = model.forward_tokens(core.params, cache, *ragged_ops(rows, T, 8, eng, core.device),
+                                       core.cfg)[len(rows) - 1]
+            p0 += n
+        return out
+
+    one = last_logits([len(prompt)])
+    chunked = last_logits([512, 512, 76])
+    cos = torch.nn.functional.cosine_similarity(one, chunked, dim=0).item()
+    res = {"cosine": cos, "max_abs_diff": (one - chunked).abs().max().item(),
+           "finite": bool(torch.isfinite(chunked).all().item())}
+    print(f"chunked prefill (512 + 512 + 76 tokens, 7 decode rows beside each chunk) against one "
+          f"wave: last-position logits cosine {cos:.6f}, max abs diff {res['max_abs_diff']:.4e}",
+          flush=True)
+    if not res["finite"] or cos < LOGITS_MIN_COSINE:
+        raise AssertionError(f"chunked prefill logits disagree with the one-wave logits: {res}")
+    return res
+
+
+def chunked_graph_against_eager(core, streams, long_prompt) -> dict:
+    """One mixed step and one fused megastep from the same cache copy: the
+    chunked planners' own launches (``_plan_mixed`` and ``_plan_fused``
+    stopped at their dispatch) with the 7 streams decoding and the long
+    prompt's first chunk, T 8192 at width 8, each replayed from the graph
+    ``warm_up()`` captured and run as its eager body. Tokens must be equal;
+    each is timed on the host's wall clock, sync to sync."""
+    from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+    greedy = {"temperature": 0.0}
+    for i, p in enumerate(streams):
+        core.add_request(PreprocessedRequest.from_wire(wire(f"ge_s{i}", p, greedy)))
+    for _ in range(32):
+        core.step()
+        if len(core._decode_candidates()) == len(streams) and core._inflight is None:
+            break
+    else:
+        raise AssertionError("the streams did not reach decode")
+    long_seq = core.add_request(PreprocessedRequest.from_wire(wire("ge_long", long_prompt, greedy)))
+    core._admit()
+    launches = {}
+
+    class Stop(Exception):
+        pass
+
+    def grab(launch, feed=None):
+        launches[launch.key[0]] = launch
+        raise Stop
+
+    core._launch = grab
+    try:
+        for plan in (core._plan_mixed, core._plan_fused):
+            try:
+                plan([long_seq])
+            except Stop:
+                pass
+    finally:
+        del core._launch
+    saved = [c.clone() for c in core.cache]
+
+    def restore():
+        for c, s in zip(core.cache, saved):
+            c.copy_(s)
+
+    res = {}
+    for kind in ("mixed", "fused"):
+        launch = launches[kind]
+        if launch.key not in core._graphs:
+            raise AssertionError(f"warm_up() did not capture {launch.key}")
+
+        def timed(run, reps):
+            walls, out = [], None
+            for _ in range(reps):
+                restore()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return out, walls
+
+        eager, eager_ms = timed(lambda: launch.body(torch.from_numpy(launch.packed).cuda()), 3)
+        graph, graph_ms = timed(lambda: core._graphs.replay(launch), 5)
+        same = torch.equal(eager[0], graph[0])
+        res[kind] = {"key": list(launch.key), "tokens_equal": same,
+                     "eager_ms": float(np.median(eager_ms)), "graph_ms": float(np.median(graph_ms))}
+        print(f"chunked {kind} step {launch.key} graph against eager body: tokens equal={same}; "
+              f"ms, median: eager {res[kind]['eager_ms']:.2f} graph {res[kind]['graph_ms']:.2f}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"the replayed {kind} step's tokens differ from the eager body's")
+    restore()
+    del saved
+    for seq in list(core.running) + list(core.waiting):
+        core.cancel_request(seq)
+    while core.has_work():
+        core.step()
+    return res
+
+
+async def streams_then_long(engine, Context, streams, long_prompt, on_long) -> dict:
+    """The 7 streams sent at once; when each has its first token, the long
+    prompt (``on_long()`` is called just before it is sent). Returns each
+    request's send time and token arrival times (``perf_counter``; the
+    tokens of one chunk arrive together), the long prompt's send time and
+    what ``on_long`` returned."""
+    arrivals: dict[str, tuple[float, list[float]]] = {}
+    greedy = {"temperature": 0.0}
+
+    async def one(rid, prompt, max_tokens):
+        req = wire(rid, prompt, greedy)
+        req["stop"] = {"max_tokens": max_tokens}
+        t0, ts = time.perf_counter(), []
+        arrivals[rid] = (t0, ts)
+        async for out in engine.generate(req, Context(rid)):
+            ts += [time.perf_counter()] * len(out["token_ids"])
+
+    tasks = [asyncio.create_task(one(f"s{i}", p, CHUNKED_STREAM_TOKENS))
+             for i, p in enumerate(streams)]
+    while not all(len(arrivals.get(f"s{i}", (0, []))[1]) for i in range(len(streams))):
+        await asyncio.sleep(0.002)
+    at_long = on_long()
+    t_long = time.perf_counter()
+    await asyncio.wait_for(asyncio.gather(*tasks, one("long", long_prompt, 8)), timeout=600)
+    return {"arrivals": arrivals, "t_long": t_long, "at_long": at_long}
+
+
+def chunked_traffic(ra, core, name: str, streams, long_prompt) -> dict:
+    """This phase's traffic through ``core`` (a fresh facade, its prefix
+    cache cleared), with every launch count at 0 just before it: the
+    streams' largest and p99 gap between tokens from the long prompt's
+    arrival on, the long prompt's time to first token, the real-token
+    share of the mixed steps' token buckets, K1's launches against 32 x
+    forwards, and no graph captured."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    core.clear_kv_cache()
+    before = dict(core.scheduler_stats())
+    ra.reset_launches()
+    mixed_keys = ("mixed_tokens", "mixed_bucket_tokens")
+    got = asyncio.run(streams_then_long(
+        TorchEngine(core), Context, streams, long_prompt,
+        lambda: {k: core.exec_stats[k] for k in mixed_keys}))
+    by_entry = {ra.ENTRY_NAMES[k, False]: ra.kernel_launches[ra.ENTRY_NAMES[k, False]]
+                for k in K1_KERNELS}
+    launches = ra.launches
+    st = core.scheduler_stats()
+    d = {k: st[k] - before[k] for k in ("forwards", "dispatches", "graph_replays", "graph_captures",
+                                        "mixed_steps", "mixed_tokens", "mixed_bucket_tokens",
+                                        "megastep_dispatches", "fused_mixed_dispatches")}
+    t_long, arrivals = got["t_long"], got["arrivals"]
+    gaps = []
+    for rid, (_, ts) in arrivals.items():
+        if rid != "long":
+            gaps += [1e3 * (b - a) for a, b in zip(ts, ts[1:]) if b >= t_long]
+    t0_long, ts_long = arrivals["long"]
+    # The mixed steps from the long prompt's arrival on: its chunks (the
+    # streams only decode by then).
+    real, bucket = (st[k] - got["at_long"][k] for k in mixed_keys)
+    res = {
+        "setting": name, "async_exec": bool(core.engine.async_exec),
+        "max_gap_ms": max(gaps), "p99_gap_ms": float(np.percentile(gaps, 99)),
+        "long_ttft_ms": 1e3 * (ts_long[0] - t0_long),
+        "real_token_share": (d["mixed_tokens"] / d["mixed_bucket_tokens"]
+                             if d["mixed_bucket_tokens"] else None),
+        "long_prompt_real_token_share": real / bucket if bucket else None,
+        "long_prompt_mixed_tokens": [real, bucket],
+        "attention_launches": launches, "launches_by_kernel": by_entry, **d,
+    }
+    share = "n/a (no mixed step)" if res["real_token_share"] is None else (
+        f"{res['real_token_share']:.4f} ({d['mixed_tokens']} of {d['mixed_bucket_tokens']}; "
+        f"the long prompt's steps {res['long_prompt_real_token_share']:.4f}, {real} of {bucket})")
+    print(f"traffic {name} ({'async' if res['async_exec'] else 'sync'}): 7 streams' gap between "
+          f"tokens after the {CHUNKED_LONG}-token prompt arrived: largest {res['max_gap_ms']:.1f} ms, "
+          f"p99 {res['p99_gap_ms']:.1f} ms; long prompt TTFT {res['long_ttft_ms']:.1f} ms; mixed "
+          f"steps {d['mixed_steps']} (fused {d['fused_mixed_dispatches']}), real-token share of "
+          f"their T {share}; forwards {d['forwards']}, attention launches {launches} by kernel "
+          f"{by_entry}; dispatches {d['dispatches']}, replays {d['graph_replays']}, captures "
+          f"{d['graph_captures']}", flush=True)
+    if (launches != core.cfg.num_layers * d["forwards"] or min(by_entry.values()) == 0
+            or d["graph_captures"] or d["graph_replays"] != d["dispatches"]
+            or len(arrivals["long"][1]) != 8
+            or any(len(ts) != CHUNKED_STREAM_TOKENS for r, (_, ts) in arrivals.items()
+                   if r != "long")):
+        raise AssertionError(f"traffic {name}: {res}")
+    if name != "waves" and not d["mixed_steps"]:
+        raise AssertionError(f"traffic {name}: no mixed step ran")
+    return res
+
+
+def serve_chunked(ra, card: str, core) -> dict:
+    """The chunked phase, bf16, llama3-8b at full width and depth, on the
+    main path engine's weights: a chunked engine's ``warm_up()`` (keys,
+    capture seconds, memory); K1 at the dispatched mixed shapes; a T == S
+    mixed batch through the forward; the mixed and fused replays against
+    their eager bodies; chunked-prefill logits against one wave; then the
+    traffic (7 streams decoding, then the long prompt) under waves (the
+    main path's engine), chunked at the defaults (sync, then async), and
+    chunked with ``max_num_batched_tokens`` 2048. The last two run on the
+    same warm chunked engine with its configuration switched: the planners
+    read ``async_exec`` and the token budget at every step, and every graph
+    key a 2048-token budget can dispatch is one the default engine's
+    warm-up captured (checked), so no setting captures while serving."""
+    import dataclasses
+
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+
+    streams, long_prompt = chunked_prompts(core.cfg.vocab_size)
+    res = {"shapes": check_mixed_shapes(ra)}
+    ccore, _ = build_engine("llama3-8b", {"scheduling": "chunked"}, device="cuda",
+                            params=core.params)
+    keys = [launch.key[0] for launch, _ in ccore._warm_up_launches()]
+    res["warm_up"] = {**warm_up(ccore, "chunked"),
+                      "keys": {k: keys.count(k) for k in sorted(set(keys))}}
+    print(f"chunked warm-up keys: {res['warm_up']['keys']}", flush=True)
+    res["t_equal_s"] = check_t_equal_s_forward(ra, ccore)
+    res["graph_against_eager"] = chunked_graph_against_eager(ccore, streams, long_prompt)
+    res["prefill_logits"] = chunked_prefill_logits(ccore)
+    traffic = [chunked_traffic(ra, core, "waves", streams, long_prompt),
+               chunked_traffic(ra, ccore, "chunked", streams, long_prompt)]
+    ccore.engine = dataclasses.replace(ccore.engine, async_exec=True)
+    traffic.append(chunked_traffic(ra, ccore, "chunked", streams, long_prompt))
+    ccore.engine = dataclasses.replace(ccore.engine, async_exec=False,
+                                       max_num_batched_tokens=2048)
+    keys = {launch.key for launch, _ in ccore._warm_up_launches()}
+    if any(key not in ccore._graphs for key in keys):
+        raise AssertionError("a 2048-token budget reaches keys the warm-up did not capture")
+    res["budget2048_keys"] = len(keys)
+    print(f"chunked, budget 2048: all {len(keys)} keys it can dispatch were captured by the "
+          f"default engine's warm-up (chunk {ccore.engine.chunk_size})", flush=True)
+    traffic.append(chunked_traffic(ra, ccore, "chunked_budget2048", streams, long_prompt))
+    del ccore
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["traffic"] = traffic
+    print(f"chunked phase on {card}: " + "; ".join(
+        f"{t['setting']}{' async' if t['async_exec'] else ''} largest gap {t['max_gap_ms']:.1f} ms "
+        f"p99 {t['p99_gap_ms']:.1f} TTFT {t['long_ttft_ms']:.1f}" for t in traffic), flush=True)
+    return res
 
 
 # -- the worker process --------------------------------------------------------
@@ -2028,6 +2455,12 @@ def main() -> int:
     k2 = k2_path(pa)
     counts, summary = serve(ra, card)
     print(f"serving summary: {json.dumps(summary)}", flush=True)
+    # K1 at the mixed steps' shapes joins its bf16 records; the chunked
+    # path's launches (chunked scheduling at the defaults, sync) join its
+    # bf16 entries.
+    shapes += summary["chunked"]["shapes"]
+    chunked_counts = next(t for t in summary["chunked"]["traffic"]
+                          if t["setting"] == "chunked" and not t["async_exec"])["launches_by_kernel"]
     gc.collect()
     torch.cuda.empty_cache()
     print(f"bf16 engine freed: allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
@@ -2082,6 +2515,8 @@ def main() -> int:
             # processes start with the counts at 0).
             extra["frontend_phase_launches"] = sum(
                 w[name] for w in frontend["kernel_launches"].values())
+            if not int8:
+                extra["chunked_path_launches"] = chunked_counts[name]
             k1.append(kernel_entry(
                 name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
                 main_rec, pages="int8" if int8 else "bf16", **extra,

@@ -13,7 +13,7 @@ route to it as to a JAX worker.
 
 :func:`build_engine` is the in-process entry point the worker wraps.
 The CLI takes the JAX worker's flags, less the tuning values of features
-it refuses (``--prefill-chunk``, ``--spec-k``, ``--spec-device-draft``,
+it refuses (``--spec-k``, ``--spec-device-draft``,
 ``--node-rank``, ``--max-local-prefill-length``),
 which argparse rejects; a value the port does not serve yet raises a
 ``ValueError`` naming the ``ROADMAP.md`` item that brings it.
@@ -288,8 +288,22 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--block-size", type=int, default=None)
     ap.add_argument("--max-num-seqs", type=int, default=None)
     ap.add_argument("--max-model-len", type=int, default=None)
-    ap.add_argument("--scheduling", default=None, choices=["waves", "chunked"])
-    ap.add_argument("--max-num-batched-tokens", type=int, default=None)
+    ap.add_argument(
+        "--scheduling", default=None, choices=["waves", "chunked"],
+        help="step scheduler: 'waves' = prefill waves before decode (default); "
+             "'chunked' = prefill chunks and decode rows in one step under a "
+             "per-step token budget",
+    )
+    ap.add_argument(
+        "--prefill-chunk", type=int, default=None,
+        help="prompt chunk size for --scheduling chunked (block-aligned; "
+             "0/unset = auto from the prefill buckets)",
+    )
+    ap.add_argument(
+        "--max-num-batched-tokens", type=int, default=None,
+        help="per-step token budget of mixed steps (0/unset = the largest "
+             "prefill bucket)",
+    )
     ap.add_argument("--spec-decode", default=None, choices=["off", "ngram"])
     ap.add_argument("--async-exec", default=None, choices=["on", "off"])
     ap.add_argument("--megastep-k", type=int, default=None,
@@ -325,8 +339,8 @@ def _parser() -> argparse.ArgumentParser:
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise on the first flag value the port does not serve, naming the
     ``ROADMAP.md`` item that brings it. Engine settings outside the slice
-    (chunked scheduling, speculation, ring prefill, MoE presets) are
-    refused by ``build_engine`` the same way."""
+    (speculation, ring prefill, MoE presets) are refused by
+    ``build_engine`` the same way."""
     refusals = [
         (args.model_path is not None, "--model-path (checkpoints)", "A7"),
         ((args.tokenizer or "").endswith(".gguf"), "--tokenizer *.gguf", "A7"),
@@ -352,6 +366,7 @@ def _overrides(args: argparse.Namespace) -> dict[str, Any]:
             "max_model_len": args.max_model_len,
             "ring_prefill_threshold": args.ring_prefill_threshold,
             "scheduling": args.scheduling,
+            "prefill_chunk": args.prefill_chunk,
             "max_num_batched_tokens": args.max_num_batched_tokens,
             "spec_decode": args.spec_decode,
             "megastep_k": args.megastep_k,

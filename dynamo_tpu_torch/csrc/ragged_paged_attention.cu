@@ -27,10 +27,13 @@
 // :141-162): score = k_scale * (q . k_int8) * sm_scale, value = v_scale *
 // v_int8, both scales applied in f32.
 //
-// Two kernels; the wrapper (ops/ragged_attention.py) picks one from the
-// shapes alone, with no host sync: T == S, the engine's decode form, takes
-// the split-KV decode kernel, anything else the tiled kernel. Each is right
-// on every ragged batch.
+// Two kernels; the caller states which (ops/ragged_attention.py): the
+// engine's decode form, one query row per sequence, takes the split-KV
+// decode kernel, every other forward (prefill waves, mixed steps) the tiled
+// kernel. Each is right on every ragged batch, but the decode kernel walks
+// each query row's positions on its own: a chunk's rows through it cost
+// many times the tiled kernel's time, so the form is stated, not read off
+// T == S (a mixed step's token bucket can equal its row count).
 //
 // 1. Split-KV decode (ragged_paged_attention_decode_kernel + _combine_kernel).
 //    What bounds it: bytes. A decode row reads every visible K and V row of

@@ -1,24 +1,28 @@
 """EngineCore: continuous-batching scheduler on one device.
 
-Counterpart of ``dynamo_tpu/engine/core.py`` for the engine's default
-path: waves scheduling, synchronous or asynchronous execution, bf16
-(model-dtype) or int8 KV pages, plain or int8 weights, no speculation,
-decode megasteps of k iterations. One ``step()`` is one engine iteration:
-drain new requests, admit under a free-block watermark (reusing cached
-prefix blocks), then either run one ragged prefill wave or one decode
-megastep for every running sequence. Both ride the SAME ragged
-forward (``model.forward_tokens``); total prefill tokens snap to
-``prefill_buckets`` and decode width to ``decode_buckets``, exactly as the
-JAX engine pads them, so both engines run the same shapes and the same
-block layout.
+Counterpart of ``dynamo_tpu/engine/core.py`` for its waves and chunked
+schedulers, synchronous or asynchronous execution, bf16 (model-dtype) or
+int8 KV pages, plain or int8 weights, no speculation, decode megasteps of
+k iterations. One ``step()`` is one engine iteration: drain new requests,
+admit under a free-block watermark (reusing cached prefix blocks), then
+dispatch. Under ``waves`` that is one ragged prefill wave or one decode
+megastep for every running sequence; under ``chunked`` every runnable
+decode row rides next to prefill chunks in one ragged forward under the
+token budget (:meth:`EngineCore._plan_mixed`), fused with k - 1 decode
+iterations where k > 1 (:func:`_megastep_fused_body`), and a step with
+no prompt to prefill is a decode megastep. All of it rides the SAME ragged
+forward (``model.forward_tokens``); total tokens snap to
+``prefill_buckets`` and row counts to ``decode_buckets`` (a wave's to
+``prefill_batch``), exactly as the JAX engine pads them, so both engines
+run the same shapes and the same block layout.
 
 The decode megastep (:func:`_megastep_body`) is a loop of k decode+sample
 iterations over device tensors: sampled tokens feed the next iteration on
 the device, stop flags stay on the device, and the host reads the
-``[k, B]`` token block once per megastep. On the card each megastep and
-each prefill wave is the replay of a CUDA graph captured once per static
-key (``engine/graphs.py``), the counterpart of the JAX engine's jitted
-programs; on the CPU the bodies run eagerly.
+``[k, B]`` token block once per megastep. On the card each megastep, each
+prefill wave and each mixed step is the replay of a CUDA graph captured
+once per static key (``engine/graphs.py``), the counterpart of the JAX
+engine's jitted programs; on the CPU the bodies run eagerly.
 
 A step is planned and dispatched, then committed (:class:`_PlannedStep`).
 With ``async_exec`` the engine keeps one step in flight: it plans and
@@ -56,8 +60,10 @@ from dynamo_tpu_torch.engine.model import (
 )
 from dynamo_tpu_torch.engine.sampler import (
     gather_feedback,
+    resolve_verify,
     sample_seeded,
     stop_flags,
+    stop_flags_prefix,
     token_logprobs,
 )
 from dynamo_tpu_torch.llm.protocols.common import (
@@ -92,14 +98,13 @@ def resolve_device(device) -> torch.device:
 
 def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig) -> None:
     """Refuse every setting the port does not serve yet, naming the
-    ``ROADMAP.md`` item that brings it, and a KV dtype that does not exist."""
+    ``ROADMAP.md`` item that brings it, a KV dtype or scheduler that does
+    not exist, and chunked-scheduling sizes the JAX engine refuses."""
     if engine_cfg.kv_dtype not in KV_DTYPES:
         raise ValueError(
             f"unknown kv_dtype {engine_cfg.kv_dtype!r} (expected one of {KV_DTYPES})"
         )
     refusals = [
-        (engine_cfg.scheduling != "waves",
-         f"scheduling={engine_cfg.scheduling!r}", "A8b"),
         (engine_cfg.spec_decode != "off",
          f"spec_decode={engine_cfg.spec_decode!r}", "A8c"),
         (engine_cfg.host_kv_blocks > 0 or bool(engine_cfg.disk_kv_dir),
@@ -111,6 +116,36 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig) -> None:
     for refused, what, item in refusals:
         if refused:
             raise ValueError(f"{what} is not ported yet (ROADMAP.md {item})")
+    bs = engine_cfg.block_size
+    if engine_cfg.scheduling not in ("waves", "chunked"):
+        raise ValueError(
+            f"unknown scheduling policy {engine_cfg.scheduling!r} (expected 'waves' or 'chunked')"
+        )
+    if engine_cfg.prefill_chunk and engine_cfg.prefill_chunk % bs:
+        raise ValueError(
+            f"prefill_chunk {engine_cfg.prefill_chunk} not a multiple of block_size {bs} "
+            "(chunk boundaries must respect block granularity so both schedulers "
+            "commit identical layouts)"
+        )
+    if engine_cfg.max_num_batched_tokens > engine_cfg.prefill_buckets[-1]:
+        raise ValueError(
+            f"max_num_batched_tokens {engine_cfg.max_num_batched_tokens} exceeds the largest "
+            f"prefill bucket {engine_cfg.prefill_buckets[-1]} (mixed steps bucket their "
+            "total tokens)"
+        )
+    if engine_cfg.prefill_chunk > engine_cfg.token_budget:
+        raise ValueError(
+            f"prefill_chunk {engine_cfg.prefill_chunk} exceeds the per-step token budget "
+            f"{engine_cfg.token_budget}"
+        )
+    if engine_cfg.scheduling == "chunked" and (
+        engine_cfg.token_budget < engine_cfg.decode_buckets[-1] + bs
+    ):
+        raise ValueError(
+            f"max_num_batched_tokens {engine_cfg.token_budget} cannot fit the decode width "
+            f"{engine_cfg.decode_buckets[-1]} plus one {bs}-token prefill chunk; raise the "
+            "budget or shrink decode_buckets"
+        )
 
 
 def _check_params(params: dict, device: torch.device) -> None:
@@ -188,7 +223,9 @@ def _lp_entry(token: int, chosen, top_ids, top_lps, k: int) -> dict:
 
 @dataclass
 class _RaggedBatch:
-    """Host-assembled inputs of one ragged prefill forward."""
+    """Host-assembled inputs of one ragged forward over arbitrary rows
+    (:meth:`EngineCore._assemble_ragged`): a prefill wave, a mixed step,
+    and the fused megastep's first iteration."""
 
     T: int
     tokens: np.ndarray
@@ -204,6 +241,9 @@ class _RaggedBatch:
     temp: np.ndarray
     top_k: np.ndarray
     top_p: np.ndarray
+    # [T]: flat index into the in-flight step's sampled tokens of the
+    # token at that slot, or -1 (the host value stands).
+    feed_idx: np.ndarray
     need_mask: bool
     want_lp: bool
     all_greedy: bool
@@ -287,6 +327,87 @@ def _prefill_and_sample(
     return toks, lps
 
 
+def _megastep_fused_body(
+    params, cache,
+    # -- iteration 0: the ragged forward (exactly a mixed step's)
+    tokens, positions, write_pages, write_offs, kv_lens, block_tables,
+    cu_q_lens, num_seqs, gather,
+    seeds_r, counters_r, temp_r, top_k_r, top_p_r,
+    # -- per-lane continuation state ([S] unless noted)
+    draft, draft_len,        # [S, R-1] drafted tokens, live length
+    cont_active,             # bool: the lane continues as a decode row
+    base_pos,                # write position of the first continuation write at acc=0
+    seeds, temp, top_k, top_p,
+    watch, budgets, min_left,
+    *, n_steps, need_mask, all_greedy=False, want_logprobs=False,
+    cfg, engine,
+):
+    """The UNIVERSAL megastep: one dispatch runs a ragged first iteration
+    over prefill chunks and decode rows (a mixed step's forward and
+    sampling) and then ``n_steps - 1`` decode+sample iterations over the
+    same lanes. Iteration 0 samples the ``[S, R]`` sample slots with
+    ``(seed, counter + j)`` keys and each lane resolves on the device
+    (:func:`resolve_verify`; at R = 1, the engine's only width until
+    speculative decoding lands, every lane continues from its one sample).
+    A decode row continues from its sampled token; a prefill chunk that
+    completes its prompt continues as a decode row from its first token;
+    a mid-prompt chunk (``cont_active`` False) runs the remaining
+    iterations as masked no-ops, writing only the garbage block and never
+    advancing a cursor. The stop state (watch ids, budget, min-tokens
+    floor) carries iteration 0's emission count.
+
+    Returns (sampled ``[n_steps, S, R]``: iteration 0 fills the sample
+    width, later iterations broadcast their token across it; matching
+    logprob arrays or None). The host stop-scan stays the authority, as
+    in :func:`_megastep_body`."""
+    logits = forward_tokens(
+        params, cache, tokens, positions, write_pages, write_offs,
+        kv_lens, block_tables, cu_q_lens, num_seqs, gather, cfg,
+    )
+    t0 = sample_seeded(
+        logits, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
+        need_mask=need_mask, all_greedy=all_greedy,
+    )
+    lp0 = token_logprobs(logits, t0) if want_logprobs else None
+    S = draft.shape[0]
+    R = t0.shape[0] // S
+    t0s = t0.reshape(S, R)
+    acc, tok = resolve_verify(t0s, draft, draft_len)
+    alive = cont_active & ~stop_flags_prefix(t0s, acc, watch, budgets, min_left)
+    gen = torch.where(cont_active, acc + 1, 0).to(torch.int32)  # tokens iteration 0 produced
+    pos = base_pos + acc                                        # next write position
+    counters0 = counters_r.reshape(S, R)[:, 0]                  # per-lane generated base
+    rest, rest_lp = [], []
+    for _ in range(n_steps - 1):
+        act = alive
+        logits = decode_tokens(params, cache, tok, block_tables, pos, act, cfg, engine)
+        nxt = sample_seeded(
+            logits, seeds, counters0 + gen, temp, top_k, top_p,
+            need_mask=need_mask, all_greedy=all_greedy,
+        )
+        tok = torch.where(act, nxt, tok)
+        if want_logprobs:
+            rest_lp.append(token_logprobs(logits, tok))
+        gen = gen + act.to(torch.int32)
+        stop = ((nxt[:, None] == watch).any(dim=1) & (gen >= min_left)) | (gen >= budgets)
+        alive = alive & ~stop
+        pos = pos + act.to(torch.int32)
+        rest.append(tok)
+
+    def widen(a0, ar):
+        # a0: [S*R(, K)] iteration-0 slots; ar: n_steps - 1 of [S(, K)]
+        a0 = a0.reshape((1, S, R) + a0.shape[1:])
+        if not ar:
+            return a0
+        ar = torch.stack(ar)[:, :, None]
+        return torch.cat([a0, ar.expand((n_steps - 1, S, R) + ar.shape[3:])])
+
+    lps = None
+    if want_logprobs:
+        lps = tuple(widen(a0, [r[j] for r in rest_lp]) for j, a0 in enumerate(lp0))
+    return widen(t0, rest), lps
+
+
 class _NeedDrain(Exception):
     """Plan-time block growth failed while a step is in flight: the
     planner must not preempt over uncommitted state (the victim's emitted
@@ -365,7 +486,7 @@ class _PlannedStep:
     # reader, the on-device drafter's history ring, comes with
     # speculative decoding (ROADMAP.md A8c).
     feed_series: dict[str, tuple[int, int, int]] = field(default_factory=dict)
-    kind: str = ""  # "prefill" or "decode": what the engine loop's time is filed under
+    kind: str = ""  # "prefill", "decode" or "mixed": what the engine loop's time is filed under
     committed: bool = False
 
     def commit(self) -> list:
@@ -384,8 +505,9 @@ class _PlannedStep:
         return out
 
 
-# The packed inputs of a decode megastep and of a prefill wave
-# (engine/graphs.py): one layout per width, one per (bucket, rows).
+# The packed inputs of a decode megastep, a prefill wave, a mixed step and
+# a fused megastep (engine/graphs.py): one layout per width, one per
+# (bucket, rows).
 def _decode_layout(B: int, P: int) -> Layout:
     return Layout([
         ("tokens", (B,), "i"), ("feed_idx", (B,), "i"), ("block_tables", (B, P), "i"),
@@ -403,6 +525,20 @@ def _prefill_layout(T: int, S: int, P: int) -> Layout:
         ("cu_q_lens", (S + 1,), "i"), ("num_seqs", (1,), "i"), ("last_rows", (S,), "i"),
         ("seeds", (S,), "i"), ("counters", (S,), "i"), ("temperature", (S,), "f"),
         ("top_k", (S,), "i"), ("top_p", (S,), "f"),
+    ])
+
+
+def _mixed_layout(T: int, S: int, P: int) -> Layout:
+    """A prefill wave's fields plus ``feed_idx``: decode rows read their
+    token from the in-flight step's output on the device."""
+    return Layout([*_prefill_layout(T, S, P).spec, ("feed_idx", (T,), "i")])
+
+
+def _fused_layout(T: int, S: int, P: int) -> Layout:
+    """A mixed step's fields plus each lane's continuation state."""
+    return Layout([
+        *_mixed_layout(T, S, P).spec, ("cont_active", (S,), "b"), ("base_pos", (S,), "i"),
+        ("watch", (S, MEGASTEP_WATCH_W), "i"), ("budgets", (S,), "i"), ("min_left", (S,), "i"),
     ])
 
 
@@ -485,8 +621,8 @@ class EngineCore:
         self._step_lock = threading.Lock()
         self.sched_stats = {
             "preemptions": 0,
-            # Set by mixed (chunked) steps only, which wait for A8b; waves
-            # leave them at 0 as the JAX engine does.
+            # Set by mixed (chunked) steps only; waves leave them at 0 as
+            # the JAX engine does.
             "mixed_steps": 0,
             "last_step_batched_tokens": 0,
             "last_step_budget_utilization": 0.0,
@@ -516,8 +652,9 @@ class EngineCore:
             "megastep_dispatches": 0,
             "single_step_dispatches": 0,
             "committed_tokens": 0,
-            # Fused mixed/verify dispatches (A8b/A8c) and pipeline-parallel
-            # ones (A12): 0 until those paths are ported.
+            # Fused megasteps whose first iteration carried prefill chunks
+            # (verify rows wait for A8c), and pipeline-parallel dispatches
+            # (A12, 0 until ported).
             "fused_mixed_dispatches": 0,
             "megastep_forced_single": 0,
             "pp_fused_dispatches": 0,
@@ -538,6 +675,13 @@ class EngineCore:
             # decode_loop_s / decode_iterations).
             "prefill_loop_s": 0.0,
             "decode_loop_s": 0.0,
+            # Mixed steps and fused megasteps (chunked scheduling): the
+            # real tokens of their ragged iteration and its token bucket
+            # (their ratio is the padding the buckets cost), and the
+            # engine loop's time.
+            "mixed_tokens": 0,
+            "mixed_bucket_tokens": 0,
+            "mixed_loop_s": 0.0,
         }
         # Crash/stall flight recorder: one record per step with outputs,
         # appended on the commit side; the worker renames it to its id.
@@ -788,11 +932,19 @@ class EngineCore:
             seq.committed_blocks += 1
 
     def _assemble_ragged(
-        self, rows: list[tuple[Sequence, list[int], int, int]], S: int
+        self, rows: list[tuple[Sequence, list[int], int, int]], S: int,
+        feed_rows: list[int | None] | None = None,
     ) -> _RaggedBatch:
         """Host-side assembly of one ragged forward's inputs: each row is
         ``(seq, tokens, pos_start, kv_len)``, packed into one token buffer
-        padded to the prefill bucket; padded slots write the garbage block."""
+        padded to the prefill bucket; padded slots write the garbage block.
+        Shared by the prefill wave, the mixed step and the fused
+        megastep's first iteration, so they cannot disagree on row
+        packing, sample rows or counter keys. Every row samples its last
+        position (verify rows, which sample more, wait for ROADMAP.md
+        A8c). A non-None entry of ``feed_rows`` is the flat index of that
+        row's first token in the in-flight step's sampled output, gathered
+        on the device over the host placeholder."""
         P = self.engine.max_blocks_per_seq
         bs = self.engine.block_size
         total = sum(len(tl) for _, tl, _, _ in rows)
@@ -811,6 +963,7 @@ class EngineCore:
         temp = np.ones(S, np.float32)
         top_k = np.zeros(S, np.int32)
         top_p = np.ones(S, np.float32)
+        feed_idx = np.full(T, -1, np.int32)
 
         t = 0
         for i, (seq, toks_list, pos0, kv_len) in enumerate(rows):
@@ -827,6 +980,8 @@ class EngineCore:
             # Read through the overlay: with a step in flight the lane's
             # generated count lags by the tokens that step will commit.
             counters[i] = self._eff_generated(seq)
+            if feed_rows is not None and feed_rows[i] is not None:
+                feed_idx[t] = feed_rows[i]
             seeds[i] = seq.seed
             temp[i] = seq.sampling.temperature
             top_k[i] = seq.sampling.top_k
@@ -838,7 +993,7 @@ class EngineCore:
             T=T, tokens=tokens, positions=positions, write_pages=write_pages,
             write_offs=write_offs, kv_lens=kv_lens, tables=tables, cu=cu,
             last_rows=last_rows, counters=counters, seeds=seeds, temp=temp,
-            top_k=top_k, top_p=top_p,
+            top_k=top_k, top_p=top_p, feed_idx=feed_idx,
             need_mask=any(
                 s.sampling.top_k > 0 or s.sampling.top_p < 1.0 for s, _, _, _ in rows
             ),
@@ -847,18 +1002,26 @@ class EngineCore:
             num_rows=len(rows),
         )
 
-    def _ragged_launch(self, b: _RaggedBatch, S: int) -> Launch:
-        """The prefill wave of ``b`` as a dispatch: its graph key is
-        (token bucket, sampling variant); ``S`` is the engine's fixed
-        ``prefill_batch``."""
-        layout = _prefill_layout(b.T, S, self.engine.max_blocks_per_seq)
-        packed = layout.pack({
+    @staticmethod
+    def _ragged_fields(b: _RaggedBatch) -> dict[str, Any]:
+        return {
             "tokens": b.tokens, "positions": b.positions, "write_pages": b.write_pages,
             "write_offs": b.write_offs, "kv_lens": b.kv_lens, "block_tables": b.tables,
             "cu_q_lens": b.cu, "num_seqs": [b.num_rows], "last_rows": b.last_rows,
             "seeds": b.seeds, "counters": b.counters, "temperature": b.temp,
-            "top_k": b.top_k, "top_p": b.top_p,
-        })
+            "top_k": b.top_k, "top_p": b.top_p, "feed_idx": b.feed_idx,
+        }
+
+    def _ragged_launch(self, b: _RaggedBatch, S: int, mixed: bool = False) -> Launch:
+        """One ragged forward + sampling of ``b`` as a dispatch. A prefill
+        wave's graph key is (token bucket, sampling variant), its ``S`` the
+        engine's fixed ``prefill_batch``; a mixed step's (``mixed``) is
+        (token bucket, width, sampling variant), and its decode rows may
+        read their token from the in-flight step on the device."""
+        P = self.engine.max_blocks_per_seq
+        layout = _mixed_layout(b.T, S, P) if mixed else _prefill_layout(b.T, S, P)
+        fields = self._ragged_fields(b)
+        packed = layout.pack({k: fields[k] for k in layout.fields})
         need_mask = b.need_mask and not b.all_greedy
 
         def body(buf: torch.Tensor) -> tuple:
@@ -874,7 +1037,42 @@ class EngineCore:
             )
             return (toks, *(lps or ()))
 
-        return Launch(("prefill", b.T, need_mask, b.all_greedy, b.want_lp), layout, packed, body)
+        variant = (need_mask, b.all_greedy, b.want_lp)
+        key = ("mixed", b.T, S, *variant) if mixed else ("prefill", b.T, *variant)
+        return Launch(key, layout, packed, body)
+
+    def _fused_launch(
+        self, b: _RaggedBatch, S: int, n_steps: int, lanes: dict[str, np.ndarray],
+    ) -> Launch:
+        """One fused megastep as a dispatch: ``b``'s ragged iteration and
+        ``n_steps - 1`` decode iterations, the lanes' continuation state in
+        ``lanes`` (``cont_active``, ``base_pos``, ``watch``, ``budgets``,
+        ``min_left``, [S] rows). Its graph key is (token bucket, width,
+        n_steps, sampling variant)."""
+        layout = _fused_layout(b.T, S, self.engine.max_blocks_per_seq)
+        packed = layout.pack({**self._ragged_fields(b), **lanes})
+        need_mask = b.need_mask and not b.all_greedy
+
+        def body(buf: torch.Tensor) -> tuple:
+            x = layout.unpack(buf)
+            # R = 1: no lane drafts (ROADMAP.md A8c).
+            draft = x["tokens"].new_full((S, 0), -1)
+            toks, lps = _megastep_fused_body(
+                self.params, self.cache,
+                x["tokens"], x["positions"], x["write_pages"], x["write_offs"],
+                x["kv_lens"], x["block_tables"], x["cu_q_lens"], x["num_seqs"],
+                x["last_rows"], x["seeds"], x["counters"], x["temperature"],
+                x["top_k"], x["top_p"],
+                draft, torch.zeros_like(x["kv_lens"]), x["cont_active"], x["base_pos"],
+                x["seeds"], x["temperature"], x["top_k"], x["top_p"],
+                x["watch"], x["budgets"], x["min_left"],
+                n_steps=n_steps, need_mask=need_mask, all_greedy=b.all_greedy,
+                want_logprobs=b.want_lp, cfg=self.cfg, engine=self.engine,
+            )
+            return (toks, *(lps or ()))
+
+        key = ("fused", b.T, S, n_steps, need_mask, b.all_greedy, b.want_lp)
+        return Launch(key, layout, packed, body)
 
     def _launch(self, launch: Launch, feed: Callable | None = None) -> tuple:
         """Run one dispatch and return its output tensors: eagerly on the
@@ -892,15 +1090,89 @@ class EngineCore:
             self._graphs.capture(launch, self.device)
         return self._graphs.replay(launch, feed)
 
+    def _feed(self, launch: Launch, fed: bool) -> Callable | None:
+        """The device-side token feed of ``launch`` when a slot is ``fed``
+        (its ``tokens`` slots whose ``feed_idx`` is set gather the
+        in-flight step's sampled tokens, :func:`gather_feedback`), else
+        None."""
+        if not fed:
+            return None
+        src, layout = self._inflight.feed_tokens, launch.layout
+
+        def feed(buf: torch.Tensor) -> None:
+            tok = layout.field(buf, "tokens")
+            tok.copy_(gather_feedback(src, tok, layout.field(buf, "feed_idx")))
+
+        return feed
+
     def _dispatch_ragged(
-        self, rows: list[tuple[Sequence, list[int], int, int]], S: int
+        self, rows: list[tuple[Sequence, list[int], int, int]], S: int,
+        feed_rows: list[int | None] | None = None,
     ) -> _PendingFetch:
         """Assemble and enqueue ONE ragged forward + fused sampling over
-        prefill-chunk rows. Returns a pending fetch whose ``land()`` yields
-        (tokens [S], logprob arrays or None)."""
-        outs = self._launch(self._ragged_launch(self._assemble_ragged(rows, S), S))
+        arbitrary rows: prefill chunks (tokens sliced from the prompt) and
+        decode rows (the pending token at position ``processed``, q_len
+        1). A prefill wave passes ``S = prefill_batch`` and no
+        ``feed_rows``; a mixed step (``feed_rows`` given, aligned with
+        rows) its decode width. Returns a pending fetch whose ``land()``
+        yields (tokens [S], logprob arrays or None)."""
+        b = self._assemble_ragged(rows, S, feed_rows)
+        mixed = feed_rows is not None
+        launch = self._ragged_launch(b, S, mixed)
+        outs = self._launch(launch, self._feed(launch, bool((b.feed_idx >= 0).any())))
         self.exec_stats["single_step_dispatches"] += 1
         self.exec_stats["forwards"] += 1
+        if mixed:
+            self._count_mixed(b)
+        return _PendingFetch(self, outs)
+
+    def _count_mixed(self, b: _RaggedBatch) -> None:
+        self.exec_stats["mixed_tokens"] += int(b.cu[b.num_rows])
+        self.exec_stats["mixed_bucket_tokens"] += b.T
+
+    def _dispatch_fused(
+        self,
+        rows: list[tuple[Sequence, list[int], int, int]],
+        S: int,
+        feed_rows: list[int | None],
+        kinds: list[str],
+        cont: list[bool],
+        n_steps: int,
+    ) -> _PendingFetch:
+        """Assemble and enqueue one UNIVERSAL megastep
+        (:func:`_megastep_fused_body`): the ragged first iteration a mixed
+        step would run over these rows, fused with ``n_steps - 1`` decode
+        iterations. ``cont`` (aligned with rows) marks the lanes that go on
+        as decode rows after iteration 0: every decode row ("d" in
+        ``kinds``), and a prefill chunk ("p") when it completes its prompt
+        and the planner reserved its headroom. Returns a pending fetch
+        whose ``land()`` yields ([n_steps, S, 1] tokens, matching logprob
+        arrays or None)."""
+        b = self._assemble_ragged(rows, S, feed_rows=feed_rows)
+        lanes = {
+            "cont_active": np.zeros(S, bool),
+            "base_pos": np.zeros(S, np.int32),
+            "watch": np.full((S, MEGASTEP_WATCH_W), -1, np.int32),
+            # Masked and padded lanes never reach their budget: the deepest
+            # lane emits 1 + (n_steps - 1) tokens.
+            "budgets": np.full(S, n_steps + 2, np.int32),
+            "min_left": np.zeros(S, np.int32),
+        }
+        for i, ((seq, toks_list, pos0, _), kind) in enumerate(zip(rows, kinds)):
+            if not cont[i]:
+                continue
+            lanes["cont_active"][i] = True
+            lanes["base_pos"][i] = pos0 + (len(toks_list) if kind == "p" else 1)
+            self._arm_stop_inputs(
+                seq, i, lanes["watch"], lanes["budgets"], lanes["min_left"]
+            )
+        launch = self._fused_launch(b, S, n_steps, lanes)
+        outs = self._launch(launch, self._feed(launch, bool((b.feed_idx >= 0).any())))
+        self.exec_stats["megastep_dispatches"] += 1
+        if "p" in kinds:
+            self.exec_stats["fused_mixed_dispatches"] += 1
+        self.exec_stats["forwards"] += n_steps
+        self._count_mixed(b)
         return _PendingFetch(self, outs)
 
     def _plan_prefill_wave(self, seqs: list[Sequence]) -> _PlannedStep | None:
@@ -953,11 +1225,7 @@ class EngineCore:
                 tok, lp = self._advance_prefill_chunk(seq, chunk, toks, lps, i, t_disp, now)
                 if tok is None:
                     continue  # prompt not finished this wave
-                seq.pending = tok
-                seq.generated += 1
-                outputs.append((seq, self._emit(seq, tok, lp)))
-                if seq.finish is not None:
-                    self._finish(seq)
+                outputs.append((seq, self._emit_first(seq, tok, lp)))
             self._tracer.record(
                 "engine_prefill_step", t_disp, time.time(),
                 attrs={"seqs": len(chosen), "tokens": total},
@@ -1164,15 +1432,8 @@ class EngineCore:
         the body runs. Returns a pending fetch whose ``land()`` yields
         ([n_steps, B] tokens, logprob arrays or None)."""
         launch = self._megastep_launch(seqs, n_steps, feed_lanes)
-        feed = None
-        if feed_lanes is not None and any(f is not None for f in feed_lanes):
-            src, layout = self._inflight.feed_tokens, launch.layout
-
-            def feed(buf: torch.Tensor) -> None:
-                tok = layout.field(buf, "tokens")
-                tok.copy_(gather_feedback(src, tok, layout.field(buf, "feed_idx")))
-
-        outs = self._launch(launch, feed)
+        fed = feed_lanes is not None and any(f is not None for f in feed_lanes)
+        outs = self._launch(launch, self._feed(launch, fed))
         self.exec_stats[
             "megastep_dispatches" if n_steps > 1 else "single_step_dispatches"
         ] += 1
@@ -1272,7 +1533,18 @@ class EngineCore:
             self._release_blocks(seq)
         self._admit()
         t_plan = time.time()
-        plan = self._plan_waves()
+        if self.engine.scheduling == "chunked":
+            prefills = [s for s in self.running if not self._eff_prefill_done(s)]
+            plan = None
+            if prefills and self.engine.megastep > 1:
+                # The universal megastep: prefill chunks and decode rows
+                # fuse with decode continuations in one dispatch; None
+                # falls back to the single-step path, which is exact.
+                plan = self._plan_fused(prefills)
+            if plan is None:
+                plan = self._plan_mixed(prefills) if prefills else self._plan_decode()
+        else:
+            plan = self._plan_waves()
         if plan is not None:
             self._tracer.record(
                 "engine_plan", t_plan, time.time(),
@@ -1347,31 +1619,9 @@ class EngineCore:
             for i, seq in enumerate(ready):
                 if seq.finish is not None or seq.cancelled or id(seq) not in live:
                     continue  # late finish/preempt: discard the optimistic chain
-                toks = chained[:, i]
-                k, finish = self._scan_stop(seq, toks)
-                # Cache writes this chain: the old pending token plus the
-                # first k-1 sampled tokens.
-                written = [seq.pending] + [int(t) for t in toks[: k - 1]]
-                self._commit_completed(seq, seq.hashed.extend(written))
-                seq.processed += k
-                seq.generated += k
-                emitted = [int(t) for t in toks[:k]]
-                lp_entries = None
-                if lps is not None and seq.logprobs is not None:
-                    lp_entries = [
-                        _lp_entry(
-                            emitted[j], lps[0][j][i], lps[1][j][i], lps[2][j][i],
-                            seq.logprobs,
-                        )
-                        for j in range(k)
-                    ]
-                outputs.append((seq, self._emit_chunk(seq, emitted, lp_entries, finish)))
-                emitted_total += len(emitted)
-                if finish is not None:
-                    seq.finish = finish
-                    self._finish(seq)
-                else:
-                    seq.pending = emitted[-1]
+                out = self._commit_chain(seq, chained, lps, i)
+                outputs.append((seq, out))
+                emitted_total += len(out.token_ids)
             t_done = time.time()
             self._tracer.record(
                 "engine_decode_step", t_decode, t_done,
@@ -1395,6 +1645,325 @@ class EngineCore:
             feed_tokens=pend.toks, feed_index=feed_index,
             feed_series=feed_series, kind="decode",
         )
+
+    def _rotate_decode_lanes(self, decoding: list[Sequence], cap: int) -> list[Sequence]:
+        """At most ``cap`` decode lanes for a mixed step; which ones sit
+        out rotates with the iteration, so no stream stalls repeatedly."""
+        if len(decoding) <= cap:
+            return decoding
+        off = self.iterations % len(decoding)
+        return (decoding + decoding)[off : off + cap]
+
+    def _decode_rows(self, ready: list[Sequence]):
+        """A mixed step's decode rows: each lane's pending token (or its
+        device feed under async execution) at its cursor, q_len 1."""
+        rows, feed_rows = [], []
+        for seq in ready:
+            cursor = self._eff_processed(seq)
+            src = self._feed_src(seq)
+            rows.append((seq, [0 if src is not None else seq.pending], cursor, cursor + 1))
+            feed_rows.append(src)
+        return rows, feed_rows
+
+    def _take_chunks(
+        self, prefills: list[Sequence], n_rows: int, total: int, t_step: float,
+    ) -> list[tuple[Sequence, int, int]]:
+        """Prefill chunks ``(seq, p0, chunk)`` to ride next to ``n_rows``
+        rows of ``total`` tokens: in queue order, each at most
+        ``chunk_size`` and what is left of the token budget, at most
+        ``decode_buckets[-1]`` rows in all. A chunk that does not finish
+        its prompt ends on a block boundary, so both schedulers commit the
+        same block layout."""
+        budget, chunk_cap = self.engine.token_budget, self.engine.chunk_size
+        bs, S_max = self.engine.block_size, self.engine.decode_buckets[-1]
+        out: list[tuple[Sequence, int, int]] = []
+        for seq in prefills:
+            if seq not in self.running:
+                continue  # preempted by the decode lanes' growth
+            if n_rows + len(out) >= S_max:
+                break
+            room = min(budget - total, chunk_cap)
+            if room <= 0:
+                break
+            p0 = seq.prefilled + self._adv3(seq)[0]
+            remaining = seq.prompt_len - p0
+            chunk = min(remaining, room)
+            if chunk < remaining:
+                chunk -= chunk % bs
+                if chunk <= 0:
+                    continue
+            self._mark_first_sched(seq, t_step)
+            out.append((seq, p0, chunk))
+            total += chunk
+        return out
+
+    def _note_mixed_step(self, total: int) -> None:
+        """The scheduler gauges of a step that carried prefill chunks."""
+        budget = self.engine.token_budget
+        st = self.sched_stats
+        st["mixed_steps"] += 1
+        st["last_step_batched_tokens"] = total
+        st["last_step_budget_utilization"] = total / budget if budget else 0.0
+        st["chunked_prefills_in_flight"] = sum(
+            1 for s in self.running if not s.prefill_done and s.t_first_sched
+        )
+
+    def _plan_mixed(self, prefills: list[Sequence]) -> _PlannedStep | None:
+        """Plan one single-step chunked iteration (megastep k = 1, or the
+        fused path's fallback): every runnable decode sequence rides as a
+        q_len=1 row NEXT TO prefill chunks in one ragged forward under the
+        ``max_num_batched_tokens`` budget, at the decode width of its row
+        count. A long prompt streams through ceil(P / chunk) steps while
+        in-flight decodes keep emitting one token per step. Under async
+        execution decode rows gather their pending token from the
+        in-flight step's device output and chunk cursors read through the
+        optimistic overlay, so mixed steps pipeline like decode steps."""
+        t_step = time.time()
+        budget = self.engine.token_budget
+        S_max = self.engine.decode_buckets[-1]
+        # Keep one row and budget headroom for a prefill chunk, so a full
+        # decode batch can never starve admission.
+        decoding = self._rotate_decode_lanes(
+            self._decode_candidates(), min(S_max - 1, budget - 1)
+        )
+        # Block growth first (a preemption re-queues its victim, possibly
+        # a mid-prefill one, which keeps its full prompt; see _preempt).
+        ready = self._grow_or_preempt(decoding, 1)
+        rows, feed_rows = self._decode_rows(ready)
+        n_decode = total = len(rows)
+        chunks = self._take_chunks(prefills, n_decode, total, t_step)
+        for seq, p0, chunk in chunks:
+            rows.append((seq, seq.prompt[p0 : p0 + chunk], p0, p0 + chunk))
+            feed_rows.append(None)
+            total += chunk
+        if not rows:
+            return None
+        pend = self._dispatch_ragged(rows, self._decode_width(len(rows)), feed_rows=feed_rows)
+        adv: dict[str, tuple[int, int, int]] = {}
+        feed_index: dict[str, int] = {}
+        feed_series: dict[str, tuple[int, int, int]] = {}
+        for i, (seq, toks_list, p0, _) in enumerate(rows):
+            chunk = len(toks_list)
+            done = i < n_decode or p0 + chunk >= seq.prompt_len
+            adv[seq.request_id] = (0, 1, 1) if i < n_decode else (chunk, chunk, int(done))
+            if done:
+                feed_index[seq.request_id] = i
+                feed_series[seq.request_id] = (i, 0, 1)
+
+        def commit() -> list[tuple[Sequence, LLMEngineOutput]]:
+            outputs: list[tuple[Sequence, LLMEngineOutput]] = []
+            toks, lps = pend.land()  # [S]
+            now = time.time()
+            live = {id(s) for s in self.running}
+            for i, (seq, toks_list, _, _) in enumerate(rows):
+                if seq.finish is not None or seq.cancelled or id(seq) not in live:
+                    continue  # late finish/preempt: discard the row
+                if i < n_decode:
+                    # The row wrote the pending token's K/V and sampled the
+                    # next: a one-iteration chain.
+                    lps1 = None if lps is None else tuple(a[None] for a in lps)
+                    outputs.append((seq, self._commit_chain(seq, toks[None], lps1, i)))
+                    continue
+                tok, lp = self._advance_prefill_chunk(
+                    seq, len(toks_list), toks, lps, i, t_step, now
+                )
+                if tok is not None:  # this chunk completed the prompt
+                    outputs.append((seq, self._emit_first(seq, tok, lp)))
+            self._note_mixed_step(total)
+            self._tracer.record(
+                "engine_mixed_step", t_step, now,
+                attrs={
+                    "seqs": len(rows), "decode_rows": n_decode,
+                    "prefill_tokens": total - n_decode, "budget": budget,
+                },
+                stat=True,
+            )
+            return outputs
+
+        return _PlannedStep(
+            core=self, commit_fn=commit, adv=adv,
+            feed_tokens=pend.toks, feed_index=feed_index,
+            feed_series=feed_series, kind="mixed",
+        )
+
+    def _plan_fused(self, prefills: list[Sequence]) -> _PlannedStep | None:
+        """Plan one UNIVERSAL megastep: a mixed step's rows, decode rows and
+        prefill chunks, ride the first iteration of
+        :func:`_megastep_fused_body`, and every lane that can go on runs
+        ``n_steps - 1`` decode iterations in the same dispatch; a chunk
+        that completes its prompt continues as a decode row. Returns None
+        where fusion cannot apply (a stop watch too wide for the device, a
+        budget or context edge at k = 1, nothing that would continue, or
+        a pure prefill step whose chunks all stay mid-prompt): the caller
+        falls back to :meth:`_plan_mixed`, which is exact.
+
+        ALL block growth happens before the dispatch (the
+        :meth:`_plan_decode` contract): n_steps tokens per decode lane and
+        chunk + n_steps - 1 per completing chunk are reserved here, so
+        pressure surfaces as preemption (or _NeedDrain under async) while
+        nothing is enqueued; a completing chunk whose headroom is not
+        reservable degrades to the single-step bookkeeping."""
+        t_step = time.time()
+        budget, chunk_cap = self.engine.token_budget, self.engine.chunk_size
+        S_max = self.engine.decode_buckets[-1]
+        decoding = self._decode_candidates()
+        if not decoding:
+            # A pure prefill step: fusing pays only when a chunk can
+            # COMPLETE its prompt this step and go on decoding on the device.
+            room = min(budget, chunk_cap)
+            if not any(s.prompt_len - (s.prefilled + self._adv3(s)[0]) <= room for s in prefills):
+                return None
+        n_steps = self._chain_length(decoding or prefills)
+        if n_steps <= 1:
+            return None
+        decoding = self._rotate_decode_lanes(decoding, min(S_max - 1, budget - 1))
+        ready = self._grow_or_preempt(decoding, n_steps)
+        rows, feed_rows = self._decode_rows(ready)
+        kinds, cont = ["d"] * len(rows), [True] * len(rows)
+        n_decode = total = len(rows)
+        for seq, p0, chunk in self._take_chunks(prefills, n_decode, total, t_step):
+            # A chunk that completes its prompt continues as a decode row
+            # when its watch fits the device's flags, the context leaves
+            # room for the continuation's writes and the blocks for them
+            # are reservable; otherwise it keeps the single-step books.
+            cont.append(bool(
+                p0 + chunk == seq.prompt_len
+                and self._watch_len(seq) <= MEGASTEP_WATCH_W
+                and self.engine.max_model_len - (p0 + chunk) >= n_steps - 1
+                and self._grow_blocks(seq, chunk + n_steps - 1)
+            ))
+            rows.append((seq, seq.prompt[p0 : p0 + chunk], p0, p0 + chunk))
+            kinds.append("p")
+            feed_rows.append(None)
+            total += chunk
+        if not any(cont):
+            return None  # nothing continues on the device: the single step is exact
+        S = self._decode_width(len(rows))
+        pend = self._dispatch_fused(rows, S, feed_rows, kinds, cont, n_steps)
+        adv: dict[str, tuple[int, int, int]] = {}
+        feed_index: dict[str, int] = {}
+        feed_series: dict[str, tuple[int, int, int]] = {}
+        last_flat = (n_steps - 1) * S
+        for i, (seq, toks_list, p0, _) in enumerate(rows):
+            chunk = len(toks_list)
+            if kinds[i] == "d":
+                adv[seq.request_id] = (0, n_steps, n_steps)
+            elif cont[i]:
+                adv[seq.request_id] = (chunk, chunk + n_steps - 1, n_steps)
+            else:
+                done = p0 + chunk >= seq.prompt_len
+                adv[seq.request_id] = (chunk, chunk, int(done))
+                if done:  # its one token is iteration 0's
+                    feed_index[seq.request_id] = i
+                    feed_series[seq.request_id] = (i, 0, 1)
+                continue
+            # A continuing lane's newest token is the last iteration's.
+            feed_index[seq.request_id] = last_flat + i
+            feed_series[seq.request_id] = (i, S, n_steps)
+
+        def commit() -> list[tuple[Sequence, LLMEngineOutput]]:
+            outputs: list[tuple[Sequence, LLMEngineOutput]] = []
+            toks3, lps3 = pend.land()  # [n_steps, S, 1]
+            toks = toks3[:, :, 0]
+            lps = None if lps3 is None else tuple(a[:, :, 0] for a in lps3)
+            lps0 = None if lps is None else tuple(a[0] for a in lps)
+            now = time.time()
+            emitted_total = 0
+            live = {id(s) for s in self.running}
+            for i, (seq, toks_list, _, _) in enumerate(rows):
+                if seq.finish is not None or seq.cancelled or id(seq) not in live:
+                    continue  # late finish/preempt: discard the lane
+                if kinds[i] == "d":
+                    out = self._commit_chain(seq, toks, lps, i)
+                else:
+                    tok, lp = self._advance_prefill_chunk(
+                        seq, len(toks_list), toks[0], lps0, i, t_step, now
+                    )
+                    if tok is None:
+                        continue  # mid-prompt: masked no-ops ran on the device
+                    if cont[i]:
+                        # Continued on the device: the chain wrote its first
+                        # n_steps - 1 tokens past the completed prompt.
+                        out = self._commit_chain(seq, toks, lps, i, from_prompt=True)
+                    else:
+                        out = self._emit_first(seq, tok, lp)
+                outputs.append((seq, out))
+                emitted_total += len(out.token_ids)
+            t_done = time.time()
+            n_chunk = len(rows) - n_decode
+            if n_chunk:
+                self._note_mixed_step(total)
+                self._tracer.record(
+                    "engine_mixed_step", t_step, t_done,
+                    attrs={
+                        "seqs": len(rows), "decode_rows": n_decode,
+                        "prefill_tokens": total - n_decode, "budget": budget,
+                    },
+                    stat=True,
+                )
+            else:
+                self._tracer.record(
+                    "engine_decode_step", t_step, t_done,
+                    attrs={"seqs": len(rows), "chain": n_steps, "tokens": emitted_total},
+                    stat=True,
+                )
+            self._tracer.record(
+                "engine_megastep", t_step, t_done,
+                attrs={
+                    "seqs": len(rows), "inner_steps": n_steps,
+                    "tokens": emitted_total, "draft_rounds": 0,
+                    "fused_shapes": {
+                        "decode": n_decode, "chunk": n_chunk, "verify": 0, "device": 0,
+                    },
+                },
+                stat=True,
+            )
+            return outputs
+
+        return _PlannedStep(
+            core=self, commit_fn=commit, adv=adv,
+            feed_tokens=pend.toks, feed_index=feed_index,
+            feed_series=feed_series, kind="mixed",
+        )
+
+    def _commit_chain(
+        self, seq: Sequence, chained: np.ndarray, lps, i: int, from_prompt: bool = False,
+    ) -> LLMEngineOutput:
+        """Commit lane ``i`` of a chain's ``[n, B]`` sampled tokens (and
+        logprob arrays of the same leading shape): the stop scan, the K/V
+        bookkeeping, one streamed chunk. The chain's cache writes are the
+        old pending token and its first k-1 tokens; a lane whose prompt
+        completed in the same dispatch (``from_prompt``) had its prompt
+        committed already, and writes only the k-1."""
+        toks = chained[:, i]
+        k, finish = self._scan_stop(seq, toks)
+        emitted = [int(t) for t in toks[:k]]
+        written = emitted[: k - 1] if from_prompt else [seq.pending] + emitted[: k - 1]
+        self._commit_completed(seq, seq.hashed.extend(written))
+        seq.processed += len(written)
+        seq.generated += k
+        lp_entries = None
+        if lps is not None and seq.logprobs is not None:
+            lp_entries = [
+                _lp_entry(emitted[j], lps[0][j][i], lps[1][j][i], lps[2][j][i], seq.logprobs)
+                for j in range(k)
+            ]
+        out = self._emit_chunk(seq, emitted, lp_entries, finish)
+        if finish is not None:
+            seq.finish = finish
+            self._finish(seq)
+        else:
+            seq.pending = emitted[-1]
+        return out
+
+    def _emit_first(self, seq: Sequence, tok: int, lp: dict | None) -> LLMEngineOutput:
+        """Emit the first token sampled from a completed prompt."""
+        seq.pending = tok
+        seq.generated += 1
+        out = self._emit(seq, tok, lp)
+        if seq.finish is not None:
+            self._finish(seq)
+        return out
 
     def _scan_stop(self, seq: Sequence, toks: np.ndarray) -> tuple[int, str | None]:
         """Vectorized stop scan over a megastep's sampled tokens: returns
@@ -1517,17 +2086,18 @@ class EngineCore:
 
     def warm_up(self) -> int:
         """Run every shape the engine serves once before it serves, every
-        row writing only the garbage block: one prefill wave per prefill
-        bucket and one decode iteration per decode width, in each sampling
-        variant. A shape's first run on the card loads its kernels (CUDA
-        loads modules lazily) and settles cuBLAS's choices; done here, no
-        request pays for it. On the card it then captures the CUDA graph of
-        every key the engine can dispatch: each prefill bucket, and each
-        decode width at every chain length ``_chain_length`` can return,
-        in each variant, so serving captures nothing. Scheduler state, the
-        prefix cache and the execution counters are left as they were; the
-        kernels' launch counters count the eager launches (captures launch
-        nothing). Returns the forwards it ran."""
+        row writing only the garbage block: under ``waves`` one prefill
+        wave per prefill bucket, under ``chunked`` one mixed step per
+        (token bucket, width) its planners can dispatch, and one decode
+        iteration per decode width, in each sampling variant. A shape's
+        first run on the card loads its kernels (CUDA loads modules
+        lazily) and settles cuBLAS's choices; done here, no request pays
+        for it. On the card it then captures the CUDA graph of every key
+        the engine can dispatch (:meth:`_warm_up_launches`), so serving
+        captures nothing. Scheduler state, the prefix cache and the
+        execution counters are left as they were; the kernels' launch
+        counters count the eager launches (captures launch nothing).
+        Returns the forwards it ran."""
         with self._step_lock:
             launches = self._warm_up_launches()
             forwards = 0
@@ -1541,26 +2111,72 @@ class EngineCore:
                         self._graphs.capture(launch, self.device)
         return forwards
 
+    def _chunked_shapes(self) -> list[tuple[int, int]]:
+        """(token bucket, width) of every ragged step the chunked planners
+        can dispatch. A step holds n rows, 1 <= n <= min(widest decode
+        width, max_num_seqs), of at least one token each and at most one
+        chunk (``chunk_size``, and less than ``max_model_len``), in all at
+        most the token budget; a width w takes the row counts above the
+        next narrower width, so its totals are [n_lo, min(budget, n_hi *
+        chunk)]."""
+        eng = self.engine
+        chunk = min(eng.chunk_size, eng.max_model_len - 1)
+        n_max = min(eng.decode_buckets[-1], eng.max_num_seqs)
+        shapes = []
+        for w_prev, w in zip((0, *eng.decode_buckets), eng.decode_buckets):
+            n_lo, n_hi = w_prev + 1, min(w, n_max)
+            if n_lo > n_hi:
+                continue
+            t_hi = min(eng.token_budget, n_hi * chunk)
+            for b_prev, T in zip((0, *eng.prefill_buckets), eng.prefill_buckets):
+                if max(n_lo, b_prev + 1) <= min(t_hi, T):
+                    shapes.append((T, w))
+        return sorted(shapes)
+
     def _warm_up_launches(self) -> list[tuple[Launch, bool]]:
         """(launch, run eagerly) for every graph key the engine can
-        dispatch, every row on the garbage block. A prefill bucket above
-        ``max_model_len`` is filled by several rows, as a wave of several
-        prompts fills it; the decode launches run eagerly at k = 1 only
+        dispatch, every row on the garbage block: each sampling variant of
+        each decode width at every chain length ``_chain_length`` can
+        return, and, under ``waves``, each prefill bucket; under
+        ``chunked``, each (token bucket, width) of :meth:`_chunked_shapes`
+        as a mixed step and, with k > 1, as a fused megastep at each chain
+        length above 1. A prefill bucket above ``max_model_len`` is filled
+        by several rows, as a wave of several prompts fills it. The decode
+        launches run eagerly at k = 1 only, the fused ones not at all
         (longer chains run the same kernels)."""
         g, bs = self.engine.garbage_block, self.engine.block_size
         S, k_cfg = self.engine.prefill_batch, self.engine.megastep
         L = self.engine.max_model_len
         chains = sorted({k_cfg} | {1 << i for i in range(k_cfg.bit_length())})
+        chunked = self.engine.scheduling == "chunked"
         launches: list[tuple[Launch, bool]] = []
         for sampling, logprobs in WARM_UP_VARIANTS:
             seq = Sequence("warm-up", [0] * L, sampling, StopConditions(), seed=0,
                            logprobs=logprobs)
             seq.block_ids = [g] * -(-L // bs)
-            for bucket in self.engine.prefill_buckets:
-                n = min(bucket, S * L)
-                rows = [(seq, [0] * min(L, n - t), 0, min(L, n - t)) for t in range(0, n, L)]
-                batch = self._assemble_ragged(rows, S)
-                launches.append((self._ragged_launch(batch, S), True))
+            if chunked:
+                chunk = min(self.engine.chunk_size, L - 1)
+                for T, width in self._chunked_shapes():
+                    # t tokens in n rows of at most one chunk each.
+                    t = min(T, self.engine.token_budget, min(width, self.engine.max_num_seqs) * chunk)
+                    n = min(width, self.engine.max_num_seqs, t)
+                    sizes = [t // n + (i < t % n) for i in range(n)]
+                    rows = [(seq, [0] * m, 0, m) for m in sizes]
+                    batch = self._assemble_ragged(rows, width, feed_rows=[None] * n)
+                    launches.append((self._ragged_launch(batch, width, mixed=True), True))
+                    lanes = {
+                        "cont_active": np.zeros(width, bool), "base_pos": np.zeros(width, np.int32),
+                        "watch": np.full((width, MEGASTEP_WATCH_W), -1, np.int32),
+                        "budgets": np.ones(width, np.int32), "min_left": np.zeros(width, np.int32),
+                    }
+                    for k in chains[1:]:
+                        launches.append((self._fused_launch(batch, width, k, lanes), False))
+            else:
+                for bucket in self.engine.prefill_buckets:
+                    n = min(bucket, S * L)
+                    rows = [(seq, [0] * min(L, n - t), 0, min(L, n - t)) for t in range(0, n, L)]
+                    batch = self._assemble_ragged(rows, S)
+                    launches.append((self._ragged_launch(batch, S), True))
             seq.block_ids, seq.pending, seq.processed = [g], 0, 1
             for width in self.engine.decode_buckets:
                 for k in chains:
@@ -1590,7 +2206,7 @@ class EngineCore:
         st = dict(self.sched_stats)
         st["waiting"] = len(self.waiting) + len(self._inbox)
         st["running"] = len(self.running)
-        st["chunked_scheduling"] = 0  # waves only until A8b
+        st["chunked_scheduling"] = 1 if self.engine.scheduling == "chunked" else 0
         st["token_budget"] = self.engine.token_budget
         st["async_exec"] = 1 if self.engine.async_exec else 0
         st["queue_limit"] = self._max_waiting

@@ -3,8 +3,10 @@
 The JAX engine runs a decode megastep and a prefill wave as one XLA
 dispatch each, compiled once per static key. Here each is a CUDA graph,
 captured once per key (``EngineCore`` builds the keys: width, megastep
-length and sampling variant for decode, token bucket and sampling variant
-for prefill) and replayed as one launch. All graphs of an engine share one
+length and sampling variant for decode; token bucket and sampling variant
+for a prefill wave; token bucket, width and sampling variant for a mixed
+step, and the megastep length too for a fused one) and replayed as one
+launch. All graphs of an engine share one
 memory pool: replays run one at a time on one stream, so a graph's
 temporaries may reuse another's.
 
@@ -50,6 +52,7 @@ class Layout:
     (its bits), ``b`` bool (0 or 1)."""
 
     def __init__(self, fields: list[tuple[str, tuple[int, ...], str]]):
+        self.spec = list(fields)
         self.fields: dict[str, tuple[int, tuple[int, ...], str]] = {}
         off = 0
         for name, shape, kind in fields:

@@ -304,10 +304,13 @@ def dense_layer(
     cfg: ModelConfig,
     rope_cs: tuple[torch.Tensor, torch.Tensor],
     attention=ragged_paged_attention,
+    kernel: str = "tiled",
 ) -> torch.Tensor:
     """One transformer block over a ragged token batch: attn-norm → fused
     qkv → rope → page scatter → ragged paged attention → wo → mlp.
-    ``attention`` has the operands of :func:`ragged_paged_attention`."""
+    ``attention`` has the operands of :func:`ragged_paged_attention`;
+    ``kernel`` is the form it is told the batch has ("tiled": chunks of
+    many rows, "decode": one query row per sequence)."""
     T = x.shape[0]
     y = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     qkv = _dot(y, lp["wqkv"])
@@ -323,7 +326,7 @@ def dense_layer(
         kv_pages, kv_scales = cache_l, None
     attn = attention(
         q, kv_pages, kv_lens, block_tables, cu_q_lens, num_seqs,
-        sm_scale=cfg.head_dim ** -0.5, kv_scales=kv_scales,
+        sm_scale=cfg.head_dim ** -0.5, kv_scales=kv_scales, kernel=kernel,
     )
     x = x + _dot(attn.reshape(T, cfg.q_size), lp["wo"]).to(x.dtype)
     return x + _mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
@@ -344,9 +347,11 @@ def forward_hidden(
     num_seqs: torch.Tensor,      # [1] i32
     cfg: ModelConfig,
     attention=ragged_paged_attention,
+    kernel: str = "tiled",
 ) -> torch.Tensor:
     """The transformer stack up to the final norm: hidden states [T, h].
-    The cache is written in place."""
+    The cache is written in place; every layer's attention is told
+    ``kernel``."""
     x = params["embed"][tokens.long()]
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     wp, wo = write_pages.long(), write_offs.long()
@@ -358,7 +363,7 @@ def forward_hidden(
         }
         x = dense_layer(
             x, lp, cache[l], wp, wo, kv_lens, block_tables, cu_q_lens,
-            num_seqs, cfg, rope_cs, attention,
+            num_seqs, cfg, rope_cs, attention, kernel,
         )
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
@@ -377,12 +382,18 @@ def forward_tokens(
     last_rows: torch.Tensor,     # [S] — row of each sequence's last token
     cfg: ModelConfig,
     attention=ragged_paged_attention,
+    kernel: str = "tiled",
 ) -> torch.Tensor:
     """One step over every scheduled token: last-token logits [S, V] f32.
-    Prefill chunks, decode tokens and mixed batches are all this call."""
+    Prefill chunks, decode tokens and mixed batches are all this call.
+    Its attention takes the tiled form unless the caller states that
+    every sequence has one query row (``kernel="decode"``,
+    :func:`decode_tokens`): a mixed batch's token bucket may equal its row
+    count, and its chunks' rows through the decode kernel would be right
+    but many times slower."""
     x = forward_hidden(
         params, cache, tokens, positions, write_pages, write_offs,
-        kv_lens, block_tables, cu_q_lens, num_seqs, cfg, attention,
+        kv_lens, block_tables, cu_q_lens, num_seqs, cfg, attention, kernel,
     )
     return _logits(x[last_rows.long()], params, cfg)
 
@@ -396,10 +407,12 @@ def decode_tokens(
     active: torch.Tensor,        # [B] bool
     cfg: ModelConfig,
     engine: EngineConfig,
+    attention=ragged_paged_attention,
 ) -> torch.Tensor:
     """Pure-decode step: B sequences of one token each, assembled on the
     device so a megastep advances positions without the host. Inactive
-    lanes write the garbage block and keep ``kv_lens = 1``."""
+    lanes write the garbage block and keep ``kv_lens = 1``. Its attention
+    takes the decode form."""
     B = tokens.shape[0]
     bs = engine.block_size
     dev = tokens.device
@@ -412,5 +425,5 @@ def decode_tokens(
     rows = torch.arange(B, device=dev)
     return forward_tokens(
         params, cache, tokens, positions, write_pages, write_offs,
-        kv_lens, block_tables, cu, num_seqs, rows, cfg,
+        kv_lens, block_tables, cu, num_seqs, rows, cfg, attention, "decode",
     )

@@ -161,6 +161,53 @@ def stop_flags(
     return watch_hit | budget_hit
 
 
+def resolve_verify(
+    sampled: torch.Tensor,    # [S, R] int32 — the target's choice per verify slot
+    draft: torch.Tensor,      # [S, R-1] int32 — drafted tokens, -1 padded
+    draft_len: torch.Tensor,  # [S] int32 — live draft length (0 = plain row)
+) -> tuple[torch.Tensor, torch.Tensor]:  # (accepted [S], next_token [S])
+    """Accept/reject on the device for the fused megastep's first
+    iteration: ``accepted`` is the longest drafted prefix the target agrees
+    with (slot j of ``sampled`` is its ``(seed, counter + j)`` choice after
+    the row's j-th token), ``next_token`` the target's choice at slot
+    ``accepted``, which the lane continues decoding from. Rows that drafted
+    nothing (decode rows, prefill chunks) resolve to ``(0, sampled[:, 0])``,
+    which is all of it at R = 1."""
+    R = sampled.shape[1]
+    if R == 1:
+        return torch.zeros_like(sampled[:, 0]), sampled[:, 0]
+    j = torch.arange(R - 1, dtype=torch.int32, device=sampled.device)[None, :]
+    match = (sampled[:, :-1] == draft) & (j < draft_len[:, None])
+    acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+    nxt = torch.gather(sampled, 1, acc.long()[:, None])[:, 0]
+    return acc, nxt
+
+
+def stop_flags_prefix(
+    sampled: torch.Tensor,   # [S, R] int32 — the first iteration's sampled slots
+    accepted: torch.Tensor,  # [S] int32 — emitted slots are 0..accepted
+    watch: torch.Tensor,     # [S, W] int32 — per-lane stop ids, -1 padded
+    budgets: torch.Tensor,   # [S] int32 — remaining max-tokens budget
+    min_left: torch.Tensor,  # [S] int32 — tokens until min_tokens is met
+    gen_base: torch.Tensor | None = None,  # [S] int32 — tokens this dispatch
+                             # emitted before these slots (default 0)
+) -> torch.Tensor:           # [S] bool — True where the lane stops HERE
+    """Stop flags over a fused iteration whose emission count depends on
+    the data: slot j (the dispatch's token ``gen_base + j + 1``) stops the
+    lane when it is emitted (``j <= accepted``) and is a watched id past
+    the min-tokens floor, or lands on the budget edge. Like
+    :func:`stop_flags`, it may under-stop, never over-stop."""
+    R = sampled.shape[1]
+    dev = sampled.device
+    gen = torch.arange(1, R + 1, dtype=torch.int32, device=dev)[None, :]
+    if gen_base is not None:
+        gen = gen + gen_base[:, None]
+    emitted = torch.arange(R, dtype=torch.int32, device=dev)[None, :] <= accepted[:, None]
+    watch_hit = (sampled[:, :, None] == watch[:, None, :]).any(dim=2)
+    hit = (watch_hit & (gen >= min_left[:, None])) | (gen >= budgets[:, None])
+    return (hit & emitted).any(dim=1)
+
+
 def token_logprobs(
     logits: torch.Tensor,  # [B, V] float32 (raw, pre-temperature)
     tokens: torch.Tensor,  # [B] int — the chosen tokens

@@ -23,11 +23,16 @@ and attends every cache position ``<=`` its own.
 tensors take the plain PyTorch version :func:`ragged_paged_attention_ref`
 (the tests), CUDA tensors launch a hand-written kernel of
 ``csrc/ragged_paged_attention.cu`` (its bf16 or its int8 instance) or
-raise. Nothing falls back. The source has two kernels, picked from the
-shapes alone (:func:`kernel_for`, no host sync): ``T == S``, the engine's
-decode form, takes the split-KV decode kernel, planned by
-:func:`decode_split_plan`; anything else the query-tiled tensor-core
-kernel, planned by :func:`tiled_plan`. The planning functions are plain
+raise. Nothing falls back. The source has two kernels, each right on any
+ragged layout: the split-KV decode kernel, planned by
+:func:`decode_split_plan`, a block per (query row, kv head, split), fast
+where each sequence has one query row (the engine's decode form,
+``model.decode_tokens``), and the query-tiled tensor-core kernel, planned
+by :func:`tiled_plan`, for chunks of many rows. The caller states the form
+(``kernel=``): the shapes cannot tell a decode batch from a mixed batch
+whose token bucket equals its row count, whose chunk rows would take the
+decode kernel at many times the tiled kernel's cost. A direct call that
+states none gets :func:`kernel_for`'s choice from the shapes. The planning functions are plain
 Python so the CPU tests reach them; :func:`ragged_paged_attention_split_ref`
 is the plain version of the split-and-combine arithmetic (tests only).
 """
@@ -78,9 +83,11 @@ def __getattr__(name: str) -> int:
 
 
 def kernel_for(num_tokens: int, max_seqs: int) -> str:
-    """The kernel the wrapper picks from the shapes: ``T == S`` is the
-    engine's decode form (``model.decode_tokens``) and takes the split-KV
-    decode kernel; anything else the tiled kernel."""
+    """The default form of a call that states none: ``T == S`` takes the
+    split-KV decode kernel, anything else the tiled kernel. Both are right
+    on any layout, but this is the fast choice only where ``T == S`` means
+    one query row per sequence; the engine's forwards state their form
+    instead."""
     return "decode" if num_tokens == max_seqs else "tiled"
 
 
@@ -127,11 +134,13 @@ def ragged_paged_attention_ref(
     *,
     sm_scale: float,
     kv_scales: torch.Tensor | None = None,
+    kernel: str | None = None,
 ) -> torch.Tensor:               # [T, n_q, d]
     """Plain PyTorch version: gathers each row's whole block table and
     masks, exactly as the JAX reference does (materialises
     ``[T, pages_per_seq * page_size, 2*n_kv, d]`` in f32). int8 pages are
-    dequantized on the gather with their scales."""
+    dequantized on the gather with their scales. It serves every layout,
+    so the stated kernel form (``kernel``) changes nothing here."""
     if kv_scales is not None and kv_scales.shape != kv_pages.shape[:-1]:
         raise ValueError(
             f"kv_scales must be [n_pages, page_size, 2*n_kv] = "
@@ -392,9 +401,9 @@ def ragged_paged_attention_cuda(
     kv_scales=None, kernel: str | None = None,
 ) -> torch.Tensor:
     """Launch a hand-written Hopper kernel on the current stream: the
-    bf16-page instance, or the int8 one when ``kv_scales`` is given; the
-    split-KV decode kernel when ``T == S``, else the tiled one (``kernel``
-    forces either)."""
+    bf16-page instance, or the int8 one when ``kv_scales`` is given;
+    ``kernel`` ("decode" or "tiled") picks the kernel, None the one
+    :func:`kernel_for` picks from the shapes."""
     if not q.is_cuda:
         raise ValueError("ragged_paged_attention_cuda needs CUDA tensors")
     _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, kv_scales)
@@ -415,17 +424,18 @@ def ragged_paged_attention_cuda(
 
 def ragged_paged_attention(
     q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
-    sm_scale: float, kv_scales=None,
+    sm_scale: float, kv_scales=None, kernel: str | None = None,
 ) -> torch.Tensor:
     """Device dispatch: the plain version for CPU tensors, the CUDA kernel
     for CUDA tensors (or an error). ``kv_scales`` selects int8 pages on
-    both."""
+    both; ``kernel`` states the form on the card ("decode": one query row
+    per sequence, "tiled": chunks of many rows; None: :func:`kernel_for`)."""
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
             q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
-            sm_scale=sm_scale, kv_scales=kv_scales,
+            sm_scale=sm_scale, kv_scales=kv_scales, kernel=kernel,
         )
     return ragged_paged_attention_cuda(
         q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
-        sm_scale=sm_scale, kv_scales=kv_scales,
+        sm_scale=sm_scale, kv_scales=kv_scales, kernel=kernel,
     )

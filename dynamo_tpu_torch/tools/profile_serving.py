@@ -3,6 +3,7 @@
 Run from the repository root on a machine with one CUDA card::
 
     python3 -m dynamo_tpu_torch.tools.profile_serving [--int8] [--traces DIR]
+        [--scheduling chunked]
 
 Builds ``build_engine("llama3-8b")`` (random weights, default
 ``EngineConfig``; with ``--int8`` int8 weights and int8 KV pages, the
@@ -27,6 +28,14 @@ time / wall time) and the top kernels; kernels that run inside a graph
 replay are recorded one by one, as eager launches are. ``--traces`` also
 writes each phase's Chrome trace there.
 
+With ``--scheduling chunked`` it traces chunked scheduling instead: one
+mixed step (an engine at megastep k = 1) and one fused megastep (k = 8),
+each with the seven prompts decoding and a 2124-token prompt arriving, so
+the traced step puts its first 2048-token chunk next to seven decode rows
+(token bucket 8192, width 8): each engine runs ``warm_up()``, the batch
+runs untraced until every prompt decodes, then the one step is traced as
+above (host wall, kernel time by group, K1 by kernel, idle share).
+
 The script uses only the package's entry points, so it also measures
 another checkout's package, for a parent-against-change A/B in one call
 (parent, change, change, parent)::
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 PROMPT_LENS = (2000, 1124, 100, 700, 1500, 300, 1800)
+LONG_PROMPT = 2124  # arrives while PROMPT_LENS decode (--scheduling chunked)
 
 
 def _group(name: str) -> str:
@@ -189,10 +199,42 @@ def profile_mode(core, request, trace_dir: Path | None, tag: str) -> dict:
                 for p in phases]}
 
 
+def chunked_step(core, request, trace_dir: Path | None, tag: str) -> dict:
+    """Warm ``core`` (chunked scheduling) up, run the batch untraced until
+    every prompt decodes, then trace the one step that takes the long
+    prompt's first chunk beside the decode rows."""
+    t0 = time.perf_counter()
+    core.warm_up()
+    torch.cuda.synchronize()
+    warm = {"warm_up_s": time.perf_counter() - t0,
+            "graph_captures": core.scheduler_stats()["graph_captures"]}
+    for i, n in enumerate(PROMPT_LENS):
+        core.add_request(request(f"{tag}{i}", n, 64))
+    while not (len(core.running) == len(PROMPT_LENS)
+               and all(s.prefill_done for s in core.running)):
+        core.step()
+    core.add_request(request(f"{tag}_long", LONG_PROMPT, 8))
+    before = core.scheduler_stats()
+    phase = _phase(core, 1, tag, trace_dir)
+    st = core.scheduler_stats()
+    phase.update({k: st[k] - before[k] for k in (
+        "mixed_tokens", "mixed_bucket_tokens", "forwards", "fused_mixed_dispatches")})
+    print(json.dumps(phase), flush=True)
+    while core.has_work():
+        core.step()
+    return {"mode": tag, "warm_up": warm, "phase": {
+        k: phase[k] for k in ("phase", "wall_ms", "kernel_ms", "idle_share", "groups_ms",
+                              "attention_by_kernel", "mixed_tokens", "mixed_bucket_tokens",
+                              "forwards", "fused_mixed_dispatches")}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--traces", type=Path, default=None, help="write Chrome traces here")
     ap.add_argument("--int8", action="store_true", help="int8 weights and int8 KV pages")
+    ap.add_argument("--scheduling", default="waves", choices=["waves", "chunked"],
+                    help="waves: a prefill wave and decode megasteps, sync and async; "
+                         "chunked: one mixed step and one fused megastep")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA card", file=sys.stderr)
@@ -227,13 +269,24 @@ def main() -> int:
             stop=StopConditions(max_tokens=max_tokens),
         )
 
-    modes = [profile_mode(core, request, args.traces, "sync")]
-    acore, _ = build_engine("llama3-8b", {**overrides, "async_exec": True}, device="cuda",
-                            params=core.params)
-    del core
-    torch.cuda.empty_cache()
-    modes.append(profile_mode(acore, request, args.traces, "async"))
-    print(json.dumps({"card": card, "int8": args.int8, "package": dynamo_tpu_torch.__file__,
+    if args.scheduling == "chunked":
+        modes = []
+        for k, tag in ((1, "mixed_step_chunked"), (8, "fused_megastep_chunked")):
+            ccore, _ = build_engine("llama3-8b", {**overrides, "scheduling": "chunked",
+                                                  "megastep_k": k},
+                                    device="cuda", params=core.params)
+            modes.append(chunked_step(ccore, request, args.traces, tag))
+            del ccore
+            torch.cuda.empty_cache()
+    else:
+        modes = [profile_mode(core, request, args.traces, "sync")]
+        acore, _ = build_engine("llama3-8b", {**overrides, "async_exec": True}, device="cuda",
+                                params=core.params)
+        del core
+        torch.cuda.empty_cache()
+        modes.append(profile_mode(acore, request, args.traces, "async"))
+    print(json.dumps({"card": card, "int8": args.int8, "scheduling": args.scheduling,
+                      "package": dynamo_tpu_torch.__file__,
                       "wrapper_host_us": host_us, "modes": modes}), flush=True)
     return 0
 

@@ -239,12 +239,20 @@ def test_context_edge_chain_lengths_match_jax(weights):
     assert max(chains["torch", True]) == 8 and min(chains["torch", True]) < 8
 
 
-@pytest.mark.parametrize("async_exec", [False, True])
-def test_warm_up_enumerates_every_dispatched_key(weights, async_exec):
+@pytest.mark.parametrize("async_exec, scheduling", [
+    pytest.param(False, "waves", id="False"),
+    pytest.param(True, "waves", id="True"),
+    pytest.param(False, "chunked", id="chunked-False"),
+    pytest.param(True, "chunked", id="chunked-True"),
+])
+def test_warm_up_enumerates_every_dispatched_key(weights, async_exec, scheduling):
     """Every graph key that serving dispatches is one that ``warm_up()``
     captures on the card: all sampling variants, and every chain length
-    the context edge and the budgets cut a megastep to."""
-    core = build_engine("tiny", {"max_model_len": 64, "megastep_k": 8, "async_exec": async_exec},
+    the context edge and the budgets cut a megastep to; under chunked
+    scheduling every (token bucket, width) of a mixed step and of a fused
+    megastep, and no prefill wave."""
+    core = build_engine("tiny", {"max_model_len": 64, "megastep_k": 8, "async_exec": async_exec,
+                                 "scheduling": scheduling},
                         device="cpu", params=weights[1])[0]
     warm = {launch.key for launch, _ in core._warm_up_launches()}
     seen = set()
@@ -263,10 +271,22 @@ def test_warm_up_enumerates_every_dispatched_key(weights, async_exec):
     drive(core, wires)  # all of them in one batch, then each variant alone
     for w in wires:
         drive(core, [{**w, "request_id": w["request_id"] + "_solo"}])
+    if scheduling == "chunked":
+        # A fresh prompt longer than a chunk, alone: a mixed step.
+        drive(core, [_wire(list(rng.randint(1, 200, size=60)), "alone", max_tokens=2)])
+    assert seen <= warm, sorted(seen - warm)
+    if scheduling == "chunked":
+        assert {key[0] for key in seen} == {key[0] for key in warm} == {"mixed", "fused", "decode"}
+        assert {key[3] for key in seen if key[0] == "fused"} == {2, 4, 8}
+        assert {key[1:3] for key in seen if key[0] == "fused"} >= {(32, 4), (128, 8)}
+        assert {key[-3:] for key in seen} >= {(False, True, False), (False, False, True)}
+        # variants x (6 (bucket, width) shapes x (mixed + 3 fused chains) + widths x chains)
+        assert core._chunked_shapes() == [(T, w) for T in (32, 64, 128) for w in (4, 8)]
+        assert len(warm) == 6 * (6 * 4 + 2 * 4)
+        return
     assert {key[0] for key in seen} == {"prefill", "decode"}
     assert {key[2] for key in seen if key[0] == "decode"} >= {1, 2, 4, 8}
     assert {key[-3:] for key in seen} >= {(False, True, False), (False, False, True)}
-    assert seen <= warm, sorted(seen - warm)
     assert any(key[:2] == ("prefill", 128) for key in seen)  # a bucket above max_model_len
     assert len(warm) == 6 * (3 + 2 * 4)  # variants x (prefill buckets + widths x chains)
 

@@ -56,7 +56,7 @@ def test_cpu_engine_leaves_jax_unimported():
 @pytest.mark.parametrize(
     "overrides, item",
     [
-        ({"scheduling": "chunked"}, "A8b"),
+        ({"scheduling": "chunked", "spec_decode": "ngram"}, "A8c"),
         ({"disk_kv_dir": "kv"}, "A10"),
         ({"spec_decode": "ngram"}, "A8c"),
         ({"kv_dtype": "int8", "host_kv_blocks": 16}, "A10"),

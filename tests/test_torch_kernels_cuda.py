@@ -190,6 +190,31 @@ def test_serving_decode_shape(pages):
     assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_mixed_rows_at_t_equal_s_take_the_stated_kernel(pages):
+    """A mixed step whose token bucket equals its width: a 37-token chunk
+    and 27 decode rows, T == S == 64. The engine's forward states the
+    tiled form, which launches the tiled kernel; a call that states none
+    takes the decode kernel from the shapes. Both agree with the plain
+    version (each kernel is right on any layout)."""
+    q_lens = [37] + [1] * 27
+    kv_lens = [37] + [int(x) for x in np.random.default_rng(8).integers(2, 2000, 27)]
+    q, kv, *ops = make_batch(q_lens, kv_lens, 64, 64, 8, 4, seed=9, pad=0)
+    assert q.shape[0] == ops[1].shape[0] == 64  # T == S
+    kw = {}
+    if pages == "int8":
+        kv, kw["kv_scales"] = quantize_kv(kv)
+    want = ra.ragged_paged_attention_ref(q, kv, *ops, sm_scale=D ** -0.5, **kw)
+    for kernel, ran in (("tiled", "tiled"), (None, "decode")):
+        name = ra.ENTRY_NAMES[ran, pages == "int8"]
+        before = ra.kernel_launches[name]
+        got = ra.ragged_paged_attention(q, kv, *ops, sm_scale=D ** -0.5, kernel=kernel, **kw)
+        assert ra.kernel_launches[name] == before + 1, kernel
+        rel = _row_rel(got, want)
+        assert rel <= ROW_REL_TOL, f"{kernel}: max row relative error {rel:.3e}"
+
+
 K2_CASES = {
     # B, n_kv, group, bs, max_blocks, seq_lens (None: random up to the span)
     "bench_kvquant": (16, 8, 4, 32, 8, [251] * 16),

@@ -111,12 +111,13 @@ def test_kernel_for(T, S, kernel):
 
 
 def test_engine_decode_batch_takes_the_decode_kernel(monkeypatch):
-    """``model.decode_tokens`` builds the T == S form the dispatch keys on."""
+    """``model.decode_tokens`` builds the T == S form and states the decode
+    kernel for it."""
     seen = {}
 
     def capture(params, cache, tokens, positions, write_pages, write_offs, kv_lens,
-                block_tables, cu, num_seqs, rows, cfg):
-        seen["T"], seen["S"] = tokens.shape[0], block_tables.shape[0]
+                block_tables, cu, num_seqs, rows, cfg, attention, kernel):
+        seen["T"], seen["S"], seen["kernel"] = tokens.shape[0], block_tables.shape[0], kernel
         return torch.zeros(1)
 
     monkeypatch.setattr(model, "forward_tokens", capture)
@@ -127,7 +128,7 @@ def test_engine_decode_batch_takes_the_decode_kernel(monkeypatch):
         torch.zeros(B, eng.max_blocks_per_seq, dtype=torch.int32),
         torch.arange(B, dtype=torch.int32), torch.ones(B, dtype=torch.bool), None, eng,
     )
-    assert ra.kernel_for(seen["T"], seen["S"]) == "decode"
+    assert seen["T"] == seen["S"] == B and seen["kernel"] == "decode"
 
 
 def tile_owners(cu_q_lens, num_seqs, num_tokens, n_blocks, rows_per_tile):

@@ -49,6 +49,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 )
 from dynamo_tpu_torch.runtime import Context, DistributedRuntime, RuntimeConfig
 from dynamo_tpu_torch.runtime import worker as runtime_worker
+from dynamo_tpu_torch.runtime.status_server import SCHEDULER_GAUGES, SystemStatusServer
 from dynamo_tpu_torch.runtime.store import StoreServer
 
 pytestmark = [pytest.mark.e2e]
@@ -69,12 +70,17 @@ class Fleet:
     """The JAX store and frontend with workers of the given kinds ("jax" or
     "torch"), started in order; a torch worker serves ``params`` when
     given, else the weights of the fleet's first JAX worker, else random
-    weights from seed 0."""
+    weights from seed 0. Every worker's engine takes ``overrides``; with
+    ``status`` a torch worker runs a status server, as
+    ``DYN_SYSTEM_ENABLED`` makes the worker process do."""
 
-    def __init__(self, kinds, router_mode="round_robin", params=None):
+    def __init__(self, kinds, router_mode="round_robin", params=None, overrides=None,
+                 status=False):
         self.kinds = kinds
         self.router_mode = router_mode
         self.params = params
+        self.overrides = overrides
+        self.status = status
         self.store = JaxStoreServer()
         self.runtimes: list = []
         self.tasks: list[asyncio.Task] = []
@@ -90,16 +96,20 @@ class Fleet:
                 coro = run_jax_worker(
                     rt, model_name=MODEL, preset="tiny", seed=0,
                     served_event=served, core_out=self.cores, obs_publish=False,
+                    engine_overrides=self.overrides,
                 )
             else:
                 rt = await DistributedRuntime.create(self.store.address)
+                if self.status:
+                    rt.status = SystemStatusServer(host="127.0.0.1", port=0)
+                    await rt.status.start()
                 params = self.params
                 if params is None and self.cores:
                     params = _torch_params(self.cores[0])
                 coro = run_torch_worker(
                     rt, model_name=MODEL, preset="tiny", seed=0,
                     served_event=served, core_out=self.cores, device="cpu",
-                    params=params,
+                    params=params, engine_overrides=self.overrides,
                 )
             self.runtimes.append(rt)
             self.tasks.append(asyncio.create_task(coro))
@@ -204,6 +214,43 @@ async def test_torch_worker_serves_jax_frontend_byte_identical():
     assert any(b"data: [DONE]" in r for r in got)
     # The repeated prompt was served from the prefix cache.
     assert _cached_tokens(got[0]) == 0 and _cached_tokens(got[-2]) > 0
+
+
+async def test_chunked_torch_worker_serves_jax_frontend_byte_identical():
+    """Both workers with chunked scheduling (16-token chunks): the torch
+    worker's completions equal the JAX worker's byte for byte, its steps
+    were mixed, and its ``/metrics`` carries the scheduler gauges with its
+    core's values at the time of the scrape."""
+    chunked = {"scheduling": "chunked", "prefill_chunk": 16}
+    async with Fleet(["jax"], overrides=chunked) as f:
+        want = await _serve_all(f)
+        params = _torch_params(f.cores[0])
+    async with Fleet(["torch"], params=params, overrides=chunked, status=True) as f:
+        got = await _serve_all(f)
+        async with aiohttp.ClientSession() as s:
+            async with s.get(f"http://127.0.0.1:{f.runtimes[0].status.port}/metrics") as r:
+                page = (await r.read()).decode()
+        stats = f.cores[0].scheduler_stats()
+    assert got == want
+    assert stats["chunked_scheduling"] == 1 and stats["mixed_steps"] > 0
+    samples = {line.split("{", 1)[0]: float(line.rsplit(" ", 1)[1])
+               for line in page.splitlines() if line and not line.startswith("#")}
+    for key in ("chunked_scheduling", "token_budget", "last_step_batched_tokens",
+                "last_step_budget_utilization", "chunked_prefills_in_flight",
+                "fused_mixed_dispatches"):
+        assert samples[f"dynamo_{SCHEDULER_GAUGES[key][0]}"] == float(stats[key]), key
+    assert samples["dynamo_scheduler_chunked_enabled"] == 1.0
+
+
+def test_worker_cli_takes_chunked_scheduling():
+    args = worker_main._parser().parse_args(
+        ["--scheduling", "chunked", "--prefill-chunk", "16", "--max-num-batched-tokens", "64"])
+    overrides = worker_main._overrides(args)
+    assert overrides == {"scheduling": "chunked", "prefill_chunk": 16,
+                         "max_num_batched_tokens": 64}
+    core, _ = build_engine("tiny", overrides, device="cpu")
+    assert (core.engine.chunk_size, core.engine.token_budget) == (16, 64)
+    assert core.scheduler_stats()["chunked_scheduling"] == 1
 
 
 # -- (b) a mixed fleet, round robin -----------------------------------------
@@ -432,7 +479,7 @@ async def test_graceful_drain_publishes_cleared():
         (["--tp", "2"], "A12"),
         (["--pp", "2"], "A12"),
         (["--nnodes", "2", "--dist-init-addr", "127.0.0.1:1"], "A12"),
-        (["--scheduling", "chunked"], "A8b"),
+        (["--scheduling", "chunked", "--spec-decode", "ngram"], "A8c"),
         (["--local-cpu-devices", "4"], "A12"),
         (["--spec-decode", "ngram"], "A8c"),
         (["--ring-prefill-threshold", "64"], "A12"),
