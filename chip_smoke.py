@@ -51,7 +51,16 @@ joined by a 2124-token prompt under waves, chunked at the defaults (sync
 and async) and chunked with ``max_num_batched_tokens`` 2048: the streams'
 largest and p99 gap between tokens, the long prompt's TTFT, the
 real-token share of the mixed steps' token buckets, K1 launches = 32 x
-forwards and no capture after warm-up, (6) runs the worker process:
+forwards and no capture after warm-up; then the speculation phase
+(:func:`serve_spec`, bf16, on the same weights): K1's kernels held at
+the verify rows' shapes (S rows of spec_k + 1 = 5 queries, T = S * 5),
+verify-forward against one-token-forward logits, the history rings'
+copy, a speculating engine's ``warm_up()`` and 8 segment-quoting prompts
+with speculation off, drafted on the host and on the device (sync and
+async), then the same engine under chunked scheduling with a 2124-token
+prompt in the last lane (drafts made, fewer dispatches than tokens, no
+capture while serving, greedy streams equal to spec off's up to
+near-ties), (6) runs the worker process:
 the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
 ``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
 --preset llama3-8b --seed 0`` as subprocesses, waits for the model card
@@ -1059,6 +1068,7 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     torch.cuda.empty_cache()
     modes = sync_against_async(core, overrides, reqs + [late], mode)
     chunked = None if int8 else serve_chunked(ra, card, core)
+    spec = None if int8 else serve_spec(ra, card, core)
     return by_entry, {
         "mode": mode, "attention_launches": launches, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
         "bytes_per_block": core.kv_cache_stats()["bytes_per_block"],
@@ -1066,7 +1076,7 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
         "logits_cosine": logit_check["cosine"], "warm_up": warm,
         "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
         "graph_against_eager": graph_check, "graphs_sync_async": modes,
-        "chunked": chunked,
+        "chunked": chunked, "spec": spec,
     }
 
 
@@ -1478,6 +1488,349 @@ def serve_chunked(ra, card: str, core) -> dict:
     print(f"chunked phase on {card}: " + "; ".join(
         f"{t['setting']}{' async' if t['async_exec'] else ''} largest gap {t['max_gap_ms']:.1f} ms "
         f"p99 {t['p99_gap_ms']:.1f} TTFT {t['long_ttft_ms']:.1f}" for t in traffic), flush=True)
+    return res
+
+
+# -- speculative decoding ------------------------------------------------------
+
+# The speculation phase's traffic: 8 prompts, each a random segment quoted
+# several times (as extraction and code-edit traffic quote their input),
+# so the prompt-lookup drafter finds matches; 6 greedy lanes and 2 seeded.
+SPEC_K = 4
+SPEC_TOKENS = 96
+SPEC_SEGMENTS = ((48, 6), (56, 5), (64, 4), (72, 4), (80, 3), (96, 3), (120, 2), (160, 2))
+SPEC_SEEDED = {6: {"temperature": 0.7, "seed": 31}, 7: {"temperature": 0.9, "seed": 32}}
+SPEC_LONG = 2124  # the chunked runs' last lane: a prompt of two chunks at the default budget
+# The smoke's speculating engine serves these 8 lanes at one decode width
+# (its warm-up captures the keys of width 8 only); profile_serving.py
+# --spec-decode ngram warms up an engine of the default widths.
+SPEC_ENGINE = {"spec_decode": "ngram", "spec_k": SPEC_K, "spec_device_draft": True,
+               "decode_buckets": (8,), "max_num_seqs": 8}
+
+
+def spec_prompts(vocab: int) -> list[list[int]]:
+    rng = np.random.default_rng(777)
+    out = []
+    for n, reps in SPEC_SEGMENTS:
+        seg = [int(t) for t in rng.integers(0, vocab, n)]
+        out.append(seg * reps)
+    return out
+
+
+def check_verify_shapes(ra, spec_ctx) -> list[dict]:
+    """K1 at the verify rows' shapes, both kernels forced, against the plain
+    version run in row chunks, L2 flushed: S rows of q_len spec_k + 1 = 5
+    at T = S * 5 (a drafting megastep's verify iteration, ``verify_tokens``,
+    which is unpadded), S 8 and 64 with kv lengths up to 2048, and the
+    speculation phase's own lanes halfway through their streams."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rng = np.random.default_rng(9)
+    R = SPEC_K + 1
+    cases = [("verify8", [int(x) for x in rng.integers(R, 2049, 8)]),
+             ("verify64", [int(x) for x in rng.integers(R, 2049, 64)]),
+             ("verify_spec_phase8", [n + SPEC_TOKENS // 2 for n in spec_ctx])]
+    out = []
+    for name, kv_lens in cases:
+        S = len(kv_lens)
+        q_lens = [R] * S
+        args, kw = attention_batch(q_lens, kv_lens, S, 256, S * R, gen)
+        plain = lambda: plain_by_row_chunks(ra, args, kw, q_lens)  # noqa: E731
+        want = plain()
+        plain_ms = cold_ms(plain, 1)
+        out += hold_k1(ra, name, args, kw, want, q_lens, kv_lens, S * R, False, 20, plain_ms,
+                       "attention")
+        del args, kw, want
+        torch.cuda.empty_cache()
+    by_shape = {}
+    for rec in out:
+        by_shape.setdefault(rec["shape"], {})[rec["kernel"]] = rec["ms"]
+    for shape, ms in by_shape.items():
+        print(f"verify shape {shape}: tiled {ms['tiled']:.4f} ms, decode {ms['decode']:.4f} ms; "
+              f"faster: {min(ms, key=ms.get)}", flush=True)
+    return out
+
+
+def verify_logits(core, prompts) -> dict:
+    """Verify-forward logits against one-token-forward logits at the same
+    positions: each prompt but its last spec_k + 1 tokens prefilled in one
+    wave (a scratch cache, ``core``'s weights), then those tokens once as
+    five one-token forwards (``decode_tokens``) and once as one verify
+    row each (``verify_tokens``, every slot live), in each of K1's forms.
+    Each position's logits must point the same way (``check_logits``'
+    cosine); the largest logit difference is the near-tie limit of the
+    stream comparison."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import EngineConfig
+
+    eng = EngineConfig(num_kv_blocks=512, max_model_len=2048)
+    R, S, dev = SPEC_K + 1, len(prompts), core.device
+    lens = [len(p) for p in prompts]
+    pages = page_runs(lens, eng.block_size)
+    rows = [(p[: n - R], 0, pg) for p, n, pg in zip(prompts, lens, pages)]
+    T = next(b for b in core.engine.prefill_buckets if b >= sum(n - R for n in lens))
+    cache = model.init_cache(core.cfg, eng, dev)
+    model.forward_tokens(core.params, cache, *ragged_ops(rows, T, S, eng, dev), core.cfg)
+    saved = [c.clone() for c in cache]
+    tables = torch.full((S, eng.max_blocks_per_seq), eng.garbage_block, dtype=torch.int32,
+                        device=dev)
+    for i, pg in enumerate(pages):
+        tables[i, : len(pg)] = torch.tensor(pg, dtype=torch.int32)
+    last = torch.tensor([p[n - R :] for p, n in zip(prompts, lens)], dtype=torch.int32, device=dev)
+    pos0 = torch.tensor([n - R for n in lens], dtype=torch.int32, device=dev)
+    active = torch.ones(S, dtype=torch.bool, device=dev)
+    one = torch.stack([
+        model.decode_tokens(core.params, cache, last[:, j].contiguous(), tables, pos0 + j,
+                            active, core.cfg, eng)
+        for j in range(R)
+    ], dim=1).reshape(S * R, -1)
+    res = {}
+    for kernel in K1_KERNELS:
+        for c, s in zip(cache, saved):
+            c.copy_(s)
+        ver = model.verify_tokens(core.params, cache, last, tables, pos0,
+                                  torch.full((S,), R - 1, dtype=torch.int32, device=dev),
+                                  active, core.cfg, eng, kernel=kernel)
+        cos = torch.nn.functional.cosine_similarity(ver, one, dim=1)
+        res[kernel] = {
+            "min_cosine": cos.min().item(), "max_abs_diff": (ver - one).abs().max().item(),
+            "argmax_equal": int((ver.argmax(1) == one.argmax(1)).sum().item()),
+            "finite": bool(torch.isfinite(ver).all().item()),
+        }
+        r = res[kernel]
+        print(f"verify logits ({kernel} form, {S} rows of {R}) against one-token forwards at the "
+              f"same positions: min cosine {r['min_cosine']:.6f}, max abs diff "
+              f"{r['max_abs_diff']:.4e}, argmax equal at {r['argmax_equal']} of {S * R}",
+              flush=True)
+        if not r["finite"] or r["min_cosine"] < LOGITS_MIN_COSINE:
+            raise AssertionError(f"verify-forward logits disagree with one-token forwards: {res}")
+    del cache, saved
+    torch.cuda.empty_cache()
+    res["near_tie_limit"] = max(r["max_abs_diff"] for r in res.values())
+    return res
+
+
+def ring_copy(core) -> dict:
+    """The drafting megastep's history rings in its packed input: their
+    bytes at widths 8 and 64 (``window + ngram_max`` int32 per lane), and
+    the host-to-device copy of that many pinned bytes, CUDA events over 50
+    back-to-back copies, beside the copy of the rest of a width-8 drafting
+    graph's input."""
+    from dynamo_tpu_torch.engine.core import _drafted_layout
+
+    H, R = core._ring_H, SPEC_K + 1
+    res = {"ring_slots": H}
+    for S in (8, 64):
+        packed = _drafted_layout(128, S, core.engine.max_blocks_per_seq, R, H).size * 4
+        ring = S * (H + 8) * 4  # hist, ring_feed and the five per-lane knobs
+        for what, n in (("ring", ring), ("rest", packed - ring)):
+            host = torch.zeros(n // 4, dtype=torch.int32).pin_memory()
+            dev = torch.empty(n // 4, dtype=torch.int32, device="cuda")
+            res[f"{what}{S}_bytes"] = n
+            res[f"{what}{S}_copy_ms"] = cuda_ms(lambda: dev.copy_(host, non_blocking=True), 50)
+    print(f"history rings in the drafting graph's input: {H} slots per lane; width 8: "
+          f"{res['ring8_bytes']} B copied in {res['ring8_copy_ms']:.4f} ms (the rest of the input "
+          f"{res['rest8_bytes']} B, {res['rest8_copy_ms']:.4f} ms); width 64: {res['ring64_bytes']} "
+          f"B in {res['ring64_copy_ms']:.4f} ms", flush=True)
+    return res
+
+
+def spec_wire(i, rid, prompt, spec, logprobs=None):
+    req = wire(rid, prompt, SPEC_SEEDED.get(i, {"temperature": 0.0}), logprobs)
+    req["stop"] = {"max_tokens": SPEC_TOKENS}
+    if spec is not None:
+        req["spec_decode"] = spec
+    return req
+
+
+async def spec_batch(engine, Context, prompts, name, spec, logprobs=None) -> dict:
+    async def one(i, prompt):
+        rid = f"{name}_{i}"
+        toks, lps, fin = [], [], None
+        async for out in engine.generate(spec_wire(i, rid, prompt, spec, logprobs), Context(rid)):
+            toks += out["token_ids"]
+            lps += out.get("logprobs") or []
+            fin = out.get("finish_reason") or fin
+        return i, toks, lps, fin
+
+    done = await asyncio.wait_for(asyncio.gather(*(one(i, p) for i, p in enumerate(prompts))),
+                                  timeout=600)
+    return {i: (toks, lps, fin) for i, toks, lps, fin in done}
+
+
+def spec_traffic(ra, core, name: str, prompts, spec, logprobs=None) -> dict:
+    """The phase's 8 prompts at once through ``core`` (prefix cache
+    cleared), every launch count at 0 just before: decode ms per emitted
+    token (the engine loop's time in decode, verify and drafting steps,
+    and under chunked scheduling in mixed steps, chunks included, over
+    the tokens after each first), dispatches per emitted token, the
+    speculation counters of this run, the ``spec_draft`` span's host ms
+    per drafting step, K1's launches against 32 x forwards, and no graph
+    captured."""
+    from dynamo_tpu_torch import tracing
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    core.clear_kv_cache()
+    keys = ("dispatches", "committed_tokens", "forwards", "graph_replays", "graph_captures",
+            "decode_loop_s", "spec_loop_s", "mixed_loop_s", "megastep_dispatches",
+            "single_step_dispatches", "fused_mixed_dispatches")
+    before, sbefore = dict(core.scheduler_stats()), core.spec_decode_stats()
+    totals0 = tracing.get_collector().phase_totals().get("engine/spec_draft", (0.0, 0.0))
+    ra.reset_launches()
+    t0 = time.perf_counter()
+    got = asyncio.run(spec_batch(TorchEngine(core), Context, prompts, name, spec, logprobs))
+    wall = time.perf_counter() - t0
+    by_entry = {ra.ENTRY_NAMES[k, False]: ra.kernel_launches[ra.ENTRY_NAMES[k, False]]
+                for k in K1_KERNELS}
+    st, sst = core.scheduler_stats(), core.spec_decode_stats()
+    totals1 = tracing.get_collector().phase_totals().get("engine/spec_draft", (0.0, 0.0))
+    d = {k: st[k] - before[k] for k in keys}
+    sd = {k: sst[k] - sbefore[k] for k in ("verify_steps", "verify_rows", "drafted_tokens",
+                                           "accepted_tokens", "emitted_tokens", "device_rounds",
+                                           "device_hits")}
+    after_first = d["committed_tokens"] - len(prompts)
+    draft_steps = totals1[0] - totals0[0]
+    res = {
+        "run": name, "async_exec": bool(core.engine.async_exec), "wall_s": wall,
+        "decode_ms_per_token": (1e3 * (d["decode_loop_s"] + d["spec_loop_s"] + d["mixed_loop_s"])
+                                / after_first),
+        "dispatches_per_token": d["dispatches"] / d["committed_tokens"],
+        "acceptance_rate": sd["accepted_tokens"] / sd["drafted_tokens"] if sd["drafted_tokens"] else 0.0,
+        "mean_accepted_len": sd["emitted_tokens"] / sd["verify_rows"] if sd["verify_rows"] else 0.0,
+        "spec_draft_host_ms_per_step": 1e3 * (totals1[1] - totals0[1]) / draft_steps if draft_steps else 0.0,
+        "spec_draft_steps": draft_steps,
+        "attention_launches": ra.launches, "launches_by_kernel": by_entry, **d, **sd,
+        "streams": {i: toks for i, (toks, _, _) in got.items()},
+        "logprobs": {i: lps for i, (_, lps, _) in got.items()},
+    }
+    print(f"speculation {name} ({'async' if res['async_exec'] else 'sync'}): decode "
+          f"{res['decode_ms_per_token']:.3f} ms per emitted token, "
+          f"{res['dispatches_per_token']:.4f} dispatches per emitted token ({d['dispatches']} for "
+          f"{d['committed_tokens']}); drafted {sd['drafted_tokens']}, accepted "
+          f"{sd['accepted_tokens']} (rate {res['acceptance_rate']:.4f}), mean accepted length "
+          f"{res['mean_accepted_len']:.3f}, verify rows {sd['verify_rows']}, device rounds "
+          f"{sd['device_rounds']} (hits {sd['device_hits']}); spec_draft {draft_steps:.0f} steps, "
+          f"{res['spec_draft_host_ms_per_step']:.3f} host ms each; forwards {d['forwards']}, "
+          f"attention launches {ra.launches} by kernel {by_entry}; replays "
+          f"{d['graph_replays']} for {d['dispatches']} dispatches, captures "
+          f"{d['graph_captures']}; wall {wall:.2f} s", flush=True)
+    if (ra.launches != core.cfg.num_layers * d["forwards"] or d["graph_captures"]
+            or d["graph_replays"] != d["dispatches"]
+            or any(len(t) != SPEC_TOKENS or f != "length" for t, _, f in got.values())):
+        raise AssertionError(f"speculation {name}: { {k: v for k, v in res.items() if k not in ('streams', 'logprobs')} }")
+    return res
+
+
+def compare_streams(base: dict, run: dict, limit: float) -> list[dict]:
+    """Each greedy lane of ``run`` against spec off: equal, or equal up to
+    a position where spec off's top-2 logit gap is within ``limit`` (a
+    near-tie that the verify forward's rounding may break the other way;
+    the streams part there). Prints each divergence with its gap; raises
+    on one past a clear margin."""
+    out = []
+    for i, want in base["streams"].items():
+        if i in SPEC_SEEDED:
+            continue
+        got = run["streams"][i]
+        j = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b), None)
+        if j is None:
+            continue
+        top = base["logprobs"][i][j]["top"]
+        gap = top[0][1] - top[1][1]
+        out.append({"lane": i, "position": j, "off": want[j], "on": got[j], "gap": gap})
+        print(f"divergence, {run['run']} lane {i} at token {j}: spec off {want[j]}, spec on "
+              f"{got[j]}; spec off's top-2 logit gap {gap:.4e} (limit {limit:.4e})", flush=True)
+        if gap > limit:
+            raise AssertionError(f"{run['run']}: lane {i} parts from spec off at token {j} where "
+                                 f"the top-2 gap {gap:.4e} exceeds {limit:.4e}")
+    return out
+
+
+def serve_spec(ra, card: str, core) -> dict:
+    """The speculation phase, bf16, llama3-8b at full width and depth, on
+    the main path engine's weights: K1 at the verify shapes, verify-forward
+    against one-token-forward logits, the rings' copy, a speculating
+    engine's ``warm_up()`` (waves, spec_k 4, device drafting allowed, at
+    width 8), then the phase's traffic with speculation off (the main path
+    engine, with top-2 log-probabilities on the greedy lanes), drafted on
+    the host (the requests' ``spec_decode`` turns device drafting off),
+    sync and async, and drafted on the device, sync and async (the
+    engine's configuration switched; the planners read ``async_exec`` at
+    every step); then the same engine switched to chunked scheduling,
+    warmed up again for its chunked keys, with a 2124-token prompt in the
+    last lane: spec off, host drafts and device drafts. Under both
+    drafters: drafts made, fewer dispatches than emitted tokens, no
+    capture while serving, and greedy streams equal to spec off's (the
+    same scheduler's) but at near-ties."""
+    import dataclasses
+
+    from dynamo_tpu_torch import tracing
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+    from dynamo_tpu_torch.tracing import core as tracing_core
+
+    prompts = spec_prompts(core.cfg.vocab_size)
+    res = {"shapes": check_verify_shapes(ra, [len(p) for p in prompts])}
+    res["logits"] = verify_logits(core, prompts)
+    limit = res["logits"]["near_tie_limit"]
+    scfg = dict(SPEC_ENGINE)
+    score, _ = build_engine("llama3-8b", scfg, device="cuda", params=core.params)
+    res["ring"] = ring_copy(score)
+    keys = [launch.key[0] for launch, _ in score._warm_up_launches()]
+    res["warm_up"] = {**warm_up(score, "speculation"),
+                      "keys": {k: keys.count(k) for k in sorted(set(keys))}}
+    print(f"speculation warm-up keys: {res['warm_up']['keys']}", flush=True)
+    before = (tracing.trace_enabled(), tracing_core._STATE.sample)
+    tracing.configure(enabled=True, sample=1.0)
+    try:
+        runs = [spec_traffic(ra, core, "off", prompts, None, logprobs=2)]
+        for name, spec in (("host", {"method": "ngram", "device": False}),
+                           ("device", {"method": "ngram"})):
+            for async_exec in (False, True):
+                score.engine = dataclasses.replace(score.engine, async_exec=async_exec)
+                runs.append(spec_traffic(ra, score, name, prompts, spec))
+        # Chunked scheduling on the same engine: its configuration switched
+        # (the planners read it at every step) and its warm-up run again,
+        # capturing the chunked keys it lacks; a 2124-token prompt takes
+        # the last lane, so verify rows and drafting lanes ride beside its
+        # chunks. Its own spec-off run is the streams' reference.
+        score.engine = dataclasses.replace(score.engine, scheduling="chunked", async_exec=False)
+        captured = score.scheduler_stats()["graph_captures"]
+        keys = [launch.key[0] for launch, _ in score._warm_up_launches()]
+        res["chunked_warm_up"] = {**warm_up(score, "speculation, chunked"),
+                                  "keys": {k: keys.count(k) for k in sorted(set(keys))}}
+        res["chunked_warm_up"]["new_captures"] = score.scheduler_stats()["graph_captures"] - captured
+        print(f"speculation, chunked: {res['chunked_warm_up']['new_captures']} keys captured "
+              f"anew of {len(keys)} ({res['chunked_warm_up']['keys']})", flush=True)
+        rng = np.random.default_rng(778)
+        mixed = prompts[:-1] + [[int(t) for t in rng.integers(0, core.cfg.vocab_size, SPEC_LONG)]]
+        runs += [spec_traffic(ra, score, f"chunked_{name}", mixed, spec, logprobs)
+                 for name, spec, logprobs in (("off", {"method": "off"}, 2),
+                                              ("host", {"method": "ngram", "device": False}, None),
+                                              ("device", {"method": "ngram"}, None))]
+    finally:
+        tracing.configure(enabled=before[0], sample=before[1])
+    res["divergences"] = {}
+    for run in runs[1:]:
+        if run["run"] == "chunked_off":
+            continue
+        tag = f"{run['run']}{'_async' if run['async_exec'] else ''}"
+        base = next(r for r in runs if r["run"] == ("chunked_off" if tag.startswith("chunked")
+                                                   else "off"))
+        res["divergences"][tag] = compare_streams(base, run, limit)
+        if run["drafted_tokens"] <= 0 or run["dispatches_per_token"] >= 1:
+            raise AssertionError(f"speculation {tag}: drafted {run['drafted_tokens']}, "
+                                 f"{run['dispatches_per_token']:.4f} dispatches per token")
+        if run["run"].endswith("device") and run["device_rounds"] <= 0:
+            raise AssertionError(f"speculation {tag}: no round drafted on the device")
+    del score
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["traffic"] = [{k: v for k, v in r.items() if k not in ("streams", "logprobs")}
+                      for r in runs]
+    print(f"speculation phase on {card}: " + "; ".join(
+        f"{r['run']}{' async' if r['async_exec'] else ''} {r['decode_ms_per_token']:.3f} ms/token, "
+        f"{r['dispatches_per_token']:.4f} dispatches/token, acceptance {r['acceptance_rate']:.3f}"
+        for r in res["traffic"]), flush=True)
     return res
 
 
@@ -2461,6 +2814,11 @@ def main() -> int:
     shapes += summary["chunked"]["shapes"]
     chunked_counts = next(t for t in summary["chunked"]["traffic"]
                           if t["setting"] == "chunked" and not t["async_exec"])["launches_by_kernel"]
+    # K1 at the verify shapes joins them too; the speculation runs'
+    # launches (sync, host and device drafting) join its bf16 entries.
+    shapes += summary["spec"]["shapes"]
+    spec_counts = {t["run"]: t["launches_by_kernel"] for t in summary["spec"]["traffic"]
+                   if not t["run"].endswith("off") and not t["async_exec"]}
     gc.collect()
     torch.cuda.empty_cache()
     print(f"bf16 engine freed: allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
@@ -2517,6 +2875,7 @@ def main() -> int:
                 w[name] for w in frontend["kernel_launches"].values())
             if not int8:
                 extra["chunked_path_launches"] = chunked_counts[name]
+                extra["spec_path_launches"] = {run: c[name] for run, c in spec_counts.items()}
             k1.append(kernel_entry(
                 name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
                 main_rec, pages="int8" if int8 else "bf16", **extra,

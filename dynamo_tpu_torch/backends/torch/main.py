@@ -13,10 +13,11 @@ route to it as to a JAX worker.
 
 :func:`build_engine` is the in-process entry point the worker wraps.
 The CLI takes the JAX worker's flags, less the tuning values of features
-it refuses (``--spec-k``, ``--spec-device-draft``,
-``--node-rank``, ``--max-local-prefill-length``),
-which argparse rejects; a value the port does not serve yet raises a
+it refuses (``--node-rank``, ``--max-local-prefill-length``), which
+argparse rejects; a value the port does not serve yet raises a
 ``ValueError`` naming the ``ROADMAP.md`` item that brings it.
+``--spec-decode ngram --spec-k 4 [--spec-device-draft]`` turns on n-gram
+speculative decoding, drafted on the host or on the card.
 """
 
 from __future__ import annotations
@@ -304,7 +305,22 @@ def _parser() -> argparse.ArgumentParser:
         help="per-step token budget of mixed steps (0/unset = the largest "
              "prefill bucket)",
     )
-    ap.add_argument("--spec-decode", default=None, choices=["off", "ngram"])
+    ap.add_argument(
+        "--spec-decode", default=None, choices=["off", "ngram"],
+        help="speculative decoding: 'ngram' drafts by prompt lookup and verifies "
+             "pending + draft as one ragged row (greedy and seeded streams are "
+             "those of 'off')",
+    )
+    ap.add_argument(
+        "--spec-k", type=int, default=None,
+        help="most draft tokens per verify row (also caps a request's "
+             "dyn.spec_decode k)",
+    )
+    ap.add_argument(
+        "--spec-device-draft", action="store_true", default=None,
+        help="draft on the card between megastep iterations, so draft, verify "
+             "and accept loop inside one dispatch (needs --megastep-k >= 2)",
+    )
     ap.add_argument("--async-exec", default=None, choices=["on", "off"])
     ap.add_argument("--megastep-k", type=int, default=None,
                     help="decode iterations per megastep (1 = off; unset = 8)")
@@ -339,7 +355,7 @@ def _parser() -> argparse.ArgumentParser:
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise on the first flag value the port does not serve, naming the
     ``ROADMAP.md`` item that brings it. Engine settings outside the slice
-    (speculation, ring prefill, MoE presets) are refused by
+    (host and disk KV tiers, ring prefill, MoE presets) are refused by
     ``build_engine`` the same way."""
     refusals = [
         (args.model_path is not None, "--model-path (checkpoints)", "A7"),
@@ -369,6 +385,8 @@ def _overrides(args: argparse.Namespace) -> dict[str, Any]:
             "prefill_chunk": args.prefill_chunk,
             "max_num_batched_tokens": args.max_num_batched_tokens,
             "spec_decode": args.spec_decode,
+            "spec_k": args.spec_k,
+            "spec_device_draft": args.spec_device_draft,
             "megastep_k": args.megastep_k,
             "kv_dtype": args.kv_dtype,
             "async_exec": None if args.async_exec is None else args.async_exec == "on",

@@ -2,19 +2,20 @@
 
 Counterpart of ``dynamo_tpu/engine/core.py`` for its waves and chunked
 schedulers, synchronous or asynchronous execution, bf16 (model-dtype) or
-int8 KV pages, plain or int8 weights, no speculation, decode megasteps of
-k iterations. One ``step()`` is one engine iteration: drain new requests,
-admit under a free-block watermark (reusing cached prefix blocks), then
-dispatch. Under ``waves`` that is one ragged prefill wave or one decode
-megastep for every running sequence; under ``chunked`` every runnable
-decode row rides next to prefill chunks in one ragged forward under the
-token budget (:meth:`EngineCore._plan_mixed`), fused with k - 1 decode
-iterations where k > 1 (:func:`_megastep_fused_body`), and a step with
-no prompt to prefill is a decode megastep. All of it rides the SAME ragged
-forward (``model.forward_tokens``); total tokens snap to
-``prefill_buckets`` and row counts to ``decode_buckets`` (a wave's to
-``prefill_batch``), exactly as the JAX engine pads them, so both engines
-run the same shapes and the same block layout.
+int8 KV pages, plain or int8 weights, n-gram speculative decoding drafted
+on the host or on the device, decode megasteps of k iterations. One
+``step()`` is one engine iteration: drain new requests, admit under a
+free-block watermark (reusing cached prefix blocks), then dispatch. Under
+``waves`` that is one ragged prefill wave or one decode megastep for
+every running sequence; under ``chunked`` every runnable decode row rides
+next to prefill chunks in one ragged forward under the token budget
+(:meth:`EngineCore._plan_mixed`), fused with k - 1 decode iterations where
+k > 1 (:func:`_megastep_fused_body`), and a step with no prompt to prefill
+is a decode megastep. All of it rides the SAME ragged forward
+(``model.forward_tokens``); total tokens snap to ``prefill_buckets`` and
+row counts to ``decode_buckets`` (a wave's to ``prefill_batch``), exactly
+as the JAX engine pads them, so both engines run the same shapes and the
+same block layout.
 
 The decode megastep (:func:`_megastep_body`) is a loop of k decode+sample
 iterations over device tensors: sampled tokens feed the next iteration on
@@ -24,11 +25,23 @@ prefill wave and each mixed step is the replay of a CUDA graph captured
 once per static key (``engine/graphs.py``), the counterpart of the JAX
 engine's jitted programs; on the CPU the bodies run eagerly.
 
+Speculative decoding (``spec_decode="ngram"``, ``dynamo_tpu_torch/spec``):
+a speculating lane's row is its pending token plus up to ``spec_k``
+drafted tokens, verified in the same ragged forward at a sample width of
+``R = spec_k + 1``; each drafted position samples the target's own
+``(seed, counter)`` choice, so the stream is the one speculation off
+would emit. With k > 1 verify rows ride the fused megastep, which
+resolves accept/reject on the device; with ``spec_device_draft`` the
+drafter itself runs between the megastep's iterations
+(:func:`_megastep_draft_body`).
+
 A step is planned and dispatched, then committed (:class:`_PlannedStep`).
 With ``async_exec`` the engine keeps one step in flight: it plans and
 dispatches step N+1 against the optimistic overlays of step N (cursor
 advances, and the sampled tokens gathered on the device), then commits
-step N while N+1 runs. The token streams are the synchronous loop's.
+step N while N+1 runs. A step whose advance depends on the data (live
+drafts) commits before the next plan. The token streams are the
+synchronous loop's.
 
 Settings outside this slice are refused by name with the ``ROADMAP.md``
 item that brings them; nothing is silently substituted.
@@ -57,10 +70,13 @@ from dynamo_tpu_torch.engine.model import (
     forward_tokens,
     init_cache,
     init_params,
+    verify_tokens,
 )
 from dynamo_tpu_torch.engine.sampler import (
+    device_ngram_draft,
     gather_feedback,
     resolve_verify,
+    ring_append,
     sample_seeded,
     stop_flags,
     stop_flags_prefix,
@@ -77,6 +93,7 @@ from dynamo_tpu_torch.llm.kv_router.protocols import ForwardPassMetrics, KvStats
 from dynamo_tpu_torch.obs.flight_recorder import FlightRecorder
 from dynamo_tpu_torch.ops import ragged_attention
 from dynamo_tpu_torch.runtime.engine import EngineOverloadedError
+from dynamo_tpu_torch.spec import SpecConfig, SpecStats, propose_ngram, resolve_spec_config
 from dynamo_tpu_torch.tokens import TokenBlockSequence, compute_seq_hashes
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -99,14 +116,19 @@ def resolve_device(device) -> torch.device:
 def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig) -> None:
     """Refuse every setting the port does not serve yet, naming the
     ``ROADMAP.md`` item that brings it, a KV dtype or scheduler that does
-    not exist, and chunked-scheduling sizes the JAX engine refuses."""
+    not exist, and chunked-scheduling and speculation settings the JAX
+    engine refuses."""
     if engine_cfg.kv_dtype not in KV_DTYPES:
         raise ValueError(
             f"unknown kv_dtype {engine_cfg.kv_dtype!r} (expected one of {KV_DTYPES})"
         )
+    if engine_cfg.spec_decode not in ("off", "ngram"):
+        raise ValueError(
+            f"unknown spec_decode {engine_cfg.spec_decode!r} (expected 'off' or 'ngram')"
+        )
+    if engine_cfg.spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {engine_cfg.spec_k}")
     refusals = [
-        (engine_cfg.spec_decode != "off",
-         f"spec_decode={engine_cfg.spec_decode!r}", "A8c"),
         (engine_cfg.host_kv_blocks > 0 or bool(engine_cfg.disk_kv_dir),
          "host/disk KV tiers (host_kv_blocks, disk_kv_dir)", "A10"),
         (engine_cfg.ring_prefill_threshold > 0,
@@ -196,6 +218,13 @@ class Sequence:
     emitted_first: bool = False
     t_queued: float = 0.0       # wall-clock at enqueue into the scheduler
     t_first_sched: float = 0.0  # first chunk dispatched to the device
+    # -- speculative decoding --
+    # Resolved policy, or None: the engine default merged with the
+    # request's spec_decode override at admission.
+    spec: SpecConfig | None = None
+    # Every emitted token in order: the drafter's history past the prompt
+    # (cleared on preemption, where the rebuilt prompt absorbs it).
+    out_tokens: list[int] = field(default_factory=list)
     # -- overload robustness --
     tenant_id: str = ""
     priority: int = 0
@@ -224,10 +253,13 @@ def _lp_entry(token: int, chosen, top_ids, top_lps, k: int) -> dict:
 @dataclass
 class _RaggedBatch:
     """Host-assembled inputs of one ragged forward over arbitrary rows
-    (:meth:`EngineCore._assemble_ragged`): a prefill wave, a mixed step,
-    and the fused megastep's first iteration."""
+    (:meth:`EngineCore._assemble_ragged`): a prefill wave, a mixed or
+    verify step, and the fused megastep's first iteration. ``R`` is the
+    sample width: 1, or ``spec_k + 1`` where a verify row samples its
+    drafted positions."""
 
     T: int
+    R: int
     tokens: np.ndarray
     positions: np.ndarray
     write_pages: np.ndarray
@@ -235,7 +267,10 @@ class _RaggedBatch:
     kv_lens: np.ndarray
     tables: np.ndarray
     cu: np.ndarray
-    last_rows: np.ndarray
+    # [S, R]: the row whose logits each sample slot reads, and its
+    # counter key (a verify row's slot j reads its j-th token's logits
+    # with counter generated + j).
+    gather: np.ndarray
     counters: np.ndarray
     seeds: np.ndarray
     temp: np.ndarray
@@ -327,6 +362,35 @@ def _prefill_and_sample(
     return toks, lps
 
 
+def _first_iteration(
+    params, cache, tokens, positions, write_pages, write_offs, kv_lens, block_tables,
+    cu_q_lens, num_seqs, gather, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
+    draft, draft_len, cont_active, base_pos, watch, budgets, min_left,
+    *, need_mask, all_greedy, want_logprobs, cfg,
+):
+    """Iteration 0 of a fused or drafting megastep: the ragged forward,
+    its ``[S, R]`` samples, each lane's accept/reject
+    (:func:`resolve_verify`) and stop flag over the slots it emits.
+    Returns (samples ``[S, R]``, their logprob arrays or None, accepted
+    drafts, the token each lane goes on from, alive, tokens emitted, the
+    next write position, each lane's counter base)."""
+    logits = forward_tokens(
+        params, cache, tokens, positions, write_pages, write_offs,
+        kv_lens, block_tables, cu_q_lens, num_seqs, gather, cfg,
+    )
+    t0 = sample_seeded(
+        logits, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
+        need_mask=need_mask, all_greedy=all_greedy,
+    )
+    lp0 = token_logprobs(logits, t0) if want_logprobs else None
+    S = draft.shape[0]
+    t0s = t0.reshape(S, -1)
+    acc, tok = resolve_verify(t0s, draft, draft_len)
+    alive = cont_active & ~stop_flags_prefix(t0s, acc, watch, budgets, min_left)
+    gen = torch.where(cont_active, acc + 1, 0).to(torch.int32)
+    return t0s, lp0, acc, tok, alive, gen, base_pos + acc, counters_r.reshape(S, -1)[:, 0]
+
+
 def _megastep_fused_body(
     params, cache,
     # -- iteration 0: the ragged forward (exactly a mixed step's)
@@ -343,13 +407,16 @@ def _megastep_fused_body(
     cfg, engine,
 ):
     """The UNIVERSAL megastep: one dispatch runs a ragged first iteration
-    over prefill chunks and decode rows (a mixed step's forward and
-    sampling) and then ``n_steps - 1`` decode+sample iterations over the
-    same lanes. Iteration 0 samples the ``[S, R]`` sample slots with
-    ``(seed, counter + j)`` keys and each lane resolves on the device
-    (:func:`resolve_verify`; at R = 1, the engine's only width until
-    speculative decoding lands, every lane continues from its one sample).
-    A decode row continues from its sampled token; a prefill chunk that
+    over prefill chunks, decode rows and verify rows (a mixed step's
+    forward and sampling) and then ``n_steps - 1`` decode+sample
+    iterations over the same lanes. Iteration 0 samples the ``[S, R]``
+    sample slots with ``(seed, counter + j)`` keys and each lane resolves
+    on the device (:func:`resolve_verify`): a verify row accepts the
+    longest drafted prefix the target agrees with and continues from the
+    correction (or bonus) token at ``base_pos + accepted``, so a rejected
+    draft rolls back inside the dispatch (its K/V sits past the lane's
+    position, never attended, overwritten by the continuation). A decode
+    row continues from its sampled token; a prefill chunk that
     completes its prompt continues as a decode row from its first token;
     a mid-prompt chunk (``cont_active`` False) runs the remaining
     iterations as masked no-ops, writing only the garbage block and never
@@ -360,23 +427,13 @@ def _megastep_fused_body(
     width, later iterations broadcast their token across it; matching
     logprob arrays or None). The host stop-scan stays the authority, as
     in :func:`_megastep_body`."""
-    logits = forward_tokens(
-        params, cache, tokens, positions, write_pages, write_offs,
-        kv_lens, block_tables, cu_q_lens, num_seqs, gather, cfg,
+    t0s, lp0, _, tok, alive, gen, pos, counters0 = _first_iteration(
+        params, cache, tokens, positions, write_pages, write_offs, kv_lens, block_tables,
+        cu_q_lens, num_seqs, gather, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
+        draft, draft_len, cont_active, base_pos, watch, budgets, min_left,
+        need_mask=need_mask, all_greedy=all_greedy, want_logprobs=want_logprobs, cfg=cfg,
     )
-    t0 = sample_seeded(
-        logits, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
-        need_mask=need_mask, all_greedy=all_greedy,
-    )
-    lp0 = token_logprobs(logits, t0) if want_logprobs else None
-    S = draft.shape[0]
-    R = t0.shape[0] // S
-    t0s = t0.reshape(S, R)
-    acc, tok = resolve_verify(t0s, draft, draft_len)
-    alive = cont_active & ~stop_flags_prefix(t0s, acc, watch, budgets, min_left)
-    gen = torch.where(cont_active, acc + 1, 0).to(torch.int32)  # tokens iteration 0 produced
-    pos = base_pos + acc                                        # next write position
-    counters0 = counters_r.reshape(S, R)[:, 0]                  # per-lane generated base
+    S, R = t0s.shape
     rest, rest_lp = [], []
     for _ in range(n_steps - 1):
         act = alive
@@ -405,7 +462,104 @@ def _megastep_fused_body(
     lps = None
     if want_logprobs:
         lps = tuple(widen(a0, [r[j] for r in rest_lp]) for j, a0 in enumerate(lp0))
-    return widen(t0, rest), lps
+    return widen(t0s.reshape(-1), rest), lps
+
+
+def _rep(a: torch.Tensor, R: int) -> torch.Tensor:
+    """[S] -> [S * R], each lane's value repeated over its sample slots."""
+    return a if R == 1 else a[:, None].expand(a.shape[0], R).reshape(-1)
+
+
+def _megastep_draft_body(
+    params, cache,
+    # -- iteration 0: the ragged forward (exactly a fused megastep's)
+    tokens, positions, write_pages, write_offs, kv_lens, block_tables,
+    cu_q_lens, num_seqs, gather,
+    seeds_r, counters_r, temp_r, top_k_r, top_p_r,
+    # -- per-lane continuation state ([S] unless noted)
+    draft, draft_len,        # [S, R-1] host-drafted tokens, live length
+    cont_active,             # bool: the lane continues past iteration 0
+    base_pos,                # write position of the first later write at acc=0
+    seeds, temp, top_k, top_p,
+    watch, budgets, min_left,
+    # -- drafting on the device
+    hist, hist_len,          # [S, H] right-aligned history ring, [S] lengths
+    dd,                      # [S] bool: lanes that draft on the device
+    win, nmin, nmax, kmax,   # [S] each lane's drafter knobs
+    *, n_steps, need_mask, all_greedy=False, want_logprobs=False,
+    ngram_max_static, cfg, engine,
+):
+    """The DRAFTING megastep: the fused megastep's ragged first iteration,
+    then ``n_steps - 1`` verify-shaped iterations. Before each, every
+    drafting lane suffix-matches its history ring
+    (:func:`device_ngram_draft`); the iteration verifies pending + fresh
+    draft as one width-R row (:func:`verify_tokens`), resolves
+    accept/reject on the device and appends the emitted tokens to the ring
+    (:func:`ring_append`), so draft, verify and accept loop inside one
+    dispatch and a lane can emit up to ``1 + (n_steps - 1) * R`` tokens.
+
+    Lanes that do not draft on the device (prefill chunks, decode rows,
+    host-drafted verify rows) draft nothing each round (``draft_len`` 0),
+    which is the fused body's one-token iteration: the same counters, the
+    same budget arithmetic (:func:`stop_flags_prefix` from the running
+    per-lane count), and flags that may under-stop, never over-stop. The
+    host stop-scan stays the authority, and the ring is packed anew from
+    committed history at every plan, which is the whole of its rollback.
+
+    Returns (sampled ``[n_steps, S, R]``; a ``[3, n_steps, S]`` int32 of
+    each round's emitted count, draft length and accepted count, round 0
+    being iteration 0's resolution; matching logprob arrays or None)."""
+    t0s, lp0, acc, tok, alive, gen, pos, counters0 = _first_iteration(
+        params, cache, tokens, positions, write_pages, write_offs, kv_lens, block_tables,
+        cu_q_lens, num_seqs, gather, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
+        draft, draft_len, cont_active, base_pos, watch, budgets, min_left,
+        need_mask=need_mask, all_greedy=all_greedy, want_logprobs=want_logprobs, cfg=cfg,
+    )
+    S, R = t0s.shape
+    # Iteration 0's emission enters the ring of a drafting lane; the ring
+    # of any other lane is carried unread.
+    hist, hlen = ring_append(hist, hist_len, t0s, torch.where(dd, gen, 0))
+    jR = torch.arange(R, dtype=torch.int32, device=t0s.device)
+    outs, es, dls, accs, rest_lp = [t0s], [gen], [draft_len], [acc], []
+    for _ in range(n_steps - 1):
+        act = alive
+        # At most the remaining budget - 1, as the host drafter is capped,
+        # so the correction or bonus token always fits.
+        kc = torch.where(dd & act, torch.minimum(kmax, budgets - gen - 1), 0)
+        dtoks, dlen = device_ngram_draft(
+            hist, hlen, win, nmin, nmax, kc, ngram_max_static=ngram_max_static, slots=R - 1,
+        )
+        slot = torch.cat([tok[:, None], torch.where(dtoks >= 0, dtoks, 0)], dim=1)
+        logits = verify_tokens(params, cache, slot, block_tables, pos, dlen, act, cfg, engine)
+        cnt = ((counters0 + gen)[:, None] + jR[None, :]).reshape(-1)
+        nxt = sample_seeded(
+            logits, _rep(seeds, R), cnt, _rep(temp, R), _rep(top_k, R), _rep(top_p, R),
+            need_mask=need_mask, all_greedy=all_greedy,
+        )
+        ns = nxt.reshape(S, R)
+        accj, nxt_tok = resolve_verify(ns, dtoks, dlen)
+        e = torch.where(act, accj + 1, 0).to(torch.int32)
+        out = torch.where(act[:, None], ns, tok[:, None])
+        if want_logprobs:
+            rest_lp.append(token_logprobs(logits, out.reshape(-1)))
+        alive = alive & ~stop_flags_prefix(ns, accj, watch, budgets, min_left, gen_base=gen)
+        pos = pos + e
+        gen = gen + e
+        hist, hlen = ring_append(hist, hlen, ns, torch.where(dd, e, 0))
+        tok = torch.where(act, nxt_tok, tok)
+        outs.append(out)
+        es.append(e)
+        dls.append(dlen)
+        accs.append(accj)
+    aux = torch.stack([torch.stack(es), torch.stack(dls), torch.stack(accs)]).to(torch.int32)
+    lps = None
+    if want_logprobs:
+        # Iteration 0's [S*R(, K)] slots and each round's, as [n_steps, S, R(, K)].
+        lps = tuple(
+            torch.stack([a.reshape((S, R) + a.shape[1:]) for a in (a0, *(r[j] for r in rest_lp))])
+            for j, a0 in enumerate(lp0)
+        )
+    return torch.stack(outs), aux, lps
 
 
 class _NeedDrain(Exception):
@@ -432,9 +586,15 @@ class _PendingFetch:
     computes. ``land`` waits on that event only. On the CPU the outputs
     are host tensors already and landing is a copy."""
 
-    def __init__(self, core: "EngineCore", outs: tuple):
+    def __init__(self, core: "EngineCore", outs: tuple, aux: bool = False, sr=None):
+        """``outs`` is (tokens, [aux,] logprob arrays...): ``aux`` says the
+        drafting megastep's per-round counts follow the tokens. ``sr`` is
+        (S, R): ``land()`` then shapes a verify step's flat samples as
+        ``[S, R]``."""
         self.core = core
         self.toks = outs[0]  # device-resident: the next dispatch's feed source
+        self._aux = aux
+        self._sr = sr
         self.no = core._note_dispatch()
         self._event = None
         if self.toks.is_cuda:
@@ -454,8 +614,17 @@ class _PendingFetch:
             core._exec_log.append(("land", self.no))
         if self._event is not None:
             self._event.synchronize()
-        toks, *lps = (h.numpy().copy() for h in self._host)
+        toks, *lps = (h.numpy().copy() for i, h in enumerate(self._host)
+                      if not (self._aux and i == 1))
+        if self._sr is not None:
+            toks = toks.reshape(self._sr)
+            lps = [a.reshape(self._sr + a.shape[1:]) for a in lps]
         return toks, tuple(lps) if lps else None
+
+    def land_aux(self) -> np.ndarray:
+        """The drafting megastep's ``[3, n_steps, S]`` per-round counts;
+        call after :meth:`land`."""
+        return self._host[1].numpy().copy()
 
 
 @dataclass
@@ -482,11 +651,15 @@ class _PlannedStep:
     feed_tokens: Any = None
     feed_index: dict[str, int] = field(default_factory=dict)
     # request_id -> (start, stride, count): this step's whole per-lane
-    # emission as flat indices into feed_tokens, in stream order. Its
-    # reader, the on-device drafter's history ring, comes with
-    # speculative decoding (ROADMAP.md A8c).
+    # emission as flat indices into feed_tokens, in stream order, set by
+    # deterministic plans only: a device-drafting lane's next plan gathers
+    # it into its history ring, so the drafter sees in-flight tokens.
     feed_series: dict[str, tuple[int, int, int]] = field(default_factory=dict)
-    kind: str = ""  # "prefill", "decode" or "mixed": what the engine loop's time is filed under
+    # False when a lane's advance depends on the data (verify rows with
+    # live drafts): the next plan must commit this step first.
+    deterministic: bool = True
+    # "prefill", "decode", "mixed" or "spec": what the engine loop's time is filed under
+    kind: str = ""
     committed: bool = False
 
     def commit(self) -> list:
@@ -506,8 +679,8 @@ class _PlannedStep:
 
 
 # The packed inputs of a decode megastep, a prefill wave, a mixed step and
-# a fused megastep (engine/graphs.py): one layout per width, one per
-# (bucket, rows).
+# a fused or drafting megastep (engine/graphs.py): one layout per width,
+# one per (bucket, rows, sample width).
 def _decode_layout(B: int, P: int) -> Layout:
     return Layout([
         ("tokens", (B,), "i"), ("feed_idx", (B,), "i"), ("block_tables", (B, P), "i"),
@@ -518,27 +691,44 @@ def _decode_layout(B: int, P: int) -> Layout:
     ])
 
 
-def _prefill_layout(T: int, S: int, P: int) -> Layout:
+def _prefill_layout(T: int, S: int, P: int, R: int = 1) -> Layout:
+    """A ragged forward's fields: ``gather`` and ``counters`` hold one
+    entry per sample slot, the sampling knobs one per row."""
     return Layout([
         ("tokens", (T,), "i"), ("positions", (T,), "i"), ("write_pages", (T,), "i"),
         ("write_offs", (T,), "i"), ("kv_lens", (S,), "i"), ("block_tables", (S, P), "i"),
-        ("cu_q_lens", (S + 1,), "i"), ("num_seqs", (1,), "i"), ("last_rows", (S,), "i"),
-        ("seeds", (S,), "i"), ("counters", (S,), "i"), ("temperature", (S,), "f"),
+        ("cu_q_lens", (S + 1,), "i"), ("num_seqs", (1,), "i"), ("gather", (S * R,), "i"),
+        ("seeds", (S,), "i"), ("counters", (S * R,), "i"), ("temperature", (S,), "f"),
         ("top_k", (S,), "i"), ("top_p", (S,), "f"),
     ])
 
 
-def _mixed_layout(T: int, S: int, P: int) -> Layout:
-    """A prefill wave's fields plus ``feed_idx``: decode rows read their
-    token from the in-flight step's output on the device."""
-    return Layout([*_prefill_layout(T, S, P).spec, ("feed_idx", (T,), "i")])
+def _mixed_layout(T: int, S: int, P: int, R: int = 1) -> Layout:
+    """A prefill wave's fields plus ``feed_idx``: decode and verify rows
+    read their first token from the in-flight step's output on the
+    device."""
+    return Layout([*_prefill_layout(T, S, P, R).spec, ("feed_idx", (T,), "i")])
 
 
-def _fused_layout(T: int, S: int, P: int) -> Layout:
-    """A mixed step's fields plus each lane's continuation state."""
+def _fused_layout(T: int, S: int, P: int, R: int = 1) -> Layout:
+    """A mixed step's fields plus each lane's host draft and continuation
+    state."""
     return Layout([
-        *_mixed_layout(T, S, P).spec, ("cont_active", (S,), "b"), ("base_pos", (S,), "i"),
+        *_mixed_layout(T, S, P, R).spec, ("draft", (S, R - 1), "i"), ("draft_len", (S,), "i"),
+        ("cont_active", (S,), "b"), ("base_pos", (S,), "i"),
         ("watch", (S, MEGASTEP_WATCH_W), "i"), ("budgets", (S,), "i"), ("min_left", (S,), "i"),
+    ])
+
+
+def _drafted_layout(T: int, S: int, P: int, R: int, H: int) -> Layout:
+    """A fused megastep's fields plus each lane's history ring and drafter
+    knobs. ``ring_feed`` is (first, stride, take): the ring's newest
+    ``take`` slots gather the in-flight step's tokens at flat indices
+    ``first, first + stride, ...`` on the device (``take`` 0: none)."""
+    return Layout([
+        *_fused_layout(T, S, P, R).spec, ("hist", (S, H), "i"), ("hist_len", (S,), "i"),
+        ("dd", (S,), "b"), ("win", (S,), "i"), ("nmin", (S,), "i"), ("nmax", (S,), "i"),
+        ("kmax", (S,), "i"), ("ring_feed", (S, 3), "i"),
     ])
 
 
@@ -583,6 +773,28 @@ class EngineCore:
                 f"fair_quantum must be >= 0 (0 = token budget), got {engine_cfg.fair_quantum}"
             )
         self.device = resolve_device(device)
+        # The verify sample width: static per engine, so the graph keys
+        # grow by one width, not one per draft length; shorter drafts pad
+        # the sample gather with repeated reads.
+        self._spec_R = engine_cfg.spec_k + 1
+        self._spec_default = (
+            SpecConfig(
+                method=engine_cfg.spec_decode,
+                k=engine_cfg.spec_k,
+                ngram_min=engine_cfg.spec_ngram_min,
+                ngram_max=engine_cfg.spec_ngram_max,
+                window=engine_cfg.spec_window,
+                device=engine_cfg.spec_device_draft,
+            )
+            if engine_cfg.spec_decode != "off"
+            else None
+        )
+        # Drafting on the device: each lane's history ring holds the tail
+        # the host drafter is handed (window + ngram_max tokens), so the
+        # two drafters see the same candidates.
+        self._spec_device = engine_cfg.spec_decode != "off" and engine_cfg.spec_device_draft
+        self._ring_H = engine_cfg.spec_window + engine_cfg.spec_ngram_max
+        self.spec_stats = SpecStats()
         self.cfg = model_cfg
         self.engine = engine_cfg
         self.eos_token_ids = set(eos_token_ids)
@@ -653,8 +865,8 @@ class EngineCore:
             "single_step_dispatches": 0,
             "committed_tokens": 0,
             # Fused megasteps whose first iteration carried prefill chunks
-            # (verify rows wait for A8c), and pipeline-parallel dispatches
-            # (A12, 0 until ported).
+            # or verify rows, and pipeline-parallel dispatches (A12, 0
+            # until ported).
             "fused_mixed_dispatches": 0,
             "megastep_forced_single": 0,
             "pp_fused_dispatches": 0,
@@ -682,6 +894,10 @@ class EngineCore:
             "mixed_tokens": 0,
             "mixed_bucket_tokens": 0,
             "mixed_loop_s": 0.0,
+            # The engine loop's time in steps that verified speculating
+            # lanes and carried no prefill chunk (verify steps, fused and
+            # drafting megasteps of decode lanes).
+            "spec_loop_s": 0.0,
         }
         # Crash/stall flight recorder: one record per step with outputs,
         # appended on the commit side; the worker renames it to its id.
@@ -713,8 +929,6 @@ class EngineCore:
             )
         if (pre.kv_transfer_params or {}).get("do_remote_decode"):
             raise ValueError("disaggregated prefill is not ported yet (ROADMAP.md A10)")
-        if pre.spec_decode and pre.spec_decode.get("method", "off") != "off":
-            raise ValueError("speculative decoding is not ported yet (ROADMAP.md A8c)")
         if pre.mm and pre.mm.get("embeds") is not None:
             raise ValueError("multimodal embeddings are not ported yet (ROADMAP.md A11)")
         with self._lock:
@@ -748,6 +962,9 @@ class EngineCore:
                 stop_token_ids=seq.stop.stop_token_ids,
                 ignore_eos=seq.stop.ignore_eos,
             )
+        # The request's spec_decode dict overrides the engine default
+        # ("off" disables; k clamps to spec_k); a bad one is refused here.
+        seq.spec = resolve_spec_config(self._spec_default, pre.spec_decode, self.engine.spec_k)
         seq.tenant_id = pre.tenant_id or ""
         seq.priority = pre.priority or 0
         if pre.deadline_epoch is not None:
@@ -798,6 +1015,15 @@ class EngineCore:
         if self._inflight is None:
             return None
         return self._inflight.feed_index.get(seq.request_id)
+
+    def _feed_series(self, seq: Sequence) -> tuple[int, int, int] | None:
+        """The in-flight step's whole emission for this lane as flat
+        indices ``(start, stride, count)`` into its device output, or None:
+        a device-drafting lane's ring gathers it, so the drafter matches
+        against tokens the host has not committed yet."""
+        if self._inflight is None:
+            return None
+        return self._inflight.feed_series.get(seq.request_id)
 
     def _note_dispatch(self) -> int:
         """Dispatch-side bookkeeping: the sequence number feeds the test
@@ -933,22 +1159,35 @@ class EngineCore:
 
     def _assemble_ragged(
         self, rows: list[tuple[Sequence, list[int], int, int]], S: int,
+        n_sample: list[int] | None = None,
         feed_rows: list[int | None] | None = None,
+        force_R: bool = False,
     ) -> _RaggedBatch:
         """Host-side assembly of one ragged forward's inputs: each row is
         ``(seq, tokens, pos_start, kv_len)``, packed into one token buffer
         padded to the prefill bucket; padded slots write the garbage block.
-        Shared by the prefill wave, the mixed step and the fused
-        megastep's first iteration, so they cannot disagree on row
-        packing, sample rows or counter keys. Every row samples its last
-        position (verify rows, which sample more, wait for ROADMAP.md
-        A8c). A non-None entry of ``feed_rows`` is the flat index of that
-        row's first token in the in-flight step's sampled output, gathered
-        on the device over the host placeholder."""
+        Shared by the prefill wave, the mixed and verify steps and the
+        fused megastep's first iteration, so they cannot disagree on row
+        packing, sample rows or counter keys. ``n_sample`` (aligned with
+        rows) marks verify rows: an entry above 1 samples that row's first
+        n positions, with counters ``generated + j``, the keys the
+        one-token path would use for the same tokens; every other row
+        samples its last position. The sample width is ``spec_k + 1``
+        when any row verifies, or with ``force_R`` (a drafting megastep
+        needs the width for its later iterations), else 1; short rows pad
+        it with repeated reads. A non-None entry of ``feed_rows`` is the
+        flat index of that row's first token in the in-flight step's
+        sampled output, gathered on the device over the host
+        placeholder."""
         P = self.engine.max_blocks_per_seq
         bs = self.engine.block_size
         total = sum(len(tl) for _, tl, _, _ in rows)
         T = self._bucket_for(total)
+        R = (
+            self._spec_R
+            if force_R or (n_sample is not None and any(n > 1 for n in n_sample))
+            else 1
+        )
 
         tokens = np.zeros(T, np.int32)
         positions = np.zeros(T, np.int32)
@@ -957,8 +1196,8 @@ class EngineCore:
         kv_lens = np.zeros(S, np.int32)
         tables = np.full((S, P), self.engine.garbage_block, np.int32)
         cu = np.zeros(S + 1, np.int32)
-        last_rows = np.zeros(S, np.int32)
-        counters = np.zeros(S, np.int32)
+        gather = np.zeros((S, R), np.int32)
+        counters = np.zeros((S, R), np.int32)
         seeds = np.zeros(S, np.int32)
         temp = np.ones(S, np.float32)
         top_k = np.zeros(S, np.int32)
@@ -976,10 +1215,16 @@ class EngineCore:
             write_offs[t : t + chunk] = pos % bs
             kv_lens[i] = kv_len
             tables[i, : len(ids)] = ids
-            last_rows[i] = t + chunk - 1
             # Read through the overlay: with a step in flight the lane's
             # generated count lags by the tokens that step will commit.
-            counters[i] = self._eff_generated(seq)
+            gen0 = self._eff_generated(seq)
+            if n_sample is not None and n_sample[i] > 1:
+                off = np.minimum(np.arange(R, dtype=np.int32), chunk - 1)
+                gather[i] = t + off
+                counters[i] = gen0 + off
+            else:
+                gather[i] = t + chunk - 1
+                counters[i] = gen0
             if feed_rows is not None and feed_rows[i] is not None:
                 feed_idx[t] = feed_rows[i]
             seeds[i] = seq.seed
@@ -990,9 +1235,9 @@ class EngineCore:
         cu[1 : len(rows) + 1] = np.cumsum([len(tl) for _, tl, _, _ in rows])
         cu[len(rows) + 1 :] = cu[len(rows)]
         return _RaggedBatch(
-            T=T, tokens=tokens, positions=positions, write_pages=write_pages,
+            T=T, R=R, tokens=tokens, positions=positions, write_pages=write_pages,
             write_offs=write_offs, kv_lens=kv_lens, tables=tables, cu=cu,
-            last_rows=last_rows, counters=counters, seeds=seeds, temp=temp,
+            gather=gather, counters=counters, seeds=seeds, temp=temp,
             top_k=top_k, top_p=top_p, feed_idx=feed_idx,
             need_mask=any(
                 s.sampling.top_k > 0 or s.sampling.top_p < 1.0 for s, _, _, _ in rows
@@ -1007,7 +1252,7 @@ class EngineCore:
         return {
             "tokens": b.tokens, "positions": b.positions, "write_pages": b.write_pages,
             "write_offs": b.write_offs, "kv_lens": b.kv_lens, "block_tables": b.tables,
-            "cu_q_lens": b.cu, "num_seqs": [b.num_rows], "last_rows": b.last_rows,
+            "cu_q_lens": b.cu, "num_seqs": [b.num_rows], "gather": b.gather,
             "seeds": b.seeds, "counters": b.counters, "temperature": b.temp,
             "top_k": b.top_k, "top_p": b.top_p, "feed_idx": b.feed_idx,
         }
@@ -1015,11 +1260,12 @@ class EngineCore:
     def _ragged_launch(self, b: _RaggedBatch, S: int, mixed: bool = False) -> Launch:
         """One ragged forward + sampling of ``b`` as a dispatch. A prefill
         wave's graph key is (token bucket, sampling variant), its ``S`` the
-        engine's fixed ``prefill_batch``; a mixed step's (``mixed``) is
-        (token bucket, width, sampling variant), and its decode rows may
-        read their token from the in-flight step on the device."""
-        P = self.engine.max_blocks_per_seq
-        layout = _mixed_layout(b.T, S, P) if mixed else _prefill_layout(b.T, S, P)
+        engine's fixed ``prefill_batch``; a mixed or verify step's
+        (``mixed``) is (token bucket, width, sample width, sampling
+        variant), and its decode and verify rows may read their first
+        token from the in-flight step on the device."""
+        P, R = self.engine.max_blocks_per_seq, b.R
+        layout = _mixed_layout(b.T, S, P, R) if mixed else _prefill_layout(b.T, S, P)
         fields = self._ragged_fields(b)
         packed = layout.pack({k: fields[k] for k in layout.fields})
         need_mask = b.need_mask and not b.all_greedy
@@ -1030,48 +1276,82 @@ class EngineCore:
                 self.params, self.cache,
                 x["tokens"], x["positions"], x["write_pages"], x["write_offs"],
                 x["kv_lens"], x["block_tables"], x["cu_q_lens"], x["num_seqs"],
-                x["last_rows"], x["seeds"], x["counters"], x["temperature"],
-                x["top_k"], x["top_p"],
+                x["gather"], _rep(x["seeds"], R), x["counters"], _rep(x["temperature"], R),
+                _rep(x["top_k"], R), _rep(x["top_p"], R),
                 need_mask=need_mask, all_greedy=b.all_greedy,
                 want_logprobs=b.want_lp, cfg=self.cfg,
             )
             return (toks, *(lps or ()))
 
         variant = (need_mask, b.all_greedy, b.want_lp)
-        key = ("mixed", b.T, S, *variant) if mixed else ("prefill", b.T, *variant)
+        key = ("mixed", b.T, S, R, *variant) if mixed else ("prefill", b.T, *variant)
         return Launch(key, layout, packed, body)
+
+    @staticmethod
+    def _fused_lanes(S: int, R: int, budget: int) -> dict[str, np.ndarray]:
+        """A fused megastep's per-lane inputs with every lane idle (no
+        draft, no continuation, no watch), padded lanes' budget
+        ``budget``."""
+        return {
+            "draft": np.full((S, R - 1), -1, np.int32), "draft_len": np.zeros(S, np.int32),
+            "cont_active": np.zeros(S, bool), "base_pos": np.zeros(S, np.int32),
+            "watch": np.full((S, MEGASTEP_WATCH_W), -1, np.int32),
+            "budgets": np.full(S, budget, np.int32), "min_left": np.zeros(S, np.int32),
+        }
+
+    def _ring_lanes(self, S: int) -> dict[str, np.ndarray]:
+        """A drafting megastep's ring inputs with no lane drafting."""
+        return {
+            "hist": np.zeros((S, self._ring_H), np.int32), "hist_len": np.zeros(S, np.int32),
+            "dd": np.zeros(S, bool), "win": np.ones(S, np.int32), "nmin": np.ones(S, np.int32),
+            "nmax": np.ones(S, np.int32), "kmax": np.zeros(S, np.int32),
+            "ring_feed": np.zeros((S, 3), np.int32),
+        }
 
     def _fused_launch(
         self, b: _RaggedBatch, S: int, n_steps: int, lanes: dict[str, np.ndarray],
+        drafted: bool = False,
     ) -> Launch:
         """One fused megastep as a dispatch: ``b``'s ragged iteration and
-        ``n_steps - 1`` decode iterations, the lanes' continuation state in
-        ``lanes`` (``cont_active``, ``base_pos``, ``watch``, ``budgets``,
-        ``min_left``, [S] rows). Its graph key is (token bucket, width,
-        n_steps, sampling variant)."""
-        layout = _fused_layout(b.T, S, self.engine.max_blocks_per_seq)
+        ``n_steps - 1`` decode iterations, the lanes' drafts and
+        continuation state in ``lanes`` (:meth:`_fused_lanes`). Its graph
+        key is (token bucket, width, n_steps, sample width, sampling
+        variant). ``drafted``: the drafting megastep
+        (:func:`_megastep_draft_body`) instead, with the rings of
+        :meth:`_ring_lanes` in ``lanes``; its key is (token bucket, width,
+        n_steps, sampling variant), its sample width always ``spec_k + 1``."""
+        P, R = self.engine.max_blocks_per_seq, b.R
+        layout = (_drafted_layout(b.T, S, P, R, self._ring_H) if drafted
+                  else _fused_layout(b.T, S, P, R))
         packed = layout.pack({**self._ragged_fields(b), **lanes})
         need_mask = b.need_mask and not b.all_greedy
 
         def body(buf: torch.Tensor) -> tuple:
             x = layout.unpack(buf)
-            # R = 1: no lane drafts (ROADMAP.md A8c).
-            draft = x["tokens"].new_full((S, 0), -1)
-            toks, lps = _megastep_fused_body(
+            args = (
                 self.params, self.cache,
                 x["tokens"], x["positions"], x["write_pages"], x["write_offs"],
                 x["kv_lens"], x["block_tables"], x["cu_q_lens"], x["num_seqs"],
-                x["last_rows"], x["seeds"], x["counters"], x["temperature"],
-                x["top_k"], x["top_p"],
-                draft, torch.zeros_like(x["kv_lens"]), x["cont_active"], x["base_pos"],
+                x["gather"], _rep(x["seeds"], R), x["counters"], _rep(x["temperature"], R),
+                _rep(x["top_k"], R), _rep(x["top_p"], R),
+                x["draft"], x["draft_len"], x["cont_active"], x["base_pos"],
                 x["seeds"], x["temperature"], x["top_k"], x["top_p"],
                 x["watch"], x["budgets"], x["min_left"],
-                n_steps=n_steps, need_mask=need_mask, all_greedy=b.all_greedy,
-                want_logprobs=b.want_lp, cfg=self.cfg, engine=self.engine,
             )
+            kw = dict(n_steps=n_steps, need_mask=need_mask, all_greedy=b.all_greedy,
+                      want_logprobs=b.want_lp, cfg=self.cfg, engine=self.engine)
+            if drafted:
+                toks, aux, lps = _megastep_draft_body(
+                    *args, x["hist"], x["hist_len"], x["dd"], x["win"], x["nmin"],
+                    x["nmax"], x["kmax"], ngram_max_static=self.engine.spec_ngram_max, **kw,
+                )
+                return (toks, aux, *(lps or ()))
+            toks, lps = _megastep_fused_body(*args, **kw)
             return (toks, *(lps or ()))
 
-        key = ("fused", b.T, S, n_steps, need_mask, b.all_greedy, b.want_lp)
+        variant = (need_mask, b.all_greedy, b.want_lp)
+        key = (("drafted", b.T, S, n_steps, *variant) if drafted
+               else ("fused", b.T, S, n_steps, R, *variant))
         return Launch(key, layout, packed, body)
 
     def _launch(self, launch: Launch, feed: Callable | None = None) -> tuple:
@@ -1090,33 +1370,44 @@ class EngineCore:
             self._graphs.capture(launch, self.device)
         return self._graphs.replay(launch, feed)
 
-    def _feed(self, launch: Launch, fed: bool) -> Callable | None:
-        """The device-side token feed of ``launch`` when a slot is ``fed``
-        (its ``tokens`` slots whose ``feed_idx`` is set gather the
-        in-flight step's sampled tokens, :func:`gather_feedback`), else
-        None."""
-        if not fed:
+    def _feed(self, launch: Launch, fed: bool, ring: bool = False) -> Callable | None:
+        """The device-side feed of ``launch`` from the in-flight step's
+        sampled tokens (:func:`gather_feedback`), or None: where ``fed``,
+        the ``tokens`` slots whose ``feed_idx`` is set; where ``ring``, the
+        history rings' in-flight tails named by ``ring_feed``."""
+        if not (fed or ring):
             return None
         src, layout = self._inflight.feed_tokens, launch.layout
 
         def feed(buf: torch.Tensor) -> None:
-            tok = layout.field(buf, "tokens")
-            tok.copy_(gather_feedback(src, tok, layout.field(buf, "feed_idx")))
+            if fed:
+                tok = layout.field(buf, "tokens")
+                tok.copy_(gather_feedback(src, tok, layout.field(buf, "feed_idx")))
+            if ring:
+                hist, rf = layout.field(buf, "hist"), layout.field(buf, "ring_feed")
+                H = hist.shape[1]
+                j = torch.arange(H, device=buf.device)[None, :] - (H - rf[:, 2:3])
+                idx = torch.where(j >= 0, rf[:, 0:1] + j * rf[:, 1:2], -1)
+                hist.copy_(gather_feedback(src, hist.reshape(-1), idx.reshape(-1))
+                           .reshape(hist.shape))
 
         return feed
 
     def _dispatch_ragged(
         self, rows: list[tuple[Sequence, list[int], int, int]], S: int,
+        n_sample: list[int] | None = None,
         feed_rows: list[int | None] | None = None,
     ) -> _PendingFetch:
         """Assemble and enqueue ONE ragged forward + fused sampling over
-        arbitrary rows: prefill chunks (tokens sliced from the prompt) and
+        arbitrary rows: prefill chunks (tokens sliced from the prompt),
         decode rows (the pending token at position ``processed``, q_len
-        1). A prefill wave passes ``S = prefill_batch`` and no
-        ``feed_rows``; a mixed step (``feed_rows`` given, aligned with
-        rows) its decode width. Returns a pending fetch whose ``land()``
-        yields (tokens [S], logprob arrays or None)."""
-        b = self._assemble_ragged(rows, S, feed_rows)
+        1) and verify rows (pending + drafted tokens, marked by
+        ``n_sample``). A prefill wave passes ``S = prefill_batch`` and no
+        ``feed_rows``; a mixed or verify step (``feed_rows`` given,
+        aligned with rows) its decode width. Returns a pending fetch whose
+        ``land()`` yields (tokens, logprob arrays or None), ``[S, R]``
+        with ``n_sample``, else ``[S]``."""
+        b = self._assemble_ragged(rows, S, n_sample, feed_rows)
         mixed = feed_rows is not None
         launch = self._ragged_launch(b, S, mixed)
         outs = self._launch(launch, self._feed(launch, bool((b.feed_idx >= 0).any())))
@@ -1124,7 +1415,7 @@ class EngineCore:
         self.exec_stats["forwards"] += 1
         if mixed:
             self._count_mixed(b)
-        return _PendingFetch(self, outs)
+        return _PendingFetch(self, outs, sr=(S, b.R) if n_sample is not None else None)
 
     def _count_mixed(self, b: _RaggedBatch) -> None:
         self.exec_stats["mixed_tokens"] += int(b.cu[b.num_rows])
@@ -1134,46 +1425,101 @@ class EngineCore:
         self,
         rows: list[tuple[Sequence, list[int], int, int]],
         S: int,
+        n_sample: list[int],
         feed_rows: list[int | None],
         kinds: list[str],
+        drafts: list[list[int]],
         cont: list[bool],
         n_steps: int,
+        device: list[bool] | None = None,
     ) -> _PendingFetch:
         """Assemble and enqueue one UNIVERSAL megastep
         (:func:`_megastep_fused_body`): the ragged first iteration a mixed
-        step would run over these rows, fused with ``n_steps - 1`` decode
-        iterations. ``cont`` (aligned with rows) marks the lanes that go on
-        as decode rows after iteration 0: every decode row ("d" in
-        ``kinds``), and a prefill chunk ("p") when it completes its prompt
-        and the planner reserved its headroom. Returns a pending fetch
-        whose ``land()`` yields ([n_steps, S, 1] tokens, matching logprob
-        arrays or None)."""
-        b = self._assemble_ragged(rows, S, feed_rows=feed_rows)
-        lanes = {
-            "cont_active": np.zeros(S, bool),
-            "base_pos": np.zeros(S, np.int32),
-            "watch": np.full((S, MEGASTEP_WATCH_W), -1, np.int32),
-            # Masked and padded lanes never reach their budget: the deepest
-            # lane emits 1 + (n_steps - 1) tokens.
-            "budgets": np.full(S, n_steps + 2, np.int32),
-            "min_left": np.zeros(S, np.int32),
-        }
+        step would run over these rows (prefill chunks "p", decode rows
+        "d", verify rows "v" with their ``drafts``), fused with
+        ``n_steps - 1`` decode iterations. ``cont`` (aligned with rows)
+        marks the lanes that go on after iteration 0: every decode and
+        verify row, and a prefill chunk when it completes its prompt and
+        the planner reserved its headroom. Verify rows resolve
+        accept/reject on the device and go on from the correction token.
+        Returns a pending fetch whose ``land()`` yields ([n_steps, S, R]
+        tokens, matching logprob arrays or None).
+
+        When a lane of ``device`` drafts on the device, the dispatch is
+        the drafting megastep (:func:`_megastep_draft_body`): each such
+        lane's ring is packed from committed history, its in-flight tail
+        gathered on the device (:meth:`_pack_rings`), and the fetch also
+        lands the per-round counts (``land_aux``)."""
+        use_dd = device is not None and any(device)
+        b = self._assemble_ragged(rows, S, n_sample, feed_rows, force_R=use_dd)
+        R = b.R
+        # Masked and padded lanes never reach their budget: the deepest lane
+        # emits accepted + 1 + (n_steps - 1) <= R + n_steps - 1 tokens, a
+        # drafting lane up to R a round, n_steps * R in all.
+        lanes = self._fused_lanes(S, R, (n_steps * R if use_dd else n_steps + R) + 1)
         for i, ((seq, toks_list, pos0, _), kind) in enumerate(zip(rows, kinds)):
             if not cont[i]:
                 continue
             lanes["cont_active"][i] = True
             lanes["base_pos"][i] = pos0 + (len(toks_list) if kind == "p" else 1)
+            d = drafts[i]
+            if d:
+                lanes["draft"][i, : len(d)] = d
+                lanes["draft_len"][i] = len(d)
             self._arm_stop_inputs(
                 seq, i, lanes["watch"], lanes["budgets"], lanes["min_left"]
             )
-        launch = self._fused_launch(b, S, n_steps, lanes)
-        outs = self._launch(launch, self._feed(launch, bool((b.feed_idx >= 0).any())))
+        ring = use_dd and self._pack_rings(rows, device, lanes, S, R)
+        launch = self._fused_launch(b, S, n_steps, lanes, drafted=use_dd)
+        outs = self._launch(launch, self._feed(launch, bool((b.feed_idx >= 0).any()), ring))
         self.exec_stats["megastep_dispatches"] += 1
-        if "p" in kinds:
+        if any(k != "d" for k in kinds):
             self.exec_stats["fused_mixed_dispatches"] += 1
         self.exec_stats["forwards"] += n_steps
         self._count_mixed(b)
-        return _PendingFetch(self, outs)
+        return _PendingFetch(self, outs, aux=use_dd)
+
+    def _pack_rings(
+        self, rows: list[tuple[Sequence, list[int], int, int]], device: list[bool],
+        lanes: dict[str, np.ndarray], S: int, R: int,
+    ) -> bool:
+        """Pack the history ring of every lane of ``device`` into
+        ``lanes``: exactly the tail :meth:`_draft_for` hands the host
+        drafter (the last ``window + ngram_max`` tokens of prompt +
+        out_tokens, newest at the right), except that the in-flight step's
+        emission (:meth:`_feed_series`) is left to the device to gather
+        into the newest slots. The ring is packed from committed host
+        history every plan, so a host-side truncation (a stop string, a
+        budget clamp) rolls it back for free. Returns whether any ring
+        gathers on the device."""
+        H = self._ring_H
+        ring = self._ring_lanes(S)
+        for i, (seq, _, _, _) in enumerate(rows):
+            if not device[i]:
+                continue
+            sc = seq.spec
+            ring["dd"][i] = True
+            ring["win"][i], ring["nmin"][i], ring["nmax"][i] = sc.window, sc.ngram_min, sc.ngram_max
+            ring["kmax"][i] = min(sc.k, R - 1)
+            take = 0
+            series = self._feed_series(seq)
+            if series is not None:
+                start, stride, cnt = series
+                take = min(cnt, H)
+                ring["ring_feed"][i] = (start + (cnt - take) * stride, stride, take)
+            need = H - take
+            if need <= 0:
+                ctx: list[int] = []
+            elif len(seq.out_tokens) >= need:
+                ctx = seq.out_tokens[-need:]
+            else:
+                keep = need - len(seq.out_tokens)
+                ctx = seq.prompt[max(0, len(seq.prompt) - keep):] + seq.out_tokens
+            if ctx:
+                ring["hist"][i, H - take - len(ctx) : H - take] = ctx
+            ring["hist_len"][i] = min(len(ctx) + take, H)
+        lanes.update(ring)
+        return bool(ring["ring_feed"][:, 2].any())
 
     def _plan_prefill_wave(self, seqs: list[Sequence]) -> _PlannedStep | None:
         """Plan one ragged prefill wave: up to ``prefill_batch`` sequences
@@ -1319,6 +1665,9 @@ class EngineCore:
                 new_prompt.append(seq.pending)
             seq.prompt = new_prompt
         seq.pending = None
+        # The rebuilt prompt absorbs every emitted token; keeping them
+        # would count them twice in the drafter's history.
+        seq.out_tokens = []
         seq.block_ids = []
         seq.committed_blocks = 0
         seq.prefilled = seq.processed = 0
@@ -1502,10 +1851,15 @@ class EngineCore:
         """One-step-ahead iteration: plan and enqueue the next step while
         the previous one runs on the device, then commit the previous
         step, so its stop scans and stream emission overlap device work.
-        Block pressure mid-plan drains the pipeline and re-plans settled;
-        so does a dispatch whose graph is not captured yet."""
+        A step whose advance depends on the data (live drafts) commits
+        before the next plan. Block pressure mid-plan drains the pipeline
+        and re-plans settled; so does a dispatch whose graph is not
+        captured yet."""
         outputs: list[tuple[Sequence, LLMEngineOutput]] = []
         self.iterations += 1  # one per step() call, even when a drain re-plans
+        if self._inflight is not None and not self._inflight.deterministic:
+            # Its advance depends on what it sampled: commit it first.
+            outputs.extend(self._commit_inflight())
         try:
             plan = self._plan_step()
         except (_NeedDrain, _NeedCapture) as e:
@@ -1581,20 +1935,70 @@ class EngineCore:
         return out
 
     def _plan_decode(self) -> _PlannedStep | None:
-        """Plan one decode megastep. ALL block growth happens before the
-        dispatch: every lane's k tokens of headroom are reserved here, so
-        pressure surfaces (preemption, or _NeedDrain under async) while
-        nothing is enqueued, and a megastep never exhausts blocks
-        mid-dispatch."""
+        """Plan one decode iteration. With megastep k > 1 a batch with
+        speculating lanes fuses whole (:meth:`_plan_fused`): verify rows
+        resolve accept/reject on the device next to plain decode lanes in
+        one dispatch. Otherwise (k = 1, or where fusion does not apply)
+        speculating lanes go to one single-step verify dispatch
+        (:meth:`_plan_verify`) and the rest to one decode megastep, both in
+        one planned step whose commits run in order.
+
+        ALL block growth happens before ANY dispatch: every lane's k
+        tokens of headroom are reserved here, so pressure surfaces
+        (preemption, or _NeedDrain under async) while nothing is enqueued,
+        and a megastep never exhausts blocks mid-dispatch."""
         decoding = self._decode_candidates()
         if not decoding:
             return None
-        n_steps = self._chain_length(decoding)
-        ready = self._grow_or_preempt(decoding, n_steps)
-        ready = [s for s in ready if s in self.running]
-        if not ready:
+        spec_lanes = [s for s in decoding if s.spec is not None]
+        if spec_lanes and self.engine.megastep > 1:
+            plan = self._plan_fused([], decoding=decoding)
+            if plan is not None:
+                return plan
+        chain_lanes = [s for s in decoding if s.spec is None]
+        chain_ready: list[Sequence] = []
+        n_steps = 0
+        if chain_lanes:
+            n_steps = self._chain_length(chain_lanes)
+            chain_ready = self._grow_or_preempt(chain_lanes, n_steps)
+        parts: list[_PlannedStep] = []
+        if spec_lanes:
+            # The verify rows' growth (and any preemption it causes) also
+            # precedes their dispatch, inside _plan_verify.
+            vplan = self._plan_verify([s for s in spec_lanes if s in self.running])
+            if vplan is not None:
+                parts.append(vplan)
+        # A verify preemption may have evicted a chain lane.
+        chain_ready = [s for s in chain_ready if s in self.running]
+        if chain_ready:
+            parts.append(self._plan_megastep(chain_ready, n_steps))
+        return self._merge_plans(parts)
+
+    def _merge_plans(self, parts: list[_PlannedStep]) -> _PlannedStep | None:
+        """One planned step of several dispatches, committed in order. It
+        never feeds the next plan (a feed gathers from ONE device output),
+        so it is deterministic only where no part carries drafts or
+        feeds: a batch of speculating and plain lanes runs unpipelined."""
+        if not parts:
             return None
-        return self._plan_megastep(ready, n_steps)
+        if len(parts) == 1:
+            return parts[0]
+
+        def commit() -> list[tuple[Sequence, LLMEngineOutput]]:
+            out: list[tuple[Sequence, LLMEngineOutput]] = []
+            for p in parts:
+                p.committed = True  # bypass the per-part wrapper
+                out.extend(p.commit_fn())
+            return out
+
+        adv: dict[str, tuple[int, int, int]] = {}
+        for p in parts:
+            adv.update(p.adv)
+        return _PlannedStep(
+            core=self, commit_fn=commit, adv=adv,
+            deterministic=all(p.deterministic and not p.feed_index for p in parts),
+            kind="spec",
+        )
 
     def _plan_megastep(self, ready: list[Sequence], n_steps: int) -> _PlannedStep:
         """Dispatch one decode megastep; the commit scans stops, commits
@@ -1646,6 +2050,186 @@ class EngineCore:
             feed_series=feed_series, kind="decode",
         )
 
+    # -- speculative decoding (drafts and verify rows) ----------------------
+
+    def _draft_context(self, seq: Sequence, need: int) -> list[int]:
+        """The last ``need`` tokens of prompt + out_tokens: all the
+        drafter can match (out_tokens ends with the pending token)."""
+        if need <= 0:
+            return []
+        if len(seq.out_tokens) >= need:
+            return seq.out_tokens[-need:]
+        keep = need - len(seq.out_tokens)
+        return seq.prompt[max(0, len(seq.prompt) - keep):] + seq.out_tokens
+
+    def _draft_for(self, seq: Sequence, max_extra: int, reserve: int = 0) -> list[int]:
+        """Draft continuation tokens for one speculating lane, capped by
+        the caller's token headroom, the context edge and the remaining
+        generation budget (a draft past ``max_tokens`` would be cut by the
+        stop scan). ``reserve`` keeps context room for a fused megastep's
+        ``n_steps - 1`` later writes. Under async execution the host
+        history lags by the in-flight tokens, which changes which tokens
+        are drafted, never which are emitted."""
+        sc = seq.spec
+        d_cap = min(
+            sc.k, max_extra,
+            self.engine.max_model_len - self._eff_processed(seq) - 1 - reserve,
+        )
+        if seq.stop.max_tokens is not None:
+            d_cap = min(d_cap, seq.stop.max_tokens - self._eff_generated(seq) - 1)
+        if d_cap <= 0:
+            return []
+        context = self._draft_context(seq, sc.window + sc.ngram_max)
+        return propose_ngram(context, d_cap, sc.ngram_min, sc.ngram_max, sc.window)
+
+    def _spec_rows(
+        self, ready: list[Sequence], budget: int, spec_budget: int, t0: float,
+        n_steps: int = 1, dd_room: int = 0,
+    ):
+        """The decode and verify rows of a step over ``ready``: each lane's
+        pending token (or its device feed under async execution) at its
+        cursor, plus, for a speculating lane, its host draft. Every draft
+        cap pre-charges the base token of each lane still to come, so the
+        rows stay within ``spec_budget`` however many lanes speculate; a
+        lane whose base token does not fit ``budget`` waits a step. A
+        draft whose blocks (``n_steps`` + its length) are not reservable
+        is dropped: the row verifies nothing. With ``dd_room`` (a
+        drafting megastep), a lane that may draft on the device and whose
+        blocks and context hold ``dd_room`` tokens drafts there instead.
+        Files a ``spec_draft`` span when anything was drafted. Returns
+        (rows, kinds "v"/"d", drafts, feed_rows, device, total tokens,
+        the time drafting ended)."""
+        rows: list[tuple[Sequence, list[int], int, int]] = []
+        kinds: list[str] = []
+        drafts: list[list[int]] = []
+        feed_rows: list[int | None] = []
+        device: list[bool] = []
+        total = 0
+        for idx, seq in enumerate(ready):
+            if total + 1 > budget:
+                break  # over-budget lanes wait one step
+            draft: list[int] = []
+            dev = False
+            if seq.spec is not None:
+                if (
+                    dd_room
+                    and self._spec_device
+                    and seq.spec.device
+                    and self.engine.max_model_len - self._eff_processed(seq) >= dd_room
+                    and self._grow_blocks(seq, dd_room)
+                ):
+                    dev = True  # drafts on the device; no host proposal
+                else:
+                    lanes_after = len(ready) - idx - 1
+                    draft = self._draft_for(
+                        seq, spec_budget - total - 1 - lanes_after, reserve=n_steps - 1
+                    )
+                    if draft and not self._grow_blocks(seq, n_steps + len(draft)):
+                        draft = []  # block pressure: the row degrades to q_len 1
+            cursor = self._eff_processed(seq)
+            src = self._feed_src(seq)
+            toks = [0 if src is not None else seq.pending] + draft
+            rows.append((seq, toks, cursor, cursor + len(toks)))
+            kinds.append("v" if seq.spec is not None and not dev else "d")
+            drafts.append(draft)
+            feed_rows.append(src)
+            device.append(dev)
+            total += len(toks)
+        t_drafted = time.time()
+        n_drafted = sum(1 for d in drafts if d)
+        if n_drafted:
+            self._tracer.record(
+                "spec_draft", t0, t_drafted,
+                attrs={"seqs": n_drafted, "drafted": sum(len(d) for d in drafts)},
+                stat=True,
+            )
+        return rows, kinds, drafts, feed_rows, device, total, t_drafted
+
+    def _apply_verify_row(
+        self, seq: Sequence, draft: list[int], row_toks, lps, i: int,
+    ) -> tuple[LLMEngineOutput, int, int]:
+        """The host side of one single-step verify row: accept the longest
+        drafted prefix the target agrees with and emit accepted + 1 tokens
+        (the last the target's own correction or bonus choice). Rejected
+        drafts' K/V sits past the cursor, never attended and rewritten by
+        the next step: the rollback is the cursor. Returns (output chunk,
+        drafted, accepted)."""
+        d = len(draft)
+        a = 0
+        while a < d and int(row_toks[a]) == draft[a]:
+            a += 1
+        if d:
+            # A row that drafted nothing is a plain decode row for the stats.
+            self.spec_stats.observe_row(d, a)
+        out = self._commit_emission(seq, row_toks[: a + 1], lps, lambda j: (i, j))
+        return out, d, a
+
+    def _record_spec_verify(self, t0: float, t1: float, seqs: int, drafted: int,
+                            accepted: int, tokens: int) -> None:
+        self.spec_stats.verify_steps += 1
+        self._tracer.record(
+            "spec_verify", t0, t1,
+            attrs={"seqs": seqs, "drafted": drafted, "accepted": accepted, "tokens": tokens},
+            stat=True,
+        )
+
+    def _plan_verify(self, seqs: list[Sequence]) -> _PlannedStep | None:
+        """Plan one single-step verify dispatch over speculating decode
+        lanes: every row is pending + up to k drafted tokens in the ragged
+        forward, so k + 1 target positions ride one forward; drafted
+        tokens count against the token budget. Under async execution a
+        row's first slot gathers the pending token on the device; a step
+        carrying live drafts advances by data the host has not seen, so it
+        is not deterministic and commits before the next plan."""
+        t0 = time.time()
+        ready = self._grow_or_preempt(seqs, 1)[: self.engine.decode_buckets[-1]]
+        if not ready:
+            return None
+        budget = self.engine.token_budget
+        rows, _, drafts, feed_rows, _, _, t_draft = self._spec_rows(ready, budget, budget, t0)
+        if not rows:
+            return None
+        n_draft_rows = sum(1 for d in drafts if d)
+        pend = self._dispatch_ragged(
+            rows, self._decode_width(len(rows)),
+            n_sample=[len(tl) for _, tl, _, _ in rows], feed_rows=feed_rows,
+        )
+        # No live drafts: every row advances one token at sample width 1,
+        # so the step pipelines like a decode step.
+        deterministic = n_draft_rows == 0
+        adv = {seq.request_id: (0, 1, 1) for seq, _, _, _ in rows}
+        feed_index = (
+            {seq.request_id: i for i, (seq, _, _, _) in enumerate(rows)} if deterministic else {}
+        )
+        feed_series = {rid: (i, 0, 1) for rid, i in feed_index.items()}
+
+        def commit() -> list[tuple[Sequence, LLMEngineOutput]]:
+            outputs: list[tuple[Sequence, LLMEngineOutput]] = []
+            toks, lps = pend.land()  # [S, R]
+            drafted = accepted = emitted = 0
+            live = {id(s) for s in self.running}
+            for i, ((seq, _, _, _), draft) in enumerate(zip(rows, drafts)):
+                if seq.finish is not None or seq.cancelled or id(seq) not in live:
+                    continue  # late finish/preempt: discard the row
+                out, d, a = self._apply_verify_row(seq, draft, toks[i], lps, i)
+                outputs.append((seq, out))
+                drafted += d
+                accepted += a
+                emitted += len(out.token_ids)
+            if n_draft_rows:
+                # A step carried a verify row only when something was drafted.
+                self._record_spec_verify(t_draft, time.time(), n_draft_rows, drafted,
+                                         accepted, emitted)
+            return outputs
+
+        return _PlannedStep(
+            core=self, commit_fn=commit, adv=adv,
+            feed_tokens=pend.toks, feed_index=feed_index, feed_series=feed_series,
+            deterministic=deterministic, kind="spec",
+        )
+
+    # -- chunked scheduling --------------------------------------------------
+
     def _rotate_decode_lanes(self, decoding: list[Sequence], cap: int) -> list[Sequence]:
         """At most ``cap`` decode lanes for a mixed step; which ones sit
         out rotates with the iteration, so no stream stalls repeatedly."""
@@ -1653,17 +2237,6 @@ class EngineCore:
             return decoding
         off = self.iterations % len(decoding)
         return (decoding + decoding)[off : off + cap]
-
-    def _decode_rows(self, ready: list[Sequence]):
-        """A mixed step's decode rows: each lane's pending token (or its
-        device feed under async execution) at its cursor, q_len 1."""
-        rows, feed_rows = [], []
-        for seq in ready:
-            cursor = self._eff_processed(seq)
-            src = self._feed_src(seq)
-            rows.append((seq, [0 if src is not None else seq.pending], cursor, cursor + 1))
-            feed_rows.append(src)
-        return rows, feed_rows
 
     def _take_chunks(
         self, prefills: list[Sequence], n_rows: int, total: int, t_step: float,
@@ -1711,15 +2284,18 @@ class EngineCore:
     def _plan_mixed(self, prefills: list[Sequence]) -> _PlannedStep | None:
         """Plan one single-step chunked iteration (megastep k = 1, or the
         fused path's fallback): every runnable decode sequence rides as a
-        q_len=1 row NEXT TO prefill chunks in one ragged forward under the
-        ``max_num_batched_tokens`` budget, at the decode width of its row
-        count. A long prompt streams through ceil(P / chunk) steps while
-        in-flight decodes keep emitting one token per step. Under async
-        execution decode rows gather their pending token from the
-        in-flight step's device output and chunk cursors read through the
-        optimistic overlay, so mixed steps pipeline like decode steps."""
+        q_len=1 row, or a verify row with its draft, NEXT TO prefill chunks
+        in one ragged forward under the ``max_num_batched_tokens`` budget,
+        at the decode width of its row count. Drafts keep one block of the
+        budget in reserve, so speculation never starves admission. A long
+        prompt streams through ceil(P / chunk) steps while in-flight
+        decodes keep emitting. Under async execution decode rows gather
+        their pending token from the in-flight step's device output and
+        chunk cursors read through the optimistic overlay, so mixed steps
+        pipeline like decode steps (live drafts make a step commit before
+        the next plan)."""
         t_step = time.time()
-        budget = self.engine.token_budget
+        budget, bs = self.engine.token_budget, self.engine.block_size
         S_max = self.engine.decode_buckets[-1]
         # Keep one row and budget headroom for a prefill chunk, so a full
         # decode batch can never starve admission.
@@ -1729,36 +2305,58 @@ class EngineCore:
         # Block growth first (a preemption re-queues its victim, possibly
         # a mid-prefill one, which keeps its full prompt; see _preempt).
         ready = self._grow_or_preempt(decoding, 1)
-        rows, feed_rows = self._decode_rows(ready)
-        n_decode = total = len(rows)
-        chunks = self._take_chunks(prefills, n_decode, total, t_step)
-        for seq, p0, chunk in chunks:
+        rows, kinds, drafts, feed_rows, _, total, t_drafted = self._spec_rows(
+            ready, budget, budget - bs, t_step
+        )
+        n_decode, decode_row_tokens = len(rows), total
+        n_spec_rows = sum(1 for d in drafts if d)
+        for seq, p0, chunk in self._take_chunks(prefills, n_decode, total, t_step):
             rows.append((seq, seq.prompt[p0 : p0 + chunk], p0, p0 + chunk))
+            kinds.append("p")
+            drafts.append([])
             feed_rows.append(None)
             total += chunk
         if not rows:
             return None
-        pend = self._dispatch_ragged(rows, self._decode_width(len(rows)), feed_rows=feed_rows)
+        # Only verify rows sample more than their last position.
+        pend = self._dispatch_ragged(
+            rows, self._decode_width(len(rows)),
+            n_sample=[len(tl) if kind == "v" else 1 for (_, tl, _, _), kind in zip(rows, kinds)],
+            feed_rows=feed_rows,
+        )
+        deterministic = n_spec_rows == 0
         adv: dict[str, tuple[int, int, int]] = {}
         feed_index: dict[str, int] = {}
         feed_series: dict[str, tuple[int, int, int]] = {}
-        for i, (seq, toks_list, p0, _) in enumerate(rows):
+        for i, ((seq, toks_list, p0, _), kind) in enumerate(zip(rows, kinds)):
             chunk = len(toks_list)
-            done = i < n_decode or p0 + chunk >= seq.prompt_len
-            adv[seq.request_id] = (0, 1, 1) if i < n_decode else (chunk, chunk, int(done))
-            if done:
+            done = kind != "p" or p0 + chunk >= seq.prompt_len
+            adv[seq.request_id] = (0, 1, 1) if kind != "p" else (chunk, chunk, int(done))
+            if done and deterministic:  # sample width 1: column 0
                 feed_index[seq.request_id] = i
                 feed_series[seq.request_id] = (i, 0, 1)
 
         def commit() -> list[tuple[Sequence, LLMEngineOutput]]:
             outputs: list[tuple[Sequence, LLMEngineOutput]] = []
-            toks, lps = pend.land()  # [S]
+            toks2, lps2 = pend.land()  # [S, R]
+            # Column 0 is each decode row's and chunk's one sample.
+            toks = toks2[:, 0]
+            lps = None if lps2 is None else tuple(a[:, 0] for a in lps2)
             now = time.time()
+            drafted = accepted = spec_emitted = 0
             live = {id(s) for s in self.running}
-            for i, (seq, toks_list, _, _) in enumerate(rows):
+            for i, ((seq, toks_list, _, _), kind) in enumerate(zip(rows, kinds)):
                 if seq.finish is not None or seq.cancelled or id(seq) not in live:
                     continue  # late finish/preempt: discard the row
-                if i < n_decode:
+                if kind == "v":
+                    out, d, a = self._apply_verify_row(seq, drafts[i], toks2[i], lps2, i)
+                    outputs.append((seq, out))
+                    if d:
+                        drafted += d
+                        accepted += a
+                        spec_emitted += len(out.token_ids)
+                    continue
+                if kind == "d":
                     # The row wrote the pending token's K/V and sampled the
                     # next: a one-iteration chain.
                     lps1 = None if lps is None else tuple(a[None] for a in lps)
@@ -1769,12 +2367,15 @@ class EngineCore:
                 )
                 if tok is not None:  # this chunk completed the prompt
                     outputs.append((seq, self._emit_first(seq, tok, lp)))
+            if n_spec_rows:
+                self._record_spec_verify(t_drafted, now, n_spec_rows, drafted, accepted,
+                                         spec_emitted)
             self._note_mixed_step(total)
             self._tracer.record(
                 "engine_mixed_step", t_step, now,
                 attrs={
                     "seqs": len(rows), "decode_rows": n_decode,
-                    "prefill_tokens": total - n_decode, "budget": budget,
+                    "prefill_tokens": total - decode_row_tokens, "budget": budget,
                 },
                 stat=True,
             )
@@ -1783,30 +2384,47 @@ class EngineCore:
         return _PlannedStep(
             core=self, commit_fn=commit, adv=adv,
             feed_tokens=pend.toks, feed_index=feed_index,
-            feed_series=feed_series, kind="mixed",
+            feed_series=feed_series, deterministic=deterministic, kind="mixed",
         )
 
-    def _plan_fused(self, prefills: list[Sequence]) -> _PlannedStep | None:
-        """Plan one UNIVERSAL megastep: a mixed step's rows, decode rows and
-        prefill chunks, ride the first iteration of
+    def _plan_fused(
+        self, prefills: list[Sequence], decoding: list[Sequence] | None = None,
+    ) -> _PlannedStep | None:
+        """Plan one UNIVERSAL megastep: a mixed step's rows (decode rows,
+        verify rows and prefill chunks) ride the first iteration of
         :func:`_megastep_fused_body`, and every lane that can go on runs
-        ``n_steps - 1`` decode iterations in the same dispatch; a chunk
-        that completes its prompt continues as a decode row. Returns None
+        ``n_steps - 1`` decode iterations in the same dispatch: verify
+        rows resolve accept/reject on the device and go on from the
+        correction token (a rejected draft rolls back inside the
+        dispatch), and a chunk that completes its prompt continues as a
+        decode row. A lane that drafts on the device makes it the drafting
+        megastep (:func:`_megastep_draft_body`). ``decoding`` given (with
+        no prefills) is a decode step whose batch speculates. Returns None
         where fusion cannot apply (a stop watch too wide for the device, a
-        budget or context edge at k = 1, nothing that would continue, or
-        a pure prefill step whose chunks all stay mid-prompt): the caller
-        falls back to :meth:`_plan_mixed`, which is exact.
+        budget or context edge at k = 1, a plain decode batch, nothing
+        that would continue, or a pure prefill step whose chunks all stay
+        mid-prompt): the caller falls back to the single-step paths, which
+        are exact.
 
         ALL block growth happens before the dispatch (the
-        :meth:`_plan_decode` contract): n_steps tokens per decode lane and
-        chunk + n_steps - 1 per completing chunk are reserved here, so
-        pressure surfaces as preemption (or _NeedDrain under async) while
-        nothing is enqueued; a completing chunk whose headroom is not
-        reservable degrades to the single-step bookkeeping."""
+        :meth:`_plan_decode` contract): n_steps tokens per decode lane,
+        n_steps + draft per verify lane, ``1 + (n_steps - 1) * R`` per
+        device-drafting lane and chunk + n_steps - 1 per completing chunk
+        are reserved here, so pressure surfaces as preemption (or
+        _NeedDrain under async) while nothing is enqueued. A draft whose
+        blocks are not reservable degrades its row to q_len 1, a device
+        lane to a host-drafted verify row, a completing chunk to the
+        single-step bookkeeping."""
         t_step = time.time()
         budget, chunk_cap = self.engine.token_budget, self.engine.chunk_size
-        S_max = self.engine.decode_buckets[-1]
-        decoding = self._decode_candidates()
+        bs, S_max = self.engine.block_size, self.engine.decode_buckets[-1]
+        if decoding is None:
+            decoding = self._decode_candidates()
+        prefills = [s for s in prefills if s in self.running]
+        if not decoding and not prefills:
+            return None
+        if not prefills and not any(s.spec is not None for s in decoding):
+            return None  # plain decode: the decode megastep is the cheaper graph
         if not decoding:
             # A pure prefill step: fusing pays only when a chunk can
             # COMPLETE its prompt this step and go on decoding on the device.
@@ -1816,11 +2434,20 @@ class EngineCore:
         n_steps = self._chain_length(decoding or prefills)
         if n_steps <= 1:
             return None
-        decoding = self._rotate_decode_lanes(decoding, min(S_max - 1, budget - 1))
+        # One row and budget headroom stay free for a prefill chunk when
+        # there are prefills; without, the budget still bounds base tokens.
+        cap = min(S_max - 1, budget - 1) if prefills else min(S_max, budget)
+        decoding = self._rotate_decode_lanes(decoding, cap)
         ready = self._grow_or_preempt(decoding, n_steps)
-        rows, feed_rows = self._decode_rows(ready)
-        kinds, cont = ["d"] * len(rows), [True] * len(rows)
-        n_decode = total = len(rows)
+        # Drafts keep one block of the budget for prefill admission, where
+        # there is a prefill to admit.
+        rows, kinds, drafts, feed_rows, device, total, t_drafted = self._spec_rows(
+            ready, budget, budget - bs if prefills else budget, t_step,
+            n_steps=n_steps, dd_room=1 + (n_steps - 1) * self._spec_R,
+        )
+        cont = [True] * len(rows)
+        n_decode, decode_row_tokens = len(rows), total
+        n_spec_rows = sum(1 for d in drafts if d)
         for seq, p0, chunk in self._take_chunks(prefills, n_decode, total, t_step):
             # A chunk that completes its prompt continues as a decode row
             # when its watch fits the device's flags, the context leaves
@@ -1834,70 +2461,129 @@ class EngineCore:
             ))
             rows.append((seq, seq.prompt[p0 : p0 + chunk], p0, p0 + chunk))
             kinds.append("p")
+            drafts.append([])
             feed_rows.append(None)
+            device.append(False)
             total += chunk
-        if not any(cont):
+        if not rows or not any(cont):
             return None  # nothing continues on the device: the single step is exact
+        n_chunk = len(rows) - n_decode
+        n_sample = [len(tl) if kind == "v" else 1 for (_, tl, _, _), kind in zip(rows, kinds)]
         S = self._decode_width(len(rows))
-        pend = self._dispatch_fused(rows, S, feed_rows, kinds, cont, n_steps)
+        use_dd = any(device)
+        pend = self._dispatch_fused(
+            rows, S, n_sample, feed_rows, kinds, drafts, cont, n_steps, device=device,
+        )
+        R = self._spec_R if use_dd or any(n > 1 for n in n_sample) else 1
+        deterministic = n_spec_rows == 0 and not use_dd
         adv: dict[str, tuple[int, int, int]] = {}
         feed_index: dict[str, int] = {}
         feed_series: dict[str, tuple[int, int, int]] = {}
-        last_flat = (n_steps - 1) * S
-        for i, (seq, toks_list, p0, _) in enumerate(rows):
+        last_flat = (n_steps - 1) * S * R
+        for i, ((seq, toks_list, p0, _), kind) in enumerate(zip(rows, kinds)):
             chunk = len(toks_list)
-            if kinds[i] == "d":
+            if kind != "p" and (drafts[i] or device[i]):
+                # An advance that depends on the data: the step commits
+                # before the next plan, so the overlay needs only what
+                # iteration 0 surely emits.
+                adv[seq.request_id] = (0, 1, 1)
+                continue
+            if kind != "p":
                 adv[seq.request_id] = (0, n_steps, n_steps)
             elif cont[i]:
                 adv[seq.request_id] = (chunk, chunk + n_steps - 1, n_steps)
             else:
                 done = p0 + chunk >= seq.prompt_len
                 adv[seq.request_id] = (chunk, chunk, int(done))
-                if done:  # its one token is iteration 0's
-                    feed_index[seq.request_id] = i
-                    feed_series[seq.request_id] = (i, 0, 1)
+                if done and deterministic:  # its one token is iteration 0's
+                    feed_index[seq.request_id] = i * R
+                    feed_series[seq.request_id] = (i * R, 0, 1)
                 continue
-            # A continuing lane's newest token is the last iteration's.
-            feed_index[seq.request_id] = last_flat + i
-            feed_series[seq.request_id] = (i, S, n_steps)
+            if deterministic:
+                # A continuing lane's newest token is the last iteration's.
+                feed_index[seq.request_id] = last_flat + i * R
+                feed_series[seq.request_id] = (i * R, S * R, n_steps)
 
         def commit() -> list[tuple[Sequence, LLMEngineOutput]]:
             outputs: list[tuple[Sequence, LLMEngineOutput]] = []
-            toks3, lps3 = pend.land()  # [n_steps, S, 1]
-            toks = toks3[:, :, 0]
-            lps = None if lps3 is None else tuple(a[:, :, 0] for a in lps3)
-            lps0 = None if lps is None else tuple(a[0] for a in lps)
+            toks3, lps3 = pend.land()  # [n_steps, S, R]
+            # Each round's emitted count, draft length and accepted count.
+            aux3 = pend.land_aux() if use_dd else None
+            toks0 = toks3[0, :, 0]
+            lps0 = None if lps3 is None else tuple(a[0, :, 0] for a in lps3)
             now = time.time()
-            emitted_total = 0
+            emitted_total = drafted = accepted = spec_emitted = 0
+            dd_rounds = dd_hits = 0
             live = {id(s) for s in self.running}
-            for i, (seq, toks_list, _, _) in enumerate(rows):
+            for i, ((seq, toks_list, _, _), kind) in enumerate(zip(rows, kinds)):
                 if seq.finish is not None or seq.cancelled or id(seq) not in live:
                     continue  # late finish/preempt: discard the lane
-                if kinds[i] == "d":
-                    out = self._commit_chain(seq, toks, lps, i)
-                else:
+                if kind == "p":
                     tok, lp = self._advance_prefill_chunk(
-                        seq, len(toks_list), toks[0], lps0, i, t_step, now
+                        seq, len(toks_list), toks0, lps0, i, t_step, now
                     )
                     if tok is None:
                         continue  # mid-prompt: masked no-ops ran on the device
                     if cont[i]:
                         # Continued on the device: the chain wrote its first
                         # n_steps - 1 tokens past the completed prompt.
-                        out = self._commit_chain(seq, toks, lps, i, from_prompt=True)
+                        out = self._commit_emission(
+                            seq, toks3[:, i, 0], lps3, lambda j, i=i: (j, i, 0), from_prompt=True
+                        )
                     else:
                         out = self._emit_first(seq, tok, lp)
+                elif device[i]:
+                    # Drafted on the device: the per-round emitted counts
+                    # say which [round, slot] cells carry tokens; the stop
+                    # scan truncates as everywhere (the device only
+                    # under-stops, so E covers the stop).
+                    E: list[int] = []
+                    at: list[tuple[int, int, int]] = []
+                    for r, (e_r, d_r, a_r) in enumerate(aux3[:, :, i].T.tolist()):
+                        E += [int(t) for t in toks3[r, i, :e_r]]
+                        at += [(r, i, j) for j in range(e_r)]
+                        if r:
+                            dd_rounds += e_r > 0
+                            if d_r:
+                                dd_hits += 1
+                                self.spec_stats.observe_row(d_r, a_r)
+                                drafted += d_r
+                                accepted += a_r
+                    out = self._commit_emission(seq, E, lps3, at.__getitem__)
+                    spec_emitted += len(out.token_ids)
+                else:
+                    # Decode and verify rows: replay the device's accept
+                    # (the longest drafted prefix matching the target's own
+                    # choices), then the continuation.
+                    draft = drafts[i]
+                    d, a = len(draft), 0
+                    while a < d and int(toks3[0, i, a]) == draft[a]:
+                        a += 1
+                    if d:
+                        self.spec_stats.observe_row(d, a)
+                    E = [int(t) for t in toks3[0, i, : a + 1]] + [int(t) for t in toks3[1:, i, 0]]
+                    out = self._commit_emission(
+                        seq, E, lps3, lambda j, i=i, a=a: (0, i, j) if j <= a else (j - a, i, 0)
+                    )
+                    if d:
+                        drafted += d
+                        accepted += a
+                        spec_emitted += len(out.token_ids)
                 outputs.append((seq, out))
                 emitted_total += len(out.token_ids)
             t_done = time.time()
-            n_chunk = len(rows) - n_decode
+            if n_spec_rows or use_dd:
+                self.spec_stats.device_rounds += dd_rounds
+                self.spec_stats.device_hits += dd_hits
+                self._record_spec_verify(t_drafted, t_done, n_spec_rows + sum(device),
+                                         drafted, accepted, spec_emitted)
             if n_chunk:
                 self._note_mixed_step(total)
                 self._tracer.record(
                     "engine_mixed_step", t_step, t_done,
                     attrs={
                         "seqs": len(rows), "decode_rows": n_decode,
-                        "prefill_tokens": total - n_decode, "budget": budget,
+                        "prefill_tokens": total - decode_row_tokens, "budget": budget,
                     },
                     stat=True,
                 )
@@ -1911,9 +2597,10 @@ class EngineCore:
                 "engine_megastep", t_step, t_done,
                 attrs={
                     "seqs": len(rows), "inner_steps": n_steps,
-                    "tokens": emitted_total, "draft_rounds": 0,
+                    "tokens": emitted_total, "draft_rounds": dd_rounds,
                     "fused_shapes": {
-                        "decode": n_decode, "chunk": n_chunk, "verify": 0, "device": 0,
+                        "decode": kinds.count("d") - sum(device), "chunk": n_chunk,
+                        "verify": kinds.count("v"), "device": sum(device),
                     },
                 },
                 stat=True,
@@ -1922,22 +2609,25 @@ class EngineCore:
 
         return _PlannedStep(
             core=self, commit_fn=commit, adv=adv,
-            feed_tokens=pend.toks, feed_index=feed_index,
-            feed_series=feed_series, kind="mixed",
+            feed_tokens=pend.toks, feed_index=feed_index, feed_series=feed_series,
+            deterministic=deterministic, kind="mixed" if prefills else "spec",
         )
 
-    def _commit_chain(
-        self, seq: Sequence, chained: np.ndarray, lps, i: int, from_prompt: bool = False,
+    def _commit_emission(
+        self, seq: Sequence, E, lps=None, at: Callable | None = None,
+        from_prompt: bool = False,
     ) -> LLMEngineOutput:
-        """Commit lane ``i`` of a chain's ``[n, B]`` sampled tokens (and
-        logprob arrays of the same leading shape): the stop scan, the K/V
-        bookkeeping, one streamed chunk. The chain's cache writes are the
-        old pending token and its first k-1 tokens; a lane whose prompt
-        completed in the same dispatch (``from_prompt``) had its prompt
-        committed already, and writes only the k-1."""
-        toks = chained[:, i]
-        k, finish = self._scan_stop(seq, toks)
-        emitted = [int(t) for t in toks[:k]]
+        """Commit one lane's candidate emission ``E`` (its tokens from one
+        dispatch, in stream order): the stop scan cuts it, the K/V
+        bookkeeping covers what the dispatch wrote (the old pending token
+        and every emitted token but the last; a lane whose prompt
+        completed in the same dispatch, ``from_prompt``, had its prompt
+        committed already and wrote no pending token), and one chunk
+        streams. ``at(j)`` indexes token j's record in the logprob arrays
+        ``lps``."""
+        E = np.asarray(E)
+        k, finish = self._scan_stop(seq, E)
+        emitted = [int(t) for t in E[:k]]
         written = emitted[: k - 1] if from_prompt else [seq.pending] + emitted[: k - 1]
         self._commit_completed(seq, seq.hashed.extend(written))
         seq.processed += len(written)
@@ -1945,7 +2635,7 @@ class EngineCore:
         lp_entries = None
         if lps is not None and seq.logprobs is not None:
             lp_entries = [
-                _lp_entry(emitted[j], lps[0][j][i], lps[1][j][i], lps[2][j][i], seq.logprobs)
+                _lp_entry(emitted[j], *(a[at(j)] for a in lps), seq.logprobs)
                 for j in range(k)
             ]
         out = self._emit_chunk(seq, emitted, lp_entries, finish)
@@ -1955,6 +2645,13 @@ class EngineCore:
         else:
             seq.pending = emitted[-1]
         return out
+
+    def _commit_chain(
+        self, seq: Sequence, chained: np.ndarray, lps, i: int, from_prompt: bool = False,
+    ) -> LLMEngineOutput:
+        """Commit lane ``i`` of a chain's ``[n, B]`` sampled tokens (and
+        logprob arrays of the same leading shape)."""
+        return self._commit_emission(seq, chained[:, i], lps, lambda j: (j, i), from_prompt)
 
     def _emit_first(self, seq: Sequence, tok: int, lp: dict | None) -> LLMEngineOutput:
         """Emit the first token sampled from a completed prompt."""
@@ -2044,6 +2741,7 @@ class EngineCore:
     ) -> LLMEngineOutput:
         """One streamed chunk for a whole megastep (stop already decided
         by _scan_stop — ``tokens`` is exactly what the client gets)."""
+        seq.out_tokens.extend(tokens)
         self.exec_stats["committed_tokens"] += len(tokens)
         out = LLMEngineOutput(token_ids=tokens)
         if lp_entries:
@@ -2059,6 +2757,7 @@ class EngineCore:
 
     def _emit(self, seq: Sequence, token: int, lp: dict | None = None) -> LLMEngineOutput:
         """Emit the newest sampled token (``seq.generated`` counts it)."""
+        seq.out_tokens.append(token)
         self.exec_stats["committed_tokens"] += 1
         finish = seq.stop.check_token(token, seq.generated, self.eos_token_ids)
         out = LLMEngineOutput(token_ids=[token])
@@ -2087,17 +2786,19 @@ class EngineCore:
     def warm_up(self) -> int:
         """Run every shape the engine serves once before it serves, every
         row writing only the garbage block: under ``waves`` one prefill
-        wave per prefill bucket, under ``chunked`` one mixed step per
-        (token bucket, width) its planners can dispatch, and one decode
-        iteration per decode width, in each sampling variant. A shape's
-        first run on the card loads its kernels (CUDA loads modules
-        lazily) and settles cuBLAS's choices; done here, no request pays
-        for it. On the card it then captures the CUDA graph of every key
-        the engine can dispatch (:meth:`_warm_up_launches`), so serving
-        captures nothing. Scheduler state, the prefix cache and the
-        execution counters are left as they were; the kernels' launch
-        counters count the eager launches (captures launch nothing).
-        Returns the forwards it ran."""
+        wave per prefill bucket, under ``chunked`` or with speculation one
+        mixed step per (token bucket, width, sample width) its planners
+        can dispatch, and one decode iteration per decode width, in each
+        sampling variant. A shape's first run on the card loads its
+        kernels (CUDA loads modules lazily) and settles cuBLAS's choices;
+        done here, no request pays for it. On the card it then captures
+        the CUDA graph of every key the engine can dispatch
+        (:meth:`_warm_up_launches`), so serving captures nothing (a
+        request that turns speculation on where the engine's default is
+        off captures its keys at first use). Scheduler state, the prefix
+        cache and the execution counters are left as they were; the
+        kernels' launch counters count the eager launches (captures
+        launch nothing). Returns the forwards it ran."""
         with self._step_lock:
             launches = self._warm_up_launches()
             forwards = 0
@@ -2111,23 +2812,23 @@ class EngineCore:
                         self._graphs.capture(launch, self.device)
         return forwards
 
-    def _chunked_shapes(self) -> list[tuple[int, int]]:
-        """(token bucket, width) of every ragged step the chunked planners
-        can dispatch. A step holds n rows, 1 <= n <= min(widest decode
-        width, max_num_seqs), of at least one token each and at most one
-        chunk (``chunk_size``, and less than ``max_model_len``), in all at
-        most the token budget; a width w takes the row counts above the
-        next narrower width, so its totals are [n_lo, min(budget, n_hi *
-        chunk)]."""
+    def _chunked_shapes(self, row_max: int | None = None) -> list[tuple[int, int]]:
+        """(token bucket, width) of every ragged step next to decode rows
+        that the planners can dispatch. A step holds n rows, 1 <= n <=
+        min(widest decode width, max_num_seqs), of at least one token each
+        and at most ``row_max`` (by default one chunk: ``chunk_size``, and
+        less than ``max_model_len``), in all at most the token budget; a
+        width w takes the row counts above the next narrower width, so its
+        totals are [n_lo, min(budget, n_hi * row_max)]."""
         eng = self.engine
-        chunk = min(eng.chunk_size, eng.max_model_len - 1)
+        row_max = row_max or min(eng.chunk_size, eng.max_model_len - 1)
         n_max = min(eng.decode_buckets[-1], eng.max_num_seqs)
         shapes = []
         for w_prev, w in zip((0, *eng.decode_buckets), eng.decode_buckets):
             n_lo, n_hi = w_prev + 1, min(w, n_max)
             if n_lo > n_hi:
                 continue
-            t_hi = min(eng.token_budget, n_hi * chunk)
+            t_hi = min(eng.token_budget, n_hi * row_max)
             for b_prev, T in zip((0, *eng.prefill_buckets), eng.prefill_buckets):
                 if max(n_lo, b_prev + 1) <= min(t_hi, T):
                     shapes.append((T, w))
@@ -2137,41 +2838,48 @@ class EngineCore:
         """(launch, run eagerly) for every graph key the engine can
         dispatch, every row on the garbage block: each sampling variant of
         each decode width at every chain length ``_chain_length`` can
-        return, and, under ``waves``, each prefill bucket; under
-        ``chunked``, each (token bucket, width) of :meth:`_chunked_shapes`
-        as a mixed step and, with k > 1, as a fused megastep at each chain
-        length above 1. A prefill bucket above ``max_model_len`` is filled
-        by several rows, as a wave of several prompts fills it. The decode
-        launches run eagerly at k = 1 only, the fused ones not at all
-        (longer chains run the same kernels)."""
+        return; under ``waves``, each prefill bucket; under ``chunked``,
+        or with speculation on, each (token bucket, width) of
+        :meth:`_chunked_shapes` as a mixed step and, with k > 1, as a
+        fused megastep at each chain length above 1. Speculation adds the
+        verify sample width ``spec_k + 1`` to the mixed steps and fused
+        megasteps (whose rows are verify rows of at most that many tokens
+        under ``waves``), and device drafting the drafting megastep. A
+        prefill bucket above ``max_model_len`` is filled by several rows,
+        as a wave of several prompts fills it. The decode launches run
+        eagerly at k = 1 only, the fused ones not at all (longer chains
+        run the same kernels)."""
         g, bs = self.engine.garbage_block, self.engine.block_size
         S, k_cfg = self.engine.prefill_batch, self.engine.megastep
         L = self.engine.max_model_len
         chains = sorted({k_cfg} | {1 << i for i in range(k_cfg.bit_length())})
         chunked = self.engine.scheduling == "chunked"
+        spec, R = self._spec_default is not None, self._spec_R
+        # The longest row of a step next to decode rows: a chunk, or a
+        # verify row (only those under waves).
+        row_max = max(min(self.engine.chunk_size, L - 1) if chunked else 1, R if spec else 1)
         launches: list[tuple[Launch, bool]] = []
         for sampling, logprobs in WARM_UP_VARIANTS:
             seq = Sequence("warm-up", [0] * L, sampling, StopConditions(), seed=0,
                            logprobs=logprobs)
             seq.block_ids = [g] * -(-L // bs)
-            if chunked:
-                chunk = min(self.engine.chunk_size, L - 1)
-                for T, width in self._chunked_shapes():
-                    # t tokens in n rows of at most one chunk each.
-                    t = min(T, self.engine.token_budget, min(width, self.engine.max_num_seqs) * chunk)
-                    n = min(width, self.engine.max_num_seqs, t)
-                    sizes = [t // n + (i < t % n) for i in range(n)]
-                    rows = [(seq, [0] * m, 0, m) for m in sizes]
-                    batch = self._assemble_ragged(rows, width, feed_rows=[None] * n)
+            for T, width in self._chunked_shapes(row_max) if chunked or spec else ():
+                # t tokens in n rows of at most row_max each.
+                t = min(T, self.engine.token_budget, min(width, self.engine.max_num_seqs) * row_max)
+                n = min(width, self.engine.max_num_seqs, t)
+                sizes = [t // n + (i < t % n) for i in range(n)]
+                rows = [(seq, [0] * m, 0, m) for m in sizes]
+                for r in (1, R) if spec else (1,):
+                    batch = self._assemble_ragged(rows, width, feed_rows=[None] * n, force_R=r > 1)
                     launches.append((self._ragged_launch(batch, width, mixed=True), True))
-                    lanes = {
-                        "cont_active": np.zeros(width, bool), "base_pos": np.zeros(width, np.int32),
-                        "watch": np.full((width, MEGASTEP_WATCH_W), -1, np.int32),
-                        "budgets": np.ones(width, np.int32), "min_left": np.zeros(width, np.int32),
-                    }
+                    lanes = self._fused_lanes(width, r, 1)
                     for k in chains[1:]:
                         launches.append((self._fused_launch(batch, width, k, lanes), False))
-            else:
+                        if r > 1 and self._spec_device:
+                            launches.append((self._fused_launch(
+                                batch, width, k, {**lanes, **self._ring_lanes(width)}, drafted=True,
+                            ), False))
+            if not chunked:
                 for bucket in self.engine.prefill_buckets:
                     n = min(bucket, S * L)
                     rows = [(seq, [0] * min(L, n - t), 0, min(L, n - t)) for t in range(0, n, L)]
@@ -2250,18 +2958,21 @@ class EngineCore:
         }
 
     def spec_decode_stats(self) -> dict:
-        """Speculation gauges with the JAX engine's keys; speculative
-        decoding waits for A8c, so every counter is 0."""
-        return dict(_SPEC_OFF_STATS)
+        """Speculation gauges with the JAX engine's keys: acceptance rate,
+        mean accepted length, drafted, accepted and wasted tokens, device
+        draft rounds."""
+        st = self.spec_stats.as_dict()
+        st["enabled"] = 1 if self._spec_default is not None else 0
+        return st
 
     def fair_queue_stats(self) -> dict[str, dict[str, float]]:
         """Per-tenant admission-queue depth and DRR deficit."""
         return self.waiting.stats()
 
     def metrics(self) -> ForwardPassMetrics:
-        """Load metrics as the JAX engine reports them. ``spec_decode``
-        and ``net`` stay None: speculation (A8c) and peer pulls (A10) are
-        not ported."""
+        """Load metrics as the JAX engine reports them: ``spec_decode``
+        once speculation is configured or a request used it, ``net`` None
+        (peer pulls come with A10)."""
         alloc = self.allocator
         return ForwardPassMetrics(
             worker=WorkerStats(
@@ -2286,21 +2997,9 @@ class EngineCore:
                 ),
             ),
             transfer=dict(self.transfer_stats),
+            spec_decode=(
+                self.spec_decode_stats()
+                if self._spec_default is not None or self.spec_stats.verify_rows
+                else None
+            ),
         )
-
-
-# ``SpecStats().as_dict()`` of the JAX engine with speculation off.
-_SPEC_OFF_STATS = {
-    "verify_steps": 0,
-    "verify_rows": 0,
-    "drafted_tokens": 0,
-    "accepted_tokens": 0,
-    "wasted_tokens": 0,
-    "emitted_tokens": 0,
-    "acceptance_rate": 0.0,
-    "mean_accepted_len": 0.0,
-    "device_rounds": 0,
-    "device_hits": 0,
-    "dispatches_per_accepted_token": 0.0,
-    "enabled": 0,
-}

@@ -4,9 +4,10 @@ The JAX engine runs a decode megastep and a prefill wave as one XLA
 dispatch each, compiled once per static key. Here each is a CUDA graph,
 captured once per key (``EngineCore`` builds the keys: width, megastep
 length and sampling variant for decode; token bucket and sampling variant
-for a prefill wave; token bucket, width and sampling variant for a mixed
-step, and the megastep length too for a fused one) and replayed as one
-launch. All graphs of an engine share one
+for a prefill wave; token bucket, width, sample width (1, or spec_k + 1
+with verify rows) and sampling variant for a mixed step, and the megastep
+length too for a fused one; token bucket, width, megastep length and
+sampling variant for a drafting megastep) and replayed as one launch. All graphs of an engine share one
 memory pool: replays run one at a time on one stream, so a graph's
 temporaries may reuse another's.
 

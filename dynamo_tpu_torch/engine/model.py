@@ -427,3 +427,53 @@ def decode_tokens(
         params, cache, tokens, positions, write_pages, write_offs,
         kv_lens, block_tables, cu, num_seqs, rows, cfg, attention, "decode",
     )
+
+
+def verify_tokens(
+    params: Params,
+    cache: tuple,
+    tokens: torch.Tensor,        # [S, R] i32 — pending + draft per lane, junk-padded
+    block_tables: torch.Tensor,  # [S, pages_per_seq] i32
+    positions: torch.Tensor,     # [S] i32 — position of slot 0
+    draft_len: torch.Tensor,     # [S] i32 — live draft slots (0 = plain decode row)
+    active: torch.Tensor,        # [S] bool
+    cfg: ModelConfig,
+    engine: EngineConfig,
+    attention=ragged_paged_attention,
+    kernel: str = "tiled",
+) -> torch.Tensor:
+    """Verify-shaped step: every lane is a fixed-width ``R = spec_k + 1``
+    ragged row (pending token + up to R - 1 drafted tokens), assembled on
+    the device so the drafting megastep verifies a fresh draft each
+    iteration. Returns ``[S * R, V]`` logits; lane s's slots are rows
+    ``s * R .. s * R + R - 1``.
+
+    Slot j writes K/V at ``positions + j`` only while live (``active`` and
+    ``j <= draft_len``); dead slots write the garbage page, so a rejected
+    draft's K/V never lands past the live prefix. Rows are R wide even
+    when the draft is shorter, so ``kv_lens = positions + R`` puts query i
+    of every row at its true position ``positions + i``; a dead slot
+    attends only what dead slots wrote and yields logits that
+    ``resolve_verify`` never selects. ``kernel`` is the form K1 is told
+    (both are right on this layout; see ``PERF.md`` for their times at
+    ``T = S * R``)."""
+    S, R = tokens.shape
+    bs = engine.block_size
+    dev = tokens.device
+    j = torch.arange(R, dtype=torch.int32, device=dev)[None, :]
+    pos = positions[:, None] + j                                  # [S, R]
+    live = active[:, None] & (j <= draft_len[:, None])
+    # A dead slot's page index may fall past the table; it writes the
+    # garbage page whatever the gather reads.
+    page_idx = torch.clamp(pos // bs, max=block_tables.shape[1] - 1).long()
+    page = torch.gather(block_tables, 1, page_idx)
+    write_pages = torch.where(live, page, engine.garbage_block).reshape(-1)
+    write_offs = (pos % bs).reshape(-1)
+    kv_lens = torch.where(active, positions + R, R).to(torch.int32)
+    cu = R * torch.arange(S + 1, dtype=torch.int32, device=dev)
+    num_seqs = torch.full((1,), S, dtype=torch.int32, device=dev)
+    rows = torch.arange(S * R, device=dev)
+    return forward_tokens(
+        params, cache, tokens.reshape(-1), pos.reshape(-1), write_pages, write_offs,
+        kv_lens, block_tables, cu, num_seqs, rows, cfg, attention, kernel,
+    )

@@ -208,6 +208,73 @@ def stop_flags_prefix(
     return (hit & emitted).any(dim=1)
 
 
+def ring_append(
+    hist: torch.Tensor,      # [S, H] int32 — right-aligned history ring, -1 padded
+    hist_len: torch.Tensor,  # [S] int32 — valid tokens (right-aligned)
+    emitted: torch.Tensor,   # [S, E] int32 — row-packed fresh tokens
+    count: torch.Tensor,     # [S] int32 in [0, E] — valid prefix of ``emitted``
+) -> tuple[torch.Tensor, torch.Tensor]:  # (hist' [S, H], hist_len' [S])
+    """Shift ``count`` fresh tokens into each lane's history ring: a
+    per-lane gather over ``cat([hist, emitted])`` at offset ``count``
+    (newest token at column H - 1). ``count == 0`` is the identity, so dead
+    lanes and non-drafting rows ride the same graph; slots of ``emitted``
+    past ``count`` are never read."""
+    H = hist.shape[1]
+    buf = torch.cat([hist, emitted.to(hist.dtype)], dim=1)
+    idx = torch.arange(H, device=hist.device)[None, :] + count.long()[:, None]
+    return torch.gather(buf, 1, idx), torch.clamp(hist_len + count, max=H).to(hist_len.dtype)
+
+
+def device_ngram_draft(
+    hist: torch.Tensor,       # [S, H] int32 — right-aligned history ring, -1 padded
+    hist_len: torch.Tensor,   # [S] int32 — valid tokens (min(true length, H))
+    window: torch.Tensor,     # [S] int32 — per-lane lookback bound (<= H)
+    ngram_min: torch.Tensor,  # [S] int32
+    ngram_max: torch.Tensor,  # [S] int32 (<= ngram_max_static)
+    k_cap: torch.Tensor,      # [S] int32 — draft budget this round (<= 0 disables)
+    *,
+    ngram_max_static: int,    # engine-wide suffix-length bound (unrolled loop)
+    slots: int,               # draft slots of the verify row (spec_k)
+) -> tuple[torch.Tensor, torch.Tensor]:  # (draft [S, slots] -1 padded, draft_len [S])
+    """The prompt-lookup drafter on the device: a replay of
+    :func:`dynamo_tpu_torch.spec.ngram.propose_ngram` over each lane's
+    history ring, which holds exactly the tail the host drafter is handed
+    (the last ``window + ngram_max`` tokens). Longest suffix first (n
+    from ``ngram_max_static`` down, lanes selecting ``ngram_min <= n <=
+    min(ngram_max, hist_len - 1)``); the most recent occurrence (the
+    largest start); starts before ``H - min(hist_len, window)`` masked;
+    the follow-on run cut at the ring end and at ``k_cap``. A lane with
+    no match drafts nothing (``draft_len`` 0, slots -1). Plain tensor
+    compares over ``[S, H]``, as in the JAX engine, where no Pallas
+    kernel runs it either."""
+    S, H = hist.shape
+    dev = hist.device
+    r_lo = H - torch.minimum(hist_len, window)  # [S] first in-window start
+    found = torch.zeros(S, dtype=torch.bool, device=dev)
+    best_r = torch.zeros(S, dtype=torch.int32, device=dev)
+    best_n = torch.zeros(S, dtype=torch.int32, device=dev)
+    for n in range(ngram_max_static, 0, -1):
+        if n >= H:
+            continue
+        width = H - n  # candidate starts r in [0, H - n - 1]
+        m = torch.ones((S, width), dtype=torch.bool, device=dev)
+        for t in range(n):
+            m = m & (hist[:, t : width + t] == hist[:, H - n + t][:, None])
+        cand = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+        rn = torch.where(m & (cand >= r_lo[:, None]), cand, -1).amax(dim=1)
+        sel = (ngram_min <= n) & (n <= torch.minimum(ngram_max, hist_len - 1))
+        upd = ~found & sel & (rn >= 0)
+        best_r = torch.where(upd, rn, best_r)
+        best_n = torch.where(upd, n, best_n).to(torch.int32)
+        found = found | upd
+    avail = H - (best_r + best_n)  # follow-on room to the ring end (>= 1)
+    d = torch.clamp(torch.where(found, torch.minimum(k_cap, avail), 0), min=0).to(torch.int32)
+    j = torch.arange(slots, dtype=torch.int32, device=dev)[None, :]
+    src = torch.clamp(best_r[:, None] + best_n[:, None] + j, 0, H - 1)
+    draft = torch.gather(hist, 1, src.long())
+    return torch.where(j < d[:, None], draft, -1).to(torch.int32), d
+
+
 def token_logprobs(
     logits: torch.Tensor,  # [B, V] float32 (raw, pre-temperature)
     tokens: torch.Tensor,  # [B] int — the chosen tokens

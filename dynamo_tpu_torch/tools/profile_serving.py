@@ -3,7 +3,7 @@
 Run from the repository root on a machine with one CUDA card::
 
     python3 -m dynamo_tpu_torch.tools.profile_serving [--int8] [--traces DIR]
-        [--scheduling chunked]
+        [--scheduling chunked] [--spec-decode ngram [--spec-device-draft]]
 
 Builds ``build_engine("llama3-8b")`` (random weights, default
 ``EngineConfig``; with ``--int8`` int8 weights and int8 KV pages, the
@@ -35,6 +35,17 @@ the traced step puts its first 2048-token chunk next to seven decode rows
 (token bucket 8192, width 8): each engine runs ``warm_up()``, the batch
 runs untraced until every prompt decodes, then the one step is traced as
 above (host wall, kernel time by group, K1 by kernel, idle share).
+
+With ``--spec-decode ngram`` it traces speculative decoding instead: an
+engine at the defaults with ``spec_k`` 4 (and, with
+``--spec-device-draft``, drafting allowed on the card) runs ``warm_up()``
+(its graph keys by kind and its seconds), then eight prompts that each
+quote a random segment several times (six greedy, two seeded, as in
+``chip_smoke.py``'s speculation phase; 64 new tokens) until every one
+decodes, and traces one step: the first megastep whose verify rows
+carry host drafts (the requests turn device drafting off), and with
+``--spec-device-draft`` a second batch's first drafting megastep, each as
+above plus the step's speculation counters.
 
 The script uses only the package's entry points, so it also measures
 another checkout's package, for a parent-against-change A/B in one call
@@ -228,6 +239,41 @@ def chunked_step(core, request, trace_dir: Path | None, tag: str) -> dict:
                               "forwards", "fused_mixed_dispatches")}}
 
 
+SPEC_SEGMENTS = ((48, 6), (56, 5), (64, 4), (72, 4), (80, 3), (96, 3), (120, 2), (160, 2))
+SPEC_SEEDED = {6: (0.7, 31), 7: (0.9, 32)}  # lane: (temperature, seed)
+
+
+def spec_step(core, request, trace_dir: Path | None, tag: str, device: bool) -> dict:
+    """Run eight segment-quoting prompts until every one decodes, then
+    trace single steps until one carries drafts (``device``: until one is
+    a drafting megastep), at most 16; report the traced step with its
+    speculation counters."""
+    spec = {"method": "ngram", "device": device}
+    for i, n in enumerate(SPEC_SEGMENTS):
+        core.add_request(request(f"{tag}{i}", n, 64, spec, *SPEC_SEEDED.get(i, (0.0, None))))
+    while not (len(core.running) == len(SPEC_SEGMENTS)
+               and all(s.prefill_done and s.pending is not None for s in core.running)):
+        core.step()
+    keys = ("drafted_tokens", "accepted_tokens", "verify_rows", "device_rounds", "device_hits")
+    for _ in range(16):
+        before, sbefore = core.scheduler_stats(), core.spec_decode_stats()
+        phase = _phase(core, 1, tag, trace_dir)
+        st, sst = core.scheduler_stats(), core.spec_decode_stats()
+        phase.update({k: st[k] - before[k] for k in ("forwards", "committed_tokens",
+                                                     "megastep_dispatches", "dispatches")})
+        phase.update({k: sst[k] - sbefore[k] for k in keys})
+        if phase["device_rounds" if device else "drafted_tokens"] > 0:
+            break
+    else:
+        raise AssertionError(f"{tag}: no step in 16 carried {'device rounds' if device else 'drafts'}")
+    print(json.dumps(phase), flush=True)
+    while core.has_work():
+        core.step()
+    return {"mode": tag, "phase": {k: phase[k] for k in (
+        "phase", "wall_ms", "kernel_ms", "idle_share", "groups_ms", "attention_by_kernel",
+        "forwards", "committed_tokens", *keys)}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--traces", type=Path, default=None, help="write Chrome traces here")
@@ -235,6 +281,10 @@ def main() -> int:
     ap.add_argument("--scheduling", default="waves", choices=["waves", "chunked"],
                     help="waves: a prefill wave and decode megasteps, sync and async; "
                          "chunked: one mixed step and one fused megastep")
+    ap.add_argument("--spec-decode", default="off", choices=["off", "ngram"],
+                    help="ngram: trace a verify megastep (host drafts) instead")
+    ap.add_argument("--spec-device-draft", action="store_true",
+                    help="with --spec-decode ngram: also trace a drafting megastep")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA card", file=sys.stderr)
@@ -261,15 +311,38 @@ def main() -> int:
     rng = np.random.default_rng(7)
     vocab = core.cfg.vocab_size
 
-    def request(rid, n, max_tokens):
+    def request(rid, n, max_tokens, spec=None, temperature=0.0, seed=None):
+        # With spec, n is (segment length, repeats): a quoting prompt.
+        if spec is None:
+            ids = [int(t) for t in rng.integers(0, vocab, n)]
+        else:
+            ids = [int(t) for t in rng.integers(0, vocab, n[0])] * n[1]
         return PreprocessedRequest(
-            model="llama3-8b", request_id=rid,
-            token_ids=[int(t) for t in rng.integers(0, vocab, n)],
-            sampling=SamplingOptions(temperature=0.0),
-            stop=StopConditions(max_tokens=max_tokens),
+            model="llama3-8b", request_id=rid, token_ids=ids,
+            sampling=SamplingOptions(temperature=temperature, seed=seed),
+            stop=StopConditions(max_tokens=max_tokens), spec_decode=spec,
         )
 
-    if args.scheduling == "chunked":
+    if args.spec_decode == "ngram":
+        scfg = {**overrides, "spec_decode": "ngram", "spec_k": 4,
+                "spec_device_draft": args.spec_device_draft}
+        score, _ = build_engine("llama3-8b", scfg, device="cuda", params=core.params)
+        del core
+        torch.cuda.empty_cache()
+        launches = score._warm_up_launches()
+        kinds = [launch.key[0] for launch, _ in launches]
+        t0 = time.perf_counter()
+        score.warm_up()
+        torch.cuda.synchronize()
+        st = score.scheduler_stats()
+        warm = {"warm_up_s": time.perf_counter() - t0, "graph_captures": st["graph_captures"],
+                "graph_capture_s": st["graph_capture_s"],
+                "keys": {k: kinds.count(k) for k in sorted(set(kinds))}}
+        print(json.dumps({"spec_warm_up": warm}), flush=True)
+        modes = [{"warm_up": warm}, spec_step(score, request, args.traces, "verify_megastep", False)]
+        if args.spec_device_draft:
+            modes.append(spec_step(score, request, args.traces, "drafting_megastep", True))
+    elif args.scheduling == "chunked":
         modes = []
         for k, tag in ((1, "mixed_step_chunked"), (8, "fused_megastep_chunked")):
             ccore, _ = build_engine("llama3-8b", {**overrides, "scheduling": "chunked",
@@ -286,6 +359,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         modes.append(profile_mode(acore, request, args.traces, "async"))
     print(json.dumps({"card": card, "int8": args.int8, "scheduling": args.scheduling,
+                      "spec_decode": args.spec_decode, "spec_device_draft": args.spec_device_draft,
                       "package": dynamo_tpu_torch.__file__,
                       "wrapper_host_us": host_us, "modes": modes}), flush=True)
     return 0

@@ -82,6 +82,11 @@ COPIES = [
     "frontend/__init__.py",
     "frontend/__main__.py",
     "frontend/main.py",
+    # Speculative decoding.
+    "spec/__init__.py",
+    "spec/config.py",
+    "spec/ngram.py",
+    "spec/stats.py",
 ]
 
 

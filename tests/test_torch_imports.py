@@ -56,9 +56,7 @@ def test_cpu_engine_leaves_jax_unimported():
 @pytest.mark.parametrize(
     "overrides, item",
     [
-        ({"scheduling": "chunked", "spec_decode": "ngram"}, "A8c"),
         ({"disk_kv_dir": "kv"}, "A10"),
-        ({"spec_decode": "ngram"}, "A8c"),
         ({"kv_dtype": "int8", "host_kv_blocks": 16}, "A10"),
         ({"host_kv_blocks": 16}, "A10"),
         ({"ring_prefill_threshold": 64}, "A12"),
@@ -69,6 +67,39 @@ def test_unported_settings_refused(overrides, item):
 
     with pytest.raises(ValueError, match=item):
         build_engine("tiny", overrides, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
+        {"scheduling": "chunked", "spec_decode": "ngram"},
+        {"spec_decode": "ngram"},
+        {"spec_decode": "ngram", "spec_k": 2},
+        {"spec_decode": "ngram", "spec_device_draft": True},
+    ],
+    ids=["chunked-ngram", "ngram", "ngram-k2", "ngram-device"],
+)
+def test_spec_settings_build_and_serve(overrides):
+    """Speculative decoding (ROADMAP.md A8c) is served: each setting builds
+    an engine that drafts on a quoting prompt and emits the stream of the
+    same engine without speculation."""
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+    from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+    req = {"model": "tiny", "token_ids": [5, 6, 7, 8] * 6, "request_id": "r",
+           "sampling": {"temperature": 0.0}, "stop": {"max_tokens": 40, "ignore_eos": True}}
+    streams = []
+    for ov in (overrides, {k: v for k, v in overrides.items() if not k.startswith("spec_")}):
+        core, _ = build_engine("tiny", ov, device="cpu")
+        core.add_request(PreprocessedRequest.from_wire(req))
+        toks = []
+        while core.has_work():
+            for _, out in core.step():
+                toks += out.token_ids
+        streams.append(toks)
+        if ov is overrides:
+            assert core.spec_decode_stats()["drafted_tokens"] > 0
+    assert streams[0] == streams[1] and len(streams[0]) == 40
 
 
 def test_unknown_kv_dtype_and_quant_refused():

@@ -253,6 +253,43 @@ def test_worker_cli_takes_chunked_scheduling():
     assert core.scheduler_stats()["chunked_scheduling"] == 1
 
 
+@pytest.mark.parametrize(
+    "argv, want",
+    [
+        (["--scheduling", "chunked", "--spec-decode", "ngram"],
+         {"scheduling": "chunked", "spec_decode": "ngram"}),
+        (["--spec-decode", "ngram"], {"spec_decode": "ngram"}),
+        (["--spec-decode", "ngram", "--spec-k", "2"], {"spec_decode": "ngram", "spec_k": 2}),
+        (["--spec-decode", "ngram", "--spec-k", "4", "--spec-device-draft"],
+         {"spec_decode": "ngram", "spec_k": 4, "spec_device_draft": True}),
+    ],
+    ids=lambda v: " ".join(v) if isinstance(v, list) else "",
+)
+def test_worker_cli_takes_spec_decode(argv, want):
+    """The JAX worker's speculation flags (ROADMAP.md A8c): the worker's
+    engine drafts and serves the stream of speculation off through its
+    ``generate`` endpoint's facade."""
+    args = worker_main._parser().parse_args(argv)
+    worker_main._refuse_unported(args)
+    overrides = worker_main._overrides(args)
+    assert overrides == want
+    req = {"model": MODEL, "token_ids": [5, 6, 7, 8] * 6, "request_id": "r",
+           "sampling": {"temperature": 0.0}, "stop": {"max_tokens": 40, "ignore_eos": True}}
+
+    async def serve(engine):
+        return [t async for out in engine.generate(req, Context("r")) for t in out["token_ids"]]
+
+    streams = {}
+    for name, ov in (("on", overrides), ("off", {k: v for k, v in overrides.items()
+                                                  if not k.startswith("spec_")})):
+        core, engine = build_engine("tiny", ov, device="cpu")
+        streams[name] = asyncio.run(serve(engine))
+        if name == "on":
+            assert core.spec_decode_stats()["drafted_tokens"] > 0
+            assert core.engine.spec_k == want.get("spec_k", 4)
+    assert streams["on"] == streams["off"] and len(streams["on"]) == 40
+
+
 # -- (b) a mixed fleet, round robin -----------------------------------------
 
 
@@ -479,9 +516,7 @@ async def test_graceful_drain_publishes_cleared():
         (["--tp", "2"], "A12"),
         (["--pp", "2"], "A12"),
         (["--nnodes", "2", "--dist-init-addr", "127.0.0.1:1"], "A12"),
-        (["--scheduling", "chunked", "--spec-decode", "ngram"], "A8c"),
         (["--local-cpu-devices", "4"], "A12"),
-        (["--spec-decode", "ngram"], "A8c"),
         (["--ring-prefill-threshold", "64"], "A12"),
         (["--preset", "tiny-moe"], "A11"),
     ],
