@@ -60,7 +60,12 @@ with speculation off, drafted on the host and on the device (sync and
 async), then the same engine under chunked scheduling with a 2124-token
 prompt in the last lane (drafts made, fewer dispatches than tokens, no
 capture while serving, greedy streams equal to spec off's up to
-near-ties), (6) runs the worker process:
+near-ties), then the KV tiers (:func:`serve_tiers`: a 256-block pool with
+host and disk tiers behind it, 8 prompts of 2000 tokens and their
+repeats, onboarded bytes and streams held to the main path engine's) and
+the page programs (:func:`page_programs`: gather, scatter, direct copy,
+the eviction slice, D2H and H2D of 1, 8 and 64 blocks against their byte
+bounds, bf16 and int8), (6) runs the worker process:
 the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
 ``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
 --preset llama3-8b --seed 0`` as subprocesses, waits for the model card
@@ -92,8 +97,16 @@ the data-plane client's streams, its 8 requests at once timed beside the
 same 8 sent by the data-plane client straight to the same worker and
 beside the worker phase's, the frontend's request counters and each worker's
 series under its ``worker_id`` on the frontend's ``/metrics``, each
-worker's scheduler gauges against the counters it logs on exit, and K1's
-launches in each worker, and (8) prints a JSON line of
+worker's scheduler gauges against the counters it logs on exit, K1's
+launches in each worker, and a peer pull (:func:`check_peer_pull`: one
+worker imports the other's 64 prompt blocks on a router's
+``peer_prefix`` hint, its pages and stream held to the holder's), (8)
+runs the disaggregation phase (:func:`serve_disagg`: a prefill worker, a
+decode worker, an aggregated worker and the frontend as processes; the
+serving requests at once and staggered through both paths, greedy
+streams equal up to measured near-ties, pages checksummed on both sides,
+blocks imported with no recompute and no failed pull), and (9) prints a
+JSON line of
 kernel measurements (one record per C entry point) and, last, a JSON
 status line. Any failed check raises and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
@@ -1069,6 +1082,8 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     modes = sync_against_async(core, overrides, reqs + [late], mode)
     chunked = None if int8 else serve_chunked(ra, card, core)
     spec = None if int8 else serve_spec(ra, card, core)
+    tiers = None if int8 else serve_tiers(ra, card, core)
+    pages = page_programs(core, mode)
     return by_entry, {
         "mode": mode, "attention_launches": launches, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
         "bytes_per_block": core.kv_cache_stats()["bytes_per_block"],
@@ -1076,8 +1091,208 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
         "logits_cosine": logit_check["cosine"], "warm_up": warm,
         "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
         "graph_against_eager": graph_check, "graphs_sync_async": modes,
-        "chunked": chunked, "spec": spec,
+        "chunked": chunked, "spec": spec, "tiers": tiers, "page_programs": pages,
     }
+
+
+# -- KV tiers and the page programs (in process) --------------------------------
+
+# The tier run: a 256-block device pool (8192 positions) with a 128-block
+# host tier and a disk tier behind it, and 8 prompts of 2000 tokens (63
+# blocks each, 504 in all) sent one at a time, then again: the repeats
+# find their blocks on the host, on the disk or still on the card.
+TIER_ENGINE = {"num_kv_blocks": 256, "host_kv_blocks": 128}
+TIER_PROMPTS, TIER_PROMPT_LEN, TIER_TOKENS = 8, 2000, 8
+PAGE_BLOCKS = (1, 8, 64)     # blocks per page-program call
+PCIE_BYTES_PER_S = 64e9      # PCIe Gen5 x16, one direction
+
+
+def one_request(core, rid: str, prompt: list[int], max_tokens: int) -> dict:
+    """One greedy request through a synchronous engine, alone: its tokens,
+    cached tokens and time to the step that emitted its first token."""
+    from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+    t0 = time.perf_counter()
+    seq = core.add_request(PreprocessedRequest.from_wire(
+        {**wire(rid, prompt, {"temperature": 0.0}), "stop": {"max_tokens": max_tokens}}))
+    tokens, ttft = [], None
+    while core.has_work():
+        for s, out in core.step():
+            tokens += out.token_ids
+            if ttft is None and out.token_ids:
+                ttft = 1e3 * (time.perf_counter() - t0)
+    if len(tokens) != max_tokens:
+        raise AssertionError(f"{rid}: {len(tokens)} tokens of {max_tokens}")
+    return {"tokens": tokens, "ttft_ms": ttft, "cached_tokens": seq.num_cached_tokens}
+
+
+def page_sha(core, block_hash: int) -> str:
+    """sha256 of a cached block's page in the host layout (int8: packed)."""
+    import hashlib
+
+    from dynamo_tpu_torch.engine.kv_quant import pack_kv_page
+
+    page = core._slice_page(core.allocator._by_hash[block_hash].block_id)
+    if isinstance(page, dict):
+        raw = pack_kv_page(np.asarray(page["kv"]), np.asarray(page["scale"])).tobytes()
+    else:
+        raw = np.asarray(page).tobytes()
+    return hashlib.sha256(raw).hexdigest()
+
+
+def serve_tiers(ra, card: str, core, preset="llama3-8b", device="cuda") -> dict:
+    """The host and disk KV tiers at full width and depth, on the main path
+    engine's weights: an engine with a small device pool, a host tier and a
+    disk tier under a temp directory (:data:`TIER_ENGINE`), prompts that
+    overflow the pool one at a time, then each again. The first block's
+    page, read before it was evicted, must come back byte for byte, and
+    every run must stream exactly what the main path engine streams for
+    the same prompt: cold, and again with its prefix cached on the card (a
+    repeat computes the prompt's last block over the cached prefix, which
+    rounds bf16 otherwise than the cold prefill, so the reference of a
+    repeat is a device-cache hit, and an onboarded page with a wrong byte
+    would show). Two warm prompts first capture the graphs the timed runs
+    use (a full prefill, a cached-prefix tail, the decode megasteps)."""
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+    from dynamo_tpu_torch.tokens import compute_seq_hashes
+
+    rng = np.random.default_rng(4321)
+    vocab = core.cfg.vocab_size
+    ids = lambda: [int(t) for t in rng.integers(0, vocab, TIER_PROMPT_LEN)]  # noqa: E731
+    prompts = [ids() for _ in range(TIER_PROMPTS)]
+    want = [[one_request(core, f"{kind}{i}", p, TIER_TOKENS)["tokens"] for kind in ("ref", "hit")]
+            for i, p in enumerate(prompts)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiers_") as disk:
+        tcore, _ = build_engine(preset, {**TIER_ENGINE, "disk_kv_dir": disk},
+                                device=device, params=core.params)
+        warm = ids()
+        for rid in ("warm", "warm_again"):  # the second has its prefix cached
+            one_request(tcore, rid, warm, TIER_TOKENS)
+        st0 = tcore.scheduler_stats()
+        ra.reset_launches()
+        bs = tcore.engine.block_size
+        h0 = compute_seq_hashes(prompts[0], bs)[0]
+        cold, sha_before = [], None
+        for i, p in enumerate(prompts):
+            cold.append(one_request(tcore, f"cold{i}", p, TIER_TOKENS))
+            if i == 0:
+                sha_before = page_sha(tcore, h0)
+        tcore.offload.flush()
+        where = ("device" if tcore.allocator.is_cached(h0) else "host"
+                 if h0 in tcore.host_pool else "disk" if h0 in tcore.disk_pool else "lost")
+        after_cold = tcore.tier_stats()
+        # The repeats newest first: the last prompts hit the card, the
+        # ones before them the host tier, the first ones the disk (in
+        # order, each repeat would evict the next one's blocks first).
+        again, sha_after = [None] * len(prompts), None
+        for i in reversed(range(len(prompts))):
+            h = compute_seq_hashes(prompts[i], bs)[0]
+            source = ("device" if tcore.allocator.is_cached(h) else "host"
+                      if tcore.offload.contains(h) and h not in tcore.disk_pool else "disk")
+            again[i] = {**one_request(tcore, f"again{i}", prompts[i], TIER_TOKENS),
+                        "source": source}
+            if i == 0:
+                sha_after = page_sha(tcore, h0)
+        tcore.offload.flush()
+        stats = tcore.tier_stats()
+        st = tcore.scheduler_stats()
+        launches = {k: v for k, v in ra.kernel_launches.items() if v}
+        forwards = st["forwards"] - st0["forwards"]
+        tcore.offload.close()
+        del tcore
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    for i, (c, a) in enumerate(zip(cold, again)):
+        if [c["tokens"], a["tokens"]] != want[i]:
+            raise AssertionError(f"tier prompt {i}: cold {c['tokens']}, repeat {a['tokens']}; "
+                                 f"the main path engine's cold and cached runs {want[i]}")
+    onboarded = sum(stats[t]["onboards"] for t in stats)
+    if (min(stats[t]["offloads"] for t in ("host", "disk")) == 0 or not onboarded
+            or sha_after != sha_before or where not in ("host", "disk")
+            or min(a["cached_tokens"] for a in again) == 0):
+        raise AssertionError(f"tiers: {stats}, block 0 was on {where}, page equal "
+                             f"{sha_after == sha_before}, cached tokens "
+                             f"{[a['cached_tokens'] for a in again]}")
+    if device == "cuda" and (sum(launches.values()) != core.cfg.num_layers * forwards
+                             or len(launches) != 2):
+        raise AssertionError(f"tier run K1 launches {launches} for {forwards} forwards")
+    out = {
+        "engine": TIER_ENGINE, "prompts": TIER_PROMPTS, "prompt_tokens": TIER_PROMPT_LEN,
+        "tiers_after_cold": after_cold, "tiers": stats, "block0_was_on": where,
+        "block0_page_equal": sha_after == sha_before,
+        "cold_ttft_ms": [c["ttft_ms"] for c in cold],
+        "repeat_ttft_ms": [a["ttft_ms"] for a in again],
+        "repeat_cached_tokens": [a["cached_tokens"] for a in again],
+        "repeat_first_block_from": [a["source"] for a in again],
+        "kernel_launches": launches, "forwards": forwards,
+    }
+    print(f"tiers on {card}: after the cold runs {after_cold}, block 0 on {where}; after the "
+          f"repeats {stats}; block 0's onboarded page equal to the evicted one: "
+          f"{out['block0_page_equal']}; TTFT ms cold {[round(t, 1) for t in out['cold_ttft_ms']]}"
+          f", repeat {[round(t, 1) for t in out['repeat_ttft_ms']]} (cached tokens "
+          f"{out['repeat_cached_tokens']}, first block from {out['repeat_first_block_from']}); "
+          f"K1 launches {launches} = {core.cfg.num_layers} x "
+          f"{forwards} forwards", flush=True)
+    return out
+
+
+def page_programs(core, mode: str) -> dict:
+    """The page programs the tiers and transfers run, at n = 1, 8 and 64
+    blocks, L2 flushed before each call: a gather of n pages into the
+    layer-major wire layout, a scatter of them into other blocks, a direct
+    block-to-block copy, the eviction's one-page slice with its copy to
+    pinned memory, the copy of n gathered pages to pinned memory (D2H), and
+    pinned pages to the card (H2D) and pageable ones (staged through pinned
+    memory, as an import stages them). Each against its byte bound: the
+    device programs read and write every byte once (2 n pages over
+    3.35 TB/s), the host hops move n pages over 64 GB/s. The cache's
+    prefix blocks are dropped first; the engine serves nothing after."""
+    from dynamo_tpu_torch.engine.core import _Landing
+
+    core.clear_kv_cache()
+    pb = core.kv_cache_stats()["bytes_per_block"]
+    rows = []
+    for n in PAGE_BLOCKS:
+        src, dst = list(range(n)), list(range(n, 2 * n))
+        dev = core._gather_pages(src)
+        leaves = dev if isinstance(dev, dict) else {"kv": dev}  # int8: kv and scale
+        pinned = [torch.empty(v.shape, dtype=v.dtype, pin_memory=core.device.type == "cuda")
+                  .copy_(v) for v in leaves.values()]
+        pageable = {k: v.cpu() for k, v in leaves.items()}
+        if not isinstance(dev, dict):
+            pageable = pageable["kv"]
+        timed = {
+            "gather": lambda: core._gather_pages(src),
+            "scatter": lambda: core._scatter_pages(dst, dev),
+            "copy": lambda: core._copy_pages_from(core, src, dst),
+            "slice_d2h": (lambda: core._slice_page(0)) if n == 1 else None,
+            "d2h": lambda: [_Landing(v) for v in leaves.values()],
+            "h2d": lambda: [v.to(core.device, non_blocking=True) for v in pinned],
+            "staged_h2d": lambda: core._scatter_pages(dst, pageable),
+        }
+        row = {"mode": mode, "blocks": n, "bytes": n * pb}
+        for name, fn in timed.items():
+            if fn is None:
+                continue
+            ms = cold_ms(fn, 10)
+            host_hop = name in ("slice_d2h", "d2h", "h2d", "staged_h2d")
+            bound = 1e3 * (n * pb / PCIE_BYTES_PER_S if host_hop else 2 * n * pb / HBM_BYTES_PER_S)
+            row[f"{name}_ms"], row[f"{name}_bound_ms"] = ms, bound
+        # The scatters wrote the gathered pages: a gather of dst reads them back.
+        back = core._gather_pages(dst)
+        back = back if isinstance(back, dict) else {"kv": back}
+        if (not all(torch.equal(back[k], v) for k, v in leaves.items())
+                or leaves["kv"].shape[:2] != (n, core.cfg.num_layers)):
+            raise AssertionError(f"page programs ({mode}, n = {n}): scatter-then-gather "
+                                 f"differs, or the gather's layout is "
+                                 f"{tuple(leaves['kv'].shape)}")
+        rows.append(row)
+        print(f"page programs ({mode}, {n} blocks of {pb} bytes): " + ", ".join(
+            f"{k[:-3]} {v:.4f} ms (bound {row[k[:-3] + '_bound_ms']:.4f})"
+            for k, v in row.items() if k.endswith("_ms") and not k.endswith("bound_ms")),
+            flush=True)
+    return {"bytes_per_block": pb, "rows": rows}
 
 
 # -- chunked scheduling ---------------------------------------------------------
@@ -1847,15 +2062,15 @@ STAGGER_FIRST, STAGGER_DELAY_S = "short", 0.1
 DATAPLANE_REPEATS = 40  # replays of the worker's batch chunks per stream
 
 
-async def timed_stream(open_stream, rid, prompt, sampling) -> dict:
-    """One request's output chunks, each token with its log-probability,
-    with the client's clock: time to the first chunk, and ms per token
-    after the first. (The frontend phase sends the same requests over
-    HTTP, where a completion streams a chunk only for a token that has
-    text or a log-probability.)"""
+async def timed_stream(open_stream, rid, prompt, sampling, logprobs=1) -> dict:
+    """One request's output chunks, each token with its log-probability
+    (and ``logprobs`` - 1 alternatives), with the client's clock: time to
+    the first chunk, and ms per token after the first. (The frontend phase
+    sends the same requests over HTTP, where a completion streams a chunk
+    only for a token that has text or a log-probability.)"""
     t0 = time.perf_counter()
     outs, stamps = [], []
-    async for out in await open_stream(wire(rid, prompt, sampling, logprobs=1)):
+    async for out in await open_stream(wire(rid, prompt, sampling, logprobs=logprobs)):
         outs.append(out)
         stamps.append(time.perf_counter())
     tokens = [t for o in outs for t in o["token_ids"]]
@@ -1869,14 +2084,15 @@ async def timed_stream(open_stream, rid, prompt, sampling) -> dict:
     }
 
 
-async def staggered_batch(open_stream, by_id: dict) -> list[dict]:
+async def staggered_batch(open_stream, by_id: dict, logprobs=1) -> list[dict]:
     """The 8 serving prompts in an arrival pattern that neither path
     shapes: ``STAGGER_FIRST`` alone, the other 7 ``STAGGER_DELAY_S``
     later."""
-    first = asyncio.create_task(timed_stream(open_stream, *by_id[STAGGER_FIRST]))
+    first = asyncio.create_task(
+        timed_stream(open_stream, *by_id[STAGGER_FIRST], logprobs=logprobs))
     await asyncio.sleep(STAGGER_DELAY_S)
-    rest = asyncio.gather(
-        *(timed_stream(open_stream, *r) for rid, r in by_id.items() if rid != STAGGER_FIRST))
+    rest = asyncio.gather(*(timed_stream(open_stream, *r, logprobs=logprobs)
+                            for rid, r in by_id.items() if rid != STAGGER_FIRST))
     return [await first, *await rest]
 
 
@@ -2554,6 +2770,73 @@ async def direct_batch(store: str, pin: int, by_id: dict) -> list[dict]:
         await rt.shutdown()
 
 
+PEER_PROMPT_LEN = 64 * PAGE + 17  # 64 full blocks and a partial one
+
+
+async def check_peer_pull(store: str, workers: dict, vocab: int) -> dict:
+    """A peer pull between the two worker processes: a prompt nobody holds
+    runs on worker_a, twice (the second a hit of its prefix cache), then
+    goes straight to worker_b carrying the KV router's ``peer_prefix``
+    hint at worker_a (what the router attaches when it routes a prompt
+    away from the worker holding it). worker_b must pull the 64 full
+    blocks over ``kv_fetch`` instead of recomputing them (cached tokens
+    64 x 32), a sample of the pages must read the same on both workers,
+    and worker_b must stream worker_a's cached run: both compute the
+    prompt's last block over the same pages, so the streams are equal
+    until that block fills (there worker_a's prefix cache hands the
+    cached run the cold run's copy of the block, which rounded bf16
+    otherwise); past it they may part at a near-tie only
+    (:func:`hold_streams`)."""
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.tokens import compute_seq_hashes
+
+    prompt = [int(t) for t in np.random.default_rng(55).integers(0, vocab, PEER_PROMPT_LEN)]
+    greedy = {"temperature": 0.0}
+    a, b = workers["worker_a"]["id"], workers["worker_b"]["id"]
+    rt = await DistributedRuntime.create(store)
+    try:
+        client = await rt.namespace("dynamo").component("backend").endpoint("generate").client()
+        await client.wait_for_instances(2, timeout=30)
+
+        def on(worker, hint=None):
+            async def open_stream(req):
+                if hint is not None:
+                    req = {**req, "kv_transfer_params": {"peer_prefix": hint}}
+                return await client.direct(worker, req)
+            return open_stream
+
+        runs = [await timed_stream(stream, "peer", prompt, greedy, logprobs=DISAGG_LOGPROBS)
+                for stream in (on(a), on(a), on(b, {"worker_id": a,
+                                                    "blocks": PEER_PROMPT_LEN // PAGE}))]
+        cold, hit, pulled = runs
+        fetch = await rt.namespace("dynamo").component("backend").endpoint("kv_fetch").client()
+        await fetch.wait_for_instances(2, timeout=30)
+        hashes = compute_seq_hashes(prompt, PAGE)
+        pages_equal = {}
+        for j in (0, len(hashes) // 2, len(hashes) - 1):
+            got = [(await fetch_pages(fetch, w, [hashes[j]]))[0] for w in (a, b)]
+            pages_equal[j] = len(got[0]) == len(got[1]) == 1 and got[0] == got[1]
+    finally:
+        await rt.shutdown()
+    full = (PEER_PROMPT_LEN // PAGE) * PAGE
+    exact = PAGE - PEER_PROMPT_LEN % PAGE  # tokens until the prompt's last block fills
+    j = first_divergence(hit["tokens"], pulled["tokens"])
+    if ((j is not None and j < exact) or not all(pages_equal.values())
+            or (pulled["cached_tokens"], hit["cached_tokens"]) != (full, full)):
+        raise AssertionError(f"peer pull: cached_tokens {pulled['cached_tokens']} and "
+                             f"{hit['cached_tokens']} of {full}; pages equal {pages_equal}; "
+                             f"parts from worker_a's cached run at token {j}")
+    held = hold_streams("peer pull", [hit], [pulled], {"peer"})
+    print(f"peer pull: worker_b took {full} prompt tokens from worker_a's cache, sampled pages "
+          f"equal; TTFT {pulled['ttft_ms']:.1f} ms against worker_a's cold {cold['ttft_ms']:.1f} "
+          f"ms and cached {hit['ttft_ms']:.1f} ms; stream equal to worker_a's cached run up to "
+          f"token {len(pulled['tokens']) if j is None else j}", flush=True)
+    return {"prompt_tokens": PEER_PROMPT_LEN, "cached_tokens": pulled["cached_tokens"],
+            "cold_ttft_ms": cold["ttft_ms"], "cached_ttft_ms": hit["ttft_ms"],
+            "pulled_ttft_ms": pulled["ttft_ms"], "pages_equal": len(pages_equal),
+            "stream": held}
+
+
 async def drive_frontend(base: str, store: str, model: str, vocab: int, procs: dict,
                          logs: Path, direct: dict) -> dict:
     """The frontend phase's traffic (see :func:`serve_frontend`)."""
@@ -2589,6 +2872,7 @@ async def drive_frontend(base: str, store: str, model: str, vocab: int, procs: d
         # client, on the same worker.
         await http_json(s, f"{base}/clear_kv_blocks", {})
         same_worker = await direct_batch(store, pin, {r[0]: r for r in reqs + [late]})
+        peer = await check_peer_pull(store, workers, vocab)
 
         # The frontend's own series, and each worker's under its worker_id.
         async with s.get(f"{base}/metrics") as r:
@@ -2604,7 +2888,7 @@ async def drive_frontend(base: str, store: str, model: str, vocab: int, procs: d
             "same_worker_batch": {r["rid"]: r for r in same_worker},
             "frontend_cpu_ms_per_token": 1e3 * frontend_cpu_s / streamed,
             "streamed_tokens": streamed, "requests": n_requests, "worker_metrics": final,
-            "routing": routing}
+            "routing": routing, "peer_pull": peer}
 
 
 def serve_frontend(card: str, direct: dict, direct_stats: dict,
@@ -2688,6 +2972,14 @@ def serve_frontend(card: str, direct: dict, direct_stats: dict,
                 st["attention_launches"] != cfg.num_layers * (st["forwards"] + st["warm_up_forwards"])
                 or st["attention_launches_int8"] != 0)):
             raise AssertionError(f"{name}: K1 launches do not match its forwards: {st}")
+    pool = stats["worker_b"]["kv_pool"]
+    if (stats["worker_b"]["transfer"]["imported_blocks"] < PEER_PROMPT_LEN // PAGE
+            or pool["pulls_succeeded"] < 1 or pool["pulls_fallback"]):
+        raise AssertionError(f"worker_b's peer pull: {pool}, {stats['worker_b']['transfer']}")
+    got["peer_pull"] |= {"pull_ms": pool["last_pull_ms"], "blocks_pulled": pool["blocks_pulled"],
+                         "bytes_pulled": pool["bytes_pulled"]}
+    print(f"peer pull: {pool['blocks_pulled']} blocks ({pool['bytes_pulled'] / 1e6:.1f} MB) in "
+          f"{pool['last_pull_ms']:.1f} ms", flush=True)
     kernels = stats["worker_a"]["kernel_launches"]  # the worker that served the parity and batch
     if device == "cuda" and min(kernels[k] for k in ("ragged_paged_attention_decode_launch",
                                                      "ragged_paged_attention_tiled_launch")) == 0:
@@ -2713,6 +3005,7 @@ def serve_frontend(card: str, direct: dict, direct_stats: dict,
         "wall_s": wall_s,
         "workers_registered_s": got["registered_s"] - t0,
         "routing": got["routing"],
+        "peer_pull": got["peer_pull"],
         "requests": got["requests"],
         "batch_ttft_ms": {rid: r["ttft_ms"] for rid, r in got["batch"].items()},
         "batch_tpot_ms": {rid: r["tpot_ms"] for rid, r in got["batch"].items()},
@@ -2739,6 +3032,373 @@ def serve_frontend(card: str, direct: dict, direct_stats: dict,
     return summary
 
 
+# -- disaggregated prefill and decode ------------------------------------------------
+
+DISAGG_MODEL = "llama3-8b-disagg"
+DISAGG_LOGPROBS = 2  # each token's top 2: the near-tie rule reads the gap between them
+DISAGG_CHECKSUMMED = ("long", "mid", "short")  # prompts whose pages are checksummed on both sides
+FETCH_WINDOW = 32    # blocks in the data-plane throughput window
+DISAGG_FRESH_LEN = 1200  # the prompt sent through the frontend
+
+
+def first_divergence(want: list[int], got: list[int]) -> int | None:
+    return next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
+                None if len(want) == len(got) else min(len(want), len(got)))
+
+
+def hold_streams(name: str, agg: list[dict], dis: list[dict], greedy: set[str]) -> dict:
+    """The disaggregated run's greedy streams against the aggregated
+    worker's: equal, or parting only at a near-tie. The limit is measured
+    in the run itself: the largest difference between the two workers'
+    log-probabilities of the same token at the same position before any
+    stream parts (the decode worker computes a prompt's last block with
+    the tiled kernel where the aggregated worker decodes it). A stream
+    that parts where the aggregated worker's top-2 gap exceeds it
+    fails."""
+    by_rid = {r["rid"]: r for r in dis}
+
+    def lps(r):
+        return [e for o in r["outs"] for e in o.get("logprobs") or []]
+
+    pairs = [(a, by_rid[a["rid"]]) for a in agg if a["rid"] in greedy]
+    limit = 0.0
+    for a, d in pairs:
+        j = first_divergence(a["tokens"], d["tokens"])
+        for x, y in list(zip(lps(a), lps(d)))[:j]:
+            limit = max(limit, abs(x["logprob"] - y["logprob"]))
+    parted = []
+    for a, d in pairs:
+        j = first_divergence(a["tokens"], d["tokens"])
+        if j is None:
+            continue
+        top = lps(a)[j]["top"]
+        gap = top[0][1] - top[1][1]
+        parted.append({"rid": a["rid"], "position": j, "gap": gap})
+        print(f"divergence, {name} {a['rid']} at token {j}: aggregated {a['tokens'][j]}, "
+              f"disaggregated {d['tokens'][j]}; the aggregated top-2 gap {gap:.4e} (limit "
+              f"{limit:.4e})", flush=True)
+        if gap > limit:
+            raise AssertionError(f"{name}: {a['rid']} parts from the aggregated stream at token "
+                                 f"{j} where the top-2 gap {gap:.4e} exceeds {limit:.4e}")
+    return {"greedy": len(pairs), "equal": len(pairs) - len(parted), "parted": parted,
+            "limit": limit}
+
+
+async def fetch_pages(client, worker_id: int, hashes: list[int]) -> tuple[list[bytes], dict]:
+    """The pages a worker's ``kv_fetch`` endpoint serves for a hash chain,
+    and the reply's geometry frame."""
+    geometry, pages = {}, []
+    async for frame in await client.direct(worker_id, {"hashes": hashes,
+                                                       "chunk_blocks": len(hashes)}):
+        if "shape" in frame:
+            geometry = {"shape": frame["shape"], "dtype": frame["dtype"]}
+        pages += [bytes(p) for p in frame.get("kv") or []]
+    return pages, geometry
+
+
+async def run_batches(store: str, namespace: str, component: str, worker_id: int,
+                      by_id: dict, tag: str, clear_also=()) -> dict:
+    """The serving requests through the port's data-plane client to one
+    worker, all at once and then staggered, each run from cleared caches
+    (the worker's, and those of ``clear_also``: (component, worker id)
+    pairs). Request ids are unique over the phase, as a frontend makes
+    them: a prefill worker keys its holds and chunk cursors by them."""
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+
+    rt = await DistributedRuntime.create(store)
+    try:
+        ns = rt.namespace(namespace)
+        clients = {c: await ns.component(c).endpoint("generate").client()
+                   for c in {component, *(c for c, _ in clear_also)}}
+        for c in clients.values():
+            await c.wait_for_instances(1, timeout=60)
+
+        async def clear():
+            for c, w in [(component, worker_id), *clear_also]:
+                async for _ in await clients[c].direct(
+                        w, {"request_id": "clear", "clear_kv_blocks": True}):
+                    pass
+
+        runs = {}
+        for kind in ("batch", "staggered"):
+            async def open_stream(req, kind=kind):
+                req = {**req, "request_id": f"{tag}-{kind}-{req['request_id']}"}
+                return await clients[component].direct(worker_id, req)
+
+            await clear()
+            runs[kind] = await asyncio.wait_for(
+                staggered_batch(open_stream, by_id, logprobs=DISAGG_LOGPROBS)
+                if kind == "staggered" else asyncio.gather(
+                    *(timed_stream(open_stream, *r, logprobs=DISAGG_LOGPROBS)
+                      for r in by_id.values())), 600)
+            for r in runs[kind]:
+                if len(r["tokens"]) != MAX_TOKENS or r["finish"] != "length":
+                    raise AssertionError(f"{tag} {kind} {r['rid']}: {len(r['tokens'])} tokens, "
+                                         f"finish {r['finish']!r}")
+        return runs
+    finally:
+        await rt.shutdown()
+
+
+async def drive_disagg(store: str, base: str, procs: dict, logs: Path, vocab: int,
+                       ids: dict, by_id: dict) -> dict:
+    """The disaggregated half of the phase (see :func:`serve_disagg`)."""
+    import hashlib
+
+    import aiohttp
+
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.tokens import compute_seq_hashes
+
+    runs = await run_batches(store, "dynamo", "backend", ids["decode"], by_id, "disagg",
+                             clear_also=[("prefill", ids["prefill"])])
+    rt = await DistributedRuntime.create(store)
+    try:
+        # Every transferred page as the producer holds it: a sample of full
+        # blocks of the last run's prompts (first, middle, last) read
+        # through each side's kv_fetch endpoint.
+        fetch = {
+            "prefill": await rt.namespace("dynamo").component("prefill").endpoint(
+                "kv_fetch").client(),
+            "decode": await rt.namespace("dynamo").component("backend").endpoint(
+                "kv_fetch").client(),
+        }
+        for c in fetch.values():
+            await c.wait_for_instances(1, timeout=60)
+        checksums = {}
+        for rid in DISAGG_CHECKSUMMED:
+            full = compute_seq_hashes(by_id[rid][1], PAGE)
+            for j in sorted({0, len(full) // 2, len(full) - 1}):
+                got = {}
+                for side in ("prefill", "decode"):
+                    pages, _ = await fetch_pages(fetch[side], ids[side], [full[j]])
+                    if len(pages) != 1:
+                        raise AssertionError(f"{side} holds no page for {rid} block {j}")
+                    got[side] = hashlib.sha256(pages[0]).hexdigest()
+                checksums[f"{rid}[{j}]"] = got
+                if got["prefill"] != got["decode"]:
+                    raise AssertionError(f"{rid} block {j}: prefill page {got['prefill']}, "
+                                         f"decode page {got['decode']}")
+        # The data plane's throughput for one page window, from the
+        # prefill worker: its gather and landing included.
+        window = compute_seq_hashes(by_id["long"][1], PAGE)[:FETCH_WINDOW]
+        t0 = time.perf_counter()
+        pages, geometry = await fetch_pages(fetch["prefill"], ids["prefill"], window)
+        fetch_s = time.perf_counter() - t0
+        if len(pages) != len(window):
+            raise AssertionError(f"the prefill worker served {len(pages)} of {len(window)} pages")
+        window_bytes = sum(len(p) for p in pages)
+    finally:
+        await rt.shutdown()
+
+    # One request through the port's frontend: a prompt nobody holds, so
+    # it prefills remotely.
+    fresh = [int(t) for t in np.random.default_rng(99).integers(0, vocab, DISAGG_FRESH_LEN)]
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+        deadline = time.time() + 120
+        while True:
+            async with s.get(f"{base}/v1/models") as r:
+                models = {m["id"] for m in (await r.json())["data"]} if r.status == 200 else set()
+            if DISAGG_MODEL in models:
+                break
+            if time.time() > deadline:
+                raise TimeoutError(f"frontend models {models}")
+            await asyncio.sleep(0.5)
+        http = await http_stream(s, f"{base}/v1/completions", completion_body(
+            DISAGG_MODEL, fresh, {"temperature": 0.0}))
+        if len(http["logprobs"]) != MAX_TOKENS:
+            raise AssertionError(f"over HTTP: {len(http['logprobs'])} tokens")
+        async with s.get(f"http://127.0.0.1:{procs['decode_status']}/metrics") as r:
+            gauges = metric_samples(await r.text())
+    return {"runs": runs, "checksums": checksums,
+            "fetch": {"blocks": len(pages), "bytes": window_bytes, "ms": 1e3 * fetch_s,
+                      "geometry": geometry},
+            "http": {"ttft_ms": http["ttft_ms"], "tpot_ms": http["tpot_ms"]},
+            "gauges": {k: v for k, v in gauges.items() if k.startswith("dynamo_disagg_")
+                       or k.startswith("dynamo_kv_pool_")}}
+
+
+def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> dict:
+    """Disaggregated prefill and decode through the port's processes. An
+    aggregated worker runs the serving phase's 8 requests (100-2124 prompt
+    tokens) through the data-plane client, all at once and staggered, each
+    run from a cleared cache, and stops. Then a ``--role prefill`` and a
+    ``--role decode`` worker (model ``llama3-8b-disagg``) and the port's
+    frontend run the same: every prompt is over the decode worker's
+    default 50-token local limit. (One card holds two 8B workers with
+    their graph pools, not three.) The decode worker's greedy streams must
+    equal the aggregated worker's up to a measured near-tie
+    (:func:`hold_streams`); a sample of pages must read the same bytes
+    through the prefill and the decode worker's ``kv_fetch``; one fresh
+    prompt goes through the frontend over HTTP. The decode worker must
+    have imported blocks, with no local recompute, no failed pull and no
+    dropped block. Prints TTFT and ms per token both ways, blocks, bytes
+    and ms transferred per request and per block, the handoff's windows,
+    the data plane's throughput for a 32-block window, and K1's launches
+    in each worker."""
+    from dynamo_tpu_torch.engine.config import PRESETS
+
+    cfg = PRESETS[preset]()
+    reqs, late, _ = serving_requests(cfg.vocab_size)
+    by_id = {r[0]: r for r in reqs + [late]}
+    greedy = {rid for rid, _, samp in by_id.values() if samp.get("temperature") == 0.0}
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_disagg_"))
+    store_port, http_port, status_port = free_port(), free_port(), free_port()
+    store = f"127.0.0.1:{store_port}"
+    env = {**os.environ, "DYN_STORE_ADDRESS": store}
+    worker = [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", "--preset", preset,
+              "--seed", "0", "--device", device, "--obs-publish", "off"]
+    args = {
+        "agg": ["--model-name", "llama3-8b-agg", "--namespace", "agg"],
+        "prefill": ["--model-name", DISAGG_MODEL, "--role", "prefill"],
+        "decode": ["--model-name", DISAGG_MODEL, "--role", "decode"],
+    }
+    t0 = time.time()
+    procs: dict = {}
+    files = {name: open(logs / f"{name}.log", "w")
+             for name in ("store", "agg", "prefill", "decode", "frontend")}
+
+    def start(name):
+        wenv = {**env, "DYN_SYSTEM_ENABLED": "0"}
+        if name == "decode":  # its status server, for the disaggregation gauges
+            wenv = {**env, "DYN_SYSTEM_ENABLED": "1", "DYN_SYSTEM_PORT": str(status_port)}
+        procs[name] = subprocess.Popen(worker + args[name], cwd=ROOT, stdout=files[name],
+                                       stderr=subprocess.STDOUT, env=wenv)
+
+    async def serving(names) -> dict[str, int]:
+        role = {"agg": "aggregated", "prefill": "prefill", "decode": "decode"}
+        return {n: int((await wait_for_log(logs / f"{n}.log",
+                                           rf"torch {role[n]} worker (\d+) serving model",
+                                           procs[n], 900)).group(1)) for n in names}
+
+    def stop(name) -> dict:
+        stop_process(procs[name])
+        if procs[name].returncode != 0:
+            raise AssertionError(f"{name} exited with {procs[name].returncode}")
+        return worker_stats(logs / f"{name}.log")
+
+    stats = {}
+    try:
+        procs["store"] = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(store_port)],
+            cwd=ROOT, stdout=files["store"], stderr=subprocess.STDOUT)
+        wait_for_port(store_port, procs["store"], 30)
+        start("agg")
+        agg_id = asyncio.run(serving(["agg"]))["agg"]
+        t_agg = time.time()
+        agg_runs = asyncio.run(run_batches(store, "agg", "backend", agg_id, by_id, "agg"))
+        stats["agg"] = stop("agg")
+        start("prefill")
+        start("decode")
+        procs["frontend"] = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1",
+             "--http-port", str(http_port), "--router-mode", "kv"],
+            cwd=ROOT, stdout=files["frontend"], stderr=subprocess.STDOUT, env=env)
+        procs["decode_status"] = status_port
+        t_pd = time.time()
+        ids = asyncio.run(serving(["prefill", "decode"]))
+        t_pd_up = time.time()
+        got = asyncio.run(drive_disagg(store, f"http://127.0.0.1:{http_port}", procs, logs,
+                                       cfg.vocab_size, ids, by_id))
+        for name in ("decode", "prefill"):
+            stats[name] = stop(name)
+        stop_process(procs["frontend"])
+    except BaseException:
+        for name in files:
+            print(f"{name} log tail:\n{(logs / f'{name}.log').read_text(errors='replace')[-4000:]}",
+                  file=sys.stderr)
+        raise
+    finally:
+        for name, proc in procs.items():
+            if not isinstance(proc, int):
+                stop_process(proc, signal.SIGKILL if name != "store" else signal.SIGTERM, 10)
+        for f in files.values():
+            f.close()
+    wall_s = time.time() - t0
+
+    runs = {**{f"agg_{k}": v for k, v in agg_runs.items()},
+            **{f"disagg_{k}": v for k, v in got["runs"].items()}}
+    held = {kind: hold_streams(kind, runs[f"agg_{kind}"], runs[f"disagg_{kind}"], greedy)
+            for kind in ("batch", "staggered")}
+    d = stats["decode"]
+    dis, pool, xfer = d["disagg"], d["kv_pool"], d["transfer"]
+    remote = dis["remote_prefills"]
+    # The happy path: blocks imported, no request recomputed locally, no
+    # pull failed (a window pull, or the reply-gated pull a handoff whose
+    # cursor came after the prefill's reply takes), none dropped.
+    if (xfer["imported_blocks"] == 0 or dis["recompute_fallbacks"] or pool["pulls_fallback"]
+            or dis["handoffs_fallback"] or xfer["dropped_blocks"]
+            or remote + dis["local_prefills"] != 2 * len(by_id) + 1):
+        raise AssertionError(f"the decode worker's transfers: {dis}, {pool}, {xfer}")
+    for name, st in stats.items():
+        kernels = st["kernel_launches"]
+        if device == "cuda" and (
+                st["attention_launches"] != cfg.num_layers * (st["forwards"] + st["warm_up_forwards"])
+                or min(kernels[k] for k in ("ragged_paged_attention_decode_launch",
+                                            "ragged_paged_attention_tiled_launch")) == 0):
+            raise AssertionError(f"{name}: K1 launches {kernels} for {st['forwards']} forwards "
+                                 f"and {st['warm_up_forwards']} at warm-up")
+
+    def col(key, field):
+        return {r["rid"]: r[field] for r in runs[key]}
+
+    def median(key, field):
+        return float(np.median([r[field] for r in runs[key]]))
+
+    blocks = pool["blocks_pulled"]
+    summary = {
+        "wall_s": wall_s, "agg_up_s": t_agg - t0, "prefill_decode_up_s": t_pd_up - t_pd,
+        "streams": held, "checksums": got["checksums"],
+        "ttft_ms": {k: col(k, "ttft_ms") for k in runs},
+        "tpot_ms": {k: col(k, "tpot_ms") for k in runs},
+        "ttft_ms_median": {k: median(k, "ttft_ms") for k in runs},
+        "tpot_ms_median": {k: median(k, "tpot_ms") for k in runs},
+        "remote_prefills": remote, "local_prefills": dis["local_prefills"],
+        # A handoff that did not stream took the reply-gated pull.
+        "reply_gated_pulls": remote - dis["handoffs_streamed"],
+        "imported_blocks": xfer["imported_blocks"],
+        "blocks_per_request": xfer["imported_blocks"] / remote,
+        "bytes_per_request": pool["bytes_pulled"] / remote,
+        # Summed over the windows, which overlap across concurrent requests.
+        "transfer_ms_per_request": pool["pull_ms_total"] / remote,
+        "transfer_ms_per_block": pool["pull_ms_total"] / blocks if blocks else None,
+        "handoff": {k: dis[k] for k in ("handoffs_started", "handoffs_streamed",
+                                        "handoffs_fallback", "chunks_pulled", "early_chunks",
+                                        "blocks_streamed", "cursor_timeouts")},
+        "decode_worker": {"disagg": dis, "kv_pool": pool, "transfer": xfer},
+        "fetch_window": got["fetch"],
+        "fetch_window_gb_per_s": got["fetch"]["bytes"] / got["fetch"]["ms"] / 1e6,
+        "http": got["http"], "decode_gauges": got["gauges"],
+        "kernel_launches": {n: st["kernel_launches"] for n, st in stats.items()},
+        "forwards": {n: st["forwards"] + st["warm_up_forwards"] for n, st in stats.items()},
+        "decode_ms_per_iteration": {n: 1e3 * st["decode_loop_s"] / st["decode_iterations"]
+                                    for n, st in stats.items() if st["decode_iterations"]},
+    }
+    for kind in ("batch", "staggered"):
+        for rid in sorted(summary["ttft_ms"][f"agg_{kind}"]):
+            print(f"disagg {kind} {rid}: TTFT aggregated "
+                  f"{summary['ttft_ms'][f'agg_{kind}'][rid]:.1f} ms, disaggregated "
+                  f"{summary['ttft_ms'][f'disagg_{kind}'][rid]:.1f} ms; ms per token after the "
+                  f"first {summary['tpot_ms'][f'agg_{kind}'][rid]:.2f} vs "
+                  f"{summary['tpot_ms'][f'disagg_{kind}'][rid]:.2f}", flush=True)
+    print(f"disagg phase on {card}: {remote} remote prefills ({summary['reply_gated_pulls']} by "
+          f"the reply-gated pull), {xfer['imported_blocks']} blocks imported "
+          f"({summary['blocks_per_request']:.1f} per request, "
+          f"{summary['bytes_per_request'] / 1e6:.1f} MB), transfer "
+          f"{summary['transfer_ms_per_request']:.1f} ms per request, "
+          f"{summary['transfer_ms_per_block'] or 0:.3f} ms per block; handoff "
+          f"{summary['handoff']}; greedy streams equal {held['batch']['equal']}/"
+          f"{held['batch']['greedy']} at once, {held['staggered']['equal']}/"
+          f"{held['staggered']['greedy']} staggered; {len(got['checksums'])} pages equal on "
+          f"both sides; data plane {got['fetch']['blocks']} pages in {got['fetch']['ms']:.1f} ms "
+          f"({summary['fetch_window_gb_per_s']:.2f} GB/s); over HTTP TTFT "
+          f"{got['http']['ttft_ms']:.1f} ms; K1 launches by worker "
+          f"{json.dumps(summary['kernel_launches'])}; aggregated worker up after "
+          f"{summary['agg_up_s']:.1f} s, prefill and decode after "
+          f"{summary['prefill_decode_up_s']:.1f} s, phase wall {wall_s:.1f} s", flush=True)
+    return summary
+
+
 def kernel_entry(name, source, replaces, launches, shapes, main_shape, **extra) -> dict:
     """One kernel's record for the kernels line: the contract's keys from
     the main path's launch count and the main shape's measurements, then
@@ -2761,6 +3421,7 @@ def kernel_entry(name, source, replaces, launches, shapes, main_shape, **extra) 
 
 
 def main() -> int:
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -2843,6 +3504,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     frontend = serve_frontend(card, direct, direct_stats)
     print(f"frontend summary: {json.dumps(frontend)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"before the disaggregation phase: {memory_line()}", flush=True)
+    disagg = serve_disagg(card)
+    print(f"disagg summary: {json.dumps(disagg)}", flush=True)
 
     def k2_shapes_of(pages):
         return [s for s in k2_shapes if s["pages"] == pages]
@@ -2873,14 +3539,19 @@ def main() -> int:
             # processes start with the counts at 0).
             extra["frontend_phase_launches"] = sum(
                 w[name] for w in frontend["kernel_launches"].values())
+            # The disaggregation phase's three workers, warm-up included.
+            extra["disagg_phase_launches"] = {
+                role: w[name] for role, w in disagg["kernel_launches"].items()}
             if not int8:
                 extra["chunked_path_launches"] = chunked_counts[name]
+                extra["tier_path_launches"] = summary["tiers"]["kernel_launches"].get(name, 0)
                 extra["spec_path_launches"] = {run: c[name] for run, c in spec_counts.items()}
             k1.append(kernel_entry(
                 name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
                 main_rec, pages="int8" if int8 else "bf16", **extra,
                 planted_faults_row_rel_err={f: planted_of[f] for f in table[kernel]},
             ))
+    print(f"smoke wall {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": k1 + [
         kernel_entry("paged_attention_launch", k2_src, "dynamo_tpu/ops/paged_attention.py:216",
                      k2["launches"]["bf16"], k2_shapes_of("bf16"), k2_main("bf16"), pages="bf16",

@@ -2,45 +2,71 @@
 
 ``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
 --preset llama3-8b`` starts a worker process shaped like the JAX
-package's (``dynamo_tpu/backends/jax/main.py``), in its aggregated role:
-connect to the control-plane store named by ``DYN_STORE_ADDRESS``, build
-the engine on the card, publish KV events, load metrics and metric
-snapshots, serve ``/health`` and ``/metrics`` on its status server,
-register the model card and serve the ``generate`` endpoint over the TCP
+package's (``dynamo_tpu/backends/jax/main.py``): connect to the
+control-plane store named by ``DYN_STORE_ADDRESS``, build the engine on
+the card, publish KV events, load metrics and metric snapshots, serve
+``/health`` and ``/metrics`` on its status server, register the model
+card and serve the ``generate`` and ``kv_fetch`` endpoints over the TCP
 data plane. Its wire is the JAX worker's, so the port's frontend and KV
 router (``python -m dynamo_tpu_torch.frontend``) and the JAX package's
-route to it as to a JAX worker.
+route to it as to a JAX worker, and a fleet may mix the two.
+
+``--role prefill`` and ``--role decode`` split a request as the JAX
+worker does (decode first): the decode worker queues a long prompt's
+prefill on the store's ``prefill:{namespace}`` work queue
+(``--max-local-prefill-length``), a prefill worker runs it and holds the
+blocks, and the decode worker pulls them over ``kv_transfer``, streamed
+chunk by chunk while the prefill runs, and decodes on. ``--host-kv-blocks``
+and ``--disk-kv-dir`` add the host and disk KV tiers.
 
 :func:`build_engine` is the in-process entry point the worker wraps.
 The CLI takes the JAX worker's flags, less the tuning values of features
-it refuses (``--node-rank``, ``--max-local-prefill-length``), which
-argparse rejects; a value the port does not serve yet raises a
-``ValueError`` naming the ``ROADMAP.md`` item that brings it.
-``--spec-decode ngram --spec-k 4 [--spec-device-draft]`` turns on n-gram
-speculative decoding, drafted on the host or on the card.
+it refuses (``--node-rank``), which argparse rejects; a value the port
+does not serve yet raises a ``ValueError`` naming the ``ROADMAP.md`` item
+that brings it. ``--spec-decode ngram --spec-k 4 [--spec-device-draft]``
+turns on n-gram speculative decoding, drafted on the host or on the card.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import logging
+import time
+import uuid
 from typing import Any, AsyncIterator
 
-from dynamo_tpu_torch import tracing
+import msgpack
+import torch
+
+from dynamo_tpu_torch import knobs, tracing
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig, ModelConfig, tiny_engine
 from dynamo_tpu_torch.engine.core import EngineCore, check_slice, resolve_device
 from dynamo_tpu_torch.engine.engine import TorchEngine
 from dynamo_tpu_torch.engine.model import init_params_quantized
+from dynamo_tpu_torch.llm.disagg import DisaggConfig, DisaggRouter
+from dynamo_tpu_torch.llm.disagg_pool import (
+    ChunkCursorPublisher,
+    ChunkCursorWatcher,
+    StreamingHandoff,
+)
 from dynamo_tpu_torch.llm.discovery import register_llm
+from dynamo_tpu_torch.llm.kv_pool import PeerKvClient
 from dynamo_tpu_torch.llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard, ModelRuntimeConfig
+from dynamo_tpu_torch.llm.protocols.common import (
+    LLMEngineOutput,
+    PreprocessedRequest,
+    StopConditions,
+)
 from dynamo_tpu_torch.obs.slo import PhaseScanner
 from dynamo_tpu_torch.obs.snapshot import SnapshotPublisher
 from dynamo_tpu_torch.ops import ragged_attention
-from dynamo_tpu_torch.runtime import Context, DistributedRuntime
+from dynamo_tpu_torch.runtime import Context, DistributedRuntime, chaos, wire
 from dynamo_tpu_torch.runtime.status_server import (
+    bind_disagg_gauges,
     bind_fair_queue_gauges,
     bind_kv_cache_gauges,
     bind_kv_pool_gauges,
@@ -48,6 +74,8 @@ from dynamo_tpu_torch.runtime.status_server import (
     bind_spec_gauges,
     bind_store_gauges,
 )
+from dynamo_tpu_torch.runtime.store.client import StoreClient
+from dynamo_tpu_torch.runtime.tasks import spawn_logged
 from dynamo_tpu_torch.runtime.worker import dynamo_worker
 
 log = logging.getLogger("dynamo_tpu_torch.backends.torch")
@@ -75,6 +103,8 @@ def build_engine(
     quant: str | None = None,
     on_stored=None,
     on_removed=None,
+    on_tier_stored=None,
+    on_tier_removed=None,
 ) -> tuple[EngineCore, TorchEngine]:
     """Construct (EngineCore, TorchEngine) for a model preset.
 
@@ -86,7 +116,8 @@ def build_engine(
     as the JAX ``build_engine`` does); int8 KV pages are the engine
     override ``{"kv_dtype": "int8"}``. The engine shape comes from
     :func:`engine_configs`. ``on_stored`` and ``on_removed`` receive the
-    block allocator's KV events.
+    block allocator's KV events, ``on_tier_stored`` and ``on_tier_removed``
+    (both or neither) the offload tiers' tier-tagged ones.
     """
     dev = resolve_device(device)
     model_cfg, engine_cfg = engine_configs(preset, engine_overrides)
@@ -100,6 +131,7 @@ def build_engine(
         model_cfg, engine_cfg, params=params, seed=seed,
         eos_token_ids=eos_token_ids, device=dev,
         on_stored=on_stored, on_removed=on_removed,
+        on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
     )
     return core, TorchEngine(core)
 
@@ -133,12 +165,54 @@ def _model_card(model_name: str, tokenizer: str, core: EngineCore) -> ModelDeplo
 
 
 def _build_and_warm(preset, engine_overrides, seed, eos, quant, device, params,
-                    on_stored, on_removed) -> tuple[EngineCore, TorchEngine, int]:
+                    events) -> tuple[EngineCore, TorchEngine, int]:
+    on_stored, on_removed, on_tier_stored, on_tier_removed = events
     core, engine = build_engine(
         preset, engine_overrides, seed=seed, eos_token_ids=eos, device=device,
         params=params, quant=quant, on_stored=on_stored, on_removed=on_removed,
+        on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
     )
-    return core, engine, core.warm_up()
+    if core.device.type != "cuda":
+        return core, engine, core.warm_up()
+    # The weights' random draw and the warm-up's eager forwards leave
+    # their temporaries reserved in the caching allocator: hand them back,
+    # so that several workers fit on one card.
+    torch.cuda.empty_cache()
+    forwards = core.warm_up()
+    torch.cuda.empty_cache()
+    return core, engine, forwards
+
+
+def _prefill_queue(namespace: str) -> str:
+    """Store work-queue name for a namespace's prefill fleet."""
+    return f"prefill:{namespace}"
+
+
+async def _serve_kv_fetch(runtime, namespace: str, component: str, core: EngineCore) -> None:
+    """Peer block server: stream the longest locally held prefix of the
+    requested hash chain (device tier or offload tiers) as raw pages, the
+    page geometry first, as the JAX worker serves it."""
+
+    async def kv_fetch_handler(request: Any, context: Context) -> AsyncIterator[Any]:
+        hashes = list(request.get(wire.KV_HASHES) or [])
+        chunk = int(request.get(wire.KV_CHUNK_BLOCKS, 32))
+        yield {
+            wire.KV_VERSION: 2,
+            wire.KV_SHAPE: list(core._page_shape()),
+            wire.KV_DTYPE: core.kv_wire_dtype,
+        }
+        sent = 0
+        for s in range(0, len(hashes), chunk):
+            pages = await asyncio.to_thread(core.read_cached_pages, hashes[s : s + chunk])
+            if pages:
+                yield {wire.KV_VERSION: 2, wire.KV_START: sent, wire.KV_PAGES: pages}
+                sent += len(pages)
+            if len(pages) < min(chunk, len(hashes) - s):
+                break  # hash chains are prefixes: the first miss ends it
+        yield {wire.KV_VERSION: 2, wire.KV_DONE: sent}
+
+    ep = runtime.namespace(namespace).component(component).endpoint("kv_fetch")
+    await ep.serve(kv_fetch_handler)
 
 
 async def run_torch_worker(
@@ -146,10 +220,12 @@ async def run_torch_worker(
     model_name: str = "tiny",
     preset: str = "tiny",
     namespace: str = "dynamo",
-    component: str = "backend",
+    component: str | None = None,
     engine_overrides: dict[str, Any] | None = None,
     tokenizer: str = "byte",
     seed: int = 0,
+    role: str = "aggregated",
+    disagg_config: DisaggConfig | None = None,
     served_event: asyncio.Event | None = None,
     core_out: list | None = None,
     quant: str | None = None,
@@ -158,35 +234,54 @@ async def run_torch_worker(
     obs_publish: bool = True,
     obs_interval_s: float = 1.0,
 ) -> None:
-    """Serve one aggregated worker until the runtime shuts down.
+    """Serve one worker until the runtime shuts down, in the JAX worker's
+    roles (``aggregated``, ``prefill`` or ``decode``; ``component``
+    defaults to ``prefill`` for the prefill role, else ``backend``).
 
-    The aggregated path of the JAX package's ``run_jax_worker``: KV events
-    hop from the engine thread onto the loop, a graceful drain retracts
-    the published inventory, load metrics are published every 0.5 s, the
-    core's scheduler, speculation, KV-cache, fair-queue and KV-pool
-    counters are gauges on the status server (when the runtime has one)
-    and, with ``obs_publish``, metric snapshots every ``obs_interval_s``;
-    the model card is registered only once the engine is built and has
-    run its warm-up forwards, one of every shape it serves (off the loop,
-    so the store lease's keepalive keeps running through the weights'
-    draw, the kernels' build and the first forwards).
+    As the JAX package's ``run_jax_worker``: KV events hop from the engine
+    thread (and the offload worker's, tier-tagged) onto the loop, a
+    graceful drain retracts the published inventory, load metrics are
+    published every 0.5 s, the core's counters are gauges on the status
+    server (when the runtime has one) and, with ``obs_publish``, metric
+    snapshots every ``obs_interval_s``. Every role serves ``kv_fetch``;
+    the aggregated and decode roles pull a router's ``peer_prefix`` hint
+    from the peer before admission. The prefill role takes remote
+    prefills off the namespace's store work queue, holds their blocks and
+    serves them on ``kv_transfer``, advertising committed chunks on the
+    cursor plane; the decode role sends prompts longer than
+    ``disagg_config.max_local_prefill_length`` there while the queue is
+    short, pulls the blocks (streamed while the prefill runs, else after
+    its reply) and decodes on. The model card is registered only once the
+    engine is built and warmed up (off the loop, so the store lease's
+    keepalive keeps running).
     """
+    if role not in ("aggregated", "prefill", "decode"):
+        raise ValueError(f"unknown role {role!r}")
+    if component is None:
+        component = "prefill" if role == "prefill" else "backend"
     worker_id = runtime.primary_lease_id
     kv_pub = KvEventPublisher(runtime.store, namespace, component, worker_id)
     loop = asyncio.get_running_loop()
 
-    # KV events fire on the engine thread (core.step under to_thread); the
-    # publisher's bounded buffer lives on the loop.
+    # KV events fire on the engine thread (core.step under to_thread) and
+    # on the offload worker's thread (tier moves); the publisher's bounded
+    # buffer lives on the loop.
     def on_stored(hashes: list[int], parent: int | None) -> None:
         loop.call_soon_threadsafe(kv_pub.stored_nowait, list(hashes), parent)
 
     def on_removed(hashes: list[int]) -> None:
         loop.call_soon_threadsafe(kv_pub.removed_nowait, list(hashes))
 
+    def on_tier_stored(hashes: list[int], parent: int | None, tier: str) -> None:
+        loop.call_soon_threadsafe(kv_pub.stored_nowait, list(hashes), parent, tier)
+
+    def on_tier_removed(hashes: list[int], tier: str) -> None:
+        loop.call_soon_threadsafe(kv_pub.removed_nowait, list(hashes), tier)
+
     eos = await asyncio.to_thread(_eos_for, tokenizer)
     core, engine, warm_up_forwards = await asyncio.to_thread(
         _build_and_warm, preset, engine_overrides, seed, eos, quant, device, params,
-        on_stored, on_removed,
+        (on_stored, on_removed, on_tier_stored, on_tier_removed),
     )
     if core_out is not None:
         core_out.append(core)
@@ -206,15 +301,57 @@ async def run_torch_worker(
     )
     await metrics_pub.start()
 
+    # Every role serves its blocks to peers; the aggregated and decode
+    # roles also pull them (a prefill worker serves but never pulls).
+    await _serve_kv_fetch(runtime, namespace, component, core)
+    peer_kv: PeerKvClient | None = None
+    if role != "prefill":
+        fetch_client = await (
+            runtime.namespace(namespace).component(component).endpoint("kv_fetch").client()
+        )
+        peer_kv = PeerKvClient(core, fetch_client)
+
+    def _kv_pool_stats() -> dict:
+        st = kv_pub.stats()
+        if peer_kv is not None:
+            st.update(peer_kv.pool_stats())
+        return st
+
+    # Decode role: the streaming handoff's counters, and where each
+    # remotely prefilled request ended up (a fallback recomputes locally).
+    handoff: StreamingHandoff | None = None
+    routed = {"remote_prefills": 0, "local_prefills": 0, "recompute_fallbacks": 0}
+
+    def _disagg_stats() -> dict:
+        st = handoff.stats.as_dict() if handoff is not None else {}
+        return {**st, **routed, **core.transfer_stats}
+
     # Gauges on this worker's /metrics, read from the live core at scrape
-    # time, as the JAX worker binds them (the disaggregation gauges wait
-    # for the roles, ROADMAP.md A10).
+    # time, as the JAX worker binds them.
     bind_store_gauges(runtime.status, runtime.store)
     bind_scheduler_gauges(runtime.status, core.scheduler_stats)
     bind_spec_gauges(runtime.status, core.spec_decode_stats)
     bind_kv_cache_gauges(runtime.status, core.kv_cache_stats)
     bind_fair_queue_gauges(runtime.status, core.fair_queue_stats)
-    bind_kv_pool_gauges(runtime.status, kv_pub.stats)
+    bind_kv_pool_gauges(runtime.status, _kv_pool_stats)
+
+    if role == "decode":
+        disagg = DisaggRouter(disagg_config)
+        spawn_logged(
+            disagg.watch_store(runtime.store, namespace),
+            name="disagg-watch-store", logger=log,
+        )
+        prefill_client = await (
+            runtime.namespace(namespace).component("prefill").endpoint("generate").client()
+        )
+        transfer_client = await (
+            runtime.namespace(namespace).component("prefill").endpoint("kv_transfer").client()
+        )
+        if knobs.get_bool("DYN_DISAGG_STREAMING"):
+            cursor_watch = ChunkCursorWatcher(runtime.store, namespace)
+            await cursor_watch.start()
+            handoff = StreamingHandoff(peer_kv, cursor_watch, transfer_client)
+            bind_disagg_gauges(runtime.status, handoff.stats.as_dict)
 
     # Metric snapshots for the fleet aggregator: a loop task reading the
     # same host dicts, nothing on the engine thread. A graceful drain
@@ -228,8 +365,10 @@ async def run_torch_worker(
             "scheduler": core.scheduler_stats,
             "spec": core.spec_decode_stats,
             "kv_cache": core.kv_cache_stats,
-            "kv_pool": kv_pub.stats,
+            "kv_pool": _kv_pool_stats,
         }
+        if role == "decode":
+            snap_pub.collectors["disagg"] = _disagg_stats
         snap_pub.tenant_source = core.fair_queue_stats
         collector = tracing.get_collector()
         snap_pub.phase_source = collector.phase_totals
@@ -243,30 +382,412 @@ async def run_torch_worker(
 
     endpoint = runtime.namespace(namespace).component(component).endpoint("generate")
 
-    async def handler(request: Any, context: Context) -> AsyncIterator[Any]:
+    def _refuse_mm(request: dict) -> None:
         if (request.get("mm") or {}).get("images"):
             raise ValueError("multimodal requests are not ported yet (ROADMAP.md A11)")
-        # A router's peer_prefix hint is ignored: the prompt is recomputed
-        # until peer KV pulls are ported (ROADMAP.md A10).
-        async for out in engine.generate(request, context):
-            yield out
 
-    await endpoint.serve(handler)
-    await register_llm(endpoint, _model_card(model_name, tokenizer, core))
+    consumer: asyncio.Task | None = None
+    if role == "prefill":
+        consumer = await _serve_prefill_role(runtime, namespace, component, core, engine,
+                                              worker_id, endpoint, _refuse_mm)
+    elif role == "decode":
+        qname = _prefill_queue(namespace)
+
+        async def handler(request: Any, context: Context) -> AsyncIterator[Any]:
+            if request.get("embed") or request.get("clear_kv_blocks"):
+                async for out in engine.generate(request, context):
+                    yield out
+                return
+            _refuse_mm(request)
+            pre = PreprocessedRequest.from_wire(request)
+            pre.request_id = pre.request_id or context.id
+            hint = (pre.kv_transfer_params or {}).get("peer_prefix")
+            if hint and hint.get("worker_id") != worker_id:
+                await peer_kv.pull_prefix(hint, list(pre.token_ids))
+            cached = await asyncio.to_thread(core.cached_prefix_tokens, pre.token_ids)
+            uncached = len(pre.token_ids) - cached
+            fallback_replayed = 0  # tokens replayed by an in-worker fallback
+            depth = 0
+            if prefill_client.instance_ids():
+                try:
+                    depth = await runtime.store.queue_len(qname)
+                except Exception:  # noqa: BLE001 — store hiccup: stay local
+                    log.debug("queue_len failed; treating the prefill queue as "
+                              "full (local prefill)", exc_info=True)
+                    depth = disagg.config.max_prefill_queue_size + 1
+            if prefill_client.instance_ids() and disagg.decide(
+                uncached, depth, headers=context.headers, request_id=pre.request_id,
+            ):
+                routed["remote_prefills"] += 1
+                # What already reached the client: a mid-stream failure
+                # resumes by token replay, never replays tokens it has seen.
+                emitted: list[int] = []
+                try:
+                    async for out in _remote_prefill_then_decode(
+                        core, engine, pre, context, runtime.store, qname,
+                        transfer_client, emitted, tracer=disagg.tracer, handoff=handoff,
+                    ):
+                        yield out
+                    return
+                except Exception:
+                    log.exception("remote prefill failed for %s; falling back to local",
+                                  pre.request_id)
+                routed["recompute_fallbacks"] += 1
+                if emitted:
+                    stop = pre.stop.after_replay(len(emitted))
+                    if stop.max_tokens is not None:
+                        stop.max_tokens = max(1, stop.max_tokens)
+                    fallback_replayed = len(emitted)
+                    pre = dataclasses.replace(
+                        pre,
+                        token_ids=list(pre.token_ids) + emitted,
+                        stop=stop,
+                        kv_transfer_params=None,
+                        replayed_tokens=pre.replayed_tokens + len(emitted),
+                    )
+            else:
+                routed["local_prefills"] += 1
+            async for out in engine.generate(pre.to_wire(), context):
+                if fallback_replayed and out.get("finish_reason") is not None:
+                    # The engine counted the replayed tokens as prompt and
+                    # only its own output as completion: charge each once.
+                    if out.get("prompt_tokens") is not None:
+                        out["prompt_tokens"] -= fallback_replayed
+                    if out.get("completion_tokens") is not None:
+                        out["completion_tokens"] += fallback_replayed
+                yield out
+
+    else:
+        async def handler(request: Any, context: Context) -> AsyncIterator[Any]:
+            _refuse_mm(request)
+            hint = (request.get("kv_transfer_params") or {}).get("peer_prefix")
+            if hint and hint.get("worker_id") != worker_id and request.get("token_ids"):
+                await peer_kv.pull_prefix(hint, list(request["token_ids"]))
+            async for out in engine.generate(request, context):
+                yield out
+
+    if role != "prefill":
+        await endpoint.serve(handler)
+        await register_llm(endpoint, _model_card(model_name, tokenizer, core))
     log.info(
-        "torch aggregated worker %d serving model %r (preset %s, %d kv blocks, %s)",
-        worker_id, model_name, preset, core.engine.num_kv_blocks, core.device,
+        "torch %s worker %d serving model %r (preset %s, %d kv blocks, %s)",
+        role, worker_id, model_name, preset, core.engine.num_kv_blocks, core.device,
     )
     if served_event is not None:
         served_event.set()
     try:
         await runtime.wait_for_shutdown()
     finally:
+        if consumer is not None:
+            consumer.cancel()
         # The engine's counters over the worker's life, one JSON object:
         # the launches of each K1 kernel include the warm-up's forwards.
         stats = {**core.scheduler_stats(), "warm_up_forwards": warm_up_forwards,
-                 "kernel_launches": ragged_attention.kernel_launches}
+                 "kernel_launches": ragged_attention.kernel_launches,
+                 "role": role, "transfer": core.transfer_stats,
+                 "kv_pool": _kv_pool_stats(), "disagg": _disagg_stats()}
+        if core.offload is not None:
+            stats["tiers"] = core.tier_stats()
         log.info("torch worker %d stopping: %s", worker_id, json.dumps(stats))
+
+
+async def _serve_prefill_role(runtime, namespace, component, core, engine, worker_id,
+                              endpoint, refuse_mm) -> asyncio.Task:
+    """The prefill role: serve ``generate`` (descriptors tagged with this
+    worker's id) and ``kv_transfer`` (descriptors first, then page
+    windows), advertise committed chunks on the cursor plane, and start
+    the work-queue consumer, which pops a remote prefill only while an
+    admission slot is free, so the queue's length is the fleet's real
+    backlog. Returns the consumer task."""
+
+    async def handler(request: Any, context: Context) -> AsyncIterator[Any]:
+        refuse_mm(request)
+        async for out in engine.generate(request, context):
+            if out.get("kv_transfer_params"):
+                out["kv_transfer_params"]["worker_id"] = worker_id
+            yield out
+
+    cursor_pub = ChunkCursorPublisher(runtime.store, namespace, worker_id)
+    await cursor_pub.start()
+    core.on_chunk_commit = cursor_pub.engine_callback(asyncio.get_running_loop())
+
+    async def kv_transfer_handler(request: Any, context: Context) -> AsyncIterator[Any]:
+        rid = request[wire.KV_REQUEST_ID]
+        chunk = int(request.get(wire.KV_CHUNK_BLOCKS, 32))
+        # A windowed request (streaming handoff) asks for one committed
+        # window and keeps the hold unless it is the final window.
+        windowed = wire.KV_WINDOW_START in request
+        ws = int(request.get(wire.KV_WINDOW_START, 0))
+        wc = request.get(wire.KV_WINDOW_COUNT)
+        wc = int(wc) if wc is not None else None
+        release = (not windowed) or bool(request.get(wire.KV_WINDOW_FINAL))
+        try:
+            descs = core.export_descriptors(rid, start=ws, count=wc)
+        except KeyError:
+            yield {wire.KV_ERROR: f"no held blocks for {rid}"}
+            return
+        yield {wire.KV_VERSION: core.KV_WIRE_VERSION, wire.KV_BLOCKS: descs}
+        try:
+            for s in range(0, len(descs), chunk):
+                pages = await asyncio.to_thread(
+                    core.read_held_pages, rid, ws + s, min(chunk, len(descs) - s),
+                )
+                yield {wire.KV_VERSION: core.KV_WIRE_VERSION, wire.KV_START: s,
+                       wire.KV_PAGES: pages}
+        finally:
+            if release:
+                core.release_held(rid)
+
+    transfer_ep = runtime.namespace(namespace).component(component).endpoint("kv_transfer")
+    await transfer_ep.serve(kv_transfer_handler)
+    await endpoint.serve(handler)
+
+    qname = _prefill_queue(namespace)
+    sem = asyncio.Semaphore(core.engine.max_num_seqs)
+    inflight: set[asyncio.Task] = set()
+    # A pop waits up to a second on its store connection, and the store
+    # serves one connection's requests in order: on the worker's own
+    # connection each pop would hold back the replies, chunk cursors and
+    # KV events queued behind it. So the pops get a connection of their
+    # own.
+    qstore = await StoreClient.open(runtime.store.address)
+
+    async def _reply(key: str, payload: dict) -> None:
+        # A short-TTL lease: a reply the decode side never reads expires.
+        lease = await runtime.store.lease_grant(ttl=60.0, keepalive=False)
+        await runtime.store.kv_put(key, msgpack.packb(payload, use_bin_type=True), lease=lease)
+
+    async def _serve_queued(task: dict) -> None:
+        try:
+            req = task["request"]
+            # The decode side's traceparent rides the queued task.
+            tp = task.get("traceparent")
+            ctx = Context(
+                req.get("request_id") or f"qprefill-{uuid.uuid4().hex[:8]}",
+                headers={"traceparent": tp} if tp else None,
+            )
+            last: dict | None = None
+            async for out in engine.generate(req, ctx):
+                last = out
+            if last is None:
+                last = {"error": "prefill produced no output"}
+            if last.get("kv_transfer_params"):
+                last["kv_transfer_params"]["worker_id"] = worker_id
+            await _reply(task["reply_key"], last)
+        except Exception:
+            log.exception("queued prefill failed")
+            try:
+                await _reply(task["reply_key"], {"error": "remote prefill failed"})
+            except Exception:  # noqa: BLE001 — store down; the caller times out
+                log.warning("could not publish prefill-failure reply for %r",
+                            task.get("reply_key"), exc_info=True)
+        finally:
+            sem.release()
+
+    async def _consume_queue() -> None:
+        try:
+            while True:
+                await sem.acquire()
+                try:
+                    payload = await qstore.queue_pop(qname, timeout=1.0)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:  # noqa: BLE001 — store closed on shutdown
+                    log.debug("prefill queue pop failed; consumer exiting", exc_info=True)
+                    sem.release()
+                    return
+                if payload is None:
+                    sem.release()
+                    continue
+                try:
+                    task = msgpack.unpackb(payload, raw=False)
+                except (ValueError, msgpack.UnpackException):
+                    log.warning("dropping malformed prefill task")
+                    sem.release()
+                    continue
+                # A strong reference: the loop keeps only weak ones, and a
+                # collected task would leak its semaphore slot.
+                t = asyncio.create_task(_serve_queued(task))
+                inflight.add(t)
+                t.add_done_callback(inflight.discard)
+        finally:
+            await qstore.close()
+
+    return asyncio.create_task(_consume_queue())
+
+
+async def _remote_prefill_then_decode(
+    core: EngineCore, engine: TorchEngine, pre: PreprocessedRequest, context: Context,
+    store, qname: str, transfer_client, emitted: list[int] | None = None,
+    tracer=None, reply_timeout: float = 120.0, handoff: StreamingHandoff | None = None,
+) -> AsyncIterator[Any]:
+    """Decode-first disaggregation, as the JAX worker runs it: queue the
+    prefill (``max_tokens=1``, ``do_remote_decode``), pull its blocks and
+    continue decoding from the local prefix by replaying the first token.
+
+    ``emitted`` (if given) collects every token yielded to the caller, so
+    a mid-stream failure resumes instead of replaying the stream.
+    ``handoff`` streams committed chunk windows in while the remote
+    prefill still runs; a fully streamed handoff skips the reply-gated
+    pull. A streaming failure falls through to that pull, and failing that
+    to the caller's local recompute."""
+    prefill_req = dataclasses.replace(
+        pre,
+        stop=StopConditions(max_tokens=1, ignore_eos=True),
+        kv_transfer_params={"do_remote_decode": True},
+    )
+    reply_key = f"/dynamo/prefill-reply/{pre.request_id}-{uuid.uuid4().hex[:8]}"
+    sub = await store.kv_watch(reply_key, with_initial=False)
+    # Follow the chunk cursor BEFORE the queue push: the first committed
+    # chunks may land within the reply round trip.
+    stream_task: asyncio.Task | None = None
+    if handoff is not None:
+        stream_task = asyncio.create_task(handoff.run(pre.request_id))
+    first: dict | None = None
+    t_handoff = time.time()
+    try:
+        await store.queue_push(
+            qname,
+            msgpack.packb(
+                {
+                    "request": prefill_req.to_wire(),
+                    "reply_key": reply_key,
+                    "traceparent": (context.headers or {}).get("traceparent"),
+                },
+                use_bin_type=True,
+            ),
+        )
+        ev = await sub.get(timeout=reply_timeout)
+        event = StoreClient.as_watch_event(ev)
+        if event.value is not None:
+            first = msgpack.unpackb(event.value, raw=False)
+    finally:
+        if first is None and stream_task is not None:
+            stream_task.cancel()
+        await sub.unsubscribe()
+        await store.kv_del(reply_key)
+        if tracer is not None:
+            tracer.record(
+                "prefill_handoff", t_handoff, time.time(), headers=context.headers,
+                attrs={
+                    "request_id": pre.request_id,
+                    "prefill_tokens": len(pre.token_ids),
+                    "ok": first is not None and "error" not in (first or {}),
+                },
+            )
+    if first is None or "error" in first:
+        if stream_task is not None:
+            stream_task.cancel()
+        if first is None:
+            raise ConnectionError("prefill worker returned no output")
+        raise ConnectionError(f"remote prefill failed: {first['error']}")
+    out1 = LLMEngineOutput.from_wire(first)
+    xfer = out1.kv_transfer_params or {}
+    prefill_worker = xfer.get("worker_id")
+    rid = xfer.get("request_id")
+
+    # By reply time most chunks should be local: wait (bounded) for the
+    # in-flight tail. A fully streamed handoff sent the final window (the
+    # hold was released on the prefill side) and skips the pull below.
+    streamed = False
+    if stream_task is not None:
+        if stream_task.done():
+            streamed = bool(stream_task.result())
+        elif rid is None or handoff.watcher.cursor(rid) is None:
+            stream_task.cancel()  # no cursor ever came: pull now
+        else:
+            try:
+                streamed = bool(await asyncio.wait_for(stream_task, handoff.peer_kv.total_timeout_s))
+            except asyncio.TimeoutError:
+                streamed = False  # wait_for cancelled the tail
+
+    if prefill_worker is not None and rid is not None and streamed and tracer is not None:
+        tracer.record(
+            "kv_stream", t_handoff, time.time(), headers=context.headers,
+            attrs={"request_id": pre.request_id, "prefill_worker": prefill_worker,
+                   "chunks": handoff.stats.chunks_pulled, "streamed": True},
+        )
+    if prefill_worker is not None and rid is not None and not streamed:
+        descs: list[dict] | None = None
+        imported = total = dropped = 0
+        t_xfer = time.time()
+        if chaos.active():
+            # A severed pull surfaces as ConnectionError, which the decode
+            # handler degrades to local recompute and replay.
+            await chaos.inject("kv_transfer.pull", str(prefill_worker))
+        bstream = await transfer_client.direct(prefill_worker, {wire.KV_REQUEST_ID: rid})
+        async for frame in bstream:
+            if wire.KV_ERROR in frame:
+                log.warning("kv transfer aborted for %s: %s", rid, frame[wire.KV_ERROR])
+                break
+            ver = frame.get(wire.KV_VERSION)
+            if ver != 2:
+                raise ConnectionError(
+                    f"unsupported KV transfer wire version {ver!r} "
+                    "(mixed-version prefill/decode pair?)"
+                )
+            if wire.KV_BLOCKS in frame:
+                descs = frame[wire.KV_BLOCKS]
+                continue
+            if descs is None:
+                raise ConnectionError("KV transfer data frame before descriptors")
+            s = frame[wire.KV_START]
+            batch = [{**descs[s + j], wire.IMP_KV: kv} for j, kv in enumerate(frame[wire.KV_PAGES])]
+            total += len(batch)
+            # Chunk by chunk, beside the engine's own steps (the step lock
+            # is held per splice only).
+            res = await asyncio.to_thread(core.import_blocks, batch)
+            imported += res.imported
+            dropped += res.dropped
+        if dropped > 0:
+            log.warning(
+                "KV transfer for %s: %d/%d blocks dropped (allocator full); "
+                "the local prefill will recompute them", rid, dropped, total,
+            )
+        if tracer is not None:
+            tracer.record(
+                "kv_transfer", t_xfer, time.time(), headers=context.headers,
+                attrs={"request_id": pre.request_id, "prefill_worker": prefill_worker,
+                       "blocks": total, "imported": imported, "dropped": dropped},
+            )
+
+    token1 = out1.token_ids[0]
+    # The prefill's log-probability of token1 rides along (the JAX worker
+    # drops it, so its first disaggregated token has none).
+    first_chunk = LLMEngineOutput(token_ids=[token1], logprobs=out1.logprobs,
+                                  meta=dict(out1.meta, remote_prefill=True))
+    # The remote prefill ran with ignore_eos: check token1 against the
+    # request's own stop conditions before continuing.
+    finish = _first_token_finish(core, pre.stop, token1)
+    if finish is None and pre.stop.max_tokens is not None and pre.stop.max_tokens <= 1:
+        finish = out1.finish_reason or "length"
+    if emitted is not None:
+        emitted.append(token1)
+    if finish is not None:
+        first_chunk.finish_reason = finish
+        first_chunk.prompt_tokens = len(pre.token_ids)
+        first_chunk.completion_tokens = 1
+        yield first_chunk.to_wire()
+        return
+    yield first_chunk.to_wire()
+
+    cont = dataclasses.replace(
+        pre,
+        token_ids=list(pre.token_ids) + [token1],
+        stop=pre.stop.after_replay(1),
+        kv_transfer_params=None,
+    )
+    async for out in engine.generate(cont.to_wire(), context):
+        if emitted is not None:
+            emitted.extend(LLMEngineOutput.from_wire(out).token_ids)
+        yield out
+
+
+def _first_token_finish(core: EngineCore, stop: StopConditions, token: int) -> str | None:
+    """Stop check of a remotely prefilled first token (the prefill ran with
+    ignore_eos and no stop set); the caller handles max_tokens."""
+    reason = stop.check_token(token, 1, core.eos_token_ids)
+    return None if reason == "length" else reason
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -281,7 +802,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default; raises without a card) or cpu "
                          "(the kernels' plain PyTorch versions)")
     ap.add_argument("--namespace", default="dynamo")
-    ap.add_argument("--component", default=None, help="defaults to 'backend'")
+    ap.add_argument("--component", default=None,
+                    help="defaults to 'prefill' for --role prefill, else 'backend'")
     ap.add_argument("--tokenizer", default=None,
                     help="'byte' (default) or an HF tokenizer path "
                          "(a .gguf tokenizer waits for A7)")
@@ -331,7 +853,16 @@ def _parser() -> argparse.ArgumentParser:
                     help="seed of the random weights and of unseeded sampling")
     ap.add_argument("--quant", default=None, choices=["int8"],
                     help="int8 weight-only quantization")
-    ap.add_argument("--kv-dtype", default=None, choices=["bf16", "int8"])
+    ap.add_argument("--kv-dtype", default=None, choices=["bf16", "int8"],
+                    help="KV page dtype; align it across a fleet that transfers KV")
+    ap.add_argument("--host-kv-blocks", type=int, default=None,
+                    help="host-RAM KV tier (G2): blocks evicted from the card stay "
+                         "here and onboard on a prefix hit (0/unset = off)")
+    ap.add_argument("--disk-kv-dir", default=None,
+                    help="disk KV tier (G3) under this directory (needs "
+                         "--host-kv-blocks > 0; not shared with JAX workers)")
+    ap.add_argument("--disk-kv-blocks", type=int, default=None,
+                    help="disk tier capacity in blocks (unset = 4096)")
     ap.add_argument("--model-path", default=None)
     ap.add_argument("--moe-dispatch", default=None, choices=["replicated", "alltoall"])
     ap.add_argument("--tp", type=int, default=1)
@@ -349,19 +880,22 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--dist-init-addr", default=None)
     ap.add_argument("--nnodes", type=int, default=1)
     ap.add_argument("--local-cpu-devices", type=int, default=None)
+    ap.add_argument(
+        "--max-local-prefill-length", type=int, default=50,
+        help="decode role: prefills longer than this go to the prefill fleet",
+    )
     return ap
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise on the first flag value the port does not serve, naming the
     ``ROADMAP.md`` item that brings it. Engine settings outside the slice
-    (host and disk KV tiers, ring prefill, MoE presets) are refused by
-    ``build_engine`` the same way."""
+    (ring prefill, MoE presets) are refused by ``build_engine`` the same
+    way."""
     refusals = [
         (args.model_path is not None, "--model-path (checkpoints)", "A7"),
         ((args.tokenizer or "").endswith(".gguf"), "--tokenizer *.gguf", "A7"),
         (args.moe_dispatch is not None, "--moe-dispatch", "A11"),
-        (args.role != "aggregated", f"--role {args.role}", "A10"),
         (max(args.tp, args.dp, args.sp, args.pp) > 1, "--tp/--dp/--sp/--pp > 1", "A12"),
         (args.nnodes > 1 or args.dist_init_addr is not None
          or args.local_cpu_devices is not None,
@@ -389,6 +923,9 @@ def _overrides(args: argparse.Namespace) -> dict[str, Any]:
             "spec_device_draft": args.spec_device_draft,
             "megastep_k": args.megastep_k,
             "kv_dtype": args.kv_dtype,
+            "host_kv_blocks": args.host_kv_blocks,
+            "disk_kv_dir": args.disk_kv_dir,
+            "disk_kv_blocks": args.disk_kv_blocks,
             "async_exec": None if args.async_exec is None else args.async_exec == "on",
             "fair_scheduling": (
                 None if args.fair_scheduling is None else args.fair_scheduling == "on"
@@ -413,10 +950,12 @@ def main(argv: list[str] | None = None) -> None:
             model_name=args.model_name,
             preset=args.preset,
             namespace=args.namespace,
-            component=args.component or "backend",
+            component=args.component,
             engine_overrides=overrides,
             tokenizer=args.tokenizer or "byte",
             seed=args.seed,
+            role=args.role,
+            disagg_config=DisaggConfig(max_local_prefill_length=args.max_local_prefill_length),
             quant=args.quant,
             device=args.device,
             obs_publish=args.obs_publish == "on",

@@ -43,12 +43,25 @@ step N while N+1 runs. A step whose advance depends on the data (live
 drafts) commits before the next plan. The token streams are the
 synchronous loop's.
 
+KV tiers and transfer: with ``host_kv_blocks`` a block the allocator
+evicts is sliced and copied into pinned host memory on the engine's
+stream, and lands in the host (then disk) tier on the offload worker's
+thread (``engine/offload.py``); admission promotes tier hits back. A
+``do_remote_decode`` request holds its committed blocks after it finishes
+for a decode peer to pull (:meth:`EngineCore.export_descriptors`,
+:meth:`EngineCore.read_held_pages`), and :meth:`EngineCore.import_blocks`
+writes a peer's pages into this cache as cached prefix blocks. Host and
+wire pages keep the JAX package's layer-major layout and bytes. Every
+write into the cache is in place (``index_copy_``): the CUDA graphs hold
+the cache tensors' addresses.
+
 Settings outside this slice are refused by name with the ``ROADMAP.md``
 item that brings them; nothing is silently substituted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -64,7 +77,7 @@ from dynamo_tpu_torch.engine.block_allocator import DeviceBlockAllocator, OutOfB
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
 from dynamo_tpu_torch.engine.fair_queue import FairQueue
 from dynamo_tpu_torch.engine.graphs import GraphCache, Launch, Layout
-from dynamo_tpu_torch.engine.kv_quant import KV_DTYPES, kv_page_bytes
+from dynamo_tpu_torch.engine.kv_quant import KV_DTYPES, kv_page_bytes, pack_kv_page, unpack_kv_page
 from dynamo_tpu_torch.engine.model import (
     decode_tokens,
     forward_tokens,
@@ -92,6 +105,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 from dynamo_tpu_torch.llm.kv_router.protocols import ForwardPassMetrics, KvStats, WorkerStats
 from dynamo_tpu_torch.obs.flight_recorder import FlightRecorder
 from dynamo_tpu_torch.ops import ragged_attention
+from dynamo_tpu_torch.runtime import wire
 from dynamo_tpu_torch.runtime.engine import EngineOverloadedError
 from dynamo_tpu_torch.spec import SpecConfig, SpecStats, propose_ngram, resolve_spec_config
 from dynamo_tpu_torch.tokens import TokenBlockSequence, compute_seq_hashes
@@ -128,9 +142,9 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig) -> None:
         )
     if engine_cfg.spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {engine_cfg.spec_k}")
+    if engine_cfg.disk_kv_dir and engine_cfg.host_kv_blocks <= 0:
+        raise ValueError("disk_kv_dir (G3) requires host_kv_blocks > 0 (G2)")
     refusals = [
-        (engine_cfg.host_kv_blocks > 0 or bool(engine_cfg.disk_kv_dir),
-         "host/disk KV tiers (host_kv_blocks, disk_kv_dir)", "A10"),
         (engine_cfg.ring_prefill_threshold > 0,
          "ring_prefill_threshold > 0 (sequence-parallel prefill)", "A12"),
         (model_cfg.is_moe, f"MoE model {model_cfg.name!r}", "A11"),
@@ -225,6 +239,9 @@ class Sequence:
     # Every emitted token in order: the drafter's history past the prompt
     # (cleared on preemption, where the rebuilt prompt absorbs it).
     out_tokens: list[int] = field(default_factory=list)
+    # Disaggregation: a remote-decode prefill holds its blocks after it
+    # finishes until the decode worker pulls them.
+    hold_blocks: bool = False
     # -- overload robustness --
     tenant_id: str = ""
     priority: int = 0
@@ -628,6 +645,80 @@ class _PendingFetch:
 
 
 @dataclass
+class ImportResult:
+    """Per-call KV import outcome (also accumulated in transfer_stats):
+    ``dropped`` blocks arrived but found no free device block — the
+    decode side will recompute them."""
+    imported: int = 0
+    skipped: int = 0
+    dropped: int = 0
+
+    def __int__(self) -> int:
+        return self.imported
+
+
+# Float page dtypes by their wire name (the JAX package's numpy names).
+_WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+
+
+def _host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy. numpy has no bfloat16: bf16 pages stay on
+    the host as their raw 16-bit words (``uint16``), whose bytes are the
+    JAX package's bfloat16 bytes."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _raw_bytes(buf) -> np.ndarray:
+    """A page's bytes (``bytes`` or a host array) as a flat uint8 view."""
+    if isinstance(buf, (bytes, bytearray, memoryview)):
+        return np.frombuffer(buf, np.uint8)
+    return np.ascontiguousarray(buf).reshape(-1).view(np.uint8)
+
+
+class _Landing:
+    """Device pages on their way to the host: a non-blocking copy into a
+    pinned host tensor, enqueued on the engine's stream, and an event
+    recorded after it. :meth:`land` (and ``np.asarray``, which is how the
+    offload worker lands a page) waits on that event only, on whichever
+    thread calls it, never on the step. On the CPU the tensor is the
+    host copy already."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t
+
+    def land(self) -> np.ndarray:
+        """The pages as numpy, a view of the pinned buffer."""
+        if self.event is not None:
+            self.event.synchronize()
+        return _host_numpy(self.host)
+
+    def __array__(self, dtype=None, copy=None):
+        # Copied out of the pinned buffer, which goes back to PyTorch's
+        # pinned-memory cache for the next eviction (a host tier holding
+        # pinned pages would make every eviction allocate pinned memory).
+        a = np.array(self.land(), dtype=dtype, copy=True)
+        self.host = None
+        return a
+
+
+def _landing(pages):
+    """Start landing a page program's output (a tensor, or int8's
+    ``{kv, scale}``)."""
+    if isinstance(pages, dict):
+        return {k: _Landing(v) for k, v in pages.items()}
+    return _Landing(pages)
+
+
+@dataclass
 class _PlannedStep:
     """One planned-and-dispatched engine step awaiting commit.
 
@@ -744,6 +835,8 @@ class EngineCore:
         mesh: Any = None,
         on_stored: Callable[[list[int], int | None], None] | None = None,
         on_removed: Callable[[list[int]], None] | None = None,
+        on_tier_stored: Callable[[list[int], int | None, str], None] | None = None,
+        on_tier_removed: Callable[[list[int], str], None] | None = None,
     ):
         """``params`` is a parameter dict on ``device`` (``engine/convert``
         or a previous engine's ``core.params``); None initialises random
@@ -751,7 +844,10 @@ class EngineCore:
         serves one device until parallelism lands. ``on_stored`` and
         ``on_removed`` receive the allocator's KV events (block hashes
         committed under a parent, hashes evicted), called on the thread
-        that runs ``step()``."""
+        that runs ``step()``. With both ``on_tier_stored`` and
+        ``on_tier_removed``, offload-tier transitions publish tier-tagged
+        events (the offload worker's thread calls them too), as in the
+        JAX engine."""
         if mesh is not None:
             raise ValueError("device meshes are not ported yet (ROADMAP.md A12)")
         check_slice(model_cfg, engine_cfg)
@@ -810,6 +906,44 @@ class EngineCore:
             on_stored=on_stored,
             on_removed=on_removed,
         )
+        # The stream every step and every page program runs on: device
+        # work is ordered on it, as XLA orders the JAX engine's programs.
+        self._stream = (
+            torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        )
+        self.host_pool = None
+        self.disk_pool = None
+        self.offload = None
+        self._tier_aware = on_tier_stored is not None and on_tier_removed is not None
+        self._on_tier_stored = on_tier_stored
+        self._on_tier_removed = on_tier_removed
+        if engine_cfg.host_kv_blocks > 0:
+            from dynamo_tpu_torch.engine.host_cache import HostKvPool
+            from dynamo_tpu_torch.engine.offload import DiskKvPool, OffloadEngine
+
+            def _pool_removed(tier: str) -> Callable[[list[int]], None]:
+                # Tier-aware: the pool's eviction retracts THAT tier;
+                # otherwise the worker-level removed, as the JAX engine.
+                if self._tier_aware:
+                    return lambda hashes: self._on_tier_removed(hashes, tier)
+                return lambda hashes: self.allocator.on_removed(hashes)
+
+            self.host_pool = HostKvPool(
+                engine_cfg.host_kv_blocks, on_removed=_pool_removed("host")
+            )
+            if engine_cfg.disk_kv_dir:
+                self.disk_pool = DiskKvPool(
+                    engine_cfg.disk_kv_dir,
+                    engine_cfg.disk_kv_blocks,
+                    on_removed=_pool_removed("disk"),
+                )
+            self.offload = OffloadEngine(
+                self.host_pool,
+                self.disk_pool,
+                on_tier_stored=on_tier_stored if self._tier_aware else None,
+                on_tier_removed=on_tier_removed if self._tier_aware else None,
+            )
+            self.allocator.on_evict = self._offload_block
         self._inbox: deque[Sequence] = deque()   # thread-safe enqueue
         self.waiting: FairQueue = FairQueue(
             quantum=engine_cfg.fair_quantum_resolved,
@@ -830,7 +964,21 @@ class EngineCore:
         self._sched_tracer = tracing.get_tracer("sched")
         self._req_counter = 0
         self._lock = threading.Lock()
+        # Serializes step() against the cache surgery of other threads
+        # (import and export of transferred KV blocks).
         self._step_lock = threading.Lock()
+        # Finished remote-decode prefills whose blocks wait for their
+        # decode worker, and each hold's deadline (monotonic), refreshed
+        # by every transfer call and swept at the top of each step.
+        self._held: dict[str, Sequence] = {}
+        self._held_deadline: dict[str, float] = {}
+        # ``on_chunk_commit(request_id, committed_blocks, done)``: called
+        # under the step lock on the engine thread each time a
+        # hold_blocks sequence commits prefill blocks, and once with
+        # done=True when it finishes; it must not block or re-enter.
+        self.on_chunk_commit = None
+        # Measured per-peer pull costs, installed by PeerKvClient.
+        self.net_stats_source = None
         self.sched_stats = {
             "preemptions": 0,
             # Set by mixed (chunked) steps only; waves leave them at 0 as
@@ -842,8 +990,9 @@ class EngineCore:
             "shed_total": 0,
             "deadline_expired_total": 0,
         }
-        # Disaggregated KV transfer accounting, reported in
-        # ForwardPassMetrics.transfer; the transfer path waits for A10.
+        # Disaggregated KV transfer accounting (imported and dropped
+        # blocks apart: a dropped block is recomputed by the decode side),
+        # reported in ForwardPassMetrics.transfer.
         self.transfer_stats = {
             "transfers": 0,
             "imported_blocks": 0,
@@ -927,8 +1076,6 @@ class EngineCore:
                 f"scheduler queue full ({limit} requests waiting); "
                 f"retry on another instance"
             )
-        if (pre.kv_transfer_params or {}).get("do_remote_decode"):
-            raise ValueError("disaggregated prefill is not ported yet (ROADMAP.md A10)")
         if pre.mm and pre.mm.get("embeds") is not None:
             raise ValueError("multimodal embeddings are not ported yet (ROADMAP.md A11)")
         with self._lock:
@@ -962,6 +1109,8 @@ class EngineCore:
                 stop_token_ids=seq.stop.stop_token_ids,
                 ignore_eos=seq.stop.ignore_eos,
             )
+        if (pre.kv_transfer_params or {}).get("do_remote_decode"):
+            seq.hold_blocks = True
         # The request's spec_decode dict overrides the engine default
         # ("off" disables; k clamps to spec_k); a bad one is refused here.
         seq.spec = resolve_spec_config(self._spec_default, pre.spec_decode, self.engine.spec_k)
@@ -1124,6 +1273,10 @@ class EngineCore:
             cap = (P - 1) // bs
             cached_ids = self.allocator.acquire_cached(seq.prompt_hashes[:cap])
             ncached = len(cached_ids)
+            if self.host_pool is not None:
+                cached_ids, ncached = self._onboard_from_host(
+                    seq.prompt_hashes, cached_ids, ncached, cap
+                )
             need = -(-P // bs) - ncached
             if self.allocator.free_blocks - need < watermark and self.running:
                 self.allocator.release(seq.prompt_hashes[:ncached])
@@ -1156,6 +1309,11 @@ class EngineCore:
             seq.block_ids[idx] = canonical
             seq.pinned_hashes.append(blk.block_hash)
             seq.committed_blocks += 1
+        if completed and seq.hold_blocks and self.on_chunk_commit is not None:
+            # Streaming handoff: the committed prefix is immutable and
+            # readable from now on; a decode peer may pull it while this
+            # prefill keeps chunking.
+            self.on_chunk_commit(seq.request_id, seq.committed_blocks, False)
 
     def _assemble_ragged(
         self, rows: list[tuple[Sequence, list[int], int, int]], S: int,
@@ -1800,7 +1958,7 @@ class EngineCore:
         place. With it on, the step plans and dispatches iteration N+1
         BEFORE committing iteration N, so the returned outputs lag the
         dispatch by one call; the token stream is the same either way."""
-        with self._step_lock:
+        with self._step_lock, self._on_stream():
             return self._step_locked()
 
     def _step_locked(self) -> list[tuple[Sequence, LLMEngineOutput]]:
@@ -1882,6 +2040,7 @@ class EngineCore:
         iteration's device work. Cursor reads go through the optimistic
         overlay, so planning over an in-flight step sees the state that
         step will commit."""
+        self._sweep_expired_holds()
         for seq in [s for s in self.running if s.cancelled]:
             self.running.remove(seq)
             self._release_blocks(seq)
@@ -2753,6 +2912,8 @@ class EngineCore:
             out.finish_reason = finish
             out.prompt_tokens = seq.prompt_len
             out.completion_tokens = seq.generated
+            if seq.hold_blocks:
+                out.kv_transfer_params = self._held_params(seq)
         return out
 
     def _emit(self, seq: Sequence, token: int, lp: dict | None = None) -> LLMEngineOutput:
@@ -2771,12 +2932,50 @@ class EngineCore:
             out.finish_reason = finish
             out.prompt_tokens = seq.prompt_len
             out.completion_tokens = seq.generated
+            if seq.hold_blocks:
+                out.kv_transfer_params = self._held_params(seq)
         return out
+
+    def _held_params(self, seq: Sequence) -> dict:
+        """The kv_transfer_params a remote-decode prefill finishes with."""
+        return {
+            "request_id": seq.request_id,
+            "block_hashes": list(seq.pinned_hashes[: seq.committed_blocks]),
+            "block_size": self.engine.block_size,
+        }
 
     def _finish(self, seq: Sequence) -> None:
         if seq in self.running:
             self.running.remove(seq)
-        self._release_blocks(seq)
+        if not seq.hold_blocks:
+            self._release_blocks(seq)
+            return
+        self._held[seq.request_id] = seq
+        if self.engine.held_block_ttl_s > 0:
+            self._held_deadline[seq.request_id] = (
+                time.monotonic() + self.engine.held_block_ttl_s
+            )
+        if self.on_chunk_commit is not None:
+            # Final cursor: only the tail (if anything) remains for a
+            # streaming puller.
+            self.on_chunk_commit(seq.request_id, seq.committed_blocks, True)
+
+    def _sweep_expired_holds(self) -> None:
+        """Release held prefills whose decode side never came (timeout,
+        crash): abandoned holds would otherwise pin blocks until the
+        allocator starves."""
+        if not self._held_deadline:
+            return
+        now = time.monotonic()
+        for rid in [r for r, d in self._held_deadline.items() if d < now]:
+            self._held_deadline.pop(rid, None)
+            seq = self._held.pop(rid, None)
+            if seq is not None:
+                log.warning(
+                    "releasing expired held blocks for %s (ttl %.0fs)",
+                    rid, self.engine.held_block_ttl_s,
+                )
+                self._release_blocks(seq)
 
     def clear_kv_cache(self) -> int:
         """Drop every unpinned cached block; returns blocks cleared."""
@@ -2891,6 +3090,319 @@ class EngineCore:
                     launches.append((self._megastep_launch([seq] * width, k), k == 1))
         return launches
 
+    # -- tiered KV offload (G2 host / G3 disk) ------------------------------
+
+    def _on_stream(self):
+        """Run the enclosed device work on the engine's stream (from any
+        thread: PyTorch's current stream is per thread)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor on the engine's device without waiting for the
+        stream: a non-blocking copy out of pinned memory."""
+        if t.device.type == self.device.type:
+            return t
+        return (t if t.is_pinned() else t.pin_memory()).to(self.device, non_blocking=True)
+
+    def _index(self, ids: list[int]) -> torch.Tensor:
+        return self._to_device(torch.tensor(ids, dtype=torch.long))
+
+    def _offload_block(self, block_id: int, block_hash: int, parent: int | None) -> None:
+        """Device eviction hook: enqueue an async demotion of the block's
+        page. The slice and its copy to pinned memory are enqueued here,
+        on the engine's stream, so they read the page before any later
+        dispatch reuses the physical block; the offload worker's thread
+        waits for the copy."""
+        self.offload.submit(block_hash, parent, self._slice_page(block_id))
+
+    def _slice_page(self, block_id: int):
+        """One block's page in the host layout, ``[L, ps, 2kv, d]`` (int8:
+        ``{kv, scale}``), on its way to the host (:class:`_Landing`)."""
+        with self._on_stream():
+            if self.engine.kv_quantized:
+                return {
+                    k: _Landing(torch.stack([c[k][block_id] for c in self.cache]))
+                    for k in ("kv", "scale")
+                }
+            return _Landing(torch.stack([c[block_id] for c in self.cache]))
+
+    def _gather_pages(self, ids: list[int]):
+        """The pages of blocks ``ids`` on the device, layer-major ``[n, L,
+        ps, 2kv, d]`` (int8: ``{kv, scale}`` leaves ``[n, L, ...]``)."""
+        with self._on_stream():
+            idx = self._index(ids)
+            if self.engine.kv_quantized:
+                return {
+                    k: torch.stack([c[k].index_select(0, idx) for c in self.cache], dim=1)
+                    for k in ("kv", "scale")
+                }
+            return torch.stack([c.index_select(0, idx) for c in self.cache], dim=1)
+
+    def _scatter_pages(self, ids: list[int], pages) -> None:
+        """Write host pages (``[n, L, ...]`` tensors, int8: ``{kv, scale}``)
+        into blocks ``ids``, in place: the CUDA graphs captured the cache
+        tensors' addresses, so the cache is never rebound."""
+        with self._on_stream():
+            idx = self._index(ids)
+            if self.engine.kv_quantized:
+                dev = {k: self._to_device(v) for k, v in pages.items()}
+                for l, c in enumerate(self.cache):
+                    for k in ("kv", "scale"):
+                        c[k].index_copy_(0, idx, dev[k][:, l])
+            else:
+                dev = self._to_device(pages)
+                for l, c in enumerate(self.cache):
+                    c.index_copy_(0, idx, dev[:, l])
+
+    def _copy_pages_from(self, src: "EngineCore", sids: list[int], dids: list[int]) -> None:
+        """Device-direct copy of ``src``'s blocks ``sids`` into this
+        cache's ``dids``, in place, with no host staging."""
+        with self._on_stream():
+            if src._stream is not None and src._stream != self._stream:
+                self._stream.wait_stream(src._stream)
+            s_idx, d_idx = src._index(sids), self._index(dids)
+            for s, d in zip(src.cache, self.cache):
+                if isinstance(d, dict):
+                    for k in d:
+                        d[k].index_copy_(0, d_idx, s[k].index_select(0, s_idx))
+                else:
+                    d.index_copy_(0, d_idx, s.index_select(0, s_idx))
+
+    @property
+    def kv_wire_dtype(self) -> str:
+        """The dtype name KV pages carry on every tier and wire: "int8"
+        for quantized caches (packed pages — engine/kv_quant.py), else
+        the model dtype's numpy name ("bfloat16", as the JAX engine says)."""
+        if self.engine.kv_quantized:
+            return "int8"
+        return str(self.cfg.torch_dtype).removeprefix("torch.")
+
+    def _page_geometry(self) -> tuple[int, int, int, int]:
+        return (
+            self.cfg.num_layers,
+            self.engine.block_size,
+            self.cfg.num_kv_heads,
+            self.cfg.head_dim,
+        )
+
+    def _page_shape(self) -> tuple[int, int, int, int]:
+        return (
+            self.cfg.num_layers,
+            self.engine.block_size,
+            2 * self.cfg.num_kv_heads,
+            self.cfg.head_dim,
+        )
+
+    def _stage_page(self, kv):
+        """One host-side page (the canonical tier/wire representation —
+        packed uint8 for int8, a plain ``[L, ps, 2kv, d]`` array otherwise)
+        as the views :meth:`_stack_staged` copies from, its size checked
+        against the local geometry: the page's bytes, or int8's unpacked
+        ``{kv, scale}`` (bit for bit, never re-quantized)."""
+        if self.engine.kv_quantized:
+            q8, sc = unpack_kv_page(kv, *self._page_geometry())
+            return {"kv": q8, "scale": sc}
+        raw = _raw_bytes(kv)
+        want = int(np.prod(self._page_shape())) * self.cfg.torch_dtype.itemsize
+        if raw.size != want:
+            raise ValueError(f"KV page of {raw.size} bytes, the local geometry takes {want}")
+        return raw
+
+    def _stack_staged(self, pages: list, dtype: torch.dtype | None = None):
+        """Staged pages as one ``[n, L, ...]`` host batch (int8: ``{kv,
+        scale}``), each page copied once, into pinned memory on the card,
+        from which the scatter's copy to the device runs. ``dtype`` is the
+        float pages' dtype (default: the model's)."""
+        pin = self.device.type == "cuda"
+        n = len(pages)
+        if self.engine.kv_quantized:
+            out = {}
+            for k, dt in (("kv", torch.int8), ("scale", torch.float32)):
+                t = torch.empty((n, *pages[0][k].shape), dtype=dt, pin_memory=pin)
+                view = t.numpy()
+                for i, p in enumerate(pages):
+                    view[i] = p[k]
+                out[k] = t
+            return out
+        t = torch.empty((n, *self._page_shape()), dtype=dtype or self.cfg.torch_dtype,
+                        pin_memory=pin)
+        view = t.view(torch.uint8).numpy().reshape(n, -1)
+        for i, p in enumerate(pages):
+            view[i] = p
+        return t
+
+    def _fetch_page_bytes(self, pages, n: int) -> list[bytes]:
+        """Land a gather of ``n`` pages (:func:`_landing`) and serialize
+        each block to its canonical wire bytes (packed int8 + scales for
+        quantized caches, bit-stable across every hop)."""
+        if isinstance(pages, dict):
+            kv_h, sc_h = pages["kv"].land(), pages["scale"].land()
+            return [pack_kv_page(kv_h[i], sc_h[i]).tobytes() for i in range(n)]
+        host = pages.land()
+        return [np.ascontiguousarray(host[i]).tobytes() for i in range(n)]
+
+    def _onboard_from_host(
+        self, hashes: list[int], cached_ids: list[int], ncached: int, cap: int
+    ) -> tuple[list[int], int]:
+        """Extend a device-cached prefix with offload-tier hits: promote
+        each consecutive host/disk block back to the device and pin it.
+        The staged bytes scatter back exactly as stored, in one batch
+        (the JAX engine scatters block by block; the allocator sees the
+        same calls in the same order)."""
+        got: list[tuple[int, int, int | None, Any, str]] = []
+        while ncached + len(got) < cap and self.offload.contains(hashes[ncached + len(got)]):
+            h = hashes[ncached + len(got)]
+            hit = self.offload.fetch_tiered(h)
+            if hit is None:
+                break  # evicted between contains() and fetch()
+            parent_hash, kv, src_tier = hit
+            try:
+                bid = self.allocator.alloc_for_import()
+            except OutOfBlocksError:
+                self.offload.reinsert(h, parent_hash, kv)  # undo the pop
+                break
+            got.append((bid, h, parent_hash, kv, src_tier))
+        if not got:
+            return cached_ids, ncached
+        self._scatter_pages(
+            [bid for bid, *_ in got], self._stack_staged([self._stage_page(g[3]) for g in got])
+        )
+        for bid, h, parent_hash, _, src_tier in got:
+            # Tier-aware: the promotion publishes stored(device) through
+            # the allocator, then retracts the source tier (stored first,
+            # so the composed index never sees the worker empty). Legacy:
+            # the block never left the worker; no event.
+            self.allocator.register_inactive(bid, h, parent_hash, emit=self._tier_aware)
+            if self._tier_aware:
+                self._on_tier_removed([h], src_tier)
+            cached_ids.extend(self.allocator.acquire_cached([h]))
+        return cached_ids, ncached + len(got)
+
+    # -- disaggregated KV transfer (export on prefill, import on decode) ---
+    #
+    # v2 protocol, as the JAX engine's: descriptors first (hash chain and
+    # layout, no data, under the step lock), then page data in chunks. A
+    # chunk's gather and its copy to pinned memory are enqueued under the
+    # step lock, on the engine's stream; the wait for the copy runs
+    # unlocked (held blocks are pinned and cannot be rewritten).
+
+    KV_WIRE_VERSION = 2
+
+    def _streaming_seq(self, request_id: str) -> "Sequence | None":
+        """The RUNNING hold_blocks sequence for ``request_id``, if any —
+        the streaming-handoff source while its prefill is still chunking.
+        Cancel, preemption and finish all take the sequence out of
+        ``running``, so a mid-stream puller then sees KeyError and falls
+        back. Callers hold ``_step_lock``."""
+        for seq in self.running:
+            if seq.request_id == request_id and seq.hold_blocks:
+                return seq
+        return None
+
+    def export_descriptors(
+        self, request_id: str, start: int = 0, count: int | None = None
+    ) -> list[dict]:
+        """Phase 1: descriptor snapshot of a held prefill's committed
+        blocks (``start``/``count``: a committed-block window, for the
+        streaming handoff). The hold stays until :meth:`release_held`."""
+        with self._step_lock:
+            seq = self._held.get(request_id) or self._streaming_seq(request_id)
+            if seq is None:
+                raise KeyError(f"no held blocks for request {request_id}")
+            self._touch_hold(request_id)
+            shape = list(self._page_shape())
+            dtype = self.kv_wire_dtype
+            layout = {
+                "kind": "combined_kv_page",
+                "block_size": self.engine.block_size,
+                "tp": 1,
+                "kv_dtype": self.engine.kv_dtype,
+            }
+            if self.engine.kv_quantized:
+                layout["scale_dtype"] = "float32"
+                layout["scale_shape"] = shape[:-1]
+            lo = max(0, start)
+            hi = seq.committed_blocks
+            if count is not None:
+                hi = min(hi, lo + max(0, count))
+            descs: list[dict] = []
+            parent: int | None = seq.pinned_hashes[lo - 1] if lo > 0 else None
+            for i in range(lo, hi):
+                h = seq.pinned_hashes[i]
+                descs.append(
+                    {
+                        wire.IMP_HASH: h, wire.IMP_PARENT: parent,
+                        wire.IMP_SHAPE: shape, wire.IMP_DTYPE: dtype,
+                        wire.IMP_LAYOUT: layout,
+                    }
+                )
+                parent = h
+            return descs
+
+    def read_held_pages(self, request_id: str, start: int, count: int) -> list[bytes]:
+        """Phase 2: a chunk of a held prefill's committed pages as raw
+        bytes (``[L, block_size, 2*n_kv, d]`` each, int8: packed)."""
+        with self._step_lock:
+            seq = self._held.get(request_id) or self._streaming_seq(request_id)
+            if seq is None:
+                raise KeyError(f"no held blocks for request {request_id}")
+            self._touch_hold(request_id)
+            # Committed blocks only: export_descriptors describes exactly
+            # those, and the consumer zips data frames against them.
+            ids = seq.block_ids[: seq.committed_blocks][start : start + count]
+            if not ids:
+                return []
+            pages = _landing(self._gather_pages(ids))
+        return self._fetch_page_bytes(pages, len(ids))
+
+    def read_cached_pages(self, hashes: list[int]) -> list[bytes]:
+        """Non-destructive read of the longest locally held prefix of a
+        hash chain, for peer serving. Device blocks are pinned under one
+        step-lock acquisition and gathered at once; offload-tier blocks
+        are read from host RAM or disk. Stops at the first hash held
+        nowhere."""
+        where: list[tuple[str, int]] = []  # ("dev", block_idx) | ("off", hash)
+        dev_hashes: list[int] = []
+        pages = None
+        with self._step_lock:
+            dev_ids: list[int] = []
+            for h in hashes:
+                if self.allocator.is_cached(h):
+                    got = self.allocator.acquire_cached([h])  # pins
+                    if got:
+                        where.append(("dev", len(dev_ids)))
+                        dev_ids.append(got[0])
+                        dev_hashes.append(h)
+                        continue
+                if self.offload is not None and self.offload.contains(h):
+                    where.append(("off", h))
+                    continue
+                break
+            if dev_ids:
+                pages = _landing(self._gather_pages(dev_ids))
+        try:
+            dev_bytes = (
+                self._fetch_page_bytes(pages, len(dev_hashes)) if pages is not None else None
+            )
+            out: list[bytes] = []
+            for kind, ref in where:
+                if kind == "dev":
+                    out.append(dev_bytes[ref])
+                else:
+                    kv = self.offload.peek(ref)
+                    if kv is None:
+                        break  # evicted between contains() and peek()
+                    # Offload tiers store the canonical wire buffer.
+                    out.append(np.ascontiguousarray(kv).tobytes())
+            return out
+        finally:
+            # A raise above must not leave pins behind.
+            if dev_hashes:
+                with self._step_lock:
+                    self.allocator.release(dev_hashes)
+
     def cached_prefix_tokens(self, token_ids: list[int]) -> int:
         """Locally cached leading tokens."""
         hashes = compute_seq_hashes(token_ids, self.engine.block_size)
@@ -2898,11 +3410,202 @@ class EngineCore:
             return self.allocator.match_prefix(hashes) * self.engine.block_size
 
     def kv_inventory(self) -> list[tuple[str, int, int | None]]:
-        """(tier, hash, parent) of every cached block: the payload the KV
-        event publisher re-publishes after an indexer reports a gap. Only
-        the device tier exists until the host and disk tiers land (A10)."""
+        """(tier, hash, parent) of every cached block across the device
+        and offload tiers: the payload the KV event publisher re-publishes
+        after an indexer reports a gap."""
         with self._step_lock:
-            return [("device", h, parent) for h, parent in self.allocator.snapshot()]
+            out: list[tuple[str, int, int | None]] = [
+                ("device", h, parent) for h, parent in self.allocator.snapshot()
+            ]
+        if self.offload is not None:
+            out.extend(self.offload.snapshot())
+        return out
+
+    def tier_stats(self) -> dict:
+        """The offload tiers' counters: blocks offloaded into, onboarded
+        from and evicted out of each tier, and its residency."""
+        out = {}
+        for tier, pool in (("host", self.host_pool), ("disk", self.disk_pool)):
+            if pool is not None:
+                st = pool.stats
+                out[tier] = {"offloads": st.offloads, "onboards": st.onboards,
+                             "evictions": st.evictions, "resident": len(pool)}
+        return out
+
+    def _touch_hold(self, request_id: str) -> None:
+        """Refresh a hold's expiry: an in-flight transfer must not lose its
+        blocks between chunks. Callers hold ``_step_lock``."""
+        if self.engine.held_block_ttl_s > 0 and request_id in self._held_deadline:
+            self._held_deadline[request_id] = (
+                time.monotonic() + self.engine.held_block_ttl_s
+            )
+
+    def chunk_cursor(self, request_id: str) -> tuple[int, bool]:
+        """The streaming-handoff cursor: (committed blocks readable now,
+        prefill finished). KeyError when the request holds nothing."""
+        with self._step_lock:
+            seq = self._held.get(request_id)
+            if seq is not None:
+                return seq.committed_blocks, True
+            seq = self._streaming_seq(request_id)
+            if seq is None:
+                raise KeyError(f"no held blocks for request {request_id}")
+            return seq.committed_blocks, False
+
+    def release_held(self, request_id: str) -> None:
+        with self._step_lock:
+            self._held_deadline.pop(request_id, None)
+            seq = self._held.pop(request_id, None)
+            if seq is not None:
+                self._release_blocks(seq)
+                return
+            # Still running (a streaming handoff abandoned early): drop the
+            # hold, so _finish releases the blocks at once and
+            # _streaming_seq serves no more windows.
+            seq = self._streaming_seq(request_id)
+            if seq is not None:
+                seq.hold_blocks = False
+
+    def import_blocks(self, blocks: list[dict]) -> ImportResult:
+        """Write transferred KV pages into the local cache as inactive
+        cached content; a following admission prefix-matches them. Returns
+        the per-call outcome (already-cached hashes are skipped). The
+        pages are staged on the host first; under the step lock one
+        batched in-place scatter on the engine's stream writes them (the
+        caller runs this on a worker thread, whose current stream is not
+        the engine's).
+
+        int8 pages arrive as the canonical packed buffer and scatter bit
+        for bit, never re-quantized; a mismatch where either side is int8
+        fails fast. A float mismatch (bf16 producer, f32 consumer) is
+        cast on the host."""
+        expected = self._page_shape()
+        local = self.cfg.torch_dtype
+        staged: list[tuple[int, int | None, Any]] = []
+        for blk in blocks:
+            shape = tuple(blk[wire.IMP_SHAPE])
+            if shape != expected:
+                kind = (blk.get(wire.IMP_LAYOUT) or {}).get("kind", "combined_kv_page")
+                if kind != "combined_kv_page":
+                    raise ValueError(f"unknown producer KV layout {kind!r}; cannot relayout")
+                if shape[1] != expected[1]:
+                    raise ValueError(
+                        f"producer block_size {shape[1]} != local "
+                        f"{expected[1]}: hash domains are disjoint, refusing "
+                        "import (align kv_block_size across the P/D fleet)"
+                    )
+                raise ValueError(
+                    f"incompatible KV page geometry {shape} vs local "
+                    f"{expected} (different model config?)"
+                )
+            wire_dtype = str(blk[wire.IMP_DTYPE])
+            if (wire_dtype == "int8") != self.engine.kv_quantized:
+                raise ValueError(
+                    f"KV dtype mismatch: producer pages are {wire_dtype!r} "
+                    f"but this worker's kv_dtype is "
+                    f"{self.engine.kv_dtype!r} — refusing to import "
+                    "(re-quantizing would break the quantize-once "
+                    "invariant; align --kv-dtype across the fleet)"
+                )
+            if not self.engine.kv_quantized and wire_dtype not in _WIRE_DTYPES:
+                raise ValueError(f"unknown KV page dtype {wire_dtype!r}")
+            if not self.engine.kv_quantized and _WIRE_DTYPES[wire_dtype] != local:
+                # A float fleet of mixed precision (a bf16 producer, an f32
+                # consumer): cast on the host, before staging.
+                page = torch.from_numpy(_raw_bytes(blk[wire.IMP_KV]).copy())
+                page = _raw_bytes(_host_numpy(page.view(_WIRE_DTYPES[wire_dtype]).to(local)))
+            else:
+                page = blk[wire.IMP_KV]
+            # Validates the page's size (int8: the packed size).
+            staged.append((blk[wire.IMP_HASH], blk[wire.IMP_PARENT], self._stage_page(page)))
+
+        with self._step_lock:
+            ids: list[int] = []
+            pages: list = []
+            pending: list[tuple[int, int, int | None]] = []
+            skipped = 0
+            for h, parent, page in staged:
+                if self.allocator.is_cached(h):
+                    skipped += 1
+                    continue
+                try:
+                    bid = self.allocator.alloc_for_import()
+                except OutOfBlocksError:
+                    break
+                ids.append(bid)
+                pages.append(page)
+                pending.append((bid, h, parent))
+            if ids:
+                self._scatter_pages(ids, self._stack_staged(pages))
+                for bid, h, parent in pending:
+                    self.allocator.register_inactive(bid, h, parent)
+            return self._account_transfer(len(staged), len(ids), skipped)
+
+    def _account_transfer(self, total: int, imported: int, skipped: int) -> ImportResult:
+        """Update transfer_stats for one import call (the caller holds the
+        step lock) and return the per-call outcome."""
+        dropped = total - imported - skipped
+        st = self.transfer_stats
+        st["transfers"] += 1
+        st["imported_blocks"] += imported
+        st["skipped_cached_blocks"] += skipped
+        st["dropped_blocks"] += dropped
+        if dropped > 0:
+            st["partial_transfers"] += 1
+            log.warning(
+                "partial KV import: %d/%d transferred blocks dropped "
+                "(allocator full) — decode will recompute them",
+                dropped, total,
+            )
+        return ImportResult(imported=imported, skipped=skipped, dropped=dropped)
+
+    def import_blocks_direct(self, src: "EngineCore", request_id: str) -> ImportResult:
+        """Device-direct KV pull from a source core on the same device:
+        one gather out of the source cache and one in-place scatter into
+        this one per layer, no host staging. Both step locks are held for
+        the copy, taken in id() order so mutual pulls cannot deadlock."""
+        if src is self:
+            raise ValueError("cannot direct-import from self")
+        if src.device != self.device:
+            raise ValueError(
+                f"direct import needs both caches on one device ({src.device} vs "
+                f"{self.device}); use the staged wire path instead"
+            )
+        if src.engine.kv_dtype != self.engine.kv_dtype:
+            raise ValueError(
+                f"KV dtype mismatch: source core stores "
+                f"{src.engine.kv_dtype!r} pages but this core is "
+                f"{self.engine.kv_dtype!r} — refusing direct import "
+                "(align --kv-dtype across the fleet)"
+            )
+        descs = src.export_descriptors(request_id)
+        first, second = (src, self) if id(src) < id(self) else (self, src)
+        with first._step_lock, second._step_lock:
+            seq = src._held.get(request_id)
+            if seq is None:
+                raise KeyError(f"no held blocks for request {request_id}")
+            src._touch_hold(request_id)
+            all_src_ids = seq.block_ids[: seq.committed_blocks]
+            ids: list[int] = []
+            src_ids: list[int] = []
+            pending: list[tuple[int, int, int | None]] = []
+            skipped = 0
+            for row, d in enumerate(descs):
+                if self.allocator.is_cached(d[wire.IMP_HASH]):
+                    skipped += 1
+                    continue
+                try:
+                    bid = self.allocator.alloc_for_import()
+                except OutOfBlocksError:
+                    break
+                ids.append(bid)
+                src_ids.append(all_src_ids[row])
+                pending.append((bid, d[wire.IMP_HASH], d[wire.IMP_PARENT]))
+            if ids:
+                self._copy_pages_from(src, src_ids, ids)
+                for bid, h, parent in pending:
+                    self.allocator.register_inactive(bid, h, parent)
+            return self._account_transfer(len(descs), len(ids), skipped)
 
     # -- observability -----------------------------------------------------
 
@@ -2971,8 +3674,9 @@ class EngineCore:
 
     def metrics(self) -> ForwardPassMetrics:
         """Load metrics as the JAX engine reports them: ``spec_decode``
-        once speculation is configured or a request used it, ``net`` None
-        (peer pulls come with A10)."""
+        once speculation is configured or a request used it, ``net`` the
+        measured per-peer pull costs once a PeerKvClient installed its
+        source."""
         alloc = self.allocator
         return ForwardPassMetrics(
             worker=WorkerStats(
@@ -3000,6 +3704,11 @@ class EngineCore:
             spec_decode=(
                 self.spec_decode_stats()
                 if self._spec_default is not None or self.spec_stats.verify_rows
+                else None
+            ),
+            net=(
+                self.net_stats_source() or None
+                if self.net_stats_source is not None
                 else None
             ),
         )

@@ -87,6 +87,15 @@ COPIES = [
     "spec/config.py",
     "spec/ngram.py",
     "spec/stats.py",
+    # KV tiers, transfer and disaggregation.
+    "engine/host_cache.py",
+    "engine/offload.py",
+    "llm/disagg/__init__.py",
+    "llm/disagg/router.py",
+    "llm/disagg/target.py",
+    "llm/disagg_pool/__init__.py",
+    "llm/disagg_pool/cursor.py",
+    "llm/disagg_pool/handoff.py",
 ]
 
 

@@ -42,7 +42,11 @@ def test_cpu_engine_leaves_jax_unimported():
         "import dynamo_tpu_torch.llm.tokenizer, dynamo_tpu_torch.obs.flight_recorder\n"
         "import dynamo_tpu_torch.backends.torch.main, dynamo_tpu_torch.frontend.main\n"
         "import dynamo_tpu_torch.llm.kv_router.native_radix, dynamo_tpu_torch.llm.kv_pool\n"
-        "core, engine = build_engine('tiny', device='cpu')\n"
+        "import dynamo_tpu_torch.llm.disagg, dynamo_tpu_torch.llm.disagg_pool\n"
+        "import dynamo_tpu_torch.engine.host_cache, dynamo_tpu_torch.engine.offload\n"
+        "import tempfile\n"
+        "core, engine = build_engine('tiny', {'host_kv_blocks': 8, 'disk_kv_dir': "
+        "tempfile.mkdtemp()}, device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dynamo_tpu')]\n"
         "print('LEAKED', bad) if bad else print('CLEAN')\n"
     )
@@ -54,19 +58,30 @@ def test_cpu_engine_leaves_jax_unimported():
 
 
 @pytest.mark.parametrize(
-    "overrides, item",
+    "overrides, refusal",
     [
-        ({"disk_kv_dir": "kv"}, "A10"),
-        ({"kv_dtype": "int8", "host_kv_blocks": 16}, "A10"),
-        ({"host_kv_blocks": 16}, "A10"),
+        ({"disk_kv_dir": "kv"}, r"disk_kv_dir \(G3\) requires host_kv_blocks > 0 \(G2\)"),
+        ({"kv_dtype": "int8", "host_kv_blocks": 16}, None),
+        ({"host_kv_blocks": 16}, None),
         ({"ring_prefill_threshold": 64}, "A12"),
     ],
+    ids=["overrides0-A10", "overrides1-A10", "overrides2-A10", "overrides3-A12"],
 )
-def test_unported_settings_refused(overrides, item):
+def test_unported_settings_refused(overrides, refusal, tmp_path):
+    """What the slice does not serve is refused by the ROADMAP item that
+    brings it. The host KV tier (A10) is served: those settings build an
+    engine with the tier, and a disk directory without a host tier is
+    refused with the JAX engine's message."""
     from dynamo_tpu_torch.backends.torch.main import build_engine
 
-    with pytest.raises(ValueError, match=item):
-        build_engine("tiny", overrides, device="cpu")
+    if refusal is not None:
+        with pytest.raises(ValueError, match=refusal):
+            build_engine("tiny", overrides, device="cpu")
+        return
+    core, _ = build_engine("tiny", overrides, device="cpu")
+    assert core.host_pool is not None and core.host_pool.capacity == 16
+    assert core.allocator.on_evict == core._offload_block
+    assert core.engine.kv_dtype == overrides.get("kv_dtype", "bf16")
 
 
 @pytest.mark.parametrize(
