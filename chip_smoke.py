@@ -65,7 +65,18 @@ host and disk tiers behind it, 8 prompts of 2000 tokens and their
 repeats, onboarded bytes and streams held to the main path engine's) and
 the page programs (:func:`page_programs`: gather, scatter, direct copy,
 the eviction slice, D2H and H2D of 1, 8 and 64 blocks against their byte
-bounds, bf16 and int8), (6) runs the worker process:
+bounds, bf16 and int8), then an embedding (:func:`check_embed`: the
+vector against the mean-pooled prefill hidden states, the serving
+cache's pages unchanged) and image requests (:func:`check_images`: the
+image's prefill eager, no capture, tokens and log-probabilities equal
+with every dispatch eager, other streams without the image or with
+another, the repeat cached and equal up to a near-tie) on the bf16
+engine; with the llama3-8b engines freed, the MoE
+phase (:func:`serve_moe`: 16 of Mixtral-8x7B's 32 layers at full width,
+bf16, one layer's MoE MLP against its f32 CPU version, warm-up, 8
+prompts in one wave with TTFT and decode ms beside their bounds, K1 at 16
+launches per forward, graph against eager with tokens and
+log-probabilities equal, the idle share, a chunked mixed step), (6) runs the worker process:
 the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
 ``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
 --preset llama3-8b --seed 0`` as subprocesses, waits for the model card
@@ -116,6 +127,7 @@ from __future__ import annotations
 
 import asyncio
 import ctypes
+import dataclasses
 import gc
 import json
 import os
@@ -1084,6 +1096,7 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     spec = None if int8 else serve_spec(ra, card, core)
     tiers = None if int8 else serve_tiers(ra, card, core)
     pages = page_programs(core, mode)
+    mm = None if int8 else {"embed": check_embed(ra, core), "images": check_images(ra, core)}
     return by_entry, {
         "mode": mode, "attention_launches": launches, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
         "bytes_per_block": core.kv_cache_stats()["bytes_per_block"],
@@ -1091,8 +1104,488 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
         "logits_cosine": logit_check["cosine"], "warm_up": warm,
         "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
         "graph_against_eager": graph_check, "graphs_sync_async": modes,
-        "chunked": chunked, "spec": spec, "tiers": tiers, "page_programs": pages,
+        "chunked": chunked, "spec": spec, "tiers": tiers, "page_programs": pages, "mm": mm,
     }
+
+
+# -- multimodal rows and embeddings (in process, on the main path's engine) -----
+
+MM_TEXT = 200       # prompt tokens before the image's placeholders
+MM_TOKENS = 32      # tokens each image request decodes
+MM_LOGPROBS = 2     # each token's top 2: the near-tie rule reads the gap between them
+EMBED_PROMPT = 300
+EMBED_PAGES = 16    # serving-cache pages whose bytes are hashed around the embedding
+# The embedding against the mean of the same prompt's prefill hidden states:
+# both run the same kernels on the same rows, the embedding at the 512-token
+# bucket (its products at another M, so another cuBLAS order). bf16 rounds
+# at 2**-8 at each of 32 layers; the vectors must point the same way and
+# differ by at most 3e-2 of their norm.
+EMBED_MIN_COSINE = 0.999
+EMBED_REL_TOL = 3e-2
+
+
+def data_url(payload: bytes) -> str:
+    import base64
+
+    return "data:application/octet-stream;base64," + base64.b64encode(payload).decode()
+
+
+IMG_A = data_url(b"a cat sitting on a red mat" * 9)
+IMG_B = data_url(b"a dog running on green grass" * 9)
+
+
+def mm_wire(rid: str, prompt: list[int], img: str, cfg, with_image=True) -> dict:
+    """A greedy request whose prompt has ``img``'s placeholder tokens after
+    ``MM_TEXT`` text tokens, with the encoder's rows in ``mm`` (or, without
+    the image, the same tokens alone)."""
+    from dynamo_tpu_torch.llm.multimodal import MM_PATCHES, image_bytes, patch_embed, pseudo_tokens
+
+    toks = prompt[:MM_TEXT] + pseudo_tokens(img, cfg.vocab_size) + prompt[MM_TEXT:]
+    req = wire(rid, toks, {"temperature": 0.0}, logprobs=MM_LOGPROBS)
+    req["stop"] = {"max_tokens": MM_TOKENS}
+    if with_image:
+        emb = patch_embed(image_bytes(img), cfg.hidden_size)
+        req["mm"] = {"images": [img], "positions": [[MM_TEXT, MM_PATCHES]],
+                     "embeds": emb.tobytes(), "embeds_shape": list(emb.shape)}
+    return req
+
+
+def run_wires(core, reqs: list[dict]) -> dict:
+    """Requests added together to a synchronous engine and stepped to the
+    end: each one's tokens, logprob entries, cached tokens and time to the
+    step that emitted its first token."""
+    from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+    t0 = time.perf_counter()
+    seqs = {core.add_request(PreprocessedRequest.from_wire(r)).request_id: r for r in reqs}
+    out = {rid: {"tokens": [], "logprobs": [], "ttft_ms": None} for rid in seqs}
+    by_rid = {}
+    while core.has_work():
+        for s, o in core.step():
+            by_rid[s.request_id] = s
+            got = out[s.request_id]
+            got["tokens"] += o.token_ids
+            got["logprobs"] += o.logprobs or []
+            if got["ttft_ms"] is None and o.token_ids:
+                got["ttft_ms"] = 1e3 * (time.perf_counter() - t0)
+    for rid, got in out.items():
+        got["cached_tokens"] = by_rid[rid].num_cached_tokens
+        want = seqs[rid]["stop"]["max_tokens"]
+        if len(got["tokens"]) != want:
+            raise AssertionError(f"{rid}: {len(got['tokens'])} tokens of {want}")
+    return out
+
+
+def eager_dispatches(core):
+    """``core`` with every dispatch run as its eager body, never a graph."""
+    from dynamo_tpu_torch.engine.core import EngineCore
+
+    core._launch = lambda launch, feed=None: EngineCore._launch(
+        core, dataclasses.replace(launch, eager=True), feed)
+    return core
+
+
+# The near-tie rule's ceiling: two runs whose kernels differ (a prompt's
+# blocks recomputed or read from the prefix cache, prefilled on another
+# worker) moved a token's log-probability by at most 0.041 before any
+# stream parted in the smoke's runs on the H100; a measured limit above
+# this is a fault of its own, not a near-tie.
+NEAR_TIE_CEILING = 0.1
+
+
+def near_tie_streams(name: str, want: dict, got: dict, exact: bool = False) -> dict:
+    """Greedy streams of ``got`` against ``want`` (rid -> tokens and logprob
+    entries, each with its top 2). ``exact``: the two runs compute one
+    function through the same kernels (graph replays against their eager
+    bodies on one engine), so every token and log-probability must be
+    equal. Otherwise the streams are equal, or part only at a near-tie:
+    the limit is the largest difference between the two runs'
+    log-probabilities of the same token at the same position before any
+    stream parts, and must stay under ``NEAR_TIE_CEILING``; a stream that
+    parts where ``want``'s top-2 gap exceeds the limit fails."""
+    if exact:
+        for rid, w in want.items():
+            g = got[rid]
+            if (w["tokens"] != g["tokens"]
+                    or [x["logprob"] for x in w["logprobs"]] != [y["logprob"] for y in g["logprobs"]]):
+                j = first_divergence(w["tokens"], g["tokens"])
+                raise AssertionError(f"{name}: {rid} is not equal (tokens part at {j}, or a "
+                                     f"log-probability differs)")
+        return {"streams": len(want), "equal": len(want), "parted": [], "limit": 0.0}
+    limit = 0.0
+    for rid, w in want.items():
+        j = first_divergence(w["tokens"], got[rid]["tokens"])
+        for x, y in list(zip(w["logprobs"], got[rid]["logprobs"]))[:j]:
+            limit = max(limit, abs(x["logprob"] - y["logprob"]))
+    if limit > NEAR_TIE_CEILING:
+        raise AssertionError(f"{name}: log-probabilities differ by {limit:.4e} before any stream "
+                             f"parts, above the ceiling {NEAR_TIE_CEILING}")
+    parted = []
+    for rid, w in want.items():
+        j = first_divergence(w["tokens"], got[rid]["tokens"])
+        if j is None:
+            continue
+        top = w["logprobs"][j]["top"]
+        gap = top[0][1] - top[1][1]
+        parted.append({"rid": rid, "position": j, "gap": gap})
+        print(f"divergence, {name} {rid} at token {j}: {w['tokens'][j]} against "
+              f"{got[rid]['tokens'][j]}; top-2 gap {gap:.4e} (limit {limit:.4e})", flush=True)
+        if gap > limit:
+            raise AssertionError(f"{name}: {rid} parts at token {j} where the top-2 gap "
+                                 f"{gap:.4e} exceeds {limit:.4e}")
+    return {"streams": len(want), "equal": len(want) - len(parted), "parted": parted,
+            "limit": limit}
+
+
+def launches_of(ra) -> dict:
+    """K1's launches by C entry point since the last reset."""
+    return {name: n for name, n in ra.kernel_launches.items() if n}
+
+
+def check_embed(ra, core) -> dict:
+    """``EngineCore.embed`` on the main path's engine, the launch counts at
+    0 just before it: the vector against the mean over the prompt's rows
+    of the same prompt's prefill hidden states (``forward_hidden`` on a
+    scratch cache), and the serving cache's pages unchanged (the sha256 of
+    up to ``EMBED_PAGES`` cached pages before and after)."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import EngineConfig
+
+    cfg, dev = core.cfg, core.device
+    rng = np.random.default_rng(77)
+    prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, EMBED_PROMPT)]
+    # A request whose blocks stay cached: the pages the embedding must not touch.
+    one_request(core, "embed_neighbour", [int(t) for t in rng.integers(0, cfg.vocab_size, 600)], 4)
+    hashes = [h for tier, h, _ in core.kv_inventory() if tier == "device"][:EMBED_PAGES]
+    before = {h: page_sha(core, h) for h in hashes}
+    reserved = torch.cuda.memory_reserved()
+    vec = core.embed(prompt)  # the first call builds the scratch cache
+    scratch_gb = sum(c.numel() * c.element_size() for c in core._embed_scratch) / 1e9
+    scratch_reserved_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
+    ra.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vec = core.embed(prompt)
+    embed_ms = 1e3 * (time.perf_counter() - t0)
+    launches = launches_of(ra)
+    after = {h: page_sha(core, h) for h in hashes}
+    eng = EngineConfig(num_kv_blocks=16, max_model_len=512)
+    n, bs = len(prompt), eng.block_size
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    pages = -(-n // bs)
+    table = list(range(pages)) + [eng.garbage_block] * (eng.max_blocks_per_seq - pages)
+    x = model.forward_hidden(
+        core.params, model.init_cache(cfg, eng, dev), i32(prompt), i32(list(range(n))),
+        i32([p // bs for p in range(n)]), i32([p % bs for p in range(n)]), i32([n]),
+        i32([table]), i32([0, n]), i32([1]), cfg,
+    )
+    ref = x.float().mean(dim=0)
+    got = torch.from_numpy(vec).to(dev)
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=0).item()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    res = {"prompt_tokens": n, "embed_ms": embed_ms, "cosine": cos, "norm_rel_err": rel,
+           "max_abs_err": (got - ref).abs().max().item(), "pages_hashed": len(hashes),
+           "pages_unchanged": before == after, "launches": launches,
+           "scratch_gb": scratch_gb, "scratch_reserved_gb": scratch_reserved_gb,
+           "finite": bool(np.isfinite(vec).all())}
+    print(f"embedding of a {n}-token prompt on the main path's engine: {embed_ms:.2f} ms "
+          f"(eager, one forward at the {core._bucket_for(n)} bucket), K1 launches {launches}; "
+          f"against the "
+          f"mean-pooled prefill hidden state: cosine {cos:.6f}, norm-relative error {rel:.3e} "
+          f"(limits {EMBED_MIN_COSINE}, {EMBED_REL_TOL}), max abs {res['max_abs_err']:.3e}; "
+          f"{len(hashes)} serving-cache pages unchanged: {res['pages_unchanged']}; the scratch "
+          f"cache the first call built holds {scratch_gb:.3f} GB for the engine's life (reserved "
+          f"memory grew by {scratch_reserved_gb:.3f} GB)", flush=True)
+    if (not res["finite"] or cos < EMBED_MIN_COSINE or rel > EMBED_REL_TOL or not hashes
+            or not res["pages_unchanged"] or sum(launches.values()) != cfg.num_layers):
+        raise AssertionError(f"the embedding check failed: {res}")
+    return res
+
+
+def check_images(ra, core) -> dict:
+    """Image requests on the main path's engine after ``warm_up()``: the
+    launch counts at 0 just before the first; its prefill runs eagerly (a
+    multimodal dispatch) and its decode megasteps replay graphs, with no
+    capture. Its greedy stream (tokens and log-probabilities) equals the
+    same request on an engine whose every dispatch is eager; the same
+    prompt without the image gives another stream (or other
+    log-probabilities), another image too, and the image's repeat hits
+    the prefix cache and equals the first run up to a near-tie."""
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+
+    cfg = core.cfg
+    prompt = [int(t) for t in np.random.default_rng(78).integers(0, cfg.vocab_size, MM_TEXT + 8)]
+    core.clear_kv_cache()
+    st0 = core.scheduler_stats()
+    ra.reset_launches()
+    a = run_wires(core, [mm_wire("img_a", prompt, IMG_A, cfg)])
+    launches = launches_of(ra)
+    st = core.scheduler_stats()
+    d = {k: st[k] - st0[k] for k in ("dispatches", "graph_replays", "eager_dispatches",
+                                      "graph_captures", "forwards")}
+    a2 = run_wires(core, [mm_wire("img_a2", prompt, IMG_A, cfg)])
+    # The same tokens without the image must not find the image's blocks.
+    core.clear_kv_cache()
+    plain = run_wires(core, [mm_wire("plain", prompt, IMG_A, cfg, with_image=False)])
+    b = run_wires(core, [mm_wire("img_b", prompt, IMG_B, cfg)])
+    ecore, _ = build_engine("llama3-8b", {"num_kv_blocks": 256}, device="cuda",
+                            params=core.params)
+    eager = run_wires(eager_dispatches(ecore), [mm_wire("img_a", prompt, IMG_A, cfg)])
+    del ecore
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = near_tie_streams("image request, graphs against eager", a, eager, exact=True)
+    repeat = near_tie_streams("image request, its repeat", a, {"img_a": a2["img_a2"]})
+
+    def differs(x):
+        return (x["tokens"] != a["img_a"]["tokens"]
+                or x["logprobs"][0]["logprob"] != a["img_a"]["logprobs"][0]["logprob"])
+
+    res = {"prompt_tokens": len(prompt) + 16, "ttft_ms": a["img_a"]["ttft_ms"], "launches": launches,
+           **d, "graphs_against_eager": held, "repeat": repeat,
+           "repeat_cached_tokens": a2["img_a2"]["cached_tokens"],
+           "differs_without_image": differs(plain["plain"]), "differs_other_image": differs(b["img_b"])}
+    print(f"image request on the main path's engine: TTFT {res['ttft_ms']:.1f} ms, "
+          f"{d['dispatches']} dispatches ({d['eager_dispatches']} eager, {d['graph_replays']} graph "
+          f"replays, {d['graph_captures']} captures), K1 launches {launches} for {d['forwards']} "
+          f"forwards; graphs against eager: {held['equal']} of {held['streams']} streams equal; "
+          f"differs without the image: {res['differs_without_image']}, with another image: "
+          f"{res['differs_other_image']}; repeat cached {res['repeat_cached_tokens']} tokens",
+          flush=True)
+    if (d["graph_captures"] or d["eager_dispatches"] < 1
+            or d["graph_replays"] != d["dispatches"] - d["eager_dispatches"]
+            or sum(launches.values()) != cfg.num_layers * d["forwards"]
+            or not res["differs_without_image"] or not res["differs_other_image"]
+            or res["repeat_cached_tokens"] < PAGE):
+        raise AssertionError(f"the image check failed: {res}")
+    return res
+
+
+# -- sparse MoE at Mixtral-8x7B width (in process) -------------------------------
+
+MOE_LAYERS = 16   # one of two pipeline stages: 32 layers of bf16 experts need 92.9 GB
+MOE_PROMPT_LENS = (128, 512, 1000, 1500, 2048, 2000, 300, 700)  # one 8192 wave
+MOE_LAYER_TOKENS = 64
+
+
+def moe_bounds(core, prompt_lens) -> dict:
+    """The least time the card could take: a decode iteration reads every
+    weight (capacity dispatch runs every expert on C >= 1 rows) over the
+    memory rate. The prefill wave of ``prompt_lens`` over the tensor
+    cores' bf16 rate, counted two ways: at its bucket with the experts'
+    E * C slots each (capacity padding included: the dispatch's own
+    semantics), and with only what its tokens need (the real tokens'
+    projections and their k * n expert entries). Causal attention is
+    counted in both."""
+    from dynamo_tpu_torch.engine.model import _moe_capacity
+
+    cfg = core.cfg
+    h, i, E, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts, cfg.num_layers
+    leaves = [core.params["final_norm"], *core.params["layers"].values()]
+    if "lm_head" in core.params:
+        leaves.append(core.params["lm_head"])
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    T, n = core._bucket_for(sum(prompt_lens)), sum(prompt_lens)
+    C = _moe_capacity(T, cfg)
+    attention = sum(2 * m * m * cfg.q_size for m in prompt_lens)  # QK^T and PV, causal
+
+    def dense(rows):  # q, k, v, o and the router on ``rows`` tokens
+        return 2 * rows * h * (cfg.q_size + 2 * cfg.kv_size) + 2 * rows * cfg.q_size * h \
+            + 2 * rows * h * E
+
+    slots = L * (dense(T) + 2 * E * C * 3 * h * i + attention)
+    needed = L * (dense(n) + 2 * cfg.num_experts_per_tok * n * 3 * h * i + attention)
+    return {"decode_weight_bytes": weight_bytes,
+            "decode_bound_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S,
+            "prefill_bucket": T, "prefill_tokens": n, "prefill_capacity": C,
+            "prefill_ops": slots, "prefill_bound_ms": 1e3 * slots / BF16_OPS_PER_S,
+            "prefill_needed_ops": needed,
+            "prefill_needed_bound_ms": 1e3 * needed / BF16_OPS_PER_S,
+            "prefill_capacity_padding": 1 - cfg.num_experts_per_tok * T / (E * C)}
+
+
+def moe_layer_check(core) -> dict:
+    """Layer 0's ``_moe_mlp`` on the card (bf16) against the same function
+    on CPU tensors in f32, for ``MOE_LAYER_TOKENS`` tokens at full width:
+    the largest relative L2 error of an output row, within ROW_REL_TOL
+    (as for K1); the card call's time against reading every expert's
+    weights."""
+    from dynamo_tpu_torch.engine import model
+
+    cfg = core.cfg
+    lp = {k: core.params["layers"][k][0] for k in ("w_router", "w_gate", "w_up", "w_down")}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((MOE_LAYER_TOKENS, cfg.hidden_size), generator=gen, device="cuda")
+    x = x.to(cfg.torch_dtype)
+    got = model._moe_mlp(x, lp, cfg)
+    ms = cold_ms(lambda: model._moe_mlp(x, lp, cfg), 5)
+    want = model._moe_mlp(x.float().cpu(), {k: v.float().cpu() for k, v in lp.items()}, cfg)
+    err = got.float().cpu() - want
+    row_rel = (err.norm(dim=1) / want.norm(dim=1)).max().item()
+    expert_bytes = sum(lp[k].numel() * lp[k].element_size() for k in lp)
+    res = {"tokens": MOE_LAYER_TOKENS, "capacity": model._moe_capacity(MOE_LAYER_TOKENS, cfg),
+           "max_row_rel_err": row_rel, "max_abs_err": err.abs().max().item(), "ms": ms,
+           "bound_ms": 1e3 * expert_bytes / HBM_BYTES_PER_S,
+           "finite": bool(torch.isfinite(got).all().item())}
+    print(f"MoE MLP, layer 0 at full width, {MOE_LAYER_TOKENS} tokens (C {res['capacity']}): card "
+          f"bf16 against CPU f32: largest row relative error {row_rel:.3e} (limit {ROW_REL_TOL}), "
+          f"max abs {res['max_abs_err']:.3e}; {ms:.3f} ms on the card, L2 flushed (reading the "
+          f"experts' {expert_bytes / 1e9:.2f} GB: {res['bound_ms']:.3f} ms)", flush=True)
+    if not res["finite"] or not row_rel <= ROW_REL_TOL:
+        raise AssertionError(f"the MoE MLP on the card disagrees with its f32 CPU version: {res}")
+    return res
+
+
+def moe_idle_share(core, reqs) -> dict:
+    """Two decode megasteps of 8 lanes under ``torch.profiler``
+    (``tools/profile_serving.py``'s phase): wall, kernel time by group and
+    the device's idle share."""
+    from dynamo_tpu_torch.tools.profile_serving import _phase
+
+    ready = decode_to_width(core, reqs)
+    phase = _phase(core, 2, "moe_decode", None)
+    for seq in ready:
+        core.cancel_request(seq)
+    while core.has_work():
+        core.step()
+    print(f"MoE decode under the profiler: 2 megasteps in {phase['wall_ms']:.1f} ms, kernels "
+          f"{phase['kernel_ms']:.1f} ms by group "
+          f"{ {k: round(v, 2) for k, v in phase['groups_ms'].items()} }; device idle share "
+          f"{phase['idle_share']:.4f}", flush=True)
+    return {k: phase[k] for k in ("wall_ms", "kernel_ms", "idle_share", "groups_ms", "top")}
+
+
+def moe_mixed_step(core, streams, long_prompt) -> dict:
+    """One chunked mixed step on the MoE weights: a chunked engine (k = 1,
+    a 512-block pool, not warmed up: its keys are captured at first use)
+    decodes ``streams`` and takes the long prompt's first chunk; the
+    mixed step its planner dispatches is captured, replayed and run as its
+    eager body from the same cache copy (tokens equal, each timed)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import EngineCore
+    from dynamo_tpu_torch.engine.model import _moe_capacity
+
+    ccore = EngineCore(core.cfg, EngineConfig(scheduling="chunked", megastep_k=1,
+                                              num_kv_blocks=512), params=core.params,
+                       device="cuda")
+    res = chunked_graph_against_eager(ccore, streams, long_prompt, kinds=("mixed",),
+                                      capture=True)["mixed"]
+    T = res["key"][1]
+    res["capacity"] = _moe_capacity(T, core.cfg)
+    print(f"MoE chunked mixed step at T {T}: C {res['capacity']}", flush=True)
+    del ccore
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_moe(ra, card: str) -> dict:
+    """Sparse MoE at Mixtral-8x7B width: 16 of its 32 layers (one of two
+    pipeline stages; bf16 experts for 32 layers need 92.9 GB), random bf16
+    weights from seed 0, the default ``EngineConfig``, through
+    ``EngineCore`` and ``TorchEngine``. Memory; one layer's MoE MLP on the
+    card against its f32 CPU version; ``warm_up()``; the MoE path (eight
+    prompts of 128-2048 tokens, one 8192 wave, 64 greedy tokens each, the
+    launch counts at 0 just before it): TTFT, prefill and decode ms beside
+    their bounds, K1 at 16 launches per forward, every dispatch a graph
+    replay; the megastep (width 8, k = 8) replayed against its eager body;
+    the same traffic with every dispatch eager (tokens and
+    log-probabilities equal); C per bucket; the device's idle share in decode; and one
+    chunked mixed step."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, mixtral_8x7b
+    from dynamo_tpu_torch.engine.core import EngineCore
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import _moe_capacity
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    t_phase = time.time()
+    cfg = dataclasses.replace(mixtral_8x7b(), num_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    core = EngineCore(cfg, EngineConfig(), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    built_s = time.time() - t0
+    kv_bytes = sum(c.numel() * c.element_size() for c in core.cache)
+    mem = {"weights_and_kv_gb": (torch.cuda.memory_allocated() - base) / 1e9,
+           "kv_gb": kv_bytes / 1e9, "build_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    mem["weights_gb"] = mem["weights_and_kv_gb"] - mem["kv_gb"]
+    torch.cuda.empty_cache()
+    print(f"built {cfg.name} engine, {MOE_LAYERS} of 32 layers at full width (h {cfg.hidden_size}, "
+          f"FFN {cfg.intermediate_size}, {cfg.num_experts} experts, top-{cfg.num_experts_per_tok}, "
+          f"bf16, random weights from seed 0) in {built_s:.1f} s: weights "
+          f"{mem['weights_gb']:.2f} GB, KV {mem['kv_gb']:.2f} GB "
+          f"({core.engine.num_kv_blocks} x {core.engine.block_size}-token blocks), peak "
+          f"{mem['build_peak_gb']:.2f} GB; {memory_line()}", flush=True)
+    layer = moe_layer_check(core)
+    warm = warm_up(core, "MoE")
+    rng = np.random.default_rng(4321)
+    reqs = [(f"moe{i}", [int(t) for t in rng.integers(0, cfg.vocab_size, n)], {"temperature": 0.0})
+            for i, n in enumerate(MOE_PROMPT_LENS)]
+    bounds = moe_bounds(core, MOE_PROMPT_LENS)
+
+    # The MoE path, with every kernel launch count at 0 just before it.
+    before = dict(core.scheduler_stats())
+    ra.reset_launches()
+    got = asyncio.run(timed_engine_batch(TorchEngine(core), Context, reqs))
+    launches = launches_of(ra)
+    st = core.scheduler_stats()
+    d = {k: st[k] - before[k] for k in ("forwards", "dispatches", "graph_replays", "graph_captures",
+                                         "prefill_s", "prefill_tokens", "decode_loop_s",
+                                         "decode_iterations", "prefill_loop_s")}
+    waves = st["single_step_dispatches"] - before["single_step_dispatches"]
+    decode_ms = 1e3 * d["decode_loop_s"] / d["decode_iterations"]
+    wave_ms = 1e3 * d["prefill_loop_s"] / max(waves, 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"MoE path on {card}: {len(reqs)} requests, prompts {MOE_PROMPT_LENS}; TTFT ms "
+          + ", ".join(f"{r} {g['ttft_ms']:.1f}" for r, g in got.items())
+          + f"; {waves} prefill wave(s) of {d['prefill_tokens']} tokens at {wave_ms:.1f} ms each "
+          f"(bucket {bounds['prefill_bucket']}, C {bounds['prefill_capacity']}; operation bound "
+          f"{bounds['prefill_needed_bound_ms']:.1f} ms for the tokens' k * n expert entries, "
+          f"{bounds['prefill_bound_ms']:.1f} ms for every E * C capacity slot); decode {decode_ms:.3f} ms per iteration (engine "
+          f"loop, {d['decode_iterations']} iterations; byte bound {bounds['decode_bound_ms']:.2f} "
+          f"ms: {bounds['decode_weight_bytes'] / 1e9:.2f} GB of weights); K1 launches {launches} "
+          f"for {d['forwards']} forwards; {d['graph_replays']} replays for {d['dispatches']} "
+          f"dispatches, {d['graph_captures']} captures; peak allocated {peak_gb:.2f} GB",
+          flush=True)
+    if (any(len(g["tokens"]) != MAX_TOKENS for g in got.values()) or len(launches) != 2
+            or sum(launches.values()) != MOE_LAYERS * d["forwards"]
+            or d["graph_replays"] != d["dispatches"] or d["graph_captures"]):
+        raise AssertionError(f"the MoE path failed its checks: {d}, launches {launches}")
+
+    # Graph replays against eager bodies: the megastep alone, then the
+    # traffic's streams (every dispatch eager, its log-probabilities read).
+    sreqs, late, _ = serving_requests(cfg.vocab_size)
+    megastep = graph_against_eager(core, sreqs + [late], "MoE")
+    lp_wires = [wire(rid, prompt, sampling, logprobs=MM_LOGPROBS) for rid, prompt, sampling in reqs]
+    core.clear_kv_cache()
+    graphs = run_wires(core, lp_wires)
+    core.clear_kv_cache()
+    eager = run_wires(eager_dispatches(core), lp_wires)
+    del core._launch
+    streams = near_tie_streams("MoE, graphs against eager", graphs, eager, exact=True)
+    idle = moe_idle_share(core, sreqs + [late])
+    capacity = {f"{kind} {n}": _moe_capacity(n, cfg) for kind, ns in
+                (("prefill", core.engine.prefill_buckets), ("decode", core.engine.decode_buckets))
+                for n in ns}
+    print(f"MoE capacity C per bucket (N -> C): {capacity}", flush=True)
+    core._graphs = type(core._graphs)()  # the graph pool goes before the mixed step's
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed = moe_mixed_step(core, [p for _, p, _ in reqs[:7]],
+                           [int(t) for t in rng.integers(0, cfg.vocab_size, CHUNKED_LONG)])
+    res = {"layers": MOE_LAYERS, "built_s": built_s, "memory": {**mem, "peak_gb": peak_gb},
+           "layer_check": layer, "warm_up": warm, "bounds": bounds, "launches": launches,
+           "forwards": d["forwards"], "ttft_ms": {r: g["ttft_ms"] for r, g in got.items()},
+           "prefill_wave_ms": wave_ms, "decode_ms_per_iteration": decode_ms,
+           "megastep": megastep, "streams": streams, "idle": idle, "capacity": capacity,
+           "mixed_step": mixed, "phase_s": None}
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    print(f"MoE phase: {res['phase_s']:.1f} s", flush=True)
+    return res
 
 
 # -- KV tiers and the page programs (in process) --------------------------------
@@ -1484,13 +1977,15 @@ def chunked_prefill_logits(core) -> dict:
     return res
 
 
-def chunked_graph_against_eager(core, streams, long_prompt) -> dict:
-    """One mixed step and one fused megastep from the same cache copy: the
-    chunked planners' own launches (``_plan_mixed`` and ``_plan_fused``
-    stopped at their dispatch) with the 7 streams decoding and the long
-    prompt's first chunk, T 8192 at width 8, each replayed from the graph
-    ``warm_up()`` captured and run as its eager body. Tokens must be equal;
-    each is timed on the host's wall clock, sync to sync."""
+def chunked_graph_against_eager(core, streams, long_prompt, kinds=("mixed", "fused"),
+                                capture=False) -> dict:
+    """One mixed step and one fused megastep (``kinds``) from the same
+    cache copy: the chunked planners' own launches (``_plan_mixed`` and
+    ``_plan_fused`` stopped at their dispatch) with the 7 streams decoding
+    and the long prompt's first chunk, T 8192 at width 8, each replayed
+    from the graph ``warm_up()`` captured (or, with ``capture``, captured
+    here) and run as its eager body. Tokens must be equal; each is timed
+    on the host's wall clock, sync to sync."""
     from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
 
     greedy = {"temperature": 0.0}
@@ -1515,9 +2010,9 @@ def chunked_graph_against_eager(core, streams, long_prompt) -> dict:
 
     core._launch = grab
     try:
-        for plan in (core._plan_mixed, core._plan_fused):
+        for kind in kinds:
             try:
-                plan([long_seq])
+                {"mixed": core._plan_mixed, "fused": core._plan_fused}[kind]([long_seq])
             except Stop:
                 pass
     finally:
@@ -1529,8 +2024,10 @@ def chunked_graph_against_eager(core, streams, long_prompt) -> dict:
             c.copy_(s)
 
     res = {}
-    for kind in ("mixed", "fused"):
+    for kind in kinds:
         launch = launches[kind]
+        if capture and launch.key not in core._graphs:
+            core._graphs.capture(launch, core.device)
         if launch.key not in core._graphs:
             raise AssertionError(f"warm_up() did not capture {launch.key}")
 
@@ -2230,12 +2727,12 @@ def wait_for_port(port: int, proc, timeout: float) -> None:
     deadline = time.time() + timeout
     while time.time() < deadline:
         if proc.poll() is not None:
-            raise RuntimeError(f"store exited with {proc.returncode}")
+            raise RuntimeError(f"the process for port {port} exited with {proc.returncode}")
         with socket.socket() as s:
             if s.connect_ex(("127.0.0.1", port)) == 0:
                 return
         time.sleep(0.1)
-    raise TimeoutError(f"store never listened on port {port}")
+    raise TimeoutError(f"nothing listened on port {port}")
 
 
 async def solo_traffic(open_stream, vocab: int) -> dict:
@@ -2245,8 +2742,8 @@ async def solo_traffic(open_stream, vocab: int) -> dict:
     return {"solo": [await timed_stream(open_stream, *by_id[rid]) for rid in WORKER_SOLO]}
 
 
-async def drive_worker(address: str, worker, vocab: int,
-                       solo_only=False) -> tuple[dict, list, object]:
+async def drive_worker(address: str, worker, vocab: int, solo_only=False,
+                       before_traffic=None) -> tuple[dict, list, object]:
     """Wait for the worker's model card through the port's discovery, send
     the worker phase's traffic (or, ``solo_only``, the solo prompts alone)
     through the port's data-plane client, and collect the KV events the
@@ -2285,6 +2782,8 @@ async def drive_worker(address: str, worker, vocab: int,
               f"{cards[0].runtime_config.total_kv_blocks} blocks)", flush=True)
         client = await rt.namespace("dynamo").component("backend").endpoint("generate").client()
         await client.wait_for_instances(1, timeout=30)
+        if before_traffic is not None:
+            await before_traffic()
 
         async def open_stream(req):
             return await client.round_robin(req)
@@ -2342,44 +2841,61 @@ def without_iteration(outs: list[dict]) -> list[dict]:
             for o in outs]
 
 
-def worker_process(cfg, preset: str, device: str, extra_args: list[str],
-                   solo_only=False, env=None) -> tuple[dict, list, object, dict]:
+def start_worker(preset: str, device: str, extra_args: list[str], env=None) -> dict:
     """The port's store and ``python -m dynamo_tpu_torch.backends.torch``
-    (with ``extra_args`` and the environment variables ``env``) as
-    subprocesses, driven by :func:`drive_worker`; returns its traffic, KV
-    events, model card and exit counters."""
+    (with ``extra_args`` and the environment variables ``env``) started as
+    subprocesses; the worker builds and warms up its engine meanwhile."""
     logs = Path(tempfile.mkdtemp(prefix="chip_smoke_worker_"))
     port = free_port()
-    with open(logs / "store.log", "w") as store_log, open(logs / "worker.log", "w") as worker_log:
-        store = subprocess.Popen(
-            [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(port)],
-            cwd=ROOT, stdout=store_log, stderr=subprocess.STDOUT,
+    h = {"logs": logs, "port": port, "args": extra_args, "worker": None,
+         "files": [open(logs / "store.log", "w"), open(logs / "worker.log", "w")]}
+    h["store"] = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(port)],
+        cwd=ROOT, stdout=h["files"][0], stderr=subprocess.STDOUT,
+    )
+    try:
+        wait_for_port(port, h["store"], 30)
+        h["t0"] = time.time()
+        h["worker"] = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.backends.torch",
+             "--model-name", preset, "--preset", preset, "--seed", "0", "--device", device,
+             *extra_args],
+            cwd=ROOT, stdout=h["files"][1], stderr=subprocess.STDOUT,
+            env={**os.environ, **(env or {}), "DYN_STORE_ADDRESS": f"127.0.0.1:{port}"},
         )
-        worker = None
-        try:
-            wait_for_port(port, store, 30)
-            t0 = time.time()
-            worker = subprocess.Popen(
-                [sys.executable, "-m", "dynamo_tpu_torch.backends.torch",
-                 "--model-name", preset, "--preset", preset, "--seed", "0", "--device", device,
-                 *extra_args],
-                cwd=ROOT, stdout=worker_log, stderr=subprocess.STDOUT,
-                env={**os.environ, **(env or {}), "DYN_STORE_ADDRESS": f"127.0.0.1:{port}"},
-            )
-            got, events, mdc = asyncio.run(
-                drive_worker(f"127.0.0.1:{port}", worker, cfg.vocab_size, solo_only))
-            stop_process(worker)
-            if worker.returncode != 0:
-                raise AssertionError(f"worker exited with {worker.returncode}")
-            print(f"worker phase: worker {' '.join(extra_args)} up and served in "
-                  f"{time.time() - t0:.1f} s", flush=True)
-        except BaseException:
-            print(f"worker log tail:\n{(logs / 'worker.log').read_text()[-6000:]}", file=sys.stderr)
-            raise
-        finally:
-            if worker is not None:
-                stop_process(worker, signal.SIGKILL, 10)
-            stop_process(store, signal.SIGTERM, 10)
+    except BaseException:
+        close_worker(h)
+        raise
+    return h
+
+
+def close_worker(h: dict) -> None:
+    if h["worker"] is not None:
+        stop_process(h["worker"], signal.SIGKILL, 10)
+    stop_process(h["store"], signal.SIGTERM, 10)
+    for f in h["files"]:
+        f.close()
+
+
+def finish_worker(h: dict, cfg, solo_only=False,
+                  before_traffic=None) -> tuple[dict, list, object, dict]:
+    """Drive a worker of :func:`start_worker` (:func:`drive_worker`; once
+    its model card is up, ``before_traffic()`` first), stop it and return
+    its traffic, KV events, model card and exit counters."""
+    worker, logs = h["worker"], h["logs"]
+    try:
+        got, events, mdc = asyncio.run(drive_worker(
+            f"127.0.0.1:{h['port']}", worker, cfg.vocab_size, solo_only, before_traffic))
+        stop_process(worker)
+        if worker.returncode != 0:
+            raise AssertionError(f"worker exited with {worker.returncode}")
+        print(f"worker phase: worker {' '.join(h['args'])} up and served in "
+              f"{time.time() - h['t0']:.1f} s", flush=True)
+    except BaseException:
+        print(f"worker log tail:\n{(logs / 'worker.log').read_text()[-6000:]}", file=sys.stderr)
+        raise
+    finally:
+        close_worker(h)
     return got, events, mdc, worker_stats(logs / "worker.log")
 
 
@@ -2404,10 +2920,19 @@ def serve_worker(card: str, preset: str = "llama3-8b",
     ref, ref_stats = in_process_traffic(preset, device)
     print(f"worker phase: in-process reference done ({len(ref['solo'])} solo, "
           f"{len(ref['batch'])} concurrent, 1 resent)", flush=True)
-    got, events, mdc, stats = worker_process(cfg, preset, device, ["--obs-publish", "off"],
-                                             env={"DYN_SYSTEM_ENABLED": "0"})
-    got_async, _, _, stats_async = worker_process(cfg, preset, device, ["--async-exec", "on"],
-                                                  solo_only=True)
+    # The async worker warms up while the sync worker does; the sync
+    # worker's traffic waits until it is serving (and idle), so it runs
+    # alone on the card.
+    h_async = start_worker(preset, device, ["--async-exec", "on"])
+    try:
+        h_sync = start_worker(preset, device, ["--obs-publish", "off"],
+                              env={"DYN_SYSTEM_ENABLED": "0"})
+        got, events, mdc, stats = finish_worker(h_sync, cfg, before_traffic=lambda: wait_for_log(
+            h_async["logs"] / "worker.log", r"torch aggregated worker \d+ serving model",
+            h_async["worker"], 900))
+        got_async, _, _, stats_async = finish_worker(h_async, cfg, solo_only=True)
+    finally:
+        close_worker(h_async)
 
     for w, r, a in zip(got["solo"], ref["solo"], got_async["solo"]):
         same = w["outs"] == r["outs"]
@@ -2926,16 +3451,19 @@ def serve_frontend(card: str, direct: dict, direct_stats: dict,
             [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(store_port)],
             cwd=ROOT, stdout=files["store"], stderr=subprocess.STDOUT)
         wait_for_port(store_port, procs["store"], 30)
+        # The frontend listens before the workers bind their ephemeral
+        # ports, one of which could otherwise take the port chosen for it.
+        procs["frontend"] = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1",
+             "--http-port", str(http_port), "--router-mode", "kv"],
+            cwd=ROOT, stdout=files["frontend"], stderr=subprocess.STDOUT, env=env)
+        wait_for_port(http_port, procs["frontend"], 60)
         for name in ("worker_a", "worker_b"):
             procs[name] = subprocess.Popen(
                 [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", "--model-name", preset,
                  "--preset", preset, "--seed", "0", "--device", device],
                 cwd=ROOT, stdout=files[name], stderr=subprocess.STDOUT,
                 env={**env, "DYN_SYSTEM_ENABLED": "1"})
-        procs["frontend"] = subprocess.Popen(
-            [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1",
-             "--http-port", str(http_port), "--router-mode", "kv"],
-            cwd=ROOT, stdout=files["frontend"], stderr=subprocess.STDOUT, env=env)
         got = asyncio.run(drive_frontend(f"http://127.0.0.1:{http_port}",
                                          f"127.0.0.1:{store_port}", preset, cfg.vocab_size,
                                          procs, logs, direct))
@@ -3048,40 +3576,16 @@ def first_divergence(want: list[int], got: list[int]) -> int | None:
 
 def hold_streams(name: str, agg: list[dict], dis: list[dict], greedy: set[str]) -> dict:
     """The disaggregated run's greedy streams against the aggregated
-    worker's: equal, or parting only at a near-tie. The limit is measured
-    in the run itself: the largest difference between the two workers'
-    log-probabilities of the same token at the same position before any
-    stream parts (the decode worker computes a prompt's last block with
-    the tiled kernel where the aggregated worker decodes it). A stream
-    that parts where the aggregated worker's top-2 gap exceeds it
-    fails."""
-    by_rid = {r["rid"]: r for r in dis}
+    worker's, under the near-tie rule (:func:`near_tie_streams`): the
+    decode worker computes a prompt's last block with the tiled kernel
+    where the aggregated worker decodes it."""
+    def streams(records):
+        return {r["rid"]: {"tokens": r["tokens"],
+                           "logprobs": [e for o in r["outs"] for e in o.get("logprobs") or []]}
+                for r in records if r["rid"] in greedy}
 
-    def lps(r):
-        return [e for o in r["outs"] for e in o.get("logprobs") or []]
-
-    pairs = [(a, by_rid[a["rid"]]) for a in agg if a["rid"] in greedy]
-    limit = 0.0
-    for a, d in pairs:
-        j = first_divergence(a["tokens"], d["tokens"])
-        for x, y in list(zip(lps(a), lps(d)))[:j]:
-            limit = max(limit, abs(x["logprob"] - y["logprob"]))
-    parted = []
-    for a, d in pairs:
-        j = first_divergence(a["tokens"], d["tokens"])
-        if j is None:
-            continue
-        top = lps(a)[j]["top"]
-        gap = top[0][1] - top[1][1]
-        parted.append({"rid": a["rid"], "position": j, "gap": gap})
-        print(f"divergence, {name} {a['rid']} at token {j}: aggregated {a['tokens'][j]}, "
-              f"disaggregated {d['tokens'][j]}; the aggregated top-2 gap {gap:.4e} (limit "
-              f"{limit:.4e})", flush=True)
-        if gap > limit:
-            raise AssertionError(f"{name}: {a['rid']} parts from the aggregated stream at token "
-                                 f"{j} where the top-2 gap {gap:.4e} exceeds {limit:.4e}")
-    return {"greedy": len(pairs), "equal": len(pairs) - len(parted), "parted": parted,
-            "limit": limit}
+    want = streams(agg)
+    return near_tie_streams(name, want, {rid: s for rid, s in streams(dis).items() if rid in want})
 
 
 async def fetch_pages(client, worker_id: int, hashes: list[int]) -> tuple[list[bytes], dict]:
@@ -3243,7 +3747,7 @@ def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
     by_id = {r[0]: r for r in reqs + [late]}
     greedy = {rid for rid, _, samp in by_id.values() if samp.get("temperature") == 0.0}
     logs = Path(tempfile.mkdtemp(prefix="chip_smoke_disagg_"))
-    store_port, http_port, status_port = free_port(), free_port(), free_port()
+    store_port = free_port()
     store = f"127.0.0.1:{store_port}"
     env = {**os.environ, "DYN_STORE_ADDRESS": store}
     worker = [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", "--preset", preset,
@@ -3288,12 +3792,16 @@ def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
         t_agg = time.time()
         agg_runs = asyncio.run(run_batches(store, "agg", "backend", agg_id, by_id, "agg"))
         stats["agg"] = stop("agg")
-        start("prefill")
-        start("decode")
+        # Ports chosen just before their servers bind them, and the
+        # frontend listening before the workers bind their ephemeral ports.
+        http_port, status_port = free_port(), free_port()
         procs["frontend"] = subprocess.Popen(
             [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--http-host", "127.0.0.1",
              "--http-port", str(http_port), "--router-mode", "kv"],
             cwd=ROOT, stdout=files["frontend"], stderr=subprocess.STDOUT, env=env)
+        wait_for_port(http_port, procs["frontend"], 60)
+        start("prefill")
+        start("decode")
         procs["decode_status"] = status_port
         t_pd = time.time()
         ids = asyncio.run(serving(["prefill", "decode"]))
@@ -3388,8 +3896,8 @@ def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
           f"{summary['transfer_ms_per_request']:.1f} ms per request, "
           f"{summary['transfer_ms_per_block'] or 0:.3f} ms per block; handoff "
           f"{summary['handoff']}; greedy streams equal {held['batch']['equal']}/"
-          f"{held['batch']['greedy']} at once, {held['staggered']['equal']}/"
-          f"{held['staggered']['greedy']} staggered; {len(got['checksums'])} pages equal on "
+          f"{held['batch']['streams']} at once, {held['staggered']['equal']}/"
+          f"{held['staggered']['streams']} staggered; {len(got['checksums'])} pages equal on "
           f"both sides; data plane {got['fetch']['blocks']} pages in {got['fetch']['ms']:.1f} ms "
           f"({summary['fetch_window_gb_per_s']:.2f} GB/s); over HTTP TTFT "
           f"{got['http']['ttft_ms']:.1f} ms; K1 launches by worker "
@@ -3498,6 +4006,11 @@ def main() -> int:
               f"{sa['async']['decode_ms_per_iteration']:.3f}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"llama3-8b engines freed: {memory_line()}", flush=True)
+    moe = serve_moe(ra, card)
+    print(f"MoE summary: {json.dumps(moe)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     worker_summary, direct, direct_stats = serve_worker(card)
     print(f"worker summary: {json.dumps(worker_summary)}", flush=True)
     gc.collect()
@@ -3546,6 +4059,9 @@ def main() -> int:
                 extra["chunked_path_launches"] = chunked_counts[name]
                 extra["tier_path_launches"] = summary["tiers"]["kernel_launches"].get(name, 0)
                 extra["spec_path_launches"] = {run: c[name] for run, c in spec_counts.items()}
+                extra["moe_path_launches"] = moe["launches"].get(name, 0)
+                extra["embed_path_launches"] = summary["mm"]["embed"]["launches"].get(name, 0)
+                extra["image_path_launches"] = summary["mm"]["images"]["launches"].get(name, 0)
             k1.append(kernel_entry(
                 name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
                 main_rec, pages="int8" if int8 else "bf16", **extra,

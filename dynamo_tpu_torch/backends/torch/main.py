@@ -11,6 +11,14 @@ data plane. Its wire is the JAX worker's, so the port's frontend and KV
 router (``python -m dynamo_tpu_torch.frontend``) and the JAX package's
 route to it as to a JAX worker, and a fleet may mix the two.
 
+A request's image refs (``mm.images``) are resolved to embedding rows
+before admission, as the JAX worker resolves them: by the encoder fleet
+(``python -m dynamo_tpu_torch.backends.encoder``) when one is registered,
+else in process. An embedding request (``embed``) runs locally in every
+role. ``--preset tiny-moe|mixtral-8x7b`` serves a sparse MoE model
+(``--moe-dispatch`` is taken as the JAX worker takes it; on one device
+both values are the local dispatch).
+
 ``--role prefill`` and ``--role decode`` split a request as the JAX
 worker does (decode first): the decode worker queues a long prompt's
 prefill on the store's ``prefill:{namespace}`` work queue
@@ -39,6 +47,7 @@ import uuid
 from typing import Any, AsyncIterator
 
 import msgpack
+import numpy as np
 import torch
 
 from dynamo_tpu_torch import knobs, tracing
@@ -56,6 +65,7 @@ from dynamo_tpu_torch.llm.discovery import register_llm
 from dynamo_tpu_torch.llm.kv_pool import PeerKvClient
 from dynamo_tpu_torch.llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard, ModelRuntimeConfig
+from dynamo_tpu_torch.llm.multimodal import image_bytes, patch_embed
 from dynamo_tpu_torch.llm.protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
@@ -82,15 +92,23 @@ log = logging.getLogger("dynamo_tpu_torch.backends.torch")
 
 
 def engine_configs(
-    preset: str, engine_overrides: dict[str, Any] | None = None
+    preset: str, engine_overrides: dict[str, Any] | None = None,
+    moe_dispatch: str | None = None,
 ) -> tuple[ModelConfig, EngineConfig]:
     """The preset's model config and its engine config with the overrides:
     the tiny presets use the tiny engine shape, every other preset the
-    ``EngineConfig`` defaults."""
+    ``EngineConfig`` defaults. ``moe_dispatch`` sets a MoE preset's
+    dispatch mode and is refused for a dense one, as the JAX worker
+    refuses it."""
+    model_cfg = PRESETS[preset]()
+    if moe_dispatch is not None:
+        if not model_cfg.is_moe:
+            raise ValueError(f"--moe-dispatch set but preset {preset!r} is dense")
+        model_cfg = dataclasses.replace(model_cfg, moe_dispatch=moe_dispatch)
     overrides = dict(engine_overrides or {})
     if preset in ("tiny", "tiny-moe"):
-        return PRESETS[preset](), tiny_engine(**overrides)
-    return PRESETS[preset](), EngineConfig(**overrides)
+        return model_cfg, tiny_engine(**overrides)
+    return model_cfg, EngineConfig(**overrides)
 
 
 def build_engine(
@@ -105,6 +123,7 @@ def build_engine(
     on_removed=None,
     on_tier_stored=None,
     on_tier_removed=None,
+    moe_dispatch: str | None = None,
 ) -> tuple[EngineCore, TorchEngine]:
     """Construct (EngineCore, TorchEngine) for a model preset.
 
@@ -117,10 +136,12 @@ def build_engine(
     override ``{"kv_dtype": "int8"}``. The engine shape comes from
     :func:`engine_configs`. ``on_stored`` and ``on_removed`` receive the
     block allocator's KV events, ``on_tier_stored`` and ``on_tier_removed``
-    (both or neither) the offload tiers' tier-tagged ones.
+    (both or neither) the offload tiers' tier-tagged ones. A MoE preset
+    (``tiny-moe``, ``mixtral-8x7b``) takes ``moe_dispatch``
+    (:func:`engine_configs`); its int8 weights are refused.
     """
     dev = resolve_device(device)
-    model_cfg, engine_cfg = engine_configs(preset, engine_overrides)
+    model_cfg, engine_cfg = engine_configs(preset, engine_overrides, moe_dispatch)
     if quant == "int8":
         if params is not None:
             raise ValueError("quant='int8' draws random weights; pass params or quant, not both")
@@ -165,12 +186,13 @@ def _model_card(model_name: str, tokenizer: str, core: EngineCore) -> ModelDeplo
 
 
 def _build_and_warm(preset, engine_overrides, seed, eos, quant, device, params,
-                    events) -> tuple[EngineCore, TorchEngine, int]:
+                    events, moe_dispatch=None) -> tuple[EngineCore, TorchEngine, int]:
     on_stored, on_removed, on_tier_stored, on_tier_removed = events
     core, engine = build_engine(
         preset, engine_overrides, seed=seed, eos_token_ids=eos, device=device,
         params=params, quant=quant, on_stored=on_stored, on_removed=on_removed,
         on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
+        moe_dispatch=moe_dispatch,
     )
     if core.device.type != "cuda":
         return core, engine, core.warm_up()
@@ -181,6 +203,48 @@ def _build_and_warm(preset, engine_overrides, seed, eos, quant, device, params,
     forwards = core.warm_up()
     torch.cuda.empty_cache()
     return core, engine, forwards
+
+
+async def _resolve_mm(core: EngineCore, encode_client, embed_fetch_client, request: dict) -> None:
+    """Resolve a request's image refs to embedding rows in place, as the
+    JAX worker does: through the encoder fleet (``encode`` returns a
+    descriptor, the tensor is pulled by id over ``embed_fetch``) when one
+    is registered, else, or when the fleet fails, by encoding in process,
+    which gives the same rows. A request that carries its rows already
+    (a remote prefill queued by a decode worker) is left as it is."""
+    mm = request.get("mm")
+    if not mm or mm.get("embeds") is not None or not mm.get("images"):
+        return
+    h = core.cfg.hidden_size
+    use_fleet = encode_client is not None and encode_client.instance_ids()
+
+    async def one(ref: str) -> np.ndarray:
+        if use_fleet:
+            try:
+                async with asyncio.timeout(30.0):
+                    desc = None
+                    async for out in await encode_client.round_robin(
+                        {"image": ref, "hidden_size": h}
+                    ):
+                        desc = out
+                    data = None
+                    if desc and "embed_id" in desc:
+                        fetch = await embed_fetch_client.direct(
+                            desc["worker_id"], {"embed_id": desc["embed_id"]}
+                        )
+                        async for out in fetch:
+                            data = out.get("data", data)
+                    if data is None:
+                        raise ConnectionError("encoder returned no embedding")
+                    return np.frombuffer(data, np.float32).reshape(tuple(desc["shape"]))
+            except Exception:  # noqa: BLE001 — the local encode is equivalent
+                log.warning("encoder fleet failed; encoding locally", exc_info=True)
+        return await asyncio.to_thread(patch_embed, image_bytes(ref), h)
+
+    # One fleet round trip bounds the latency, not one per image.
+    embeds = await asyncio.gather(*(one(ref) for ref in mm["images"]))
+    allemb = np.concatenate(list(embeds), axis=0).astype(np.float32)
+    request["mm"] = dict(mm, embeds=allemb.tobytes(), embeds_shape=list(allemb.shape))
 
 
 def _prefill_queue(namespace: str) -> str:
@@ -233,6 +297,7 @@ async def run_torch_worker(
     params: dict | None = None,
     obs_publish: bool = True,
     obs_interval_s: float = 1.0,
+    moe_dispatch: str | None = None,
 ) -> None:
     """Serve one worker until the runtime shuts down, in the JAX worker's
     roles (``aggregated``, ``prefill`` or ``decode``; ``component``
@@ -245,7 +310,9 @@ async def run_torch_worker(
     server (when the runtime has one) and, with ``obs_publish``, metric
     snapshots every ``obs_interval_s``. Every role serves ``kv_fetch``;
     the aggregated and decode roles pull a router's ``peer_prefix`` hint
-    from the peer before admission. The prefill role takes remote
+    from the peer before admission. Every role resolves image refs
+    through the encoder fleet or in process (:func:`_resolve_mm`) and
+    answers embedding requests locally. The prefill role takes remote
     prefills off the namespace's store work queue, holds their blocks and
     serves them on ``kv_transfer``, advertising committed chunks on the
     cursor plane; the decode role sends prompts longer than
@@ -281,7 +348,7 @@ async def run_torch_worker(
     eos = await asyncio.to_thread(_eos_for, tokenizer)
     core, engine, warm_up_forwards = await asyncio.to_thread(
         _build_and_warm, preset, engine_overrides, seed, eos, quant, device, params,
-        (on_stored, on_removed, on_tier_stored, on_tier_removed),
+        (on_stored, on_removed, on_tier_stored, on_tier_removed), moe_dispatch,
     )
     if core_out is not None:
         core_out.append(core)
@@ -380,16 +447,21 @@ async def run_torch_worker(
 
         runtime.on_drain.append(_retire_snapshot)
 
-    endpoint = runtime.namespace(namespace).component(component).endpoint("generate")
+    # The encoder fleet's clients (idle watches where no encoder component
+    # is deployed: _resolve_mm then encodes in process).
+    encoder = runtime.namespace(namespace).component("encoder")
+    encode_client = await encoder.endpoint("encode").client()
+    embed_fetch_client = await encoder.endpoint("embed_fetch").client()
 
-    def _refuse_mm(request: dict) -> None:
-        if (request.get("mm") or {}).get("images"):
-            raise ValueError("multimodal requests are not ported yet (ROADMAP.md A11)")
+    async def resolve_mm(request: dict) -> None:
+        await _resolve_mm(core, encode_client, embed_fetch_client, request)
+
+    endpoint = runtime.namespace(namespace).component(component).endpoint("generate")
 
     consumer: asyncio.Task | None = None
     if role == "prefill":
         consumer = await _serve_prefill_role(runtime, namespace, component, core, engine,
-                                              worker_id, endpoint, _refuse_mm)
+                                              worker_id, endpoint, resolve_mm)
     elif role == "decode":
         qname = _prefill_queue(namespace)
 
@@ -398,7 +470,7 @@ async def run_torch_worker(
                 async for out in engine.generate(request, context):
                     yield out
                 return
-            _refuse_mm(request)
+            await resolve_mm(request)
             pre = PreprocessedRequest.from_wire(request)
             pre.request_id = pre.request_id or context.id
             hint = (pre.kv_transfer_params or {}).get("peer_prefix")
@@ -459,7 +531,7 @@ async def run_torch_worker(
 
     else:
         async def handler(request: Any, context: Context) -> AsyncIterator[Any]:
-            _refuse_mm(request)
+            await resolve_mm(request)
             hint = (request.get("kv_transfer_params") or {}).get("peer_prefix")
             if hint and hint.get("worker_id") != worker_id and request.get("token_ids"):
                 await peer_kv.pull_prefix(hint, list(request["token_ids"]))
@@ -492,7 +564,7 @@ async def run_torch_worker(
 
 
 async def _serve_prefill_role(runtime, namespace, component, core, engine, worker_id,
-                              endpoint, refuse_mm) -> asyncio.Task:
+                              endpoint, resolve_mm) -> asyncio.Task:
     """The prefill role: serve ``generate`` (descriptors tagged with this
     worker's id) and ``kv_transfer`` (descriptors first, then page
     windows), advertise committed chunks on the cursor plane, and start
@@ -501,7 +573,7 @@ async def _serve_prefill_role(runtime, namespace, component, core, engine, worke
     backlog. Returns the consumer task."""
 
     async def handler(request: Any, context: Context) -> AsyncIterator[Any]:
-        refuse_mm(request)
+        await resolve_mm(request)
         async for out in engine.generate(request, context):
             if out.get("kv_transfer_params"):
                 out["kv_transfer_params"]["worker_id"] = worker_id
@@ -890,12 +962,10 @@ def _parser() -> argparse.ArgumentParser:
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise on the first flag value the port does not serve, naming the
     ``ROADMAP.md`` item that brings it. Engine settings outside the slice
-    (ring prefill, MoE presets) are refused by ``build_engine`` the same
-    way."""
+    (ring prefill) are refused by ``build_engine`` the same way."""
     refusals = [
         (args.model_path is not None, "--model-path (checkpoints)", "A7"),
         ((args.tokenizer or "").endswith(".gguf"), "--tokenizer *.gguf", "A7"),
-        (args.moe_dispatch is not None, "--moe-dispatch", "A11"),
         (max(args.tp, args.dp, args.sp, args.pp) > 1, "--tp/--dp/--sp/--pp > 1", "A12"),
         (args.nnodes > 1 or args.dist_init_addr is not None
          or args.local_cpu_devices is not None,
@@ -941,7 +1011,8 @@ def main(argv: list[str] | None = None) -> None:
     args = _parser().parse_args(argv)
     _refuse_unported(args)
     overrides = _overrides(args)
-    check_slice(*engine_configs(args.preset, overrides))  # before joining the fleet
+    # Before joining the fleet.
+    check_slice(*engine_configs(args.preset, overrides, args.moe_dispatch))
 
     @dynamo_worker()
     async def entry(runtime: DistributedRuntime) -> None:
@@ -960,6 +1031,7 @@ def main(argv: list[str] | None = None) -> None:
             device=args.device,
             obs_publish=args.obs_publish == "on",
             obs_interval_s=args.obs_interval_s,
+            moe_dispatch=args.moe_dispatch,
         )
 
     entry()

@@ -38,8 +38,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     # Qwen2-family attention: biases on the fused qkv projection only.
     attn_qkv_bias: bool = False
-    # Sparse MoE (Mixtral-style): 0 experts = dense MLP. The port serves
-    # dense models only; MoE configs are refused by the engine.
+    # Sparse MoE (Mixtral-style): 0 experts = dense MLP. Per-expert
+    # capacity = ceil(N * top_k / E * factor); tokens past it drop for
+    # that expert. ``moe_dispatch`` picks the expert-parallel mode under a
+    # mesh (A12); on one device both values are the local dispatch.
     num_experts: int = 0
     num_experts_per_tok: int = 2
     moe_capacity_factor: float = 2.0

@@ -2,9 +2,11 @@
 
 The input is the JAX params pytree mapped through ``np.asarray`` (or any
 tree of numpy arrays with the same names): ``embed``, ``layers.{attn_norm,
-mlp_norm, wqkv, bqkv?, wo, wgu, w_down}``, ``final_norm``, ``lm_head?`` and
-the ``fuse_tp`` marker. The port keeps the same ``[in, out]`` layouts, so
-every leaf converts as it is. int8-quantized weights (``{"w": int8,
+mlp_norm, wqkv, bqkv?, wo, wgu, w_down}`` (a MoE preset's ``w_router``,
+``w_gate``, ``w_up`` and ``w_down`` expert stacks in place of ``wgu`` and
+``w_down``), ``final_norm``, ``lm_head?`` and the ``fuse_tp`` marker. The
+port keeps the same ``[in, out]`` layouts, so every leaf converts as it
+is. int8-quantized weights (``{"w": int8,
 "scale": f32}`` leaves, JAX ``quantize_params`` / ``init_params_quantized``)
 and int8 cache pages (``{"kv": int8, "scale": f32}`` per layer) cross as
 dicts of tensors, byte for byte.
@@ -53,8 +55,6 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
             f"params were fused for tp={tp}; the port serves one device "
             "(tp=1 layouts) until tensor parallelism lands (ROADMAP.md A12)"
         )
-    if cfg.is_moe:
-        raise ValueError("MoE presets are not ported yet (ROADMAP.md A11)")
     params: Params = {
         "embed": tensor_from_numpy(tree["embed"], device),
         "layers": {name: _leaf(w, device) for name, w in tree["layers"].items()},

@@ -43,6 +43,16 @@ step N while N+1 runs. A step whose advance depends on the data (live
 drafts) commits before the next plan. The token streams are the
 synchronous loop's.
 
+Model paths beside the dense MLP: a MoE preset (Mixtral-style) runs the
+sparse capacity-bounded expert dispatch in every forward
+(``model._moe_mlp``), on every path above; a request's multimodal rows
+(``pre.mm``: encoder embeddings and the placeholder spans they replace)
+override the token embedding wherever its prompt rows ride a ragged
+forward, whose dispatch then runs its body eagerly instead of a graph
+replay (:meth:`EngineCore._ragged_launch`); and :meth:`EngineCore.embed`
+mean-pools one prompt's final hidden states on a scratch cache of its
+own.
+
 KV tiers and transfer: with ``host_kv_blocks`` a block the allocator
 evicts is sliced and copied into pinned host memory on the engine's
 stream, and lands in the host (then disk) tier on the offload worker's
@@ -80,6 +90,7 @@ from dynamo_tpu_torch.engine.graphs import GraphCache, Launch, Layout
 from dynamo_tpu_torch.engine.kv_quant import KV_DTYPES, kv_page_bytes, pack_kv_page, unpack_kv_page
 from dynamo_tpu_torch.engine.model import (
     decode_tokens,
+    embed_forward,
     forward_tokens,
     init_cache,
     init_params,
@@ -144,14 +155,11 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig) -> None:
         raise ValueError(f"spec_k must be >= 1, got {engine_cfg.spec_k}")
     if engine_cfg.disk_kv_dir and engine_cfg.host_kv_blocks <= 0:
         raise ValueError("disk_kv_dir (G3) requires host_kv_blocks > 0 (G2)")
-    refusals = [
-        (engine_cfg.ring_prefill_threshold > 0,
-         "ring_prefill_threshold > 0 (sequence-parallel prefill)", "A12"),
-        (model_cfg.is_moe, f"MoE model {model_cfg.name!r}", "A11"),
-    ]
-    for refused, what, item in refusals:
-        if refused:
-            raise ValueError(f"{what} is not ported yet (ROADMAP.md {item})")
+    if engine_cfg.ring_prefill_threshold > 0:
+        raise ValueError(
+            "ring_prefill_threshold > 0 (sequence-parallel prefill) is not ported yet "
+            "(ROADMAP.md A12)"
+        )
     bs = engine_cfg.block_size
     if engine_cfg.scheduling not in ("waves", "chunked"):
         raise ValueError(
@@ -242,6 +250,9 @@ class Sequence:
     # Disaggregation: a remote-decode prefill holds its blocks after it
     # finishes until the decode worker pulls them.
     hold_blocks: bool = False
+    # -- multimodal: encoder rows [n, h] f32 and their [start, count] spans
+    mm_embeds: Any = None
+    mm_positions: list | None = None
     # -- overload robustness --
     tenant_id: str = ""
     priority: int = 0
@@ -296,6 +307,10 @@ class _RaggedBatch:
     # [T]: flat index into the in-flight step's sampled tokens of the
     # token at that slot, or -1 (the host value stands).
     feed_idx: np.ndarray
+    # [T, h] f32 encoder rows and the [T] mask of the rows they replace,
+    # or None when no row carries a multimodal span.
+    mm_embeds: np.ndarray | None
+    mm_mask: np.ndarray | None
     need_mask: bool
     want_lp: bool
     all_greedy: bool
@@ -362,14 +377,16 @@ def _prefill_and_sample(
     params, cache, tokens, positions, write_pages, write_offs,
     kv_lens, block_tables, cu_q_lens, num_seqs, last_rows,
     seeds, counters, temperature, top_k, top_p,
-    *, need_mask, all_greedy=False, want_logprobs=False, cfg,
+    *, need_mask, all_greedy=False, want_logprobs=False, cfg, mm=None,
 ):
     """One ragged prefill wave + first-token sampling of every row of the
     [S, vocab] last-token logits; the host keeps only rows whose prompt
-    completed this wave."""
+    completed this wave. ``mm``: (embeds, mask) of multimodal rows."""
+    mm_embeds, mm_mask = mm or (None, None)
     logits = forward_tokens(
         params, cache, tokens, positions, write_pages, write_offs,
         kv_lens, block_tables, cu_q_lens, num_seqs, last_rows, cfg,
+        mm_embeds=mm_embeds, mm_mask=mm_mask,
     )
     toks = sample_seeded(
         logits, seeds, counters, temperature, top_k, top_p,
@@ -383,17 +400,19 @@ def _first_iteration(
     params, cache, tokens, positions, write_pages, write_offs, kv_lens, block_tables,
     cu_q_lens, num_seqs, gather, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
     draft, draft_len, cont_active, base_pos, watch, budgets, min_left,
-    *, need_mask, all_greedy, want_logprobs, cfg,
+    *, need_mask, all_greedy, want_logprobs, cfg, mm=None,
 ):
-    """Iteration 0 of a fused or drafting megastep: the ragged forward,
-    its ``[S, R]`` samples, each lane's accept/reject
-    (:func:`resolve_verify`) and stop flag over the slots it emits.
-    Returns (samples ``[S, R]``, their logprob arrays or None, accepted
-    drafts, the token each lane goes on from, alive, tokens emitted, the
-    next write position, each lane's counter base)."""
+    """Iteration 0 of a fused or drafting megastep: the ragged forward
+    (with multimodal rows ``mm``, if any), its ``[S, R]`` samples, each
+    lane's accept/reject (:func:`resolve_verify`) and stop flag over the
+    slots it emits. Returns (samples ``[S, R]``, their logprob arrays or
+    None, accepted drafts, the token each lane goes on from, alive, tokens
+    emitted, the next write position, each lane's counter base)."""
+    mm_embeds, mm_mask = mm or (None, None)
     logits = forward_tokens(
         params, cache, tokens, positions, write_pages, write_offs,
         kv_lens, block_tables, cu_q_lens, num_seqs, gather, cfg,
+        mm_embeds=mm_embeds, mm_mask=mm_mask,
     )
     t0 = sample_seeded(
         logits, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
@@ -421,7 +440,7 @@ def _megastep_fused_body(
     seeds, temp, top_k, top_p,
     watch, budgets, min_left,
     *, n_steps, need_mask, all_greedy=False, want_logprobs=False,
-    cfg, engine,
+    cfg, engine, mm=None,
 ):
     """The UNIVERSAL megastep: one dispatch runs a ragged first iteration
     over prefill chunks, decode rows and verify rows (a mixed step's
@@ -449,6 +468,7 @@ def _megastep_fused_body(
         cu_q_lens, num_seqs, gather, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
         draft, draft_len, cont_active, base_pos, watch, budgets, min_left,
         need_mask=need_mask, all_greedy=all_greedy, want_logprobs=want_logprobs, cfg=cfg,
+        mm=mm,
     )
     S, R = t0s.shape
     rest, rest_lp = [], []
@@ -504,7 +524,7 @@ def _megastep_draft_body(
     dd,                      # [S] bool: lanes that draft on the device
     win, nmin, nmax, kmax,   # [S] each lane's drafter knobs
     *, n_steps, need_mask, all_greedy=False, want_logprobs=False,
-    ngram_max_static, cfg, engine,
+    ngram_max_static, cfg, engine, mm=None,
 ):
     """The DRAFTING megastep: the fused megastep's ragged first iteration,
     then ``n_steps - 1`` verify-shaped iterations. Before each, every
@@ -531,6 +551,7 @@ def _megastep_draft_body(
         cu_q_lens, num_seqs, gather, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
         draft, draft_len, cont_active, base_pos, watch, budgets, min_left,
         need_mask=need_mask, all_greedy=all_greedy, want_logprobs=want_logprobs, cfg=cfg,
+        mm=mm,
     )
     S, R = t0s.shape
     # Iteration 0's emission enters the ring of a drafting lane; the ring
@@ -1018,6 +1039,9 @@ class EngineCore:
             # until ported).
             "fused_mixed_dispatches": 0,
             "megastep_forced_single": 0,
+            # Dispatches that ran their body eagerly on the card instead of
+            # a graph replay (those carrying multimodal rows).
+            "eager_dispatches": 0,
             "pp_fused_dispatches": 0,
             "pp_forced_single": 0,
             # Model forwards: one per prefill wave, one per decode
@@ -1064,6 +1088,9 @@ class EngineCore:
         self._admit_prefix_hits = 0
         self._forced_single_iter = -1
         self._watch_overflow_warned = False
+        # The embeddings' scratch pages (one tuple per engine, built at the
+        # first embed() call).
+        self._embed_scratch: tuple | None = None
 
     # -- request intake (any thread) --------------------------------------
 
@@ -1076,8 +1103,6 @@ class EngineCore:
                 f"scheduler queue full ({limit} requests waiting); "
                 f"retry on another instance"
             )
-        if pre.mm and pre.mm.get("embeds") is not None:
-            raise ValueError("multimodal embeddings are not ported yet (ROADMAP.md A11)")
         with self._lock:
             self._req_counter += 1
             n = self._req_counter
@@ -1114,6 +1139,25 @@ class EngineCore:
         # The request's spec_decode dict overrides the engine default
         # ("off" disables; k clamps to spec_k); a bad one is refused here.
         seq.spec = resolve_spec_config(self._spec_default, pre.spec_decode, self.engine.spec_k)
+        if pre.mm and pre.mm.get("embeds") is not None:
+            embeds = np.frombuffer(pre.mm["embeds"], np.float32).reshape(
+                tuple(pre.mm["embeds_shape"])
+            )
+            if embeds.shape[1] != self.cfg.hidden_size:
+                raise ValueError(
+                    f"multimodal embeds of width {embeds.shape[1]} != "
+                    f"hidden_size {self.cfg.hidden_size}"
+                )
+            positions = [list(p) for p in pre.mm["positions"]]
+            need_rows = sum(cnt for _, cnt in positions)
+            if embeds.shape[0] < need_rows:
+                # Refused here, not inside a wave that other requests share.
+                raise ValueError(
+                    f"multimodal embeds have {embeds.shape[0]} rows but the "
+                    f"placeholder spans need {need_rows}"
+                )
+            seq.mm_embeds = embeds
+            seq.mm_positions = positions
         seq.tenant_id = pre.tenant_id or ""
         seq.priority = pre.priority or 0
         if pre.deadline_epoch is not None:
@@ -1392,11 +1436,32 @@ class EngineCore:
             t += chunk
         cu[1 : len(rows) + 1] = np.cumsum([len(tl) for _, tl, _, _ in rows])
         cu[len(rows) + 1 :] = cu[len(rows)]
+        # Multimodal splice: a row whose prompt position falls inside an
+        # image span takes the encoder's row for that patch. Decode and
+        # verify rows sit past the prompt, so the span check never selects
+        # them.
+        mm_embeds = mm_mask = None
+        if any(s.mm_embeds is not None for s, _, _, _ in rows):
+            mm_embeds = np.zeros((T, self.cfg.hidden_size), np.float32)
+            mm_mask = np.zeros(T, bool)
+            t0 = 0
+            for seq, toks_list, pos0, _ in rows:
+                lo, hi = pos0, pos0 + len(toks_list)
+                if seq.mm_embeds is not None:
+                    row = 0
+                    for start, cnt in seq.mm_positions:
+                        for p in range(start, start + cnt):
+                            if lo <= p < hi:
+                                mm_embeds[t0 + p - lo] = seq.mm_embeds[row]
+                                mm_mask[t0 + p - lo] = True
+                            row += 1
+                t0 += hi - lo
         return _RaggedBatch(
             T=T, R=R, tokens=tokens, positions=positions, write_pages=write_pages,
             write_offs=write_offs, kv_lens=kv_lens, tables=tables, cu=cu,
             gather=gather, counters=counters, seeds=seeds, temp=temp,
             top_k=top_k, top_p=top_p, feed_idx=feed_idx,
+            mm_embeds=mm_embeds, mm_mask=mm_mask,
             need_mask=any(
                 s.sampling.top_k > 0 or s.sampling.top_p < 1.0 for s, _, _, _ in rows
             ),
@@ -1415,18 +1480,35 @@ class EngineCore:
             "top_k": b.top_k, "top_p": b.top_p, "feed_idx": b.feed_idx,
         }
 
+    def _mm_operands(self, b: _RaggedBatch) -> tuple | None:
+        """``b``'s multimodal rows and mask on the engine's device, or
+        None."""
+        if b.mm_embeds is None:
+            return None
+        return (self._to_device(torch.from_numpy(b.mm_embeds)),
+                self._to_device(torch.from_numpy(b.mm_mask)))
+
     def _ragged_launch(self, b: _RaggedBatch, S: int, mixed: bool = False) -> Launch:
         """One ragged forward + sampling of ``b`` as a dispatch. A prefill
         wave's graph key is (token bucket, sampling variant), its ``S`` the
         engine's fixed ``prefill_batch``; a mixed or verify step's
         (``mixed``) is (token bucket, width, sample width, sampling
         variant), and its decode and verify rows may read their first
-        token from the in-flight step on the device."""
+        token from the in-flight step on the device.
+
+        A batch with multimodal rows runs its body eagerly, on the card
+        too (``Launch.eager``), with the rows beside the packed buffer:
+        the JAX engine compiles a ``want_mm`` variant of every program,
+        which as graphs would double the keys warm_up() captures, and a
+        key captured at its first use would cost the first image request
+        a capture (1.2-3.7 s) inside its TTFT. Only the dispatches that
+        carry an image's prompt rows pay the eager launches."""
         P, R = self.engine.max_blocks_per_seq, b.R
         layout = _mixed_layout(b.T, S, P, R) if mixed else _prefill_layout(b.T, S, P)
         fields = self._ragged_fields(b)
         packed = layout.pack({k: fields[k] for k in layout.fields})
         need_mask = b.need_mask and not b.all_greedy
+        mm = self._mm_operands(b)
 
         def body(buf: torch.Tensor) -> tuple:
             x = layout.unpack(buf)
@@ -1437,13 +1519,13 @@ class EngineCore:
                 x["gather"], _rep(x["seeds"], R), x["counters"], _rep(x["temperature"], R),
                 _rep(x["top_k"], R), _rep(x["top_p"], R),
                 need_mask=need_mask, all_greedy=b.all_greedy,
-                want_logprobs=b.want_lp, cfg=self.cfg,
+                want_logprobs=b.want_lp, cfg=self.cfg, mm=mm,
             )
             return (toks, *(lps or ()))
 
         variant = (need_mask, b.all_greedy, b.want_lp)
         key = ("mixed", b.T, S, R, *variant) if mixed else ("prefill", b.T, *variant)
-        return Launch(key, layout, packed, body)
+        return Launch(key, layout, packed, body, eager=mm is not None)
 
     @staticmethod
     def _fused_lanes(S: int, R: int, budget: int) -> dict[str, np.ndarray]:
@@ -1483,6 +1565,7 @@ class EngineCore:
                   else _fused_layout(b.T, S, P, R))
         packed = layout.pack({**self._ragged_fields(b), **lanes})
         need_mask = b.need_mask and not b.all_greedy
+        mm = self._mm_operands(b)
 
         def body(buf: torch.Tensor) -> tuple:
             x = layout.unpack(buf)
@@ -1497,7 +1580,7 @@ class EngineCore:
                 x["watch"], x["budgets"], x["min_left"],
             )
             kw = dict(n_steps=n_steps, need_mask=need_mask, all_greedy=b.all_greedy,
-                      want_logprobs=b.want_lp, cfg=self.cfg, engine=self.engine)
+                      want_logprobs=b.want_lp, cfg=self.cfg, engine=self.engine, mm=mm)
             if drafted:
                 toks, aux, lps = _megastep_draft_body(
                     *args, x["hist"], x["hist_len"], x["dd"], x["win"], x["nmin"],
@@ -1510,17 +1593,20 @@ class EngineCore:
         variant = (need_mask, b.all_greedy, b.want_lp)
         key = (("drafted", b.T, S, n_steps, *variant) if drafted
                else ("fused", b.T, S, n_steps, R, *variant))
-        return Launch(key, layout, packed, body)
+        return Launch(key, layout, packed, body, eager=mm is not None)
 
     def _launch(self, launch: Launch, feed: Callable | None = None) -> tuple:
         """Run one dispatch and return its output tensors: eagerly on the
         CPU, else as the replay of its graph, captured at first use where
-        warm_up() did not. ``feed(buf)`` writes the device-resident slots
-        of the packed inputs."""
-        if self.device.type == "cpu":
-            buf = torch.from_numpy(launch.packed).to(self.device)
+        warm_up() did not; an ``eager`` launch runs its body on the card
+        as on the CPU. ``feed(buf)`` writes the device-resident slots of
+        the packed inputs."""
+        if self.device.type == "cpu" or launch.eager:
+            buf = self._to_device(torch.from_numpy(launch.packed))
             if feed is not None:
                 feed(buf)
+            if self.device.type == "cuda":
+                self.exec_stats["eager_dispatches"] += 1
             return launch.body(buf)
         if launch.key not in self._graphs:
             if self._inflight is not None:
@@ -2981,6 +3067,45 @@ class EngineCore:
         """Drop every unpinned cached block; returns blocks cleared."""
         with self._step_lock:
             return len(self.allocator.clear_cache())
+
+    # -- embeddings --------------------------------------------------------
+
+    def embed(self, token_ids: list[int]) -> np.ndarray:
+        """Mean-pooled final-hidden embedding of one prompt (``[h]`` f32),
+        as the JAX engine's ``embed``: one forward
+        (``model.embed_forward``) padded to a prefill bucket, on a scratch
+        paged cache of its own (built at the first call, reused), so the
+        serving cache and the allocator are untouched. The scratch pages
+        are in the model dtype whatever ``kv_dtype`` is, as in JAX. The
+        forward runs eagerly and takes the step lock: a step's capture
+        must not see another thread's work on the card."""
+        T = len(token_ids)
+        if T == 0:
+            raise ValueError("empty input")
+        bucket = self._bucket_for(T)
+        bs = self.engine.block_size
+        with self._step_lock, self._on_stream():
+            if self._embed_scratch is None:
+                n = -(-self.engine.prefill_buckets[-1] // bs) + 1
+                shape = (n, bs, 2 * self.cfg.num_kv_heads, self.cfg.head_dim)
+                self._embed_scratch = tuple(
+                    torch.zeros(shape, dtype=self.cfg.torch_dtype, device=self.device)
+                    for _ in range(self.cfg.num_layers)
+                )
+            garbage = self._embed_scratch[0].shape[0] - 1
+            tokens = np.zeros(bucket, np.int32)
+            tokens[:T] = token_ids
+            write_pages = np.full(bucket, garbage, np.int32)
+            write_pages[:T] = np.arange(T) // bs
+            tables = np.full((1, garbage), garbage, np.int32)
+            tables[0, : -(-bucket // bs)] = np.arange(-(-bucket // bs))
+            dev = lambda a: self._to_device(torch.from_numpy(a))  # noqa: E731
+            pooled = embed_forward(
+                self.params, self._embed_scratch, dev(tokens),
+                dev(np.arange(bucket) < T), dev(write_pages), dev(tables),
+                self.cfg, self.engine,
+            )
+            return pooled.cpu().numpy()
 
     def warm_up(self) -> int:
         """Run every shape the engine serves once before it serves, every

@@ -43,7 +43,14 @@ class TorchEngine:
             yield {"cleared_blocks": cleared, "finish_reason": "stop"}
             return
         if request.get("embed"):
-            raise ValueError("embedding requests are not ported yet (ROADMAP.md A11)")
+            # One forward, no scheduling (EngineCore.embed).
+            vec = await asyncio.to_thread(self.core.embed, list(request["token_ids"]))
+            yield {
+                "embedding": [float(x) for x in vec.tolist()],
+                "prompt_tokens": len(request["token_ids"]),
+                "finish_reason": "stop",
+            }
+            return
         pre = PreprocessedRequest.from_wire(request)
         pre.request_id = pre.request_id or context.id
         if pre.request_id in self._queues:

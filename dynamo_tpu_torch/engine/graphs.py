@@ -94,6 +94,9 @@ class Launch:
     layout: Layout
     packed: np.ndarray
     body: Callable[[torch.Tensor], tuple]
+    # Run the body eagerly on the card too, never captured (a multimodal
+    # dispatch: its embedding rows ride beside the packed buffer).
+    eager: bool = False
 
 
 @dataclass

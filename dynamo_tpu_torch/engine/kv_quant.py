@@ -17,8 +17,9 @@ engine's write runs compiled, so the port multiplies by ``f32(1/127)``
 (an eager, uncompiled ``jnp`` division rounds differently in ~4% of
 scales). Everything from ``KV_DTYPES`` on is a verbatim copy of
 the jax-free part of the JAX module (``tests/test_torch_copies.py`` holds
-each definition to its original). The host/disk tiers and transfers that
-move packed pages are not ported yet (ROADMAP.md A10).
+each definition to its original). The host and disk tiers and the block
+transfers (``engine/core.py``) move packed pages in this representation,
+byte for byte as the JAX package moves them.
 """
 
 from __future__ import annotations

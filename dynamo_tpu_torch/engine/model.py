@@ -12,6 +12,9 @@ layouts, so the JAX params pytree converts leaf for leaf
   only), ``wo [L, q, h]``, ``wgu [L, h, 2i]`` (fused ``[gate | up]``),
   ``w_down [L, i, h]``. Weights are ``[in, out]`` so ``x @ w`` is
   ``jnp.dot(x, w)``.
+- MoE presets (Mixtral-style) replace ``wgu``/``w_down`` with
+  ``w_router [L, h, E]`` and the expert stacks ``w_gate``/``w_up
+  [L, E, h, i]`` and ``w_down [L, E, i, h]`` (:func:`_moe_mlp`).
 - int8 weight-only quantization (``quant="int8"``): the projections and
   ``lm_head`` become ``{"w": int8, "scale": f32 [..., 1, out]}`` leaves,
   per output channel (:func:`quantize_weight`); embeddings, norms and
@@ -100,9 +103,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     smoke runs and benchmarks; real weights come through a converter).
     Each stacked weight is filled one layer at a time, so the f32
     transient is one layer's worth, and the fused projections are drawn
-    at their fused shapes (random fused == fused random)."""
-    if cfg.is_moe:
-        raise ValueError("MoE presets are not ported yet (ROADMAP.md A11)")
+    at their fused shapes (random fused == fused random). A MoE preset's
+    expert stacks are drawn one layer at a time too (for Mixtral-8x7B the
+    f32 transient of one layer's ``[8, 4096, 14336]`` is 1.88 GB)."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
@@ -121,9 +124,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
         "wqkv": dense((L, h, qkv), h),
         "wo": dense((L, cfg.q_size, h), cfg.q_size),
-        "wgu": dense((L, h, 2 * i), h),
-        "w_down": dense((L, i, h), i),
     }
+    if cfg.is_moe:
+        E = cfg.num_experts
+        layers["w_router"] = dense((L, h, E), h)
+        layers["w_gate"] = dense((L, E, h, i), h)
+        layers["w_up"] = dense((L, E, h, i), h)
+        layers["w_down"] = dense((L, E, i, h), i)
+    else:
+        layers["wgu"] = dense((L, h, 2 * i), h)
+        layers["w_down"] = dense((L, i, h), i)
     if cfg.attn_qkv_bias:
         layers["bqkv"] = dense((L, qkv), 1)
     params: Params = {
@@ -144,7 +154,11 @@ def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda") -> Par
     Embeddings and norms stay in the model dtype; ``lm_head`` (untied
     only) is quantized too."""
     if cfg.is_moe:
-        raise ValueError("MoE presets are not ported yet (ROADMAP.md A11)")
+        raise ValueError(
+            f"int8 weights for the MoE preset {cfg.name!r} are not served: the JAX "
+            "package has no int8 MoE init either (its init_params_quantized raises "
+            "for MoE presets)"
+        )
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
@@ -251,10 +265,95 @@ def rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.is_moe:
+        return _moe_mlp(x, lp, cfg)
     g, u = split_gu(_dot(x, lp["wgu"]))
     act = (F.silu(g) * u).to(x.dtype)
     return _dot(act, lp["w_down"]).to(x.dtype)
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` with an f32 result (``jnp.einsum(...,
+    preferred_element_type=f32)``), as :func:`_dot` for one product."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a, b).float()
+
+
+def _moe_capacity(N: int, cfg: ModelConfig) -> int:
+    """Per-expert token capacity for a dispatch of N tokens (static)."""
+    k, E = cfg.num_experts_per_tok, cfg.num_experts
+    return max(1, min(N, int(-(-N * k * cfg.moe_capacity_factor // E))))
+
+
+def _moe_dispatch_local(xf, w_router, w_gate, w_up, w_down, cfg: ModelConfig) -> torch.Tensor:
+    """Sparse top-k MoE over every expert on one device: capacity-bounded
+    gather/scatter dispatch, each expert a dense ``[C, h]`` batch of its
+    assigned tokens. The JAX function's semantics exactly (its expert
+    slice of a mesh shard waits for A12):
+
+    - C comes from N, the forward's padded width (bucket padding rows
+      route and take slots too);
+    - entries are ordered token-major, top-k rank minor, and an entry's
+      slot is its rank among the entries of its expert;
+    - ``keep = pos < C``: an entry past its expert's capacity is dropped
+      and adds zero (it lands in a garbage row);
+    - the top-k values go through a softmax in f32, SiLU runs on f32
+      products, and the combine adds in f32 and casts at the end.
+
+    Every shape is static (no ``nonzero``, no boolean-mask indexing, no
+    host read), so the dispatch captures into a CUDA graph. Ties among
+    router logits take the lower expert first, as ``jax.lax.top_k``."""
+    N, h = xf.shape
+    k, E = cfg.num_experts_per_tok, cfg.num_experts
+    C = _moe_capacity(N, cfg)
+    dev = xf.device
+
+    router = _dot(xf, w_router)                                   # [N, E] f32
+    vals, idx = torch.sort(router, dim=-1, descending=True, stable=True)
+    probs = torch.softmax(vals[:, :k], dim=-1)
+
+    flat_e = idx[:, :k].reshape(-1)                               # [N*k] expert ids
+    flat_t = torch.arange(N * k, device=dev) // k                  # token of each entry
+    oh = (flat_e[:, None] == torch.arange(E, device=dev)[None, :]).to(torch.int32)
+    pos = (torch.cumsum(oh, dim=0) * oh).sum(dim=1) - 1           # [N*k]
+    keep = pos < C
+    # Each kept entry's row in the experts' [E * C, h] batch; a dropped
+    # one lands in the garbage row after it (the JAX function's garbage
+    # expert row and capacity slot).
+    slot = torch.where(keep, flat_e * C + pos, E * C)
+
+    gathered = torch.zeros((E * C + 1, h), dtype=xf.dtype, device=dev)
+    gathered[slot] = xf[flat_t]
+    g = gathered[: E * C].view(E, C, h)
+    gate = _bmm(g, w_gate)                                        # f32
+    up = _bmm(g, w_up)
+    act = F.silu(gate, inplace=True).mul_(up).to(xf.dtype)
+    del gate, up
+    down = _bmm(act, w_down).view(E * C, h)                       # f32
+
+    # A dropped entry reads a clamped row and adds zero.
+    entry_out = torch.where(keep[:, None], down[slot.clamp(max=E * C - 1)], 0.0)
+    w_masked = torch.where(keep, probs.reshape(-1), 0.0)
+    out = (w_masked[:, None] * entry_out).reshape(N, k, h).sum(dim=1)
+    return out.to(xf.dtype)
+
+
+def _moe_mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mixtral-style sparse MoE on one device: softmax over the top-k
+    router logits, weighted sum of the expert SwiGLUs
+    (:func:`_moe_dispatch_local` over every expert). The JAX function's
+    mesh branches (replicated and all-to-all expert parallelism) wait
+    for a mesh (``ROADMAP.md`` A12); without one both ``moe_dispatch``
+    values are this local dispatch, as in JAX."""
+    shape = x.shape
+    out = _moe_dispatch_local(
+        x.reshape(-1, shape[-1]), lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"], cfg,
+    )
+    return out.reshape(shape)
 
 
 def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -329,7 +428,7 @@ def dense_layer(
         sm_scale=cfg.head_dim ** -0.5, kv_scales=kv_scales, kernel=kernel,
     )
     x = x + _dot(attn.reshape(T, cfg.q_size), lp["wo"]).to(x.dtype)
-    return x + _mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp)
+    return x + _mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
 
 
 # -- the unified forward ----------------------------------------------------
@@ -348,11 +447,17 @@ def forward_hidden(
     cfg: ModelConfig,
     attention=ragged_paged_attention,
     kernel: str = "tiled",
+    mm_embeds: torch.Tensor | None = None,  # [T, h] f32 multimodal rows
+    mm_mask: torch.Tensor | None = None,    # [T] bool: rows they replace
 ) -> torch.Tensor:
     """The transformer stack up to the final norm: hidden states [T, h].
     The cache is written in place; every layer's attention is told
-    ``kernel``."""
+    ``kernel``. ``mm_embeds``/``mm_mask`` override the token-embedding
+    rows at multimodal placeholder positions with encoder output
+    (``llm/multimodal.py``), as the JAX function's ``want_mm`` variant."""
     x = params["embed"][tokens.long()]
+    if mm_embeds is not None:
+        x = torch.where(mm_mask[:, None], mm_embeds.to(x.dtype), x)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     wp, wo = write_pages.long(), write_offs.long()
     layers = params["layers"]
@@ -383,6 +488,8 @@ def forward_tokens(
     cfg: ModelConfig,
     attention=ragged_paged_attention,
     kernel: str = "tiled",
+    mm_embeds: torch.Tensor | None = None,
+    mm_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One step over every scheduled token: last-token logits [S, V] f32.
     Prefill chunks, decode tokens and mixed batches are all this call.
@@ -394,8 +501,38 @@ def forward_tokens(
     x = forward_hidden(
         params, cache, tokens, positions, write_pages, write_offs,
         kv_lens, block_tables, cu_q_lens, num_seqs, cfg, attention, kernel,
+        mm_embeds, mm_mask,
     )
     return _logits(x[last_rows.long()], params, cfg)
+
+
+def embed_forward(
+    params: Params,
+    scratch: tuple,              # a scratch paged cache of its own (in place)
+    tokens: torch.Tensor,        # [T] i32, one sequence, bucket-padded
+    valid: torch.Tensor,         # [T] bool: the prompt's rows
+    write_pages: torch.Tensor,   # [T] i32 into the scratch cache (garbage for pads)
+    block_tables: torch.Tensor,  # [1, scratch_pages] i32
+    cfg: ModelConfig,
+    engine: EngineConfig,
+    attention=ragged_paged_attention,
+) -> torch.Tensor:
+    """Causal LLM-as-embedder: one forward over the prompt and masked mean
+    pooling of the final-norm hidden states; returns the ``[h]`` f32
+    embedding. Bucket-padded rows write the garbage page and sit after
+    every valid row, so causal masking keeps them out of the valid rows'
+    attention; pooling masks them out of the mean."""
+    T = tokens.shape[0]
+    dev = tokens.device
+    positions = torch.arange(T, dtype=torch.int32, device=dev)
+    x = forward_hidden(
+        params, scratch, tokens, positions, write_pages, positions % engine.block_size,
+        torch.full((1,), T, dtype=torch.int32, device=dev), block_tables,
+        torch.tensor([0, T], dtype=torch.int32, device=dev),
+        torch.ones(1, dtype=torch.int32, device=dev), cfg, attention,
+    )
+    w = valid.float()[:, None]
+    return (x.float() * w).sum(dim=0) / torch.clamp_min(w.sum(), 1.0)
 
 
 def decode_tokens(

@@ -96,6 +96,10 @@ COPIES = [
     "llm/disagg_pool/__init__.py",
     "llm/disagg_pool/cursor.py",
     "llm/disagg_pool/handoff.py",
+    # The multimodal encode worker.
+    "backends/encoder/__init__.py",
+    "backends/encoder/__main__.py",
+    "backends/encoder/main.py",
 ]
 
 

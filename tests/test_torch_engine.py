@@ -73,11 +73,16 @@ def test_facade_matches_tpu_engine():
 
 
 def test_facade_refuses_embeddings():
-    _, engine = build_engine("tiny", device="cpu")
+    """The facade answers an embedding request (A11, once refused here):
+    one chunk with the core's mean-pooled vector, the prompt's length and
+    ``finish_reason`` "stop"."""
+    core, engine = build_engine("tiny", device="cpu")
 
     async def go():
-        async for _ in engine.generate({"embed": True, "token_ids": [1, 2]}, Context()):
-            pass
+        return [out async for out in engine.generate(
+            {"embed": True, "token_ids": [1, 2, 3]}, Context())]
 
-    with pytest.raises(ValueError, match="A11"):
-        asyncio.run(go())
+    (out,) = asyncio.run(go())
+    assert out["prompt_tokens"] == 3 and out["finish_reason"] == "stop"
+    assert len(out["embedding"]) == core.cfg.hidden_size
+    np.testing.assert_array_equal(np.float32(out["embedding"]), core.embed([1, 2, 3]))

@@ -131,8 +131,9 @@ def test_unported_models_and_meshes_refused():
     from dynamo_tpu_torch.engine.config import tiny_engine, tiny_model
     from dynamo_tpu_torch.engine.core import EngineCore
 
-    with pytest.raises(ValueError, match="A11"):
-        build_engine("tiny-moe", device="cpu")
+    # MoE presets are served (A11): tiny-moe builds.
+    core, _ = build_engine("tiny-moe", device="cpu")
+    assert core.cfg.is_moe and "w_router" in core.params["layers"]
     with pytest.raises(ValueError, match="A12"):
         EngineCore(tiny_model(), tiny_engine(), device="cpu", mesh=object())
 

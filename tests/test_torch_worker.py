@@ -504,7 +504,7 @@ async def test_graceful_drain_publishes_cleared():
 
 # -- (h) what the port does not serve is refused by name ----------------------
 
-SERVED_ITEMS = {"A10"}  # ROADMAP items landed since their flags were refused
+SERVED_ITEMS = {"A10", "A11"}  # ROADMAP items landed since their flags were refused
 
 
 @pytest.mark.parametrize(
@@ -527,16 +527,28 @@ SERVED_ITEMS = {"A10"}  # ROADMAP items landed since their flags were refused
 def test_unported_cli_flags_refused(argv, item):
     """Each flag value the port does not serve raises, naming its ROADMAP
     item. A value whose item has landed is served instead: the parser and
-    the refusals take the roles (A10), and their engine builds."""
+    the refusals take the roles (A10), and their engine builds; they take
+    the MoE presets and ``--moe-dispatch`` (A11), which a dense preset
+    refuses as the JAX worker does."""
     if item not in SERVED_ITEMS:
         with pytest.raises(ValueError, match=item):
             worker_main.main(argv)
         return
     args = worker_main._parser().parse_args(argv)
     worker_main._refuse_unported(args)
-    assert args.role == argv[1] and args.max_local_prefill_length == 50
-    core, _ = build_engine("tiny", worker_main._overrides(args), device="cpu")
-    assert core.engine.held_block_ttl_s > 0
+    if item == "A10":
+        assert args.role == argv[1] and args.max_local_prefill_length == 50
+        core, _ = build_engine("tiny", worker_main._overrides(args), device="cpu")
+        assert core.engine.held_block_ttl_s > 0
+        return
+    if args.moe_dispatch is not None:
+        with pytest.raises(ValueError, match="is dense"):
+            worker_main.main(argv)  # the default preset, tiny, is dense
+        args.preset = "tiny-moe"
+    core, _ = build_engine(args.preset, worker_main._overrides(args), device="cpu",
+                           moe_dispatch=args.moe_dispatch)
+    assert core.cfg.is_moe
+    assert core.cfg.moe_dispatch == (args.moe_dispatch or "replicated")
 
 
 async def test_status_server_refused_when_asked_for(monkeypatch):
