@@ -21,7 +21,9 @@ int8-against-bf16 comparison's shape and llama3-8b decode shapes, each
 with its planned split count; and shows that the comparison fails every
 planted fault (K2: the self position dropped, a tile dropped, the combine
 dropping the last split, two splits overlapping by a page, int8 V with
-K's scale), (4) runs K2's own path, that
+K's scale); K1 also at Qwen2-7B's head layout (28 query heads over 4 KV
+heads, a group of 7: the decode form and a 2048-token tiled wave, with
+the planted faults), (4) runs K2's own path, that
 int8-page against bf16-page decode-attention comparison, through
 ``paged_attention``, (5) serves 8 requests through
 ``build_engine("llama3-8b")`` and ``TorchEngine.generate`` at full width
@@ -35,11 +37,12 @@ graphs, so every prefill wave and decode megastep of the main path is a
 graph replay (checked: replays == dispatches); then one decode megastep
 (width 8, k = 8) is replayed from its graph and run as the eager body
 from the same cache copy and inputs (tokens equal, both timed per
-iteration), and the traffic runs again through the warm engine and an
-async engine on the same weights (streams equal, decode ms per
-iteration and TTFT printed for each); then the chunked phase
-(:func:`serve_chunked`, bf16, on the same weights): a chunked engine's
-``warm_up()`` (its graph keys by kind, capture seconds, memory), K1's
+iteration), and the traffic runs again through the warm engine, sync
+and then async (streams equal, decode ms per iteration and TTFT printed
+for each); then the chunked phase
+(:func:`serve_chunked`, bf16, at full width and depth on the same
+weights): a chunked engine's ``warm_up()`` at the one decode width its
+8 lanes need (its graph keys by kind, capture seconds, memory), K1's
 kernels held against the plain version at the mixed steps the chunked
 planners dispatch (T 8192 with a 2048-token chunk and T 2048 with a 512
 chunk, each next to 7 decode rows), a mixed batch at T == S through the
@@ -50,8 +53,8 @@ against one wave (logits' cosine), and the traffic of 7 decoding streams
 joined by a 2124-token prompt under waves, chunked at the defaults (sync
 and async) and chunked with ``max_num_batched_tokens`` 2048: the streams'
 largest and p99 gap between tokens, the long prompt's TTFT, the
-real-token share of the mixed steps' token buckets, K1 launches = 32 x
-forwards and no capture after warm-up; then the speculation phase
+real-token share of the mixed steps' token buckets, K1 launches = layers
+x forwards and no capture after warm-up; then the speculation phase
 (:func:`serve_spec`, bf16, on the same weights): K1's kernels held at
 the verify rows' shapes (S rows of spec_k + 1 = 5 queries, T = S * 5),
 verify-forward against one-token-forward logits, the history rings'
@@ -76,14 +79,25 @@ phase (:func:`serve_moe`: 16 of Mixtral-8x7B's 32 layers at full width,
 bf16, one layer's MoE MLP against its f32 CPU version, warm-up, 8
 prompts in one wave with TTFT and decode ms beside their bounds, K1 at 16
 launches per forward, graph against eager with tokens and
-log-probabilities equal, the idle share, a chunked mixed step), (6) runs the worker process:
+log-probabilities equal, the idle share, a chunked mixed step), then Qwen2-7B at full width, 4 of
+its 28 layers (:func:`serve_qwen2`: greedy streams, the weights written
+as a ``qwen2`` checkpoint and loaded back, every leaf equal, the same
+streams from the loaded engine) and a GGUF file written and read back
+(:func:`gguf_round_trip`: F32, F16 and BF16 tensors, the config, the
+tokenizer), (6) runs the worker process:
 the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
 ``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
 --preset llama3-8b --seed 0`` as subprocesses, waits for the model card
 through the port's discovery and sends requests through the port's
 data-plane client: 4 greedy prompts one at a time, whose streams must
 equal those of ``build_engine("llama3-8b", seed=0)`` in this process
-(run first with the same traffic, and freed), then all 8 at once, then,
+(the main path's bf16 engine, which ran the same traffic just after its
+warm-up, before the main path; its weights were then written as a Hugging Face checkpoint by
+this script's own safetensors writer and loaded back with every leaf
+equal; here the checkpoint is loaded again as int8, layer 0 and
+``lm_head`` bit-equal to the loader's arithmetic in numpy; the sync
+worker serves that checkpoint with ``--model-path`` in place of
+``--preset``), then all 8 at once, then,
 with the prefix cache cleared, all 8 again staggered (one, and the other
 7 0.1 s later, an arrival pattern neither path shapes), with time to
 first token and decode ms per iteration printed beside the in-process
@@ -113,7 +127,9 @@ launches in each worker, and a peer pull (:func:`check_peer_pull`: one
 worker imports the other's 64 prompt blocks on a router's
 ``peer_prefix`` hint, its pages and stream held to the holder's), (8)
 runs the disaggregation phase (:func:`serve_disagg`: a prefill worker, a
-decode worker, an aggregated worker and the frontend as processes; the
+decode worker, an aggregated worker and the frontend as processes, the
+three workers warming up together and serving llama3-8b's first 8
+layers at full width from a checkpoint the main path's engine wrote; the
 serving requests at once and staggered through both paths, greedy
 streams equal up to measured near-ties, pages checksummed on both sides,
 blocks imported with no recompute and no failed pull), and (9) prints a
@@ -132,9 +148,12 @@ import gc
 import json
 import os
 import re
+import shutil
 import signal
 import socket
+import struct
 import subprocess
+import threading
 import sys
 import tempfile
 import time
@@ -216,15 +235,15 @@ def compare(got, want, n_real: int) -> tuple[float, float, bool]:
     return rel, err, rel <= ROW_REL_TOL and not got[n_real:].any().item()
 
 
-def attention_batch(q_lens, kv_lens, S, pages_per_seq, T, gen):
+def attention_batch(q_lens, kv_lens, S, pages_per_seq, T, gen, n_q=N_Q, n_kv=N_KV):
     """Ragged operands on the card: sequence s owns q rows cu[s]..cu[s+1]-1
     and its own pages; rows past cu[num_seqs] and table entries past a
     sequence's pages point at the garbage page. Returns the positional
     operands and the keyword ones (none for bf16 pages)."""
     dev = "cuda"
     n_pages = sum(-(-L // PAGE) for L in kv_lens) + 1
-    q = torch.randn(T, N_Q, HEAD_DIM, device=dev, generator=gen).bfloat16()
-    kv = torch.randn(n_pages, PAGE, 2 * N_KV, HEAD_DIM, device=dev, generator=gen).bfloat16()
+    q = torch.randn(T, n_q, HEAD_DIM, device=dev, generator=gen).bfloat16()
+    kv = torch.randn(n_pages, PAGE, 2 * n_kv, HEAD_DIM, device=dev, generator=gen).bfloat16()
     perm = torch.randperm(n_pages - 1, device=dev, generator=gen).to(torch.int32)
     tables = torch.full((S, pages_per_seq), n_pages - 1, dtype=torch.int32, device=dev)
     off = 0
@@ -250,7 +269,7 @@ def quantized(args, kw):
     return (args[0], kv8, *args[2:]), {**kw, "kv_scales": scales}
 
 
-def attention_bound(q_lens, kv_lens, T, int8=False):
+def attention_bound(q_lens, kv_lens, T, int8=False, n_q=N_Q, n_kv=N_KV):
     """Least time for this call's work: each input byte the data needs
     read once (q rows, the visible K/V rows and, for int8 pages, their
     scales, the table entries in use), the output written once; operations
@@ -260,15 +279,15 @@ def attention_bound(q_lens, kv_lens, T, int8=False):
     pages = sum(-(-L // PAGE) for L in kv_lens)
     row_bytes = HEAD_DIM + SCALE_BYTES if int8 else HEAD_DIM * 2
     nbytes = (
-        sum(q_lens) * N_Q * HEAD_DIM * 2        # q (bf16)
-        + kv_rows * 2 * N_KV * row_bytes        # K and V rows (+ scales)
-        + T * N_Q * HEAD_DIM * 2                # out (bf16)
+        sum(q_lens) * n_q * HEAD_DIM * 2        # q (bf16)
+        + kv_rows * 2 * n_kv * row_bytes        # K and V rows (+ scales)
+        + T * n_q * HEAD_DIM * 2                # out (bf16)
         + 4 * (pages + 2 * len(kv_lens) + 2)    # tables, kv_lens, cu, num_seqs
     )
     visible = sum(
         min(L - q + i + 1, L) for q, L in zip(q_lens, kv_lens) for i in range(q)
     )
-    ops = 4 * visible * N_Q * HEAD_DIM
+    ops = 4 * visible * n_q * HEAD_DIM
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -288,21 +307,22 @@ def sdpa_yardstick(args, kw, q_lens, kv_lens):
 
     F = torch.nn.functional
     q, kv, _, tables, cu, _ = args
-    group = N_Q // N_KV
+    n_q, n_kv = q.shape[1], kv.shape[2] // 2
+    group = n_q // n_kv
     cu_h = cu.tolist()
 
     def contiguous(s, L):
         pos = torch.arange(L, device=q.device)
         slots = tables[s].long()[pos // PAGE] * PAGE + pos % PAGE
-        rows = kv.reshape(-1, 2 * N_KV, HEAD_DIM)[slots]
+        rows = kv.reshape(-1, 2 * n_kv, HEAD_DIM)[slots]
         if "kv_scales" in kw:
-            rows = dequantize_kv(rows, kw["kv_scales"].reshape(-1, 2 * N_KV)[slots]).bfloat16()
+            rows = dequantize_kv(rows, kw["kv_scales"].reshape(-1, 2 * n_kv)[slots]).bfloat16()
         k, v = (rows[:, i::2].repeat_interleave(group, dim=1).transpose(0, 1) for i in (0, 1))
         return k, v                                                    # [n_q, L, d]
 
     if all(n == 1 for n in q_lens):
         B, L = len(q_lens), max(kv_lens)
-        k = torch.zeros(B, N_Q, L, HEAD_DIM, dtype=torch.bfloat16, device=q.device)
+        k = torch.zeros(B, n_q, L, HEAD_DIM, dtype=torch.bfloat16, device=q.device)
         v = torch.zeros_like(k)
         for s, n in enumerate(kv_lens):
             k[s, :, :n], v[s, :, :n] = contiguous(s, n)
@@ -331,7 +351,8 @@ def hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms, 
     ``want``, each timed with the L2 flushed; the yardstick beside them.
     Raises if either disagrees."""
     scale = HEAD_DIM ** -0.5
-    bound_ms, bound_by = attention_bound(q_lens, kv_lens, T, int8)
+    n_q, n_kv = args[0].shape[1], args[1].shape[2] // 2
+    bound_ms, bound_by = attention_bound(q_lens, kv_lens, T, int8, n_q, n_kv)
     sdpa_ms = cold_ms(sdpa_yardstick(args, kw, q_lens, kv_lens), reps)
     torch.cuda.empty_cache()
     out = []
@@ -343,7 +364,8 @@ def hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms, 
         del got
         ms = cold_ms(run, reps)
         out.append(dict(
-            shape=name, kernel=kernel, T=T, S=args[3].shape[0], num_seqs=len(q_lens),
+            shape=name, kernel=kernel, n_q=n_q, n_kv=n_kv, T=T, S=args[3].shape[0],
+            num_seqs=len(q_lens),
             max_kv_len=max(kv_lens), ok=ok, max_row_rel_err=rel, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             yardstick_sdpa_ms=sdpa_ms,
@@ -566,6 +588,45 @@ def check_serving_prefill_shape(ra, prompt_lens, int8=False) -> list[dict]:
     del args, kw, want
     torch.cuda.empty_cache()
     return out
+
+
+# K1 at Qwen2-7B's attention geometry: 28 query heads over 4 KV heads, a
+# group of 7. The decode kernel's template rounds the group up to 8; the
+# tiled kernel takes 128 // 7 = 18 query rows per block (126 of its 128 M
+# rows). The serving engine's shapes: S = 8 slots of 256 pages.
+QWEN_N_Q, QWEN_N_KV = 28, 4
+QWEN_DECODE_LENS = [2048, 1700, 1200, 900, 513, 300, 64, 33]
+QWEN_PREFILL_LENS = [1024, 600, 300, 124]  # one 2048-token wave
+
+
+def check_qwen2_attention(ra, planted) -> tuple[list[dict], dict]:
+    """Both K1 kernels, bf16 pages, at Qwen2-7B's head layout: the decode
+    form (T = S = 8) and a tiled prefill wave (T 2048, held against the
+    plain version in row chunks), then every planted fault of the bf16
+    kernels on both batches, which the comparison must catch."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    geo = dict(n_q=QWEN_N_Q, n_kv=QWEN_N_KV)
+    scale = HEAD_DIM ** -0.5
+    results, batches = [], []
+    for name, q_lens, kv_lens, T, reps in (
+        ("qwen2_decode8", [1] * 8, QWEN_DECODE_LENS, 8, 20),
+        ("qwen2_prefill2048", QWEN_PREFILL_LENS, QWEN_PREFILL_LENS, 2048, 10),
+    ):
+        args, kw = attention_batch(q_lens, kv_lens, 8, 256, T, gen, **geo)
+        if T == 8:
+            plain = lambda: ra.ragged_paged_attention_ref(*args, sm_scale=scale, **kw)  # noqa: E731
+        else:
+            plain = lambda: plain_by_row_chunks(ra, args, kw, q_lens)  # noqa: E731
+        want = plain()
+        plain_ms = cold_ms(plain, 3 if T == 8 else 1)
+        results += hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, False, reps, plain_ms,
+                           "attention qwen2")
+        batches.append((name, args, kw, want, sum(q_lens)))
+        torch.cuda.empty_cache()
+    faults = check_planted_faults(ra, batches, planted, PLANTED_FAULTS)
+    del batches
+    torch.cuda.empty_cache()
+    return results, faults
 
 
 # -- K2: paged decode attention ----------------------------------------------
@@ -942,21 +1003,21 @@ async def timed_engine_batch(engine, Context, reqs) -> dict:
     return {rid: {"tokens": toks, "ttft_ms": ttft} for rid, toks, ttft in done}
 
 
-def sync_against_async(core, overrides, reqs, mode: str) -> dict:
+def sync_against_async(core, reqs, mode: str) -> dict:
     """The serving traffic (all 8 prompts at once, prefix caches cleared)
-    through the warm sync engine and through an async engine on the same
-    weights, twice each, the second pass measured: identical streams;
+    through the warm engine, sync and then async (its configuration
+    switched: the step reads ``async_exec`` each time, and the graphs are
+    the same), twice each, the second pass measured: identical streams;
     decode ms per iteration (the engine loop's wall over its decode
-    iterations) and TTFT for each."""
-    from dynamo_tpu_torch.backends.torch.main import build_engine
+    iterations) and TTFT for each. (The worker phase's async worker and
+    the chunked phase warm up with async execution on.)"""
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.runtime.engine import Context
 
-    acore, _ = build_engine("llama3-8b", {**overrides, "async_exec": True}, device="cuda",
-                            params=core.params)
-    warm = warm_up(acore, f"{mode}, async")
     rows = {}
-    for name, c in (("sync", core), ("async", acore)):
+    for name in ("sync", "async"):
+        c = core
+        c.engine = dataclasses.replace(c.engine, async_exec=name == "async")
         # A first pass warms the loop, the second is measured; neither
         # captures a graph. Each event loop gets its own facade.
         captures = c.scheduler_stats()["graph_captures"]
@@ -989,21 +1050,22 @@ def sync_against_async(core, overrides, reqs, mode: str) -> dict:
               f"dispatches, all replays; TTFT ms "
               + ", ".join(f"{k} {v:.1f}" for k, v in sorted(r["ttft_ms"].items())), flush=True)
     print(f"serving {mode}: async streams equal to sync streams: {same}", flush=True)
+    core.engine = dataclasses.replace(core.engine, async_exec=False)
     if not same or any(len(t) != MAX_TOKENS for t in rows["async"]["streams"].values()):
         raise AssertionError(f"{mode}: async execution changed the streams")
-    del acore
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"async_warm_up": warm, **{name: {k: v for k, v in r.items() if k != "streams"}
-                                      for name, r in rows.items()}}
+    return {name: {k: v for k, v in r.items() if k != "streams"} for name, r in rows.items()}
 
 
-def serve(ra, card: str, int8=False) -> tuple[int, dict]:
+def serve(ra, card: str, int8=False) -> tuple[dict, dict, tuple | None]:
     """The main path: 8 requests through the llama3-8b engine, bf16, or
     (``int8``) with int8 weights and int8 KV pages, after ``warm_up()``
     (so every prefill wave and decode megastep is a graph replay); then
     the graph-against-eager megastep, k = 1 against k = 8, and the
-    traffic with async execution off and on."""
+    traffic with async execution off and on. The bf16 engine first runs
+    the worker phase's in-process reference (:func:`in_process_traffic`),
+    just warmed up as the worker will be, which is returned with the
+    checkpoints it writes (None under ``int8``); the main path after it
+    reads its counters over its own traffic."""
     from dynamo_tpu_torch.backends.torch.main import build_engine
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.runtime.engine import Context
@@ -1020,9 +1082,13 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
           f"{core.kv_cache_stats()['bytes_per_block']} bytes) "
           f"in {time.time() - t0:.1f} s; {memory_line()}", flush=True)
     warm = warm_up(core, mode)
+    reference = None if int8 else in_process_traffic(core, warm["graph_captures"])
     reqs, late, solo = serving_requests(core.cfg.vocab_size)
 
-    # The main path, with every kernel launch count at 0 just before it.
+    # The main path, with every kernel launch count at 0 just before it,
+    # from a cleared prefix cache, its counters read over its traffic.
+    core.clear_kv_cache()
+    before, hits0 = dict(core.scheduler_stats()), core.kv_cache_stats()["admitted_hits"]
     ra.reset_launches()
     t_serve = time.time()
     results = asyncio.run(serve_concurrent(engine, Context, reqs, late))
@@ -1030,7 +1096,8 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     launches, other = (ra.launches_int8, ra.launches) if int8 else (ra.launches, ra.launches_int8)
     by_entry = {ra.ENTRY_NAMES[k, int8]: ra.kernel_launches[ra.ENTRY_NAMES[k, int8]]
                 for k in K1_KERNELS}
-    st = core.scheduler_stats()
+    captures = core.scheduler_stats()["graph_captures"]
+    st = {k: v - before[k] for k, v in core.scheduler_stats().items()}
     forwards = st["forwards"]
 
     for rid, (toks, fin, meta) in results.items():
@@ -1048,17 +1115,18 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     if st["graph_replays"] != st["dispatches"]:
         raise AssertionError(f"{mode}: {st['graph_replays']} graph replays for "
                              f"{st['dispatches']} dispatches after warm_up()")
-    if st["graph_captures"] != warm["graph_captures"]:
-        raise AssertionError(f"{mode}: {st['graph_captures'] - warm['graph_captures']} graphs "
+    if captures != warm["graph_captures"]:
+        raise AssertionError(f"{mode}: {captures - warm['graph_captures']} graphs "
                              f"captured while serving, after warm_up()")
     kv = core.kv_cache_stats()
-    if results["prefix_b"][2].get("cached_tokens") != SHARED_PREFIX or kv["admitted_hits"] < 1:
+    if (results["prefix_b"][2].get("cached_tokens") != SHARED_PREFIX
+            or kv["admitted_hits"] - hits0 < 1):
         raise AssertionError(f"shared prefix missed the prefix cache: {kv}")
     print(f"main path ({mode}): {len(results)} requests in {serve_s:.2f} s; forwards {forwards} "
           f"(prefill waves + decode iterations), attention launches {launches} = "
           f"{core.cfg.num_layers} x {forwards} counted across graph replays, by kernel "
           f"{by_entry}; dispatches {st['dispatches']} (megastep {st['megastep_dispatches']}), "
-          f"graph_replays {st['graph_replays']}, graph_captures {st['graph_captures']} "
+          f"graph_replays {st['graph_replays']}, graph_captures {captures} "
           f"({warm['graph_captures']} at warm-up)", flush=True)
     prefill_tps = st["prefill_tokens"] / st["prefill_s"]
     decode_ms = 1e3 * st["decode_loop_s"] / st["decode_iterations"]
@@ -1091,7 +1159,7 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
     del core1, engine1
     gc.collect()
     torch.cuda.empty_cache()
-    modes = sync_against_async(core, overrides, reqs + [late], mode)
+    modes = sync_against_async(core, reqs + [late], mode)
     chunked = None if int8 else serve_chunked(ra, card, core)
     spec = None if int8 else serve_spec(ra, card, core)
     tiers = None if int8 else serve_tiers(ra, card, core)
@@ -1105,7 +1173,7 @@ def serve(ra, card: str, int8=False) -> tuple[int, dict]:
         "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
         "graph_against_eager": graph_check, "graphs_sync_async": modes,
         "chunked": chunked, "spec": spec, "tiers": tiers, "page_programs": pages, "mm": mm,
-    }
+    }, reference
 
 
 # -- multimodal rows and embeddings (in process, on the main path's engine) -----
@@ -1796,6 +1864,12 @@ def page_programs(core, mode: str) -> dict:
 CHUNKED_STREAM_LENS = (100, 250, 400, 550, 700, 850, 1000)
 CHUNKED_STREAM_TOKENS = 160  # enough to decode past the long prompt's last chunk
 CHUNKED_LONG = 2124
+# The chunked engine serves this phase's 8 lanes (7 streams and the long
+# prompt) at one decode width, as the speculating engine does: its warm-up
+# captures the keys of width 8 only (120 graphs, not the 480 of the
+# default widths); profile_serving.py --scheduling chunked warms up an
+# engine of the default widths.
+CHUNKED_ENGINE = {"scheduling": "chunked", "decode_buckets": (8,), "max_num_seqs": 8}
 
 
 def chunked_prompts(vocab: int) -> tuple[list[list[int]], list[int]]:
@@ -2093,7 +2167,7 @@ def chunked_traffic(ra, core, name: str, streams, long_prompt) -> dict:
     cache cleared), with every launch count at 0 just before it: the
     streams' largest and p99 gap between tokens from the long prompt's
     arrival on, the long prompt's time to first token, the real-token
-    share of the mixed steps' token buckets, K1's launches against 32 x
+    share of the mixed steps' token buckets, K1's launches against layers x
     forwards, and no graph captured."""
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.runtime.engine import Context
@@ -2154,7 +2228,8 @@ def chunked_traffic(ra, core, name: str, streams, long_prompt) -> dict:
 
 def serve_chunked(ra, card: str, core) -> dict:
     """The chunked phase, bf16, llama3-8b at full width and depth, on the
-    main path engine's weights: a chunked engine's ``warm_up()`` (keys,
+    main path engine's weights: a chunked engine's (``CHUNKED_ENGINE``,
+    width 8) ``warm_up()`` (keys,
     capture seconds, memory); K1 at the dispatched mixed shapes; a T == S
     mixed batch through the forward; the mixed and fused replays against
     their eager bodies; chunked-prefill logits against one wave; then the
@@ -2165,14 +2240,11 @@ def serve_chunked(ra, card: str, core) -> dict:
     read ``async_exec`` and the token budget at every step, and every graph
     key a 2048-token budget can dispatch is one the default engine's
     warm-up captured (checked), so no setting captures while serving."""
-    import dataclasses
-
     from dynamo_tpu_torch.backends.torch.main import build_engine
 
     streams, long_prompt = chunked_prompts(core.cfg.vocab_size)
     res = {"shapes": check_mixed_shapes(ra)}
-    ccore, _ = build_engine("llama3-8b", {"scheduling": "chunked"}, device="cuda",
-                            params=core.params)
+    ccore, _ = build_engine("llama3-8b", CHUNKED_ENGINE, device="cuda", params=core.params)
     keys = [launch.key[0] for launch, _ in ccore._warm_up_launches()]
     res["warm_up"] = {**warm_up(ccore, "chunked"),
                       "keys": {k: keys.count(k) for k in sorted(set(keys))}}
@@ -2548,6 +2620,399 @@ def serve_spec(ra, card: str, core) -> dict:
 
 # -- the worker process --------------------------------------------------------
 
+# -- checkpoints ---------------------------------------------------------------
+
+SHARD_BYTES = 5 * 10**9  # the largest shard, as Hugging Face's writer cuts them
+ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+HF_ARCH = {"llama": "LlamaForCausalLM", "qwen2": "Qwen2ForCausalLM"}
+
+
+def sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def hf_tensors(params, cfg) -> list:
+    """The port's params as a Hugging Face checkpoint's tensors, in file
+    order: (name, a function giving the ``[out, in]`` view), so that one
+    tensor at a time is made contiguous and copied off the card."""
+    L = params["layers"]
+    q, kv, i, h = cfg.q_size, cfg.kv_size, cfg.intermediate_size, cfg.hidden_size
+    out = [("model.embed_tokens.weight", lambda: params["embed"])]
+    for layer in range(cfg.num_layers):
+        pre = f"model.layers.{layer}."
+        out += [(pre + "input_layernorm.weight", lambda l=layer: L["attn_norm"][l]),
+                (pre + "post_attention_layernorm.weight", lambda l=layer: L["mlp_norm"][l])]
+        for hf, leaf, c0, c1 in (
+            ("self_attn.q_proj", "wqkv", 0, q), ("self_attn.k_proj", "wqkv", q, q + kv),
+            ("self_attn.v_proj", "wqkv", q + kv, q + 2 * kv), ("self_attn.o_proj", "wo", 0, h),
+            ("mlp.gate_proj", "wgu", 0, i), ("mlp.up_proj", "wgu", i, 2 * i),
+            ("mlp.down_proj", "w_down", 0, h),
+        ):
+            out.append((f"{pre}{hf}.weight",
+                        lambda l=layer, w=leaf, a=c0, b=c1: L[w][l][:, a:b].T))
+            if leaf == "wqkv" and "bqkv" in L:
+                out.append((f"{pre}{hf}.bias", lambda l=layer, a=c0, b=c1: L["bqkv"][l][a:b]))
+    out.append(("model.norm.weight", lambda: params["final_norm"]))
+    if "lm_head" in params:
+        out.append(("lm_head.weight", lambda: params["lm_head"].T))
+    return out
+
+
+def write_hf_checkpoint(params, cfg, model_type: str, path: Path) -> dict:
+    """Write ``params`` as a Hugging Face checkpoint directory with this
+    script's own safetensors writer (an 8-byte little-endian header length,
+    the JSON header padded to 8 bytes, then each tensor's raw bytes):
+    ``config.json``, shards of at most ``SHARD_BYTES``, and the shard
+    index. No tokenizer files. Refuses to start unless the disk has twice
+    the checkpoint's bytes free."""
+    entries = [(name, fn, fn()) for name, fn in hf_tensors(params, cfg)]
+    total = sum(t.numel() * t.element_size() for _, _, t in entries)
+    free = shutil.disk_usage(path).free
+    print(f"checkpoint {model_type}: {total / 1e9:.2f} GB to write under {path}; "
+          f"{free / 1e9:.1f} GB free on its disk", flush=True)
+    if free < 2 * total:
+        raise RuntimeError(f"{free / 1e9:.1f} GB free under {path}: the checkpoint needs "
+                           f"twice its {total / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    shards, size = [[]], 0
+    for e in entries:
+        n = e[2].numel() * e[2].element_size()
+        if shards[-1] and size + n > SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append(e)
+        size += n
+    weight_map = {}
+    for k, shard in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, off = {}, 0
+        for name, _, t in shard:
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                            "data_offsets": [off, off + n]}
+            weight_map[name] = fname
+            off += n
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(path / fname, "wb") as f:
+            f.write(struct.pack("<Q", len(raw)) + raw)
+            for _, fn, _ in shard:
+                f.write(fn().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    (path / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
+    (path / "config.json").write_text(json.dumps({
+        "architectures": [HF_ARCH[model_type]], "model_type": model_type,
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_norm_eps, "tie_word_embeddings": cfg.tie_embeddings,
+        "torch_dtype": "bfloat16",
+    }))
+    secs = time.perf_counter() - t0
+    print(f"checkpoint {model_type}: {len(shards)} shards written in {secs:.1f} s "
+          f"({total / 1e9 / secs:.2f} GB/s)", flush=True)
+    return {"bytes": total, "shards": len(shards), "write_s": secs}
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def leaves_equal(got, want, where="params") -> list[str]:
+    """The paths of the leaves that are not ``torch.equal`` (or absent)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return [where]
+        return [p for k in want for p in leaves_equal(got[k], want[k], f"{where}.{k}")]
+    same = got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+    return [] if same else [where]
+
+
+def timed_load(path: Path, device: str, quant=None) -> tuple:
+    """``load_hf_llama(path)`` with its seconds, the peak device memory it
+    added and the process's peak host RSS growth (sampled every 10 ms)."""
+    from dynamo_tpu_torch.engine.loader import load_hf_llama
+
+    sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    base_dev = torch.cuda.memory_allocated() if device == "cuda" else 0
+    base_rss, peak_rss, done = rss_bytes(), [0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak_rss[0] = max(peak_rss[0], rss_bytes())
+            done.wait(0.01)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        cfg, params = load_hf_llama(path, quant=quant, device=device)
+        sync(device)
+        secs = time.perf_counter() - t0
+    finally:
+        done.set()
+        sampler.join()
+    stats = {"load_s": secs, "peak_rss_growth_gb": (peak_rss[0] - base_rss) / 1e9,
+             "peak_device_gb": ((torch.cuda.max_memory_allocated() - base_dev) / 1e9
+                                if device == "cuda" else None),
+             "params_gb": tree_bytes(params) / 1e9}
+    return cfg, params, stats
+
+
+def checkpoint_round_trip(core, model_type: str, device: str) -> dict:
+    """Write the engine's weights as a checkpoint into a new temporary
+    directory, load it back and hold every leaf to the drawn one; the
+    directory stays for the caller, who deletes it."""
+    path = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{model_type}_"))
+    try:
+        out = write_hf_checkpoint(core.params, core.cfg, model_type, path)
+        cfg, params, stats = timed_load(path, device)
+        out |= stats
+        out["load_gb_per_s"] = out["bytes"] / 1e9 / stats["load_s"]
+        if cfg != dataclasses.replace(core.cfg, name=model_type):
+            raise AssertionError(f"config.json read back as {cfg}, drawn {core.cfg}")
+        bad = leaves_equal(params, core.params)
+        if bad:
+            raise AssertionError(f"{len(bad)} loaded leaves differ from the drawn ones: {bad[:4]}")
+        print(f"checkpoint {model_type}: loaded in {stats['load_s']:.1f} s "
+              f"({out['load_gb_per_s']:.2f} GB/s); every leaf equal to the drawn one; peak "
+              f"device memory added {stats['peak_device_gb']} GB for {stats['params_gb']:.2f} GB "
+              f"of params; peak host RSS growth {stats['peak_rss_growth_gb']:.2f} GB", flush=True)
+        del params
+    except BaseException:
+        shutil.rmtree(path, ignore_errors=True)
+        raise
+    out["dir"] = str(path)
+    return out
+
+
+DISAGG_LAYERS = 8  # the disaggregation phase's depth: its 3 workers' warm-ups, in turn on the card
+
+
+def write_cut_checkpoint(core, layers: int) -> dict:
+    """The engine's first ``layers`` layers (with its embeddings, final
+    norm and head) as a llama checkpoint in a new temporary directory,
+    which the caller deletes."""
+    path = Path(tempfile.mkdtemp(prefix="chip_smoke_cut_"))
+    params = {**core.params,
+              "layers": {k: v[:layers] for k, v in core.params["layers"].items()}}
+    try:
+        out = write_hf_checkpoint(params, dataclasses.replace(core.cfg, num_layers=layers),
+                                  "llama", path)
+    except BaseException:
+        shutil.rmtree(path, ignore_errors=True)
+        raise
+    return {**out, "layers": layers, "dir": str(path)}
+
+
+def int8_reference(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX loader's int8 arithmetic (``_quantize_np``) in numpy, on an
+    f32 ``[in, out]`` weight."""
+    scale = np.maximum(np.abs(w).max(axis=-2, keepdims=True) / np.float32(127.0),
+                       np.float32(1e-8))
+    return np.clip(np.round(w / scale), -127, 127).astype(np.int8), scale.astype(np.float32)
+
+
+def int8_load(path: Path, device: str) -> dict:
+    """The checkpoint loaded with ``quant="int8"``: its footprint, and layer
+    0's projections and ``lm_head`` held bit for bit to the same
+    arithmetic in numpy on the CPU, from the file's values."""
+    from dynamo_tpu_torch.engine.loader import read_safetensors
+
+    cfg, q8, stats = timed_load(path, device, quant="int8")
+    files = {}
+    for f in sorted(path.glob("*.safetensors")):
+        files.update(read_safetensors(f))
+
+    def f32(name):  # HF [out, in] -> f32 [in, out]
+        return np.ascontiguousarray(files[name].float().numpy().T)
+
+    pre = "model.layers.0."
+    groups = {"wqkv": ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+              "wo": ("self_attn.o_proj",), "wgu": ("mlp.gate_proj", "mlp.up_proj"),
+              "w_down": ("mlp.down_proj",)}
+    held = []
+    for leaf, names in groups.items():
+        parts = [int8_reference(f32(f"{pre}{n}.weight")) for n in names]
+        want = (np.concatenate([w for w, _ in parts], -1), np.concatenate([s for _, s in parts], -1))
+        got = q8["layers"][leaf]
+        held.append((f"layers.{leaf}[0]", got["w"][0].cpu().numpy(), got["scale"][0].cpu().numpy(),
+                     *want))
+    if "lm_head" in q8:
+        w, sc = int8_reference(f32("lm_head.weight"))
+        held.append(("lm_head", q8["lm_head"]["w"].cpu().numpy(),
+                     q8["lm_head"]["scale"].cpu().numpy(), w, sc))
+    for name, gw, gs, ww, ws in held:
+        if not (np.array_equal(gw, ww) and gs.view(np.int32).tobytes() == ws.view(np.int32).tobytes()):
+            raise AssertionError(f"int8 load: {name} differs from the CPU quantization")
+    print(f"checkpoint int8 load: {stats['load_s']:.1f} s, footprint {stats['params_gb']:.2f} GB "
+          f"(model.quantized_param_bytes {cfg.quantized_param_bytes() / 1e9:.2f} GB), peak "
+          f"device memory added {stats['peak_device_gb']} GB, peak host RSS growth "
+          f"{stats['peak_rss_growth_gb']:.2f} GB; {', '.join(n for n, *_ in held)} bit-equal to "
+          f"the numpy quantization on the CPU", flush=True)
+    del q8, files
+    return {**stats, "held_bit_equal": [n for n, *_ in held]}
+
+
+QWEN_LAYERS = 4
+QWEN_PROMPT_LENS = (100, 300, 500, 700, 900, 1100, 1500, 2000)
+QWEN_TOKENS = 64
+
+
+def greedy_streams(core, prompt_lens, max_tokens, seed=7) -> dict[str, list[int]]:
+    """Greedy streams of prompts of random tokens, all admitted at once,
+    stepped to the end on ``core``."""
+    from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(prompt_lens):
+        core.add_request(PreprocessedRequest.from_wire({
+            "model": "m", "token_ids": [int(t) for t in rng.integers(1, core.cfg.vocab_size, n)],
+            "request_id": f"q{i}", "sampling": {"temperature": 0.0},
+            "stop": {"max_tokens": max_tokens, "ignore_eos": True}}))
+    out: dict[str, list[int]] = {f"q{i}": [] for i in range(len(prompt_lens))}
+    while core.has_work():
+        for seq, o in core.step():
+            out[seq.request_id] += o.token_ids
+    if any(len(t) != max_tokens for t in out.values()):
+        raise AssertionError(f"stream lengths {[len(t) for t in out.values()]}")
+    return out
+
+
+def serve_qwen2(ra, card: str, device: str = "cuda", layers: int = QWEN_LAYERS) -> dict:
+    """Qwen2-7B at full width (h 3584, FFN 18944, 28/4 heads, vocab 152064,
+    qkv biases), ``layers`` of its 28 layers, bf16 weights drawn from seed
+    0: greedy streams through ``EngineCore`` (K1 at the group of 7, every
+    layer's forward), then the weights written as a ``qwen2`` checkpoint,
+    loaded (every leaf equal), and the same streams from an engine on the
+    loaded weights, one engine on the card at a time."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, qwen2_7b
+    from dynamo_tpu_torch.engine.core import EngineCore
+    from dynamo_tpu_torch.engine.model import init_params
+
+    t0 = time.time()
+    cfg = dataclasses.replace(qwen2_7b(), num_layers=layers)
+    core = EngineCore(cfg, EngineConfig(), params=init_params(cfg, 0, device), device=device)
+    ra.reset_launches()
+    t1 = time.time()
+    want = greedy_streams(core, QWEN_PROMPT_LENS, QWEN_TOKENS)
+    stats = core.scheduler_stats()
+    launches = launches_of(ra)
+    drawn_s = time.time() - t1
+    if device == "cuda" and (
+            stats["attention_launches"] != cfg.num_layers * stats["forwards"]
+            or min(launches.get(k, 0) for k in ("ragged_paged_attention_decode_launch",
+                                                 "ragged_paged_attention_tiled_launch")) == 0):
+        raise AssertionError(f"K1 launches {launches} for {stats['forwards']} forwards")
+    ck = checkpoint_round_trip(core, "qwen2", device)
+    del core
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    try:
+        t2 = time.time()
+        lcfg, params, _ = timed_load(Path(ck["dir"]), device)
+        core = EngineCore(lcfg, EngineConfig(), params=params, device=device)
+        got = greedy_streams(core, QWEN_PROMPT_LENS, QWEN_TOKENS)
+        loaded_s = time.time() - t2
+    finally:
+        shutil.rmtree(ck["dir"], ignore_errors=True)
+    same = got == want
+    print(f"qwen2-7b ({layers} of 28 layers) on {card}: {len(want)} greedy streams of "
+          f"{QWEN_TOKENS} tokens from the loaded checkpoint equal to the drawn engine's: {same}; "
+          f"K1 launches {launches} over {stats['forwards']} forwards; drawn engine's traffic "
+          f"{drawn_s:.1f} s, loaded engine's (load included) {loaded_s:.1f} s; phase "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if not same:
+        diff = [r for r in want if got[r] != want[r]]
+        raise AssertionError(f"qwen2 streams differ after the checkpoint round trip: {diff}")
+    del core, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"layers": layers, "launches": launches, "forwards": stats["forwards"],
+            "checkpoint": {k: v for k, v in ck.items() if k != "dir"},
+            "phase_s": time.time() - t0}
+
+
+GGUF_TOKENS = ["<s>", "</s>", "<unk>", "▁hello", "▁world", "▁", "he", "llo"] + [
+    f"<0x{b:02X}>" for b in range(256)]
+
+
+def gguf_round_trip(tmp: str) -> dict:
+    """A GGUF v3 file written here (a token table, llama metadata, one F32,
+    one F16 and one BF16 tensor) read back by the port's reader, which
+    needs no ml_dtypes: the tensors bit-equal, the config, and a
+    ``load_tokenizer`` encode and decode round trip."""
+    from dynamo_tpu_torch.engine.gguf import config_from_gguf, read_gguf
+    from dynamo_tpu_torch.llm.tokenizer import load_tokenizer
+
+    def s(text):
+        b = text.encode()
+        return struct.pack("<Q", len(b)) + b
+
+    def kv(key, vtype, payload):
+        return s(key) + struct.pack("<I", vtype) + payload
+
+    gen = torch.Generator().manual_seed(5)
+    tensors = {"tok_embd.weight": (0, torch.randn(16, 8, generator=gen)),
+               "blk.0.ffn_up.weight": (1, torch.randn(8, 4, generator=gen).half()),
+               "blk.0.attn_norm.weight": (30, torch.randn(4, 16, generator=gen).bfloat16())}
+    meta = [kv("general.architecture", 8, s("llama")), kv("general.name", 8, s("smoke")),
+            kv("llama.embedding_length", 4, struct.pack("<I", 4096)),
+            kv("llama.block_count", 4, struct.pack("<I", 32)),
+            kv("llama.attention.head_count", 4, struct.pack("<I", 32)),
+            kv("llama.attention.head_count_kv", 4, struct.pack("<I", 8)),
+            kv("llama.feed_forward_length", 4, struct.pack("<I", 14336)),
+            kv("llama.rope.freq_base", 6, struct.pack("<f", 500000.0)),
+            kv("tokenizer.ggml.model", 8, s("llama")),
+            kv("tokenizer.ggml.tokens", 9, struct.pack("<IQ", 8, len(GGUF_TOKENS))
+               + b"".join(s(t) for t in GGUF_TOKENS)),
+            kv("tokenizer.ggml.bos_token_id", 4, struct.pack("<I", 0)),
+            kv("tokenizer.ggml.eos_token_id", 4, struct.pack("<I", 1))]
+    index, data = b"", b""
+    for name, (gtype, t) in tensors.items():
+        data += b"\0" * (-len(data) % 32)
+        index += (s(name) + struct.pack("<I", t.dim()) + struct.pack(f"<{t.dim()}Q", *reversed(t.shape))
+                  + struct.pack("<IQ", gtype, len(data)))
+        data += t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+    header = struct.pack("<IIQQ", 0x46554747, 3, len(tensors), len(meta)) + b"".join(meta) + index
+    path = Path(tmp, "smoke.gguf")
+    path.write_bytes(header + b"\0" * (-len(header) % 32) + data)
+
+    g = read_gguf(path)
+    for name, (_, t) in tensors.items():
+        got = g.load_tensor(name)
+        if got.dtype != t.dtype or not torch.equal(got, t):
+            raise AssertionError(f"GGUF tensor {name} read back as {got.dtype} {tuple(got.shape)}")
+    g.close()
+    cfg = config_from_gguf(g)
+    if (cfg.hidden_size, cfg.num_layers, cfg.num_kv_heads, cfg.vocab_size) != (
+            4096, 32, 8, len(GGUF_TOKENS)):
+        raise AssertionError(f"GGUF config {cfg}")
+    tok = load_tokenizer(str(path))
+    text = "hello world, ünïcode €!"
+    ids = tok.encode(text)
+    back = tok.decode(ids)
+    if back != text or tok.eos_token_id != 1:
+        raise AssertionError(f"GGUF tokenizer round trip: {text!r} -> {ids} -> {back!r}")
+    print(f"GGUF on this machine: F32, F16 and BF16 tensors read back bit-equal, config "
+          f"{cfg.num_layers} layers x {cfg.hidden_size}, tokenizer round trip of {len(ids)} "
+          f"tokens", flush=True)
+    return {"tensors": list(tensors), "tokens": len(ids)}
+
+
 ROOT = Path(__file__).resolve().parent
 WORKER_SOLO = ("long", "prefix_a", "mid", "short")  # greedy prompts sent one at a time
 WORKER_RESEND = "mid"
@@ -2692,29 +3157,38 @@ async def dataplane_cost(rt, address: str, chunks: dict[str, list[dict]]) -> dic
             "client_cpu_ms_per_token": 1e3 * client_s / tokens}
 
 
-def in_process_traffic(preset: str, device: str) -> tuple[dict, dict]:
-    """The worker phase's traffic through ``build_engine`` in this process,
-    warmed up as the worker warms up; the engine is freed on return."""
-    from dynamo_tpu_torch.backends.torch.main import build_engine
+def in_process_traffic(core, captures: int) -> tuple[dict, dict, dict]:
+    """The worker phase's traffic in this process, through the main path's
+    bf16 engine (``core``: llama3-8b from seed 0, the worker's default
+    ``EngineConfig``) just after its ``warm_up()`` (which captured
+    ``captures`` graphs), as the worker serves just after its own; then
+    the engine's weights written as a llama checkpoint and loaded back
+    (:func:`checkpoint_round_trip`), and its first ``DISAGG_LAYERS``
+    layers written as another (both directories the caller's to
+    delete)."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.runtime.engine import Context
 
-    core, engine = build_engine(preset, seed=0, device=device)
-    core.warm_up()
-    captures = core.scheduler_stats()["graph_captures"]
+    engine = TorchEngine(core)
+    before = dict(core.scheduler_stats())
 
     async def open_stream(req):
         return engine.generate(req, Context(req["request_id"]))
 
     got = asyncio.run(worker_traffic(open_stream, core.cfg.vocab_size))
-    stats = core.scheduler_stats()
-    if stats["graph_captures"] != captures:
-        raise AssertionError(f"{stats['graph_captures'] - captures} graphs captured serving "
-                             f"the worker traffic in process, after warm_up()")
-    del core, engine
-    gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    return got, stats
+    st = core.scheduler_stats()
+    if st["graph_captures"] != before["graph_captures"]:
+        raise AssertionError(f"{st['graph_captures'] - before['graph_captures']} graphs captured "
+                             f"serving the worker traffic in process, after warm_up()")
+    stats = {k: st[k] - before[k] for k in ("decode_loop_s", "decode_iterations")}
+    stats["graph_captures"] = captures
+    ck = checkpoint_round_trip(core, "llama", "cuda")
+    try:
+        ck["cut"] = write_cut_checkpoint(core, DISAGG_LAYERS)
+    except BaseException:
+        shutil.rmtree(ck["dir"], ignore_errors=True)
+        raise
+    return got, stats, ck
 
 
 def free_port() -> int:
@@ -2841,10 +3315,13 @@ def without_iteration(outs: list[dict]) -> list[dict]:
             for o in outs]
 
 
-def start_worker(preset: str, device: str, extra_args: list[str], env=None) -> dict:
+def start_worker(preset: str, device: str, extra_args: list[str], env=None,
+                 model_path=None) -> dict:
     """The port's store and ``python -m dynamo_tpu_torch.backends.torch``
-    (with ``extra_args`` and the environment variables ``env``) started as
-    subprocesses; the worker builds and warms up its engine meanwhile."""
+    (with ``extra_args`` and the environment variables ``env``; serving
+    the checkpoint at ``model_path`` in place of the preset when given)
+    started as subprocesses; the worker builds and warms up its engine
+    meanwhile."""
     logs = Path(tempfile.mkdtemp(prefix="chip_smoke_worker_"))
     port = free_port()
     h = {"logs": logs, "port": port, "args": extra_args, "worker": None,
@@ -2857,9 +3334,9 @@ def start_worker(preset: str, device: str, extra_args: list[str], env=None) -> d
         wait_for_port(port, h["store"], 30)
         h["t0"] = time.time()
         h["worker"] = subprocess.Popen(
-            [sys.executable, "-m", "dynamo_tpu_torch.backends.torch",
-             "--model-name", preset, "--preset", preset, "--seed", "0", "--device", device,
-             *extra_args],
+            [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", "--model-name", preset,
+             *(["--model-path", model_path] if model_path else ["--preset", preset]),
+             "--seed", "0", "--device", device, *extra_args],
             cwd=ROOT, stdout=h["files"][1], stderr=subprocess.STDOUT,
             env={**os.environ, **(env or {}), "DYN_STORE_ADDRESS": f"127.0.0.1:{port}"},
         )
@@ -2875,6 +3352,25 @@ def close_worker(h: dict) -> None:
     stop_process(h["store"], signal.SIGTERM, 10)
     for f in h["files"]:
         f.close()
+
+
+def served_after_s(h: dict) -> float:
+    """Seconds from a worker's start to its log's "serving model" line."""
+    for line in (h["logs"] / "worker.log").read_text().splitlines():
+        if " serving model " in line:
+            stamp, ms = line[:23].split(",")
+            return time.mktime(time.strptime(stamp, "%Y-%m-%d %H:%M:%S")) + int(ms) / 1e3 - h["t0"]
+    raise AssertionError(f"worker {h['args']} never logged that it serves")
+
+
+def worker_build_s(h: dict) -> dict:
+    """The seconds a worker logged for building its engine (its weights
+    loaded or drawn) and for warming it up, timed inside the worker."""
+    text = (h["logs"] / "worker.log").read_text()
+    m = re.search(r"engine built in ([\d.]+) s \(weights ([^)]*)\), warmed up in ([\d.]+) s", text)
+    if m is None:
+        raise AssertionError(f"worker {h['args']} logged no build and warm-up times")
+    return {"build_s": float(m.group(1)), "weights": m.group(2), "warm_up_s": float(m.group(3))}
 
 
 def finish_worker(h: dict, cfg, solo_only=False,
@@ -2899,40 +3395,61 @@ def finish_worker(h: dict, cfg, solo_only=False,
     return got, events, mdc, worker_stats(logs / "worker.log")
 
 
-def serve_worker(card: str, preset: str = "llama3-8b",
+def serve_worker(card: str, reference: tuple, preset: str = "llama3-8b",
                  device: str = "cuda") -> tuple[dict, dict, dict]:
     """The worker process: the port's store and
     ``python -m dynamo_tpu_torch.backends.torch`` as subprocesses, driven
     through the port's discovery and data-plane client. Its solo greedy
-    streams must equal the in-process engine's (run first, and freed, so
-    one engine is on the card at a time); the 8-request batch's times are
+    streams must equal the in-process engine's (``reference``, from
+    :func:`in_process_traffic`: run on the main path's engine, since
+    freed, so one engine is on the card at a time); the 8-request batch's times are
     printed beside the in-process engine's; a resent prompt must report
     cached tokens, and the worker's KV events must carry the block hashes
     of the prompt's full blocks. The worker runs without its status server
     and obs snapshots (``DYN_SYSTEM_ENABLED=0``, ``--obs-publish off``),
     the frontend phase's workers with them, so the two phases' decode
-    times compare the two. Returns the summary, and the worker's traffic
-    and exit counters, which the frontend phase is held to."""
+    times compare the two. The sync worker serves the in-process engine's
+    weights written as a checkpoint (``--model-path``), the async one the
+    preset's seeded draw; both start-ups are printed. Returns the
+    summary, and the worker's traffic and exit counters, which the
+    frontend phase is held to."""
     from dynamo_tpu_torch.engine.config import PRESETS
     from dynamo_tpu_torch.tokens import compute_seq_hashes
 
     cfg = PRESETS[preset]()
-    ref, ref_stats = in_process_traffic(preset, device)
-    print(f"worker phase: in-process reference done ({len(ref['solo'])} solo, "
-          f"{len(ref['batch'])} concurrent, 1 resent)", flush=True)
-    # The async worker warms up while the sync worker does; the sync
-    # worker's traffic waits until it is serving (and idle), so it runs
-    # alone on the card.
+    ref, ref_stats, ck = reference
+    ck["int8"] = int8_load(Path(ck["dir"]), device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # The async worker (the preset) warms up while the sync worker (the
+    # checkpoint) does; the sync worker's traffic waits until it is
+    # serving (and idle), so it runs alone on the card.
     h_async = start_worker(preset, device, ["--async-exec", "on"])
     try:
         h_sync = start_worker(preset, device, ["--obs-publish", "off"],
-                              env={"DYN_SYSTEM_ENABLED": "0"})
-        got, events, mdc, stats = finish_worker(h_sync, cfg, before_traffic=lambda: wait_for_log(
-            h_async["logs"] / "worker.log", r"torch aggregated worker \d+ serving model",
-            h_async["worker"], 900))
+                              env={"DYN_SYSTEM_ENABLED": "0"}, model_path=ck["dir"])
+        got, events, mdc, stats = finish_worker(
+            h_sync, cfg, before_traffic=lambda: wait_for_log(
+                h_async["logs"] / "worker.log", r"torch aggregated worker \d+ serving model",
+                h_async["worker"], 900))
         got_async, _, _, stats_async = finish_worker(h_async, cfg, solo_only=True)
     finally:
         close_worker(h_async)
+    shutil.rmtree(ck["dir"], ignore_errors=True)  # the phase's checkpoint (main's finally too)
+    # Start-up to serving, and inside it the engine's build (the load from
+    # the checkpoint, or the preset's draw) and warm-up as each worker
+    # timed them; the rest is the process's start, imports and joining the
+    # fleet. The two warm up together on the card, the async one started
+    # first, so only the build compares the load with the draw.
+    startup_s = {name: {"served_after_s": served_after_s(h), **worker_build_s(h)}
+                 for name, h in (("sync_worker_checkpoint", h_sync),
+                                 ("async_worker_preset", h_async))}
+    for name, st in startup_s.items():
+        rest = st["served_after_s"] - st["build_s"] - st["warm_up_s"]
+        print(f"worker start-up ({name}): serving after {st['served_after_s']:.1f} s; engine "
+              f"built in {st['build_s']:.2f} s (weights {st['weights']}), warmed up in "
+              f"{st['warm_up_s']:.2f} s; the rest {rest:.1f} s", flush=True)
 
     for w, r, a in zip(got["solo"], ref["solo"], got_async["solo"]):
         same = w["outs"] == r["outs"]
@@ -2998,6 +3515,7 @@ def serve_worker(card: str, preset: str = "llama3-8b",
           f"iteration; graph_replays {stats_async['graph_replays']} = dispatches "
           f"{stats_async['dispatches']}, graph_captures {stats_async['graph_captures']}", flush=True)
     return {"decode_ms_per_iteration": decode_ms, "dataplane": dp,
+            "checkpoint": ck, "startup_s": startup_s,
             "worker": rows[0], "in_process": rows[1],
             "worker_attention_launches": stats["attention_launches"],
             "worker_forwards": stats["forwards"],
@@ -3722,15 +4240,20 @@ async def drive_disagg(store: str, base: str, procs: dict, logs: Path, vocab: in
                        or k.startswith("dynamo_kv_pool_")}}
 
 
-def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> dict:
-    """Disaggregated prefill and decode through the port's processes. An
-    aggregated worker runs the serving phase's 8 requests (100-2124 prompt
-    tokens) through the data-plane client, all at once and staggered, each
-    run from a cleared cache, and stops. Then a ``--role prefill`` and a
-    ``--role decode`` worker (model ``llama3-8b-disagg``) and the port's
-    frontend run the same: every prompt is over the decode worker's
-    default 50-token local limit. (One card holds two 8B workers with
-    their graph pools, not three.) The decode worker's greedy streams must
+def serve_disagg(card: str, model_path: str, device: str = "cuda") -> dict:
+    """Disaggregated prefill and decode through the port's processes, each
+    worker serving the checkpoint at ``model_path`` (the smoke: llama3-8b's
+    first ``DISAGG_LAYERS`` layers, at full width: the three workers'
+    warm-ups run in turn on the card, and their graph pools fit it
+    together). The port's
+    frontend starts first; then an aggregated worker, a ``--role prefill``
+    and a ``--role decode`` worker (model ``llama3-8b-disagg``) start and
+    warm up together. Once all three serve, the aggregated worker runs the
+    serving phase's 8 requests (100-2124 prompt tokens) through the
+    data-plane client, all at once and staggered, each run from a cleared
+    cache, while the other two idle, and stops. Then the prefill and the
+    decode worker and the frontend run the same: every prompt is over the
+    decode worker's default 50-token local limit. The decode worker's greedy streams must
     equal the aggregated worker's up to a measured near-tie
     (:func:`hold_streams`); a sample of pages must read the same bytes
     through the prefill and the decode worker's ``kv_fetch``; one fresh
@@ -3740,9 +4263,9 @@ def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
     and ms transferred per request and per block, the handoff's windows,
     the data plane's throughput for a 32-block window, and K1's launches
     in each worker."""
-    from dynamo_tpu_torch.engine.config import PRESETS
+    from dynamo_tpu_torch.engine.loader import config_from_hf
 
-    cfg = PRESETS[preset]()
+    cfg = config_from_hf(model_path)
     reqs, late, _ = serving_requests(cfg.vocab_size)
     by_id = {r[0]: r for r in reqs + [late]}
     greedy = {rid for rid, _, samp in by_id.values() if samp.get("temperature") == 0.0}
@@ -3750,7 +4273,7 @@ def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
     store_port = free_port()
     store = f"127.0.0.1:{store_port}"
     env = {**os.environ, "DYN_STORE_ADDRESS": store}
-    worker = [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", "--preset", preset,
+    worker = [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", "--model-path", model_path,
               "--seed", "0", "--device", device, "--obs-publish", "off"]
     args = {
         "agg": ["--model-name", "llama3-8b-agg", "--namespace", "agg"],
@@ -3787,11 +4310,6 @@ def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
             [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(store_port)],
             cwd=ROOT, stdout=files["store"], stderr=subprocess.STDOUT)
         wait_for_port(store_port, procs["store"], 30)
-        start("agg")
-        agg_id = asyncio.run(serving(["agg"]))["agg"]
-        t_agg = time.time()
-        agg_runs = asyncio.run(run_batches(store, "agg", "backend", agg_id, by_id, "agg"))
-        stats["agg"] = stop("agg")
         # Ports chosen just before their servers bind them, and the
         # frontend listening before the workers bind their ephemeral ports.
         http_port, status_port = free_port(), free_port()
@@ -3800,12 +4318,14 @@ def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
              "--http-port", str(http_port), "--router-mode", "kv"],
             cwd=ROOT, stdout=files["frontend"], stderr=subprocess.STDOUT, env=env)
         wait_for_port(http_port, procs["frontend"], 60)
-        start("prefill")
-        start("decode")
+        t_start = time.time()
+        for name in ("agg", "prefill", "decode"):
+            start(name)
         procs["decode_status"] = status_port
-        t_pd = time.time()
-        ids = asyncio.run(serving(["prefill", "decode"]))
-        t_pd_up = time.time()
+        ids = asyncio.run(serving(["agg", "prefill", "decode"]))
+        t_up = time.time()
+        agg_runs = asyncio.run(run_batches(store, "agg", "backend", ids["agg"], by_id, "agg"))
+        stats["agg"] = stop("agg")
         got = asyncio.run(drive_disagg(store, f"http://127.0.0.1:{http_port}", procs, logs,
                                        cfg.vocab_size, ids, by_id))
         for name in ("decode", "prefill"):
@@ -3855,7 +4375,7 @@ def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
 
     blocks = pool["blocks_pulled"]
     summary = {
-        "wall_s": wall_s, "agg_up_s": t_agg - t0, "prefill_decode_up_s": t_pd_up - t_pd,
+        "wall_s": wall_s, "workers_up_s": t_up - t_start,
         "streams": held, "checksums": got["checksums"],
         "ttft_ms": {k: col(k, "ttft_ms") for k in runs},
         "tpot_ms": {k: col(k, "tpot_ms") for k in runs},
@@ -3901,9 +4421,8 @@ def serve_disagg(card: str, preset: str = "llama3-8b", device: str = "cuda") -> 
           f"both sides; data plane {got['fetch']['blocks']} pages in {got['fetch']['ms']:.1f} ms "
           f"({summary['fetch_window_gb_per_s']:.2f} GB/s); over HTTP TTFT "
           f"{got['http']['ttft_ms']:.1f} ms; K1 launches by worker "
-          f"{json.dumps(summary['kernel_launches'])}; aggregated worker up after "
-          f"{summary['agg_up_s']:.1f} s, prefill and decode after "
-          f"{summary['prefill_decode_up_s']:.1f} s, phase wall {wall_s:.1f} s", flush=True)
+          f"{json.dumps(summary['kernel_launches'])}; the three workers up after "
+          f"{summary['workers_up_s']:.1f} s, phase wall {wall_s:.1f} s", flush=True)
     return summary
 
 
@@ -3945,6 +4464,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
+    def lap(phase: str) -> None:  # the smoke's wall clock at each phase's end
+        print(f"timeline: {phase} done at {time.time() - t_start:.1f} s", flush=True)
+
     with tempfile.TemporaryDirectory() as tmp:
         # Every kernel and every planted fault's copy: one nvcc each, all
         # started together.
@@ -3969,119 +4491,147 @@ def main() -> int:
         del batches8
         shapes += check_serving_prefill_shape(ra, prompt_lens)
         shapes8 += check_serving_prefill_shape(ra, prompt_lens, int8=True)
+        t0 = time.time()
+        qwen_shapes, qwen_faults = check_qwen2_attention(ra, planted)
+        shapes += qwen_shapes
+        print(f"K1 at Qwen2-7B's geometry (28/4 heads), with the planted faults: "
+              f"{time.time() - t0:.1f} s", flush=True)
         k2_shapes, k2_batches = check_paged_attention_kernel(pa)
         k2_faults = check_k2_planted_faults(pa, k2_batches, planted)
         del k2_batches
         torch.cuda.empty_cache()
+    lap("kernel build and checks")
 
     k2 = k2_path(pa)
-    counts, summary = serve(ra, card)
-    print(f"serving summary: {json.dumps(summary)}", flush=True)
-    # K1 at the mixed steps' shapes joins its bf16 records; the chunked
-    # path's launches (chunked scheduling at the defaults, sync) join its
-    # bf16 entries.
-    shapes += summary["chunked"]["shapes"]
-    chunked_counts = next(t for t in summary["chunked"]["traffic"]
-                          if t["setting"] == "chunked" and not t["async_exec"])["launches_by_kernel"]
-    # K1 at the verify shapes joins them too; the speculation runs'
-    # launches (sync, host and device drafting) join its bf16 entries.
-    shapes += summary["spec"]["shapes"]
-    spec_counts = {t["run"]: t["launches_by_kernel"] for t in summary["spec"]["traffic"]
-                   if not t["run"].endswith("off") and not t["async_exec"]}
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"bf16 engine freed: allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
-    counts8, summary8 = serve(ra, card, int8=True)
-    print(f"serving summary: {json.dumps(summary8)}", flush=True)
-    print(f"int8 against bf16 on {card}: prefill {summary8['prefill_tokens_per_s']:.0f} vs "
-          f"{summary['prefill_tokens_per_s']:.0f} tokens/s, decode "
-          f"{summary8['decode_ms_per_iteration']:.2f} vs {summary['decode_ms_per_iteration']:.2f} "
-          f"ms per iteration", flush=True)
-    for summ in (summary, summary8):
-        ge, sa = summ["graph_against_eager"], summ["graphs_sync_async"]
-        print(f"decode on {card} ({summ['mode']}, ms per iteration): eager body "
-              f"{ge['eager_ms_per_iteration']:.3f}, graph replay {ge['graph_ms_per_iteration']:.3f} "
-              f"(width {GRAPH_WIDTH}, k = {GRAPH_K}); serving graphs sync "
-              f"{sa['sync']['decode_ms_per_iteration']:.3f}, graphs async "
-              f"{sa['async']['decode_ms_per_iteration']:.3f}", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"llama3-8b engines freed: {memory_line()}", flush=True)
-    moe = serve_moe(ra, card)
-    print(f"MoE summary: {json.dumps(moe)}", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    worker_summary, direct, direct_stats = serve_worker(card)
-    print(f"worker summary: {json.dumps(worker_summary)}", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    frontend = serve_frontend(card, direct, direct_stats)
-    print(f"frontend summary: {json.dumps(frontend)}", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"before the disaggregation phase: {memory_line()}", flush=True)
-    disagg = serve_disagg(card)
-    print(f"disagg summary: {json.dumps(disagg)}", flush=True)
+    lap("K2 path")
+    counts, summary, reference = serve(ra, card)
+    ck = reference[2]  # the worker phase's checkpoints, deleted whatever happens
+    try:
+        lap("bf16 serving, chunked, speculation, tiers, multimodal and the worker reference")
+        print(f"serving summary: {json.dumps(summary)}", flush=True)
+        # K1 at the mixed steps' shapes joins its bf16 records; the chunked
+        # path's launches (chunked scheduling at the defaults, sync) join its
+        # bf16 entries.
+        shapes += summary["chunked"]["shapes"]
+        chunked_counts = next(t for t in summary["chunked"]["traffic"]
+                              if t["setting"] == "chunked" and not t["async_exec"])["launches_by_kernel"]
+        # K1 at the verify shapes joins them too; the speculation runs'
+        # launches (sync, host and device drafting) join its bf16 entries.
+        shapes += summary["spec"]["shapes"]
+        spec_counts = {t["run"]: t["launches_by_kernel"] for t in summary["spec"]["traffic"]
+                       if not t["run"].endswith("off") and not t["async_exec"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"bf16 engine freed: allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+        counts8, summary8, _ = serve(ra, card, int8=True)
+        lap("int8 serving")
+        print(f"serving summary: {json.dumps(summary8)}", flush=True)
+        print(f"int8 against bf16 on {card}: prefill {summary8['prefill_tokens_per_s']:.0f} vs "
+              f"{summary['prefill_tokens_per_s']:.0f} tokens/s, decode "
+              f"{summary8['decode_ms_per_iteration']:.2f} vs {summary['decode_ms_per_iteration']:.2f} "
+              f"ms per iteration", flush=True)
+        for summ in (summary, summary8):
+            ge, sa = summ["graph_against_eager"], summ["graphs_sync_async"]
+            print(f"decode on {card} ({summ['mode']}, ms per iteration): eager body "
+                  f"{ge['eager_ms_per_iteration']:.3f}, graph replay {ge['graph_ms_per_iteration']:.3f} "
+                  f"(width {GRAPH_WIDTH}, k = {GRAPH_K}); serving graphs sync "
+                  f"{sa['sync']['decode_ms_per_iteration']:.3f}, graphs async "
+                  f"{sa['async']['decode_ms_per_iteration']:.3f}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"llama3-8b engines freed: {memory_line()}", flush=True)
+        moe = serve_moe(ra, card)
+        lap("MoE")
+        print(f"MoE summary: {json.dumps(moe)}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        qwen = serve_qwen2(ra, card)
+        lap("Qwen2")
+        print(f"Qwen2 summary: {json.dumps(qwen)}", flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            gguf = gguf_round_trip(tmp)
+            print(f"GGUF summary: {json.dumps(gguf)} in {time.time() - t0:.2f} s", flush=True)
+        worker_summary, direct, direct_stats = serve_worker(card, reference)
+        lap("GGUF and worker")
+        print(f"worker summary: {json.dumps(worker_summary)}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        frontend = serve_frontend(card, direct, direct_stats)
+        lap("frontend")
+        print(f"frontend summary: {json.dumps(frontend)}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"before the disaggregation phase: {memory_line()}", flush=True)
+        disagg = serve_disagg(card, ck["cut"]["dir"])
+        lap("disaggregation")
+        print(f"disagg summary: {json.dumps(disagg)}", flush=True)
 
-    def k2_shapes_of(pages):
-        return [s for s in k2_shapes if s["pages"] == pages]
+        def k2_shapes_of(pages):
+            return [s for s in k2_shapes if s["pages"] == pages]
 
-    def k2_main(pages):  # K2's path: the bench comparison, no self position
-        return next(s for s in k2_shapes_of(pages) if s["shape"] == "bench_kvquant" and not s["self"])
+        def k2_main(pages):  # K2's path: the bench comparison, no self position
+            return next(s for s in k2_shapes_of(pages) if s["shape"] == "bench_kvquant" and not s["self"])
 
-    k1_src, k2_src = ("dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
-                      "dynamo_tpu_torch/csrc/paged_attention.cu")
-    # One record per C entry point. Main shapes: K1's decode kernel at the
-    # serving decode form, its tiled kernel at the serving prefill wave
-    # (the shapes each runs on the main path); K2 at the int8-against-bf16
-    # comparison (its path).
-    k1 = []
-    for int8, got, counts_of, planted_of, table in (
-        (False, shapes, counts, faults, PLANTED_FAULTS),
-        (True, shapes8, counts8, faults8, PLANTED_FAULTS_INT8),
-    ):
-        for kernel, main_shape in (("decode", "decode_serving8"), ("tiled", "prefill_wave8192")):
-            own = [x for x in got if x["kernel"] == kernel]
-            main_rec = next(x for x in own if x["shape"] == main_shape)
-            extra = {}
-            if int8:
-                bf16 = next(x for x in shapes if x["kernel"] == kernel and x["shape"] == main_shape)
-                extra["int8_vs_bf16"] = main_rec["ms"] / bf16["ms"]
-            name = ra.ENTRY_NAMES[kernel, int8]
-            # The frontend phase's two workers, warm-up included (their
-            # processes start with the counts at 0).
-            extra["frontend_phase_launches"] = sum(
-                w[name] for w in frontend["kernel_launches"].values())
-            # The disaggregation phase's three workers, warm-up included.
-            extra["disagg_phase_launches"] = {
-                role: w[name] for role, w in disagg["kernel_launches"].items()}
-            if not int8:
-                extra["chunked_path_launches"] = chunked_counts[name]
-                extra["tier_path_launches"] = summary["tiers"]["kernel_launches"].get(name, 0)
-                extra["spec_path_launches"] = {run: c[name] for run, c in spec_counts.items()}
-                extra["moe_path_launches"] = moe["launches"].get(name, 0)
-                extra["embed_path_launches"] = summary["mm"]["embed"]["launches"].get(name, 0)
-                extra["image_path_launches"] = summary["mm"]["images"]["launches"].get(name, 0)
-            k1.append(kernel_entry(
-                name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
-                main_rec, pages="int8" if int8 else "bf16", **extra,
-                planted_faults_row_rel_err={f: planted_of[f] for f in table[kernel]},
-            ))
-    print(f"smoke wall {time.time() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": k1 + [
-        kernel_entry("paged_attention_launch", k2_src, "dynamo_tpu/ops/paged_attention.py:216",
-                     k2["launches"]["bf16"], k2_shapes_of("bf16"), k2_main("bf16"), pages="bf16",
-                     planted_faults_row_rel_err={f: k2_faults[f] for f in PLANTED_FAULTS_K2}),
-        kernel_entry("paged_attention_launch (int8 pages)", k2_src,
-                     "dynamo_tpu/ops/paged_attention.py:216",
-                     k2["launches"]["int8"], k2_shapes_of("int8"), k2_main("int8"), pages="int8",
-                     int8_vs_bf16=k2["int8_vs_bf16"], planted_faults_row_rel_err=k2_faults),
-    ]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
+        k1_src, k2_src = ("dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
+                          "dynamo_tpu_torch/csrc/paged_attention.cu")
+        # One record per C entry point. Main shapes: K1's decode kernel at the
+        # serving decode form, its tiled kernel at the serving prefill wave
+        # (the shapes each runs on the main path); K2 at the int8-against-bf16
+        # comparison (its path).
+        k1 = []
+        for int8, got, counts_of, planted_of, table in (
+            (False, shapes, counts, faults, PLANTED_FAULTS),
+            (True, shapes8, counts8, faults8, PLANTED_FAULTS_INT8),
+        ):
+            for kernel, main_shape in (("decode", "decode_serving8"), ("tiled", "prefill_wave8192")):
+                own = [x for x in got if x["kernel"] == kernel]
+                main_rec = next(x for x in own if x["shape"] == main_shape)
+                extra = {}
+                if int8:
+                    bf16 = next(x for x in shapes if x["kernel"] == kernel and x["shape"] == main_shape)
+                    extra["int8_vs_bf16"] = main_rec["ms"] / bf16["ms"]
+                name = ra.ENTRY_NAMES[kernel, int8]
+                # The frontend phase's two workers, warm-up included (their
+                # processes start with the counts at 0).
+                extra["frontend_phase_launches"] = sum(
+                    w[name] for w in frontend["kernel_launches"].values())
+                # The disaggregation phase's three workers, warm-up included.
+                extra["disagg_phase_launches"] = {
+                    role: w[name] for role, w in disagg["kernel_launches"].items()}
+                if not int8:
+                    extra["chunked_path_launches"] = chunked_counts[name]
+                    extra["tier_path_launches"] = summary["tiers"]["kernel_launches"].get(name, 0)
+                    extra["spec_path_launches"] = {run: c[name] for run, c in spec_counts.items()}
+                    extra["moe_path_launches"] = moe["launches"].get(name, 0)
+                    extra["qwen2_path_launches"] = qwen["launches"].get(name, 0)
+                    extra["qwen2_planted_faults_row_rel_err"] = {
+                        f: qwen_faults[f] for f in table[kernel]}
+                    extra["embed_path_launches"] = summary["mm"]["embed"]["launches"].get(name, 0)
+                    extra["image_path_launches"] = summary["mm"]["images"]["launches"].get(name, 0)
+                k1.append(kernel_entry(
+                    name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
+                    main_rec, pages="int8" if int8 else "bf16", **extra,
+                    planted_faults_row_rel_err={f: planted_of[f] for f in table[kernel]},
+                ))
+        print(f"smoke wall {time.time() - t_start:.1f} s", flush=True)
+        print(json.dumps({"kernels": k1 + [
+            kernel_entry("paged_attention_launch", k2_src, "dynamo_tpu/ops/paged_attention.py:216",
+                         k2["launches"]["bf16"], k2_shapes_of("bf16"), k2_main("bf16"), pages="bf16",
+                         planted_faults_row_rel_err={f: k2_faults[f] for f in PLANTED_FAULTS_K2}),
+            kernel_entry("paged_attention_launch (int8 pages)", k2_src,
+                         "dynamo_tpu/ops/paged_attention.py:216",
+                         k2["launches"]["int8"], k2_shapes_of("int8"), k2_main("int8"), pages="int8",
+                         int8_vs_bf16=k2["int8_vs_bf16"], planted_faults_row_rel_err=k2_faults),
+        ]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
+    finally:
+        shutil.rmtree(ck["dir"], ignore_errors=True)
+        shutil.rmtree(ck["cut"]["dir"], ignore_errors=True)
 
 
 if __name__ == "__main__":

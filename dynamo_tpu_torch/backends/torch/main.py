@@ -17,7 +17,11 @@ before admission, as the JAX worker resolves them: by the encoder fleet
 else in process. An embedding request (``embed``) runs locally in every
 role. ``--preset tiny-moe|mixtral-8x7b`` serves a sparse MoE model
 (``--moe-dispatch`` is taken as the JAX worker takes it; on one device
-both values are the local dispatch).
+both values are the local dispatch). ``--model-path DIR`` serves a Hugging
+Face llama or qwen2 checkpoint directory in place of a preset's random
+weights (``engine/loader.py``; ``--quant int8`` quantizes it as it
+loads), with the directory's tokenizer unless ``--tokenizer`` names
+another; ``--tokenizer *.gguf`` serves a GGUF file's tokenizer.
 
 ``--role prefill`` and ``--role decode`` split a request as the JAX
 worker does (decode first): the decode worker queues a long prompt's
@@ -54,6 +58,7 @@ from dynamo_tpu_torch import knobs, tracing
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig, ModelConfig, tiny_engine
 from dynamo_tpu_torch.engine.core import EngineCore, check_slice, resolve_device
 from dynamo_tpu_torch.engine.engine import TorchEngine
+from dynamo_tpu_torch.engine.loader import config_from_hf, load_hf_llama
 from dynamo_tpu_torch.engine.model import init_params_quantized
 from dynamo_tpu_torch.llm.disagg import DisaggConfig, DisaggRouter
 from dynamo_tpu_torch.llm.disagg_pool import (
@@ -92,18 +97,26 @@ log = logging.getLogger("dynamo_tpu_torch.backends.torch")
 
 
 def engine_configs(
-    preset: str, engine_overrides: dict[str, Any] | None = None,
-    moe_dispatch: str | None = None,
+    preset: str | None, engine_overrides: dict[str, Any] | None = None,
+    moe_dispatch: str | None = None, model_path: str | None = None,
 ) -> tuple[ModelConfig, EngineConfig]:
-    """The preset's model config and its engine config with the overrides:
-    the tiny presets use the tiny engine shape, every other preset the
-    ``EngineConfig`` defaults. ``moe_dispatch`` sets a MoE preset's
-    dispatch mode and is refused for a dense one, as the JAX worker
-    refuses it."""
-    model_cfg = PRESETS[preset]()
+    """The model config and the engine config with the overrides. The
+    model is the preset's or, with ``preset=None``, the checkpoint's at
+    ``model_path`` (its ``config.json``): one of the two, never both. The
+    tiny presets use the tiny engine shape; a checkpoint and every other
+    preset the ``EngineConfig`` defaults. ``moe_dispatch`` sets a MoE
+    model's dispatch mode and is refused for a dense one, as the JAX
+    worker refuses it."""
+    if (preset is None) == (model_path is None):
+        raise ValueError(f"name a preset or a checkpoint, not both or neither "
+                         f"(preset {preset!r}, model_path {model_path!r})")
+    if model_path is None:
+        model_cfg, source = PRESETS[preset](), f"preset {preset!r}"
+    else:
+        model_cfg, source = config_from_hf(model_path), f"checkpoint {model_path!r}"
     if moe_dispatch is not None:
         if not model_cfg.is_moe:
-            raise ValueError(f"--moe-dispatch set but preset {preset!r} is dense")
+            raise ValueError(f"--moe-dispatch set but {source} is dense")
         model_cfg = dataclasses.replace(model_cfg, moe_dispatch=moe_dispatch)
     overrides = dict(engine_overrides or {})
     if preset in ("tiny", "tiny-moe"):
@@ -112,7 +125,7 @@ def engine_configs(
 
 
 def build_engine(
-    preset: str,
+    preset: str | None,
     engine_overrides: dict[str, Any] | None = None,
     seed: int = 0,
     eos_token_ids: tuple[int, ...] = (),
@@ -124,8 +137,10 @@ def build_engine(
     on_tier_stored=None,
     on_tier_removed=None,
     moe_dispatch: str | None = None,
+    model_path: str | None = None,
 ) -> tuple[EngineCore, TorchEngine]:
-    """Construct (EngineCore, TorchEngine) for a model preset.
+    """Construct (EngineCore, TorchEngine) for a model preset or a
+    checkpoint.
 
     Runs on the card unless the caller passes ``device="cpu"``; with
     ``device="cuda"`` and no card it raises. ``params`` takes converted
@@ -138,11 +153,19 @@ def build_engine(
     block allocator's KV events, ``on_tier_stored`` and ``on_tier_removed``
     (both or neither) the offload tiers' tier-tagged ones. A MoE preset
     (``tiny-moe``, ``mixtral-8x7b``) takes ``moe_dispatch``
-    (:func:`engine_configs`); its int8 weights are refused.
+    (:func:`engine_configs`); its int8 weights are refused. With
+    ``preset=None``, ``model_path`` names a Hugging Face checkpoint
+    directory: its weights are loaded onto the device
+    (``loader.load_hf_llama``, int8 with ``quant="int8"``) and the engine
+    shape is ``EngineConfig`` with the overrides.
     """
     dev = resolve_device(device)
-    model_cfg, engine_cfg = engine_configs(preset, engine_overrides, moe_dispatch)
-    if quant == "int8":
+    model_cfg, engine_cfg = engine_configs(preset, engine_overrides, moe_dispatch, model_path)
+    if model_path is not None:
+        if params is not None:
+            raise ValueError("model_path loads the weights; pass params or model_path, not both")
+        _, params = load_hf_llama(model_path, quant=quant, device=dev)
+    elif quant == "int8":
         if params is not None:
             raise ValueError("quant='int8' draws random weights; pass params or quant, not both")
         params = init_params_quantized(model_cfg, seed, dev)
@@ -186,22 +209,28 @@ def _model_card(model_name: str, tokenizer: str, core: EngineCore) -> ModelDeplo
 
 
 def _build_and_warm(preset, engine_overrides, seed, eos, quant, device, params,
-                    events, moe_dispatch=None) -> tuple[EngineCore, TorchEngine, int]:
+                    events, moe_dispatch=None,
+                    model_path=None) -> tuple[EngineCore, TorchEngine, int]:
     on_stored, on_removed, on_tier_stored, on_tier_removed = events
+    t0 = time.perf_counter()
     core, engine = build_engine(
         preset, engine_overrides, seed=seed, eos_token_ids=eos, device=device,
         params=params, quant=quant, on_stored=on_stored, on_removed=on_removed,
         on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
-        moe_dispatch=moe_dispatch,
+        moe_dispatch=moe_dispatch, model_path=model_path,
     )
-    if core.device.type != "cuda":
-        return core, engine, core.warm_up()
-    # The weights' random draw and the warm-up's eager forwards leave
-    # their temporaries reserved in the caching allocator: hand them back,
-    # so that several workers fit on one card.
-    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    if core.device.type == "cuda":
+        # The weights' random draw and the warm-up's eager forwards leave
+        # their temporaries reserved in the caching allocator: hand them
+        # back, so that several workers fit on one card.
+        torch.cuda.empty_cache()
     forwards = core.warm_up()
-    torch.cuda.empty_cache()
+    if core.device.type == "cuda":
+        torch.cuda.empty_cache()
+    log.info("engine built in %.2f s (weights %s), warmed up in %.2f s",
+             t1 - t0, "loaded from the checkpoint" if model_path is not None else
+             "given" if params is not None else "drawn", time.perf_counter() - t1)
     return core, engine, forwards
 
 
@@ -282,11 +311,11 @@ async def _serve_kv_fetch(runtime, namespace: str, component: str, core: EngineC
 async def run_torch_worker(
     runtime: DistributedRuntime,
     model_name: str = "tiny",
-    preset: str = "tiny",
+    preset: str | None = "tiny",
     namespace: str = "dynamo",
     component: str | None = None,
     engine_overrides: dict[str, Any] | None = None,
-    tokenizer: str = "byte",
+    tokenizer: str | None = None,
     seed: int = 0,
     role: str = "aggregated",
     disagg_config: DisaggConfig | None = None,
@@ -298,6 +327,7 @@ async def run_torch_worker(
     obs_publish: bool = True,
     obs_interval_s: float = 1.0,
     moe_dispatch: str | None = None,
+    model_path: str | None = None,
 ) -> None:
     """Serve one worker until the runtime shuts down, in the JAX worker's
     roles (``aggregated``, ``prefill`` or ``decode``; ``component``
@@ -320,8 +350,13 @@ async def run_torch_worker(
     short, pulls the blocks (streamed while the prefill runs, else after
     its reply) and decodes on. The model card is registered only once the
     engine is built and warmed up (off the loop, so the store lease's
-    keepalive keeps running).
+    keepalive keeps running). ``model_path`` with ``preset=None`` serves
+    a checkpoint (:func:`build_engine`); an unset ``tokenizer`` is then
+    the checkpoint directory's (byte-level, with a warning, when it has no
+    tokenizer files), else ``"byte"``.
     """
+    if tokenizer is None:
+        tokenizer = model_path if model_path is not None else "byte"
     if role not in ("aggregated", "prefill", "decode"):
         raise ValueError(f"unknown role {role!r}")
     if component is None:
@@ -348,7 +383,7 @@ async def run_torch_worker(
     eos = await asyncio.to_thread(_eos_for, tokenizer)
     core, engine, warm_up_forwards = await asyncio.to_thread(
         _build_and_warm, preset, engine_overrides, seed, eos, quant, device, params,
-        (on_stored, on_removed, on_tier_stored, on_tier_removed), moe_dispatch,
+        (on_stored, on_removed, on_tier_stored, on_tier_removed), moe_dispatch, model_path,
     )
     if core_out is not None:
         core_out.append(core)
@@ -542,8 +577,10 @@ async def run_torch_worker(
         await endpoint.serve(handler)
         await register_llm(endpoint, _model_card(model_name, tokenizer, core))
     log.info(
-        "torch %s worker %d serving model %r (preset %s, %d kv blocks, %s)",
-        role, worker_id, model_name, preset, core.engine.num_kv_blocks, core.device,
+        "torch %s worker %d serving model %r (%s, %d kv blocks, %s)",
+        role, worker_id, model_name,
+        f"checkpoint {model_path}" if model_path is not None else f"preset {preset}",
+        core.engine.num_kv_blocks, core.device,
     )
     if served_event is not None:
         served_event.set()
@@ -877,8 +914,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--component", default=None,
                     help="defaults to 'prefill' for --role prefill, else 'backend'")
     ap.add_argument("--tokenizer", default=None,
-                    help="'byte' (default) or an HF tokenizer path "
-                         "(a .gguf tokenizer waits for A7)")
+                    help="'byte', an HF tokenizer path or a .gguf file (default: "
+                         "the --model-path directory, else byte)")
     ap.add_argument("--num-kv-blocks", type=int, default=None)
     ap.add_argument("--block-size", type=int, default=None)
     ap.add_argument("--max-num-seqs", type=int, default=None)
@@ -935,7 +972,10 @@ def _parser() -> argparse.ArgumentParser:
                          "--host-kv-blocks > 0; not shared with JAX workers)")
     ap.add_argument("--disk-kv-blocks", type=int, default=None,
                     help="disk tier capacity in blocks (unset = 4096)")
-    ap.add_argument("--model-path", default=None)
+    ap.add_argument("--model-path", default=None,
+                    help="an HF checkpoint directory (llama or qwen2 family, "
+                         "safetensors or pytorch_model*.bin); overrides --preset "
+                         "and defaults the tokenizer to it")
     ap.add_argument("--moe-dispatch", default=None, choices=["replicated", "alltoall"])
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--dp", type=int, default=1)
@@ -964,8 +1004,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     ``ROADMAP.md`` item that brings it. Engine settings outside the slice
     (ring prefill) are refused by ``build_engine`` the same way."""
     refusals = [
-        (args.model_path is not None, "--model-path (checkpoints)", "A7"),
-        ((args.tokenizer or "").endswith(".gguf"), "--tokenizer *.gguf", "A7"),
         (max(args.tp, args.dp, args.sp, args.pp) > 1, "--tp/--dp/--sp/--pp > 1", "A12"),
         (args.nnodes > 1 or args.dist_init_addr is not None
          or args.local_cpu_devices is not None,
@@ -1011,19 +1049,20 @@ def main(argv: list[str] | None = None) -> None:
     args = _parser().parse_args(argv)
     _refuse_unported(args)
     overrides = _overrides(args)
+    preset = None if args.model_path is not None else args.preset  # --model-path replaces it
     # Before joining the fleet.
-    check_slice(*engine_configs(args.preset, overrides, args.moe_dispatch))
+    check_slice(*engine_configs(preset, overrides, args.moe_dispatch, args.model_path))
 
     @dynamo_worker()
     async def entry(runtime: DistributedRuntime) -> None:
         await run_torch_worker(
             runtime,
             model_name=args.model_name,
-            preset=args.preset,
+            preset=preset,
             namespace=args.namespace,
             component=args.component,
             engine_overrides=overrides,
-            tokenizer=args.tokenizer or "byte",
+            tokenizer=args.tokenizer,
             seed=args.seed,
             role=args.role,
             disagg_config=DisaggConfig(max_local_prefill_length=args.max_local_prefill_length),
@@ -1032,6 +1071,7 @@ def main(argv: list[str] | None = None) -> None:
             obs_publish=args.obs_publish == "on",
             obs_interval_s=args.obs_interval_s,
             moe_dispatch=args.moe_dispatch,
+            model_path=args.model_path,
         )
 
     entry()

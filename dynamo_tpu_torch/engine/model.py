@@ -63,7 +63,9 @@ def quantize_weight(w: torch.Tensor) -> dict[str, torch.Tensor]:
 def _dot(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` with an f32 result (``jnp.dot(..., preferred_element_type=
     f32)``). bf16 operands on the card accumulate in f32 and return f32
-    without an upcast copy of the weight. An int8 ``{w, scale}`` leaf is
+    without an upcast copy of the weight; on the CPU, which has no such
+    product, they are upcast (exact) and multiplied in f32, so the result
+    is not rounded to bf16 before it is returned, as in JAX. An int8 ``{w, scale}`` leaf is
     cast to ``x``'s dtype and its product scaled per output column, as in
     JAX (a plain matrix product, left to ``torch.matmul``)."""
     if isinstance(w, dict):
@@ -72,7 +74,7 @@ def _dot(x: torch.Tensor, w) -> torch.Tensor:
         return x @ w
     if x.is_cuda:
         return torch.mm(x, w, out_dtype=torch.float32)
-    return (x @ w).float()
+    return x.float() @ w.float()
 
 
 # -- fused-projection layout ------------------------------------------------

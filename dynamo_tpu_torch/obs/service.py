@@ -3,8 +3,7 @@
 The port's copy of ``dynamo_tpu/obs/service.py``, held to it by
 ``tests/test_torch_copies.py``.
 
-Standalone (``python -m dynamo_tpu.obs --namespace dynamo``, in the JAX
-package only until ``ROADMAP.md`` A6b.4): one process
+Standalone (``python -m dynamo_tpu_torch.obs --namespace dynamo``): one process
 that subscribes to the namespace's snapshot subject and serves the fleet
 ``/metrics`` + ``/fleet`` on its own status server — the reference's
 ``components/metrics`` service shape.

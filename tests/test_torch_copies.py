@@ -100,6 +100,21 @@ COPIES = [
     "backends/encoder/__init__.py",
     "backends/encoder/__main__.py",
     "backends/encoder/main.py",
+    # The planner, the standalone aggregator, the barrier, the KV-event
+    # recorder and the output parsers.
+    "planner/__init__.py",
+    "planner/planner_core.py",
+    "planner/load_predictor.py",
+    "planner/perf_interpolation.py",
+    "planner/observer.py",
+    "planner/connector.py",
+    "planner/controller.py",
+    "obs/__main__.py",
+    "runtime/barrier.py",
+    "llm/kv_router/recorder.py",
+    "llm/parsers/__init__.py",
+    "llm/parsers/reasoning.py",
+    "llm/parsers/tool_calls.py",
 ]
 
 
@@ -122,12 +137,18 @@ COPIED_DEFINITIONS = [
         "KV_DTYPES", "SCALE_BYTES", "_SCALE_FLOOR", "kv_page_bytes",
         "kv_byte_ratio", "pack_kv_page", "unpack_kv_page",
     )
+] + [
+    ("engine/gguf.py", name)
+    for name in (
+        "GGUF_MAGIC", "_SCALARS", "_GGML_NUMPY", "GGML_TYPE_NAMES", "GGUFTensorInfo",
+        "_read_string", "_read_value", "read_gguf", "GGUFTokenizer",
+    )
 ]
 
 
 def _definition(path: Path, name: str) -> str:
     for node in ast.parse(path.read_text()).body:
-        if isinstance(node, ast.FunctionDef) and node.name == name:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and node.name == name:
             return ast.dump(node)
         if isinstance(node, ast.Assign) and any(
             isinstance(t, ast.Name) and t.id == name for t in node.targets

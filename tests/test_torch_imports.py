@@ -32,6 +32,31 @@ def test_no_jax_or_jax_package_imports(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
+def _port_modules_named(path: Path) -> set[str]:
+    """Every ``dynamo_tpu_torch`` module an import in ``path`` names (for
+    ``from M import x``, the module M)."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return {n for n in names if n.split(".")[0] == "dynamo_tpu_torch"}
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + sorted((ROOT / "tests").glob("test_torch_*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_port_imports_resolve(path):
+    """Each port module that an import names is a file of the port, as a
+    module or a package: an import inside a function body fails only
+    when it runs, so a missing module would otherwise show only there."""
+    for name in _port_modules_named(path):
+        base = ROOT.joinpath(*name.split("."))
+        assert base.with_suffix(".py").is_file() or (base / "__init__.py").is_file(), name
+
+
 def test_cpu_engine_leaves_jax_unimported():
     code = (
         "import sys\n"
@@ -44,6 +69,11 @@ def test_cpu_engine_leaves_jax_unimported():
         "import dynamo_tpu_torch.llm.kv_router.native_radix, dynamo_tpu_torch.llm.kv_pool\n"
         "import dynamo_tpu_torch.llm.disagg, dynamo_tpu_torch.llm.disagg_pool\n"
         "import dynamo_tpu_torch.engine.host_cache, dynamo_tpu_torch.engine.offload\n"
+        "import dynamo_tpu_torch.engine.loader, dynamo_tpu_torch.engine.gguf\n"
+        "import dynamo_tpu_torch.planner, dynamo_tpu_torch.planner.observer\n"
+        "import dynamo_tpu_torch.planner.connector, dynamo_tpu_torch.obs.__main__\n"
+        "import dynamo_tpu_torch.runtime.barrier, dynamo_tpu_torch.llm.kv_router.recorder\n"
+        "import dynamo_tpu_torch.llm.parsers\n"
         "import tempfile\n"
         "core, engine = build_engine('tiny', {'host_kv_blocks': 8, 'disk_kv_dir': "
         "tempfile.mkdtemp()}, device='cpu')\n"

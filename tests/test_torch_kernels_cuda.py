@@ -41,6 +41,8 @@ CASES = {
     "group1": ([20, 1, 1], [50, 90, 1], 3, 3, 4, 1),
     "group2": ([60, 1], [60, 110], 2, 4, 4, 2),
     "group8": ([1, 1, 30], [130, 40, 30], 3, 5, 2, 8),
+    # Qwen2-7B's group (28 query heads over 4): 18 query rows per tile.
+    "group7": ([1, 40, 1], [150, 40, 70], 3, 5, 4, 7),
 }
 
 

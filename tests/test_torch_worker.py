@@ -504,7 +504,7 @@ async def test_graceful_drain_publishes_cleared():
 
 # -- (h) what the port does not serve is refused by name ----------------------
 
-SERVED_ITEMS = {"A10", "A11"}  # ROADMAP items landed since their flags were refused
+SERVED_ITEMS = {"A7", "A10", "A11"}  # ROADMAP items landed since their flags were refused
 
 
 @pytest.mark.parametrize(
@@ -529,13 +529,22 @@ def test_unported_cli_flags_refused(argv, item):
     item. A value whose item has landed is served instead: the parser and
     the refusals take the roles (A10), and their engine builds; they take
     the MoE presets and ``--moe-dispatch`` (A11), which a dense preset
-    refuses as the JAX worker does."""
+    refuses as the JAX worker does; they take a checkpoint directory and a
+    GGUF tokenizer (A7), and a path that does not exist fails as a missing
+    file, the checkpoint's before the worker joins the fleet."""
     if item not in SERVED_ITEMS:
         with pytest.raises(ValueError, match=item):
             worker_main.main(argv)
         return
     args = worker_main._parser().parse_args(argv)
     worker_main._refuse_unported(args)
+    if item == "A7":
+        with pytest.raises(FileNotFoundError, match="nonexistent"):
+            if args.model_path is not None:
+                worker_main.main(argv)
+            else:
+                worker_main._eos_for(args.tokenizer)
+        return
     if item == "A10":
         assert args.role == argv[1] and args.max_local_prefill_length == 50
         core, _ = build_engine("tiny", worker_main._overrides(args), device="cpu")
