@@ -90,9 +90,10 @@ the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
 --preset llama3-8b --seed 0`` as subprocesses, waits for the model card
 through the port's discovery and sends requests through the port's
 data-plane client: 4 greedy prompts one at a time, whose streams must
-equal those of ``build_engine("llama3-8b", seed=0)`` in this process
-(the main path's bf16 engine, which ran the same traffic just after its
-warm-up, before the main path; its weights were then written as a Hugging Face checkpoint by
+equal those of ``build_engine("llama3-8b", seed=0)`` in this process,
+chunk for chunk but for the engine step the first chunk names
+(the main path's bf16 engine, which ran the same traffic after all its
+sub-phases; its weights were then written as a Hugging Face checkpoint by
 this script's own safetensors writer and loaded back with every leaf
 equal; here the checkpoint is loaded again as int8, layer 0 and
 ``lm_head`` bit-equal to the loader's arithmetic in numpy; the sync
@@ -132,10 +133,25 @@ three workers warming up together and serving llama3-8b's first 8
 layers at full width from a checkpoint the main path's engine wrote; the
 serving requests at once and staggered through both paths, greedy
 streams equal up to measured near-ties, pages checksummed on both sides,
-blocks imported with no recompute and no failed pull), and (9) prints a
-JSON line of
+blocks imported with no recompute and no failed pull), (9) runs the
+doctor (:func:`doctor_phase`: ``python -m dynamo_tpu_torch.check``
+against a store it starts, exit 0, K1 launched by its engine check) and
+the single-command runner (:func:`doctor_and_runner`: ``python -m
+dynamo_tpu_torch.run`` with ``--out torch --preset llama3-8b`` at full
+width and depth on the worker phase's 8 prompts as text, ``--out echo``,
+``--out mocker`` and the doctor beside its worker's start-up, one
+completion per prompt, the torch run's worker start-up split and its K1
+launches from its exit counters), and (10)
+prints a JSON line of
 kernel measurements (one record per C entry point) and, last, a JSON
-status line. Any failed check raises and the script exits non-zero.
+status line. Along the bf16 serving phase, the main path's engine streams
+the worker phase's ``long`` prompt alone after each sub-phase
+(:func:`solo_drift`: the first position where it parts from the stream
+just after warm-up, the top-2 gap there), and after the last sub-phase
+that stream is held to the one just after warm-up under the near-tie
+rule, so a long-lived engine serves as a fresh worker does; the same
+prompt repeated over its own cached prefix is held to its cold run under
+that rule too, and where it parts is printed. Any failed check raises and the script exits non-zero.
 Without a card it exits non-zero at once and prints no result.
 """
 
@@ -1056,16 +1072,56 @@ def sync_against_async(core, reqs, mode: str) -> dict:
     return {name: {k: v for k, v in r.items() if k != "streams"} for name, r in rows.items()}
 
 
+def solo_stream(core, repeat: bool = False):
+    """The worker phase's first solo prompt (``long``, 2000 tokens) alone
+    through a synchronous engine from a cleared prefix cache: 64 greedy
+    tokens, each with its top-2 log-probabilities. With ``repeat``, the
+    same request again over the prefix the first run left cached, and
+    both runs. The prefix cache is cleared after, so the run leaves no
+    cached block behind (a later request of the same prompt would prefill
+    only its last block over those pages, which rounds bf16 otherwise
+    than a cold prefill, and part from a fresh worker's stream)."""
+    reqs, _, _ = serving_requests(core.cfg.vocab_size)
+    rid, prompt, sampling = next(r for r in reqs if r[0] == WORKER_SOLO[0])
+    req = wire(rid, prompt, sampling, logprobs=2)
+    core.clear_kv_cache()
+    cold = run_wires(core, [req])
+    again = run_wires(core, [req]) if repeat else None
+    core.clear_kv_cache()
+    return (cold, again) if repeat else cold
+
+
+def solo_drift(core, want: dict, phase: str) -> dict:
+    """The long-lived engine's solo stream after ``phase`` against ``want``
+    (the same engine's just after warm-up): the first position where the
+    tokens part and ``want``'s top-2 gap there, and the largest
+    log-probability difference before it. Printed, not asserted: the
+    check after the last sub-phase holds the stream."""
+    rid = WORKER_SOLO[0]
+    w, g = want[rid], solo_stream(core)[rid]
+    j = first_divergence(w["tokens"], g["tokens"])
+    diff = max([abs(x["logprob"] - y["logprob"])
+                for x, y in list(zip(w["logprobs"], g["logprobs"]))[:j]] or [0.0])
+    gap = None if j is None else w["logprobs"][j]["top"][0][1] - w["logprobs"][j]["top"][1][1]
+    print(f"long-lived engine, solo {rid} after {phase}: "
+          + ("tokens equal" if j is None else f"tokens part at {j} (top-2 gap {gap:.4e})")
+          + f"; log-probabilities differ by up to {diff:.4e}"
+          + (" before it" if j is not None else ""), flush=True)
+    return {"after": phase, "first_divergence": j, "top2_gap": gap, "max_logprob_diff": diff}
+
+
 def serve(ra, card: str, int8=False) -> tuple[dict, dict, tuple | None]:
     """The main path: 8 requests through the llama3-8b engine, bf16, or
     (``int8``) with int8 weights and int8 KV pages, after ``warm_up()``
     (so every prefill wave and decode megastep is a graph replay); then
     the graph-against-eager megastep, k = 1 against k = 8, and the
-    traffic with async execution off and on. The bf16 engine first runs
-    the worker phase's in-process reference (:func:`in_process_traffic`),
-    just warmed up as the worker will be, which is returned with the
-    checkpoints it writes (None under ``int8``); the main path after it
-    reads its counters over its own traffic."""
+    traffic with async execution off and on. The bf16 engine then runs
+    its other sub-phases (chunked, speculation, tiers, page programs, an
+    embedding and image requests), its solo stream checked after each
+    (:func:`solo_drift`), and last the worker phase's in-process reference
+    (:func:`in_process_traffic`), which is returned with the checkpoints
+    it writes (None under ``int8``). The main path reads its counters as
+    differences over its own traffic."""
     from dynamo_tpu_torch.backends.torch.main import build_engine
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.runtime.engine import Context
@@ -1082,7 +1138,27 @@ def serve(ra, card: str, int8=False) -> tuple[dict, dict, tuple | None]:
           f"{core.kv_cache_stats()['bytes_per_block']} bytes) "
           f"in {time.time() - t0:.1f} s; {memory_line()}", flush=True)
     warm = warm_up(core, mode)
-    reference = None if int8 else in_process_traffic(core, warm["graph_captures"])
+    # The long-lived engine's solo stream, as a fresh worker serves it,
+    # then again after each sub-phase (bf16: the sub-phases run there).
+    solo_want, cached_repeat = None, None
+    if not int8:
+        solo_want, again = solo_stream(core, repeat=True)
+        # The mechanism that parts a long-lived engine's stream from a
+        # fresh worker's: the prompt's own prefix in its cache.
+        cached_repeat = near_tie_streams("the long prompt over its own cached prefix against "
+                                         "its cold run", solo_want, again)
+        cached_repeat["cached_tokens"] = again[WORKER_SOLO[0]]["cached_tokens"]
+        print(f"long-lived engine, solo {WORKER_SOLO[0]} repeated over its cached prefix "
+              f"({cached_repeat['cached_tokens']} tokens): parts from its cold run at "
+              f"{[(x['position'], round(x['gap'], 6)) for x in cached_repeat['parted']]} "
+              f"(position, top-2 gap); log-probabilities differ by up to "
+              f"{cached_repeat['limit']:.4e} before", flush=True)
+    drift: list[dict] = []
+
+    def after(phase: str) -> None:
+        if solo_want is not None:
+            drift.append(solo_drift(core, solo_want, phase))
+
     reqs, late, solo = serving_requests(core.cfg.vocab_size)
 
     # The main path, with every kernel launch count at 0 just before it,
@@ -1136,8 +1212,10 @@ def serve(ra, card: str, int8=False) -> tuple[dict, dict, tuple | None]:
           f"in {st['decode_loop_s']:.3f} s; dispatch to landing "
           f"{1e3 * st['decode_s'] / st['decode_iterations']:.2f})", flush=True)
 
+    after("the main path's traffic")
     logit_check = check_logits(core, reqs[5][1][:64])
     graph_check = graph_against_eager(core, reqs + [late], mode)
+    after("the logits check and the megastep's graph against its eager body")
 
     # Megastep k=1 against k=8: a second engine on the same weight tensors,
     # not warmed up (its graphs are captured at first use). Each event
@@ -1159,12 +1237,35 @@ def serve(ra, card: str, int8=False) -> tuple[dict, dict, tuple | None]:
     del core1, engine1
     gc.collect()
     torch.cuda.empty_cache()
+    after("the k=1 engine on its weights")
     modes = sync_against_async(core, reqs + [late], mode)
+    after("the sync and async passes")
     chunked = None if int8 else serve_chunked(ra, card, core)
+    after("the chunked phase")
     spec = None if int8 else serve_spec(ra, card, core)
+    after("the speculation phase")
     tiers = None if int8 else serve_tiers(ra, card, core)
+    after("the tier phase")
     pages = page_programs(core, mode)
-    mm = None if int8 else {"embed": check_embed(ra, core), "images": check_images(ra, core)}
+    after("the page programs")
+    mm = None
+    if not int8:
+        mm = {"embed": check_embed(ra, core)}
+        after("the embedding")
+        mm["images"] = check_images(ra, core)
+        after("the image requests")
+        # Kept: after all its sub-phases, the engine streams the solo
+        # prompt bit for bit as it did just after warm-up (as the worker
+        # phase's fresh worker streams it): no sub-phase leaves state
+        # behind that a later request reads.
+        near_tie_streams("the long-lived engine after its sub-phases", solo_want,
+                         solo_stream(core), exact=True)
+        print("long-lived engine: after all its sub-phases its solo stream equals the one just "
+              "after warm-up (tokens and log-probabilities, bit for bit)", flush=True)
+    # The worker phase's in-process reference, served by this long-lived
+    # engine after all its sub-phases from a cleared prefix cache; the
+    # worker phase holds a fresh worker's streams to it.
+    reference = None if int8 else in_process_traffic(core, warm["graph_captures"])
     return by_entry, {
         "mode": mode, "attention_launches": launches, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
         "bytes_per_block": core.kv_cache_stats()["bytes_per_block"],
@@ -1173,6 +1274,7 @@ def serve(ra, card: str, int8=False) -> tuple[dict, dict, tuple | None]:
         "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
         "graph_against_eager": graph_check, "graphs_sync_async": modes,
         "chunked": chunked, "spec": spec, "tiers": tiers, "page_programs": pages, "mm": mm,
+        "long_lived_drift": drift, "cached_prefix_repeat": cached_repeat,
     }, reference
 
 
@@ -1548,14 +1650,14 @@ def moe_mixed_step(core, streams, long_prompt) -> dict:
 
 
 def serve_moe(ra, card: str) -> dict:
-    """Sparse MoE at Mixtral-8x7B width: 16 of its 32 layers (one of two
-    pipeline stages; bf16 experts for 32 layers need 92.9 GB), random bf16
+    """Sparse MoE at Mixtral-8x7B width: ``MOE_LAYERS`` of its 32 layers
+    (bf16 experts for 32 layers need 92.9 GB), random bf16
     weights from seed 0, the default ``EngineConfig``, through
     ``EngineCore`` and ``TorchEngine``. Memory; one layer's MoE MLP on the
     card against its f32 CPU version; ``warm_up()``; the MoE path (eight
     prompts of 128-2048 tokens, one 8192 wave, 64 greedy tokens each, the
     launch counts at 0 just before it): TTFT, prefill and decode ms beside
-    their bounds, K1 at 16 launches per forward, every dispatch a graph
+    their bounds, K1 at ``MOE_LAYERS`` launches per forward, every dispatch a graph
     replay; the megastep (width 8, k = 8) replayed against its eager body;
     the same traffic with every dispatch eager (tokens and
     log-probabilities equal); C per bucket; the device's idle share in decode; and one
@@ -1808,7 +1910,8 @@ def page_programs(core, mode: str) -> dict:
     memory, as an import stages them). Each against its byte bound: the
     device programs read and write every byte once (2 n pages over
     3.35 TB/s), the host hops move n pages over 64 GB/s. The cache's
-    prefix blocks are dropped first; the engine serves nothing after."""
+    prefix blocks are dropped first, so the pages written hold no cached
+    block."""
     from dynamo_tpu_torch.engine.core import _Landing
 
     core.clear_kv_cache()
@@ -3160,15 +3263,16 @@ async def dataplane_cost(rt, address: str, chunks: dict[str, list[dict]]) -> dic
 def in_process_traffic(core, captures: int) -> tuple[dict, dict, dict]:
     """The worker phase's traffic in this process, through the main path's
     bf16 engine (``core``: llama3-8b from seed 0, the worker's default
-    ``EngineConfig``) just after its ``warm_up()`` (which captured
-    ``captures`` graphs), as the worker serves just after its own; then
-    the engine's weights written as a llama checkpoint and loaded back
-    (:func:`checkpoint_round_trip`), and its first ``DISAGG_LAYERS``
-    layers written as another (both directories the caller's to
-    delete)."""
+    ``EngineConfig``, whose ``warm_up()`` captured ``captures`` graphs)
+    after all its sub-phases, from a cleared prefix cache, as a fresh
+    worker serves it from its own; then the engine's weights written as a
+    llama checkpoint and loaded back (:func:`checkpoint_round_trip`), and
+    its first ``DISAGG_LAYERS`` layers written as another (both
+    directories the caller's to delete)."""
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.runtime.engine import Context
 
+    core.clear_kv_cache()
     engine = TorchEngine(core)
     before = dict(core.scheduler_stats())
 
@@ -3401,8 +3505,10 @@ def serve_worker(card: str, reference: tuple, preset: str = "llama3-8b",
     ``python -m dynamo_tpu_torch.backends.torch`` as subprocesses, driven
     through the port's discovery and data-plane client. Its solo greedy
     streams must equal the in-process engine's (``reference``, from
-    :func:`in_process_traffic`: run on the main path's engine, since
-    freed, so one engine is on the card at a time); the 8-request batch's times are
+    :func:`in_process_traffic`: run on the main path's long-lived engine
+    after all its sub-phases, since freed, so one engine is on the card at
+    a time), chunk for chunk but for the engine step the first chunk
+    names; the 8-request batch's times are
     printed beside the in-process engine's; a resent prompt must report
     cached tokens, and the worker's KV events must carry the block hashes
     of the prompt's full blocks. The worker runs without its status server
@@ -3427,7 +3533,10 @@ def serve_worker(card: str, reference: tuple, preset: str = "llama3-8b",
     # serving (and idle), so it runs alone on the card.
     h_async = start_worker(preset, device, ["--async-exec", "on"])
     try:
-        h_sync = start_worker(preset, device, ["--obs-publish", "off"],
+        # The checkpoint has no tokenizer files: the worker names the byte
+        # tokenizer it would fall back to, not trying a Hugging Face one
+        # first (~20 s of a worker's start-up).
+        h_sync = start_worker(preset, device, ["--obs-publish", "off", "--tokenizer", "byte"],
                               env={"DYN_SYSTEM_ENABLED": "0"}, model_path=ck["dir"])
         got, events, mdc, stats = finish_worker(
             h_sync, cfg, before_traffic=lambda: wait_for_log(
@@ -3451,14 +3560,29 @@ def serve_worker(card: str, reference: tuple, preset: str = "llama3-8b",
               f"built in {st['build_s']:.2f} s (weights {st['weights']}), warmed up in "
               f"{st['warm_up_s']:.2f} s; the rest {rest:.1f} s", flush=True)
 
+    w0, r0 = got["solo"][0]["first_iteration"], ref["solo"][0]["first_iteration"]
     for w, r, a in zip(got["solo"], ref["solo"], got_async["solo"]):
-        same = w["outs"] == r["outs"]
+        # The first chunk names the engine step that emitted it, a count
+        # of the engine's whole life: the long-lived in-process engine has
+        # stepped through every earlier phase, the fresh worker through
+        # its warm-up only. So that step is compared as an offset from the
+        # first solo request's; everything else must be equal: tokens,
+        # log-probabilities, cached tokens, finish reasons.
+        same = without_iteration(w["outs"]) == without_iteration(r["outs"])
+        same_step = w["first_iteration"] - w0 == r["first_iteration"] - r0
         same_async = without_iteration(a["outs"]) == without_iteration(w["outs"])
         print(f"worker solo {w['rid']}: {len(w['tokens'])} tokens, greedy stream equal to "
-              f"the in-process engine's: {same}; the async worker's chunks equal the sync "
-              f"worker's (but for the engine step named in the first): {same_async}", flush=True)
+              f"the long-lived in-process engine's: {same} (tokens equal "
+              f"{w['tokens'] == r['tokens']}; the engine step the first chunk names: worker "
+              f"{w['first_iteration']}, in process {r['first_iteration']}, equal offsets from "
+              f"the first solo request's: {same_step}); the async worker's chunks equal the "
+              f"sync worker's (but for that step): {same_async}", flush=True)
         if not same:
             raise AssertionError(f"{w['rid']}: the worker's greedy stream differs from build_engine's")
+        if not same_step:
+            raise AssertionError(f"{w['rid']}: its first token came {w['first_iteration'] - w0} "
+                                 f"engine steps after the first solo request's on the worker, "
+                                 f"{r['first_iteration'] - r0} in process")
         if not same_async:
             raise AssertionError(f"{w['rid']}: the async worker's stream differs from the sync one's")
     if not stats_async["async_exec"] or stats_async["graph_replays"] != stats_async["dispatches"]:
@@ -4273,8 +4397,11 @@ def serve_disagg(card: str, model_path: str, device: str = "cuda") -> dict:
     store_port = free_port()
     store = f"127.0.0.1:{store_port}"
     env = {**os.environ, "DYN_STORE_ADDRESS": store}
+    # The checkpoint has no tokenizer files: its workers name the byte
+    # tokenizer they would fall back to, so neither they nor the frontend
+    # first try a Hugging Face tokenizer there (~20 s each).
     worker = [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", "--model-path", model_path,
-              "--seed", "0", "--device", device, "--obs-publish", "off"]
+              "--tokenizer", "byte", "--seed", "0", "--device", device, "--obs-publish", "off"]
     args = {
         "agg": ["--model-name", "llama3-8b-agg", "--namespace", "agg"],
         "prefill": ["--model-name", DISAGG_MODEL, "--role", "prefill"],
@@ -4426,6 +4553,209 @@ def serve_disagg(card: str, model_path: str, device: str = "cuda") -> dict:
     return summary
 
 
+# -- the doctor and the single-command runner (subprocesses) --------------------
+
+
+def doctor_phase(device: str = "cuda") -> dict:
+    """``python -m dynamo_tpu_torch.check`` against a port store this phase
+    runs: every line printed, exit 0, the store line reached, and (on the
+    card) the engine line's K1 launches above 0."""
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_doctor_"))
+    port = free_port()
+    with open(logs / "store.log", "w") as store_log:
+        store = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(port)],
+            cwd=ROOT, stdout=store_log, stderr=subprocess.STDOUT)
+        try:
+            wait_for_port(port, store, 30)
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-m", "dynamo_tpu_torch.check", "--device", device,
+                 "--store-address", f"127.0.0.1:{port}"],
+                cwd=ROOT, capture_output=True, text=True, timeout=300)
+            wall_s = time.time() - t0
+        finally:
+            stop_process(store, signal.SIGTERM, 10)
+    shutil.rmtree(logs, ignore_errors=True)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        print(f"doctor: {line}", flush=True)
+    engine = next((ln for ln in lines if "engine smoke" in ln), "")
+    m = re.search(r"K1 launches (\d+)", engine)
+    launches = int(m.group(1)) if m else 0
+    print(f"doctor: exit {proc.returncode} in {wall_s:.1f} s; engine line's K1 launches "
+          f"{launches}", flush=True)
+    if (proc.returncode != 0 or not engine.startswith("[ok ]")
+            or not any(ln.startswith("[ok ] store — 127.0.0.1") for ln in lines)
+            or (device == "cuda" and launches < 1)):
+        raise AssertionError(f"the doctor failed (exit {proc.returncode}):\n{proc.stdout}"
+                             f"{proc.stderr[-4000:]}")
+    return {"exit": proc.returncode, "lines": len(lines), "engine_k1_launches": launches,
+            "wall_s": wall_s}
+
+
+def runner_prompts() -> list[str]:
+    """The worker phase's 8 prompts as chat text of the same lengths (the
+    runner takes text; a prompt of n lowercase letters and spaces is n
+    tokens of the byte tokenizer, before the chat template)."""
+    reqs, late, _ = serving_requests(1 << 17)
+    rng = np.random.default_rng(1234)
+    alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    return ["".join(rng.choice(alphabet, len(p))) for _, p, _ in reqs + [late]]
+
+
+def start_runner(args: list[str], logs: Path, name: str,
+                 served_pattern: str | None = None) -> dict:
+    """Start one ``python -m dynamo_tpu_torch.run`` process, its errors
+    (the log) in ``logs``; with ``served_pattern``, a thread notes the
+    seconds from its start to the first log line that matches it."""
+    h = {"name": name, "log": logs / f"{name}.log", "t0": time.time(), "out": [],
+         "served_after_s": None}
+    h["log_f"] = open(h["log"], "w")
+    h["proc"] = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch.run", *args], cwd=ROOT,
+                                 stdout=subprocess.PIPE, stderr=h["log_f"], text=True)
+    h["reader"] = threading.Thread(target=lambda: h["out"].extend(h["proc"].stdout), daemon=True)
+    h["reader"].start()
+
+    def watch():
+        while h["proc"].poll() is None and h["served_after_s"] is None:
+            if re.search(served_pattern, h["log"].read_text()):
+                h["served_after_s"] = time.time() - h["t0"]
+            time.sleep(0.2)
+
+    if served_pattern:
+        threading.Thread(target=watch, daemon=True).start()
+    return h
+
+
+def finish_runner(h: dict, timeout: float) -> dict:
+    """Wait for a :func:`start_runner` process to exit 0 within ``timeout``
+    seconds of its start; its standard output, wall seconds and start-up."""
+    proc, name = h["proc"], h["name"]
+    try:
+        proc.wait(max(1.0, timeout - (time.time() - h["t0"])))
+    except BaseException:
+        stop_process(proc, signal.SIGKILL, 10)
+        print(f"runner {name} log tail:\n{h['log'].read_text()[-6000:]}", file=sys.stderr)
+        raise
+    finally:
+        h["reader"].join(10)
+        h["log_f"].close()
+    wall_s = time.time() - h["t0"]
+    if proc.returncode != 0:
+        raise AssertionError(f"runner {name} exited with {proc.returncode}:\n"
+                             f"{h['log'].read_text()[-6000:]}")
+    return {"stdout": "".join(h["out"]), "wall_s": wall_s,
+            "served_after_s": h["served_after_s"], "log": h["log"]}
+
+
+def doctor_and_runner(card: str, device: str = "cuda", preset: str = "llama3-8b") -> dict:
+    """``python -m dynamo_tpu_torch.run --in batch --out torch --preset
+    llama3-8b`` (at full width and depth, its worker warmed up as a
+    default worker) on the worker phase's 8 prompts as text, 64 tokens
+    each; while its worker builds and warms up, ``--in batch --out echo``,
+    ``--in text --out mocker --speedup-ratio 100`` and the doctor
+    (:func:`doctor_phase`) run beside it. Each runner exits 0 with one
+    completion per prompt; the torch run's worker start-up is split into
+    its engine's build and warm-up (its own log line) and the rest, and
+    its exit counters show K1's two kernels launched once per layer of
+    every forward."""
+    from dynamo_tpu_torch.engine.config import PRESETS
+
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_runner_"))
+    h = None
+    try:
+        prompts = runner_prompts()
+        inp = logs / "prompts.jsonl"
+        inp.write_text("".join(json.dumps({"prompt": p}) + "\n" for p in prompts))
+        res = {}
+
+        def batch_args(name, out_args):
+            return ["--in", "batch", *out_args, "--input", str(inp), "--output",
+                    str(logs / f"{name}.jsonl"), "--max-tokens", str(MAX_TOKENS)]
+
+        def completions(name):
+            # A request the frontend failed still writes a row, its
+            # completion "[error] <message>".
+            rows = [json.loads(ln) for ln in (logs / f"{name}.jsonl").read_text().splitlines()]
+            if [row["prompt"] for row in rows] != prompts or not all(
+                    isinstance(row.get("completion"), str) for row in rows):
+                raise AssertionError(f"runner {name}: {len(rows)} completions for "
+                                     f"{len(prompts)} prompts")
+            failed = [row["completion"] for row in rows if row["completion"].startswith("[error]")]
+            if failed:
+                raise AssertionError(f"runner {name}: {len(failed)} requests failed: {failed[:2]}")
+            return rows
+
+        # The torch worker builds and warms up while the echo and mocker
+        # runs and the doctor run (one after another would add their ~13 s).
+        h = start_runner(batch_args("worker", ["--out", "torch", "--preset", preset,
+                                               "--device", device]),
+                         logs, "worker", r"serving model")
+        with ThreadPoolExecutor(3) as pool:
+            echo_f = pool.submit(lambda: finish_runner(start_runner(
+                batch_args("echo", ["--out", "echo"]), logs, "echo"), 120))
+            mock_f = pool.submit(lambda: finish_runner(start_runner(
+                ["--in", "text", "--out", "mocker", "--speedup-ratio", "100",
+                 "--prompt", prompts[2], "--max-tokens", "16"], logs, "mocker"), 120))
+            doctor_f = pool.submit(doctor_phase, device)
+            echo, mock, res["doctor"] = echo_f.result(), mock_f.result(), doctor_f.result()
+        if not all(row["completion"].startswith("<|user|>") for row in completions("echo")):
+            raise AssertionError("runner echo: a completion is not its prompt echoed")
+        res["echo"] = {"wall_s": echo["wall_s"], "completions": len(prompts)}
+        if mock["stdout"].strip() != "abcdefghijklmnop":
+            raise AssertionError(f"runner mocker answered {mock['stdout']!r}")
+        res["mocker"] = {"wall_s": mock["wall_s"], "completions": 1}
+        torch_run = finish_runner(h, 900)
+        h = None
+        rows = completions("worker")
+        if torch_run["served_after_s"] is None:
+            raise AssertionError(f"runner torch logged no serving line:\n"
+                                 f"{torch_run['log'].read_text()[-4000:]}")
+        built = worker_build_s({"logs": logs, "args": ["--out", "torch"]})
+        stats = worker_stats(torch_run["log"])
+        cfg = PRESETS[preset]()
+        kernels = stats["kernel_launches"]
+        # Warm-up alone launches both K1 kernels: the traffic must have
+        # run forwards of its own and committed a token for every prompt.
+        if stats["forwards"] == 0 or stats["committed_tokens"] < len(prompts):
+            raise AssertionError(f"the runner's worker served no traffic: {stats['forwards']} "
+                                 f"forwards, {stats['committed_tokens']} tokens committed for "
+                                 f"{len(prompts)} prompts")
+        if device == "cuda" and (
+                stats["attention_launches"]
+                != cfg.num_layers * (stats["forwards"] + stats["warm_up_forwards"])
+                or min(kernels[k] for k in ("ragged_paged_attention_decode_launch",
+                                            "ragged_paged_attention_tiled_launch")) == 0):
+            raise AssertionError(f"the runner's worker: K1 launches do not match its "
+                                 f"forwards: {stats}")
+        build_s, warm_s = built["build_s"], built["warm_up_s"]
+        served = torch_run["served_after_s"]
+        res["torch"] = {
+            "wall_s": torch_run["wall_s"], "completions": len(rows), "served_after_s": served,
+            "build_s": build_s, "warm_up_s": warm_s, "rest_s": served - build_s - warm_s,
+            "forwards": stats["forwards"], "warm_up_forwards": stats["warm_up_forwards"],
+            "committed_tokens": stats["committed_tokens"],
+            "attention_launches": stats["attention_launches"], "kernel_launches": kernels,
+            "graph_captures": stats["graph_captures"],
+        }
+        t = res["torch"]
+        print(f"runner on {card}: echo {len(prompts)} completions in {echo['wall_s']:.1f} s; "
+              f"mocker {mock['stdout'].strip()!r} in {mock['wall_s']:.1f} s; torch --preset "
+              f"{preset}: {t['completions']} completions of {MAX_TOKENS} tokens at most "
+              f"({t['committed_tokens']} tokens committed) in {t['wall_s']:.1f} s; its worker served after {served:.1f} s (engine built in "
+              f"{build_s:.2f} s, warmed up in {warm_s:.2f} s, the rest {t['rest_s']:.1f} s; the "
+              f"echo and mocker runs and the doctor ran meanwhile); K1 launches {kernels} = "
+              f"{cfg.num_layers} x ({t['forwards']} forwards + {t['warm_up_forwards']} at "
+              f"warm-up); graph captures {t['graph_captures']}", flush=True)
+        return res
+    finally:
+        if h is not None:
+            stop_process(h["proc"], signal.SIGKILL, 10)
+            h["log_f"].close()
+        shutil.rmtree(logs, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches, shapes, main_shape, **extra) -> dict:
     """One kernel's record for the kernels line: the contract's keys from
     the main path's launch count and the main shape's measurements, then
@@ -4566,6 +4896,9 @@ def main() -> int:
         disagg = serve_disagg(card, ck["cut"]["dir"])
         lap("disaggregation")
         print(f"disagg summary: {json.dumps(disagg)}", flush=True)
+        runner = doctor_and_runner(card)
+        lap("doctor and runner")
+        print(f"doctor and runner summary: {json.dumps(runner)}", flush=True)
 
         def k2_shapes_of(pages):
             return [s for s in k2_shapes if s["pages"] == pages]
@@ -4609,6 +4942,8 @@ def main() -> int:
                         f: qwen_faults[f] for f in table[kernel]}
                     extra["embed_path_launches"] = summary["mm"]["embed"]["launches"].get(name, 0)
                     extra["image_path_launches"] = summary["mm"]["images"]["launches"].get(name, 0)
+                # The runner's worker (--out torch --preset llama3-8b), warm-up included.
+                extra["runner_phase_launches"] = runner["torch"]["kernel_launches"][name]
                 k1.append(kernel_entry(
                     name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
                     main_rec, pages="int8" if int8 else "bf16", **extra,

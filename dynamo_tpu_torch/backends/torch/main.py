@@ -161,6 +161,7 @@ def build_engine(
     """
     dev = resolve_device(device)
     model_cfg, engine_cfg = engine_configs(preset, engine_overrides, moe_dispatch, model_path)
+    check_slice(model_cfg, engine_cfg, dev)  # before any weight is drawn or loaded
     if model_path is not None:
         if params is not None:
             raise ValueError("model_path loads the weights; pass params or model_path, not both")
@@ -178,6 +179,22 @@ def build_engine(
         on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
     )
     return core, TorchEngine(core)
+
+
+def use_one_malloc_arena() -> bool:
+    """Make every thread of this process allocate from glibc's main arena
+    (``mallopt(M_ARENA_MAX, 1)``, what ``MALLOC_ARENA_MAX=1`` does at
+    start). A worker builds, warms up and steps its engine on a thread of
+    the event loop's executor (``asyncio.to_thread``); on an arena of its
+    own, that thread's allocations made a llama3-8b warm-up (its CUDA
+    graph captures) take far longer than the same warm-up on the main
+    thread. Call it before the process starts a thread. Returns whether
+    the C library took the setting (False where it has no ``mallopt``)."""
+    import ctypes
+
+    mallopt = getattr(ctypes.CDLL(None), "mallopt", None)
+    m_arena_max = -8  # glibc's malloc.h
+    return mallopt is not None and mallopt(m_arena_max, 1) == 1
 
 
 def _eos_for(tokenizer: str) -> tuple[int, ...]:
@@ -1046,12 +1063,14 @@ def _overrides(args: argparse.Namespace) -> dict[str, Any]:
 
 
 def main(argv: list[str] | None = None) -> None:
+    use_one_malloc_arena()
     args = _parser().parse_args(argv)
     _refuse_unported(args)
     overrides = _overrides(args)
     preset = None if args.model_path is not None else args.preset  # --model-path replaces it
     # Before joining the fleet.
-    check_slice(*engine_configs(preset, overrides, args.moe_dispatch, args.model_path))
+    check_slice(*engine_configs(preset, overrides, args.moe_dispatch, args.model_path),
+                device=args.device)
 
     @dynamo_worker()
     async def entry(runtime: DistributedRuntime) -> None:

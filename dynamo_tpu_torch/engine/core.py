@@ -138,11 +138,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig) -> None:
+def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig, device) -> None:
     """Refuse every setting the port does not serve yet, naming the
     ``ROADMAP.md`` item that brings it, a KV dtype or scheduler that does
     not exist, and chunked-scheduling and speculation settings the JAX
-    engine refuses."""
+    engine refuses. On a ``cuda`` device, also a model whose attention
+    the card's kernel (K1) cannot run: it takes bf16 queries, head_dim
+    ``KERNEL_HEAD_DIM`` and a GQA group up to ``KERNEL_MAX_GROUP``. The
+    JAX package serves such a model through its plain reference; the
+    port refuses it, so the kernel never gives way to the plain version
+    on the card. The check reads the configs alone, so it needs no card."""
     if engine_cfg.kv_dtype not in KV_DTYPES:
         raise ValueError(
             f"unknown kv_dtype {engine_cfg.kv_dtype!r} (expected one of {KV_DTYPES})"
@@ -190,6 +195,23 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig) -> None:
             f"{engine_cfg.decode_buckets[-1]} plus one {bs}-token prefill chunk; raise the "
             "budget or shrink decode_buckets"
         )
+    if torch.device(device).type == "cuda":
+        why = []
+        if model_cfg.dtype != "bfloat16":
+            why.append(f"dtype {model_cfg.dtype} (K1 takes bfloat16)")
+        if model_cfg.head_dim != ragged_attention.KERNEL_HEAD_DIM:
+            why.append(f"head_dim {model_cfg.head_dim} "
+                       f"(K1 takes {ragged_attention.KERNEL_HEAD_DIM})")
+        if (model_cfg.num_heads % model_cfg.num_kv_heads
+                or model_cfg.num_heads // model_cfg.num_kv_heads
+                > ragged_attention.KERNEL_MAX_GROUP):
+            why.append(f"{model_cfg.num_heads} query heads over {model_cfg.num_kv_heads} KV heads "
+                       f"(K1 takes a whole GQA group up to {ragged_attention.KERNEL_MAX_GROUP})")
+        if why:
+            raise ValueError(
+                f"model {model_cfg.name!r} cannot run on the card's attention kernel: "
+                f"{'; '.join(why)}; serve it with device='cpu' (the plain versions)"
+            )
 
 
 def _check_params(params: dict, device: torch.device) -> None:
@@ -871,7 +893,8 @@ class EngineCore:
         JAX engine."""
         if mesh is not None:
             raise ValueError("device meshes are not ported yet (ROADMAP.md A12)")
-        check_slice(model_cfg, engine_cfg)
+        self.device = resolve_device(device)
+        check_slice(model_cfg, engine_cfg, self.device)
         bs = engine_cfg.block_size
         for b in engine_cfg.prefill_buckets:
             if b % bs:
@@ -889,7 +912,6 @@ class EngineCore:
             raise ValueError(
                 f"fair_quantum must be >= 0 (0 = token budget), got {engine_cfg.fair_quantum}"
             )
-        self.device = resolve_device(device)
         # The verify sample width: static per engine, so the graph keys
         # grow by one width, not one per draft length; shorter drafts pad
         # the sample gather with repeated reads.

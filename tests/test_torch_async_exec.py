@@ -423,7 +423,7 @@ def test_worker_cli_accepts_async_exec():
     args = worker_main._parser().parse_args(["--async-exec", "on"])
     overrides = worker_main._overrides(args)
     assert overrides == {"async_exec": True}
-    worker_main.check_slice(*worker_main.engine_configs("tiny", overrides))
+    worker_main.check_slice(*worker_main.engine_configs("tiny", overrides), device="cpu")
 
 
 async def test_async_worker_serves_the_sync_engines_streams():

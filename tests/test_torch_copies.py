@@ -3,7 +3,8 @@ Each copy is held to its original: the code (everything but the module
 docstring) parses to the same syntax tree, apart from the package name in
 its imports, and the block hashes it computes are the same. Where the port
 copies only the jax-free definitions of a module (``engine/kv_quant.py``),
-each copied definition parses to the same tree as its original."""
+each copied definition parses to the same tree as its original. The KServe
+protocol file and protoc's output for it are held byte for byte."""
 
 import ast
 from pathlib import Path
@@ -115,7 +116,24 @@ COPIES = [
     "llm/parsers/__init__.py",
     "llm/parsers/reasoning.py",
     "llm/parsers/tool_calls.py",
+    # The mocker, its worker process, the fleet harness and the KServe
+    # gRPC frontend.
+    "llm/mocker/__init__.py",
+    "llm/mocker/kv_manager.py",
+    "llm/mocker/engine.py",
+    "backends/mocker/__init__.py",
+    "backends/mocker/__main__.py",
+    "backends/mocker/main.py",
+    "fleet/__init__.py",
+    "fleet/workload.py",
+    "fleet/harness.py",
+    "grpc/__init__.py",
+    "grpc/kserve_pb2.py",
+    "grpc/kserve_service.py",
 ]
+
+# Files held byte for byte: the KServe protocol and protoc's output for it.
+BYTE_COPIES = ["grpc/kserve.proto", "grpc/kserve_pb2.py"]
 
 
 def _code_tree(path: Path, package: str) -> str:
@@ -182,3 +200,8 @@ def test_block_hashes_match(block_size):
     j_seq = jblocks.TokenBlockSequence(tokens, block_size)
     assert t_seq.block_hashes == j_seq.block_hashes
     assert t_seq.partial_tokens == j_seq.partial_tokens
+
+
+@pytest.mark.parametrize("rel", BYTE_COPIES)
+def test_byte_copy_matches_original(rel):
+    assert (ROOT / "dynamo_tpu_torch" / rel).read_bytes() == (ROOT / "dynamo_tpu" / rel).read_bytes()

@@ -74,6 +74,9 @@ def test_cpu_engine_leaves_jax_unimported():
         "import dynamo_tpu_torch.planner.connector, dynamo_tpu_torch.obs.__main__\n"
         "import dynamo_tpu_torch.runtime.barrier, dynamo_tpu_torch.llm.kv_router.recorder\n"
         "import dynamo_tpu_torch.llm.parsers\n"
+        "import dynamo_tpu_torch.llm.mocker, dynamo_tpu_torch.backends.mocker.main\n"
+        "import dynamo_tpu_torch.fleet, dynamo_tpu_torch.run, dynamo_tpu_torch.check\n"
+        "import dynamo_tpu_torch.grpc.kserve_service\n"
         "import tempfile\n"
         "core, engine = build_engine('tiny', {'host_kv_blocks': 8, 'disk_kv_dir': "
         "tempfile.mkdtemp()}, device='cpu')\n"
