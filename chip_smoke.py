@@ -615,20 +615,18 @@ QWEN_DECODE_LENS = [2048, 1700, 1200, 900, 513, 300, 64, 33]
 QWEN_PREFILL_LENS = [1024, 600, 300, 124]  # one 2048-token wave
 
 
-def check_qwen2_attention(ra, planted) -> tuple[list[dict], dict]:
-    """Both K1 kernels, bf16 pages, at Qwen2-7B's head layout: the decode
-    form (T = S = 8) and a tiled prefill wave (T 2048, held against the
-    plain version in row chunks), then every planted fault of the bf16
-    kernels on both batches, which the comparison must catch."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    geo = dict(n_q=QWEN_N_Q, n_kv=QWEN_N_KV)
+def check_attention_geometry(ra, planted, cases, n_q, n_kv, tag, seed) -> tuple[list[dict], dict]:
+    """Both K1 kernels, bf16 pages, at another head layout (``n_q`` query
+    heads over ``n_kv`` KV heads) on each case ``(name, q_lens, kv_lens,
+    T, reps)`` of S = 8 slots of 256 pages (the decode form T = 8 against
+    the plain version in one call, larger T in row chunks), then every
+    planted fault of the bf16 kernels on all the batches, which the
+    comparison must catch."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     scale = HEAD_DIM ** -0.5
     results, batches = [], []
-    for name, q_lens, kv_lens, T, reps in (
-        ("qwen2_decode8", [1] * 8, QWEN_DECODE_LENS, 8, 20),
-        ("qwen2_prefill2048", QWEN_PREFILL_LENS, QWEN_PREFILL_LENS, 2048, 10),
-    ):
-        args, kw = attention_batch(q_lens, kv_lens, 8, 256, T, gen, **geo)
+    for name, q_lens, kv_lens, T, reps in cases:
+        args, kw = attention_batch(q_lens, kv_lens, 8, 256, T, gen, n_q=n_q, n_kv=n_kv)
         if T == 8:
             plain = lambda: ra.ragged_paged_attention_ref(*args, sm_scale=scale, **kw)  # noqa: E731
         else:
@@ -636,13 +634,38 @@ def check_qwen2_attention(ra, planted) -> tuple[list[dict], dict]:
         want = plain()
         plain_ms = cold_ms(plain, 3 if T == 8 else 1)
         results += hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, False, reps, plain_ms,
-                           "attention qwen2")
+                           tag)
         batches.append((name, args, kw, want, sum(q_lens)))
         torch.cuda.empty_cache()
     faults = check_planted_faults(ra, batches, planted, PLANTED_FAULTS)
     del batches
     torch.cuda.empty_cache()
     return results, faults
+
+
+def check_qwen2_attention(ra, planted) -> tuple[list[dict], dict]:
+    """K1 at Qwen2-7B's head layout: the decode form (T = S = 8) and a
+    tiled prefill wave (T 2048), with the planted faults."""
+    return check_attention_geometry(ra, planted, (
+        ("qwen2_decode8", [1] * 8, QWEN_DECODE_LENS, 8, 20),
+        ("qwen2_prefill2048", QWEN_PREFILL_LENS, QWEN_PREFILL_LENS, 2048, 10),
+    ), QWEN_N_Q, QWEN_N_KV, "attention qwen2", seed=2)
+
+
+# K1 at a tp = 2 rank's llama3-8b shard: 16 query heads over 4 KV heads,
+# the group of 4 as at tp = 1 (the serving engine's shapes per rank).
+TP = 2
+TP_N_Q, TP_N_KV = N_Q // TP, N_KV // TP
+
+
+def check_shard_attention(ra, planted, decode_lens, prompt_lens) -> tuple[list[dict], dict]:
+    """K1 at a tp = 2 rank's shard of llama3-8b: the serving decode form
+    (T = S = 8) and the serving prefill wave (T 8192), with the planted
+    faults."""
+    return check_attention_geometry(ra, planted, (
+        ("tp2_decode_serving8", [1] * 8, decode_lens, 8, 20),
+        ("tp2_prefill_wave8192", prompt_lens, prompt_lens, 8192, 5),
+    ), TP_N_Q, TP_N_KV, "attention tp2 shard", seed=3)
 
 
 # -- K2: paged decode attention ----------------------------------------------
@@ -1265,7 +1288,8 @@ def serve(ra, card: str, int8=False) -> tuple[dict, dict, tuple | None]:
     # The worker phase's in-process reference, served by this long-lived
     # engine after all its sub-phases from a cleared prefix cache; the
     # worker phase holds a fresh worker's streams to it.
-    reference = None if int8 else in_process_traffic(core, warm["graph_captures"])
+    reference = None if int8 else (*in_process_traffic(core, warm["graph_captures"]),
+                                   tp_reference(core))
     return by_entry, {
         "mode": mode, "attention_launches": launches, "requests": len(results), "serve_s": serve_s, "forwards": forwards,
         "bytes_per_block": core.kv_cache_stats()["bytes_per_block"],
@@ -1533,7 +1557,9 @@ def check_images(ra, core) -> dict:
 
 # -- sparse MoE at Mixtral-8x7B width (in process) -------------------------------
 
-MOE_LAYERS = 16   # one of two pipeline stages: 32 layers of bf16 experts need 92.9 GB
+# 32 layers of bf16 experts need 92.9 GB; 8 of them since the tp phase
+# joined the smoke (16 until then), for the run's time limit.
+MOE_LAYERS = 8
 MOE_PROMPT_LENS = (128, 512, 1000, 1500, 2048, 2000, 300, 700)  # one 8192 wave
 MOE_LAYER_TOKENS = 64
 
@@ -3523,7 +3549,7 @@ def serve_worker(card: str, reference: tuple, preset: str = "llama3-8b",
     from dynamo_tpu_torch.tokens import compute_seq_hashes
 
     cfg = PRESETS[preset]()
-    ref, ref_stats, ck = reference
+    ref, ref_stats, ck = reference[:3]
     ck["int8"] = int8_load(Path(ck["dir"]), device)
     gc.collect()
     if device == "cuda":
@@ -3644,6 +3670,269 @@ def serve_worker(card: str, reference: tuple, preset: str = "llama3-8b",
             "worker_attention_launches": stats["attention_launches"],
             "worker_forwards": stats["forwards"],
             "worker_warm_up_forwards": stats["warm_up_forwards"], "kv_events": len(events)}, got, stats
+
+
+# -- tensor parallelism: tp = 2 over two processes sharing the card -------------
+
+# The one card holds both ranks (NCCL refuses two ranks on one GPU), so
+# their collectives go over gloo through host memory and every dispatch
+# runs eagerly: a proof of numerics, not a speed figure.
+TP_DEVICES = "cuda:0,cuda:0"
+TP_LOGPROBS = 2          # each token's top 2: the near-tie rule reads the gap between them
+TP_LOGITS_PROMPT = 64    # prompt tokens before the compared logits (check_logits' length)
+TP_LOGITS_MIN_COSINE = LOGITS_MIN_COSINE  # tp = 2 against tp = 1, both bf16 on the card
+
+
+def tp_wires(vocab: int) -> list[dict]:
+    """The 8 serving prompts, greedy, ``MAX_TOKENS`` each, with top-2
+    log-probabilities."""
+    reqs, late, _ = serving_requests(vocab)
+    return [wire(rid, prompt, {"temperature": 0.0}, logprobs=TP_LOGPROBS)
+            for rid, prompt, _ in reqs + [late]]
+
+
+def tp_logits_prompt(vocab: int) -> list[int]:
+    return [int(t) for t in np.random.default_rng(99).integers(0, vocab, TP_LOGITS_PROMPT)]
+
+
+def prompt_logits(params, cfg, prompt, device, mesh=None) -> torch.Tensor:
+    """f32 logits ``[V]`` of the token after ``prompt``: one forward over a
+    scratch cache of its own (``check_logits``' operands), on this rank's
+    shard under a ``mesh``."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import EngineConfig
+
+    eng = EngineConfig(num_kv_blocks=8, max_model_len=256)
+    n, bs = len(prompt), eng.block_size
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)  # noqa: E731
+    pos = list(range(n))
+    table = list(range(8)) + [eng.garbage_block] * (eng.max_blocks_per_seq - 8)
+    ops = (i32(prompt), i32(pos), i32([p // bs for p in pos]), i32([p % bs for p in pos]),
+           i32([n]), i32([table]), i32([0, n]), i32([1]), i32([n - 1]))
+    cache = model.init_cache(cfg, eng, device, tp=mesh.tp if mesh is not None else 1)
+    return model.forward_tokens(params, cache, *ops, cfg, mesh=mesh)[0].float().cpu()
+
+
+def tp_reference(core) -> dict:
+    """The tp = 1 side of the tp phase, on the main path's bf16 engine
+    (whose weights the checkpoint holds): the serving prompts' greedy
+    streams with top-2 log-probabilities from a cleared prefix cache, and
+    one prompt's first-token logits."""
+    core.clear_kv_cache()
+    streams = run_wires(core, tp_wires(core.cfg.vocab_size))
+    core.clear_kv_cache()
+    logits = prompt_logits(core.params, core.cfg, tp_logits_prompt(core.cfg.vocab_size), "cuda")
+    return {"streams": streams, "logits": logits}
+
+
+def tp_logits_rank(rank: int, addr: str, ckpt: str, out: str) -> int:
+    """One rank of the tp phase's logits check (``python chip_smoke.py
+    --tp-logits-rank RANK ADDR CHECKPOINT OUT``): join the tp = 2 process
+    group on the shared card, load this rank's shard of the checkpoint
+    (``load_hf_llama(..., tp=2, rank=...)``) and compute the prompt's
+    logits through the collectives; rank 0 saves them to ``OUT``."""
+    from dynamo_tpu_torch.engine.loader import load_hf_llama
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.multihost import init_multihost, shutdown_multihost
+    from dynamo_tpu_torch.parallel.sharding import make_mesh
+
+    devices = TP_DEVICES.split(",")
+    t0 = time.time()
+    init_multihost(addr, TP, rank, comm.choose_backend(devices))
+    try:
+        mesh = make_mesh(tp=TP, devices=devices, rank=rank)
+        t1 = time.time()
+        cfg, params = load_hf_llama(ckpt, tp=TP, rank=rank, device=mesh.device)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        comm.reset_calls()
+        logits = prompt_logits(params, cfg, tp_logits_prompt(cfg.vocab_size), "cuda", mesh)
+        print(f"tp logits rank {rank}: process group and mesh in {t1 - t0:.1f} s, shard "
+              f"loaded in {t2 - t1:.2f} s, forward {time.time() - t2:.2f} s, collectives "
+              f"{dict(comm.calls)}, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+        if rank == 0:
+            np.save(out, logits.numpy())
+    finally:
+        shutdown_multihost()
+    return 0
+
+
+async def tp_traffic(address: str, worker, wires: list[dict]) -> dict:
+    """Wait until the tp worker serves, send ``wires`` together through
+    the port's data-plane client and collect each stream (tokens, logprob
+    entries, finish, times)."""
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+
+    rt = await DistributedRuntime.create(address)
+    try:
+        client = await rt.namespace("dynamo").component("backend").endpoint("generate").client()
+        t0 = time.time()
+        while not client.instance_ids():
+            if worker.poll() is not None:
+                raise RuntimeError(f"the tp worker exited with {worker.returncode}")
+            if time.time() - t0 > 600:
+                raise TimeoutError("the tp worker never served")
+            await asyncio.sleep(0.5)
+
+        async def one(req):
+            t = time.perf_counter()
+            toks, lps, finish, first = [], [], None, None
+            async for out in await client.round_robin(req):
+                toks += out["token_ids"]
+                lps += out.get("logprobs") or []
+                finish = out.get("finish_reason") or finish
+                first = first or time.perf_counter()
+            return req["request_id"], {"tokens": toks, "logprobs": lps, "finish": finish,
+                                       "ttft_ms": 1e3 * (first - t)}
+
+        t = time.perf_counter()
+        got = dict(await asyncio.wait_for(asyncio.gather(*(one(r) for r in wires)), 600))
+        return {"streams": got, "wall_s": time.perf_counter() - t}
+    finally:
+        await rt.shutdown()
+
+
+def rank_build_s(text: str) -> list[dict]:
+    """Each rank's engine build and warm-up, as it logged them (the leader
+    first)."""
+    found = [{"rank": int(m.group(4)), "build_s": float(m.group(1)), "weights": m.group(2),
+              "warm_up_s": float(m.group(3))}
+             for m in re.finditer(r"engine built in ([\d.]+) s \(weights ([^)]*)\), warmed up "
+                                  r"in ([\d.]+) s \(rank (\d+) of tp=\d+\)", text)]
+    return sorted(found, key=lambda b: b["rank"])
+
+
+def rank_stats(text: str, who: str) -> dict:
+    """The counters a rank of the tp worker logs as it stops (``who``: the
+    leader's "torch worker N", the follower's "torch follower rank 1")."""
+    for line in reversed(text.splitlines()):
+        if re.search(who + " stopping: ", line):
+            return json.loads(line.split(" stopping: ", 1)[1])
+    raise AssertionError(f"{who} logged no counters; log tail:\n{text[-4000:]}")
+
+
+def serve_tp(card: str, ckpt: str, ref: dict, preset: str = "llama3-8b") -> dict:
+    """The tp phase: ``python -m dynamo_tpu_torch.backends.torch --tp 2
+    --tp-devices cuda:0,cuda:0 --model-path CKPT`` (llama3-8b at full width
+    and all 32 layers; each rank streams its shard of the checkpoint) on
+    the port's store, its second rank started by the first, serves the 8
+    serving prompts (greedy, top-2) through the data plane; their streams
+    are held to the tp = 1 engine's (``ref``, :func:`tp_reference`) by the
+    near-tie rule. Meanwhile two rank processes of this script compute one
+    prompt's first-token logits from the same checkpoint at tp = 2, held
+    to the tp = 1 engine's. Each rank's K1 launches must be 32 per forward
+    (warm-up included), its collectives 2 x 32 + 1 per forward, over gloo
+    through host memory, with no graph captured."""
+    from dynamo_tpu_torch.engine.loader import config_from_hf
+
+    cfg = config_from_hf(ckpt)
+    per_forward = 2 * cfg.num_layers + (0 if cfg.tie_embeddings else 1)
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    out_npy = logs / "tp_logits.npy"
+    addr = f"127.0.0.1:{free_port()}"
+    t_start = time.time()
+    ranks = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--tp-logits-rank", str(r), addr, ckpt,
+         str(out_npy)], cwd=ROOT, stdout=open(logs / f"logits_rank{r}.log", "w"),
+        stderr=subprocess.STDOUT) for r in range(TP)]
+    h = None
+    try:
+        h = start_worker(preset, "cuda", ["--tp", str(TP), "--tp-devices", TP_DEVICES,
+                                          "--obs-publish", "off", "--tokenizer", "byte"],
+                         env={"DYN_SYSTEM_ENABLED": "0"}, model_path=ckpt)
+        for r, proc in enumerate(ranks):
+            if proc.wait(600) != 0:
+                raise AssertionError(f"tp logits rank {r} exited with {proc.returncode}:\n"
+                                     + (logs / f"logits_rank{r}.log").read_text()[-4000:])
+        logits_s = time.time() - t_start
+        for r in range(TP):
+            print((logs / f"logits_rank{r}.log").read_text().strip().splitlines()[-1], flush=True)
+        got_l = torch.from_numpy(np.load(out_npy))
+        want_l = ref["logits"]
+        cos = torch.nn.functional.cosine_similarity(got_l, want_l, dim=0).item()
+        err = (got_l - want_l).abs().max().item()
+        rel = ((got_l - want_l).norm() / want_l.norm()).item()
+        finite = bool(torch.isfinite(got_l).all())
+        print(f"tp logits: tp = 2 ranks against the tp = 1 engine, first token after "
+              f"{TP_LOGITS_PROMPT} prompt tokens: shape {tuple(got_l.shape)} finite={finite} "
+              f"cosine {cos:.6f} (limit {TP_LOGITS_MIN_COSINE}), max_abs_err {err:.4e}, "
+              f"relative L2 {rel:.4e}, |logit| up to {want_l.abs().max().item():.3f}; argmax "
+              f"{int(got_l.argmax())} against {int(want_l.argmax())} ({logits_s:.1f} s, both "
+              f"ranks beside the worker's start-up)", flush=True)
+        if not finite or got_l.shape != want_l.shape or cos < TP_LOGITS_MIN_COSINE:
+            raise AssertionError("tp = 2 logits disagree with the tp = 1 engine's")
+        got = asyncio.run(tp_traffic(f"127.0.0.1:{h['port']}", h["worker"],
+                                     tp_wires(cfg.vocab_size)))
+        stop_process(h["worker"])
+        if h["worker"].returncode != 0:
+            raise AssertionError(f"the tp worker exited with {h['worker'].returncode}")
+    except BaseException:
+        if h is not None:
+            print(f"tp worker log tail:\n{(h['logs'] / 'worker.log').read_text()[-8000:]}",
+                  file=sys.stderr)
+        raise
+    finally:
+        for proc in ranks:
+            stop_process(proc, signal.SIGKILL, 10)
+        if h is not None:
+            close_worker(h)
+    text = (h["logs"] / "worker.log").read_text()
+    lead = rank_stats(text, r"torch worker \d+")
+    follow = rank_stats(text, "torch follower rank 1")
+    for rid, st in got["streams"].items():
+        if len(st["tokens"]) != MAX_TOKENS or st["finish"] != "length":
+            raise AssertionError(f"tp {rid}: {len(st['tokens'])} tokens, finish {st['finish']!r}")
+    held = near_tie_streams("the tp = 2 worker against the tp = 1 engine", ref["streams"],
+                            got["streams"])
+    per_rank = []
+    for rank, st in enumerate((lead, follow)):
+        forwards = st["forwards"] + st["warm_up_forwards"]
+        k = st["kernel_launches"]
+        decode, tiled = (k["ragged_paged_attention_decode_launch"],
+                         k["ragged_paged_attention_tiled_launch"])
+        ok = (decode + tiled == cfg.num_layers * forwards and min(decode, tiled) > 0
+              and st["attention_launches_int8"] == 0 and st["tp"] == TP and st["rank"] == rank
+              and st["comm_backend"] == "gloo-host" and st["graph_captures"] == 0
+              and st["collective_calls"] == per_forward * forwards
+              and st["eager_dispatches"] == st["dispatches"])
+        per_rank.append({"rank": rank, "forwards": st["forwards"],
+                         "warm_up_forwards": st["warm_up_forwards"], "decode_launches": decode,
+                         "tiled_launches": tiled, "collectives": st["collectives"],
+                         "collective_calls": st["collective_calls"],
+                         "peak_memory_gb": st.get("peak_memory_bytes", 0) / 1e9,
+                         "decode_ms_per_iteration": 1e3 * st["decode_loop_s"]
+                         / max(1, st["decode_iterations"])})
+        print(f"tp rank {rank}: K1 launches decode {decode} + tiled {tiled} = {cfg.num_layers} x "
+              f"({st['forwards']} forwards + {st['warm_up_forwards']} at warm-up): "
+              f"{decode + tiled == cfg.num_layers * forwards}; collectives {st['collectives']} "
+              f"= {per_forward} per forward: {st['collective_calls'] == per_forward * forwards}; "
+              f"backend {st['comm_backend']}, graphs captured {st['graph_captures']}, eager "
+              f"dispatches {st['eager_dispatches']} of {st['dispatches']}; peak memory "
+              f"{per_rank[-1]['peak_memory_gb']:.2f} GB", flush=True)
+        if not ok:
+            raise AssertionError(f"tp rank {rank}'s counters: {st}")
+    if lead["forwards"] != follow["forwards"] or lead["dispatches"] != follow["dispatches"]:
+        raise AssertionError("the tp ranks ran different steps")
+    builds = rank_build_s(text)
+    if [b["rank"] for b in builds] != list(range(TP)):
+        raise AssertionError(f"the tp ranks' build lines: {builds}")
+    served = served_after_s(h)
+    print(f"tp worker on {card}: serving after {served:.1f} s; ranks' engines "
+          + "; ".join(f"rank {b['rank']} built in {b['build_s']:.2f} s (weights {b['weights']}), "
+                      f"warmed up in {b['warm_up_s']:.2f} s" for b in builds)
+          + f"; 8 requests in {got['wall_s']:.1f} s; decode "
+          f"{per_rank[0]['decode_ms_per_iteration']:.2f} ms per iteration (eager, two ranks "
+          f"time-sharing one card, collectives through host memory: a proof of numerics, not "
+          f"a speed figure)", flush=True)
+    print(f"tp: the NCCL path (one card per rank, collectives captured in CUDA graphs) was not "
+          f"run: this machine has {torch.cuda.device_count()} card", flush=True)
+    return {"served_after_s": served, "rank_builds": builds, "ranks": per_rank,
+            "near_tie": held, "logits": {"cosine": cos, "max_abs_err": err, "rel_l2": rel},
+            "wall_s": got["wall_s"], "phase_s": time.time() - t_start,
+            "launches": [{"ragged_paged_attention_decode_launch": r["decode_launches"],
+                          "ragged_paged_attention_tiled_launch": r["tiled_launches"]}
+                         for r in per_rank]}
 
 
 # -- the frontend ----------------------------------------------------------------
@@ -4826,6 +5115,11 @@ def main() -> int:
         shapes += qwen_shapes
         print(f"K1 at Qwen2-7B's geometry (28/4 heads), with the planted faults: "
               f"{time.time() - t0:.1f} s", flush=True)
+        t0 = time.time()
+        tp_shapes, tp_faults = check_shard_attention(ra, planted, decode_lens, prompt_lens)
+        shapes += tp_shapes
+        print(f"K1 at a tp = 2 rank's llama3-8b shard (16/4 heads), with the planted faults: "
+              f"{time.time() - t0:.1f} s", flush=True)
         k2_shapes, k2_batches = check_paged_attention_kernel(pa)
         k2_faults = check_k2_planted_faults(pa, k2_batches, planted)
         del k2_batches
@@ -4882,6 +5176,11 @@ def main() -> int:
             t0 = time.time()
             gguf = gguf_round_trip(tmp)
             print(f"GGUF summary: {json.dumps(gguf)} in {time.time() - t0:.2f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp = serve_tp(card, ck["dir"], reference[3])
+        lap("tensor parallelism")
+        print(f"tp summary: {json.dumps(tp)}", flush=True)
         worker_summary, direct, direct_stats = serve_worker(card, reference)
         lap("GGUF and worker")
         print(f"worker summary: {json.dumps(worker_summary)}", flush=True)
@@ -4942,6 +5241,11 @@ def main() -> int:
                         f: qwen_faults[f] for f in table[kernel]}
                     extra["embed_path_launches"] = summary["mm"]["embed"]["launches"].get(name, 0)
                     extra["image_path_launches"] = summary["mm"]["images"]["launches"].get(name, 0)
+                    # The tp worker's two ranks, warm-up included (each
+                    # process starts with the counts at 0).
+                    extra["tp_path_launches_by_rank"] = [r[name] for r in tp["launches"]]
+                    extra["tp_shard_planted_faults_row_rel_err"] = {
+                        f: tp_faults[f] for f in table[kernel]}
                 # The runner's worker (--out torch --preset llama3-8b), warm-up included.
                 extra["runner_phase_launches"] = runner["torch"]["kernel_launches"][name]
                 k1.append(kernel_entry(
@@ -4970,4 +5274,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-logits-rank"]:
+        sys.exit(tp_logits_rank(int(sys.argv[2]), *sys.argv[3:6]))
     sys.exit(main())

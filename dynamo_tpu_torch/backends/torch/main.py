@@ -32,11 +32,19 @@ chunk by chunk while the prefill runs, and decodes on. ``--host-kv-blocks``
 and ``--disk-kv-dir`` add the host and disk KV tiers.
 
 :func:`build_engine` is the in-process entry point the worker wraps.
-The CLI takes the JAX worker's flags, less the tuning values of features
-it refuses (``--node-rank``), which argparse rejects; a value the port
-does not serve yet raises a ``ValueError`` naming the ``ROADMAP.md`` item
-that brings it. ``--spec-decode ngram --spec-k 4 [--spec-device-draft]``
-turns on n-gram speculative decoding, drafted on the host or on the card.
+The CLI takes the JAX worker's flags; a value the port does not serve yet
+raises a ``ValueError`` naming the ``ROADMAP.md`` item that brings it.
+``--spec-decode ngram --spec-k 4 [--spec-device-draft]`` turns on n-gram
+speculative decoding, drafted on the host or on the card.
+
+``--tp N`` serves one model over N ranks, one process each: local rank 0
+of every node starts that node's other ranks, all join one process group
+(``--dist-init-addr``, ``--nnodes``, ``--node-rank`` across nodes), rank 0
+serves and the others replay its steps (``backends/torch/multihost.py``).
+A rank takes ``cuda:{local rank}``; ``--tp-devices`` lists the ranks'
+devices instead (``cuda:0,cuda:0`` shares one card, the collectives then
+going through host memory over gloo) and ``--local-cpu-devices`` or
+``--device cpu`` runs them on the CPU.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ import torch
 
 from dynamo_tpu_torch import knobs, tracing
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig, ModelConfig, tiny_engine
-from dynamo_tpu_torch.engine.core import EngineCore, check_slice, resolve_device
+from dynamo_tpu_torch.engine.core import EngineCore, check_mesh, check_slice, resolve_device
 from dynamo_tpu_torch.engine.engine import TorchEngine
 from dynamo_tpu_torch.engine.loader import config_from_hf, load_hf_llama
 from dynamo_tpu_torch.engine.model import init_params_quantized
@@ -138,6 +146,10 @@ def build_engine(
     on_tier_removed=None,
     moe_dispatch: str | None = None,
     model_path: str | None = None,
+    mesh=None,
+    tp: int = 1,
+    core_cls=None,
+    core_kwargs: dict[str, Any] | None = None,
 ) -> tuple[EngineCore, TorchEngine]:
     """Construct (EngineCore, TorchEngine) for a model preset or a
     checkpoint.
@@ -158,25 +170,48 @@ def build_engine(
     directory: its weights are loaded onto the device
     (``loader.load_hf_llama``, int8 with ``quant="int8"``) and the engine
     shape is ``EngineConfig`` with the overrides.
+
+    ``mesh`` (``parallel.sharding.Mesh``) builds this process's rank of a
+    tensor-parallel engine on the mesh's device for it: a checkpoint
+    streams only the rank's shard (``load_hf_llama(..., tp, rank)``),
+    random weights are drawn whole and kept sharded. ``tp > 1`` without a
+    mesh builds one over the process group (``parallel.sharding.make_mesh``).
+    ``core_cls`` substitutes the engine-core class (the lockstep leader,
+    ``backends/torch/multihost.LeaderCore``) and ``core_kwargs`` adds to
+    its arguments.
     """
+    if mesh is None and tp > 1:
+        from dynamo_tpu_torch.parallel.sharding import make_mesh
+
+        mesh = make_mesh(tp=tp)
+    if mesh is not None:
+        if tp not in (1, mesh.tp):
+            raise ValueError(f"tp={tp} but the mesh has tp={mesh.tp}")
+        tp = mesh.tp
+        if tp > 1:
+            device = mesh.device
     dev = resolve_device(device)
     model_cfg, engine_cfg = engine_configs(preset, engine_overrides, moe_dispatch, model_path)
     check_slice(model_cfg, engine_cfg, dev)  # before any weight is drawn or loaded
+    if mesh is not None:
+        check_mesh(model_cfg, mesh)
+    rank = mesh.rank if tp > 1 else None
     if model_path is not None:
         if params is not None:
             raise ValueError("model_path loads the weights; pass params or model_path, not both")
-        _, params = load_hf_llama(model_path, quant=quant, device=dev)
+        _, params = load_hf_llama(model_path, quant=quant, device=dev, tp=tp, rank=rank)
     elif quant == "int8":
         if params is not None:
             raise ValueError("quant='int8' draws random weights; pass params or quant, not both")
-        params = init_params_quantized(model_cfg, seed, dev)
+        params = init_params_quantized(model_cfg, seed, dev, tp=tp, rank=rank)
     elif quant:
         raise ValueError(f"unknown quantization {quant!r}")
-    core = EngineCore(
+    core = (core_cls or EngineCore)(
         model_cfg, engine_cfg, params=params, seed=seed,
-        eos_token_ids=eos_token_ids, device=dev,
+        eos_token_ids=eos_token_ids, device=dev, mesh=mesh,
         on_stored=on_stored, on_removed=on_removed,
         on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
+        **(core_kwargs or {}),
     )
     return core, TorchEngine(core)
 
@@ -226,15 +261,16 @@ def _model_card(model_name: str, tokenizer: str, core: EngineCore) -> ModelDeplo
 
 
 def _build_and_warm(preset, engine_overrides, seed, eos, quant, device, params,
-                    events, moe_dispatch=None,
-                    model_path=None) -> tuple[EngineCore, TorchEngine, int]:
+                    events, moe_dispatch=None, model_path=None, mesh=None,
+                    core_cls=None, core_kwargs=None) -> tuple[EngineCore, TorchEngine, int]:
     on_stored, on_removed, on_tier_stored, on_tier_removed = events
     t0 = time.perf_counter()
     core, engine = build_engine(
         preset, engine_overrides, seed=seed, eos_token_ids=eos, device=device,
         params=params, quant=quant, on_stored=on_stored, on_removed=on_removed,
         on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
-        moe_dispatch=moe_dispatch, model_path=model_path,
+        moe_dispatch=moe_dispatch, model_path=model_path, mesh=mesh,
+        core_cls=core_cls, core_kwargs=core_kwargs,
     )
     t1 = time.perf_counter()
     if core.device.type == "cuda":
@@ -245,9 +281,10 @@ def _build_and_warm(preset, engine_overrides, seed, eos, quant, device, params,
     forwards = core.warm_up()
     if core.device.type == "cuda":
         torch.cuda.empty_cache()
-    log.info("engine built in %.2f s (weights %s), warmed up in %.2f s",
+    log.info("engine built in %.2f s (weights %s), warmed up in %.2f s%s",
              t1 - t0, "loaded from the checkpoint" if model_path is not None else
-             "given" if params is not None else "drawn", time.perf_counter() - t1)
+             "given" if params is not None else "drawn", time.perf_counter() - t1,
+             f" (rank {mesh.rank} of tp={mesh.tp})" if mesh is not None and mesh.tp > 1 else "")
     return core, engine, forwards
 
 
@@ -345,6 +382,8 @@ async def run_torch_worker(
     obs_interval_s: float = 1.0,
     moe_dispatch: str | None = None,
     model_path: str | None = None,
+    mesh=None,
+    parent_pid: int | None = None,
 ) -> None:
     """Serve one worker until the runtime shuts down, in the JAX worker's
     roles (``aggregated``, ``prefill`` or ``decode``; ``component``
@@ -371,6 +410,16 @@ async def run_torch_worker(
     a checkpoint (:func:`build_engine`); an unset ``tokenizer`` is then
     the checkpoint directory's (byte-level, with a warning, when it has no
     tokenizer files), else ``"byte"``.
+
+    With a ``mesh`` of tp > 1 (``parallel.sharding.Mesh``) this process is
+    one rank of a tensor-parallel worker: rank 0 serves as above through
+    a :class:`~dynamo_tpu_torch.backends.torch.multihost.LeaderCore`,
+    publishing a step record before each step, and every other rank
+    replays them (:func:`_serve_follower`). Such a worker serves the
+    aggregated role only and neither serves ``kv_fetch`` nor pulls peer
+    prefixes (its pages hold one rank's heads; ``ROADMAP.md`` A12d);
+    ``held_block_ttl_s`` is 0. A follower started by its node's local rank
+    0 (``parent_pid``) stops once that process is gone.
     """
     if tokenizer is None:
         tokenizer = model_path if model_path is not None else "byte"
@@ -378,6 +427,27 @@ async def run_torch_worker(
         raise ValueError(f"unknown role {role!r}")
     if component is None:
         component = "prefill" if role == "prefill" else "backend"
+    tp = mesh.tp if mesh is not None else 1
+    core_cls = core_kwargs = None
+    if tp > 1:
+        if role != "aggregated":
+            raise ValueError(
+                f"--role {role} on a tp={tp} worker (cross-tp disaggregation) is not "
+                "ported yet (ROADMAP.md A12d)"
+            )
+        if (engine_overrides or {}).get("held_block_ttl_s", 0) != 0:
+            raise ValueError("held_block_ttl_s must be 0 on a tp > 1 worker")
+        engine_overrides = dict(engine_overrides or {}, held_block_ttl_s=0)
+        if mesh.rank != 0:
+            return await _serve_follower(
+                runtime, preset, namespace, component, engine_overrides, tokenizer, seed,
+                quant, params, moe_dispatch, model_path, mesh, served_event, core_out,
+                parent_pid,
+            )
+        from dynamo_tpu_torch.backends.torch.multihost import LeaderCore
+
+        core_cls, core_kwargs = LeaderCore, {"publish": _step_publisher(runtime, namespace,
+                                                                         component)}
     worker_id = runtime.primary_lease_id
     kv_pub = KvEventPublisher(runtime.store, namespace, component, worker_id)
     loop = asyncio.get_running_loop()
@@ -401,9 +471,18 @@ async def run_torch_worker(
     core, engine, warm_up_forwards = await asyncio.to_thread(
         _build_and_warm, preset, engine_overrides, seed, eos, quant, device, params,
         (on_stored, on_removed, on_tier_stored, on_tier_removed), moe_dispatch, model_path,
+        mesh, core_cls, core_kwargs,
     )
     if core_out is not None:
         core_out.append(core)
+    if tp > 1:
+        from dynamo_tpu_torch.backends.torch.multihost import barrier_name
+        from dynamo_tpu_torch.runtime.barrier import LeaderBarrier
+
+        # No step record may go out before every follower subscribes.
+        await LeaderBarrier(
+            runtime.store, barrier_name(namespace, component), tp - 1
+        ).sync({"model": model_name}, timeout=600.0)
     core.flight.name = f"worker-{worker_id}"
 
     kv_pub.inventory_source = core.kv_inventory
@@ -422,9 +501,10 @@ async def run_torch_worker(
 
     # Every role serves its blocks to peers; the aggregated and decode
     # roles also pull them (a prefill worker serves but never pulls).
-    await _serve_kv_fetch(runtime, namespace, component, core)
     peer_kv: PeerKvClient | None = None
-    if role != "prefill":
+    if tp == 1:
+        await _serve_kv_fetch(runtime, namespace, component, core)
+    if role != "prefill" and tp == 1:
         fetch_client = await (
             runtime.namespace(namespace).component(component).endpoint("kv_fetch").client()
         )
@@ -585,7 +665,8 @@ async def run_torch_worker(
         async def handler(request: Any, context: Context) -> AsyncIterator[Any]:
             await resolve_mm(request)
             hint = (request.get("kv_transfer_params") or {}).get("peer_prefix")
-            if hint and hint.get("worker_id") != worker_id and request.get("token_ids"):
+            if (hint and peer_kv is not None and hint.get("worker_id") != worker_id
+                    and request.get("token_ids")):
                 await peer_kv.pull_prefix(hint, list(request["token_ids"]))
             async for out in engine.generate(request, context):
                 yield out
@@ -594,10 +675,11 @@ async def run_torch_worker(
         await endpoint.serve(handler)
         await register_llm(endpoint, _model_card(model_name, tokenizer, core))
     log.info(
-        "torch %s worker %d serving model %r (%s, %d kv blocks, %s)",
+        "torch %s worker %d serving model %r (%s, %d kv blocks, %s%s)",
         role, worker_id, model_name,
         f"checkpoint {model_path}" if model_path is not None else f"preset {preset}",
         core.engine.num_kv_blocks, core.device,
+        f", tp={tp} over {mesh.backend}" if tp > 1 else "",
     )
     if served_event is not None:
         served_event.set()
@@ -608,13 +690,111 @@ async def run_torch_worker(
             consumer.cancel()
         # The engine's counters over the worker's life, one JSON object:
         # the launches of each K1 kernel include the warm-up's forwards.
-        stats = {**core.scheduler_stats(), "warm_up_forwards": warm_up_forwards,
-                 "kernel_launches": ragged_attention.kernel_launches,
+        stats = {**_rank_stats(core, warm_up_forwards),
                  "role": role, "transfer": core.transfer_stats,
                  "kv_pool": _kv_pool_stats(), "disagg": _disagg_stats()}
         if core.offload is not None:
             stats["tiers"] = core.tier_stats()
         log.info("torch worker %d stopping: %s", worker_id, json.dumps(stats))
+
+
+def _rank_stats(core: EngineCore, warm_up_forwards: int) -> dict:
+    """The engine's counters over the process's life: the scheduler's, the
+    warm-up's forwards, each K1 kernel's launches (warm-up included), the
+    collectives by kind and, on a card, the process's peak device memory."""
+    from dynamo_tpu_torch.parallel import comm
+
+    stats = {**core.scheduler_stats(), **core.parallel_stats(),
+             "warm_up_forwards": warm_up_forwards,
+             "kernel_launches": dict(ragged_attention.kernel_launches),
+             "collectives": dict(comm.calls)}
+    if core.device.type == "cuda":
+        stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated(core.device)
+    return stats
+
+
+def _step_publisher(runtime, namespace: str, component: str):
+    """The lockstep leader's ``publish(record)``: called on the engine
+    thread, it hands each record to the loop, which publishes them in
+    order on the store's step subject. A failed publish shuts the worker
+    down: the followers have lost lockstep."""
+    from dynamo_tpu_torch.backends.torch.multihost import steps_subject
+
+    loop = asyncio.get_running_loop()
+    subject = steps_subject(namespace, component)
+
+    def _failed(task: asyncio.Task) -> None:
+        if task.cancelled() or task.exception() is None:
+            return
+        log.error("step-record publish failed; followers lose lockstep",
+                  exc_info=task.exception())
+        runtime.signal_shutdown()
+
+    def publish(record: dict) -> None:
+        payload = msgpack.packb(record, use_bin_type=True)
+
+        def _send() -> None:
+            loop.create_task(runtime.store.publish(subject, payload)).add_done_callback(_failed)
+
+        loop.call_soon_threadsafe(_send)
+
+    return publish
+
+
+async def _serve_follower(runtime, preset, namespace, component, engine_overrides, tokenizer,
+                          seed, quant, params, moe_dispatch, model_path, mesh, served_event,
+                          core_out, parent_pid=None) -> None:
+    """A follower rank of a tensor-parallel worker: build and warm up its
+    shard of the engine (its forwards pair with the leader's warm-up
+    collective for collective), then replay the leader's step records
+    until the runtime shuts down; a follower that fails raises. It
+    serves no endpoint and logs its counters at exit, as the leader."""
+    from dynamo_tpu_torch.backends.torch.multihost import run_follower
+
+    eos = await asyncio.to_thread(_eos_for, tokenizer)
+    core, _engine, warm_up_forwards = await asyncio.to_thread(
+        _build_and_warm, preset, engine_overrides, seed, eos, quant, mesh.device, params,
+        (None, None, None, None), moe_dispatch, model_path, mesh,
+    )
+    if core_out is not None:
+        core_out.append(core)
+    ready = asyncio.Event()
+    follower = asyncio.create_task(
+        run_follower(runtime, core, namespace, component, mesh.tp, ready_event=ready)
+    )
+    shutdown = asyncio.create_task(runtime.wait_for_shutdown())
+    if parent_pid is not None:
+        spawn_logged(_watch_parent(runtime, parent_pid), name="watch-parent", logger=log)
+    try:
+        waiter = asyncio.create_task(ready.wait())
+        await asyncio.wait({waiter, follower}, return_when=asyncio.FIRST_COMPLETED)
+        waiter.cancel()
+        if ready.is_set():
+            log.info("torch follower rank %d/%d on %s replaying the leader's steps",
+                     mesh.rank, mesh.tp, mesh.device)
+            if served_event is not None:
+                served_event.set()
+            await asyncio.wait({follower, shutdown}, return_when=asyncio.FIRST_COMPLETED)
+        if follower.done() and not follower.cancelled() and follower.exception() is not None:
+            log.error("follower rank %d failed", mesh.rank, exc_info=follower.exception())
+            raise follower.exception()
+    finally:
+        follower.cancel()
+        shutdown.cancel()
+        log.info("torch follower rank %d stopping: %s", mesh.rank,
+                 json.dumps(_rank_stats(core, warm_up_forwards)))
+
+
+async def _watch_parent(runtime, pid: int) -> None:
+    """Shut this process down once its parent ``pid`` is gone (a follower
+    whose node's local rank 0 was killed would otherwise wait on the store
+    for records that never come)."""
+    import os
+
+    while os.getppid() == pid:
+        await asyncio.sleep(1.0)
+    log.error("the process that started this rank (pid %d) is gone; stopping", pid)
+    runtime.signal_shutdown()
 
 
 async def _serve_prefill_role(runtime, namespace, component, core, engine, worker_id,
@@ -994,7 +1174,14 @@ def _parser() -> argparse.ArgumentParser:
                          "safetensors or pytorch_model*.bin); overrides --preset "
                          "and defaults the tokenizer to it")
     ap.add_argument("--moe-dispatch", default=None, choices=["replicated", "alltoall"])
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: one process per rank, heads and MLP "
+                         "columns split over the ranks (local rank 0 of each node starts "
+                         "that node's other ranks)")
+    ap.add_argument("--tp-devices", default=None,
+                    help="this node's ranks' devices, comma-separated in local rank order "
+                         "(e.g. cuda:0,cuda:0: two ranks sharing a card, collectives over "
+                         "gloo through host memory); default one card per rank")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--sp", type=int, default=1)
     ap.add_argument("--ring-prefill-threshold", type=int, default=None)
@@ -1006,9 +1193,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="metric-snapshot publish interval")
     ap.add_argument("--role", default="aggregated",
                     choices=["aggregated", "prefill", "decode"])
-    ap.add_argument("--dist-init-addr", default=None)
+    ap.add_argument("--dist-init-addr", default=None,
+                    help="host:port of rank 0's process-group coordinator (required with "
+                         "--nnodes > 1; one node picks a free local port)")
     ap.add_argument("--nnodes", type=int, default=1)
-    ap.add_argument("--local-cpu-devices", type=int, default=None)
+    ap.add_argument("--node-rank", type=int, default=0)
+    ap.add_argument("--local-cpu-devices", type=int, default=None,
+                    help="run this node's N ranks on the CPU (gloo)")
+    ap.add_argument("--local-rank", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument(
         "--max-local-prefill-length", type=int, default=50,
         help="decode role: prefills longer than this go to the prefill fleet",
@@ -1021,14 +1213,90 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     ``ROADMAP.md`` item that brings it. Engine settings outside the slice
     (ring prefill) are refused by ``build_engine`` the same way."""
     refusals = [
-        (max(args.tp, args.dp, args.sp, args.pp) > 1, "--tp/--dp/--sp/--pp > 1", "A12"),
-        (args.nnodes > 1 or args.dist_init_addr is not None
-         or args.local_cpu_devices is not None,
-         "multi-host (--nnodes, --dist-init-addr, --local-cpu-devices)", "A12"),
+        (args.dp > 1, "--dp > 1 (data parallelism)", "A12b"),
+        (args.pp > 1, "--pp > 1 (pipeline parallelism)", "A12b"),
+        (args.sp > 1, "--sp > 1 (sequence-parallel ring prefill)", "A12c"),
+        (args.tp > 1 and args.role != "aggregated",
+         f"--role {args.role} with --tp > 1 (cross-tp disaggregation)", "A12d"),
+        (args.tp > 1 and args.moe_dispatch is not None,
+         "--moe-dispatch with --tp > 1 (expert parallelism)", "A12d"),
     ]
     for refused, what, item in refusals:
         if refused:
             raise ValueError(f"{what} is not ported yet (ROADMAP.md {item})")
+    if args.nnodes > 1 and args.tp == 1:
+        raise ValueError("--nnodes > 1 splits the ranks of --tp over the nodes; set --tp")
+    if args.local_cpu_devices is not None and args.tp == 1:
+        raise ValueError("--local-cpu-devices places the CPU ranks of --tp; set --tp")
+
+
+def rank_layout(args: argparse.Namespace) -> tuple[int, list[str]]:
+    """(this process's global rank, every rank's device in rank order) of a
+    ``--tp`` worker. A node holds ``tp / nnodes`` ranks, laid out alike on
+    every node: ``--tp-devices`` lists them, ``--device cpu`` or
+    ``--local-cpu-devices`` puts them on the CPU, else rank ``i`` of a node
+    takes ``cuda:i`` and a node with fewer cards than ranks raises."""
+    from dynamo_tpu_torch.parallel.sharding import default_devices
+
+    if args.tp % args.nnodes:
+        raise ValueError(f"--tp {args.tp} must be a multiple of --nnodes {args.nnodes}")
+    k = args.tp // args.nnodes
+    if not (0 <= args.node_rank < args.nnodes and 0 <= args.local_rank < k):
+        raise ValueError(f"node rank {args.node_rank} / local rank {args.local_rank} outside "
+                         f"{args.nnodes} nodes of {k} ranks")
+    if args.local_cpu_devices is not None and args.local_cpu_devices != k:
+        raise ValueError(f"--local-cpu-devices {args.local_cpu_devices} but a node holds "
+                         f"{k} ranks of --tp {args.tp}")
+    if args.tp_devices:
+        local = [d.strip() for d in args.tp_devices.split(",")]
+        if len(local) != k:
+            raise ValueError(f"--tp-devices names {len(local)} devices for {k} ranks per node")
+    elif args.device == "cpu" or args.local_cpu_devices is not None:
+        local = ["cpu"] * k
+    else:
+        local = [str(d) for d in default_devices(k)]
+    return args.node_rank * k + args.local_rank, local * args.nnodes
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _start_local_ranks(argv: list[str], k: int, addr: str) -> list:
+    """Local rank 0 of a node starts the node's other ranks: this command
+    again, with ``--local-rank i`` and the coordinator's address; their
+    status servers stay off (one per worker)."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, DYN_SYSTEM_ENABLED="0")
+    return [
+        subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", *argv,
+             "--local-rank", str(i), "--dist-init-addr", addr],
+            env=env,
+        )
+        for i in range(1, k)
+    ]
+
+
+def _stop_local_ranks(procs: list) -> None:
+    import signal
+
+    for proc in procs:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+    for proc in procs:
+        try:
+            proc.wait(timeout=30)
+        except Exception:  # noqa: BLE001 — a rank that will not stop is killed
+            proc.kill()
+            proc.wait()
 
 
 def _overrides(args: argparse.Namespace) -> dict[str, Any]:
@@ -1063,14 +1331,45 @@ def _overrides(args: argparse.Namespace) -> dict[str, Any]:
 
 
 def main(argv: list[str] | None = None) -> None:
+    import sys
+
     use_one_malloc_arena()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
     _refuse_unported(args)
     overrides = _overrides(args)
     preset = None if args.model_path is not None else args.preset  # --model-path replaces it
     # Before joining the fleet.
-    check_slice(*engine_configs(preset, overrides, args.moe_dispatch, args.model_path),
-                device=args.device)
+    model_cfg, engine_cfg = engine_configs(preset, overrides, args.moe_dispatch, args.model_path)
+    check_slice(model_cfg, engine_cfg, device="cpu" if args.local_cpu_devices else args.device)
+    if args.tp == 1:
+        return _serve(args, overrides, preset, None)
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.multihost import init_multihost, shutdown_multihost
+    from dynamo_tpu_torch.parallel.sharding import make_mesh, param_partition_specs
+
+    param_partition_specs(model_cfg, args.tp)  # tp divides the heads and the MLP
+    rank, devices = rank_layout(args)
+    k = args.tp // args.nnodes
+    backend = comm.choose_backend(devices, k)
+    if args.nnodes > 1 and not args.dist_init_addr:
+        raise ValueError("--nnodes > 1 requires --dist-init-addr")
+    addr = args.dist_init_addr or f"127.0.0.1:{_free_port()}"
+    local = _start_local_ranks(argv, k, addr) if args.local_rank == 0 else []
+    try:
+        init_multihost(addr, args.tp, rank, backend)
+        mesh = make_mesh(tp=args.tp, devices=devices, rank=rank, nnodes=args.nnodes)
+        _serve(args, overrides, preset, mesh)
+    finally:
+        _stop_local_ranks(local)
+        shutdown_multihost()
+
+
+def _serve(args: argparse.Namespace, overrides: dict[str, Any], preset: str | None,
+           mesh) -> None:
+    """Run this process's worker (or rank of one) until it shuts down."""
+    import os
+
 
     @dynamo_worker()
     async def entry(runtime: DistributedRuntime) -> None:
@@ -1091,6 +1390,8 @@ def main(argv: list[str] | None = None) -> None:
             obs_interval_s=args.obs_interval_s,
             moe_dispatch=args.moe_dispatch,
             model_path=args.model_path,
+            mesh=mesh,
+            parent_pid=os.getppid() if args.local_rank > 0 else None,
         )
 
     entry()

@@ -41,7 +41,7 @@ class ModelConfig:
     # Sparse MoE (Mixtral-style): 0 experts = dense MLP. Per-expert
     # capacity = ceil(N * top_k / E * factor); tokens past it drop for
     # that expert. ``moe_dispatch`` picks the expert-parallel mode under a
-    # mesh (A12); on one device both values are the local dispatch.
+    # mesh (A12d); on one device both values are the local dispatch.
     num_experts: int = 0
     num_experts_per_tok: int = 2
     moe_capacity_factor: float = 2.0

@@ -21,6 +21,7 @@ reinterpreted as ``torch.bfloat16`` bit for bit.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
@@ -28,6 +29,7 @@ import torch
 
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.model import Params
+from dynamo_tpu_torch.parallel.sharding import shard_params
 
 
 def tensor_from_numpy(a: Any, device="cuda") -> torch.Tensor:
@@ -47,22 +49,39 @@ def _leaf(a: Any, device):
     return tensor_from_numpy(a, device)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
-    """The JAX params pytree (numpy leaves) as the port's parameter dict."""
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda",
+                      rank: int | None = None) -> Params:
+    """The JAX params pytree (numpy leaves) as the port's parameter dict.
+    A pytree fused for tp > 1 (its ``fuse_tp``) keeps that layout and
+    marker; with ``rank`` only that rank's shard reaches ``device``
+    (``parallel.sharding.shard_params``, sliced on the host first)."""
     tp = int(np.asarray(tree.get("fuse_tp", 1)))
-    if tp != 1:
-        raise ValueError(
-            f"params were fused for tp={tp}; the port serves one device "
-            "(tp=1 layouts) until tensor parallelism lands (ROADMAP.md A12)"
-        )
+    if rank is not None and not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} of params fused for tp={tp}")
+    shard = rank is not None and tp > 1
+    host = "cpu" if shard else device
     params: Params = {
-        "embed": tensor_from_numpy(tree["embed"], device),
-        "layers": {name: _leaf(w, device) for name, w in tree["layers"].items()},
-        "final_norm": tensor_from_numpy(tree["final_norm"], device),
+        "embed": tensor_from_numpy(tree["embed"], host),
+        "layers": {name: _leaf(w, host) for name, w in tree["layers"].items()},
+        "final_norm": tensor_from_numpy(tree["final_norm"], host),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = _leaf(tree["lm_head"], device)
-    return params
+        params["lm_head"] = _leaf(tree["lm_head"], host)
+    if tp > 1:
+        params["fuse_tp"] = tp
+    if not shard:
+        return params
+    return to_device(shard_params(params, cfg, SimpleNamespace(tp=tp, rank=rank)), device)
+
+
+def to_device(params: Params, device) -> Params:
+    """A params dict with every tensor on ``device``."""
+    def move(x):
+        if isinstance(x, dict):
+            return {k: move(v) for k, v in x.items()}
+        return x.to(torch.device(device)) if isinstance(x, torch.Tensor) else x
+
+    return move(params)
 
 
 def cache_from_numpy(pages: tuple, device="cuda") -> tuple:

@@ -94,6 +94,7 @@ from dynamo_tpu_torch.engine.model import (
     forward_tokens,
     init_cache,
     init_params,
+    params_fuse_tp,
     verify_tokens,
 )
 from dynamo_tpu_torch.engine.sampler import (
@@ -116,6 +117,8 @@ from dynamo_tpu_torch.llm.protocols.common import (
 from dynamo_tpu_torch.llm.kv_router.protocols import ForwardPassMetrics, KvStats, WorkerStats
 from dynamo_tpu_torch.obs.flight_recorder import FlightRecorder
 from dynamo_tpu_torch.ops import ragged_attention
+from dynamo_tpu_torch.parallel import comm
+from dynamo_tpu_torch.parallel.sharding import rank_config, shard_params
 from dynamo_tpu_torch.runtime import wire
 from dynamo_tpu_torch.runtime.engine import EngineOverloadedError
 from dynamo_tpu_torch.spec import SpecConfig, SpecStats, propose_ngram, resolve_spec_config
@@ -163,7 +166,7 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig, device) -> Non
     if engine_cfg.ring_prefill_threshold > 0:
         raise ValueError(
             "ring_prefill_threshold > 0 (sequence-parallel prefill) is not ported yet "
-            "(ROADMAP.md A12)"
+            "(ROADMAP.md A12c)"
         )
     bs = engine_cfg.block_size
     if engine_cfg.scheduling not in ("waves", "chunked"):
@@ -212,6 +215,47 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig, device) -> Non
                 f"model {model_cfg.name!r} cannot run on the card's attention kernel: "
                 f"{'; '.join(why)}; serve it with device='cpu' (the plain versions)"
             )
+
+
+def _check_fuse_tp(params: dict, tp: int) -> None:
+    """The fused wqkv/wgu column layout depends on tp; serving params fused
+    for another tp would give silently wrong logits (permuted q/k/v and
+    gate/up columns). Fail loudly instead (the JAX engine's check)."""
+    fused = params_fuse_tp(params)
+    if fused != tp:
+        raise ValueError(
+            f"params were fused for tp={fused} but the serving mesh has "
+            f"tp={tp}; reload with load_hf_llama(path, tp={tp}) or "
+            f"init_params(cfg, seed, tp={tp})"
+        )
+
+
+def check_mesh(model_cfg: ModelConfig, mesh) -> None:
+    """Refuse what a mesh does not serve yet, each naming its
+    ``ROADMAP.md`` item: dp > 1, MoE under a mesh (expert parallelism).
+    Pipeline parallelism and ring prefill have no mesh of their own in
+    the port (``check_slice`` refuses ring prefill)."""
+    if mesh.dp != 1:
+        raise ValueError(f"dp={mesh.dp}: data parallelism is not ported yet (ROADMAP.md A12b)")
+    if mesh.tp > 1 and model_cfg.is_moe:
+        raise ValueError(
+            f"MoE preset {model_cfg.name!r} under a tp={mesh.tp} mesh (expert "
+            "parallelism) is not ported yet (ROADMAP.md A12d)"
+        )
+
+
+def refuse_on_mesh(core: "EngineCore", what: str) -> None:
+    """Raise on a path a tp > 1 engine does not serve yet (ROADMAP.md
+    A12d): its pages hold this rank's KV heads only."""
+    if core.mesh is not None and core.mesh.tp > 1:
+        raise ValueError(
+            f"{what} on a tp={core.mesh.tp} engine is not ported yet (ROADMAP.md A12d)"
+        )
+
+
+def _leaf_tensor(w) -> torch.Tensor:
+    """A leaf's weight tensor (an int8 leaf's ``w``)."""
+    return w["w"] if isinstance(w, dict) else w
 
 
 def _check_params(params: dict, device: torch.device) -> None:
@@ -363,7 +407,7 @@ def _megastep_body(
     seeds, counters, temperature, top_k, top_p,
     watch, budgets, min_left,
     *, n_steps, need_mask, all_greedy=False, want_logprobs=False,
-    cfg, engine,
+    cfg, engine, mesh=None,
 ):
     """The decode MEGASTEP: ``n_steps`` decode+sample iterations enqueued
     back to back with no host synchronisation. Each iteration writes the
@@ -380,7 +424,8 @@ def _megastep_body(
     out, lps = [], []
     for i in range(n_steps):
         act = active & alive
-        logits = decode_tokens(params, cache, toks, block_tables, pos, act, cfg, engine)
+        logits = decode_tokens(params, cache, toks, block_tables, pos, act, cfg, engine,
+                               mesh=mesh)
         nxt = sample_seeded(
             logits, seeds, counters + i, temperature, top_k, top_p,
             need_mask=need_mask, all_greedy=all_greedy,
@@ -399,7 +444,7 @@ def _prefill_and_sample(
     params, cache, tokens, positions, write_pages, write_offs,
     kv_lens, block_tables, cu_q_lens, num_seqs, last_rows,
     seeds, counters, temperature, top_k, top_p,
-    *, need_mask, all_greedy=False, want_logprobs=False, cfg, mm=None,
+    *, need_mask, all_greedy=False, want_logprobs=False, cfg, mm=None, mesh=None,
 ):
     """One ragged prefill wave + first-token sampling of every row of the
     [S, vocab] last-token logits; the host keeps only rows whose prompt
@@ -408,7 +453,7 @@ def _prefill_and_sample(
     logits = forward_tokens(
         params, cache, tokens, positions, write_pages, write_offs,
         kv_lens, block_tables, cu_q_lens, num_seqs, last_rows, cfg,
-        mm_embeds=mm_embeds, mm_mask=mm_mask,
+        mm_embeds=mm_embeds, mm_mask=mm_mask, mesh=mesh,
     )
     toks = sample_seeded(
         logits, seeds, counters, temperature, top_k, top_p,
@@ -422,7 +467,7 @@ def _first_iteration(
     params, cache, tokens, positions, write_pages, write_offs, kv_lens, block_tables,
     cu_q_lens, num_seqs, gather, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
     draft, draft_len, cont_active, base_pos, watch, budgets, min_left,
-    *, need_mask, all_greedy, want_logprobs, cfg, mm=None,
+    *, need_mask, all_greedy, want_logprobs, cfg, mm=None, mesh=None,
 ):
     """Iteration 0 of a fused or drafting megastep: the ragged forward
     (with multimodal rows ``mm``, if any), its ``[S, R]`` samples, each
@@ -434,7 +479,7 @@ def _first_iteration(
     logits = forward_tokens(
         params, cache, tokens, positions, write_pages, write_offs,
         kv_lens, block_tables, cu_q_lens, num_seqs, gather, cfg,
-        mm_embeds=mm_embeds, mm_mask=mm_mask,
+        mm_embeds=mm_embeds, mm_mask=mm_mask, mesh=mesh,
     )
     t0 = sample_seeded(
         logits, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
@@ -462,7 +507,7 @@ def _megastep_fused_body(
     seeds, temp, top_k, top_p,
     watch, budgets, min_left,
     *, n_steps, need_mask, all_greedy=False, want_logprobs=False,
-    cfg, engine, mm=None,
+    cfg, engine, mm=None, mesh=None,
 ):
     """The UNIVERSAL megastep: one dispatch runs a ragged first iteration
     over prefill chunks, decode rows and verify rows (a mixed step's
@@ -490,13 +535,14 @@ def _megastep_fused_body(
         cu_q_lens, num_seqs, gather, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
         draft, draft_len, cont_active, base_pos, watch, budgets, min_left,
         need_mask=need_mask, all_greedy=all_greedy, want_logprobs=want_logprobs, cfg=cfg,
-        mm=mm,
+        mm=mm, mesh=mesh,
     )
     S, R = t0s.shape
     rest, rest_lp = [], []
     for _ in range(n_steps - 1):
         act = alive
-        logits = decode_tokens(params, cache, tok, block_tables, pos, act, cfg, engine)
+        logits = decode_tokens(params, cache, tok, block_tables, pos, act, cfg, engine,
+                               mesh=mesh)
         nxt = sample_seeded(
             logits, seeds, counters0 + gen, temp, top_k, top_p,
             need_mask=need_mask, all_greedy=all_greedy,
@@ -546,7 +592,7 @@ def _megastep_draft_body(
     dd,                      # [S] bool: lanes that draft on the device
     win, nmin, nmax, kmax,   # [S] each lane's drafter knobs
     *, n_steps, need_mask, all_greedy=False, want_logprobs=False,
-    ngram_max_static, cfg, engine, mm=None,
+    ngram_max_static, cfg, engine, mm=None, mesh=None,
 ):
     """The DRAFTING megastep: the fused megastep's ragged first iteration,
     then ``n_steps - 1`` verify-shaped iterations. Before each, every
@@ -573,7 +619,7 @@ def _megastep_draft_body(
         cu_q_lens, num_seqs, gather, seeds_r, counters_r, temp_r, top_k_r, top_p_r,
         draft, draft_len, cont_active, base_pos, watch, budgets, min_left,
         need_mask=need_mask, all_greedy=all_greedy, want_logprobs=want_logprobs, cfg=cfg,
-        mm=mm,
+        mm=mm, mesh=mesh,
     )
     S, R = t0s.shape
     # Iteration 0's emission enters the ring of a drafting lane; the ring
@@ -590,7 +636,8 @@ def _megastep_draft_body(
             hist, hlen, win, nmin, nmax, kc, ngram_max_static=ngram_max_static, slots=R - 1,
         )
         slot = torch.cat([tok[:, None], torch.where(dtoks >= 0, dtoks, 0)], dim=1)
-        logits = verify_tokens(params, cache, slot, block_tables, pos, dlen, act, cfg, engine)
+        logits = verify_tokens(params, cache, slot, block_tables, pos, dlen, act, cfg, engine,
+                               mesh=mesh)
         cnt = ((counters0 + gen)[:, None] + jR[None, :]).reshape(-1)
         nxt = sample_seeded(
             logits, _rep(seeds, R), cnt, _rep(temp, R), _rep(top_k, R), _rep(top_p, R),
@@ -883,18 +930,33 @@ class EngineCore:
     ):
         """``params`` is a parameter dict on ``device`` (``engine/convert``
         or a previous engine's ``core.params``); None initialises random
-        weights from ``seed``. ``mesh`` exists to be refused: the port
-        serves one device until parallelism lands. ``on_stored`` and
+        weights from ``seed``. ``mesh`` (``parallel.sharding.Mesh``) serves
+        tensor parallelism: this process is one rank, on the mesh's device
+        for it, with the rank's shard of ``params`` (a full dict fused for
+        the mesh's tp is sharded here) and the rank's KV heads; every rank
+        must run the same steps in the same order
+        (``backends/torch/multihost.py``). Over gloo every dispatch runs
+        eagerly (a collective through the host cannot sit in a CUDA
+        graph); over NCCL the collectives are captured. ``on_stored`` and
         ``on_removed`` receive the allocator's KV events (block hashes
         committed under a parent, hashes evicted), called on the thread
         that runs ``step()``. With both ``on_tier_stored`` and
         ``on_tier_removed``, offload-tier transitions publish tier-tagged
         events (the offload worker's thread calls them too), as in the
         JAX engine."""
-        if mesh is not None:
-            raise ValueError("device meshes are not ported yet (ROADMAP.md A12)")
         self.device = resolve_device(device)
         check_slice(model_cfg, engine_cfg, self.device)
+        self.mesh = mesh
+        tp = 1
+        if mesh is not None:
+            check_mesh(model_cfg, mesh)
+            tp = mesh.tp
+            if tp > 1 and self.device != resolve_device(mesh.device):
+                raise ValueError(f"rank {mesh.rank} runs on {mesh.device}, not {self.device}")
+        # The shapes this rank computes and caches: its heads (all at tp 1).
+        self.local_cfg = rank_config(model_cfg, tp)
+        # A collective through the host cannot be captured in a CUDA graph.
+        self._eager_only = tp > 1 and mesh.backend != comm.NCCL
         bs = engine_cfg.block_size
         for b in engine_cfg.prefill_buckets:
             if b % bs:
@@ -938,10 +1000,14 @@ class EngineCore:
         self.engine = engine_cfg
         self.eos_token_ids = set(eos_token_ids)
         if params is None:
-            params = init_params(model_cfg, seed, self.device)
+            params = init_params(model_cfg, seed, self.device, tp=tp,
+                                 rank=mesh.rank if tp > 1 else None)
+        _check_fuse_tp(params, tp)
+        if tp > 1 and _leaf_tensor(params["layers"]["wo"]).shape[-2] == model_cfg.q_size:
+            params = shard_params(params, model_cfg, mesh)  # a full dict: take this rank's
         _check_params(params, self.device)
         self.params = params
-        self.cache = init_cache(model_cfg, engine_cfg, self.device)
+        self.cache = init_cache(model_cfg, engine_cfg, self.device, tp=tp)
         self.allocator = DeviceBlockAllocator(
             engine_cfg.num_kv_blocks,
             bs,
@@ -998,6 +1064,9 @@ class EngineCore:
         # delivered with the step's outputs.
         self._shed_outputs: list[tuple[Sequence, LLMEngineOutput]] = []
         self._max_waiting = engine_cfg.max_waiting
+        # Deadline expiry reads the wall clock; ranks in lockstep turn it
+        # off (backends/torch/multihost.py).
+        self.enforce_deadlines = True
         self.iterations = 0
         # Step-level spans (engine_prefill_step / engine_decode_step /
         # engine_megastep / engine_commit / host_gap ...), stat spans of
@@ -1057,7 +1126,7 @@ class EngineCore:
             "single_step_dispatches": 0,
             "committed_tokens": 0,
             # Fused megasteps whose first iteration carried prefill chunks
-            # or verify rows, and pipeline-parallel dispatches (A12, 0
+            # or verify rows, and pipeline-parallel dispatches (A12b, 0
             # until ported).
             "fused_mixed_dispatches": 0,
             "megastep_forced_single": 0,
@@ -1187,8 +1256,13 @@ class EngineCore:
         elif pre.deadline_ms is not None and pre.deadline_ms > 0:
             seq.deadline_epoch = time.time() + pre.deadline_ms / 1000.0
         seq.t_queued = time.time()
-        self._inbox.append(seq)
+        self._enqueue(seq)
         return seq
+
+    def _enqueue(self, seq: Sequence) -> None:
+        """Hand a validated sequence to the scheduler (the lockstep leader
+        stages it for its next step record instead)."""
+        self._inbox.append(seq)
 
     def cancel_request(self, seq: Sequence) -> None:
         seq.cancelled = True
@@ -1303,7 +1377,8 @@ class EngineCore:
 
         def dead(s: Sequence) -> bool:
             return s.cancelled or (
-                s.deadline_epoch is not None
+                self.enforce_deadlines
+                and s.deadline_epoch is not None
                 and now > s.deadline_epoch
                 and not s.emitted_first
             )
@@ -1541,7 +1616,7 @@ class EngineCore:
                 x["gather"], _rep(x["seeds"], R), x["counters"], _rep(x["temperature"], R),
                 _rep(x["top_k"], R), _rep(x["top_p"], R),
                 need_mask=need_mask, all_greedy=b.all_greedy,
-                want_logprobs=b.want_lp, cfg=self.cfg, mm=mm,
+                want_logprobs=b.want_lp, cfg=self.cfg, mm=mm, mesh=self.mesh,
             )
             return (toks, *(lps or ()))
 
@@ -1602,7 +1677,8 @@ class EngineCore:
                 x["watch"], x["budgets"], x["min_left"],
             )
             kw = dict(n_steps=n_steps, need_mask=need_mask, all_greedy=b.all_greedy,
-                      want_logprobs=b.want_lp, cfg=self.cfg, engine=self.engine, mm=mm)
+                      want_logprobs=b.want_lp, cfg=self.cfg, engine=self.engine, mm=mm,
+                      mesh=self.mesh)
             if drafted:
                 toks, aux, lps = _megastep_draft_body(
                     *args, x["hist"], x["hist_len"], x["dd"], x["win"], x["nmin"],
@@ -1623,7 +1699,7 @@ class EngineCore:
         warm_up() did not; an ``eager`` launch runs its body on the card
         as on the CPU. ``feed(buf)`` writes the device-resident slots of
         the packed inputs."""
-        if self.device.type == "cpu" or launch.eager:
+        if self.device.type == "cpu" or launch.eager or self._eager_only:
             buf = self._to_device(torch.from_numpy(launch.packed))
             if feed is not None:
                 feed(buf)
@@ -2031,7 +2107,7 @@ class EngineCore:
                 x["seeds"], x["counters"], x["temperature"], x["top_k"], x["top_p"],
                 x["watch"], x["budgets"], x["min_left"],
                 n_steps=n_steps, need_mask=need_mask, all_greedy=all_greedy,
-                want_logprobs=want_lp, cfg=self.cfg, engine=self.engine,
+                want_logprobs=want_lp, cfg=self.cfg, engine=self.engine, mesh=self.mesh,
             )
             return (toks, *(lps or ()))
 
@@ -3101,6 +3177,7 @@ class EngineCore:
         are in the model dtype whatever ``kv_dtype`` is, as in JAX. The
         forward runs eagerly and takes the step lock: a step's capture
         must not see another thread's work on the card."""
+        refuse_on_mesh(self, "embeddings")
         T = len(token_ids)
         if T == 0:
             raise ValueError("empty input")
@@ -3144,15 +3221,28 @@ class EngineCore:
         off captures its keys at first use). Scheduler state, the prefix
         cache and the execution counters are left as they were; the
         kernels' launch counters count the eager launches (captures
-        launch nothing). Returns the forwards it ran."""
+        launch nothing). An engine whose collectives go through the host
+        (a tp mesh over gloo) captures nothing and runs one eager forward
+        per kind of dispatch. Returns the forwards it ran."""
         with self._step_lock:
             launches = self._warm_up_launches()
+            if self._eager_only:
+                # Nothing is captured, and every kernel a kind of dispatch
+                # runs loads at its first forward: one eager forward per
+                # kind (its smallest shape, the first sampling variant) is
+                # the warm-up; each further one would be a round of
+                # collectives through the host.
+                first: dict[str, Launch] = {}
+                for launch, eager in launches:
+                    if eager:
+                        first.setdefault(launch.key[0], launch)
+                launches = [(launch, True) for launch in first.values()]
             forwards = 0
             for launch, eager in launches:
                 if eager:
                     launch.body(torch.from_numpy(launch.packed).to(self.device))
                     forwards += 1
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and not self._eager_only:
                 for launch, _ in launches:
                     if launch.key not in self._graphs:
                         self._graphs.capture(launch, self.device)
@@ -3327,10 +3417,11 @@ class EngineCore:
         return str(self.cfg.torch_dtype).removeprefix("torch.")
 
     def _page_geometry(self) -> tuple[int, int, int, int]:
+        """(layers, page size, KV heads, head dim) of this rank's pages."""
         return (
             self.cfg.num_layers,
             self.engine.block_size,
-            self.cfg.num_kv_heads,
+            self.local_cfg.num_kv_heads,
             self.cfg.head_dim,
         )
 
@@ -3338,7 +3429,7 @@ class EngineCore:
         return (
             self.cfg.num_layers,
             self.engine.block_size,
-            2 * self.cfg.num_kv_heads,
+            2 * self.local_cfg.num_kv_heads,
             self.cfg.head_dim,
         )
 
@@ -3454,6 +3545,7 @@ class EngineCore:
         """Phase 1: descriptor snapshot of a held prefill's committed
         blocks (``start``/``count``: a committed-block window, for the
         streaming handoff). The hold stays until :meth:`release_held`."""
+        refuse_on_mesh(self, "exporting held blocks (disaggregated prefill)")
         with self._step_lock:
             seq = self._held.get(request_id) or self._streaming_seq(request_id)
             if seq is None:
@@ -3491,6 +3583,7 @@ class EngineCore:
     def read_held_pages(self, request_id: str, start: int, count: int) -> list[bytes]:
         """Phase 2: a chunk of a held prefill's committed pages as raw
         bytes (``[L, block_size, 2*n_kv, d]`` each, int8: packed)."""
+        refuse_on_mesh(self, "exporting held blocks (disaggregated prefill)")
         with self._step_lock:
             seq = self._held.get(request_id) or self._streaming_seq(request_id)
             if seq is None:
@@ -3510,6 +3603,7 @@ class EngineCore:
         step-lock acquisition and gathered at once; offload-tier blocks
         are read from host RAM or disk. Stops at the first hash held
         nowhere."""
+        refuse_on_mesh(self, "serving cached pages to peers (kv_fetch)")
         where: list[tuple[str, int]] = []  # ("dev", block_idx) | ("off", hash)
         dev_hashes: list[int] = []
         pages = None
@@ -3626,6 +3720,7 @@ class EngineCore:
         for bit, never re-quantized; a mismatch where either side is int8
         fails fast. A float mismatch (bf16 producer, f32 consumer) is
         cast on the host."""
+        refuse_on_mesh(self, "importing transferred blocks (disaggregated decode)")
         expected = self._page_shape()
         local = self.cfg.torch_dtype
         staged: list[tuple[int, int | None, Any]] = []
@@ -3711,6 +3806,7 @@ class EngineCore:
         one gather out of the source cache and one in-place scatter into
         this one per layer, no host staging. Both step locks are held for
         the copy, taken in id() order so mutual pulls cannot deadlock."""
+        refuse_on_mesh(self, "importing transferred blocks (disaggregated decode)")
         if src is self:
             raise ValueError("cannot direct-import from self")
         if src.device != self.device:
@@ -3773,14 +3869,31 @@ class EngineCore:
         st["megastep_k"] = self.engine.megastep
         toks = self.exec_stats["committed_tokens"]
         st["dispatches_per_token"] = self.exec_stats["dispatches"] / toks if toks else 0.0
-        st["pp_stages"] = 1  # one device until A12
+        st["pp_stages"] = 1  # no pipeline parallelism until A12b
         st["pp_pipe_occupancy"] = 1.0
+        par = self.parallel_stats()
+        st.update({k: v for k, v in par.items() if k != "comm_backend"})
         st["attention_launches"] = ragged_attention.launches
         st["attention_launches_int8"] = ragged_attention.launches_int8
         st["graph_captures"] = self._graphs.captures
         st["graph_replays"] = self._graphs.replays
         st["graph_capture_s"] = self._graphs.capture_s
         return st
+
+    def parallel_stats(self) -> dict:
+        """Tensor parallelism: tp and this rank, the collective backend
+        ("none" at tp 1), the collectives this process has called and
+        those each forward calls (2 per layer, and the logits' gather of
+        an untied lm_head). ``scheduler_stats`` carries the numbers."""
+        tp = self.mesh.tp if self.mesh is not None else 1
+        return {
+            "tp": tp,
+            "rank": self.mesh.rank if self.mesh is not None else 0,
+            "comm_backend": self.mesh.backend if tp > 1 else "none",
+            "collective_calls": sum(comm.calls.values()) if tp > 1 else 0,
+            "collectives_per_forward": (
+                0 if tp == 1 else 2 * self.cfg.num_layers + (0 if self.cfg.tie_embeddings else 1)),
+        }
 
     def kv_cache_stats(self) -> dict:
         """Prefix-cache gauges: the allocator's probe counters and the
@@ -3791,7 +3904,7 @@ class EngineCore:
             "kv_dtype_int8": 1 if self.engine.kv_quantized else 0,
             "bytes_per_block": kv_page_bytes(
                 self.cfg.num_layers, self.engine.block_size,
-                self.cfg.num_kv_heads, self.cfg.head_dim,
+                self.local_cfg.num_kv_heads, self.cfg.head_dim,
                 self.engine.kv_dtype, self.cfg.torch_dtype.itemsize,
             ),
             "capacity_blocks": a.capacity,

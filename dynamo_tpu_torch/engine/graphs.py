@@ -21,7 +21,8 @@ devices run the same unpacking.
 Capture records the attention kernel's launches without running them, so
 :class:`GraphCache` takes them back off the launch counters and adds each
 graph's launches again on every replay: the counters count the kernels
-that ran.
+that ran. A tensor-parallel rank's collectives (NCCL, captured with the
+forward; ``parallel/comm.py``) are counted the same way.
 
 cuBLAS keeps its handles per thread and creates one at a thread's first
 matrix product, which must not happen inside a capture; the engine's
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.ops import ragged_attention
+from dynamo_tpu_torch.parallel import comm
 
 _KINDS = {"i": np.int32, "f": np.float32, "b": np.bool_}
 
@@ -105,6 +107,7 @@ class Graph:
     static_in: torch.Tensor        # the packed input buffer
     outputs: tuple                 # the body's outputs, in the graph's pool
     launches: dict[str, int]       # attention launches per replay, by C entry point
+    collectives: dict[str, int]    # collective calls per replay (tensor parallelism)
 
 
 _thread = threading.local()
@@ -145,12 +148,15 @@ class GraphCache:
             self._pool = torch.cuda.graph_pool_handle()
         static_in = torch.zeros(launch.layout.size, dtype=torch.int32, device=device)
         before = dict(ragged_attention.kernel_launches)
+        calls_before = dict(comm.calls)
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g, pool=self._pool, capture_error_mode="thread_local"):
             outputs = launch.body(static_in)
         launches = {k: ragged_attention.kernel_launches[k] - n for k, n in before.items()}
         ragged_attention.kernel_launches.update(before)  # recorded, not run
-        graph = self._graphs[launch.key] = Graph(g, static_in, outputs, launches)
+        collectives = {k: comm.calls[k] - n for k, n in calls_before.items()}
+        comm.calls.update(calls_before)
+        graph = self._graphs[launch.key] = Graph(g, static_in, outputs, launches, collectives)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         return graph
@@ -169,4 +175,6 @@ class GraphCache:
         self.replays += 1
         for name, n in graph.launches.items():
             ragged_attention.kernel_launches[name] += n
+        for name, n in graph.collectives.items():
+            comm.calls[name] += n
         return tuple(o.clone() for o in graph.outputs)

@@ -44,6 +44,7 @@ import torch
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.core import resolve_device
 from dynamo_tpu_torch.engine.model import Params
+from dynamo_tpu_torch.parallel.sharding import param_partition_specs, rank_config
 
 log = logging.getLogger("dynamo_tpu_torch.loader")
 
@@ -146,45 +147,72 @@ def _quantize(w32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def _placements(cfg: ModelConfig) -> dict[str, tuple[str, int | None, int, int]]:
+def _placements(cfg: ModelConfig, tp: int = 1, rank: int | None = None) -> dict[str, tuple]:
     """Each checkpoint tensor the model needs: HF name -> (leaf, layer or
-    None, first and last output column in the leaf). 2-D weights are
-    transposed into place; 1-D norms and biases are copied."""
-    q, kv, i = cfg.q_size, cfg.kv_size, cfg.intermediate_size
-    out: dict[str, tuple[str, int | None, int, int]] = {
-        "model.embed_tokens.weight": ("embed", None, 0, cfg.hidden_size),
-        "model.norm.weight": ("final_norm", None, 0, cfg.hidden_size),
+    None, pieces). A piece ``(axis, s0, s1, d0, d1)`` copies positions
+    ``s0:s1`` of the tensor along ``axis`` (after a 2-D weight is
+    transposed to ``[in, out]``) to ``d0:d1`` of the leaf: q|k|v and
+    gate|up at their column offsets of ``wqkv`` and ``wgu`` in the
+    shard-blocked layout of ``tp`` (``model.fuse_qkv``), ``wo`` and
+    ``w_down`` by rows, ``lm_head`` by vocab columns. With ``rank`` only
+    that rank's blocks are placed, into leaves of its own width; without,
+    every rank's, into the full tp-fused leaves."""
+    q, kv, i, h, V = (cfg.q_size, cfg.kv_size, cfg.intermediate_size, cfg.hidden_size,
+                      cfg.vocab_size)
+    ranks = list(range(tp)) if rank is None else [rank]
+
+    def cols(width: int, off: int, block: int) -> list[tuple]:
+        # Column-parallel: each rank's 1/tp of the columns at ``off`` in
+        # its block of ``block`` columns of the leaf.
+        n = width // tp
+        return [(-1, r * n, (r + 1) * n, j * block + off, j * block + off + n)
+                for j, r in enumerate(ranks)]
+
+    def rows(width: int) -> list[tuple]:
+        n = width // tp
+        return [(0, r * n, (r + 1) * n, j * n, (j + 1) * n) for j, r in enumerate(ranks)]
+
+    def full(width: int) -> list[tuple]:
+        return [(-1, 0, width, 0, width)]
+
+    qb, kvb, ib = q // tp, kv // tp, i // tp
+    out: dict[str, tuple] = {
+        "model.embed_tokens.weight": ("embed", None, full(h)),
+        "model.norm.weight": ("final_norm", None, full(h)),
     }
     if not cfg.tie_embeddings:
-        out["lm_head.weight"] = ("lm_head", None, 0, cfg.vocab_size)
+        out["lm_head.weight"] = ("lm_head", None, cols(V, 0, V // tp))
+    qkv = {
+        "q_proj": cols(q, 0, qb + 2 * kvb),
+        "k_proj": cols(kv, qb, qb + 2 * kvb),
+        "v_proj": cols(kv, qb + kvb, qb + 2 * kvb),
+    }
     for layer in range(cfg.num_layers):
         pre = f"model.layers.{layer}."
-        cols = {
-            "input_layernorm.weight": ("attn_norm", 0, cfg.hidden_size),
-            "post_attention_layernorm.weight": ("mlp_norm", 0, cfg.hidden_size),
-            "self_attn.q_proj.weight": ("wqkv", 0, q),
-            "self_attn.k_proj.weight": ("wqkv", q, q + kv),
-            "self_attn.v_proj.weight": ("wqkv", q + kv, q + 2 * kv),
-            "self_attn.o_proj.weight": ("wo", 0, cfg.hidden_size),
-            "mlp.gate_proj.weight": ("wgu", 0, i),
-            "mlp.up_proj.weight": ("wgu", i, 2 * i),
-            "mlp.down_proj.weight": ("w_down", 0, cfg.hidden_size),
+        places = {
+            "input_layernorm.weight": ("attn_norm", full(h)),
+            "post_attention_layernorm.weight": ("mlp_norm", full(h)),
+            **{f"self_attn.{n}.weight": ("wqkv", pieces) for n, pieces in qkv.items()},
+            "self_attn.o_proj.weight": ("wo", rows(q)),
+            "mlp.gate_proj.weight": ("wgu", cols(i, 0, 2 * ib)),
+            "mlp.up_proj.weight": ("wgu", cols(i, ib, 2 * ib)),
+            "mlp.down_proj.weight": ("w_down", rows(i)),
         }
         if cfg.attn_qkv_bias:
-            cols |= {
-                "self_attn.q_proj.bias": ("bqkv", 0, q),
-                "self_attn.k_proj.bias": ("bqkv", q, q + kv),
-                "self_attn.v_proj.bias": ("bqkv", q + kv, q + 2 * kv),
-            }
-        for name, (leaf, c0, c1) in cols.items():
-            out[pre + name] = (leaf, layer, c0, c1)
+            places |= {f"self_attn.{n}.bias": ("bqkv", pieces) for n, pieces in qkv.items()}
+        for name, (leaf, pieces) in places.items():
+            out[pre + name] = (leaf, layer, pieces)
     return out
 
 
-def _allocate(cfg: ModelConfig, dt: torch.dtype, quant: str | None, dev) -> Params:
-    """Every leaf of the parameter tree, uninitialised, on ``dev``."""
-    h, i, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
-    qkv = cfg.q_size + 2 * cfg.kv_size
+def _allocate(cfg: ModelConfig, dt: torch.dtype, quant: str | None, dev, tp: int = 1,
+              rank: int | None = None) -> Params:
+    """Every leaf of the parameter tree, uninitialised, on ``dev``: a
+    rank's widths with ``rank``, else the full ones."""
+    local = rank_config(cfg, tp) if rank is not None else cfg
+    h, i, L = cfg.hidden_size, local.intermediate_size, cfg.num_layers
+    v = cfg.vocab_size // tp if rank is not None else cfg.vocab_size
+    qkv = local.q_size + 2 * local.kv_size
 
     def weight(name, shape):
         if quant == "int8" and name in QUANTIZED_LEAVES:
@@ -197,43 +225,49 @@ def _allocate(cfg: ModelConfig, dt: torch.dtype, quant: str | None, dev) -> Para
         "attn_norm": weight("attn_norm", (L, h)),
         "mlp_norm": weight("mlp_norm", (L, h)),
         "wqkv": weight("wqkv", (L, h, qkv)),
-        "wo": weight("wo", (L, cfg.q_size, h)),
+        "wo": weight("wo", (L, local.q_size, h)),
         "wgu": weight("wgu", (L, h, 2 * i)),
         "w_down": weight("w_down", (L, i, h)),
     }
     if cfg.attn_qkv_bias:
         layers["bqkv"] = weight("bqkv", (L, qkv))
     params: Params = {
-        "embed": weight("embed", (v, h)),
+        "embed": weight("embed", (cfg.vocab_size, h)),
         "layers": layers,
         "final_norm": weight("final_norm", (h,)),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = weight("lm_head", (h, v))
+    if tp > 1:
+        params["fuse_tp"] = tp
     return params
 
 
-def _place(params: Params, where: tuple[str, int | None, int, int], src: torch.Tensor,
-           dev: torch.device) -> None:
-    """Write one checkpoint tensor into its leaf on ``dev``."""
-    leaf_name, layer, c0, c1 = where
+def _place(params: Params, where: tuple, src: torch.Tensor, dev: torch.device) -> None:
+    """Write one checkpoint tensor's pieces into its leaf on ``dev``."""
+    leaf_name, layer, pieces = where
     leaf = (params if layer is None else params["layers"])[leaf_name]
     src = src.to(dev)
     if src.dim() == 2 and leaf_name != "embed":
         src = src.T  # HF [out, in] -> [in, out]
-    if isinstance(leaf, dict):  # int8: quantized from its f32 values
+    if isinstance(leaf, dict):  # int8: quantized from its full f32 values
         w, scale = (leaf["w"], leaf["scale"]) if layer is None else (
             leaf["w"][layer], leaf["scale"][layer])
-        q, s = _quantize(src.float())
-        w[..., c0:c1].copy_(q)
-        scale[..., c0:c1].copy_(s)
-    else:
-        (leaf if layer is None else leaf[layer])[..., c0:c1].copy_(src)
+        src, s = _quantize(src.float())
+        for axis, s0, s1, d0, d1 in pieces:
+            # A row block keeps its weight's full scales (one per column).
+            ss = s.narrow(-1, s0, s1 - s0) if axis == -1 else s
+            (scale.narrow(-1, d0, d1 - d0) if axis == -1 else scale).copy_(ss)
+        leaf = w
+    elif layer is not None:
+        leaf = leaf[layer]
+    for axis, s0, s1, d0, d1 in pieces:
+        leaf.narrow(axis, d0, d1 - d0).copy_(src.narrow(axis, s0, s1 - s0))
 
 
 def load_hf_llama(
     path: str | Path, dtype: torch.dtype | None = None, tp: int = 1,
-    quant: str | None = None, device="cuda",
+    quant: str | None = None, device="cuda", rank: int | None = None,
 ) -> tuple[ModelConfig, Params]:
     """``(ModelConfig, params)`` from an HF llama or qwen2 checkpoint
     directory, the params on ``device`` (the card unless the caller passes
@@ -243,21 +277,26 @@ def load_hf_llama(
     ``quant="int8"`` gives the projections and ``lm_head`` as int8
     ``{"w", "scale"}`` leaves; embeddings, norms and biases stay at
     ``dtype``. ``tie_word_embeddings`` drops ``lm_head``. A missing
-    shard or tensor, or a dtype the reader does not know, raises."""
+    shard or tensor, or a dtype the reader does not know, raises.
+
+    ``tp`` lays the fused projections out shard-blocked for that many
+    ranks, as the JAX loader's ``_fuse_np``; with ``rank`` only that
+    rank's shard is streamed onto ``device`` (its columns of ``wqkv``,
+    ``wgu``, ``bqkv`` and ``lm_head``, its rows of ``wo`` and ``w_down``;
+    int8 scales from each full weight), equal to
+    ``parallel.sharding.shard_params`` of the full tp-fused params."""
     if quant not in (None, "int8"):
         raise ValueError(f"unknown quantization {quant!r}")
-    if tp != 1:
-        raise ValueError(
-            f"tp={tp}: the port loads the tp=1 layout only, until tensor "
-            "parallelism lands (ROADMAP.md A12)"
-        )
+    if tp < 1 or (rank is not None and not 0 <= rank < tp):
+        raise ValueError(f"rank {rank} of tp={tp}")
     dev = resolve_device(device)
     path = Path(path)
     cfg = config_from_hf(path)
     dt = dtype or cfg.torch_dtype
+    param_partition_specs(cfg, tp)  # tp must divide the heads and the MLP
     shards = _shards(path)
-    wanted = _placements(cfg)
-    params = _allocate(cfg, dt, quant, dev)
+    wanted = _placements(cfg, tp, rank)
+    params = _allocate(cfg, dt, quant, dev, tp, rank)
     filled: set[str] = set()
     for shard in shards:
         tensors = _read_shard(shard)
@@ -269,7 +308,8 @@ def load_hf_llama(
     if missing:
         raise KeyError(f"{path}: the checkpoint lacks {len(missing)} tensors, e.g. {missing[:4]}")
     log.info(
-        "loaded %s: %d layers, vocab %d%s", path, cfg.num_layers, cfg.vocab_size,
+        "loaded %s: %d layers, vocab %d%s%s", path, cfg.num_layers, cfg.vocab_size,
         " (int8 weight-only)" if quant == "int8" else "",
+        f", tp={tp} rank {rank}" if rank is not None else f", tp={tp} layout" if tp > 1 else "",
     )
     return cfg, params

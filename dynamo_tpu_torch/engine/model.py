@@ -35,6 +35,7 @@ casts before the weight multiply, rope rotates halves.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -42,7 +43,19 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
 from dynamo_tpu_torch.engine.kv_quant import INV_127, quantize_kv
-from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
+from dynamo_tpu_torch.ops.ragged_attention import (
+    ragged_paged_attention,
+    sharded_ragged_attention,
+)
+from dynamo_tpu_torch.parallel import comm
+from dynamo_tpu_torch.parallel.sharding import (
+    expand_specs_for_params,
+    fused_sizes,
+    param_partition_specs,
+    rank_config,
+    reblock,
+    take_shard,
+)
 
 Params = dict[str, Any]
 
@@ -79,82 +92,141 @@ def _dot(x: torch.Tensor, w) -> torch.Tensor:
 
 # -- fused-projection layout ------------------------------------------------
 
-def fuse_qkv(wq, wk, wv) -> torch.Tensor:
-    """Concatenate ``[q | k | v]`` along the output axis. Inputs
-    ``[..., h, out]``."""
-    return torch.cat([wq, wk, wv], dim=-1)
+def fuse_qkv(wq, wk, wv, tp: int = 1) -> torch.Tensor:
+    """Concatenate per-shard blocks ``[q_s | k_s | v_s]`` along the output
+    axis; with tp = 1 this is plain ``[q | k | v]``. Inputs ``[..., h,
+    out]``."""
+    qs, ks, vs = (torch.chunk(w, tp, dim=-1) for w in (wq, wk, wv))
+    return torch.cat([blk for s in range(tp) for blk in (qs[s], ks[s], vs[s])], dim=-1)
 
 
-def fuse_gu(wg, wu) -> torch.Tensor:
-    return torch.cat([wg, wu], dim=-1)
+def fuse_gu(wg, wu, tp: int = 1) -> torch.Tensor:
+    gs, us = torch.chunk(wg, tp, dim=-1), torch.chunk(wu, tp, dim=-1)
+    return torch.cat([blk for s in range(tp) for blk in (gs[s], us[s])], dim=-1)
 
 
-def split_qkv(qkv: torch.Tensor, cfg: ModelConfig):
-    """Inverse of :func:`fuse_qkv` on activations ``[T, q+2kv]``."""
-    return torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], dim=-1)
+def split_qkv(qkv: torch.Tensor, cfg: ModelConfig, tp: int = 1):
+    """Inverse of :func:`fuse_qkv` on activations ``[T, q+2kv]``: (q, k, v)
+    in natural head order. A rank runs it at tp = 1 on its own block with
+    its :func:`~dynamo_tpu_torch.parallel.sharding.rank_config`."""
+    if tp == 1:
+        return torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], dim=-1)
+    T = qkv.shape[0]
+    qs, kvs = cfg.q_size // tp, cfg.kv_size // tp
+    blocks = qkv.reshape(T, tp, qs + 2 * kvs)
+    return (blocks[:, :, :qs].reshape(T, cfg.q_size),
+            blocks[:, :, qs : qs + kvs].reshape(T, cfg.kv_size),
+            blocks[:, :, qs + kvs :].reshape(T, cfg.kv_size))
 
 
-def split_gu(gu: torch.Tensor):
-    return torch.chunk(gu, 2, dim=-1)
+def split_gu(gu: torch.Tensor, tp: int = 1):
+    if tp == 1:
+        return torch.chunk(gu, 2, dim=-1)
+    T = gu.shape[0]
+    half = gu.shape[-1] // (2 * tp)
+    blocks = gu.reshape(T, tp, 2 * half)
+    return blocks[:, :, :half].reshape(T, -1), blocks[:, :, half:].reshape(T, -1)
+
+
+def _layout(name: str, spec: tuple, cfg: ModelConfig, tp: int, rank: int | None):
+    """What an init keeps of a leaf drawn at its tp = 1 layout (one layer
+    of a stacked leaf): its fused columns reblocked for ``tp`` and, for a
+    ``rank``, that rank's block along the spec's tp axis."""
+    sizes = fused_sizes(name, cfg)
+
+    def post(t: torch.Tensor) -> torch.Tensor:
+        if sizes is not None:
+            t = reblock(t, sizes, tp)
+        return t if rank is None else take_shard(t, spec, tp, rank)
+
+    return post
+
+
+def params_fuse_tp(params: Params) -> int:
+    """The tp the params' fused projections were laid out for (1 where the
+    dict carries no ``fuse_tp``)."""
+    return int(params.get("fuse_tp", 1))
 
 
 # -- initialization --------------------------------------------------------
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1,
+                rank: int | None = None) -> Params:
     """Random init from a seeded ``torch.Generator`` on ``device`` (serving
     smoke runs and benchmarks; real weights come through a converter).
     Each stacked weight is filled one layer at a time, so the f32
     transient is one layer's worth, and the fused projections are drawn
     at their fused shapes (random fused == fused random). A MoE preset's
     expert stacks are drawn one layer at a time too (for Mixtral-8x7B the
-    f32 transient of one layer's ``[8, 4096, 14336]`` is 1.88 GB)."""
+    f32 transient of one layer's ``[8, 4096, 14336]`` is 1.88 GB).
+
+    ``tp`` lays the fused projections out shard-blocked for that many
+    ranks (the dict then carries ``fuse_tp``); with ``rank`` the dict
+    holds only that rank's shard (``parallel.sharding.shard_params`` of
+    the full one). The draw is the same whatever ``tp`` and ``rank``, so
+    every layout holds the weights of the tp = 1 init."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
     h, i, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
     qkv = cfg.q_size + 2 * cfg.kv_size
+    specs = param_partition_specs(cfg, tp)
 
-    def dense(shape, fan_in, stacked=True):
-        out = torch.empty(shape, dtype=dt, device=dev)
-        for part in (out if stacked else (out,)):
-            noise = torch.randn(part.shape, generator=gen, device=dev, dtype=torch.float32)
-            part.copy_(noise * fan_in ** -0.5)
+    def dense(shape, fan_in, name=None, stacked=True):
+        spec = (specs["layers"] if stacked else specs)[name]
+        post = _layout(name, spec, cfg, tp, rank) if tp > 1 else None
+        out = None
+        for l in range(shape[0]) if stacked else (None,):
+            noise = torch.randn(shape[1:] if stacked else shape, generator=gen, device=dev,
+                                dtype=torch.float32)
+            part = noise * fan_in ** -0.5
+            if post is not None:
+                part = post(part.to(dt))
+            if out is None:
+                out = torch.empty(((L,) if stacked else ()) + tuple(part.shape), dtype=dt,
+                                  device=dev)
+            (out if l is None else out[l]).copy_(part)
         return out
 
     layers: dict[str, torch.Tensor] = {
         "attn_norm": torch.ones((L, h), dtype=dt, device=dev),
         "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
-        "wqkv": dense((L, h, qkv), h),
-        "wo": dense((L, cfg.q_size, h), cfg.q_size),
+        "wqkv": dense((L, h, qkv), h, "wqkv"),
+        "wo": dense((L, cfg.q_size, h), cfg.q_size, "wo"),
     }
     if cfg.is_moe:
         E = cfg.num_experts
-        layers["w_router"] = dense((L, h, E), h)
-        layers["w_gate"] = dense((L, E, h, i), h)
-        layers["w_up"] = dense((L, E, h, i), h)
-        layers["w_down"] = dense((L, E, i, h), i)
+        layers["w_router"] = dense((L, h, E), h, "w_router")
+        layers["w_gate"] = dense((L, E, h, i), h, "w_gate")
+        layers["w_up"] = dense((L, E, h, i), h, "w_up")
+        layers["w_down"] = dense((L, E, i, h), i, "w_down")
     else:
-        layers["wgu"] = dense((L, h, 2 * i), h)
-        layers["w_down"] = dense((L, i, h), i)
+        layers["wgu"] = dense((L, h, 2 * i), h, "wgu")
+        layers["w_down"] = dense((L, i, h), i, "w_down")
     if cfg.attn_qkv_bias:
-        layers["bqkv"] = dense((L, qkv), 1)
+        layers["bqkv"] = dense((L, qkv), 1, "bqkv")
     params: Params = {
-        "embed": dense((v, h), h, stacked=False),
+        "embed": dense((v, h), h, "embed", stacked=False),
         "layers": layers,
         "final_norm": torch.ones((h,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((h, v), h, stacked=False)
+        params["lm_head"] = dense((h, v), h, "lm_head", stacked=False)
+    if tp > 1:
+        params["fuse_tp"] = tp
     return params
 
 
-def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1,
+                          rank: int | None = None) -> Params:
     """Random init straight into the int8 layout (JAX
     ``init_params_quantized``): each stacked projection is drawn one layer
     at a time at the model dtype, as :func:`init_params` draws it, and
     quantized at once, so the model-dtype transient is one layer's worth.
     Embeddings and norms stay in the model dtype; ``lm_head`` (untied
-    only) is quantized too."""
+    only) is quantized too. ``tp`` and ``rank`` as in
+    :func:`init_params`: a layer is quantized at its full width and then
+    sliced, so a row-parallel weight keeps the full scales."""
     if cfg.is_moe:
         raise ValueError(
             f"int8 weights for the MoE preset {cfg.name!r} are not served: the JAX "
@@ -167,17 +239,28 @@ def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda") -> Par
     h, i, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
     qkv = cfg.q_size + 2 * cfg.kv_size
 
-    def draw(shape, fan_in):
-        noise = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (noise * fan_in ** -0.5).to(dt)
+    specs = param_partition_specs(cfg, tp)
 
-    def qdense(shape, fan_in):
-        out = {
-            "w": torch.empty((L, *shape), dtype=torch.int8, device=dev),
-            "scale": torch.empty((L, 1, shape[-1]), dtype=torch.float32, device=dev),
-        }
+    def draw(shape, fan_in, name=None, spec=None):
+        noise = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        w = (noise * fan_in ** -0.5).to(dt)
+        return w if tp == 1 else _layout(name, spec, cfg, tp, None)(w)
+
+    def sliced(q: dict, spec: tuple) -> dict:
+        if rank is None:
+            return q
+        spec = spec[len(spec) - q["w"].dim():]  # one layer of a stacked leaf
+        qs = expand_specs_for_params({"x": spec}, {"x": q})["x"]
+        return {k: take_shard(q[k], qs[k], tp, rank) for k in q}
+
+    def qdense(shape, fan_in, name):
+        spec = specs["layers"][name]
+        out = None
         for l in range(L):
-            q = quantize_weight(draw(shape, fan_in))
+            q = sliced(quantize_weight(draw(shape, fan_in, name, spec)), spec)
+            if out is None:
+                out = {k: torch.empty((L, *t.shape), dtype=t.dtype, device=dev)
+                       for k, t in q.items()}
             out["w"][l].copy_(q["w"])
             out["scale"][l].copy_(q["scale"])
         return out
@@ -185,20 +268,24 @@ def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda") -> Par
     layers: dict[str, Any] = {
         "attn_norm": torch.ones((L, h), dtype=dt, device=dev),
         "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
-        "wqkv": qdense((h, qkv), h),
-        "wo": qdense((cfg.q_size, h), cfg.q_size),
-        "wgu": qdense((h, 2 * i), h),
-        "w_down": qdense((i, h), i),
+        "wqkv": qdense((h, qkv), h, "wqkv"),
+        "wo": qdense((cfg.q_size, h), cfg.q_size, "wo"),
+        "wgu": qdense((h, 2 * i), h, "wgu"),
+        "w_down": qdense((i, h), i, "w_down"),
     }
-    if cfg.attn_qkv_bias:
-        layers["bqkv"] = draw((L, qkv), 1)  # biases stay unquantized
+    if cfg.attn_qkv_bias:  # biases stay unquantized
+        b = draw((L, qkv), 1, "bqkv", specs["layers"]["bqkv"])
+        layers["bqkv"] = b if rank is None else take_shard(b, specs["layers"]["bqkv"], tp, rank)
     params: Params = {
         "embed": draw((v, h), h),
         "layers": layers,
         "final_norm": torch.ones((h,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = quantize_weight(draw((h, v), h))
+        lm = quantize_weight(draw((h, v), h))
+        params["lm_head"] = sliced(lm, specs["lm_head"])
+    if tp > 1:
+        params["fuse_tp"] = tp
     return params
 
 
@@ -221,13 +308,15 @@ def quantize_params(params: Params) -> Params:
     return out
 
 
-def init_cache(cfg: ModelConfig, engine: EngineConfig, device="cuda") -> tuple:
+def init_cache(cfg: ModelConfig, engine: EngineConfig, device="cuda", tp: int = 1) -> tuple:
     """Combined KV cache: a tuple of per-layer page tensors
     ``[n_pages, page_size, 2*n_kv, d]``; the last page is the garbage page.
     Per-layer tensors hand the attention kernel its own contiguous buffer.
     With ``engine.kv_dtype == "int8"`` each layer is instead
-    ``{"kv": int8 pages, "scale": f32 [n_pages, page_size, 2*n_kv]}``."""
+    ``{"kv": int8 pages, "scale": f32 [n_pages, page_size, 2*n_kv]}``.
+    Under tensor parallelism a rank holds its own KV heads (``n_kv / tp``)."""
     dev = torch.device(device)
+    cfg = rank_config(cfg, tp)
     shape = (engine.num_kv_blocks + 1, engine.block_size, 2 * cfg.num_kv_heads, cfg.head_dim)
     if engine.kv_quantized:
         return tuple(
@@ -267,12 +356,14 @@ def rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+def _mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+    """SwiGLU; under a mesh over this rank's columns of ``wgu`` and rows of
+    ``w_down``, the partial products summed over the ranks."""
     if cfg.is_moe:
-        return _moe_mlp(x, lp, cfg)
+        return _moe_mlp(x, lp, cfg, mesh)
     g, u = split_gu(_dot(x, lp["wgu"]))
     act = (F.silu(g) * u).to(x.dtype)
-    return _dot(act, lp["w_down"]).to(x.dtype)
+    return comm.all_reduce(_dot(act, lp["w_down"]), mesh).to(x.dtype)
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -295,7 +386,7 @@ def _moe_dispatch_local(xf, w_router, w_gate, w_up, w_down, cfg: ModelConfig) ->
     """Sparse top-k MoE over every expert on one device: capacity-bounded
     gather/scatter dispatch, each expert a dense ``[C, h]`` batch of its
     assigned tokens. The JAX function's semantics exactly (its expert
-    slice of a mesh shard waits for A12):
+    slice of a mesh shard waits for A12d):
 
     - C comes from N, the forward's padded width (bucket padding rows
       route and take slots too);
@@ -344,13 +435,19 @@ def _moe_dispatch_local(xf, w_router, w_gate, w_up, w_down, cfg: ModelConfig) ->
     return out.to(xf.dtype)
 
 
-def _moe_mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Mixtral-style sparse MoE on one device: softmax over the top-k
     router logits, weighted sum of the expert SwiGLUs
     (:func:`_moe_dispatch_local` over every expert). The JAX function's
-    mesh branches (replicated and all-to-all expert parallelism) wait
-    for a mesh (``ROADMAP.md`` A12); without one both ``moe_dispatch``
-    values are this local dispatch, as in JAX."""
+    mesh branches (replicated and all-to-all expert parallelism) are not
+    ported (``ROADMAP.md`` A12d): a mesh of more than one rank raises.
+    Without one both ``moe_dispatch`` values are this local dispatch, as
+    in JAX."""
+    if mesh is not None and mesh.tp > 1:
+        raise ValueError(
+            "MoE under a mesh (expert parallelism, replicated or all-to-all "
+            "dispatch) is not ported yet (ROADMAP.md A12d)"
+        )
     shape = x.shape
     out = _moe_dispatch_local(
         x.reshape(-1, shape[-1]), lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"], cfg,
@@ -358,12 +455,15 @@ def _moe_mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(shape)
 
 
-def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
+def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """f32 logits. Tied embeddings contract ``embed [V, h]`` in its stored
-    layout (a transposed view, never a copy)."""
+    layout (a transposed view, never a copy), replicated on every rank;
+    an untied ``lm_head`` is vocab-split under a mesh and its columns are
+    gathered, so every rank holds the full row and samples the same
+    token."""
     if cfg.tie_embeddings:
         return _dot(x, params["embed"].t())
-    return _dot(x, params["lm_head"])
+    return comm.all_gather(_dot(x, params["lm_head"]), mesh)
 
 
 def write_kv(cache_l, write_pages, write_offs, kvn: torch.Tensor):
@@ -406,12 +506,16 @@ def dense_layer(
     rope_cs: tuple[torch.Tensor, torch.Tensor],
     attention=ragged_paged_attention,
     kernel: str = "tiled",
+    mesh=None,
 ) -> torch.Tensor:
     """One transformer block over a ragged token batch: attn-norm → fused
     qkv → rope → page scatter → ragged paged attention → wo → mlp.
     ``attention`` has the operands of :func:`ragged_paged_attention`;
     ``kernel`` is the form it is told the batch has ("tiled": chunks of
-    many rows, "decode": one query row per sequence)."""
+    many rows, "decode": one query row per sequence). Under a ``mesh``,
+    ``cfg`` is the rank's (``rank_config``) and ``lp`` its shard: the
+    attention runs on the rank's heads with no collective, and the
+    row-parallel ``wo`` and ``w_down`` products are summed over the ranks."""
     T = x.shape[0]
     y = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     qkv = _dot(y, lp["wqkv"])
@@ -425,12 +529,14 @@ def dense_layer(
         kv_pages, kv_scales = cache_l["kv"], cache_l["scale"]
     else:
         kv_pages, kv_scales = cache_l, None
+    if mesh is not None and attention is ragged_paged_attention:
+        attention = functools.partial(sharded_ragged_attention, mesh)
     attn = attention(
         q, kv_pages, kv_lens, block_tables, cu_q_lens, num_seqs,
         sm_scale=cfg.head_dim ** -0.5, kv_scales=kv_scales, kernel=kernel,
     )
-    x = x + _dot(attn.reshape(T, cfg.q_size), lp["wo"]).to(x.dtype)
-    return x + _mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg)
+    x = x + comm.all_reduce(_dot(attn.reshape(T, cfg.q_size), lp["wo"]), mesh).to(x.dtype)
+    return x + _mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg, mesh)
 
 
 # -- the unified forward ----------------------------------------------------
@@ -451,18 +557,22 @@ def forward_hidden(
     kernel: str = "tiled",
     mm_embeds: torch.Tensor | None = None,  # [T, h] f32 multimodal rows
     mm_mask: torch.Tensor | None = None,    # [T] bool: rows they replace
+    mesh=None,
 ) -> torch.Tensor:
     """The transformer stack up to the final norm: hidden states [T, h].
     The cache is written in place; every layer's attention is told
     ``kernel``. ``mm_embeds``/``mm_mask`` override the token-embedding
     rows at multimodal placeholder positions with encoder output
-    (``llm/multimodal.py``), as the JAX function's ``want_mm`` variant."""
+    (``llm/multimodal.py``), as the JAX function's ``want_mm`` variant.
+    Under a ``mesh`` (``parallel.sharding.Mesh``) ``params`` and ``cache``
+    are this rank's shard and the hidden states are replicated."""
     x = params["embed"][tokens.long()]
     if mm_embeds is not None:
         x = torch.where(mm_mask[:, None], mm_embeds.to(x.dtype), x)
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     wp, wo = write_pages.long(), write_offs.long()
     layers = params["layers"]
+    lcfg = rank_config(cfg, mesh.tp) if mesh is not None else cfg
     for l in range(cfg.num_layers):
         lp = {
             name: {k: t[l] for k, t in w.items()} if isinstance(w, dict) else w[l]
@@ -470,7 +580,7 @@ def forward_hidden(
         }
         x = dense_layer(
             x, lp, cache[l], wp, wo, kv_lens, block_tables, cu_q_lens,
-            num_seqs, cfg, rope_cs, attention, kernel,
+            num_seqs, lcfg, rope_cs, attention, kernel, mesh,
         )
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
@@ -492,6 +602,7 @@ def forward_tokens(
     kernel: str = "tiled",
     mm_embeds: torch.Tensor | None = None,
     mm_mask: torch.Tensor | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """One step over every scheduled token: last-token logits [S, V] f32.
     Prefill chunks, decode tokens and mixed batches are all this call.
@@ -503,9 +614,9 @@ def forward_tokens(
     x = forward_hidden(
         params, cache, tokens, positions, write_pages, write_offs,
         kv_lens, block_tables, cu_q_lens, num_seqs, cfg, attention, kernel,
-        mm_embeds, mm_mask,
+        mm_embeds, mm_mask, mesh,
     )
-    return _logits(x[last_rows.long()], params, cfg)
+    return _logits(x[last_rows.long()], params, cfg, mesh)
 
 
 def embed_forward(
@@ -518,6 +629,7 @@ def embed_forward(
     cfg: ModelConfig,
     engine: EngineConfig,
     attention=ragged_paged_attention,
+    mesh=None,
 ) -> torch.Tensor:
     """Causal LLM-as-embedder: one forward over the prompt and masked mean
     pooling of the final-norm hidden states; returns the ``[h]`` f32
@@ -531,7 +643,7 @@ def embed_forward(
         params, scratch, tokens, positions, write_pages, positions % engine.block_size,
         torch.full((1,), T, dtype=torch.int32, device=dev), block_tables,
         torch.tensor([0, T], dtype=torch.int32, device=dev),
-        torch.ones(1, dtype=torch.int32, device=dev), cfg, attention,
+        torch.ones(1, dtype=torch.int32, device=dev), cfg, attention, mesh=mesh,
     )
     w = valid.float()[:, None]
     return (x.float() * w).sum(dim=0) / torch.clamp_min(w.sum(), 1.0)
@@ -547,6 +659,7 @@ def decode_tokens(
     cfg: ModelConfig,
     engine: EngineConfig,
     attention=ragged_paged_attention,
+    mesh=None,
 ) -> torch.Tensor:
     """Pure-decode step: B sequences of one token each, assembled on the
     device so a megastep advances positions without the host. Inactive
@@ -564,7 +677,7 @@ def decode_tokens(
     rows = torch.arange(B, device=dev)
     return forward_tokens(
         params, cache, tokens, positions, write_pages, write_offs,
-        kv_lens, block_tables, cu, num_seqs, rows, cfg, attention, "decode",
+        kv_lens, block_tables, cu, num_seqs, rows, cfg, attention, "decode", mesh=mesh,
     )
 
 
@@ -580,6 +693,7 @@ def verify_tokens(
     engine: EngineConfig,
     attention=ragged_paged_attention,
     kernel: str = "tiled",
+    mesh=None,
 ) -> torch.Tensor:
     """Verify-shaped step: every lane is a fixed-width ``R = spec_k + 1``
     ragged row (pending token + up to R - 1 drafted tokens), assembled on
@@ -614,5 +728,5 @@ def verify_tokens(
     rows = torch.arange(S * R, device=dev)
     return forward_tokens(
         params, cache, tokens.reshape(-1), pos.reshape(-1), write_pages, write_offs,
-        kv_lens, block_tables, cu, num_seqs, rows, cfg, attention, kernel,
+        kv_lens, block_tables, cu, num_seqs, rows, cfg, attention, kernel, mesh=mesh,
     )

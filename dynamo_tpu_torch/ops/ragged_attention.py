@@ -439,3 +439,22 @@ def ragged_paged_attention(
         q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
         sm_scale=sm_scale, kv_scales=kv_scales, kernel=kernel,
     )
+
+
+def sharded_ragged_attention(
+    mesh, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
+    sm_scale: float, kv_scales=None, kernel: str | None = None,
+) -> torch.Tensor:
+    """Ragged attention under tensor parallelism, the JAX function's
+    counterpart: each rank holds its query heads and the matching block
+    of the combined KV heads (int8 scale pages on the same axis), so it
+    runs :func:`ragged_paged_attention` on them with no collective; the
+    output holds the rank's heads. ``mesh`` is a
+    ``parallel.sharding.Mesh``."""
+    n_q, n_kv = q.shape[1], kv_pages.shape[2] // 2
+    if n_q % n_kv:
+        raise ValueError(f"rank {mesh.rank}: {n_q} query heads over {n_kv} KV heads")
+    return ragged_paged_attention(
+        q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+        sm_scale=sm_scale, kv_scales=kv_scales, kernel=kernel,
+    )

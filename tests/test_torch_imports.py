@@ -13,6 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "dynamo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "tests" / "test_torch_kernels_cuda.py",
+    ROOT / "tests" / "torch_tp_ranks.py",  # the tensor-parallel tests' rank processes
 ]
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu")
 
@@ -77,6 +78,9 @@ def test_cpu_engine_leaves_jax_unimported():
         "import dynamo_tpu_torch.llm.mocker, dynamo_tpu_torch.backends.mocker.main\n"
         "import dynamo_tpu_torch.fleet, dynamo_tpu_torch.run, dynamo_tpu_torch.check\n"
         "import dynamo_tpu_torch.grpc.kserve_service\n"
+        "import dynamo_tpu_torch.parallel.sharding, dynamo_tpu_torch.parallel.comm\n"
+        "import dynamo_tpu_torch.parallel.multihost, dynamo_tpu_torch.parallel.placement\n"
+        "import dynamo_tpu_torch.backends.torch.multihost\n"
         "import tempfile\n"
         "core, engine = build_engine('tiny', {'host_kv_blocks': 8, 'disk_kv_dir': "
         "tempfile.mkdtemp()}, device='cpu')\n"
@@ -96,7 +100,7 @@ def test_cpu_engine_leaves_jax_unimported():
         ({"disk_kv_dir": "kv"}, r"disk_kv_dir \(G3\) requires host_kv_blocks > 0 \(G2\)"),
         ({"kv_dtype": "int8", "host_kv_blocks": 16}, None),
         ({"host_kv_blocks": 16}, None),
-        ({"ring_prefill_threshold": 64}, "A12"),
+        ({"ring_prefill_threshold": 64}, "A12c"),
     ],
     ids=["overrides0-A10", "overrides1-A10", "overrides2-A10", "overrides3-A12"],
 )
@@ -160,15 +164,28 @@ def test_unknown_kv_dtype_and_quant_refused():
 
 
 def test_unported_models_and_meshes_refused():
-    from dynamo_tpu_torch.backends.torch.main import build_engine
-    from dynamo_tpu_torch.engine.config import tiny_engine, tiny_model
-    from dynamo_tpu_torch.engine.core import EngineCore
+    """MoE presets are served (A11) and tp meshes (A12, part 1); a dp = 2
+    mesh (A12b) and MoE under a tp mesh (A12d) are refused by name."""
+    from types import SimpleNamespace
 
-    # MoE presets are served (A11): tiny-moe builds.
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+    from dynamo_tpu_torch.engine.config import tiny_engine, tiny_model, tiny_moe
+    from dynamo_tpu_torch.engine.core import EngineCore
+    from dynamo_tpu_torch.parallel.sharding import make_mesh
+
     core, _ = build_engine("tiny-moe", device="cpu")
     assert core.cfg.is_moe and "w_router" in core.params["layers"]
-    with pytest.raises(ValueError, match="A12"):
-        EngineCore(tiny_model(), tiny_engine(), device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="A12b"):
+        EngineCore(tiny_model(), tiny_engine(), device="cpu",
+                   mesh=SimpleNamespace(dp=2, tp=1))
+    with pytest.raises(ValueError, match="A12b"):
+        make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="A12d"):
+        EngineCore(tiny_moe(), tiny_engine(), device="cpu",
+                   mesh=SimpleNamespace(dp=1, tp=2))
+    # A tp = 1 mesh is one device: the engine serves it as without a mesh.
+    mesh = make_mesh(tp=1, devices=["cpu"])
+    assert EngineCore(tiny_model(), tiny_engine(), device="cpu", mesh=mesh).mesh is mesh
 
 
 def test_cuda_entry_point_never_falls_back_to_cpu(monkeypatch):

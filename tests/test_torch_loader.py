@@ -276,12 +276,15 @@ def test_safetensors_reader_matches_package(checkpoints):
 
 
 def test_refusals(checkpoints, tmp_path, monkeypatch):
-    """tp > 1, a missing shard, an unknown dtype and an unknown
-    quantization raise; the default device is the card, which raises
-    without one."""
+    """A tp that does not divide the heads, a rank outside tp, a missing
+    shard, an unknown dtype and an unknown quantization raise; the
+    default device is the card, which raises without one. (tp > 1 layouts
+    load since A12 part 1: ``tests/test_torch_multihost.py``.)"""
     path, _ = checkpoints["llama-sharded"]
-    with pytest.raises(ValueError, match="A12"):
-        tloader.load_hf_llama(path, tp=2, device="cpu")
+    with pytest.raises(ValueError, match="tp=3 must divide num_kv_heads=2"):
+        tloader.load_hf_llama(path, tp=3, device="cpu")
+    with pytest.raises(ValueError, match="rank 2 of tp=2"):
+        tloader.load_hf_llama(path, tp=2, rank=2, device="cpu")
     with pytest.raises(ValueError, match="unknown quantization"):
         tloader.load_hf_llama(path, quant="int4", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

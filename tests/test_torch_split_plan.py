@@ -116,8 +116,9 @@ def test_engine_decode_batch_takes_the_decode_kernel(monkeypatch):
     seen = {}
 
     def capture(params, cache, tokens, positions, write_pages, write_offs, kv_lens,
-                block_tables, cu, num_seqs, rows, cfg, attention, kernel):
+                block_tables, cu, num_seqs, rows, cfg, attention, kernel, mesh=None):
         seen["T"], seen["S"], seen["kernel"] = tokens.shape[0], block_tables.shape[0], kernel
+        assert mesh is None  # one device: no tensor parallelism
         return torch.zeros(1)
 
     monkeypatch.setattr(model, "forward_tokens", capture)

@@ -505,6 +505,10 @@ async def test_graceful_drain_publishes_cleared():
 # -- (h) what the port does not serve is refused by name ----------------------
 
 SERVED_ITEMS = {"A7", "A10", "A11"}  # ROADMAP items landed since their flags were refused
+# The multi-rank flags that A12 part 1 serves; the rest of A12 (A12b-A12d:
+# --pp, ring prefill) is still refused, by messages that name it.
+A12_SERVED = {("--tp", "2"), ("--nnodes", "2", "--dist-init-addr", "127.0.0.1:1"),
+              ("--local-cpu-devices", "4")}
 
 
 @pytest.mark.parametrize(
@@ -524,14 +528,31 @@ SERVED_ITEMS = {"A7", "A10", "A11"}  # ROADMAP items landed since their flags we
     ],
     ids=lambda v: v if isinstance(v, str) else " ".join(v),
 )
-def test_unported_cli_flags_refused(argv, item):
+def test_unported_cli_flags_refused(argv, item, monkeypatch):
     """Each flag value the port does not serve raises, naming its ROADMAP
     item. A value whose item has landed is served instead: the parser and
     the refusals take the roles (A10), and their engine builds; they take
     the MoE presets and ``--moe-dispatch`` (A11), which a dense preset
     refuses as the JAX worker does; they take a checkpoint directory and a
     GGUF tokenizer (A7), and a path that does not exist fails as a missing
-    file, the checkpoint's before the worker joins the fleet."""
+    file, the checkpoint's before the worker joins the fleet. They take
+    ``--tp`` and the multi-host flags (A12 part 1): ``--tp 2`` on a node
+    with no card and no device list raises before any rank starts, and
+    ``--nnodes`` or ``--local-cpu-devices`` without the ``--tp`` whose
+    ranks they place raise."""
+    if item == "A12" and tuple(argv) in A12_SERVED:
+        import torch
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        args = worker_main._parser().parse_args(argv)
+        if args.tp > 1:
+            worker_main._refuse_unported(args)
+            with pytest.raises(ValueError, match="list the ranks' devices explicitly"):
+                worker_main.rank_layout(args)
+        else:
+            with pytest.raises(ValueError, match="--tp"):
+                worker_main.main(argv)
+        return
     if item not in SERVED_ITEMS:
         with pytest.raises(ValueError, match=item):
             worker_main.main(argv)
