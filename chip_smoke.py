@@ -616,23 +616,24 @@ QWEN_PREFILL_LENS = [1024, 600, 300, 124]  # one 2048-token wave
 
 
 def check_attention_geometry(ra, planted, cases, n_q, n_kv, tag, seed) -> tuple[list[dict], dict]:
-    """Both K1 kernels, bf16 pages, at another head layout (``n_q`` query
-    heads over ``n_kv`` KV heads) on each case ``(name, q_lens, kv_lens,
-    T, reps)`` of S = 8 slots of 256 pages (the decode form T = 8 against
-    the plain version in one call, larger T in row chunks), then every
-    planted fault of the bf16 kernels on all the batches, which the
+    """Both K1 kernels, bf16 pages, at a head layout (``n_q`` query heads
+    over ``n_kv`` KV heads) on each case ``(name, q_lens, kv_lens, T, reps[,
+    S])`` of S slots (8 by default) of 256 pages (a decode form of T <= 8
+    against the plain version in one call, larger T in row chunks), then
+    every planted fault of the bf16 kernels on all the batches, which the
     comparison must catch."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     scale = HEAD_DIM ** -0.5
     results, batches = [], []
-    for name, q_lens, kv_lens, T, reps in cases:
-        args, kw = attention_batch(q_lens, kv_lens, 8, 256, T, gen, n_q=n_q, n_kv=n_kv)
-        if T == 8:
+    for name, q_lens, kv_lens, T, reps, *slots in cases:
+        args, kw = attention_batch(q_lens, kv_lens, *(slots or [8]), 256, T, gen, n_q=n_q,
+                                   n_kv=n_kv)
+        if T <= 8:
             plain = lambda: ra.ragged_paged_attention_ref(*args, sm_scale=scale, **kw)  # noqa: E731
         else:
             plain = lambda: plain_by_row_chunks(ra, args, kw, q_lens)  # noqa: E731
         want = plain()
-        plain_ms = cold_ms(plain, 3 if T == 8 else 1)
+        plain_ms = cold_ms(plain, 3 if T <= 8 else 1)
         results += hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, False, reps, plain_ms,
                            tag)
         batches.append((name, args, kw, want, sum(q_lens)))
@@ -666,6 +667,43 @@ def check_shard_attention(ra, planted, decode_lens, prompt_lens) -> tuple[list[d
         ("tp2_decode_serving8", [1] * 8, decode_lens, 8, 20),
         ("tp2_prefill_wave8192", prompt_lens, prompt_lens, 8192, 5),
     ), TP_N_Q, TP_N_KV, "attention tp2 shard", seed=3)
+
+
+# K1 under pipeline and data parallelism at 2 (the pipeline phase): full
+# llama3-8b heads, on a stage's 16 layers or a replica's 32. The serving
+# decode width 8 splits into 2 groups (pp microbatches) or 2 lane blocks
+# (dp ranks) of 4, so both give K1 T = S = 4; a pp stage runs the 8192
+# prefill wave as 2 microbatches of 4096 rows (parallel.pipeline's plan),
+# whose sequences straddle the cut.
+PIPE = 2
+
+
+def pipeline_microbatch(prompt_lens) -> tuple[list[int], list[int]]:
+    """(q_lens, kv_lens) of the serving prefill wave's second microbatch
+    under ``PIPE`` microbatches: each sequence's rows in it and its K/V
+    through it (``plan_microbatches``; a sequence with no rows keeps the
+    plan's 1)."""
+    from dynamo_tpu_torch.parallel.pipeline import plan_microbatches
+
+    T, n = 8192, len(prompt_lens)
+    cu = np.concatenate([[0], np.cumsum(prompt_lens)]).astype(np.int32)
+    zeros = np.zeros(T, np.int32)
+    plan = plan_microbatches(zeros, zeros, zeros, zeros, np.asarray(prompt_lens, np.int32), cu,
+                             n, cu[1:] - 1, PIPE, 0)
+    q_lens = np.diff(plan.cu_q_lens[1]).tolist()
+    return q_lens, plan.kv_lens[1].tolist()
+
+
+def check_pipeline_attention(ra, planted, decode_lens, prompt_lens) -> tuple[list[dict], dict]:
+    """K1 at the shapes pp = 2 and dp = 2 give it at llama3-8b's heads: the
+    decode form of a microbatch group or a lane block (T = S = 4) and a
+    stage's microbatch of the 8192 wave (T 4096, S = 8), with the planted
+    faults."""
+    q_lens, kv_lens = pipeline_microbatch(prompt_lens)
+    return check_attention_geometry(ra, planted, (
+        ("pp2_dp2_decode4", [1] * 4, decode_lens[:4], 4, 20, 4),
+        ("pp2_microbatch4096", q_lens, kv_lens, 4096, 5),
+    ), N_Q, N_KV, "attention pp2/dp2", seed=4)
 
 
 # -- K2: paged decode attention ----------------------------------------------
@@ -3713,16 +3751,51 @@ def prompt_logits(params, cfg, prompt, device, mesh=None) -> torch.Tensor:
     return model.forward_tokens(params, cache, *ops, cfg, mesh=mesh)[0].float().cpu()
 
 
+def decode_logits(params, cfg, prompt, device, mesh=None) -> torch.Tensor:
+    """f32 logits ``[V]`` of one decode step after ``prompt`` (its first
+    token again, at the prompt's end) in a batch of two lanes, the
+    second idle: the prompt's forward (:func:`prompt_logits`' operands),
+    then the step. Under a dp ``mesh`` the prompt runs whole on each rank
+    and the step on the rank's lane block, the K/V rows gathered
+    (``model.decode_tokens`` under ``mesh.lane_view()``); a rank whose
+    block does not hold the prompt's lane returns None."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.parallel.sharding import dp_lane_block
+
+    eng = EngineConfig(num_kv_blocks=8, max_model_len=256)
+    n, bs = len(prompt), eng.block_size
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)  # noqa: E731
+    pos = list(range(n))
+    table = list(range(8)) + [eng.garbage_block] * (eng.max_blocks_per_seq - 8)
+    ops = (i32(prompt), i32(pos), i32([p // bs for p in pos]), i32([p % bs for p in pos]),
+           i32([n]), i32([table]), i32([0, n]), i32([1]), i32([n - 1]))
+    cache = model.init_cache(cfg, eng, device)
+    model.forward_tokens(params, cache, *ops, cfg)
+    lanes = (i32([prompt[0], 0]), i32([table, [eng.garbage_block] * len(table)]),
+             i32([n, 0]), torch.tensor([True, False], device=device))
+    lo, hi = dp_lane_block(mesh, 2) if mesh is not None else (0, 2)
+    if lo > 0:
+        model.decode_tokens(params, cache, *(a[lo:hi] for a in lanes), cfg, eng,
+                            mesh=mesh.lane_view())
+        return None
+    out = model.decode_tokens(params, cache, *(a[lo:hi] for a in lanes), cfg, eng,
+                              mesh=mesh.lane_view() if mesh is not None else None)
+    return out[0].float().cpu()
+
+
 def tp_reference(core) -> dict:
-    """The tp = 1 side of the tp phase, on the main path's bf16 engine
-    (whose weights the checkpoint holds): the serving prompts' greedy
-    streams with top-2 log-probabilities from a cleared prefix cache, and
-    one prompt's first-token logits."""
+    """The tp = 1 side of the tp and pipeline phases, on the main path's
+    bf16 engine (whose weights the checkpoint holds): the serving prompts'
+    greedy streams with top-2 log-probabilities from a cleared prefix
+    cache, one prompt's first-token logits and the logits of one decode
+    step after it."""
     core.clear_kv_cache()
     streams = run_wires(core, tp_wires(core.cfg.vocab_size))
     core.clear_kv_cache()
-    logits = prompt_logits(core.params, core.cfg, tp_logits_prompt(core.cfg.vocab_size), "cuda")
-    return {"streams": streams, "logits": logits}
+    prompt = tp_logits_prompt(core.cfg.vocab_size)
+    return {"streams": streams, "logits": prompt_logits(core.params, core.cfg, prompt, "cuda"),
+            "decode_logits": decode_logits(core.params, core.cfg, prompt, "cuda")}
 
 
 def tp_logits_rank(rank: int, addr: str, ckpt: str, out: str) -> int:
@@ -3759,7 +3832,7 @@ def tp_logits_rank(rank: int, addr: str, ckpt: str, out: str) -> int:
 
 
 async def tp_traffic(address: str, worker, wires: list[dict]) -> dict:
-    """Wait until the tp worker serves, send ``wires`` together through
+    """Wait until the worker (of tp, pp or dp ranks) serves, send ``wires`` together through
     the port's data-plane client and collect each stream (tokens, logprob
     entries, finish, times)."""
     from dynamo_tpu_torch.runtime import DistributedRuntime
@@ -3770,9 +3843,9 @@ async def tp_traffic(address: str, worker, wires: list[dict]) -> dict:
         t0 = time.time()
         while not client.instance_ids():
             if worker.poll() is not None:
-                raise RuntimeError(f"the tp worker exited with {worker.returncode}")
+                raise RuntimeError(f"the worker exited with {worker.returncode}")
             if time.time() - t0 > 600:
-                raise TimeoutError("the tp worker never served")
+                raise TimeoutError("the worker never served")
             await asyncio.sleep(0.5)
 
         async def one(req):
@@ -3799,7 +3872,7 @@ def rank_build_s(text: str) -> list[dict]:
     found = [{"rank": int(m.group(4)), "build_s": float(m.group(1)), "weights": m.group(2),
               "warm_up_s": float(m.group(3))}
              for m in re.finditer(r"engine built in ([\d.]+) s \(weights ([^)]*)\), warmed up "
-                                  r"in ([\d.]+) s \(rank (\d+) of tp=\d+\)", text)]
+                                  r"in ([\d.]+) s \(rank (\d+) of [a-z]+=\d+\)", text)]
     return sorted(found, key=lambda b: b["rank"])
 
 
@@ -3933,6 +4006,234 @@ def serve_tp(card: str, ckpt: str, ref: dict, preset: str = "llama3-8b") -> dict
             "launches": [{"ragged_paged_attention_decode_launch": r["decode_launches"],
                           "ragged_paged_attention_tiled_launch": r["tiled_launches"]}
                          for r in per_rank]}
+
+
+# -- pipeline and data parallelism ---------------------------------------------
+
+PIPE_KV_BLOCKS = 512  # each rank's KV pool: 16384 tokens (the 8 prompts hold ~8100)
+PIPE_CARD_SHARE = "cuda:0,cuda:0"  # both ranks of each worker on the one card
+
+
+def pipeline_logits_rank(rank: int, addr: str, ckpt: str, out: str) -> int:
+    """One rank of the pipeline phase's logits checks (``python
+    chip_smoke.py --pipeline-logits-rank RANK ADDR CHECKPOINT OUT``): join a
+    world of two ranks on the shared card; as stage ``RANK`` of pp = 2, load
+    the stage's 16 layers of the checkpoint (``load_hf_llama(...,
+    layer_span=...)``) and compute one prompt's first-token logits through
+    the GPipe program (2 microbatches); then, that stage freed, as dp rank
+    ``RANK`` of dp = 2, load the whole model and compute the logits of one
+    decode step after the prompt with the lanes split over the ranks
+    (:func:`decode_logits`). Rank 0 saves both (``OUT``.pp.npy,
+    ``OUT``.dp.npy)."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.loader import config_from_hf, load_hf_llama
+    from dynamo_tpu_torch.parallel import comm, pipeline
+    from dynamo_tpu_torch.parallel.multihost import init_multihost, shutdown_multihost
+    from dynamo_tpu_torch.parallel.sharding import make_mesh
+
+    devices = PIPE_CARD_SHARE.split(",")
+    t0 = time.time()
+    init_multihost(addr, PIPE, rank, comm.choose_backend(devices))
+    try:
+        pp_mesh = pipeline.make_pp_mesh(PIPE, devices=devices, rank=rank)
+        t1 = time.time()
+        span = pipeline.stage_span(config_from_hf(ckpt), PIPE, rank)
+        cfg, params = load_hf_llama(ckpt, layer_span=span, device=pp_mesh.device)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        prompt = tp_logits_prompt(cfg.vocab_size)
+        eng = EngineConfig(num_kv_blocks=8, max_model_len=256)
+        n, bs = len(prompt), eng.block_size
+        table = np.full((1, eng.max_blocks_per_seq), eng.garbage_block, np.int32)
+        table[0, :8] = np.arange(8)
+        pos = np.arange(n, dtype=np.int32)
+        plan = pipeline.plan_microbatches(
+            np.asarray(prompt, np.int32), pos, pos // bs, pos % bs, np.array([n], np.int32),
+            np.array([0, n], np.int32), 1, np.array([n - 1], np.int32), PIPE, eng.garbage_block)
+        dev = lambda a: torch.from_numpy(np.asarray(a)).to("cuda")  # noqa: E731
+        cache = model.init_cache(pipeline.stage_config(cfg, PIPE), eng, "cuda")
+        comm.reset_calls()
+        pp_logits = pipeline.pp_forward_tokens(
+            params, cache, dev(plan.tokens), dev(plan.positions), dev(plan.write_pages),
+            dev(plan.write_offs), dev(plan.kv_lens), dev(table), dev(plan.cu_q_lens),
+            dev(np.array([1], np.int32)), dev(plan.last_local), dev(plan.last_mask), cfg,
+            pp_mesh)[0].float().cpu()
+        pp_calls = dict(comm.calls)
+        t3 = time.time()
+        print(f"pp logits stage {rank}: process group and mesh in {t1 - t0:.1f} s, layers "
+              f"{span[0]}:{span[1]} loaded in {t2 - t1:.2f} s, forward {t3 - t2:.2f} s, "
+              f"collectives {pp_calls}, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"GB", flush=True)
+        del params, cache
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh(dp=PIPE, tp=1, devices=devices, rank=rank)
+        cfg, params = load_hf_llama(ckpt, device=mesh.device)
+        torch.cuda.synchronize()
+        t4 = time.time()
+        comm.reset_calls()
+        dp_logits = decode_logits(params, cfg, prompt, "cuda", mesh)
+        print(f"dp logits rank {rank}: replica loaded in {t4 - t3:.2f} s, prompt and decode step "
+              f"{time.time() - t4:.2f} s, collectives {dict(comm.calls)}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        if rank == 0:
+            np.save(out + ".pp.npy", pp_logits.numpy())
+            np.save(out + ".dp.npy", dp_logits.numpy())
+    finally:
+        shutdown_multihost()
+    return 0
+
+
+def logits_agreement(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """``got`` against ``want`` logits: finite, same shape, cosine at least
+    ``TP_LOGITS_MIN_COSINE``; printed and returned."""
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    finite = bool(torch.isfinite(got).all())
+    print(f"{name}: shape {tuple(got.shape)} finite={finite} cosine {cos:.6f} (limit "
+          f"{TP_LOGITS_MIN_COSINE}), max_abs_err {err:.4e}, relative L2 {rel:.4e}, |logit| up "
+          f"to {want.abs().max().item():.3f}; argmax {int(got.argmax())} against "
+          f"{int(want.argmax())}", flush=True)
+    if not finite or got.shape != want.shape or cos < TP_LOGITS_MIN_COSINE:
+        raise AssertionError(f"{name} disagree")
+    return {"cosine": cos, "max_abs_err": err, "rel_l2": rel}
+
+
+def pipeline_worker(card: str, ckpt: str, ref: dict, axis: str,
+                    preset: str = "llama3-8b") -> dict:
+    """One worker of the pipeline phase: ``python -m
+    dynamo_tpu_torch.backends.torch --{axis} 2 --tp-devices cuda:0,cuda:0
+    --model-path CKPT`` (``axis`` "pp": two stages of 16 layers; "dp": two
+    replicas of all 32) serves the 8 serving prompts (greedy, top-2)
+    through the data plane, held to the tp = 1 engine's streams by the
+    near-tie rule. Each rank's K1 launches must be its layers x its
+    forwards, warm-up included (a pp stage counts one forward per
+    microbatch it passes), with no graph captured and every dispatch eager
+    (gloo through host memory); a stage must hop once per forward (pp =
+    2: stage 0 sends, stage 1 receives), a dp rank gather K/V rows."""
+    from dynamo_tpu_torch.engine.loader import config_from_hf
+
+    cfg = config_from_hf(ckpt)
+    layers = cfg.num_layers // (PIPE if axis == "pp" else 1)
+    h = start_worker(preset, "cuda", [f"--{axis}", str(PIPE), "--tp-devices", PIPE_CARD_SHARE,
+                                      "--num-kv-blocks", str(PIPE_KV_BLOCKS), "--obs-publish",
+                                      "off", "--tokenizer", "byte"],
+                     env={"DYN_SYSTEM_ENABLED": "0"}, model_path=ckpt)
+    try:
+        got = asyncio.run(tp_traffic(f"127.0.0.1:{h['port']}", h["worker"],
+                                     tp_wires(cfg.vocab_size)))
+        stop_process(h["worker"])
+        if h["worker"].returncode != 0:
+            raise AssertionError(f"the {axis} worker exited with {h['worker'].returncode}")
+    except BaseException:
+        print(f"{axis} worker log tail:\n{(h['logs'] / 'worker.log').read_text()[-8000:]}",
+              file=sys.stderr)
+        raise
+    finally:
+        close_worker(h)
+    text = (h["logs"] / "worker.log").read_text()
+    for rid, st in got["streams"].items():
+        if len(st["tokens"]) != MAX_TOKENS or st["finish"] != "length":
+            raise AssertionError(f"{axis} {rid}: {len(st['tokens'])} tokens, finish "
+                                 f"{st['finish']!r}")
+    held = near_tie_streams(f"the {axis} = 2 worker against the tp = 1 engine", ref["streams"],
+                            got["streams"])
+    per_rank = []
+    for rank, st in enumerate((rank_stats(text, r"torch worker \d+"),
+                               rank_stats(text, "torch follower rank 1"))):
+        forwards = st["forwards"] + st["warm_up_forwards"]
+        k = st["kernel_launches"]
+        decode, tiled = (k["ragged_paged_attention_decode_launch"],
+                         k["ragged_paged_attention_tiled_launch"])
+        calls = st["collectives"]
+        comm_ok = (st["p2p_calls"] == forwards and st["pp_stages"] == PIPE if axis == "pp"
+                   else calls["dp_gather"] > 0 and st["dp"] == PIPE)
+        ok = (decode + tiled == layers * forwards and min(decode, tiled) > 0
+              and st["attention_launches_int8"] == 0 and st["rank"] == rank
+              and st["comm_backend"] == "gloo-host" and st["graph_captures"] == 0
+              and st["eager_dispatches"] == st["dispatches"] and comm_ok)
+        per_rank.append({
+            "rank": rank, "forwards": st["forwards"], "warm_up_forwards": st["warm_up_forwards"],
+            "decode_launches": decode, "tiled_launches": tiled, "collectives": calls,
+            "collectives_per_forward": st["collective_calls"] / forwards,
+            "peak_memory_gb": st.get("peak_memory_bytes", 0) / 1e9,
+            "decode_ms_per_iteration": 1e3 * st["decode_loop_s"] / max(1, st["decode_iterations"]),
+            "pp_pipe_occupancy": st["pp_pipe_occupancy"],
+            "pp_fused_dispatches": st["pp_fused_dispatches"],
+        })
+        print(f"{axis} rank {rank}: K1 launches decode {decode} + tiled {tiled} = {layers} x "
+              f"({st['forwards']} forwards + {st['warm_up_forwards']} at warm-up): "
+              f"{decode + tiled == layers * forwards}; collectives {calls} "
+              f"({per_rank[-1]['collectives_per_forward']:.2f} per forward; p2p "
+              f"{st['p2p_calls']}); backend {st['comm_backend']}, graphs captured "
+              f"{st['graph_captures']}, eager dispatches {st['eager_dispatches']} of "
+              f"{st['dispatches']}; pp_pipe_occupancy {st['pp_pipe_occupancy']:.4f}; peak memory "
+              f"{per_rank[-1]['peak_memory_gb']:.2f} GB", flush=True)
+        if not ok:
+            raise AssertionError(f"{axis} rank {rank}'s counters: {st}")
+    builds = rank_build_s(text)
+    if [b["rank"] for b in builds] != list(range(PIPE)):
+        raise AssertionError(f"the {axis} ranks' build lines: {builds}")
+    served = served_after_s(h)
+    print(f"{axis} worker on {card}: serving after {served:.1f} s; ranks' engines "
+          + "; ".join(f"rank {b['rank']} built in {b['build_s']:.2f} s (weights {b['weights']}), "
+                      f"warmed up in {b['warm_up_s']:.2f} s" for b in builds)
+          + f"; 8 requests in {got['wall_s']:.1f} s; decode "
+          f"{per_rank[0]['decode_ms_per_iteration']:.2f} ms per iteration (eager, two ranks "
+          f"time-sharing one card, hops and gathers through host memory: a proof of numerics, "
+          f"not a speed figure)", flush=True)
+    return {"served_after_s": served, "rank_builds": builds, "ranks": per_rank,
+            "near_tie": held, "wall_s": got["wall_s"],
+            "launches": [{"ragged_paged_attention_decode_launch": r["decode_launches"],
+                          "ragged_paged_attention_tiled_launch": r["tiled_launches"]}
+                         for r in per_rank]}
+
+
+def serve_pipeline(card: str, ckpt: str, ref: dict) -> dict:
+    """The pipeline phase: a ``--pp 2`` worker, then a ``--dp 2`` worker
+    (:func:`pipeline_worker`), each on the tp phase's llama3-8b checkpoint
+    at 32 layers with both ranks on the one card. Beside the pp worker two
+    rank processes of this script compute one prompt's first-token logits
+    through the GPipe program and then one decode step's logits through
+    the dp lanes (:func:`pipeline_logits_rank`), each held to the tp = 1
+    engine's (``ref``, :func:`tp_reference`)."""
+    t_start = time.time()
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_pipe_"))
+    out = str(logs / "logits")
+    addr = f"127.0.0.1:{free_port()}"
+    ranks = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--pipeline-logits-rank", str(r), addr,
+         ckpt, out], cwd=ROOT, stdout=open(logs / f"logits_rank{r}.log", "w"),
+        stderr=subprocess.STDOUT) for r in range(PIPE)]
+    try:
+        pp = pipeline_worker(card, ckpt, ref, "pp")
+        for r, proc in enumerate(ranks):
+            if proc.wait(600) != 0:
+                raise AssertionError(f"pipeline logits rank {r} exited with {proc.returncode}:\n"
+                                     + (logs / f"logits_rank{r}.log").read_text()[-4000:])
+        for r in range(PIPE):
+            print("\n".join(line for line in (logs / f"logits_rank{r}.log").read_text().splitlines()
+                            if " logits " in line), flush=True)
+        pp["logits"] = logits_agreement(
+            f"pp logits: pp = 2 stages against the tp = 1 engine, first token after "
+            f"{TP_LOGITS_PROMPT} prompt tokens", torch.from_numpy(np.load(out + ".pp.npy")),
+            ref["logits"])
+        dp_logits = torch.from_numpy(np.load(out + ".dp.npy"))
+        t_dp = time.time()
+        dp = pipeline_worker(card, ckpt, ref, "dp")
+        dp["logits"] = logits_agreement(
+            "dp logits: dp = 2 lanes against the tp = 1 engine, the decode step after "
+            f"{TP_LOGITS_PROMPT} prompt tokens", dp_logits, ref["decode_logits"])
+    finally:
+        for proc in ranks:
+            stop_process(proc, signal.SIGKILL, 10)
+    print(f"pipeline: the NCCL path (one card per stage or replica, hops and gathers captured "
+          f"in CUDA graphs) was not run: this machine has {torch.cuda.device_count()} card",
+          flush=True)
+    return {"pp": pp, "dp": dp, "pp_phase_s": t_dp - t_start, "dp_phase_s": time.time() - t_dp,
+            "phase_s": time.time() - t_start}
 
 
 # -- the frontend ----------------------------------------------------------------
@@ -5120,6 +5421,11 @@ def main() -> int:
         shapes += tp_shapes
         print(f"K1 at a tp = 2 rank's llama3-8b shard (16/4 heads), with the planted faults: "
               f"{time.time() - t0:.1f} s", flush=True)
+        t0 = time.time()
+        pipe_shapes, pipe_faults = check_pipeline_attention(ra, planted, decode_lens, prompt_lens)
+        shapes += pipe_shapes
+        print(f"K1 at the pp = 2 and dp = 2 shapes (T = S = 4, a 4096-row microbatch), with the "
+              f"planted faults: {time.time() - t0:.1f} s", flush=True)
         k2_shapes, k2_batches = check_paged_attention_kernel(pa)
         k2_faults = check_k2_planted_faults(pa, k2_batches, planted)
         del k2_batches
@@ -5181,6 +5487,9 @@ def main() -> int:
         tp = serve_tp(card, ck["dir"], reference[3])
         lap("tensor parallelism")
         print(f"tp summary: {json.dumps(tp)}", flush=True)
+        pipe = serve_pipeline(card, ck["dir"], reference[3])
+        lap("pipeline and data parallelism")
+        print(f"pipeline summary: {json.dumps(pipe)}", flush=True)
         worker_summary, direct, direct_stats = serve_worker(card, reference)
         lap("GGUF and worker")
         print(f"worker summary: {json.dumps(worker_summary)}", flush=True)
@@ -5246,6 +5555,11 @@ def main() -> int:
                     extra["tp_path_launches_by_rank"] = [r[name] for r in tp["launches"]]
                     extra["tp_shard_planted_faults_row_rel_err"] = {
                         f: tp_faults[f] for f in table[kernel]}
+                    # The pp and dp workers' two ranks each, warm-up included.
+                    extra["pp_path_launches_by_rank"] = [r[name] for r in pipe["pp"]["launches"]]
+                    extra["dp_path_launches_by_rank"] = [r[name] for r in pipe["dp"]["launches"]]
+                    extra["pipeline_planted_faults_row_rel_err"] = {
+                        f: pipe_faults[f] for f in table[kernel]}
                 # The runner's worker (--out torch --preset llama3-8b), warm-up included.
                 extra["runner_phase_launches"] = runner["torch"]["kernel_launches"][name]
                 k1.append(kernel_entry(
@@ -5276,4 +5590,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-logits-rank"]:
         sys.exit(tp_logits_rank(int(sys.argv[2]), *sys.argv[3:6]))
+    if sys.argv[1:2] == ["--pipeline-logits-rank"]:
+        sys.exit(pipeline_logits_rank(int(sys.argv[2]), *sys.argv[3:6]))
     sys.exit(main())

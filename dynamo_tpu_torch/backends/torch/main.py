@@ -37,14 +37,17 @@ raises a ``ValueError`` naming the ``ROADMAP.md`` item that brings it.
 ``--spec-decode ngram --spec-k 4 [--spec-device-draft]`` turns on n-gram
 speculative decoding, drafted on the host or on the card.
 
-``--tp N`` serves one model over N ranks, one process each: local rank 0
-of every node starts that node's other ranks, all join one process group
-(``--dist-init-addr``, ``--nnodes``, ``--node-rank`` across nodes), rank 0
-serves and the others replay its steps (``backends/torch/multihost.py``).
-A rank takes ``cuda:{local rank}``; ``--tp-devices`` lists the ranks'
-devices instead (``cuda:0,cuda:0`` shares one card, the collectives then
-going through host memory over gloo) and ``--local-cpu-devices`` or
-``--device cpu`` runs them on the CPU.
+``--tp N`` serves one model over N ranks, one process each, ``--dp N`` over
+N replicas that split each decode batch's lanes (with ``--tp``: dp x tp
+ranks), and ``--pp N`` over N pipeline stages (exclusive with the other
+two, and with ``--nnodes``): local rank 0 of every node starts that node's
+other ranks, all join one process group (``--dist-init-addr``,
+``--nnodes``, ``--node-rank`` across nodes), rank 0 serves and the others
+replay its steps (``backends/torch/multihost.py``). A rank takes
+``cuda:{local rank}``; ``--tp-devices`` lists the node's ranks' devices
+instead, whatever the axes (``cuda:0,cuda:0`` shares one card, the
+collectives then going through host memory over gloo) and
+``--local-cpu-devices`` or ``--device cpu`` runs them on the CPU.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import asyncio
 import dataclasses
 import json
 import logging
+import math
 import time
 import uuid
 from typing import Any, AsyncIterator
@@ -64,7 +68,13 @@ import torch
 
 from dynamo_tpu_torch import knobs, tracing
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig, ModelConfig, tiny_engine
-from dynamo_tpu_torch.engine.core import EngineCore, check_mesh, check_slice, resolve_device
+from dynamo_tpu_torch.engine.core import (
+    EngineCore,
+    check_mesh,
+    check_pp,
+    check_slice,
+    resolve_device,
+)
 from dynamo_tpu_torch.engine.engine import TorchEngine
 from dynamo_tpu_torch.engine.loader import config_from_hf, load_hf_llama
 from dynamo_tpu_torch.engine.model import init_params_quantized
@@ -87,6 +97,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 from dynamo_tpu_torch.obs.slo import PhaseScanner
 from dynamo_tpu_torch.obs.snapshot import SnapshotPublisher
 from dynamo_tpu_torch.ops import ragged_attention
+from dynamo_tpu_torch.parallel.pipeline import PPMesh, stage_span
 from dynamo_tpu_torch.runtime import Context, DistributedRuntime, chaos, wire
 from dynamo_tpu_torch.runtime.status_server import (
     bind_disagg_gauges,
@@ -132,6 +143,47 @@ def engine_configs(
     return model_cfg, EngineConfig(**overrides)
 
 
+def _pp_prefill_buckets(
+    prefill_buckets: tuple[int, ...], pp: int, block_size: int
+) -> tuple[int, ...]:
+    """Prefill buckets usable under ``--pp`` (the JAX worker's): every
+    bucket must split into pp microbatch groups (EngineCore checks). Keeps
+    the divisible subset; when none is left, one bucket divisible by both
+    pp and block_size, near the largest asked for."""
+    kept = tuple(b for b in prefill_buckets if b % pp == 0)
+    if kept:
+        return kept
+    step = math.lcm(pp, block_size)
+    return (step * max(1, prefill_buckets[-1] // step),)
+
+
+def _split_widths(engine_cfg: EngineConfig, n: int) -> EngineConfig:
+    """``engine_cfg`` with the decode widths that split into ``n`` lane
+    groups (dp lanes or pp microbatches), as the JAX worker trims them:
+    the divisible subset, else one width near the widest."""
+    buckets = tuple(b for b in engine_cfg.decode_buckets if b % n == 0)
+    if buckets == engine_cfg.decode_buckets:
+        return engine_cfg
+    return dataclasses.replace(
+        engine_cfg, decode_buckets=buckets or (n * max(1, engine_cfg.decode_buckets[-1] // n),))
+
+
+def check_pp_split(model_cfg: ModelConfig, pp: int) -> None:
+    """The JAX worker's CLI-pointed errors of a ``--pp`` that does not
+    divide the layers or the vocabulary (raised before any rank starts)."""
+    if model_cfg.num_layers % pp:
+        raise ValueError(
+            f"--pp {pp} must divide the model's num_layers={model_cfg.num_layers} "
+            "(layers stage evenly over the pp mesh); pick a pp that divides the "
+            "layer count"
+        )
+    if model_cfg.vocab_size % pp:
+        raise ValueError(
+            f"--pp {pp} must divide the model's vocab_size={model_cfg.vocab_size} "
+            "(the lm head splits over stages)"
+        )
+
+
 def build_engine(
     preset: str | None,
     engine_overrides: dict[str, Any] | None = None,
@@ -150,6 +202,9 @@ def build_engine(
     tp: int = 1,
     core_cls=None,
     core_kwargs: dict[str, Any] | None = None,
+    dp: int = 1,
+    pp: int = 1,
+    pp_mesh=None,
 ) -> tuple[EngineCore, TorchEngine]:
     """Construct (EngineCore, TorchEngine) for a model preset or a
     checkpoint.
@@ -172,43 +227,70 @@ def build_engine(
     shape is ``EngineConfig`` with the overrides.
 
     ``mesh`` (``parallel.sharding.Mesh``) builds this process's rank of a
-    tensor-parallel engine on the mesh's device for it: a checkpoint
-    streams only the rank's shard (``load_hf_llama(..., tp, rank)``),
-    random weights are drawn whole and kept sharded. ``tp > 1`` without a
-    mesh builds one over the process group (``parallel.sharding.make_mesh``).
+    tensor- and data-parallel engine on the mesh's device for it: a
+    checkpoint streams only the rank's tp shard (``load_hf_llama(..., tp,
+    rank)``), random weights are drawn whole and kept sharded; each dp rank
+    holds a replica. ``pp_mesh`` (``parallel.pipeline.PPMesh``) builds this
+    process's stage of a pipeline instead: a checkpoint streams, and
+    random weights keep, only the stage's layers. ``tp``, ``dp`` or
+    ``pp`` above 1 without a mesh builds one over the process group
+    (``make_mesh``, ``make_pp_mesh``). As the JAX worker does, pp excludes
+    tp and dp, a pp that does not divide the layers or the vocabulary
+    raises, and the prefill buckets and decode widths are trimmed to those
+    that split into pp microbatches (the decode widths into dp lanes).
     ``core_cls`` substitutes the engine-core class (the lockstep leader,
     ``backends/torch/multihost.LeaderCore``) and ``core_kwargs`` adds to
     its arguments.
     """
-    if mesh is None and tp > 1:
+    if pp_mesh is not None:
+        if pp not in (1, pp_mesh.pp):
+            raise ValueError(f"pp={pp} but the pp mesh has pp={pp_mesh.pp}")
+        pp = pp_mesh.pp
+    if mesh is not None:
+        if (tp, dp) != (1, 1) and (tp, dp) != (mesh.tp, mesh.dp):
+            raise ValueError(f"dp x tp = {dp}x{tp} but the mesh is {mesh.dp}x{mesh.tp}")
+        tp, dp = mesh.tp, mesh.dp
+    if pp > 1 and (tp * dp > 1 or mesh is not None):
+        raise ValueError("--pp is mutually exclusive with --tp/--dp/--sp for now")
+    model_cfg, engine_cfg = engine_configs(preset, engine_overrides, moe_dispatch, model_path)
+    if pp > 1:
+        check_pp_split(model_cfg, pp)
+        pbuckets = _pp_prefill_buckets(engine_cfg.prefill_buckets, pp, engine_cfg.block_size)
+        engine_cfg = _split_widths(dataclasses.replace(engine_cfg, prefill_buckets=pbuckets), pp)
+    engine_cfg = _split_widths(engine_cfg, dp)
+    if mesh is None and tp * dp > 1:
         from dynamo_tpu_torch.parallel.sharding import make_mesh
 
-        mesh = make_mesh(tp=tp)
-    if mesh is not None:
-        if tp not in (1, mesh.tp):
-            raise ValueError(f"tp={tp} but the mesh has tp={mesh.tp}")
-        tp = mesh.tp
-        if tp > 1:
-            device = mesh.device
+        mesh = make_mesh(dp=dp, tp=tp)
+    if pp_mesh is None and pp > 1:
+        from dynamo_tpu_torch.parallel.pipeline import make_pp_mesh
+
+        pp_mesh = make_pp_mesh(pp)
+    ranked = mesh if tp * dp > 1 else pp_mesh if pp > 1 else None
+    if ranked is not None:
+        device = ranked.device
     dev = resolve_device(device)
-    model_cfg, engine_cfg = engine_configs(preset, engine_overrides, moe_dispatch, model_path)
     check_slice(model_cfg, engine_cfg, dev)  # before any weight is drawn or loaded
     if mesh is not None:
         check_mesh(model_cfg, mesh)
-    rank = mesh.rank if tp > 1 else None
+    if pp > 1:
+        check_pp(model_cfg, engine_cfg, pp)
+    rank = mesh.tp_rank if tp > 1 else None
+    span = stage_span(model_cfg, pp, pp_mesh.stage) if pp > 1 else None
     if model_path is not None:
         if params is not None:
             raise ValueError("model_path loads the weights; pass params or model_path, not both")
-        _, params = load_hf_llama(model_path, quant=quant, device=dev, tp=tp, rank=rank)
+        _, params = load_hf_llama(model_path, quant=quant, device=dev, tp=tp, rank=rank,
+                                  layer_span=span)
     elif quant == "int8":
         if params is not None:
             raise ValueError("quant='int8' draws random weights; pass params or quant, not both")
-        params = init_params_quantized(model_cfg, seed, dev, tp=tp, rank=rank)
+        params = init_params_quantized(model_cfg, seed, dev, tp=tp, rank=rank, layer_span=span)
     elif quant:
         raise ValueError(f"unknown quantization {quant!r}")
     core = (core_cls or EngineCore)(
         model_cfg, engine_cfg, params=params, seed=seed,
-        eos_token_ids=eos_token_ids, device=dev, mesh=mesh,
+        eos_token_ids=eos_token_ids, device=dev, mesh=mesh, pp_mesh=pp_mesh,
         on_stored=on_stored, on_removed=on_removed,
         on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
         **(core_kwargs or {}),
@@ -260,16 +342,36 @@ def _model_card(model_name: str, tokenizer: str, core: EngineCore) -> ModelDeplo
     )
 
 
+def _mesh_name(mesh) -> str:
+    """How a rank's log lines name its mesh ("" for one rank)."""
+    if mesh is None:
+        return ""
+    if isinstance(mesh, PPMesh):
+        return f"pp={mesh.pp}" if mesh.pp > 1 else ""
+    return ", ".join(f"{a}={n}" for a, n in (("dp", mesh.dp), ("tp", mesh.tp)) if n > 1)
+
+
+def _world(mesh) -> int:
+    """The ranks of ``mesh`` (a dp x tp mesh, a pipeline, or None: one)."""
+    if mesh is None:
+        return 1
+    return mesh.pp if isinstance(mesh, PPMesh) else mesh.dp * mesh.tp
+
+
 def _build_and_warm(preset, engine_overrides, seed, eos, quant, device, params,
                     events, moe_dispatch=None, model_path=None, mesh=None,
                     core_cls=None, core_kwargs=None) -> tuple[EngineCore, TorchEngine, int]:
+    """Build and warm up this process's engine; ``mesh`` is a dp x tp mesh
+    or a pipeline's (``parallel.pipeline.PPMesh``)."""
     on_stored, on_removed, on_tier_stored, on_tier_removed = events
     t0 = time.perf_counter()
+    pp_mesh = mesh if isinstance(mesh, PPMesh) else None
     core, engine = build_engine(
         preset, engine_overrides, seed=seed, eos_token_ids=eos, device=device,
         params=params, quant=quant, on_stored=on_stored, on_removed=on_removed,
         on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
-        moe_dispatch=moe_dispatch, model_path=model_path, mesh=mesh,
+        moe_dispatch=moe_dispatch, model_path=model_path,
+        mesh=None if pp_mesh is not None else mesh, pp_mesh=pp_mesh,
         core_cls=core_cls, core_kwargs=core_kwargs,
     )
     t1 = time.perf_counter()
@@ -284,7 +386,7 @@ def _build_and_warm(preset, engine_overrides, seed, eos, quant, device, params,
     log.info("engine built in %.2f s (weights %s), warmed up in %.2f s%s",
              t1 - t0, "loaded from the checkpoint" if model_path is not None else
              "given" if params is not None else "drawn", time.perf_counter() - t1,
-             f" (rank {mesh.rank} of tp={mesh.tp})" if mesh is not None and mesh.tp > 1 else "")
+             f" (rank {mesh.rank} of {_mesh_name(mesh)})" if _world(mesh) > 1 else "")
     return core, engine, forwards
 
 
@@ -411,15 +513,17 @@ async def run_torch_worker(
     the checkpoint directory's (byte-level, with a warning, when it has no
     tokenizer files), else ``"byte"``.
 
-    With a ``mesh`` of tp > 1 (``parallel.sharding.Mesh``) this process is
-    one rank of a tensor-parallel worker: rank 0 serves as above through
-    a :class:`~dynamo_tpu_torch.backends.torch.multihost.LeaderCore`,
+    With a ``mesh`` of more than one rank (a dp x tp
+    ``parallel.sharding.Mesh`` or a pipeline's
+    ``parallel.pipeline.PPMesh``) this process is one rank of a
+    tensor-, data- or pipeline-parallel worker: rank 0 serves as above
+    through a :class:`~dynamo_tpu_torch.backends.torch.multihost.LeaderCore`,
     publishing a step record before each step, and every other rank
     replays them (:func:`_serve_follower`). Such a worker serves the
     aggregated role only and neither serves ``kv_fetch`` nor pulls peer
-    prefixes (its pages hold one rank's heads; ``ROADMAP.md`` A12d);
-    ``held_block_ttl_s`` is 0. A follower started by its node's local rank
-    0 (``parent_pid``) stops once that process is gone.
+    prefixes (its pages hold one rank's heads or layers; ``ROADMAP.md``
+    A12d); ``held_block_ttl_s`` is 0. A follower started by its node's
+    local rank 0 (``parent_pid``) stops once that process is gone.
     """
     if tokenizer is None:
         tokenizer = model_path if model_path is not None else "byte"
@@ -427,16 +531,16 @@ async def run_torch_worker(
         raise ValueError(f"unknown role {role!r}")
     if component is None:
         component = "prefill" if role == "prefill" else "backend"
-    tp = mesh.tp if mesh is not None else 1
+    world = _world(mesh)
     core_cls = core_kwargs = None
-    if tp > 1:
+    if world > 1:
         if role != "aggregated":
             raise ValueError(
-                f"--role {role} on a tp={tp} worker (cross-tp disaggregation) is not "
-                "ported yet (ROADMAP.md A12d)"
+                f"--role {role} on a {_mesh_name(mesh)} worker (cross-mesh disaggregation) "
+                "is not ported yet (ROADMAP.md A12d)"
             )
         if (engine_overrides or {}).get("held_block_ttl_s", 0) != 0:
-            raise ValueError("held_block_ttl_s must be 0 on a tp > 1 worker")
+            raise ValueError("held_block_ttl_s must be 0 on a worker of more than one rank")
         engine_overrides = dict(engine_overrides or {}, held_block_ttl_s=0)
         if mesh.rank != 0:
             return await _serve_follower(
@@ -475,13 +579,13 @@ async def run_torch_worker(
     )
     if core_out is not None:
         core_out.append(core)
-    if tp > 1:
+    if world > 1:
         from dynamo_tpu_torch.backends.torch.multihost import barrier_name
         from dynamo_tpu_torch.runtime.barrier import LeaderBarrier
 
         # No step record may go out before every follower subscribes.
         await LeaderBarrier(
-            runtime.store, barrier_name(namespace, component), tp - 1
+            runtime.store, barrier_name(namespace, component), world - 1
         ).sync({"model": model_name}, timeout=600.0)
     core.flight.name = f"worker-{worker_id}"
 
@@ -502,9 +606,9 @@ async def run_torch_worker(
     # Every role serves its blocks to peers; the aggregated and decode
     # roles also pull them (a prefill worker serves but never pulls).
     peer_kv: PeerKvClient | None = None
-    if tp == 1:
+    if world == 1:
         await _serve_kv_fetch(runtime, namespace, component, core)
-    if role != "prefill" and tp == 1:
+    if role != "prefill" and world == 1:
         fetch_client = await (
             runtime.namespace(namespace).component(component).endpoint("kv_fetch").client()
         )
@@ -679,7 +783,7 @@ async def run_torch_worker(
         role, worker_id, model_name,
         f"checkpoint {model_path}" if model_path is not None else f"preset {preset}",
         core.engine.num_kv_blocks, core.device,
-        f", tp={tp} over {mesh.backend}" if tp > 1 else "",
+        f", {_mesh_name(mesh)} over {mesh.backend}" if world > 1 else "",
     )
     if served_event is not None:
         served_event.set()
@@ -744,8 +848,8 @@ def _step_publisher(runtime, namespace: str, component: str):
 async def _serve_follower(runtime, preset, namespace, component, engine_overrides, tokenizer,
                           seed, quant, params, moe_dispatch, model_path, mesh, served_event,
                           core_out, parent_pid=None) -> None:
-    """A follower rank of a tensor-parallel worker: build and warm up its
-    shard of the engine (its forwards pair with the leader's warm-up
+    """A follower rank of a worker of more than one rank: build and warm up
+    its shard (or stage, or replica) of the engine (its forwards pair with the leader's warm-up
     collective for collective), then replay the leader's step records
     until the runtime shuts down; a follower that fails raises. It
     serves no endpoint and logs its counters at exit, as the leader."""
@@ -760,7 +864,7 @@ async def _serve_follower(runtime, preset, namespace, component, engine_override
         core_out.append(core)
     ready = asyncio.Event()
     follower = asyncio.create_task(
-        run_follower(runtime, core, namespace, component, mesh.tp, ready_event=ready)
+        run_follower(runtime, core, namespace, component, _world(mesh), ready_event=ready)
     )
     shutdown = asyncio.create_task(runtime.wait_for_shutdown())
     if parent_pid is not None:
@@ -771,7 +875,7 @@ async def _serve_follower(runtime, preset, namespace, component, engine_override
         waiter.cancel()
         if ready.is_set():
             log.info("torch follower rank %d/%d on %s replaying the leader's steps",
-                     mesh.rank, mesh.tp, mesh.device)
+                     mesh.rank, _world(mesh), mesh.device)
             if served_event is not None:
                 served_event.set()
             await asyncio.wait({follower, shutdown}, return_when=asyncio.FIRST_COMPLETED)
@@ -1179,13 +1283,19 @@ def _parser() -> argparse.ArgumentParser:
                          "columns split over the ranks (local rank 0 of each node starts "
                          "that node's other ranks)")
     ap.add_argument("--tp-devices", default=None,
-                    help="this node's ranks' devices, comma-separated in local rank order "
-                         "(e.g. cuda:0,cuda:0: two ranks sharing a card, collectives over "
-                         "gloo through host memory); default one card per rank")
-    ap.add_argument("--dp", type=int, default=1)
+                    help="this node's ranks' devices (of --tp, --dp or --pp), comma-separated "
+                         "in local rank order (e.g. cuda:0,cuda:0: two ranks sharing a card, "
+                         "collectives over gloo through host memory); default one card per "
+                         "rank")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="in-engine data-parallel degree: one process per rank, each a "
+                         "replica; a decode batch's lanes split over the ranks")
     ap.add_argument("--sp", type=int, default=1)
     ap.add_argument("--ring-prefill-threshold", type=int, default=None)
-    ap.add_argument("--pp", type=int, default=1)
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline-parallel degree: one process per stage, the layers "
+                         "staged over them (GPipe prefill waves, wavefront decode chains; "
+                         "exclusive with --tp/--dp/--sp)")
     ap.add_argument("--obs-publish", default="on", choices=["on", "off"],
                     help="publish periodic metric snapshots on the event plane "
                          "for the fleet aggregator")
@@ -1208,45 +1318,60 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _cli_world(args: argparse.Namespace) -> int:
+    """The ranks of a worker's ``--dp x --tp x --pp`` (pp excludes the other two)."""
+    return args.dp * args.tp * args.pp
+
+
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise on the first flag value the port does not serve, naming the
-    ``ROADMAP.md`` item that brings it. Engine settings outside the slice
+    ``ROADMAP.md`` item that brings it, and on the combinations the JAX
+    worker refuses, with its messages. Engine settings outside the slice
     (ring prefill) are refused by ``build_engine`` the same way."""
+    if args.pp > 1 and (args.tp * args.dp > 1 or args.sp > 1):
+        raise ValueError("--pp is mutually exclusive with --tp/--dp/--sp for now")
+    many = _cli_world(args) > 1
     refusals = [
-        (args.dp > 1, "--dp > 1 (data parallelism)", "A12b"),
-        (args.pp > 1, "--pp > 1 (pipeline parallelism)", "A12b"),
         (args.sp > 1, "--sp > 1 (sequence-parallel ring prefill)", "A12c"),
-        (args.tp > 1 and args.role != "aggregated",
-         f"--role {args.role} with --tp > 1 (cross-tp disaggregation)", "A12d"),
-        (args.tp > 1 and args.moe_dispatch is not None,
-         "--moe-dispatch with --tp > 1 (expert parallelism)", "A12d"),
+        (many and args.role != "aggregated",
+         f"--role {args.role} with --tp, --dp or --pp > 1 (cross-mesh disaggregation)",
+         "A12d"),
+        (many and args.moe_dispatch is not None,
+         "--moe-dispatch with --tp, --dp or --pp > 1 (expert parallelism)", "A12d"),
     ]
     for refused, what, item in refusals:
         if refused:
             raise ValueError(f"{what} is not ported yet (ROADMAP.md {item})")
-    if args.nnodes > 1 and args.tp == 1:
-        raise ValueError("--nnodes > 1 splits the ranks of --tp over the nodes; set --tp")
-    if args.local_cpu_devices is not None and args.tp == 1:
-        raise ValueError("--local-cpu-devices places the CPU ranks of --tp; set --tp")
+    if args.pp > 1 and args.nnodes > 1:
+        raise ValueError("--pp (pipeline parallel) is not supported under --nnodes yet")
+    if args.nnodes > 1 and not many:
+        raise ValueError("--nnodes > 1 splits the ranks of --tp or --dp over the nodes; "
+                         "set --tp or --dp")
+    if args.local_cpu_devices is not None and not many:
+        raise ValueError("--local-cpu-devices places the CPU ranks of --tp, --dp or --pp; "
+                         "set one")
 
 
 def rank_layout(args: argparse.Namespace) -> tuple[int, list[str]]:
     """(this process's global rank, every rank's device in rank order) of a
-    ``--tp`` worker. A node holds ``tp / nnodes`` ranks, laid out alike on
-    every node: ``--tp-devices`` lists them, ``--device cpu`` or
-    ``--local-cpu-devices`` puts them on the CPU, else rank ``i`` of a node
-    takes ``cuda:i`` and a node with fewer cards than ranks raises."""
+    worker of ``dp x tp`` or ``pp`` ranks. A node holds ``world / nnodes``
+    ranks, laid out alike on every node: ``--tp-devices`` lists them
+    (whatever the axes), ``--device cpu`` or ``--local-cpu-devices`` puts
+    them on the CPU, else rank ``i`` of a node takes ``cuda:i`` and a node
+    with fewer cards than ranks raises."""
     from dynamo_tpu_torch.parallel.sharding import default_devices
 
-    if args.tp % args.nnodes:
-        raise ValueError(f"--tp {args.tp} must be a multiple of --nnodes {args.nnodes}")
-    k = args.tp // args.nnodes
+    world = _cli_world(args)
+    if world % args.nnodes:
+        raise ValueError(f"the {world} ranks of --dp x --tp x --pp must be a multiple of "
+                         f"--nnodes {args.nnodes}")
+    k = world // args.nnodes
     if not (0 <= args.node_rank < args.nnodes and 0 <= args.local_rank < k):
         raise ValueError(f"node rank {args.node_rank} / local rank {args.local_rank} outside "
                          f"{args.nnodes} nodes of {k} ranks")
     if args.local_cpu_devices is not None and args.local_cpu_devices != k:
         raise ValueError(f"--local-cpu-devices {args.local_cpu_devices} but a node holds "
-                         f"{k} ranks of --tp {args.tp}")
+                         f"{k} ranks of --dp x --tp x --pp {world}")
     if args.tp_devices:
         local = [d.strip() for d in args.tp_devices.split(",")]
         if len(local) != k:
@@ -1342,23 +1467,29 @@ def main(argv: list[str] | None = None) -> None:
     # Before joining the fleet.
     model_cfg, engine_cfg = engine_configs(preset, overrides, args.moe_dispatch, args.model_path)
     check_slice(model_cfg, engine_cfg, device="cpu" if args.local_cpu_devices else args.device)
-    if args.tp == 1:
+    world = _cli_world(args)
+    if world == 1:
         return _serve(args, overrides, preset, None)
     from dynamo_tpu_torch.parallel import comm
     from dynamo_tpu_torch.parallel.multihost import init_multihost, shutdown_multihost
+    from dynamo_tpu_torch.parallel.pipeline import make_pp_mesh
     from dynamo_tpu_torch.parallel.sharding import make_mesh, param_partition_specs
 
     param_partition_specs(model_cfg, args.tp)  # tp divides the heads and the MLP
+    if args.pp > 1:
+        check_pp_split(model_cfg, args.pp)
     rank, devices = rank_layout(args)
-    k = args.tp // args.nnodes
+    k = world // args.nnodes
     backend = comm.choose_backend(devices, k)
     if args.nnodes > 1 and not args.dist_init_addr:
         raise ValueError("--nnodes > 1 requires --dist-init-addr")
     addr = args.dist_init_addr or f"127.0.0.1:{_free_port()}"
     local = _start_local_ranks(argv, k, addr) if args.local_rank == 0 else []
     try:
-        init_multihost(addr, args.tp, rank, backend)
-        mesh = make_mesh(tp=args.tp, devices=devices, rank=rank, nnodes=args.nnodes)
+        init_multihost(addr, world, rank, backend)
+        mesh = (make_pp_mesh(args.pp, devices=devices, rank=rank) if args.pp > 1 else
+                make_mesh(dp=args.dp, tp=args.tp, devices=devices, rank=rank,
+                          nnodes=args.nnodes))
         _serve(args, overrides, preset, mesh)
     finally:
         _stop_local_ranks(local)

@@ -1,15 +1,17 @@
-"""Leader/follower step replication: the ranks of a tensor-parallel mesh
-in lockstep.
+"""Leader/follower step replication: the ranks of a mesh in lockstep.
 
 Counterpart of ``dynamo_tpu/backends/jax/multihost.py``, with the same
-journal design. A PyTorch process drives one card, so a mesh of tp ranks
-is tp processes even on one node (``--tp``), as it is across nodes
-(``--nnodes``): every rank must run the same forwards in the same order,
-since each forward calls collectives that every rank joins. The engine's
-scheduler is deterministic given an identical op stream (sampling reads
-the gathered full-vocab logits, identical on every rank, with seeds that
-derive from the request counter), so lockstep reduces to replicating the
-*intake*:
+journal design. A PyTorch process drives one card, so a mesh of tp or dp
+ranks, or of pp stages, is that many processes even on one node (``--tp``,
+``--dp``, ``--pp``), as it is across nodes (``--nnodes``): every rank must
+run the same forwards in the same order, since each forward calls
+collectives (and a pipeline's stage hops) that every rank joins. Every
+rank runs the same scheduler; only its forward differs (its heads, its
+lane block or its layers). The scheduler is deterministic given an
+identical op stream (sampling reads logits that are identical on every
+rank: gathered over tp, gathered lane blocks over dp, the exit broadcast
+and vocab gather of a pipeline; with seeds that derive from the request
+counter), so lockstep reduces to replicating the *intake*:
 
 - the leader (rank 0) serves the worker's endpoints; before each
   ``step()`` it publishes the ops applied since the previous step

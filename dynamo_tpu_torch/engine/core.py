@@ -65,6 +65,14 @@ wire pages keep the JAX package's layer-major layout and bytes. Every
 write into the cache is in place (``index_copy_``): the CUDA graphs hold
 the cache tensors' addresses.
 
+Over a mesh (``parallel/``) the engine is one rank of several, each a
+process with the same scheduler: under tp it computes its heads, under
+dp its block of each decode megastep's lanes (every other dispatch runs
+whole on every dp rank), and on a pipeline stage its layers, prefill
+waves and mixed steps through the GPipe program and decode megasteps
+through the wavefront chain (:func:`_pp_prefill_and_sample`,
+:func:`_pp_decode_chain`).
+
 Settings outside this slice are refused by name with the ``ROADMAP.md``
 item that brings them; nothing is silently substituted.
 """
@@ -118,7 +126,15 @@ from dynamo_tpu_torch.llm.kv_router.protocols import ForwardPassMetrics, KvStats
 from dynamo_tpu_torch.obs.flight_recorder import FlightRecorder
 from dynamo_tpu_torch.ops import ragged_attention
 from dynamo_tpu_torch.parallel import comm
-from dynamo_tpu_torch.parallel.sharding import rank_config, shard_params
+from dynamo_tpu_torch.parallel.pipeline import (
+    plan_microbatches,
+    pp_decode_round,
+    pp_forward_tokens,
+    stage_config,
+    stage_params,
+    stage_span,
+)
+from dynamo_tpu_torch.parallel.sharding import dp_lane_block, rank_config, shard_params
 from dynamo_tpu_torch.runtime import wire
 from dynamo_tpu_torch.runtime.engine import EngineOverloadedError
 from dynamo_tpu_torch.spec import SpecConfig, SpecStats, propose_ngram, resolve_spec_config
@@ -231,26 +247,58 @@ def _check_fuse_tp(params: dict, tp: int) -> None:
 
 
 def check_mesh(model_cfg: ModelConfig, mesh) -> None:
-    """Refuse what a mesh does not serve yet, each naming its
-    ``ROADMAP.md`` item: dp > 1, MoE under a mesh (expert parallelism).
-    Pipeline parallelism and ring prefill have no mesh of their own in
-    the port (``check_slice`` refuses ring prefill)."""
-    if mesh.dp != 1:
-        raise ValueError(f"dp={mesh.dp}: data parallelism is not ported yet (ROADMAP.md A12b)")
-    if mesh.tp > 1 and model_cfg.is_moe:
+    """Refuse what a dp x tp mesh does not serve yet, naming its
+    ``ROADMAP.md`` item: MoE over more than one rank (expert parallelism;
+    under dp a rank's lane block would also change the experts' capacity,
+    which JAX computes from the whole batch). Ring prefill has no mesh of
+    its own in the port (``check_slice`` refuses it)."""
+    if mesh.dp * mesh.tp > 1 and model_cfg.is_moe:
         raise ValueError(
-            f"MoE preset {model_cfg.name!r} under a tp={mesh.tp} mesh (expert "
-            "parallelism) is not ported yet (ROADMAP.md A12d)"
+            f"MoE preset {model_cfg.name!r} under a {mesh.dp}x{mesh.tp} (dp x tp) mesh "
+            "(expert parallelism) is not ported yet (ROADMAP.md A12d)"
         )
+
+
+def check_pp(model_cfg: ModelConfig, engine_cfg: EngineConfig, pp: int) -> None:
+    """The JAX engine's checks of a pp engine, with its messages: MoE and
+    speculation are refused, pp divides the layers and the vocabulary, and
+    the prefill buckets and decode widths split into pp microbatch groups
+    (the microbatch count is pp)."""
+    if model_cfg.is_moe:
+        raise ValueError(
+            "pipeline parallelism for MoE presets is not built yet "
+            "(compose pp with the EP dispatch inside each stage)"
+        )
+    if engine_cfg.spec_decode != "off":
+        raise ValueError(
+            "speculative decoding under pipeline parallelism is not "
+            "wired yet (the pp microbatch planner samples one row per "
+            "sequence); run spec on a tp/dp or single-chip engine"
+        )
+    if model_cfg.num_layers % pp:
+        raise ValueError(f"pp={pp} must divide num_layers={model_cfg.num_layers}")
+    if model_cfg.vocab_size % pp:
+        raise ValueError(f"pp={pp} must divide vocab_size={model_cfg.vocab_size}")
+    for b in engine_cfg.prefill_buckets:
+        if b % pp:
+            raise ValueError(f"prefill bucket {b} not a multiple of pp microbatch count {pp}")
+    for b in engine_cfg.decode_buckets:
+        if b % pp:
+            raise ValueError(f"decode bucket {b} not a multiple of pp microbatch count {pp}")
 
 
 def refuse_on_mesh(core: "EngineCore", what: str) -> None:
-    """Raise on a path a tp > 1 engine does not serve yet (ROADMAP.md
-    A12d): its pages hold this rank's KV heads only."""
-    if core.mesh is not None and core.mesh.tp > 1:
-        raise ValueError(
-            f"{what} on a tp={core.mesh.tp} engine is not ported yet (ROADMAP.md A12d)"
-        )
+    """Raise on a path an engine over more than one rank does not serve
+    yet (ROADMAP.md A12d): a tp rank's pages hold its KV heads only, a pp
+    stage's its layers only, and a dp rank's forwards must pair with its
+    peers'."""
+    mesh = core.mesh if core.pp_mesh is None else core.pp_mesh
+    for axis in ("tp", "dp", "pp"):
+        n = getattr(mesh, axis, 1) if mesh is not None else 1
+        if n > 1:
+            raise ValueError(
+                f"{what} on a {axis}={n} engine is not ported yet (ROADMAP.md A12d)"
+            )
 
 
 def _leaf_tensor(w) -> torch.Tensor:
@@ -418,7 +466,23 @@ def _megastep_body(
     no-ops (K/V writes to the garbage block, position frozen, output
     padded with its last live token). Returns ([n_steps, B] tokens,
     stacked logprob arrays or None); the host stop-scan stays the
-    authority over what is emitted."""
+    authority over what is emitted.
+
+    Over dp > 1 each rank runs the iterations on its block of the lanes
+    (``parallel.sharding.dp_lane_block``), writing every lane's K/V rows
+    (gathered per layer), and the lane blocks' tokens and logprobs are
+    gathered at the end, so every rank returns the whole batch."""
+    if mesh is not None and mesh.dp > 1 and not mesh.lanes:
+        lo, hi = dp_lane_block(mesh, tokens.shape[0])
+        toks, lp = _megastep_body(
+            params, cache, *(a[lo:hi] for a in (
+                tokens, block_tables, positions, active, seeds, counters, temperature,
+                top_k, top_p, watch, budgets, min_left)),
+            n_steps=n_steps, need_mask=need_mask, all_greedy=all_greedy,
+            want_logprobs=want_logprobs, cfg=cfg, engine=engine, mesh=mesh.lane_view(),
+        )
+        return comm.dp_gather(toks, mesh, dim=1), (
+            tuple(comm.dp_gather(a, mesh, dim=1) for a in lp) if lp is not None else None)
     toks, pos = tokens, positions
     alive = torch.ones_like(active)
     out, lps = [], []
@@ -461,6 +525,93 @@ def _prefill_and_sample(
     )
     lps = token_logprobs(logits, toks) if want_logprobs else None
     return toks, lps
+
+
+def _pp_prefill_and_sample(
+    params, cache, mb_tokens, mb_positions, mb_pages, mb_offs,
+    mb_kv_lens, block_tables, mb_cu, num_seqs, mb_last_local, mb_last_mask,
+    seeds, counters, temperature, top_k, top_p,
+    *, need_mask, all_greedy=False, want_logprobs=False, cfg, pp_mesh,
+):
+    """A prefill wave or mixed step under pipeline parallelism: the GPipe
+    program (``parallel/pipeline.py``) and the same first-token sampling
+    as :func:`_prefill_and_sample`, on every stage alike."""
+    logits = pp_forward_tokens(
+        params, cache, mb_tokens, mb_positions, mb_pages, mb_offs, mb_kv_lens,
+        block_tables, mb_cu, num_seqs, mb_last_local, mb_last_mask, cfg, pp_mesh,
+    )
+    toks = sample_seeded(
+        logits, seeds, counters, temperature, top_k, top_p,
+        need_mask=need_mask, all_greedy=all_greedy,
+    )
+    lps = token_logprobs(logits, toks) if want_logprobs else None
+    return toks, lps
+
+
+def _pp_decode_chain(
+    params, cache, tokens, block_tables, positions, active,
+    seeds, counters, temperature, top_k, top_p,
+    watch, budgets, min_left,
+    *, n_steps, need_mask, all_greedy=False, want_logprobs=False,
+    cfg, engine, pp_mesh,
+):
+    """Wavefront pipeline-parallel decode (JAX's ``_pp_decode_chain``):
+    ``B`` lanes split into ``M = pp`` groups that march through the stages
+    one round apart, so in steady state every stage works every round
+    (occupancy ``n_steps*M / (n_steps*M + pp - 1)``). Group ``g``'s next
+    token is sampled when it drains the last stage at round ``g + t*M +
+    pp - 1`` and re-enters stage 0 at round ``g + (t+1)*M``, which comes
+    later exactly when ``M >= pp``. Every stage samples the drained item
+    from the same gathered logits, so the token store, the stop flags and
+    the output are the same on every stage. The output contract is
+    :func:`_megastep_body`'s, with the same stop flags: a lane that
+    samples a watched stop id (or exhausts its budget) at its drain round
+    goes dead, and its later items write the garbage block and repeat its
+    last live token. Dead lanes' positions keep advancing (``pos0 + t``
+    stays in the table: the planner grows k tokens of headroom per lane);
+    their writes go to the garbage block, so the stream is the same. The
+    host stop-scan stays the authority."""
+    pp = pp_mesh.pp
+    M = pp
+    B = tokens.shape[0]
+    Bm = B // M
+    g_ = lambda a: a.reshape(M, Bm, *a.shape[1:])  # noqa: E731
+    tab_g, pos_g, act_g = g_(block_tables), g_(positions), g_(active)
+    seeds_g, cnt_g, temp_g, k_g, p_g = map(g_, (seeds, counters, temperature, top_k, top_p))
+    watch_g, bud_g, ml_g = g_(watch), g_(budgets), g_(min_left)
+    store = g_(tokens).clone()
+    alive = torch.ones((M, Bm), dtype=torch.bool, device=tokens.device)
+    out = torch.zeros((n_steps, M, Bm), dtype=torch.int32, device=tokens.device)
+    lps: list = [[None] * M for _ in range(n_steps)]
+    pending: list = []
+    for r in range(n_steps * M + pp - 1):
+        logits = pp_decode_round(
+            params, cache, r, store, tab_g, pos_g, act_g & alive, pending,
+            cfg=cfg, engine=engine, mesh=pp_mesh, n_steps=n_steps,
+        )
+        if logits is None:
+            continue
+        e = r - (pp - 1)  # the work item that drained the last stage
+        ge, te = e % M, e // M
+        nxt = sample_seeded(
+            logits, seeds_g[ge], cnt_g[ge] + te, temp_g[ge], k_g[ge], p_g[ge],
+            need_mask=need_mask, all_greedy=all_greedy,
+        )
+        live = act_g[ge] & alive[ge]
+        new_tok = torch.where(live, nxt, store[ge])
+        store[ge] = new_tok
+        out[te, ge] = new_tok
+        alive[ge] = alive[ge] & ~stop_flags(nxt, watch_g[ge], bud_g[ge], ml_g[ge], te)
+        if want_logprobs:
+            lps[te][ge] = token_logprobs(logits, new_tok)
+    comm.wait_sends(pending)
+    lp = None
+    if want_logprobs:
+        lp = tuple(
+            torch.stack([torch.cat([lps[t][g][j] for g in range(M)]) for t in range(n_steps)])
+            for j in range(len(lps[0][0]))
+        )
+    return out.reshape(n_steps, B), lp
 
 
 def _first_iteration(
@@ -884,6 +1035,23 @@ def _prefill_layout(T: int, S: int, P: int, R: int = 1) -> Layout:
     ])
 
 
+def _pp_layout(M: int, Tm: int, S: int, P: int) -> Layout:
+    """A ragged forward's fields under pipeline parallelism: the microbatch
+    plan of its rows (``parallel.pipeline.PPPlan``, each ``[M, ...]``
+    array flat), one sample slot per row, and ``feed_idx`` (the plan only
+    pads the token buffer, so flat feed indices apply to its flat
+    tokens)."""
+    return Layout([
+        ("tokens", (M * Tm,), "i"), ("positions", (M * Tm,), "i"),
+        ("write_pages", (M * Tm,), "i"), ("write_offs", (M * Tm,), "i"),
+        ("kv_lens", (M * S,), "i"), ("block_tables", (S, P), "i"),
+        ("cu_q_lens", (M * (S + 1),), "i"), ("num_seqs", (1,), "i"),
+        ("last_local", (M * S,), "i"), ("last_mask", (M * S,), "b"),
+        ("seeds", (S,), "i"), ("counters", (S,), "i"), ("temperature", (S,), "f"),
+        ("top_k", (S,), "i"), ("top_p", (S,), "f"), ("feed_idx", (M * Tm,), "i"),
+    ])
+
+
 def _mixed_layout(T: int, S: int, P: int, R: int = 1) -> Layout:
     """A prefill wave's fields plus ``feed_idx``: decode and verify rows
     read their first token from the in-flight step's output on the
@@ -923,6 +1091,7 @@ class EngineCore:
         eos_token_ids: tuple[int, ...] = (),
         device="cuda",
         mesh: Any = None,
+        pp_mesh: Any = None,
         on_stored: Callable[[list[int], int | None], None] | None = None,
         on_removed: Callable[[list[int]], None] | None = None,
         on_tier_stored: Callable[[list[int], int | None, str], None] | None = None,
@@ -931,9 +1100,16 @@ class EngineCore:
         """``params`` is a parameter dict on ``device`` (``engine/convert``
         or a previous engine's ``core.params``); None initialises random
         weights from ``seed``. ``mesh`` (``parallel.sharding.Mesh``) serves
-        tensor parallelism: this process is one rank, on the mesh's device
-        for it, with the rank's shard of ``params`` (a full dict fused for
-        the mesh's tp is sharded here) and the rank's KV heads; every rank
+        tensor and data parallelism: this process is one rank, on the
+        mesh's device for it, with the rank's tp shard of ``params`` (a
+        full dict fused for the mesh's tp is sharded here) and the rank's
+        KV heads; a dp rank holds its replica of both and computes its
+        block of each decode megastep's lanes. ``pp_mesh``
+        (``parallel.pipeline.PPMesh``) serves pipeline parallelism instead
+        (the two exclude each other, as in JAX): this process is one
+        stage, with its layers of ``params`` (a full dict is sliced here)
+        and a cache of its layers; prefill waves and mixed steps run the
+        GPipe program and decode megasteps the wavefront chain. Every rank
         must run the same steps in the same order
         (``backends/torch/multihost.py``). Over gloo every dispatch runs
         eagerly (a collective through the host cannot sit in a CUDA
@@ -947,16 +1123,34 @@ class EngineCore:
         self.device = resolve_device(device)
         check_slice(model_cfg, engine_cfg, self.device)
         self.mesh = mesh
-        tp = 1
+        tp = dp = pp = 1
+        if pp_mesh is not None:
+            if mesh is not None:
+                raise ValueError(
+                    "pp_mesh is mutually exclusive with mesh (tp/dp) and "
+                    "sp_mesh for now (pp x tp composition: future work)"
+                )
+            pp = pp_mesh.pp
+            check_pp(model_cfg, engine_cfg, pp)
+        # A pipeline of one stage is the unpipelined engine.
+        self.pp_mesh = pp_mesh if pp > 1 else None
         if mesh is not None:
             check_mesh(model_cfg, mesh)
-            tp = mesh.tp
-            if tp > 1 and self.device != resolve_device(mesh.device):
-                raise ValueError(f"rank {mesh.rank} runs on {mesh.device}, not {self.device}")
-        # The shapes this rank computes and caches: its heads (all at tp 1).
-        self.local_cfg = rank_config(model_cfg, tp)
+            tp, dp = mesh.tp, mesh.dp
+            for b in engine_cfg.decode_buckets:
+                if b % dp:
+                    raise ValueError(f"decode bucket {b} not a multiple of dp={dp}")
+        ranked = mesh if mesh is not None and tp * dp > 1 else pp_mesh if pp > 1 else None
+        if ranked is not None and self.device != resolve_device(ranked.device):
+            raise ValueError(f"rank {ranked.rank} runs on {ranked.device}, not {self.device}")
+        # Pipeline stages, also the microbatch count M (the wavefront needs
+        # M >= pp, and M = pp keeps each stage's lm-head slice V/pp).
+        self._pp = pp
+        # The shapes this rank computes and caches: its heads (all at tp 1)
+        # and its layers (all at pp 1).
+        self.local_cfg = stage_config(rank_config(model_cfg, tp), pp)
         # A collective through the host cannot be captured in a CUDA graph.
-        self._eager_only = tp > 1 and mesh.backend != comm.NCCL
+        self._eager_only = ranked is not None and ranked.backend != comm.NCCL
         bs = engine_cfg.block_size
         for b in engine_cfg.prefill_buckets:
             if b % bs:
@@ -999,15 +1193,18 @@ class EngineCore:
         self.cfg = model_cfg
         self.engine = engine_cfg
         self.eos_token_ids = set(eos_token_ids)
+        span = stage_span(model_cfg, pp, pp_mesh.stage) if pp > 1 else None
         if params is None:
             params = init_params(model_cfg, seed, self.device, tp=tp,
-                                 rank=mesh.rank if tp > 1 else None)
+                                 rank=mesh.tp_rank if tp > 1 else None, layer_span=span)
         _check_fuse_tp(params, tp)
         if tp > 1 and _leaf_tensor(params["layers"]["wo"]).shape[-2] == model_cfg.q_size:
             params = shard_params(params, model_cfg, mesh)  # a full dict: take this rank's
+        if pp > 1:
+            params = stage_params(params, model_cfg, pp_mesh)  # a full dict: take this stage's
         _check_params(params, self.device)
         self.params = params
-        self.cache = init_cache(model_cfg, engine_cfg, self.device, tp=tp)
+        self.cache = init_cache(stage_config(model_cfg, pp), engine_cfg, self.device, tp=tp)
         self.allocator = DeviceBlockAllocator(
             engine_cfg.num_kv_blocks,
             bs,
@@ -1042,7 +1239,10 @@ class EngineCore:
             )
             if engine_cfg.disk_kv_dir:
                 self.disk_pool = DiskKvPool(
-                    engine_cfg.disk_kv_dir,
+                    # Ranks hold different pages under one hash: each its
+                    # own directory.
+                    engine_cfg.disk_kv_dir if ranked is None
+                    else f"{engine_cfg.disk_kv_dir}/rank{ranked.rank}",
                     engine_cfg.disk_kv_blocks,
                     on_removed=_pool_removed("disk"),
                 )
@@ -1126,18 +1326,21 @@ class EngineCore:
             "single_step_dispatches": 0,
             "committed_tokens": 0,
             # Fused megasteps whose first iteration carried prefill chunks
-            # or verify rows, and pipeline-parallel dispatches (A12b, 0
-            # until ported).
+            # or verify rows.
             "fused_mixed_dispatches": 0,
             "megastep_forced_single": 0,
             # Dispatches that ran their body eagerly on the card instead of
             # a graph replay (those carrying multimodal rows).
             "eager_dispatches": 0,
+            # Pipeline-parallel decode chains of k > 1 iterations and of
+            # one (a watch list too wide for the device's stop flags).
             "pp_fused_dispatches": 0,
             "pp_forced_single": 0,
             # Model forwards: one per prefill wave, one per decode
-            # iteration. Every forward runs the attention kernel once per
-            # layer on the card (its int8 instance for int8 pages).
+            # iteration; on a pipeline stage one per microbatch through its
+            # layers (M per wave, M per decode iteration). Every forward
+            # runs the attention kernel once per layer this rank holds on
+            # the card (its int8 instance for int8 pages).
             "forwards": 0,
             "prefill_tokens": 0,
             "decode_iterations": 0,
@@ -1230,7 +1433,18 @@ class EngineCore:
         # The request's spec_decode dict overrides the engine default
         # ("off" disables; k clamps to spec_k); a bad one is refused here.
         seq.spec = resolve_spec_config(self._spec_default, pre.spec_decode, self.engine.spec_k)
+        if seq.spec is not None and self.pp_mesh is not None:
+            raise ValueError(
+                "speculative decoding under pipeline parallelism is not "
+                "wired yet (route spec requests to a tp/dp worker)"
+            )
         if pre.mm and pre.mm.get("embeds") is not None:
+            if self.pp_mesh is not None:
+                # Refused at admission, not inside a wave other requests share.
+                raise ValueError(
+                    "multimodal embedding splice under pipeline parallelism "
+                    "is not wired yet (route mm requests to a tp/dp worker)"
+                )
             embeds = np.frombuffer(pre.mm["embeds"], np.float32).reshape(
                 tuple(pre.mm["embeds_shape"])
             )
@@ -1600,6 +1814,8 @@ class EngineCore:
         key captured at its first use would cost the first image request
         a capture (1.2-3.7 s) inside its TTFT. Only the dispatches that
         carry an image's prompt rows pay the eager launches."""
+        if self.pp_mesh is not None:
+            return self._pp_ragged_launch(b, S, mixed)
         P, R = self.engine.max_blocks_per_seq, b.R
         layout = _mixed_layout(b.T, S, P, R) if mixed else _prefill_layout(b.T, S, P)
         fields = self._ragged_fields(b)
@@ -1623,6 +1839,52 @@ class EngineCore:
         variant = (need_mask, b.all_greedy, b.want_lp)
         key = ("mixed", b.T, S, R, *variant) if mixed else ("prefill", b.T, *variant)
         return Launch(key, layout, packed, body, eager=mm is not None)
+
+    def _pp_ragged_launch(self, b: _RaggedBatch, S: int, mixed: bool) -> Launch:
+        """:meth:`_ragged_launch` on a pipeline stage: ``b``'s rows planned
+        into ``M`` microbatches on the host (``plan_microbatches``) and run
+        through the GPipe program (:func:`_pp_prefill_and_sample`). The
+        keys are the unpipelined engine's. A pp engine serves no
+        speculation and no image rows, so the sample width is 1 and the
+        body never runs eagerly for them."""
+        M, P = self._pp, self.engine.max_blocks_per_seq
+        plan = plan_microbatches(
+            b.tokens, b.positions, b.write_pages, b.write_offs, b.kv_lens, b.cu,
+            b.num_rows, b.gather[:, 0], M, self.engine.garbage_block,
+        )
+        Tm = plan.tokens.shape[1]
+        feed_idx = np.full(M * Tm, -1, np.int32)
+        feed_idx[: b.T] = b.feed_idx
+        layout = _pp_layout(M, Tm, S, P)
+        packed = layout.pack({
+            "tokens": plan.tokens, "positions": plan.positions,
+            "write_pages": plan.write_pages, "write_offs": plan.write_offs,
+            "kv_lens": plan.kv_lens, "block_tables": b.tables, "cu_q_lens": plan.cu_q_lens,
+            "num_seqs": [b.num_rows], "last_local": plan.last_local,
+            "last_mask": plan.last_mask, "seeds": b.seeds, "counters": b.counters[:, 0],
+            "temperature": b.temp, "top_k": b.top_k, "top_p": b.top_p, "feed_idx": feed_idx,
+        })
+        need_mask = b.need_mask and not b.all_greedy
+
+        def body(buf: torch.Tensor) -> tuple:
+            x = layout.unpack(buf)
+            mb = {k: x[k].view(M, -1) for k in (
+                "tokens", "positions", "write_pages", "write_offs", "kv_lens", "cu_q_lens",
+                "last_local", "last_mask")}
+            toks, lps = _pp_prefill_and_sample(
+                self.params, self.cache,
+                mb["tokens"], mb["positions"], mb["write_pages"], mb["write_offs"],
+                mb["kv_lens"], x["block_tables"], mb["cu_q_lens"], x["num_seqs"],
+                mb["last_local"], mb["last_mask"],
+                x["seeds"], x["counters"], x["temperature"], x["top_k"], x["top_p"],
+                need_mask=need_mask, all_greedy=b.all_greedy, want_logprobs=b.want_lp,
+                cfg=self.cfg, pp_mesh=self.pp_mesh,
+            )
+            return (toks, *(lps or ()))
+
+        variant = (need_mask, b.all_greedy, b.want_lp)
+        key = ("mixed", b.T, S, 1, *variant) if mixed else ("prefill", b.T, *variant)
+        return Launch(key, layout, packed, body)
 
     @staticmethod
     def _fused_lanes(S: int, R: int, budget: int) -> dict[str, np.ndarray]:
@@ -1754,7 +2016,7 @@ class EngineCore:
         launch = self._ragged_launch(b, S, mixed)
         outs = self._launch(launch, self._feed(launch, bool((b.feed_idx >= 0).any())))
         self.exec_stats["single_step_dispatches"] += 1
-        self.exec_stats["forwards"] += 1
+        self.exec_stats["forwards"] += self._pp
         if mixed:
             self._count_mixed(b)
         return _PendingFetch(self, outs, sr=(S, b.R) if n_sample is not None else None)
@@ -2101,14 +2363,18 @@ class EngineCore:
 
         def body(buf: torch.Tensor) -> tuple:
             x = layout.unpack(buf)
-            toks, lps = _megastep_body(
+            args = (
                 self.params, self.cache,
                 x["tokens"], x["block_tables"], x["positions"], x["active"],
                 x["seeds"], x["counters"], x["temperature"], x["top_k"], x["top_p"],
                 x["watch"], x["budgets"], x["min_left"],
-                n_steps=n_steps, need_mask=need_mask, all_greedy=all_greedy,
-                want_logprobs=want_lp, cfg=self.cfg, engine=self.engine, mesh=self.mesh,
             )
+            kw = dict(n_steps=n_steps, need_mask=need_mask, all_greedy=all_greedy,
+                      want_logprobs=want_lp, cfg=self.cfg, engine=self.engine)
+            if self.pp_mesh is not None:
+                toks, lps = _pp_decode_chain(*args, **kw, pp_mesh=self.pp_mesh)
+            else:
+                toks, lps = _megastep_body(*args, **kw, mesh=self.mesh)
             return (toks, *(lps or ()))
 
         return Launch(("decode", B, n_steps, need_mask, all_greedy, want_lp), layout, packed, body)
@@ -2128,7 +2394,9 @@ class EngineCore:
         self.exec_stats[
             "megastep_dispatches" if n_steps > 1 else "single_step_dispatches"
         ] += 1
-        self.exec_stats["forwards"] += n_steps
+        if self.pp_mesh is not None:
+            self.exec_stats["pp_fused_dispatches" if n_steps > 1 else "pp_forced_single"] += 1
+        self.exec_stats["forwards"] += n_steps * self._pp
         self.exec_stats["decode_iterations"] += n_steps
         return _PendingFetch(self, outs)
 
@@ -2233,10 +2501,11 @@ class EngineCore:
         if self.engine.scheduling == "chunked":
             prefills = [s for s in self.running if not self._eff_prefill_done(s)]
             plan = None
-            if prefills and self.engine.megastep > 1:
+            if prefills and self.engine.megastep > 1 and self.pp_mesh is None:
                 # The universal megastep: prefill chunks and decode rows
                 # fuse with decode continuations in one dispatch; None
-                # falls back to the single-step path, which is exact.
+                # falls back to the single-step path, which is exact. A
+                # pipeline runs mixed steps single, as in JAX.
                 plan = self._plan_fused(prefills)
             if plan is None:
                 plan = self._plan_mixed(prefills) if prefills else self._plan_decode()
@@ -2380,7 +2649,7 @@ class EngineCore:
                     "engine_megastep", t_decode, t_done,
                     attrs={
                         "seqs": len(ready), "inner_steps": n_steps,
-                        "tokens": emitted_total, "pp_stages": 1,
+                        "tokens": emitted_total, "pp_stages": self._pp,
                         "fused_shapes": {"decode": len(ready), "chunk": 0, "verify": 0},
                     },
                     stat=True,
@@ -3222,8 +3491,10 @@ class EngineCore:
         cache and the execution counters are left as they were; the
         kernels' launch counters count the eager launches (captures
         launch nothing). An engine whose collectives go through the host
-        (a tp mesh over gloo) captures nothing and runs one eager forward
-        per kind of dispatch. Returns the forwards it ran."""
+        (a tp, dp or pp mesh over gloo) captures nothing and runs one eager
+        forward per kind of dispatch. Returns the forwards it ran (on a
+        pipeline stage, as ``exec_stats["forwards"]`` counts them: one per
+        microbatch)."""
         with self._step_lock:
             launches = self._warm_up_launches()
             if self._eager_only:
@@ -3241,7 +3512,7 @@ class EngineCore:
             for launch, eager in launches:
                 if eager:
                     launch.body(torch.from_numpy(launch.packed).to(self.device))
-                    forwards += 1
+                    forwards += self._pp  # a stage's forwards: one per microbatch
             if self.device.type == "cuda" and not self._eager_only:
                 for launch, _ in launches:
                     if launch.key not in self._graphs:
@@ -3309,7 +3580,7 @@ class EngineCore:
                     batch = self._assemble_ragged(rows, width, feed_rows=[None] * n, force_R=r > 1)
                     launches.append((self._ragged_launch(batch, width, mixed=True), True))
                     lanes = self._fused_lanes(width, r, 1)
-                    for k in chains[1:]:
+                    for k in chains[1:] if self.pp_mesh is None else ():
                         launches.append((self._fused_launch(batch, width, k, lanes), False))
                         if r > 1 and self._spec_device:
                             launches.append((self._fused_launch(
@@ -3419,7 +3690,7 @@ class EngineCore:
     def _page_geometry(self) -> tuple[int, int, int, int]:
         """(layers, page size, KV heads, head dim) of this rank's pages."""
         return (
-            self.cfg.num_layers,
+            self.local_cfg.num_layers,
             self.engine.block_size,
             self.local_cfg.num_kv_heads,
             self.cfg.head_dim,
@@ -3427,7 +3698,7 @@ class EngineCore:
 
     def _page_shape(self) -> tuple[int, int, int, int]:
         return (
-            self.cfg.num_layers,
+            self.local_cfg.num_layers,
             self.engine.block_size,
             2 * self.local_cfg.num_kv_heads,
             self.cfg.head_dim,
@@ -3869,8 +4140,11 @@ class EngineCore:
         st["megastep_k"] = self.engine.megastep
         toks = self.exec_stats["committed_tokens"]
         st["dispatches_per_token"] = self.exec_stats["dispatches"] / toks if toks else 0.0
-        st["pp_stages"] = 1  # no pipeline parallelism until A12b
-        st["pp_pipe_occupancy"] = 1.0
+        # The stage count and a fused chain's steady-state pipe occupancy:
+        # k*M work items over k*M + pp - 1 wavefront rounds (1.0 unpipelined).
+        st["pp_stages"] = self._pp
+        km = max(1, self.engine.megastep) * self._pp
+        st["pp_pipe_occupancy"] = km / (km + self._pp - 1)
         par = self.parallel_stats()
         st.update({k: v for k, v in par.items() if k != "comm_backend"})
         st["attention_launches"] = ragged_attention.launches
@@ -3881,16 +4155,22 @@ class EngineCore:
         return st
 
     def parallel_stats(self) -> dict:
-        """Tensor parallelism: tp and this rank, the collective backend
-        ("none" at tp 1), the collectives this process has called and
-        those each forward calls (2 per layer, and the logits' gather of
-        an untied lm_head). ``scheduler_stats`` carries the numbers."""
+        """The mesh: tp, dp, pp and this rank (a pipeline's: its stage),
+        the collective backend ("none" on one rank), the collectives this
+        process has called (all kinds; ``p2p_calls`` of them the stage hops
+        sent and received) and those each forward of a tp rank calls (2 per
+        layer, and the logits' gather of an untied lm_head).
+        ``scheduler_stats`` carries the numbers."""
         tp = self.mesh.tp if self.mesh is not None else 1
+        dp = self.mesh.dp if self.mesh is not None else 1
+        ranked = self.pp_mesh if self._pp > 1 else self.mesh if tp * dp > 1 else None
         return {
             "tp": tp,
-            "rank": self.mesh.rank if self.mesh is not None else 0,
-            "comm_backend": self.mesh.backend if tp > 1 else "none",
-            "collective_calls": sum(comm.calls.values()) if tp > 1 else 0,
+            "dp": dp,
+            "rank": ranked.rank if ranked is not None else 0,
+            "comm_backend": ranked.backend if ranked is not None else "none",
+            "collective_calls": sum(comm.calls.values()) if ranked is not None else 0,
+            "p2p_calls": comm.calls["send"] + comm.calls["recv"] if self._pp > 1 else 0,
             "collectives_per_forward": (
                 0 if tp == 1 else 2 * self.cfg.num_layers + (0 if self.cfg.tie_embeddings else 1)),
         }
@@ -3903,7 +4183,7 @@ class EngineCore:
             "kv_dtype": self.engine.kv_dtype,
             "kv_dtype_int8": 1 if self.engine.kv_quantized else 0,
             "bytes_per_block": kv_page_bytes(
-                self.cfg.num_layers, self.engine.block_size,
+                self.local_cfg.num_layers, self.engine.block_size,
                 self.local_cfg.num_kv_heads, self.cfg.head_dim,
                 self.engine.kv_dtype, self.cfg.torch_dtype.itemsize,
             ),

@@ -21,8 +21,9 @@ devices run the same unpacking.
 Capture records the attention kernel's launches without running them, so
 :class:`GraphCache` takes them back off the launch counters and adds each
 graph's launches again on every replay: the counters count the kernels
-that ran. A tensor-parallel rank's collectives (NCCL, captured with the
-forward; ``parallel/comm.py``) are counted the same way.
+that ran. A rank's collectives and a pipeline stage's hops (NCCL,
+captured with the forward; ``parallel/comm.py``) are counted the same
+way.
 
 cuBLAS keeps its handles per thread and creates one at a thread's first
 matrix product, which must not happen inside a capture; the engine's

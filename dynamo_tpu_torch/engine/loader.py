@@ -147,7 +147,8 @@ def _quantize(w32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def _placements(cfg: ModelConfig, tp: int = 1, rank: int | None = None) -> dict[str, tuple]:
+def _placements(cfg: ModelConfig, tp: int = 1, rank: int | None = None,
+                layer_span: tuple[int, int] | None = None) -> dict[str, tuple]:
     """Each checkpoint tensor the model needs: HF name -> (leaf, layer or
     None, pieces). A piece ``(axis, s0, s1, d0, d1)`` copies positions
     ``s0:s1`` of the tensor along ``axis`` (after a 2-D weight is
@@ -156,7 +157,8 @@ def _placements(cfg: ModelConfig, tp: int = 1, rank: int | None = None) -> dict[
     shard-blocked layout of ``tp`` (``model.fuse_qkv``), ``wo`` and
     ``w_down`` by rows, ``lm_head`` by vocab columns. With ``rank`` only
     that rank's blocks are placed, into leaves of its own width; without,
-    every rank's, into the full tp-fused leaves."""
+    every rank's, into the full tp-fused leaves. With ``layer_span``
+    ``(lo, hi)`` only those layers are placed, layer ``lo`` at index 0."""
     q, kv, i, h, V = (cfg.q_size, cfg.kv_size, cfg.intermediate_size, cfg.hidden_size,
                       cfg.vocab_size)
     ranks = list(range(tp)) if rank is None else [rank]
@@ -187,7 +189,8 @@ def _placements(cfg: ModelConfig, tp: int = 1, rank: int | None = None) -> dict[
         "k_proj": cols(kv, qb, qb + 2 * kvb),
         "v_proj": cols(kv, qb + kvb, qb + 2 * kvb),
     }
-    for layer in range(cfg.num_layers):
+    lo, hi = layer_span or (0, cfg.num_layers)
+    for layer in range(lo, hi):
         pre = f"model.layers.{layer}."
         places = {
             "input_layernorm.weight": ("attn_norm", full(h)),
@@ -201,16 +204,17 @@ def _placements(cfg: ModelConfig, tp: int = 1, rank: int | None = None) -> dict[
         if cfg.attn_qkv_bias:
             places |= {f"self_attn.{n}.bias": ("bqkv", pieces) for n, pieces in qkv.items()}
         for name, (leaf, pieces) in places.items():
-            out[pre + name] = (leaf, layer, pieces)
+            out[pre + name] = (leaf, layer - lo, pieces)
     return out
 
 
 def _allocate(cfg: ModelConfig, dt: torch.dtype, quant: str | None, dev, tp: int = 1,
-              rank: int | None = None) -> Params:
+              rank: int | None = None, n_layers: int | None = None) -> Params:
     """Every leaf of the parameter tree, uninitialised, on ``dev``: a
-    rank's widths with ``rank``, else the full ones."""
+    rank's widths with ``rank``, else the full ones; ``n_layers`` layers
+    (all by default)."""
     local = rank_config(cfg, tp) if rank is not None else cfg
-    h, i, L = cfg.hidden_size, local.intermediate_size, cfg.num_layers
+    h, i, L = cfg.hidden_size, local.intermediate_size, n_layers or cfg.num_layers
     v = cfg.vocab_size // tp if rank is not None else cfg.vocab_size
     qkv = local.q_size + 2 * local.kv_size
 
@@ -268,6 +272,7 @@ def _place(params: Params, where: tuple, src: torch.Tensor, dev: torch.device) -
 def load_hf_llama(
     path: str | Path, dtype: torch.dtype | None = None, tp: int = 1,
     quant: str | None = None, device="cuda", rank: int | None = None,
+    layer_span: tuple[int, int] | None = None,
 ) -> tuple[ModelConfig, Params]:
     """``(ModelConfig, params)`` from an HF llama or qwen2 checkpoint
     directory, the params on ``device`` (the card unless the caller passes
@@ -284,7 +289,10 @@ def load_hf_llama(
     rank's shard is streamed onto ``device`` (its columns of ``wqkv``,
     ``wgu``, ``bqkv`` and ``lm_head``, its rows of ``wo`` and ``w_down``;
     int8 scales from each full weight), equal to
-    ``parallel.sharding.shard_params`` of the full tp-fused params."""
+    ``parallel.sharding.shard_params`` of the full tp-fused params.
+    ``layer_span`` ``(lo, hi)`` streams only those layers (a pipeline
+    stage's, ``parallel.pipeline.stage_span``), equal to
+    ``parallel.pipeline.stage_params`` of the whole."""
     if quant not in (None, "int8"):
         raise ValueError(f"unknown quantization {quant!r}")
     if tp < 1 or (rank is not None and not 0 <= rank < tp):
@@ -295,8 +303,11 @@ def load_hf_llama(
     dt = dtype or cfg.torch_dtype
     param_partition_specs(cfg, tp)  # tp must divide the heads and the MLP
     shards = _shards(path)
-    wanted = _placements(cfg, tp, rank)
-    params = _allocate(cfg, dt, quant, dev, tp, rank)
+    lo, hi = layer_span or (0, cfg.num_layers)
+    if not 0 <= lo < hi <= cfg.num_layers:
+        raise ValueError(f"layers {lo}:{hi} of a {cfg.num_layers}-layer model")
+    wanted = _placements(cfg, tp, rank, (lo, hi))
+    params = _allocate(cfg, dt, quant, dev, tp, rank, hi - lo)
     filled: set[str] = set()
     for shard in shards:
         tensors = _read_shard(shard)
@@ -308,8 +319,9 @@ def load_hf_llama(
     if missing:
         raise KeyError(f"{path}: the checkpoint lacks {len(missing)} tensors, e.g. {missing[:4]}")
     log.info(
-        "loaded %s: %d layers, vocab %d%s%s", path, cfg.num_layers, cfg.vocab_size,
+        "loaded %s: %d layers, vocab %d%s%s%s", path, cfg.num_layers, cfg.vocab_size,
         " (int8 weight-only)" if quant == "int8" else "",
         f", tp={tp} rank {rank}" if rank is not None else f", tp={tp} layout" if tp > 1 else "",
+        f", layers {lo}:{hi}" if (lo, hi) != (0, cfg.num_layers) else "",
     )
     return cfg, params

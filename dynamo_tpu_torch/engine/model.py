@@ -151,7 +151,7 @@ def params_fuse_tp(params: Params) -> int:
 # -- initialization --------------------------------------------------------
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1,
-                rank: int | None = None) -> Params:
+                rank: int | None = None, layer_span: tuple[int, int] | None = None) -> Params:
     """Random init from a seeded ``torch.Generator`` on ``device`` (serving
     smoke runs and benchmarks; real weights come through a converter).
     Each stacked weight is filled one layer at a time, so the f32
@@ -164,11 +164,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1,
     ranks (the dict then carries ``fuse_tp``); with ``rank`` the dict
     holds only that rank's shard (``parallel.sharding.shard_params`` of
     the full one). The draw is the same whatever ``tp`` and ``rank``, so
-    every layout holds the weights of the tp = 1 init."""
+    every layout holds the weights of the tp = 1 init. ``layer_span``
+    ``(lo, hi)`` keeps only those layers of each stacked leaf (a pipeline
+    stage's, ``parallel.pipeline.stage_span``): every layer is drawn, so
+    the kept ones are those of the whole init."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
     h, i, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    lo, hi = layer_span or (0, L)
     qkv = cfg.q_size + 2 * cfg.kv_size
     specs = param_partition_specs(cfg, tp)
 
@@ -179,18 +183,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1,
         for l in range(shape[0]) if stacked else (None,):
             noise = torch.randn(shape[1:] if stacked else shape, generator=gen, device=dev,
                                 dtype=torch.float32)
+            if l is not None and not lo <= l < hi:
+                continue
             part = noise * fan_in ** -0.5
             if post is not None:
                 part = post(part.to(dt))
             if out is None:
-                out = torch.empty(((L,) if stacked else ()) + tuple(part.shape), dtype=dt,
-                                  device=dev)
-            (out if l is None else out[l]).copy_(part)
+                out = torch.empty(((hi - lo,) if stacked else ()) + tuple(part.shape),
+                                  dtype=dt, device=dev)
+            (out if l is None else out[l - lo]).copy_(part)
         return out
 
     layers: dict[str, torch.Tensor] = {
-        "attn_norm": torch.ones((L, h), dtype=dt, device=dev),
-        "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
+        "attn_norm": torch.ones((hi - lo, h), dtype=dt, device=dev),
+        "mlp_norm": torch.ones((hi - lo, h), dtype=dt, device=dev),
         "wqkv": dense((L, h, qkv), h, "wqkv"),
         "wo": dense((L, cfg.q_size, h), cfg.q_size, "wo"),
     }
@@ -218,7 +224,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1,
 
 
 def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda", tp: int = 1,
-                          rank: int | None = None) -> Params:
+                          rank: int | None = None,
+                          layer_span: tuple[int, int] | None = None) -> Params:
     """Random init straight into the int8 layout (JAX
     ``init_params_quantized``): each stacked projection is drawn one layer
     at a time at the model dtype, as :func:`init_params` draws it, and
@@ -226,7 +233,8 @@ def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda", tp: in
     Embeddings and norms stay in the model dtype; ``lm_head`` (untied
     only) is quantized too. ``tp`` and ``rank`` as in
     :func:`init_params`: a layer is quantized at its full width and then
-    sliced, so a row-parallel weight keeps the full scales."""
+    sliced, so a row-parallel weight keeps the full scales. ``layer_span``
+    as in :func:`init_params`."""
     if cfg.is_moe:
         raise ValueError(
             f"int8 weights for the MoE preset {cfg.name!r} are not served: the JAX "
@@ -237,6 +245,7 @@ def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda", tp: in
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
     h, i, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    lo, hi = layer_span or (0, L)
     qkv = cfg.q_size + 2 * cfg.kv_size
 
     specs = param_partition_specs(cfg, tp)
@@ -257,24 +266,27 @@ def init_params_quantized(cfg: ModelConfig, seed: int = 0, device="cuda", tp: in
         spec = specs["layers"][name]
         out = None
         for l in range(L):
-            q = sliced(quantize_weight(draw(shape, fan_in, name, spec)), spec)
+            w = draw(shape, fan_in, name, spec)
+            if not lo <= l < hi:
+                continue
+            q = sliced(quantize_weight(w), spec)
             if out is None:
-                out = {k: torch.empty((L, *t.shape), dtype=t.dtype, device=dev)
+                out = {k: torch.empty((hi - lo, *t.shape), dtype=t.dtype, device=dev)
                        for k, t in q.items()}
-            out["w"][l].copy_(q["w"])
-            out["scale"][l].copy_(q["scale"])
+            out["w"][l - lo].copy_(q["w"])
+            out["scale"][l - lo].copy_(q["scale"])
         return out
 
     layers: dict[str, Any] = {
-        "attn_norm": torch.ones((L, h), dtype=dt, device=dev),
-        "mlp_norm": torch.ones((L, h), dtype=dt, device=dev),
+        "attn_norm": torch.ones((hi - lo, h), dtype=dt, device=dev),
+        "mlp_norm": torch.ones((hi - lo, h), dtype=dt, device=dev),
         "wqkv": qdense((h, qkv), h, "wqkv"),
         "wo": qdense((cfg.q_size, h), cfg.q_size, "wo"),
         "wgu": qdense((h, 2 * i), h, "wgu"),
         "w_down": qdense((i, h), i, "w_down"),
     }
     if cfg.attn_qkv_bias:  # biases stay unquantized
-        b = draw((L, qkv), 1, "bqkv", specs["layers"]["bqkv"])
+        b = draw((L, qkv), 1, "bqkv", specs["layers"]["bqkv"])[lo:hi]
         layers["bqkv"] = b if rank is None else take_shard(b, specs["layers"]["bqkv"], tp, rank)
     params: Params = {
         "embed": draw((v, h), h),
@@ -466,6 +478,22 @@ def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig, mesh=None) -> tor
     return comm.all_gather(_dot(x, params["lm_head"]), mesh)
 
 
+def logits_slice(x: torch.Tensor, params: Params, cfg: ModelConfig, stage: int,
+                 pp: int) -> torch.Tensor:
+    """Stage ``stage``'s ``V/pp`` columns of the f32 logits (the pipeline's
+    exit, JAX's ``_pp_decode_round_body``): the same rows of tied
+    embeddings, or columns of ``lm_head`` (an int8 leaf's ``w`` and
+    ``scale`` alike), contracted as :func:`_logits` contracts the whole."""
+    Vp = cfg.vocab_size // pp
+    lo, hi = stage * Vp, (stage + 1) * Vp
+    if cfg.tie_embeddings:
+        return _dot(x, params["embed"][lo:hi].t())
+    lm = params["lm_head"]
+    if isinstance(lm, dict):
+        return _dot(x, {k: v[..., lo:hi] for k, v in lm.items()})
+    return _dot(x, lm[:, lo:hi])
+
+
 def write_kv(cache_l, write_pages, write_offs, kvn: torch.Tensor):
     """Scatter this step's interleaved K/V rows ``[T, 2*n_kv, d]`` into one
     layer's pages, in place. Indices are int64 tensors. A quantized
@@ -515,7 +543,10 @@ def dense_layer(
     many rows, "decode": one query row per sequence). Under a ``mesh``,
     ``cfg`` is the rank's (``rank_config``) and ``lp`` its shard: the
     attention runs on the rank's heads with no collective, and the
-    row-parallel ``wo`` and ``w_down`` products are summed over the ranks."""
+    row-parallel ``wo`` and ``w_down`` products are summed over the ranks.
+    Under a mesh's lane view (a dp rank's block of a decode batch) the
+    K/V rows are gathered over dp before they are written, and
+    ``write_pages``/``write_offs`` are every lane's."""
     T = x.shape[0]
     y = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     qkv = _dot(y, lp["wqkv"])
@@ -524,7 +555,11 @@ def dense_layer(
     q, k, v = split_qkv(qkv.to(x.dtype), cfg)
     q = rope_apply(q.reshape(T, cfg.num_heads, cfg.head_dim), *rope_cs)
     k = rope_apply(k.reshape(T, cfg.num_kv_heads, cfg.head_dim), *rope_cs)
-    write_kv(cache_l, write_pages, write_offs, _interleave_kv(k.reshape(T, cfg.kv_size), v, cfg))
+    kvn = _interleave_kv(k.reshape(T, cfg.kv_size), v, cfg)
+    if mesh is not None and mesh.lanes:
+        # Every dp rank writes every lane's rows: the caches stay equal.
+        kvn = comm.dp_gather(kvn, mesh)
+    write_kv(cache_l, write_pages, write_offs, kvn)
     if isinstance(cache_l, dict):
         kv_pages, kv_scales = cache_l["kv"], cache_l["scale"]
     else:
@@ -540,6 +575,44 @@ def dense_layer(
 
 
 # -- the unified forward ----------------------------------------------------
+
+def forward_layers(
+    x: torch.Tensor,             # [T, h]
+    layers: dict,                # stacked [L', ...] leaves of the layers held
+    cache: tuple,                # the L' layers' pages
+    positions: torch.Tensor,     # [T] i32
+    write_pages: torch.Tensor,   # [T] i32 (garbage page for pads)
+    write_offs: torch.Tensor,    # [T] i32
+    kv_lens: torch.Tensor,       # [S] i32
+    block_tables: torch.Tensor,  # [S, pages_per_seq] i32
+    cu_q_lens: torch.Tensor,     # [S+1] i32
+    num_seqs: torch.Tensor,      # [1] i32
+    cfg: ModelConfig,
+    attention=ragged_paged_attention,
+    kernel: str = "tiled",
+    mesh=None,
+) -> torch.Tensor:
+    """The layers this process holds over one ragged batch: every layer of
+    the model, or a pipeline stage's slice (``parallel/pipeline.py``), each
+    :func:`dense_layer` in turn on its own pages; returns the hidden
+    states [T, h] after them. Under a mesh's lane view the rows' write
+    targets are gathered over dp once, for every layer's K/V rows."""
+    rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    wp, wo = write_pages.long(), write_offs.long()
+    if mesh is not None and mesh.lanes:
+        wp, wo = comm.dp_gather(torch.stack([wp, wo]), mesh, dim=1).unbind(0)
+    lcfg = rank_config(cfg, mesh.tp) if mesh is not None else cfg
+    for l in range(len(cache)):
+        lp = {
+            name: {k: t[l] for k, t in w.items()} if isinstance(w, dict) else w[l]
+            for name, w in layers.items()
+        }
+        x = dense_layer(
+            x, lp, cache[l], wp, wo, kv_lens, block_tables, cu_q_lens,
+            num_seqs, lcfg, rope_cs, attention, kernel, mesh,
+        )
+    return x
+
 
 def forward_hidden(
     params: Params,
@@ -569,19 +642,10 @@ def forward_hidden(
     x = params["embed"][tokens.long()]
     if mm_embeds is not None:
         x = torch.where(mm_mask[:, None], mm_embeds.to(x.dtype), x)
-    rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    wp, wo = write_pages.long(), write_offs.long()
-    layers = params["layers"]
-    lcfg = rank_config(cfg, mesh.tp) if mesh is not None else cfg
-    for l in range(cfg.num_layers):
-        lp = {
-            name: {k: t[l] for k, t in w.items()} if isinstance(w, dict) else w[l]
-            for name, w in layers.items()
-        }
-        x = dense_layer(
-            x, lp, cache[l], wp, wo, kv_lens, block_tables, cu_q_lens,
-            num_seqs, lcfg, rope_cs, attention, kernel, mesh,
-        )
+    x = forward_layers(
+        x, params["layers"], cache, positions, write_pages, write_offs, kv_lens,
+        block_tables, cu_q_lens, num_seqs, cfg, attention, kernel, mesh,
+    )
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 

@@ -1,21 +1,34 @@
-"""The collectives of tensor parallelism, made explicit.
+"""The collectives of tensor, data and pipeline parallelism, made explicit.
 
 The JAX engine runs one program over a device mesh and XLA inserts the
 collectives: a psum after the row-parallel ``wo`` and ``w_down`` products
 and the gather of the vocab-split ``lm_head``'s logits
-(``dynamo_tpu/parallel/sharding.py``). A PyTorch process drives one card,
-so the port runs one process per rank and calls those two collectives
-itself, on the mesh's process group:
+(``dynamo_tpu/parallel/sharding.py``), the gathers that keep a
+dp-replicated cache equal and a dp-split decode batch's outputs
+replicated, and the ``ppermute`` stage hop and ``psum`` exit of a
+pipeline (``dynamo_tpu/parallel/pipeline.py``). A PyTorch process drives
+one card, so the port runs one process per rank and calls them itself:
 
-- :func:`all_reduce` sums a rank's partial product over the ranks;
-- :func:`all_gather` joins the ranks' column blocks along the last axis.
+- :func:`all_reduce` sums a rank's partial product over the tp ranks;
+- :func:`all_gather` joins the tp ranks' column blocks along the last axis;
+- :func:`dp_gather` joins the dp ranks' lane blocks along an axis;
+- :func:`send_next` and :func:`recv_prev` hop an activation one pipeline
+  stage forward (the counterpart of ``ppermute``). The stages form a
+  chain, not a ring: stage ``s`` only sends to ``s + 1`` and receives
+  from ``s - 1``, sends do not wait for their receiver
+  (``isend``; :func:`wait_sends` collects them), so no two neighbours
+  can wait on each other;
+- :func:`exit_broadcast` replicates the last stage's rows on every stage
+  (the counterpart of a ``psum`` with one contributor, so bit for bit);
+- :func:`stage_gather` joins the stages' vocab slices of the logits.
 
 The backend follows from the ranks' devices (:func:`choose_backend`) and
 is fixed when the mesh is built, never on a failure: NCCL when every
 rank of a node has a card of its own; gloo when the ranks run on the
 CPU; gloo through host memory when ranks share a card (NCCL refuses two
 ranks on one GPU), each collective then copying its tensor to the host
-and back. A collective that fails raises.
+and back (2-byte floats travel as their bytes: these collectives copy,
+never add). A collective that fails raises.
 
 Each call adds one to ``calls`` (by collective) where it runs, and
 nowhere else; a CUDA graph that captured collectives adds them again at
@@ -33,7 +46,8 @@ NCCL, GLOO, GLOO_HOST = "nccl", "gloo", "gloo-host"
 BACKENDS = (NCCL, GLOO, GLOO_HOST)
 
 # Collective calls since the last reset, by collective.
-calls = {"all_reduce": 0, "all_gather": 0}
+calls = {"all_reduce": 0, "all_gather": 0, "dp_gather": 0, "send": 0, "recv": 0,
+         "broadcast": 0, "stage_gather": 0}
 
 
 def reset_calls() -> None:
@@ -84,36 +98,128 @@ def all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
     return x
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a dtype every backend moves (gloo has no bf16 and no int16):
+    2-byte floats as their bytes, the last axis doubled (for collectives
+    that copy, never add)."""
+    return x.view(torch.uint8) if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+def _gather(x: torch.Tensor, group, n: int, backend: str, dim: int) -> torch.Tensor:
+    """The ``n`` ranks' ``x`` of ``group`` joined along ``dim`` in rank
+    order."""
+    import torch.distributed as dist
+
+    src = _bits(x.contiguous())
+    if backend == NCCL:
+        out = torch.empty((n, *src.shape), dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+        parts = list(out.unbind(0))
+    else:
+        src = src.cpu() if backend == GLOO_HOST else src
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        parts = [p.to(x.device) for p in parts]
+    return torch.cat(parts, dim=dim).view(x.dtype)
+
+
 def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The ranks' ``x`` joined along the last axis in rank order (``x``
+    """The tp ranks' ``x`` joined along the last axis in rank order (``x``
     itself at tp = 1, with no call)."""
     if mesh is None or mesh.tp == 1:
         return x
+    calls["all_gather"] += 1
+    return _gather(x, mesh.group, mesh.tp, mesh.backend, -1)
+
+
+def dp_gather(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """The dp ranks' ``x`` (each its lane block) joined along ``dim`` in dp
+    order, the same on every rank (``x`` itself at dp = 1, with no call)."""
+    if mesh is None or mesh.dp == 1:
+        return x
+    calls["dp_gather"] += 1
+    return _gather(x, mesh.dp_group, mesh.dp, mesh.backend, dim)
+
+
+def send_next(x: torch.Tensor, mesh):
+    """Start sending ``x`` to the next pipeline stage; returns the pending
+    send (with the tensor it reads) for :func:`wait_sends`."""
     import torch.distributed as dist
 
-    calls["all_gather"] += 1
-    if mesh.backend == NCCL:
-        out = torch.empty((mesh.tp, *x.shape), dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
-        parts = list(out.unbind(0))
+    calls["send"] += 1
+    src = _bits(x.contiguous())
+    if mesh.backend == GLOO_HOST:
+        src = src.cpu()
+    return dist.isend(src, mesh.stage + 1, group=mesh.group), src
+
+
+def recv_prev(shape: tuple, dtype: torch.dtype, mesh) -> torch.Tensor:
+    """The activation the previous pipeline stage sent, on this stage's
+    device."""
+    import torch.distributed as dist
+
+    calls["recv"] += 1
+    host = mesh.backend == GLOO_HOST
+    buf = torch.empty(shape, dtype=dtype, device="cpu" if host else mesh.device)
+    dist.recv(_bits(buf), mesh.stage - 1, group=mesh.group)
+    return buf.to(mesh.device) if host else buf
+
+
+def wait_sends(pending: list) -> None:
+    """Wait for the sends :func:`send_next` started."""
+    for work, _ in pending:
+        work.wait()
+    pending.clear()
+
+
+def exit_broadcast(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The last pipeline stage's ``x``, on every stage (in place; the
+    other stages pass a tensor of its shape and dtype)."""
+    import torch.distributed as dist
+
+    calls["broadcast"] += 1
+    src = mesh.pp - 1
+    buf = _bits(x.contiguous())
+    if mesh.backend == GLOO_HOST:
+        host = buf.cpu()
+        dist.broadcast(host, src, group=mesh.group)
+        buf = host.to(x.device)
     else:
-        src = x.contiguous().cpu() if mesh.backend == GLOO_HOST else x.contiguous()
-        parts = [torch.empty_like(src) for _ in range(mesh.tp)]
-        dist.all_gather(parts, src, group=mesh.group)
-        parts = [p.to(x.device) for p in parts]
-    return torch.cat(parts, dim=-1)
+        dist.broadcast(buf, src, group=mesh.group)
+    return buf.view(x.dtype)
+
+
+def stage_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The stages' ``x`` (each its vocab slice of the logits) joined along
+    the last axis in stage order."""
+    calls["stage_gather"] += 1
+    return _gather(x, mesh.group, mesh.pp, mesh.backend, -1)
 
 
 def warm_up(mesh) -> None:
-    """One small all-reduce, so that a backend's communicator exists
-    before the first CUDA graph capture (NCCL creates it lazily at the
-    first collective, which must not fall inside a capture). Not
-    counted."""
-    if mesh is None or mesh.tp == 1:
-        return
+    """One small all-reduce on each of the mesh's groups, so that a
+    backend's communicators exist before the first CUDA graph capture
+    (NCCL creates them lazily at the first collective, which must not fall
+    inside a capture); on a pipeline also one send from each stage to the
+    next, since NCCL opens each pair's point-to-point connection at its
+    first send. Not counted."""
     import torch.distributed as dist
 
-    t = torch.ones(1, device=mesh.device if mesh.backend == NCCL else "cpu")
-    dist.all_reduce(t, group=mesh.group)
-    if int(t.item()) != mesh.tp:
-        raise RuntimeError(f"warm-up all-reduce gave {t.item()}, expected {mesh.tp}")
+    if mesh is None:
+        return
+    dev = mesh.device if mesh.backend == NCCL else "cpu"
+    for group, n in mesh.groups():
+        t = torch.ones(1, device=dev)
+        dist.all_reduce(t, group=group)
+        if int(t.item()) != n:
+            raise RuntimeError(f"warm-up all-reduce gave {t.item()}, expected {n}")
+    if getattr(mesh, "pp", 1) > 1:
+        # Down the chain: each stage receives, then sends.
+        t = torch.full((1,), float(mesh.stage), device=dev)
+        if mesh.stage > 0:
+            dist.recv(t, mesh.stage - 1, group=mesh.group)
+            if int(t.item()) != mesh.stage - 1:
+                raise RuntimeError(f"warm-up hop gave {t.item()}, expected {mesh.stage - 1}")
+            t.fill_(float(mesh.stage))
+        if mesh.stage + 1 < mesh.pp:
+            dist.send(t, mesh.stage + 1, group=mesh.group)

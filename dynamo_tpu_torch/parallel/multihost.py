@@ -7,8 +7,9 @@ process that drives one card (or the CPU) and joins
 ``torch.distributed``'s default process group at the coordinator's
 address; the collectives are the port's own (``parallel/comm.py``). The
 worker's leader/follower step replication (``backends/torch/multihost.py``)
-keeps the ranks' schedulers in lockstep, on one node (``--tp``) as across
-nodes (``--nnodes``).
+keeps the ranks' schedulers in lockstep, on one node (``--tp``, ``--dp``,
+``--pp``) as across nodes (``--nnodes``; not with ``--pp``). A world is
+dp x tp ranks or pp stages.
 
 The counterpart of ``force_cpu_devices`` is ranks on the CPU (gloo);
 ``fetch_replicated*`` have none: a rank's outputs are on its own device,

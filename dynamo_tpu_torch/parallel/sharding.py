@@ -1,4 +1,4 @@
-"""Tensor parallelism for the port: megatron-style, one process per rank.
+"""Tensor and data parallelism for the port: one process per rank.
 
 Counterpart of ``dynamo_tpu/parallel/sharding.py``, with the same layouts
 (classic megatron over the ``tp`` axis):
@@ -13,6 +13,12 @@ Counterpart of ``dynamo_tpu/parallel/sharding.py``, with the same layouts
 - the paged KV cache: the combined-head axis split over tp, so a rank
   holds the K and V pages of its own KV heads.
 
+Over ``dp`` the params and the cache are replicated, and a decode
+megastep's batch is split: dp rank ``d`` computes the ``d``-th contiguous
+block of its lanes (:func:`dp_lane_block`, the counterpart of
+``decode_batch_shardings``). Every other dispatch runs whole on every dp
+rank, as in JAX, whose prefill inputs are replicated.
+
 The JAX engine is a single controller whose mesh spans the devices; XLA
 places each leaf by its ``PartitionSpec`` and inserts the collectives. A
 PyTorch process drives one card, so here each rank is a process of its
@@ -22,7 +28,7 @@ of ``parallel/comm.py``. A spec is a tuple with the entries of JAX's
 tuples.
 
 ``tp`` must divide num_heads, num_kv_heads and intermediate_size (llama3
-GQA: tp <= 8). dp > 1 is not served (``ROADMAP.md`` A12b).
+GQA: tp <= 8).
 
 The fused params must have been built with THIS tp (``init_params(cfg,
 seed, tp=...)``, ``load_hf_llama(path, tp=...)``): the shard-blocked column
@@ -45,9 +51,13 @@ TP = "tp"
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's place in a dp x tp mesh: the axis sizes, its rank,
-    every rank's device (rank order), the process group of the tp axis
-    (None at tp = 1) and the collective backend (``comm.choose_backend``)."""
+    """This process's place in a dp x tp mesh: the axis sizes, its rank
+    (``dp_rank * tp + tp_rank``, JAX's ``devices.reshape(dp, tp)``), every
+    rank's device (rank order), the process groups of the tp axis and of
+    the dp axis that hold this rank (None where the axis is 1) and the
+    collective backend (``comm.choose_backend``). ``lanes`` marks the view
+    a decode forward over this rank's lane block runs under
+    (:meth:`lane_view`): the K/V rows it writes are gathered over dp."""
 
     dp: int
     tp: int
@@ -55,17 +65,45 @@ class Mesh:
     devices: tuple[torch.device, ...]
     backend: str
     group: Any = None
+    dp_group: Any = None
+    lanes: bool = False
 
     @property
     def device(self) -> torch.device:
         return self.devices[self.rank]
 
+    @property
+    def tp_rank(self) -> int:
+        """This rank's shard of the tp axis."""
+        return self.rank % self.tp
 
-def default_devices(tp: int, nnodes: int = 1) -> list[torch.device]:
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    def groups(self) -> list[tuple[Any, int]]:
+        """(group, size) of each axis above 1."""
+        return [(g, n) for g, n in ((self.group, self.tp), (self.dp_group, self.dp)) if n > 1]
+
+    def lane_view(self) -> "Mesh":
+        return dataclasses.replace(self, lanes=True)
+
+
+def dp_lane_block(mesh: Mesh, width: int) -> tuple[int, int]:
+    """The lanes ``[lo, hi)`` of a decode dispatch of ``width`` lanes that
+    this dp rank computes: its contiguous block, as JAX's
+    ``P("dp")`` splits the batch axis."""
+    if width % mesh.dp:
+        raise ValueError(f"decode width {width} not a multiple of dp={mesh.dp}")
+    n = width // mesh.dp
+    return mesh.dp_rank * n, (mesh.dp_rank + 1) * n
+
+
+def default_devices(world: int, nnodes: int = 1) -> list[torch.device]:
     """One card per rank, ``cuda:0 .. cuda:k-1`` on each node of ``k =
-    tp / nnodes`` ranks. Fewer cards on this node than ranks raises:
+    world / nnodes`` ranks. Fewer cards on this node than ranks raises:
     ranks share a card only where the caller lists their devices."""
-    k = tp // nnodes
+    k = world // nnodes
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < k:
         raise ValueError(
@@ -76,53 +114,75 @@ def default_devices(tp: int, nnodes: int = 1) -> list[torch.device]:
     return [torch.device("cuda", i) for _ in range(nnodes) for i in range(k)]
 
 
+def join_group(world: int, rank: int | None, backend: str, devices) -> int:
+    """Check that the default process group is up with ``world`` ranks and
+    the process-group backend ``backend`` calls for; returns this
+    process's rank (``rank`` must be it, when given)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a mesh of {world} ranks needs the process group up first "
+            "(parallel.multihost.init_multihost)"
+        )
+    if dist.get_world_size() != world:
+        raise ValueError(f"the process group has {dist.get_world_size()} ranks, the mesh {world}")
+    want = comm.process_group_backend(backend)
+    if dist.get_backend() != want:
+        raise ValueError(
+            f"ranks on {[str(d) for d in devices]} need the {want} process group "
+            f"({backend}), it is {dist.get_backend()}"
+        )
+    rank = dist.get_rank() if rank is None else rank
+    if rank != dist.get_rank():
+        raise ValueError(f"rank {rank} is not this process's ({dist.get_rank()})")
+    return rank
+
+
 def make_mesh(dp: int = 1, tp: int = 1, devices=None, rank: int | None = None,
               nnodes: int = 1) -> Mesh:
     """This process's mesh of ``dp x tp`` ranks. ``devices`` (one per rank,
     rank order) defaults to one card per rank (:func:`default_devices`);
     ``rank`` to this process's rank in the default process group, which
-    must be up at tp > 1 (``parallel/multihost.init_multihost``) with a
-    world of tp ranks and the backend the devices call for. The backend
-    is printed. dp > 1 raises."""
-    if dp != 1:
-        raise ValueError(f"dp={dp}: data parallelism is not ported yet (ROADMAP.md A12b)")
-    if tp < 1 or tp % nnodes:
-        raise ValueError(f"tp={tp} must be a positive multiple of nnodes={nnodes}")
+    must be up above one rank (``parallel/multihost.init_multihost``) with
+    a world of dp x tp ranks and the backend the devices call for. Every
+    rank creates every tp and dp group, in one order
+    (``torch.distributed.new_group`` is collective). The backend is
+    printed."""
+    world = dp * tp
+    if dp < 1 or tp < 1 or world % nnodes:
+        raise ValueError(f"mesh {dp}x{tp} must be positive, in ranks a multiple of "
+                         f"nnodes={nnodes}")
     devices = [torch.device(d) for d in (devices if devices is not None
-                                         else default_devices(tp, nnodes))]
-    if dp * tp > len(devices):
-        raise ValueError(f"mesh {dp}x{tp} needs {dp*tp} devices, have {len(devices)}")
-    devices = devices[: dp * tp]
-    backend = comm.choose_backend(devices, tp // nnodes)
-    group = None
-    if tp > 1:
+                                         else default_devices(world, nnodes))]
+    if world > len(devices):
+        raise ValueError(f"mesh {dp}x{tp} needs {world} devices, have {len(devices)}")
+    devices = devices[:world]
+    backend = comm.choose_backend(devices, world // nnodes)
+    group = dp_group = None
+    if world > 1:
         import torch.distributed as dist
 
-        if not dist.is_initialized():
-            raise RuntimeError(
-                f"tp={tp} needs the process group up first "
-                "(parallel.multihost.init_multihost)"
-            )
-        if dist.get_world_size() != tp:
-            raise ValueError(f"the process group has {dist.get_world_size()} ranks, the mesh {tp}")
-        want = comm.process_group_backend(backend)
-        if dist.get_backend() != want:
-            raise ValueError(
-                f"ranks on {[str(d) for d in devices]} need the {want} process group "
-                f"({backend}), it is {dist.get_backend()}"
-            )
-        group = dist.group.WORLD
-        rank = dist.get_rank() if rank is None else rank
-        if rank != dist.get_rank():
-            raise ValueError(f"rank {rank} is not this process's ({dist.get_rank()})")
+        rank = join_group(world, rank, backend, devices)
+        if dp == 1:
+            group = dist.group.WORLD
+        else:
+            for d in range(dp):
+                g = dist.new_group([d * tp + t for t in range(tp)]) if tp > 1 else None
+                if d == rank // tp:
+                    group = g
+            for t in range(tp):
+                g = dist.new_group([d * tp + t for d in range(dp)])
+                if t == rank % tp:
+                    dp_group = g
     rank = 0 if rank is None else rank
-    mesh = Mesh(dp, tp, rank, tuple(devices), backend, group)
-    if tp > 1:
+    mesh = Mesh(dp, tp, rank, tuple(devices), backend, group, dp_group)
+    if world > 1:
         if backend != comm.GLOO:
             torch.cuda.set_device(mesh.device)
         comm.warm_up(mesh)
-        print(f"tp mesh: rank {rank}/{tp} on {mesh.device}, collectives over {backend}",
-              flush=True)
+        print(f"{dp}x{tp} mesh: rank {rank}/{world} (dp {mesh.dp_rank}, tp {mesh.tp_rank}) "
+              f"on {mesh.device}, collectives over {backend}", flush=True)
     return mesh
 
 
@@ -235,7 +295,7 @@ def shard_params(params: dict, cfg: ModelConfig, mesh: Mesh) -> dict:
             return {k: shard(x[k], spec[k]) for k in x}
         if not isinstance(x, torch.Tensor):
             return x
-        return take_shard(x, spec, mesh.tp, mesh.rank)
+        return take_shard(x, spec, mesh.tp, mesh.rank % mesh.tp)  # the rank's tp shard
 
     return {k: shard(params[k], specs[k]) for k in params}
 

@@ -164,8 +164,9 @@ def test_unknown_kv_dtype_and_quant_refused():
 
 
 def test_unported_models_and_meshes_refused():
-    """MoE presets are served (A11) and tp meshes (A12, part 1); a dp = 2
-    mesh (A12b) and MoE under a tp mesh (A12d) are refused by name."""
+    """MoE presets are served (A11), tp meshes (A12, part 1) and dp meshes
+    (A12b); MoE under a tp or a dp mesh (expert parallelism, A12d) is
+    refused by name, and a dp = 2 mesh needs its ranks' process group."""
     from types import SimpleNamespace
 
     from dynamo_tpu_torch.backends.torch.main import build_engine
@@ -175,10 +176,10 @@ def test_unported_models_and_meshes_refused():
 
     core, _ = build_engine("tiny-moe", device="cpu")
     assert core.cfg.is_moe and "w_router" in core.params["layers"]
-    with pytest.raises(ValueError, match="A12b"):
-        EngineCore(tiny_model(), tiny_engine(), device="cpu",
+    with pytest.raises(ValueError, match="A12d"):
+        EngineCore(tiny_moe(), tiny_engine(), device="cpu",
                    mesh=SimpleNamespace(dp=2, tp=1))
-    with pytest.raises(ValueError, match="A12b"):
+    with pytest.raises(RuntimeError, match="process group"):
         make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="A12d"):
         EngineCore(tiny_moe(), tiny_engine(), device="cpu",

@@ -345,8 +345,8 @@ def test_worker_tp2_on_cpu_ranks_serves_tp1_tokens(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--dp", "2"], "A12b"),
-    (["--pp", "2"], "A12b"),
+    (["--dp", "2", "--role", "prefill"], "A12d"),
+    (["--pp", "2", "--preset", "tiny-moe", "--moe-dispatch", "alltoall"], "A12d"),
     (["--sp", "2"], "A12c"),
     (["--tp", "2", "--role", "prefill"], "A12d"),
     (["--tp", "2", "--preset", "tiny-moe", "--moe-dispatch", "alltoall"], "A12d"),

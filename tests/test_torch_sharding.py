@@ -244,10 +244,10 @@ def test_backend_choice_refuses_mixed_and_unknown():
 
 
 def test_make_mesh_refusals(monkeypatch):
-    """dp > 1 names its item; tp > 1 needs the process group; without a
-    device list, a node with fewer cards than ranks raises; tp = 1 needs
-    neither and calls no collective."""
-    with pytest.raises(ValueError, match="A12b"):
+    """dp > 1 and tp > 1 need the process group; without a device list, a
+    node with fewer cards than ranks raises; tp = 1 needs neither and
+    calls no collective."""
+    with pytest.raises(RuntimeError, match="process group"):
         sharding.make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
     with pytest.raises(RuntimeError, match="process group"):
         sharding.make_mesh(tp=2, devices=["cpu", "cpu"])

@@ -505,9 +505,9 @@ async def test_graceful_drain_publishes_cleared():
 # -- (h) what the port does not serve is refused by name ----------------------
 
 SERVED_ITEMS = {"A7", "A10", "A11"}  # ROADMAP items landed since their flags were refused
-# The multi-rank flags that A12 part 1 serves; the rest of A12 (A12b-A12d:
-# --pp, ring prefill) is still refused, by messages that name it.
-A12_SERVED = {("--tp", "2"), ("--nnodes", "2", "--dist-init-addr", "127.0.0.1:1"),
+# The multi-rank flags that A12 part 1 and A12b serve; the rest of A12
+# (A12c, A12d: ring prefill) is still refused, by messages that name it.
+A12_SERVED = {("--tp", "2"), ("--pp", "2"), ("--nnodes", "2", "--dist-init-addr", "127.0.0.1:1"),
               ("--local-cpu-devices", "4")}
 
 
@@ -536,16 +536,17 @@ def test_unported_cli_flags_refused(argv, item, monkeypatch):
     refuses as the JAX worker does; they take a checkpoint directory and a
     GGUF tokenizer (A7), and a path that does not exist fails as a missing
     file, the checkpoint's before the worker joins the fleet. They take
-    ``--tp`` and the multi-host flags (A12 part 1): ``--tp 2`` on a node
-    with no card and no device list raises before any rank starts, and
-    ``--nnodes`` or ``--local-cpu-devices`` without the ``--tp`` whose
-    ranks they place raise."""
+    ``--tp``, ``--pp`` and the multi-host flags (A12 part 1, A12b):
+    ``--tp 2`` or ``--pp 2`` on a node with no card and no device list
+    raises before any rank starts, and ``--nnodes`` or
+    ``--local-cpu-devices`` without the ``--tp`` whose ranks they place
+    raise."""
     if item == "A12" and tuple(argv) in A12_SERVED:
         import torch
 
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         args = worker_main._parser().parse_args(argv)
-        if args.tp > 1:
+        if args.tp * args.pp > 1:
             worker_main._refuse_unported(args)
             with pytest.raises(ValueError, match="list the ranks' devices explicitly"):
                 worker_main.rank_layout(args)

@@ -1,19 +1,22 @@
-"""Rank processes for the port's tensor-parallel tests on the CPU.
+"""Rank processes for the port's parallel tests on the CPU.
 
-``RankPair`` starts two processes of this file, each one rank of a tp = 2
-mesh over gloo, and sends them commands; a test's module-scoped fixture
-holds one pair for its file. A rank imports no jax and nothing of the
-JAX package: the tests hand it numpy arrays (JAX params pytrees mapped
-through ``np.asarray``) and compare what it returns with the JAX side in
-the test process. Each rank runs one torch thread.
+``RankPair`` starts processes of this file, each one rank of a mesh over
+gloo (tp = 2 by default; any dp x tp mesh, or a pipeline of pp stages),
+and sends them commands; a test's module-scoped fixture holds one pool
+for its file. A rank imports no jax and nothing of the JAX package: the
+tests hand it numpy arrays (JAX params pytrees mapped through
+``np.asarray``) and compare what it returns with the JAX side in the test
+process. Each rank runs one torch thread.
 
-Run as ``python tests/torch_tp_ranks.py RANK WORLD COORDINATOR PORT``: it
-connects back to the test's listener on ``PORT``, joins the process group
-at ``COORDINATOR`` and serves commands until it is told to stop.
+Run as ``python tests/torch_tp_ranks.py RANK WORLD COORDINATOR PORT AXES``
+(``AXES`` as JSON, e.g. ``{"pp": 2}``): it connects back to the test's
+listener on ``PORT``, joins the process group at ``COORDINATOR`` and
+serves commands until it is told to stop.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import socket
@@ -39,13 +42,16 @@ def free_port() -> int:
 
 class RankPair:
     """``world`` rank processes (two by default) and their command
-    channels. ``call(name, **kwargs)`` runs the command on every rank at
-    once and returns the ranks' results in rank order; a rank's exception
-    is raised here with its traceback. ``close()`` stops and joins the
-    ranks, terminating any that do not stop."""
+    channels. ``axes`` names the mesh (``{"tp": world}`` by default;
+    ``{"dp": 2, "tp": 2}``, ``{"pp": 4}``). ``call(name, **kwargs)`` runs
+    the command on every rank at once and returns the ranks' results in
+    rank order; a rank's exception is raised here with its traceback.
+    ``close()`` stops and joins the ranks, terminating any that do not
+    stop."""
 
-    def __init__(self, world: int = 2, timeout: float = 60.0):
+    def __init__(self, world: int = 2, timeout: float = 60.0, axes: dict | None = None):
         self.world = world
+        axes = axes or {"tp": world}
         self.procs: list[subprocess.Popen] = []
         self.conns: list = [None] * world
         listener = Listener(("127.0.0.1", 0), authkey=AUTHKEY)
@@ -55,7 +61,7 @@ class RankPair:
             for r in range(world):
                 self.procs.append(subprocess.Popen(
                     [sys.executable, __file__, str(r), str(world), coordinator,
-                     str(listener.address[1])], cwd=ROOT, env=env,
+                     str(listener.address[1]), json.dumps(axes)], cwd=ROOT, env=env,
                 ))
             accepted: list = []
             thread = threading.Thread(
@@ -173,6 +179,63 @@ def run_requests(core, requests: list[dict], max_steps: int = 500) -> dict[str, 
     return streams
 
 
+def drive(core, requests: list[dict], max_steps: int = 4000) -> tuple[dict, dict, dict]:
+    """Every request (wire dicts) added at once, then steps until all have
+    finished: (tokens, finish reasons, logprob entries) by request id, as
+    the JAX package's ``tests/test_pp_megastep.drive``."""
+    from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+    done: dict[str, list[int]] = {r["request_id"]: [] for r in requests}
+    fins: dict[str, str] = {}
+    lps: dict[str, list] = {r["request_id"]: [] for r in requests}
+    for r in requests:
+        core.add_request(PreprocessedRequest.from_wire(r))
+    for _ in range(max_steps):
+        for seq, out in core.step():
+            done[seq.request_id].extend(out.token_ids)
+            if out.logprobs:
+                lps[seq.request_id].extend(out.logprobs)
+            if out.finish_reason:
+                fins[seq.request_id] = str(out.finish_reason)
+        if len(fins) == len(requests) and not core.has_work():
+            break
+    return done, fins, lps
+
+
+def tier_round_trip(make_core, eng, tier_eng, prompt, noise) -> dict:
+    """The tier round trip: ``prompt``'s greedy stream on a plain engine
+    (``make_core(eng)``), then on a tiered one (``tier_eng``) before and
+    after ``noise`` (batches of prompts, each batch run at once) pushes its
+    prefix off the card; the host and disk tiers' bytes of the prefix
+    blocks, by hash, and the onboards."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    def wire(p, rid):
+        return PreprocessedRequest(model="t", token_ids=list(p), request_id=rid,
+                                   sampling=SamplingOptions(temperature=0.0),
+                                   stop=StopConditions(max_tokens=6)).to_wire()
+
+    ref = run_requests(make_core(eng), [wire(prompt, "ref")])["ref"]
+    core = make_core(tier_eng)
+    seq_a = core.add_request(PreprocessedRequest.from_wire(wire(prompt, "a")))
+    while core.has_work():
+        core.step()
+    prefix = seq_a.prompt_hashes[: (len(prompt) - 1) // tier_eng.block_size]
+    for i, batch in enumerate(noise):
+        run_requests(core, [wire(p, f"n{i}-{j}") for j, p in enumerate(batch)])
+    core.offload.flush()
+    host = {h: core.host_pool._blocks[h].kv.tobytes() for h in prefix if h in core.host_pool}
+    disk = {h: core.disk_pool.peek(h).tobytes() for h in prefix if h in core.disk_pool}
+    again = run_requests(core, [wire(prompt, "b")])["b"]
+    return {"ref": ref, "again": again, "host": host, "disk": disk,
+            "onboards": core.host_pool.stats.onboards + core.disk_pool.stats.onboards,
+            "prefix": prefix}
+
+
 def unblocked(tree: dict, cfg) -> dict:
     """A numpy params tree fused for its ``fuse_tp`` laid out for tp = 1:
     the same model (the inverse of ``sharding.reblock`` on each fused
@@ -213,58 +276,188 @@ def _leaves(params) -> dict:
 
 
 class Rank:
-    """One rank's commands (each a method), over this process's mesh."""
+    """One rank's commands (each a method), over this process's mesh: a dp x
+    tp ``mesh`` or a pipeline's ``pp_mesh`` (the other None)."""
 
-    def __init__(self, rank: int, world: int, coordinator: str):
+    def __init__(self, rank: int, world: int, coordinator: str, axes: dict):
         from dynamo_tpu_torch.parallel.multihost import init_multihost
+        from dynamo_tpu_torch.parallel.pipeline import make_pp_mesh
         from dynamo_tpu_torch.parallel.sharding import make_mesh
 
         init_multihost(coordinator, world, rank)
-        self.mesh = make_mesh(tp=world, devices=["cpu"] * world)
+        self.mesh = self.pp_mesh = None
+        if "pp" in axes:
+            self.pp_mesh = make_pp_mesh(axes["pp"], devices=["cpu"] * world)
+        else:
+            self.mesh = make_mesh(dp=axes.get("dp", 1), tp=axes.get("tp", 1),
+                                  devices=["cpu"] * world)
         self.rank = rank
+        # The tp shard this rank holds (None: a whole replica or stage).
+        self.shard = self.mesh.tp_rank if self.mesh is not None and self.mesh.tp > 1 else None
 
     def info(self) -> dict:
         import sys as _sys
 
         bad = [m for m in _sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu")]
-        return {"rank": self.mesh.rank, "backend": self.mesh.backend, "leaked": bad}
+        mesh = self.mesh or self.pp_mesh
+        return {"rank": mesh.rank, "backend": mesh.backend, "leaked": bad}
 
     def forwards(self, tree, cfg, eng, prompt, chunks, blocks, decode_toks) -> list:
         from dynamo_tpu_torch.engine.convert import params_from_numpy
         from dynamo_tpu_torch.engine.model import init_cache
 
-        params = params_from_numpy(tree, cfg, device="cpu", rank=self.rank)
+        params = params_from_numpy(tree, cfg, device="cpu", rank=self.shard)
         cache = init_cache(cfg, eng, "cpu", tp=self.mesh.tp)
         return run_forwards(params, cache, cfg, eng, prompt, chunks, blocks, decode_toks,
                             self.mesh)
 
-    def engine(self, cfg, eng, requests, tree=None, seed=0, more=()) -> dict:
+    def core(self, cfg, eng, tree=None, seed=0, **kw):
+        """This rank's EngineCore on its mesh (``tree``: numpy params)."""
+        from dynamo_tpu_torch.engine.convert import params_from_numpy
+        from dynamo_tpu_torch.engine.core import EngineCore
+
+        params = None if tree is None else params_from_numpy(tree, cfg, "cpu", self.shard)
+        return EngineCore(cfg, eng, params=params, seed=seed, device="cpu", mesh=self.mesh,
+                          pp_mesh=self.pp_mesh, **kw)
+
+    def engine(self, cfg, eng, requests, tree=None, seed=0, more=(), eos=()) -> dict:
         """``requests`` (then each list of ``more``, one after another) through
         this rank's EngineCore; the streams (a list of them with ``more``),
         counters and the rank's combined KV heads."""
-        from dynamo_tpu_torch.engine.convert import params_from_numpy
-        from dynamo_tpu_torch.engine.core import EngineCore
         from dynamo_tpu_torch.parallel import comm
 
-        params = None if tree is None else params_from_numpy(tree, cfg, "cpu", self.rank)
         comm.reset_calls()
-        core = EngineCore(cfg, eng, params=params, seed=seed, device="cpu", mesh=self.mesh)
+        core = self.core(cfg, eng, tree, seed, eos_token_ids=tuple(eos))
         streams = [run_requests(core, r) for r in (requests, *more)]
         streams = streams if more else streams[0]
         st = {**core.scheduler_stats(), **core.parallel_stats()}
-        keys = ("tp", "rank", "comm_backend", "collective_calls", "collectives_per_forward",
-                "forwards", "mixed_steps")
+        keys = ("tp", "dp", "rank", "comm_backend", "collective_calls", "collectives_per_forward",
+                "forwards", "mixed_steps", "p2p_calls", "pp_stages", "pp_pipe_occupancy",
+                "pp_fused_dispatches", "pp_forced_single", "preemptions", "decode_iterations")
         return {"streams": streams, "stats": {k: st[k] for k in keys},
+                "calls": dict(comm.calls),
                 "spec": core.spec_decode_stats(), "tiers": core.tier_stats(),
                 "kv_heads": core.cache[0]["kv"].shape[2]
-                if isinstance(core.cache[0], dict) else core.cache[0].shape[2]}
+                if isinstance(core.cache[0], dict) else core.cache[0].shape[2],
+                "layers": len(core.cache)}
+
+    def drive(self, cfg, eng, requests, tree=None, seed=0, eos=(), spans=False) -> dict:
+        """``requests`` (wire dicts) through this rank's EngineCore
+        (:func:`drive`): its (tokens, finish reasons, logprobs), its
+        scheduler and parallel counters, the allocator's partial blocks
+        left, and with ``spans`` the ``pp_stages`` of every
+        ``engine_megastep`` span."""
+        from dynamo_tpu_torch import tracing
+        from dynamo_tpu_torch.parallel import comm
+
+        comm.reset_calls()
+        if spans:
+            tracing.configure(enabled=True, sample=1.0)
+            tracing.get_collector().clear()
+        core = self.core(cfg, eng, tree, seed, eos_token_ids=tuple(eos))
+        out = drive(core, requests)
+        st = {**core.scheduler_stats(), **core.parallel_stats()}
+        res = {"out": out, "stats": st, "partials": core.allocator._partials,
+               "cache": [type(c).__name__ for c in core.cache]}
+        if spans:
+            res["spans"] = [sp.attrs["pp_stages"] for sp in tracing.get_collector().stats()
+                            if sp.name == "engine_megastep"]
+        return res
+
+    def build(self, preset, overrides) -> dict:
+        """The worker's ``build_engine`` of ``preset`` on this rank's mesh:
+        the engine shape it settled on and the layers and KV heads the rank
+        holds."""
+        from dynamo_tpu_torch.backends.torch.main import build_engine
+
+        core, _ = build_engine(preset, overrides, device="cpu", mesh=self.mesh,
+                               pp_mesh=self.pp_mesh)
+        return {"prefill_buckets": core.engine.prefill_buckets,
+                "decode_buckets": core.engine.decode_buckets, "layers": len(core.cache)}
+
+    def engine_logprobs(self, cfg, eng, request, tree=None) -> list:
+        """One request (a wire dict) through this rank's EngineCore: its
+        logprob entries."""
+        from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+        core = self.core(cfg, eng, tree)
+        core.add_request(PreprocessedRequest.from_wire(request))
+        out = []
+        while core.has_work():
+            for _, o in core.step():
+                out.extend(o.logprobs or [])
+        return out
+
+    def _stage(self, tree, cfg, eng):
+        """This stage's params (of numpy ``tree``) and a zeroed cache of its
+        layers."""
+        from dynamo_tpu_torch.engine.convert import params_from_numpy
+        from dynamo_tpu_torch.engine.model import init_cache
+        from dynamo_tpu_torch.parallel.pipeline import stage_config, stage_params
+
+        params = stage_params(params_from_numpy(tree, cfg, "cpu"), cfg, self.pp_mesh)
+        return params, init_cache(stage_config(cfg, self.pp_mesh.pp), eng, "cpu")
+
+    def _pp_prefill(self, params, cache, cfg, eng, wave, n_micro):
+        import torch
+
+        from dynamo_tpu_torch.parallel.pipeline import plan_microbatches, pp_forward_tokens
+
+        plan = plan_microbatches(
+            wave["tokens"], wave["positions"], wave["write_pages"], wave["write_offs"],
+            wave["kv_lens"], wave["cu_q_lens"], int(wave["num_seqs"][0]), wave["last_rows"],
+            n_micro, eng.garbage_block,
+        )
+        t = torch.from_numpy
+        return pp_forward_tokens(
+            params, cache, t(plan.tokens), t(plan.positions), t(plan.write_pages),
+            t(plan.write_offs), t(plan.kv_lens), t(wave["block_tables"]), t(plan.cu_q_lens),
+            t(wave["num_seqs"]), t(plan.last_local), t(plan.last_mask), cfg, self.pp_mesh,
+        )
+
+    def pp_prefill(self, tree, cfg, eng, wave, n_micro) -> dict:
+        """One GPipe prefill of the ragged ``wave`` in ``n_micro``
+        microbatches on this stage: the logits and the stage's pages."""
+        import torch
+
+        params, cache = self._stage(tree, cfg, eng)
+        logits = self._pp_prefill(params, cache, cfg, eng, wave, n_micro)
+        return {"logits": logits.numpy(), "cache": torch.stack(cache).numpy()}
+
+    def pp_decode(self, tree, cfg, eng, wave, dec) -> dict:
+        """The wave's GPipe prefill (pp microbatches), then one wavefront
+        decode step of ``dec`` (tokens, tables, positions, active; B lanes
+        in pp groups): each group's logits as it drains, in lane order, and
+        the communication calls of the decode rounds."""
+        import torch
+
+        from dynamo_tpu_torch.parallel import comm
+        from dynamo_tpu_torch.parallel.pipeline import pp_decode_round
+
+        pp = self.pp_mesh.pp
+        params, cache = self._stage(tree, cfg, eng)
+        self._pp_prefill(params, cache, cfg, eng, wave, pp)
+        comm.reset_calls()
+        g = lambda a: torch.from_numpy(a).reshape(pp, -1, *a.shape[1:])  # noqa: E731
+        store, tables, pos, act = (g(dec[k]) for k in ("tokens", "tables", "positions", "active"))
+        pending: list = []
+        out = []
+        for r in range(2 * pp - 1):
+            logits = pp_decode_round(params, cache, r, store, tables, pos, act, pending,
+                                     cfg=cfg, engine=eng, mesh=self.pp_mesh, n_steps=1)
+            if logits is not None:
+                out.append(logits)
+        comm.wait_sends(pending)
+        return {"logits": torch.cat(out).numpy(), "calls": dict(comm.calls)}
+
+    def tiers(self, cfg, eng, tier_eng, prompt, noise, tree=None) -> dict:
+        """:func:`tier_round_trip` on this rank's engines."""
+        return tier_round_trip(lambda e: self.core(cfg, e, tree), eng, tier_eng, prompt, noise)
 
     def refusals(self, cfg, eng) -> list[str]:
         """The message of each path a tp = 2 engine refuses (ROADMAP.md
         A12d): embeddings, block export and import, serving cached pages."""
-        from dynamo_tpu_torch.engine.core import EngineCore
-
-        core = EngineCore(cfg, eng, seed=0, device="cpu", mesh=self.mesh)
+        core = self.core(cfg, eng)
         out = []
         for call in (lambda: core.embed([1, 2, 3]), lambda: core.export_descriptors("r"),
                      lambda: core.read_held_pages("r", 0, 1), lambda: core.import_blocks([]),
@@ -282,7 +475,7 @@ class Rank:
         from dynamo_tpu_torch.engine.loader import load_hf_llama
 
         _, params = load_hf_llama(path, dtype=getattr(torch, dtype), tp=self.mesh.tp,
-                                  quant=quant, device="cpu", rank=self.rank)
+                                  quant=quant, device="cpu", rank=self.shard)
         return _leaves(params)
 
     def lockstep(self, cfg, eng, requests, cancel_after, bad) -> dict:
@@ -297,7 +490,6 @@ class Rank:
             apply_record,
             follower_mode,
         )
-        from dynamo_tpu_torch.engine.core import EngineCore
         from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
 
         def send(record):
@@ -306,7 +498,8 @@ class Rank:
         emitted: list[tuple[str, list[int], str | None]] = []
         records = 0
         if self.rank == 0:
-            core = LeaderCore(cfg, eng, seed=0, device="cpu", mesh=self.mesh, publish=send)
+            core = LeaderCore(cfg, eng, seed=0, device="cpu", mesh=self.mesh,
+                              pp_mesh=self.pp_mesh, publish=send)
             seqs = [core.add_request(PreprocessedRequest.from_wire(r)) for r in requests[:2]]
             rejected = ""
             try:
@@ -325,7 +518,7 @@ class Rank:
             send(None)
             return {"emitted": emitted, "records": records, "rejected": rejected,
                     "counter": core._req_counter}
-        core = EngineCore(cfg, eng, seed=0, device="cpu", mesh=self.mesh)
+        core = self.core(cfg, eng)
         follower_mode(core)
         while True:
             box = [None]
@@ -339,13 +532,13 @@ class Rank:
         return {"emitted": emitted, "records": records, "counter": core._req_counter}
 
 
-def _serve(rank: int, world: int, coordinator: str, port: int) -> None:
+def _serve(rank: int, world: int, coordinator: str, port: int, axes: dict) -> None:
     import torch
 
     torch.set_num_threads(1)
     conn = Client(("127.0.0.1", port), authkey=AUTHKEY)
     conn.send(rank)
-    handler = Rank(rank, world, coordinator)
+    handler = Rank(rank, world, coordinator, axes)
     while True:
         msg = conn.recv()
         if msg is None:
@@ -363,4 +556,5 @@ def _serve(rank: int, world: int, coordinator: str, port: int) -> None:
 
 
 if __name__ == "__main__":
-    _serve(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+    _serve(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], int(sys.argv[4]),
+           json.loads(sys.argv[5]))
