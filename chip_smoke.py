@@ -79,12 +79,20 @@ phase (:func:`serve_moe`: 16 of Mixtral-8x7B's 32 layers at full width,
 bf16, one layer's MoE MLP against its f32 CPU version, warm-up, 8
 prompts in one wave with TTFT and decode ms beside their bounds, K1 at 16
 launches per forward, graph against eager with tokens and
-log-probabilities equal, the idle share, a chunked mixed step), then Qwen2-7B at full width, 4 of
+log-probabilities equal, the idle share, a chunked mixed step), the EP
+phase (:func:`serve_ep`: those 8 layers by a ``--tp 2`` worker, its
+experts split over two ranks on the one card, a solo stream bit for bit
+an in-process tp = 2 engine's, both dispatch modes' logits compared by
+two side ranks), then Qwen2-7B at full width, 4 of
 its 28 layers (:func:`serve_qwen2`: greedy streams, the weights written
 as a ``qwen2`` checkpoint and loaded back, every leaf equal, the same
 streams from the loaded engine) and a GGUF file written and read back
 (:func:`gguf_round_trip`: F32, F16 and BF16 tensors, the config, the
-tokenizer), (6) runs the worker process:
+tokenizer), then the tp, pipeline and sp phases (:func:`serve_tp`,
+:func:`serve_pipeline`, :func:`serve_sp`: the main path's first 8 layers
+from a checkpoint by ``--tp 2``, ``--pp 2``, ``--dp 2`` and ``--sp 2``
+workers, both ranks on the one card, streams and one prompt's logits
+held to the tp = 1 engine's), (6) runs the worker process:
 the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
 ``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
 --preset llama3-8b --seed 0`` as subprocesses, waits for the model card
@@ -1713,6 +1721,92 @@ def moe_mixed_step(core, streams, long_prompt) -> dict:
     return res
 
 
+def moe_requests(vocab: int) -> tuple[list, np.random.Generator]:
+    """The MoE path's requests (rid, prompt, sampling), one per length of
+    ``MOE_PROMPT_LENS``, and the generator that drew them (the MoE phase
+    draws its chunked prompt from it next)."""
+    rng = np.random.default_rng(4321)
+    return [(f"moe{i}", [int(t) for t in rng.integers(0, vocab, n)], {"temperature": 0.0})
+            for i, n in enumerate(MOE_PROMPT_LENS)], rng
+
+
+def moe_wires(reqs: list) -> list[dict]:
+    return [wire(rid, prompt, sampling, logprobs=MM_LOGPROBS) for rid, prompt, sampling in reqs]
+
+
+class RouteLog:
+    """While entered, every ``model._moe_route`` call of this process is
+    logged in call order: the chosen expert ids ``[N*k]`` and, with
+    ``logits``, the router logits ``[N, E]`` f32. With ``impose`` (a list
+    of id arrays of another run, call for call) each call returns those
+    ids instead of its own, with the softmax of its own router logits at
+    them: the run then takes the other run's expert choices (and so its
+    slots and drops) on its own numbers."""
+
+    def __init__(self, impose: list | None = None, logits: bool = False):
+        self.impose, self.keep_logits = impose, logits
+        self.ids, self.logits = [], []
+
+    def __enter__(self):
+        from dynamo_tpu_torch.engine import model
+
+        self.inner = inner = model._moe_route
+
+        def route(xf, w_router, k):
+            probs, ids = inner(xf, w_router, k)
+            if self.impose is not None or self.keep_logits:
+                router = model._dot(xf, w_router)
+            if self.impose is not None:
+                c = len(self.ids)
+                if c >= len(self.impose) or self.impose[c].shape != tuple(ids.shape):
+                    raise AssertionError(f"route call {c} of shape {tuple(ids.shape)} has no "
+                                         f"counterpart in the imposed run's {len(self.impose)}")
+                ids = torch.from_numpy(self.impose[c]).to(ids.device)
+                probs = torch.softmax(router.gather(1, ids.view(-1, k)), dim=-1).reshape(-1)
+            self.ids.append(ids.cpu().numpy())
+            if self.keep_logits:
+                self.logits.append(router.float().cpu().numpy())
+            return probs, ids
+
+        model._moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from dynamo_tpu_torch.engine import model
+
+        model._moe_route = self.inner
+        return False
+
+
+def moe_ep_reference(core, streams, wires) -> dict:
+    """The EP phase's tp = 1 side, on the MoE phase's engine: its streams of
+    ``wires`` and one prompt's first-token logits at ``EP_CAPACITY``, room
+    for every entry (the side pair holds its replicated dispatch to them);
+    then, every dispatch eager and each from a cleared prefix cache, the
+    wave of ``wires`` and the EP phase's solo request with their route
+    logs (:class:`RouteLog`; the solo's with its router logits): the EP
+    side pair takes the wave's expert choices, and the solo's route log
+    is compared with the tp = 2 engine's."""
+    cfg = dataclasses.replace(core.cfg, moe_capacity_factor=EP_CAPACITY)
+    logits = prompt_logits(core.params, cfg, tp_logits_prompt(cfg.vocab_size)[:EP_LOGITS_PROMPT],
+                           "cuda")
+    t0 = time.time()
+    eager = eager_dispatches(core)
+    eager.clear_kv_cache()
+    with RouteLog() as wave_routes:
+        wave = run_wires(eager, wires)
+    eager.clear_kv_cache()
+    with RouteLog(logits=True) as solo_routes:
+        solo = run_wires(eager, [ep_solo_wire(cfg.vocab_size)])
+    del core._launch
+    print(f"EP reference: the tp = 1 wave and solo request, eager, with their route logs "
+          f"({len(wave_routes.ids)} and {len(solo_routes.ids)} route calls) in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return {"streams": streams, "wires": wires, "ref_logits": logits,
+            "wave": {"streams": wave, "ids": wave_routes.ids},
+            "solo": {"streams": solo, "ids": solo_routes.ids, "logits": solo_routes.logits}}
+
+
 def serve_moe(ra, card: str) -> dict:
     """Sparse MoE at Mixtral-8x7B width: ``MOE_LAYERS`` of its 32 layers
     (bf16 experts for 32 layers need 92.9 GB), random bf16
@@ -1753,9 +1847,7 @@ def serve_moe(ra, card: str) -> dict:
           f"{mem['build_peak_gb']:.2f} GB; {memory_line()}", flush=True)
     layer = moe_layer_check(core)
     warm = warm_up(core, "MoE")
-    rng = np.random.default_rng(4321)
-    reqs = [(f"moe{i}", [int(t) for t in rng.integers(0, cfg.vocab_size, n)], {"temperature": 0.0})
-            for i, n in enumerate(MOE_PROMPT_LENS)]
+    reqs, rng = moe_requests(cfg.vocab_size)
     bounds = moe_bounds(core, MOE_PROMPT_LENS)
 
     # The MoE path, with every kernel launch count at 0 just before it.
@@ -1791,7 +1883,7 @@ def serve_moe(ra, card: str) -> dict:
     # traffic's streams (every dispatch eager, its log-probabilities read).
     sreqs, late, _ = serving_requests(cfg.vocab_size)
     megastep = graph_against_eager(core, sreqs + [late], "MoE")
-    lp_wires = [wire(rid, prompt, sampling, logprobs=MM_LOGPROBS) for rid, prompt, sampling in reqs]
+    lp_wires = moe_wires(reqs)
     core.clear_kv_cache()
     graphs = run_wires(core, lp_wires)
     core.clear_kv_cache()
@@ -1808,12 +1900,14 @@ def serve_moe(ra, card: str) -> dict:
     torch.cuda.empty_cache()
     mixed = moe_mixed_step(core, [p for _, p, _ in reqs[:7]],
                            [int(t) for t in rng.integers(0, cfg.vocab_size, CHUNKED_LONG)])
+    ep_reference = moe_ep_reference(core, graphs, lp_wires)
     res = {"layers": MOE_LAYERS, "built_s": built_s, "memory": {**mem, "peak_gb": peak_gb},
            "layer_check": layer, "warm_up": warm, "bounds": bounds, "launches": launches,
            "forwards": d["forwards"], "ttft_ms": {r: g["ttft_ms"] for r, g in got.items()},
            "prefill_wave_ms": wave_ms, "decode_ms_per_iteration": decode_ms,
            "megastep": megastep, "streams": streams, "idle": idle, "capacity": capacity,
-           "mixed_step": mixed, "phase_s": None}
+           "mixed_step": mixed, "phase_s": None,
+           "ep_reference": ep_reference}  # for the EP phase, not printed
     del core
     gc.collect()
     torch.cuda.empty_cache()
@@ -2965,6 +3059,10 @@ def checkpoint_round_trip(core, model_type: str, device: str) -> dict:
 
 
 DISAGG_LAYERS = 8  # the disaggregation phase's depth: its 3 workers' warm-ups, in turn on the card
+# The tp and pipeline phases' depth: they serve the same cut checkpoint,
+# to keep the smoke within its time limit on a slow host (the sp phase
+# serves all 32 layers).
+PARALLEL_LAYERS = DISAGG_LAYERS
 
 
 def write_cut_checkpoint(core, layers: int) -> dict:
@@ -3740,11 +3838,12 @@ def prompt_logits(params, cfg, prompt, device, mesh=None) -> torch.Tensor:
     from dynamo_tpu_torch.engine import model
     from dynamo_tpu_torch.engine.config import EngineConfig
 
-    eng = EngineConfig(num_kv_blocks=8, max_model_len=256)
+    nb = max(8, -(-len(prompt) // 16))  # the scratch pages: the prompt's, 8 at least
+    eng = EngineConfig(num_kv_blocks=nb, max_model_len=max(256, 16 * nb))
     n, bs = len(prompt), eng.block_size
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)  # noqa: E731
     pos = list(range(n))
-    table = list(range(8)) + [eng.garbage_block] * (eng.max_blocks_per_seq - 8)
+    table = list(range(nb)) + [eng.garbage_block] * (eng.max_blocks_per_seq - nb)
     ops = (i32(prompt), i32(pos), i32([p // bs for p in pos]), i32([p % bs for p in pos]),
            i32([n]), i32([table]), i32([0, n]), i32([1]), i32([n - 1]))
     cache = model.init_cache(cfg, eng, device, tp=mesh.tp if mesh is not None else 1)
@@ -3785,17 +3884,35 @@ def decode_logits(params, cfg, prompt, device, mesh=None) -> torch.Tensor:
 
 
 def tp_reference(core) -> dict:
-    """The tp = 1 side of the tp and pipeline phases, on the main path's
-    bf16 engine (whose weights the checkpoint holds): the serving prompts'
-    greedy streams with top-2 log-probabilities from a cleared prefix
-    cache, one prompt's first-token logits and the logits of one decode
-    step after it."""
-    core.clear_kv_cache()
-    streams = run_wires(core, tp_wires(core.cfg.vocab_size))
-    core.clear_kv_cache()
-    prompt = tp_logits_prompt(core.cfg.vocab_size)
-    return {"streams": streams, "logits": prompt_logits(core.params, core.cfg, prompt, "cuda"),
-            "decode_logits": decode_logits(core.params, core.cfg, prompt, "cuda")}
+    """The tp = 1 side of the tp, pipeline and sp phases, each on an engine
+    of its own over the main path's bf16 weights, every dispatch eager:
+    cut to their first ``PARALLEL_LAYERS`` layers (the cut checkpoint the
+    tp and pipeline phases serve; views of the main engine's leaves), the
+    serving prompts' greedy streams with top-2 log-probabilities, one
+    prompt's first-token logits and the logits of one decode step after
+    it; at all 32 layers (the checkpoint the sp phase serves), the sp
+    prompts' streams and the long sp prompt's logits."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import EngineCore
+
+    cfg = dataclasses.replace(core.cfg, num_layers=PARALLEL_LAYERS)
+    params = {**core.params,
+              "layers": {k: v[:PARALLEL_LAYERS] for k, v in core.params["layers"].items()}}
+    cut = eager_dispatches(EngineCore(cfg, EngineConfig(), params=params, device="cuda"))
+    streams = run_wires(cut, tp_wires(cfg.vocab_size))
+    del cut
+    full = eager_dispatches(EngineCore(core.cfg, EngineConfig(num_kv_blocks=SP_KV_BLOCKS),
+                                       params=core.params, device="cuda"))
+    sp_streams = run_wires(full, sp_wires(cfg.vocab_size))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompt = tp_logits_prompt(cfg.vocab_size)
+    long_prompt = sp_wires(cfg.vocab_size)[0]["token_ids"]
+    return {"streams": streams, "logits": prompt_logits(params, cfg, prompt, "cuda"),
+            "decode_logits": decode_logits(params, cfg, prompt, "cuda"),
+            "sp_streams": sp_streams,
+            "sp_logits": prompt_logits(core.params, core.cfg, long_prompt, "cuda")}
 
 
 def tp_logits_rank(rank: int, addr: str, ckpt: str, out: str) -> int:
@@ -3887,8 +4004,9 @@ def rank_stats(text: str, who: str) -> dict:
 
 def serve_tp(card: str, ckpt: str, ref: dict, preset: str = "llama3-8b") -> dict:
     """The tp phase: ``python -m dynamo_tpu_torch.backends.torch --tp 2
-    --tp-devices cuda:0,cuda:0 --model-path CKPT`` (llama3-8b at full width
-    and all 32 layers; each rank streams its shard of the checkpoint) on
+    --tp-devices cuda:0,cuda:0 --model-path CKPT`` (llama3-8b at full width,
+    the cut checkpoint's ``PARALLEL_LAYERS`` layers; each rank streams its
+    shard of the checkpoint) on
     the port's store, its second rank started by the first, serves the 8
     serving prompts (greedy, top-2) through the data plane; their streams
     are held to the tp = 1 engine's (``ref``, :func:`tp_reference`) by the
@@ -4018,7 +4136,7 @@ def pipeline_logits_rank(rank: int, addr: str, ckpt: str, out: str) -> int:
     """One rank of the pipeline phase's logits checks (``python
     chip_smoke.py --pipeline-logits-rank RANK ADDR CHECKPOINT OUT``): join a
     world of two ranks on the shared card; as stage ``RANK`` of pp = 2, load
-    the stage's 16 layers of the checkpoint (``load_hf_llama(...,
+    the stage's half of the checkpoint's layers (``load_hf_llama(...,
     layer_span=...)``) and compute one prompt's first-token logits through
     the GPipe program (2 microbatches); then, that stage freed, as dp rank
     ``RANK`` of dp = 2, load the whole model and compute the logits of one
@@ -4105,8 +4223,8 @@ def pipeline_worker(card: str, ckpt: str, ref: dict, axis: str,
                     preset: str = "llama3-8b") -> dict:
     """One worker of the pipeline phase: ``python -m
     dynamo_tpu_torch.backends.torch --{axis} 2 --tp-devices cuda:0,cuda:0
-    --model-path CKPT`` (``axis`` "pp": two stages of 16 layers; "dp": two
-    replicas of all 32) serves the 8 serving prompts (greedy, top-2)
+    --model-path CKPT`` (``axis`` "pp": two stages of half the layers; "dp":
+    two replicas of all) serves the 8 serving prompts (greedy, top-2)
     through the data plane, held to the tp = 1 engine's streams by the
     near-tie rule. Each rank's K1 launches must be its layers x its
     forwards, warm-up included (a pp stage counts one forward per
@@ -4194,7 +4312,8 @@ def pipeline_worker(card: str, ckpt: str, ref: dict, axis: str,
 def serve_pipeline(card: str, ckpt: str, ref: dict) -> dict:
     """The pipeline phase: a ``--pp 2`` worker, then a ``--dp 2`` worker
     (:func:`pipeline_worker`), each on the tp phase's llama3-8b checkpoint
-    at 32 layers with both ranks on the one card. Beside the pp worker two
+    (``PARALLEL_LAYERS`` layers) with both ranks on the one
+    card. Beside the pp worker two
     rank processes of this script compute one prompt's first-token logits
     through the GPipe program and then one decode step's logits through
     the dp lanes (:func:`pipeline_logits_rank`), each held to the tp = 1
@@ -4234,6 +4353,629 @@ def serve_pipeline(card: str, ckpt: str, ref: dict) -> dict:
           flush=True)
     return {"pp": pp, "dp": dp, "pp_phase_s": t_dp - t_start, "dp_phase_s": time.time() - t_dp,
             "phase_s": time.time() - t_start}
+
+
+# -- sequence-parallel ring prefill ---------------------------------------------
+
+SP = 2
+SP_LONG = 7000           # the long prompt: bucket 8192, 4096 rows a rank, over the threshold
+SP_SHORT = (300, 900)    # prompts that stay on the paged waves
+SP_KV_BLOCKS = 1024      # each rank's pool: 16384 tokens (the three prompts hold ~8400)
+SP_HOP_ROWS = 4096       # the rows of one K or V chunk round the ring: the 8192 bucket over sp
+
+
+def sp_wires(vocab: int) -> list[dict]:
+    """The sp phase's prompts, greedy, ``MAX_TOKENS`` each, with top-2
+    log-probabilities: one long prompt for the ring and two short ones."""
+    rng = np.random.default_rng(77)
+    return [wire(rid, [int(t) for t in rng.integers(0, vocab, n)], {"temperature": 0.0},
+                 logprobs=TP_LOGPROBS)
+            for rid, n in (("sp_long", SP_LONG), *((f"sp_short{i}", n)
+                                                   for i, n in enumerate(SP_SHORT)))]
+
+
+def cache_digest(cache) -> str:
+    """sha256 of every byte of a paged cache (each layer's pages, an int8
+    layer's pages and scales), in layer order, but the garbage page: the
+    bucket's pad rows all land there, and which of a scatter's duplicate
+    writes wins is not defined on the card."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for layer in cache:
+        for t in (layer.values() if isinstance(layer, dict) else (layer,)):
+            h.update(t[:-1].contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sp_logits_rank(rank: int, addr: str, ckpt: str, out: str) -> int:
+    """One rank of the sp phase's logits check (``python chip_smoke.py
+    --sp-logits-rank RANK ADDR CHECKPOINT OUT``): join an sp = 2 group on
+    the shared card, load the whole checkpoint (a replica on each rank)
+    and prefill the long prompt through ``model.forward_ring_prefill``
+    (each rank its half of the prompt's bucket: 4096 rows of 8192); rank 0
+    saves the last-token logits to ``OUT``. Each rank prints its ring
+    calls and bytes, its time and memory, and its cache's digest (every
+    chunk written on every rank: the digests must agree)."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.loader import load_hf_llama
+    from dynamo_tpu_torch.ops.ring_attention import sequence_parallel_mesh
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.multihost import init_multihost, shutdown_multihost
+
+    devices = TP_DEVICES.split(",")
+    t0 = time.time()
+    init_multihost(addr, SP, rank, comm.choose_backend(devices))
+    try:
+        mesh = sequence_parallel_mesh(SP, devices=devices, rank=rank)
+        cfg, params = load_hf_llama(ckpt, device=mesh.device)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        prompt = sp_wires(cfg.vocab_size)[0]["token_ids"]
+        n = len(prompt)
+        T = next(b for b in EngineConfig().prefill_buckets if b >= n)
+        eng = EngineConfig(num_kv_blocks=T // 16, max_model_len=T)
+        cache = model.init_cache(cfg, eng, mesh.device)
+        pos = torch.arange(T, dtype=torch.int32, device=mesh.device)
+        tokens = torch.zeros(T, dtype=torch.int32, device=mesh.device)
+        tokens[:n] = torch.tensor(prompt, dtype=torch.int32)
+        pages = torch.where(pos < n, pos // eng.block_size, eng.garbage_block)
+        comm.reset_calls()
+        torch.cuda.reset_peak_memory_stats()
+        t2 = time.time()
+        logits = model.forward_ring_prefill(params, cache, tokens, pages, pos % eng.block_size,
+                                            n - 1, cfg, mesh)[0].float().cpu()
+        t3 = time.time()
+        hop_bytes = (T // SP) * cfg.kv_size * 2  # one K or V chunk, bf16
+        print(f"sp logits rank {rank}: group and replica loaded in {t1 - t0:.1f} s; ring prefill of "
+              f"{n} tokens (bucket {T}, {T // SP} rows a rank) {1e3 * (t3 - t2):.1f} ms; ring "
+              f"sends {comm.calls['ring_send']} and receives {comm.calls['ring_recv']} of "
+              f"{hop_bytes / 1e6:.2f} MB each ({2 * (SP - 1) * cfg.num_layers} = 2 (sp - 1) L "
+              f"expected); collectives {dict(comm.calls)}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; cache digest "
+              f"{cache_digest(cache)}", flush=True)
+        if rank == 0:
+            np.save(out, logits.numpy())
+    finally:
+        shutdown_multihost()
+    return 0
+
+
+def serve_sp(card: str, ckpt: str, ref: dict, preset: str = "llama3-8b") -> dict:
+    """The sp phase. First two rank processes of this script prefill the
+    long prompt round the ring (:func:`sp_logits_rank`) and its
+    last-token logits are held to the tp = 1 paged wave's (``ref``,
+    :func:`tp_reference`); then ``python -m dynamo_tpu_torch.backends.torch
+    --sp 2 --tp-devices cuda:0,cuda:0 --model-path CKPT`` (llama3-8b at
+    full width, all 32 layers of the worker phase's checkpoint, a whole
+    replica on each rank, gloo through host memory) serves the long
+    prompt and two short ones (greedy, top-2)
+    through the data plane, held to the tp = 1 engine's streams by the
+    near-tie rule. Each rank must have run one ring prefill, its ring
+    hops 2 (sp - 1) L, its K1 launches L per paged forward (the ring
+    forward runs none), every paged dispatch a graph replay (an sp rank's
+    dispatches call no collective) and the ring forward eager."""
+    from dynamo_tpu_torch.engine.loader import config_from_hf
+
+    cfg = config_from_hf(ckpt)
+    t_start = time.time()
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_sp_"))
+    out_npy = logs / "sp_logits.npy"
+    addr = f"127.0.0.1:{free_port()}"
+    ranks = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sp-logits-rank", str(r), addr, ckpt,
+         str(out_npy)], cwd=ROOT, stdout=open(logs / f"logits_rank{r}.log", "w"),
+        stderr=subprocess.STDOUT) for r in range(SP)]
+    try:
+        for r, proc in enumerate(ranks):
+            if proc.wait(600) != 0:
+                raise AssertionError(f"sp logits rank {r} exited with {proc.returncode}:\n"
+                                     + (logs / f"logits_rank{r}.log").read_text()[-4000:])
+    finally:
+        for proc in ranks:
+            stop_process(proc, signal.SIGKILL, 10)
+    lines = [(logs / f"logits_rank{r}.log").read_text().strip().splitlines()[-1] for r in range(SP)]
+    print("\n".join(lines), flush=True)
+    digests = {line.rsplit("cache digest ", 1)[1] for line in lines}
+    if len(digests) != 1:
+        raise AssertionError(f"the sp ranks' caches differ after the ring prefill: {digests}")
+    logits = logits_agreement(
+        f"sp logits: ring prefill over sp = 2 ranks against the tp = 1 paged wave, first token "
+        f"after {SP_LONG} prompt tokens", torch.from_numpy(np.load(out_npy)), ref["sp_logits"])
+    logits_s = time.time() - t_start
+    print(f"before the sp worker: {memory_line()}", flush=True)
+    wires = sp_wires(cfg.vocab_size)
+    h = start_worker(preset, "cuda", ["--sp", str(SP), "--tp-devices", TP_DEVICES,
+                                      "--num-kv-blocks", str(SP_KV_BLOCKS), "--obs-publish",
+                                      "off", "--tokenizer", "byte"],
+                     env={"DYN_SYSTEM_ENABLED": "0"}, model_path=ckpt)
+    try:
+        got = asyncio.run(tp_traffic(f"127.0.0.1:{h['port']}", h["worker"], wires))
+        stop_process(h["worker"])
+        if h["worker"].returncode != 0:
+            raise AssertionError(f"the sp worker exited with {h['worker'].returncode}")
+    except BaseException:
+        print(f"sp worker log tail:\n{(h['logs'] / 'worker.log').read_text()[-8000:]}",
+              file=sys.stderr)
+        raise
+    finally:
+        close_worker(h)
+    text = (h["logs"] / "worker.log").read_text()
+    for rid, st in got["streams"].items():
+        if len(st["tokens"]) != MAX_TOKENS or st["finish"] != "length":
+            raise AssertionError(f"sp {rid}: {len(st['tokens'])} tokens, finish {st['finish']!r}")
+    held = near_tie_streams("the sp = 2 worker against the tp = 1 engine", ref["sp_streams"],
+                            got["streams"])
+    L = cfg.num_layers
+    per_rank = []
+    for rank, st in enumerate((rank_stats(text, r"torch worker \d+"),
+                               rank_stats(text, "torch follower rank 1"))):
+        calls = st["collectives"]
+        paged = st["forwards"] + st["warm_up_forwards"] - st["ring_prefills"]
+        k = st["kernel_launches"]
+        decode, tiled = (k["ragged_paged_attention_decode_launch"],
+                         k["ragged_paged_attention_tiled_launch"])
+        ok = (st["ring_prefills"] == 1 and st["sp"] == SP and st["rank"] == rank
+              and calls["ring_send"] == calls["ring_recv"] == 2 * (SP - 1) * L
+              and calls["sp_broadcast"] == 1 and decode + tiled == L * paged
+              and min(decode, tiled) > 0 and st["comm_backend"] == "gloo-host"
+              and st["graph_replays"] == st["dispatches"] - st["ring_prefills"]
+              and st["eager_dispatches"] == st["ring_prefills"])
+        per_rank.append({
+            "rank": rank, "ring_prefills": st["ring_prefills"], "forwards": st["forwards"],
+            "warm_up_forwards": st["warm_up_forwards"], "decode_launches": decode,
+            "tiled_launches": tiled, "collectives": calls,
+            "ring_bytes_per_prefill": calls["ring_send"] * SP_HOP_ROWS * cfg.kv_size * 2,
+            "graph_captures": st["graph_captures"], "graph_replays": st["graph_replays"],
+            "peak_memory_gb": st.get("peak_memory_bytes", 0) / 1e9,
+            "decode_ms_per_iteration": 1e3 * st["decode_loop_s"] / max(1, st["decode_iterations"]),
+        })
+        print(f"sp rank {rank}: ring prefills {st['ring_prefills']}; ring hops sent "
+              f"{calls['ring_send']}, received {calls['ring_recv']} (2 (sp - 1) L = "
+              f"{2 * (SP - 1) * L}), {per_rank[-1]['ring_bytes_per_prefill'] / 1e6:.1f} MB sent "
+              f"per prefill; K1 launches decode {decode} + tiled {tiled} = {L} x ({paged} paged "
+              f"forwards, warm-up included): {decode + tiled == L * paged}; graphs captured "
+              f"{st['graph_captures']}, replays {st['graph_replays']} of {st['dispatches']} "
+              f"dispatches, eager {st['eager_dispatches']} (the ring); peak memory "
+              f"{per_rank[-1]['peak_memory_gb']:.2f} GB", flush=True)
+        if not ok:
+            raise AssertionError(f"sp rank {rank}'s counters: {st}")
+    builds = rank_build_s(text)
+    if [b["rank"] for b in builds] != list(range(SP)):
+        raise AssertionError(f"the sp ranks' build lines: {builds}")
+    served = served_after_s(h)
+    ttft = got["streams"]["sp_long"]["ttft_ms"]
+    print(f"sp worker on {card}: serving after {served:.1f} s; ranks' engines "
+          + "; ".join(f"rank {b['rank']} built in {b['build_s']:.2f} s (weights {b['weights']}), "
+                      f"warmed up in {b['warm_up_s']:.2f} s" for b in builds)
+          + f"; 3 requests in {got['wall_s']:.1f} s; the long prompt's TTFT {ttft:.1f} ms "
+          f"through the data plane (the tp = 1 engine in process: "
+          f"{ref['sp_streams']['sp_long']['ttft_ms']:.1f} ms, its wave with a short prompt); "
+          f"decode {per_rank[0]['decode_ms_per_iteration']:.2f} ms per iteration (graph "
+          f"replays, two ranks time-sharing one card, the ring through host memory: a proof "
+          f"of numerics, not a speed figure)", flush=True)
+    return {"served_after_s": served, "rank_builds": builds, "ranks": per_rank,
+            "near_tie": held, "logits": logits, "logits_s": logits_s, "ttft_ms": ttft,
+            "tp1_ttft_ms": ref["sp_streams"]["sp_long"]["ttft_ms"], "wall_s": got["wall_s"],
+            "phase_s": time.time() - t_start,
+            "launches": [{"ragged_paged_attention_decode_launch": r["decode_launches"],
+                          "ragged_paged_attention_tiled_launch": r["tiled_launches"]}
+                         for r in per_rank]}
+
+
+# -- expert parallelism -----------------------------------------------------------
+
+EP_LOGITS_PROMPT = 64  # prompt tokens before the compared logits
+# The capacity factor of the side pair's held logits comparisons: E, room
+# for every entry. At the default factor 2 random weights saturate the
+# dispatch (on the H100, a 64-token prefill overflowed), and the two
+# modes then drop different entries, as the JAX docstring says.
+EP_CAPACITY = 8.0
+# The EP worker's solo request after the wave: a prompt the wave did not
+# cache, sent alone, so that the worker's batches are the in-process tp = 2
+# engine's and the two streams must be equal bit for bit.
+EP_SOLO_LEN = 1000
+
+
+def route_flips(ref: dict, got: dict, prompt_len: int, layers: int) -> dict:
+    """Two runs' route logs of one request (:class:`RouteLog` ``ids`` and
+    ``logits``, call for call, ``layers`` calls a forward: the prefill,
+    then one decode step a token) compared on the request's own rows: its
+    ``prompt_len`` prompt rows in the prefill (the bucket's pad rows come
+    after them), lane 0 in a decode step (a lone sequence decodes in lane
+    0, the pad lanes after it). Pad rows and lanes come last in the
+    dispatch's entry order, so they take no slot from the request's
+    entries. A flip is a row whose top-k expert set differs; its margin
+    is ``ref``'s router logit of the expert it dropped minus that of the
+    expert taken instead (the least such difference), the amount the
+    other run's numbers moved across. Until the first flip both runs'
+    rows differ by rounding alone: the router noise of a layer is the
+    largest difference of a router logit between the runs over the rows
+    of that layer's calls before it (the flipped row left out). Returns
+    every flip (forward, layer, row, margin) and the first one with its
+    layer's noise."""
+    flips, noise, first = [], [0.0] * layers, None
+    for c, (i1, i2, z1, z2) in enumerate(zip(ref["ids"], got["ids"], ref["logits"], got["logits"])):
+        if z1.shape != z2.shape:
+            raise AssertionError(f"route call {c}: shapes {z1.shape} and {z2.shape}")
+        f, layer = divmod(c, layers)
+        k = i1.size // z1.shape[0]
+        rows = np.arange(prompt_len if z1.shape[0] >= prompt_len else 1)
+        a, b = i1.reshape(-1, k)[rows], i2.reshape(-1, k)[rows]
+        bad = (np.sort(a, axis=1) != np.sort(b, axis=1)).any(axis=1)
+        for r in rows[bad]:
+            dropped, taken = set(a[r]) - set(b[r]), set(b[r]) - set(a[r])
+            flips.append({"forward": f, "layer": layer, "row": int(r), "margin": float(min(
+                z1[r, x] - z1[r, y] for x in dropped for y in taken))})
+        if first is None:
+            d = np.abs(z1[rows] - z2[rows]).max(axis=1)[~bad]
+            noise[layer] = max(noise[layer], float(d.max()) if d.size else 0.0)
+            if bad.any():
+                first = dict(flips[-int(bad.sum())], noise=noise[layer])
+    return {"flips": flips, "first": first}
+
+
+def moe_near_tie_streams(name: str, want: dict, got: dict, routes: dict) -> dict:
+    """The near-tie rule (:func:`near_tie_streams`) for one MoE request
+    whose two runs' route logs were compared (:func:`route_flips`). A
+    router flip moves its row's hidden state at once by the weighted
+    difference of two experts' outputs, where a dense layer's rounding
+    moves it by an ulp; so the limit (at most ``NEAR_TIE_CEILING``) is
+    taken over the tokens before both the parting and the forward of the
+    first flip, and the first flip's margin must be within twice its
+    layer's router noise (a row's two logits move apart by at most twice
+    their largest move): a flip past rounding is a fault. The stream then
+    equals ``want``'s, or parts at a token whose top-2 gap is within the
+    limit (a near-tie of the logits), or parts at or after the forward of
+    the first flip (a near-tie of the router)."""
+    (rid, w), = want.items()
+    g = got[rid]
+    j = first_divergence(w["tokens"], g["tokens"])
+    first = routes["first"]
+    end = min(x for x in (j, first and first["forward"], len(w["tokens"])) if x is not None)
+    limit = max([abs(x["logprob"] - y["logprob"])
+                 for x, y in list(zip(w["logprobs"], g["logprobs"]))[:end]] or [0.0])
+    before = [x for x in routes["flips"] if j is None or x["forward"] <= j]
+    margins = [x["margin"] for x in before]
+    print(f"{name}: {len(routes['flips'])} router flips on the request's rows over its "
+          f"{len(w['tokens'])} tokens, {len(before)} of them up to the parting (margins up to "
+          f"{max(margins, default=0.0):.4e}, median {float(np.median(margins)) if margins else 0.0:.4e})"
+          + (f"; the first at forward {first['forward']}, layer {first['layer']}, row "
+             f"{first['row']}: margin {first['margin']:.4e} against the layer's router noise "
+             f"{first['noise']:.4e}" if first else "")
+          + f"; log-probabilities differ by up to {limit:.4e} over the {end} tokens before the "
+          f"parting and the first flip", flush=True)
+    if limit > NEAR_TIE_CEILING:
+        raise AssertionError(f"{name}: log-probabilities differ by {limit:.4e} before any "
+                             f"parting or router flip, above the ceiling {NEAR_TIE_CEILING}")
+    if first is not None and first["margin"] > 2 * first["noise"]:
+        raise AssertionError(f"{name}: the first router flip's margin {first['margin']:.4e} "
+                             f"exceeds twice its layer's router noise {first['noise']:.4e}")
+    out = {"equal": j is None, "limit": limit, "flips": len(routes["flips"]),
+           "flips_to_parting": len(before), "first_flip": first, "parted": None}
+    if j is None:
+        return out
+    top = w["logprobs"][j]["top"]
+    gap = top[0][1] - top[1][1]
+    out["parted"] = {"rid": rid, "position": j, "gap": gap}
+    cause = ("a near-tie of the logits" if gap <= limit else
+             "a near-tie of the router" if first is not None and first["forward"] <= j else None)
+    print(f"divergence, {name} {rid} at token {j}: {w['tokens'][j]} against {g['tokens'][j]}; "
+          f"top-2 gap {gap:.4e} (limit {limit:.4e}): {cause or 'unexplained'}", flush=True)
+    if cause is None:
+        raise AssertionError(f"{name}: {rid} parts at token {j} where the top-2 gap {gap:.4e} "
+                             f"exceeds {limit:.4e}, with no router flip before it")
+    return out
+
+
+def ep_logits(params, cfg, prompt, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(first-token logits after ``prompt``, logits of one decode step
+    after it in a batch of two lanes, the second idle), f32 on the CPU,
+    on this tp rank's shard over a scratch cache of its own."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import EngineConfig
+
+    eng = EngineConfig(num_kv_blocks=8, max_model_len=256)
+    n, bs = len(prompt), eng.block_size
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=mesh.device)  # noqa: E731
+    pos = list(range(n))
+    table = list(range(8)) + [eng.garbage_block] * (eng.max_blocks_per_seq - 8)
+    cache = model.init_cache(cfg, eng, mesh.device, tp=mesh.tp)
+    first = model.forward_tokens(
+        params, cache, i32(prompt), i32(pos), i32([p // bs for p in pos]),
+        i32([p % bs for p in pos]), i32([n]), i32([table]), i32([0, n]), i32([1]), i32([n - 1]),
+        cfg, mesh=mesh)[0].float().cpu()
+    step = model.decode_tokens(
+        params, cache, i32([prompt[0], 0]), i32([table, [eng.garbage_block] * len(table)]),
+        i32([n, 0]), torch.tensor([True, False], device=mesh.device), cfg, eng,
+        mesh=mesh)[0].float().cpu()
+    return first, step
+
+
+def ep_solo_wire(vocab: int) -> dict:
+    rng = np.random.default_rng(2024)
+    return wire("ep_solo", [int(t) for t in rng.integers(0, vocab, EP_SOLO_LEN)],
+                {"temperature": 0.0}, logprobs=MM_LOGPROBS)
+
+
+def ep_logits_rank(rank: int, addr: str, out: str, routes: str) -> int:
+    """One rank of the EP phase's side pair (``python chip_smoke.py
+    --ep-logits-rank RANK ADDR OUT ROUTES``): join a tp = 2 group on the shared
+    card, draw this rank's shard of Mixtral-8x7B at ``MOE_LAYERS`` layers
+    from seed 0 (four of the eight experts), and compute one prompt's
+    first-token logits and one decode step's in the replicated dispatch,
+    then in the all-to-all dispatch on the same weights, at capacity
+    factor ``EP_CAPACITY`` and then at the preset's default. Every MoE call
+    notes whether an entry overflowed its capacity in either mode
+    (``model.moe_overflow`` of the whole dispatch): the two modes drop
+    differently under saturation. Rank 0 saves the eight logits and, per
+    capacity and forward, whether either mode overflowed to ``OUT``
+    (npz). Then an in-process tp = 2 engine runs the solo request with
+    its own expert choices, and the MoE wave with the tp = 1 engine's
+    (``ROUTES``, npz of the tp = 1 wave's route log, from
+    :func:`moe_ep_reference`): rank 0 saves the two runs' streams
+    (``OUT.solo.json``) and the solo run's route log
+    (``OUT.routes.npz``)."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import mixtral_8x7b
+    from dynamo_tpu_torch.ops import ragged_attention as ra
+    from dynamo_tpu_torch.parallel import comm
+    from dynamo_tpu_torch.parallel.multihost import init_multihost, shutdown_multihost
+    from dynamo_tpu_torch.parallel.sharding import make_mesh
+
+    devices = TP_DEVICES.split(",")
+    t0 = time.time()
+    init_multihost(addr, TP, rank, comm.choose_backend(devices))
+    try:
+        mesh = make_mesh(tp=TP, devices=devices, rank=rank)
+        cfg = dataclasses.replace(mixtral_8x7b(), num_layers=MOE_LAYERS)
+        params = model.init_params(cfg, 0, mesh.device, tp=TP, rank=rank)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        prompt = tp_logits_prompt(cfg.vocab_size)[:EP_LOGITS_PROMPT]
+        notes = []  # per MoE call: (replicated overflowed, all-to-all overflowed)
+        inner = model._moe_mlp
+
+        def noted(x, lp, c, m=None):
+            o = model.moe_overflow(x.reshape(-1, x.shape[-1]), lp["w_router"], c, tp=TP)
+            notes.append((o["replicated"], o["alltoall"]))
+            return inner(x, lp, c, m)
+
+        model._moe_mlp = noted
+        got, per_mode, flags = {}, {}, {}
+        for cap, factor in (("roomy", EP_CAPACITY), ("default", cfg.moe_capacity_factor)):
+            for mode in ("replicated", "alltoall"):
+                mcfg = dataclasses.replace(cfg, moe_dispatch=mode, moe_capacity_factor=factor)
+                comm.reset_calls()
+                ra.reset_launches()
+                notes.clear()
+                t = time.time()
+                got[f"{cap}_{mode}"] = ep_logits(params, mcfg, prompt, mesh)
+                per_mode[f"{cap}_{mode}"] = {"s": time.time() - t, "calls": dict(comm.calls),
+                                             "k1": sum(ra.kernel_launches.values())}
+                if mode == "replicated":
+                    # Each forward's layers, prefill then decode (the
+                    # all-to-all run routes the same inputs).
+                    flags[cap] = np.asarray(notes).reshape(2, MOE_LAYERS, 2).any(axis=1)
+        model._moe_mlp = inner
+        # An in-process engine of the worker's shape (replicated, every
+        # dispatch eager): the solo request with its own expert choices
+        # (its route log kept), then the MoE wave with the tp = 1
+        # engine's, from a cleared prefix cache.
+        from dynamo_tpu_torch.engine.config import EngineConfig
+        from dynamo_tpu_torch.engine.core import EngineCore
+
+        ref = np.load(routes)
+        imposed = [ref[f"wave_{c}"] for c in range(int(ref["wave_calls"]))]
+        core = EngineCore(cfg, EngineConfig(), params=params, device=mesh.device, mesh=mesh)
+        t = time.time()
+        with RouteLog(logits=True) as free:
+            solo = run_wires(core, [ep_solo_wire(cfg.vocab_size)])
+        solo_s = time.time() - t
+        t = time.time()
+        core.clear_kv_cache()
+        with RouteLog(impose=imposed) as taken:
+            wave = run_wires(core, moe_wires(moe_requests(cfg.vocab_size)[0]))
+        if len(taken.ids) != len(imposed):
+            raise AssertionError(f"the imposed wave made {len(taken.ids)} route calls, the tp = 1 "
+                                 f"wave {len(imposed)}")
+        del core
+        print(f"ep logits rank {rank}: group and shard ({cfg.num_experts // TP} experts a rank) "
+              f"in {t1 - t0:.1f} s; "
+              + "; ".join(f"{m}: prefill and decode step {v['s']:.2f} s, collectives over 2 "
+                          f"forwards {v['calls']}, K1 launches {v['k1']}"
+                          for m, v in per_mode.items())
+              + "; overflowed (replicated, all-to-all): "
+              + ", ".join(f"{cap} {w} {tuple(bool(b) for b in f[i])}" for cap, f in flags.items()
+                          for i, w in enumerate(("prefill", "decode")))
+              + f"; the solo request in process {solo_s:.1f} s, then the wave with the tp = 1 "
+                f"engine's expert choices in {time.time() - t:.1f} s"
+              + f"; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        if rank == 0:
+            Path(out + ".solo.json").write_text(json.dumps({"solo": solo, "wave": wave}))
+            np.savez(out + ".routes.npz", calls=len(free.ids),
+                     **{f"ids_{c}": a for c, a in enumerate(free.ids)},
+                     **{f"logits_{c}": a for c, a in enumerate(free.logits)})
+            np.savez(out, **{f"overflow_{cap}": f for cap, f in flags.items()},
+                     **{f"{m}_{w}": got[m][i].numpy() for m in got
+                        for i, w in enumerate(("prefill", "decode"))})
+    finally:
+        shutdown_multihost()
+    return 0
+
+
+def serve_ep(card: str, moe: dict) -> dict:
+    """The EP phase: Mixtral-8x7B at its published widths, ``MOE_LAYERS``
+    layers from seed 0 (the MoE phase's weights: a tp = 2 draw from one
+    seed is the tp = 1 model). ``python -m dynamo_tpu_torch.backends.torch
+    --preset mixtral-8x7b --num-layers 8 --tp 2 --tp-devices
+    cuda:0,cuda:0`` (replicated dispatch, each rank four experts, gloo
+    through host memory) serves the MoE phase's eight prompts (one 8192
+    wave, 64 greedy tokens, top-2), printed against the MoE phase's tp = 1
+    streams (``moe``), then one fresh prompt alone: held bit for bit to an
+    in-process tp = 2 engine's stream, and to the tp = 1 engine's under
+    the MoE near-tie rule (:func:`moe_near_tie_streams`, on the two
+    engines' route logs). Beside it two rank processes of this script
+    (:func:`ep_logits_rank`) compute one prefill forward's and one decode
+    step's logits in both dispatch modes, at ``EP_CAPACITY`` and at the
+    default factor: the all-to-all logits are held to the replicated ones
+    wherever no entry overflowed, and the replicated prefill logits at
+    ``EP_CAPACITY`` to the tp = 1 engine's (``moe["ref_logits"]``); and
+    their in-process tp = 2 engine, given the tp = 1 engine's expert
+    choices, streams the wave held to tp = 1's by the near-tie rule."""
+    t_start = time.time()
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_ep_"))
+    out_npz = str(logs / "ep_logits.npz")
+    routes = str(logs / "tp1_routes.npz")
+    np.savez(routes, wave_calls=len(moe["wave"]["ids"]),
+             **{f"wave_{c}": a for c, a in enumerate(moe["wave"]["ids"])})
+    addr = f"127.0.0.1:{free_port()}"
+    ranks = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ep-logits-rank", str(r), addr,
+         str(out_npz), routes], cwd=ROOT, stdout=open(logs / f"logits_rank{r}.log", "w"),
+        stderr=subprocess.STDOUT) for r in range(TP)]
+    h = None
+    try:
+        h = start_worker("mixtral-8x7b", "cuda",
+                         ["--tp", str(TP), "--tp-devices", TP_DEVICES, "--num-layers",
+                          str(MOE_LAYERS), "--obs-publish", "off", "--tokenizer", "byte"],
+                         env={"DYN_SYSTEM_ENABLED": "0"})
+        for r, proc in enumerate(ranks):
+            if proc.wait(600) != 0:
+                raise AssertionError(f"ep logits rank {r} exited with {proc.returncode}:\n"
+                                     + (logs / f"logits_rank{r}.log").read_text()[-4000:])
+        for r in range(TP):
+            print((logs / f"logits_rank{r}.log").read_text().strip().splitlines()[-1], flush=True)
+        side = np.load(out_npz)
+        logits = {}
+        for cap in ("roomy", "default"):
+            for i, w in enumerate(("prefill", "decode")):
+                a2a, rep_ = (torch.from_numpy(side[f"{cap}_{m}_{w}"])
+                             for m in ("alltoall", "replicated"))
+                over = side[f"overflow_{cap}"][i]
+                name = f"ep logits ({w}, capacity factor {cap})"
+                if over.any():
+                    # Each mode dropped its own entries: the two compute
+                    # other functions, and are not held to each other.
+                    cos = torch.nn.functional.cosine_similarity(a2a, rep_, dim=0).item()
+                    logits[f"{cap}_alltoall_{w}"] = {"overflowed": over.tolist(), "cosine": cos}
+                    print(f"{name}: an entry overflowed its capacity (replicated, all-to-all: "
+                          f"{over.tolist()}), so the modes drop differently and are not held "
+                          f"to each other; cosine {cos:.6f}", flush=True)
+                    continue
+                logits[f"{cap}_alltoall_{w}"] = logits_agreement(
+                    f"{name}: the all-to-all dispatch against the replicated one over tp = 2 "
+                    f"ranks, no entry overflowed", a2a, rep_)
+        logits["replicated_prefill_vs_tp1"] = logits_agreement(
+            f"ep logits (prefill, capacity factor {EP_CAPACITY}): the replicated dispatch over "
+            f"tp = 2 ranks against the tp = 1 engine", torch.from_numpy(side["roomy_replicated_prefill"]),
+            moe["ref_logits"])
+        if "roomy_alltoall_prefill" not in logits or "overflowed" in logits["roomy_alltoall_prefill"]:
+            raise AssertionError(f"an entry overflowed at capacity factor {EP_CAPACITY}")
+        side = json.loads(Path(out_npz + ".solo.json").read_text())
+        side_routes = np.load(out_npz + ".routes.npz")
+        free_routes = {key: [side_routes[f"{key}_{c}"] for c in range(int(side_routes["calls"]))]
+                       for key in ("ids", "logits")}
+        got = asyncio.run(tp_traffic(f"127.0.0.1:{h['port']}", h["worker"], moe["wires"]))
+        got_solo = asyncio.run(tp_traffic(f"127.0.0.1:{h['port']}", h["worker"],
+                                          [ep_solo_wire(moe["ref_logits"].shape[0])]))
+        stop_process(h["worker"])
+        if h["worker"].returncode != 0:
+            raise AssertionError(f"the ep worker exited with {h['worker'].returncode}")
+    except BaseException:
+        if h is not None:
+            print(f"ep worker log tail:\n{(h['logs'] / 'worker.log').read_text()[-8000:]}",
+                  file=sys.stderr)
+        raise
+    finally:
+        for proc in ranks:
+            stop_process(proc, signal.SIGKILL, 10)
+        if h is not None:
+            close_worker(h)
+    text = (h["logs"] / "worker.log").read_text()
+    for rid, st in got["streams"].items():
+        if len(st["tokens"]) != MAX_TOKENS or st["finish"] != "length":
+            raise AssertionError(f"ep {rid}: {len(st['tokens'])} tokens, finish {st['finish']!r}")
+    # The served solo request: bit for bit the in-process tp = 2
+    # engine's (the same batches), whose route log is compared with the
+    # tp = 1 engine's; held to the tp = 1 stream under the MoE near-tie
+    # rule. Then the EP dispatch itself: the in-process tp = 2 engine
+    # with the tp = 1 engine's expert choices (so its slots and drops)
+    # streams the MoE wave under the plain near-tie rule.
+    solo = {"worker_against_in_process": near_tie_streams(
+        "the tp = 2 EP worker's solo request against the in-process tp = 2 engine",
+        side["solo"], got_solo["streams"], exact=True)}
+    print(f"ep solo: the worker's {EP_SOLO_LEN}-token request alone streams the in-process "
+          f"tp = 2 engine's {MAX_TOKENS} tokens and log-probabilities bit for bit", flush=True)
+    solo["against_tp1"] = moe_near_tie_streams(
+        "the tp = 2 EP worker's solo request against the tp = 1 MoE engine",
+        moe["solo"]["streams"], got_solo["streams"],
+        route_flips(moe["solo"], free_routes, EP_SOLO_LEN, MOE_LAYERS))
+    held = near_tie_streams("the in-process tp = 2 engine's wave with the tp = 1 engine's expert "
+                            "choices against the tp = 1 MoE engine", moe["wave"]["streams"],
+                            side["wave"])
+    # The served wave against tp = 1 is printed, not held: the worker
+    # takes the wave's requests in their order of arrival (lanes, hence
+    # slots), and the route logs compared are the solo request's.
+    partings = {rid: first_divergence(w["tokens"], got["streams"][rid]["tokens"])
+                for rid, w in moe["streams"].items()}
+    print("ep wave: the worker's streams against the tp = 1 MoE engine's part at "
+          + ", ".join(f"{rid} token {j}" if j is not None else f"{rid} nowhere"
+                      for rid, j in partings.items())
+          + " (router flips: see the solo request's)", flush=True)
+    per_rank = []
+    for rank, st in enumerate((rank_stats(text, r"torch worker \d+"),
+                               rank_stats(text, "torch follower rank 1"))):
+        forwards = st["forwards"] + st["warm_up_forwards"]
+        k = st["kernel_launches"]
+        decode, tiled = (k["ragged_paged_attention_decode_launch"],
+                         k["ragged_paged_attention_tiled_launch"])
+        calls = st["collectives"]
+        waves = st["single_step_dispatches"]
+        ok = (decode + tiled == MOE_LAYERS * forwards and min(decode, tiled) > 0
+              and st["tp"] == TP and st["rank"] == rank and st["comm_backend"] == "gloo-host"
+              and st["graph_captures"] == 0 and st["eager_dispatches"] == st["dispatches"]
+              and st["collective_calls"] == st["collectives_per_forward"] * forwards
+              and calls["all_to_all"] == 0)
+        per_rank.append({
+            "rank": rank, "forwards": st["forwards"], "warm_up_forwards": st["warm_up_forwards"],
+            "decode_launches": decode, "tiled_launches": tiled, "collectives": calls,
+            "all_to_all_per_forward": calls["all_to_all"] / forwards,
+            "peak_memory_gb": st.get("peak_memory_bytes", 0) / 1e9,
+            "prefill_wave_ms": 1e3 * st["prefill_loop_s"] / max(1, waves),
+            "decode_ms_per_iteration": 1e3 * st["decode_loop_s"] / max(1, st["decode_iterations"]),
+        })
+        print(f"ep rank {rank}: K1 launches decode {decode} + tiled {tiled} = {MOE_LAYERS} x "
+              f"({st['forwards']} forwards + {st['warm_up_forwards']} at warm-up): "
+              f"{decode + tiled == MOE_LAYERS * forwards}; collectives {calls} "
+              f"({st['collectives_per_forward']} per forward, all-to-alls 0 in the replicated "
+              f"dispatch); graphs captured {st['graph_captures']}, eager dispatches "
+              f"{st['eager_dispatches']} of {st['dispatches']}; prefill wave "
+              f"{per_rank[-1]['prefill_wave_ms']:.1f} ms, decode "
+              f"{per_rank[-1]['decode_ms_per_iteration']:.2f} ms per iteration; peak memory "
+              f"{per_rank[-1]['peak_memory_gb']:.2f} GB", flush=True)
+        if not ok:
+            raise AssertionError(f"ep rank {rank}'s counters: {st}")
+    builds = rank_build_s(text)
+    if [b["rank"] for b in builds] != list(range(TP)):
+        raise AssertionError(f"the ep ranks' build lines: {builds}")
+    served = served_after_s(h)
+    print(f"ep worker on {card}: serving after {served:.1f} s; ranks' engines "
+          + "; ".join(f"rank {b['rank']} built in {b['build_s']:.2f} s (weights {b['weights']}), "
+                      f"warmed up in {b['warm_up_s']:.2f} s" for b in builds)
+          + f"; {len(moe['wires'])} requests in {got['wall_s']:.1f} s (eager, two ranks "
+          f"time-sharing one card, collectives through host memory: a proof of numerics, not a "
+          f"speed figure)", flush=True)
+    print(f"ep: Mixtral-8x7B at its 32 layers needs two cards (46.5 GB of experts a rank at "
+          f"tp = 2); this machine has {torch.cuda.device_count()} card", flush=True)
+    return {"served_after_s": served, "rank_builds": builds, "ranks": per_rank,
+            "near_tie": held, "solo": solo, "wave_partings": partings, "logits": logits,
+            "wall_s": got["wall_s"],
+            "phase_s": time.time() - t_start,
+            "launches": [{"ragged_paged_attention_decode_launch": r["decode_launches"],
+                          "ragged_paged_attention_tiled_launch": r["tiled_launches"]}
+                         for r in per_rank]}
 
 
 # -- the frontend ----------------------------------------------------------------
@@ -5472,9 +6214,13 @@ def main() -> int:
         print(f"llama3-8b engines freed: {memory_line()}", flush=True)
         moe = serve_moe(ra, card)
         lap("MoE")
+        ep_ref = moe.pop("ep_reference")
         print(f"MoE summary: {json.dumps(moe)}", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
+        ep = serve_ep(card, ep_ref)
+        lap("expert parallelism")
+        print(f"ep summary: {json.dumps(ep)}", flush=True)
         qwen = serve_qwen2(ra, card)
         lap("Qwen2")
         print(f"Qwen2 summary: {json.dumps(qwen)}", flush=True)
@@ -5484,12 +6230,16 @@ def main() -> int:
             print(f"GGUF summary: {json.dumps(gguf)} in {time.time() - t0:.2f} s", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
-        tp = serve_tp(card, ck["dir"], reference[3])
+        tp = serve_tp(card, ck["cut"]["dir"], reference[3])
         lap("tensor parallelism")
         print(f"tp summary: {json.dumps(tp)}", flush=True)
-        pipe = serve_pipeline(card, ck["dir"], reference[3])
+        pipe = serve_pipeline(card, ck["cut"]["dir"], reference[3])
         lap("pipeline and data parallelism")
         print(f"pipeline summary: {json.dumps(pipe)}", flush=True)
+        print(f"before the sp phase: {memory_line()}", flush=True)
+        sp = serve_sp(card, ck["dir"], reference[3])
+        lap("sequence parallelism")
+        print(f"sp summary: {json.dumps(sp)}", flush=True)
         worker_summary, direct, direct_stats = serve_worker(card, reference)
         lap("GGUF and worker")
         print(f"worker summary: {json.dumps(worker_summary)}", flush=True)
@@ -5560,6 +6310,10 @@ def main() -> int:
                     extra["dp_path_launches_by_rank"] = [r[name] for r in pipe["dp"]["launches"]]
                     extra["pipeline_planted_faults_row_rel_err"] = {
                         f: pipe_faults[f] for f in table[kernel]}
+                    # The sp worker's two ranks and the EP worker's two,
+                    # warm-up included.
+                    extra["sp_path_launches_by_rank"] = [r[name] for r in sp["launches"]]
+                    extra["ep_path_launches_by_rank"] = [r[name] for r in ep["launches"]]
                 # The runner's worker (--out torch --preset llama3-8b), warm-up included.
                 extra["runner_phase_launches"] = runner["torch"]["kernel_launches"][name]
                 k1.append(kernel_entry(
@@ -5592,4 +6346,8 @@ if __name__ == "__main__":
         sys.exit(tp_logits_rank(int(sys.argv[2]), *sys.argv[3:6]))
     if sys.argv[1:2] == ["--pipeline-logits-rank"]:
         sys.exit(pipeline_logits_rank(int(sys.argv[2]), *sys.argv[3:6]))
+    if sys.argv[1:2] == ["--sp-logits-rank"]:
+        sys.exit(sp_logits_rank(int(sys.argv[2]), *sys.argv[3:6]))
+    if sys.argv[1:2] == ["--ep-logits-rank"]:
+        sys.exit(ep_logits_rank(int(sys.argv[2]), *sys.argv[3:6]))
     sys.exit(main())

@@ -16,8 +16,9 @@ before admission, as the JAX worker resolves them: by the encoder fleet
 (``python -m dynamo_tpu_torch.backends.encoder``) when one is registered,
 else in process. An embedding request (``embed``) runs locally in every
 role. ``--preset tiny-moe|mixtral-8x7b`` serves a sparse MoE model
-(``--moe-dispatch`` is taken as the JAX worker takes it; on one device
-both values are the local dispatch). ``--model-path DIR`` serves a Hugging
+(``--moe-dispatch replicated|alltoall`` is taken as the JAX worker takes
+it: on one device both values are the local dispatch, over ``--tp`` ranks
+the experts split over them, in either expert-parallel mode). ``--model-path DIR`` serves a Hugging
 Face llama or qwen2 checkpoint directory in place of a preset's random
 weights (``engine/loader.py``; ``--quant int8`` quantizes it as it
 loads), with the directory's tokenizer unless ``--tokenizer`` names
@@ -39,8 +40,10 @@ speculative decoding, drafted on the host or on the card.
 
 ``--tp N`` serves one model over N ranks, one process each, ``--dp N`` over
 N replicas that split each decode batch's lanes (with ``--tp``: dp x tp
-ranks), and ``--pp N`` over N pipeline stages (exclusive with the other
-two, and with ``--nnodes``): local rank 0 of every node starts that node's
+ranks), ``--pp N`` over N pipeline stages (exclusive with the other
+two, and with ``--nnodes``), and ``--sp N`` over N replicas that prefill a
+long prompt round a ring, each rank its chunk (exclusive with the other
+three, and with ``--nnodes``): local rank 0 of every node starts that node's
 other ranks, all join one process group (``--dist-init-addr``,
 ``--nnodes``, ``--node-rank`` across nodes), rank 0 serves and the others
 replay its steps (``backends/torch/multihost.py``). A rank takes
@@ -70,7 +73,6 @@ from dynamo_tpu_torch import knobs, tracing
 from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig, ModelConfig, tiny_engine
 from dynamo_tpu_torch.engine.core import (
     EngineCore,
-    check_mesh,
     check_pp,
     check_slice,
     resolve_device,
@@ -97,6 +99,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 from dynamo_tpu_torch.obs.slo import PhaseScanner
 from dynamo_tpu_torch.obs.snapshot import SnapshotPublisher
 from dynamo_tpu_torch.ops import ragged_attention
+from dynamo_tpu_torch.ops.ring_attention import SPMesh
 from dynamo_tpu_torch.parallel.pipeline import PPMesh, stage_span
 from dynamo_tpu_torch.runtime import Context, DistributedRuntime, chaos, wire
 from dynamo_tpu_torch.runtime.status_server import (
@@ -205,6 +208,8 @@ def build_engine(
     dp: int = 1,
     pp: int = 1,
     pp_mesh=None,
+    sp: int = 1,
+    sp_mesh=None,
 ) -> tuple[EngineCore, TorchEngine]:
     """Construct (EngineCore, TorchEngine) for a model preset or a
     checkpoint.
@@ -232,12 +237,19 @@ def build_engine(
     rank)``), random weights are drawn whole and kept sharded; each dp rank
     holds a replica. ``pp_mesh`` (``parallel.pipeline.PPMesh``) builds this
     process's stage of a pipeline instead: a checkpoint streams, and
-    random weights keep, only the stage's layers. ``tp``, ``dp`` or
-    ``pp`` above 1 without a mesh builds one over the process group
-    (``make_mesh``, ``make_pp_mesh``). As the JAX worker does, pp excludes
-    tp and dp, a pp that does not divide the layers or the vocabulary
-    raises, and the prefill buckets and decode widths are trimmed to those
-    that split into pp microbatches (the decode widths into dp lanes).
+    random weights keep, only the stage's layers. ``sp_mesh``
+    (``ops.ring_attention.SPMesh``) builds this process's rank of a
+    sequence-parallel engine: a whole replica whose long prompts prefill
+    round the ring of the sp ranks; without an explicit
+    ``ring_prefill_threshold`` every prompt that fills at least half the
+    largest bucket takes the ring (the JAX worker's default). ``tp``,
+    ``dp``, ``pp`` or ``sp`` above 1 without a mesh builds one over the
+    process group (``make_mesh``, ``make_pp_mesh``,
+    ``sequence_parallel_mesh``). As the JAX worker does, pp excludes tp,
+    dp and sp, sp excludes tp and dp, a pp that does not divide the
+    layers or the vocabulary raises, and the prefill buckets and decode
+    widths are trimmed to those that split into pp microbatches (the
+    decode widths into dp lanes).
     ``core_cls`` substitutes the engine-core class (the lockstep leader,
     ``backends/torch/multihost.LeaderCore``) and ``core_kwargs`` adds to
     its arguments.
@@ -250,9 +262,20 @@ def build_engine(
         if (tp, dp) != (1, 1) and (tp, dp) != (mesh.tp, mesh.dp):
             raise ValueError(f"dp x tp = {dp}x{tp} but the mesh is {mesh.dp}x{mesh.tp}")
         tp, dp = mesh.tp, mesh.dp
-    if pp > 1 and (tp * dp > 1 or mesh is not None):
+    if sp_mesh is not None:
+        if sp not in (1, sp_mesh.sp):
+            raise ValueError(f"sp={sp} but the sp mesh has sp={sp_mesh.sp}")
+        sp = sp_mesh.sp
+    if pp > 1 and (tp * dp > 1 or mesh is not None or sp > 1):
         raise ValueError("--pp is mutually exclusive with --tp/--dp/--sp for now")
+    if sp > 1 and (tp * dp > 1 or mesh is not None):
+        raise ValueError("--sp is mutually exclusive with --tp/--dp for now")
     model_cfg, engine_cfg = engine_configs(preset, engine_overrides, moe_dispatch, model_path)
+    if sp > 1 and engine_cfg.ring_prefill_threshold <= 0:
+        # --sp without an explicit threshold: every prompt that fills at
+        # least half the largest bucket goes round the ring.
+        engine_cfg = dataclasses.replace(engine_cfg, ring_prefill_threshold=max(
+            engine_cfg.block_size, engine_cfg.prefill_buckets[-1] // 2))
     if pp > 1:
         check_pp_split(model_cfg, pp)
         pbuckets = _pp_prefill_buckets(engine_cfg.prefill_buckets, pp, engine_cfg.block_size)
@@ -266,13 +289,15 @@ def build_engine(
         from dynamo_tpu_torch.parallel.pipeline import make_pp_mesh
 
         pp_mesh = make_pp_mesh(pp)
-    ranked = mesh if tp * dp > 1 else pp_mesh if pp > 1 else None
+    if sp_mesh is None and sp > 1:
+        from dynamo_tpu_torch.ops.ring_attention import sequence_parallel_mesh
+
+        sp_mesh = sequence_parallel_mesh(sp)
+    ranked = mesh if tp * dp > 1 else pp_mesh if pp > 1 else sp_mesh if sp > 1 else None
     if ranked is not None:
         device = ranked.device
     dev = resolve_device(device)
     check_slice(model_cfg, engine_cfg, dev)  # before any weight is drawn or loaded
-    if mesh is not None:
-        check_mesh(model_cfg, mesh)
     if pp > 1:
         check_pp(model_cfg, engine_cfg, pp)
     rank = mesh.tp_rank if tp > 1 else None
@@ -290,7 +315,7 @@ def build_engine(
         raise ValueError(f"unknown quantization {quant!r}")
     core = (core_cls or EngineCore)(
         model_cfg, engine_cfg, params=params, seed=seed,
-        eos_token_ids=eos_token_ids, device=dev, mesh=mesh, pp_mesh=pp_mesh,
+        eos_token_ids=eos_token_ids, device=dev, mesh=mesh, pp_mesh=pp_mesh, sp_mesh=sp_mesh,
         on_stored=on_stored, on_removed=on_removed,
         on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
         **(core_kwargs or {}),
@@ -348,31 +373,38 @@ def _mesh_name(mesh) -> str:
         return ""
     if isinstance(mesh, PPMesh):
         return f"pp={mesh.pp}" if mesh.pp > 1 else ""
+    if isinstance(mesh, SPMesh):
+        return f"sp={mesh.sp}" if mesh.sp > 1 else ""
     return ", ".join(f"{a}={n}" for a, n in (("dp", mesh.dp), ("tp", mesh.tp)) if n > 1)
 
 
 def _world(mesh) -> int:
-    """The ranks of ``mesh`` (a dp x tp mesh, a pipeline, or None: one)."""
+    """The ranks of ``mesh`` (a dp x tp mesh, a pipeline, an sp group, or
+    None: one)."""
     if mesh is None:
         return 1
+    if isinstance(mesh, SPMesh):
+        return mesh.sp
     return mesh.pp if isinstance(mesh, PPMesh) else mesh.dp * mesh.tp
 
 
 def _build_and_warm(preset, engine_overrides, seed, eos, quant, device, params,
                     events, moe_dispatch=None, model_path=None, mesh=None,
                     core_cls=None, core_kwargs=None) -> tuple[EngineCore, TorchEngine, int]:
-    """Build and warm up this process's engine; ``mesh`` is a dp x tp mesh
-    or a pipeline's (``parallel.pipeline.PPMesh``)."""
+    """Build and warm up this process's engine; ``mesh`` is a dp x tp mesh,
+    a pipeline's (``parallel.pipeline.PPMesh``) or an sp group's
+    (``ops.ring_attention.SPMesh``)."""
     on_stored, on_removed, on_tier_stored, on_tier_removed = events
     t0 = time.perf_counter()
     pp_mesh = mesh if isinstance(mesh, PPMesh) else None
+    sp_mesh = mesh if isinstance(mesh, SPMesh) else None
     core, engine = build_engine(
         preset, engine_overrides, seed=seed, eos_token_ids=eos, device=device,
         params=params, quant=quant, on_stored=on_stored, on_removed=on_removed,
         on_tier_stored=on_tier_stored, on_tier_removed=on_tier_removed,
         moe_dispatch=moe_dispatch, model_path=model_path,
-        mesh=None if pp_mesh is not None else mesh, pp_mesh=pp_mesh,
-        core_cls=core_cls, core_kwargs=core_kwargs,
+        mesh=None if pp_mesh is not None or sp_mesh is not None else mesh, pp_mesh=pp_mesh,
+        sp_mesh=sp_mesh, core_cls=core_cls, core_kwargs=core_kwargs,
     )
     t1 = time.perf_counter()
     if core.device.type == "cuda":
@@ -1278,6 +1310,9 @@ def _parser() -> argparse.ArgumentParser:
                          "safetensors or pytorch_model*.bin); overrides --preset "
                          "and defaults the tokenizer to it")
     ap.add_argument("--moe-dispatch", default=None, choices=["replicated", "alltoall"])
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="serve the preset's first N layers (a depth cut of its random "
+                         "weights, so that a model fits one card; not with --model-path)")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree: one process per rank, heads and MLP "
                          "columns split over the ranks (local rank 0 of each node starts "
@@ -1290,8 +1325,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp", type=int, default=1,
                     help="in-engine data-parallel degree: one process per rank, each a "
                          "replica; a decode batch's lanes split over the ranks")
-    ap.add_argument("--sp", type=int, default=1)
-    ap.add_argument("--ring-prefill-threshold", type=int, default=None)
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel degree: one process per rank, each a replica; "
+                         "long prompts prefill round the ring of the ranks (exclusive with "
+                         "--tp/--dp/--pp)")
+    ap.add_argument("--ring-prefill-threshold", type=int, default=None,
+                    help="prompt tokens from which an --sp worker prefills round the ring "
+                         "(default: half the largest prefill bucket)")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline-parallel degree: one process per stage, the layers "
                          "staged over them (GPipe prefill waves, wavefront decode chains; "
@@ -1319,42 +1359,39 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _cli_world(args: argparse.Namespace) -> int:
-    """The ranks of a worker's ``--dp x --tp x --pp`` (pp excludes the other two)."""
-    return args.dp * args.tp * args.pp
+    """The ranks of a worker's ``--dp x --tp``, ``--pp`` or ``--sp`` (each of
+    the last two excludes the others)."""
+    return args.dp * args.tp * args.pp * args.sp
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Raise on the first flag value the port does not serve, naming the
     ``ROADMAP.md`` item that brings it, and on the combinations the JAX
-    worker refuses, with its messages. Engine settings outside the slice
-    (ring prefill) are refused by ``build_engine`` the same way."""
+    worker refuses, with its messages. A MoE preset under ``--pp`` is
+    refused by ``build_engine`` (``check_pp``), with JAX's message."""
     if args.pp > 1 and (args.tp * args.dp > 1 or args.sp > 1):
         raise ValueError("--pp is mutually exclusive with --tp/--dp/--sp for now")
+    if args.sp > 1 and args.tp * args.dp > 1:
+        raise ValueError("--sp is mutually exclusive with --tp/--dp for now")
     many = _cli_world(args) > 1
-    refusals = [
-        (args.sp > 1, "--sp > 1 (sequence-parallel ring prefill)", "A12c"),
-        (many and args.role != "aggregated",
-         f"--role {args.role} with --tp, --dp or --pp > 1 (cross-mesh disaggregation)",
-         "A12d"),
-        (many and args.moe_dispatch is not None,
-         "--moe-dispatch with --tp, --dp or --pp > 1 (expert parallelism)", "A12d"),
-    ]
-    for refused, what, item in refusals:
-        if refused:
-            raise ValueError(f"{what} is not ported yet (ROADMAP.md {item})")
+    if many and args.role != "aggregated":
+        raise ValueError(f"--role {args.role} with --tp, --dp, --pp or --sp > 1 (cross-mesh "
+                         "disaggregation) is not ported yet (ROADMAP.md A12d)")
+    if args.sp > 1 and args.nnodes > 1:
+        raise ValueError("--sp (ring prefill) is not supported under --nnodes yet")
     if args.pp > 1 and args.nnodes > 1:
         raise ValueError("--pp (pipeline parallel) is not supported under --nnodes yet")
     if args.nnodes > 1 and not many:
         raise ValueError("--nnodes > 1 splits the ranks of --tp or --dp over the nodes; "
                          "set --tp or --dp")
     if args.local_cpu_devices is not None and not many:
-        raise ValueError("--local-cpu-devices places the CPU ranks of --tp, --dp or --pp; "
-                         "set one")
+        raise ValueError("--local-cpu-devices places the CPU ranks of --tp, --dp, --pp or "
+                         "--sp; set one")
 
 
 def rank_layout(args: argparse.Namespace) -> tuple[int, list[str]]:
     """(this process's global rank, every rank's device in rank order) of a
-    worker of ``dp x tp`` or ``pp`` ranks. A node holds ``world / nnodes``
+    worker of ``dp x tp``, ``pp`` or ``sp`` ranks. A node holds ``world / nnodes``
     ranks, laid out alike on every node: ``--tp-devices`` lists them
     (whatever the axes), ``--device cpu`` or ``--local-cpu-devices`` puts
     them on the CPU, else rank ``i`` of a node takes ``cuda:i`` and a node
@@ -1363,15 +1400,15 @@ def rank_layout(args: argparse.Namespace) -> tuple[int, list[str]]:
 
     world = _cli_world(args)
     if world % args.nnodes:
-        raise ValueError(f"the {world} ranks of --dp x --tp x --pp must be a multiple of "
-                         f"--nnodes {args.nnodes}")
+        raise ValueError(f"the {world} ranks of --dp x --tp x --pp x --sp must be a multiple "
+                         f"of --nnodes {args.nnodes}")
     k = world // args.nnodes
     if not (0 <= args.node_rank < args.nnodes and 0 <= args.local_rank < k):
         raise ValueError(f"node rank {args.node_rank} / local rank {args.local_rank} outside "
                          f"{args.nnodes} nodes of {k} ranks")
     if args.local_cpu_devices is not None and args.local_cpu_devices != k:
         raise ValueError(f"--local-cpu-devices {args.local_cpu_devices} but a node holds "
-                         f"{k} ranks of --dp x --tp x --pp {world}")
+                         f"{k} ranks of --dp x --tp x --pp x --sp {world}")
     if args.tp_devices:
         local = [d.strip() for d in args.tp_devices.split(",")]
         if len(local) != k:
@@ -1412,6 +1449,7 @@ def _start_local_ranks(argv: list[str], k: int, addr: str) -> list:
 
 def _stop_local_ranks(procs: list) -> None:
     import signal
+    import subprocess
 
     for proc in procs:
         if proc.poll() is None:
@@ -1419,7 +1457,7 @@ def _stop_local_ranks(procs: list) -> None:
     for proc in procs:
         try:
             proc.wait(timeout=30)
-        except Exception:  # noqa: BLE001 — a rank that will not stop is killed
+        except subprocess.TimeoutExpired:  # a rank that will not stop is killed
             proc.kill()
             proc.wait()
 
@@ -1455,6 +1493,18 @@ def _overrides(args: argparse.Namespace) -> dict[str, Any]:
     }
 
 
+def _cut_preset(preset: str | None, num_layers: int) -> None:
+    """``--num-layers``: the preset's random weights cut to its first
+    ``num_layers`` layers, for this process (a depth cut for one card;
+    every rank's process parses the same arguments and cuts alike). A
+    checkpoint refuses it."""
+    base = PRESETS.get(preset)
+    if base is None or not 1 <= num_layers <= base().num_layers:
+        raise ValueError(f"--num-layers {num_layers} cuts a preset's layers, not those of "
+                         f"{'a checkpoint' if preset is None else repr(preset)}")
+    PRESETS[preset] = lambda: dataclasses.replace(base(), num_layers=num_layers)
+
+
 def main(argv: list[str] | None = None) -> None:
     import sys
 
@@ -1465,11 +1515,14 @@ def main(argv: list[str] | None = None) -> None:
     overrides = _overrides(args)
     preset = None if args.model_path is not None else args.preset  # --model-path replaces it
     # Before joining the fleet.
+    if args.num_layers is not None:
+        _cut_preset(preset, args.num_layers)
     model_cfg, engine_cfg = engine_configs(preset, overrides, args.moe_dispatch, args.model_path)
     check_slice(model_cfg, engine_cfg, device="cpu" if args.local_cpu_devices else args.device)
     world = _cli_world(args)
     if world == 1:
         return _serve(args, overrides, preset, None)
+    from dynamo_tpu_torch.ops.ring_attention import sequence_parallel_mesh
     from dynamo_tpu_torch.parallel import comm
     from dynamo_tpu_torch.parallel.multihost import init_multihost, shutdown_multihost
     from dynamo_tpu_torch.parallel.pipeline import make_pp_mesh
@@ -1488,6 +1541,7 @@ def main(argv: list[str] | None = None) -> None:
     try:
         init_multihost(addr, world, rank, backend)
         mesh = (make_pp_mesh(args.pp, devices=devices, rank=rank) if args.pp > 1 else
+                sequence_parallel_mesh(args.sp, devices=devices, rank=rank) if args.sp > 1 else
                 make_mesh(dp=args.dp, tp=args.tp, devices=devices, rank=rank,
                           nnodes=args.nnodes))
         _serve(args, overrides, preset, mesh)

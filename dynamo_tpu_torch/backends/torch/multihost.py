@@ -2,12 +2,14 @@
 
 Counterpart of ``dynamo_tpu/backends/jax/multihost.py``, with the same
 journal design. A PyTorch process drives one card, so a mesh of tp or dp
-ranks, or of pp stages, is that many processes even on one node (``--tp``,
-``--dp``, ``--pp``), as it is across nodes (``--nnodes``): every rank must
-run the same forwards in the same order, since each forward calls
-collectives (and a pipeline's stage hops) that every rank joins. Every
-rank runs the same scheduler; only its forward differs (its heads, its
-lane block or its layers). The scheduler is deterministic given an
+ranks, of pp stages or of sp ranks is that many processes even on one
+node (``--tp``, ``--dp``, ``--pp``, ``--sp``), as it is across nodes
+(``--nnodes``): every rank must run the same forwards in the same order,
+since each forward calls collectives (and a pipeline's stage hops) that
+every rank joins. Every rank runs the same scheduler; only its forward
+differs (its heads, its lane block or its layers). An sp rank's paged
+forwards call no collective, so its follower may run behind the leader
+until a ring prefill, whose exchanges every rank joins in the same step. The scheduler is deterministic given an
 identical op stream (sampling reads logits that are identical on every
 rank: gathered over tp, gathered lane blocks over dp, the exit broadcast
 and vocab gather of a pipeline; with seeds that derive from the request

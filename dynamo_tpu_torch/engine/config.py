@@ -41,7 +41,8 @@ class ModelConfig:
     # Sparse MoE (Mixtral-style): 0 experts = dense MLP. Per-expert
     # capacity = ceil(N * top_k / E * factor); tokens past it drop for
     # that expert. ``moe_dispatch`` picks the expert-parallel mode under a
-    # mesh (A12d); on one device both values are the local dispatch.
+    # mesh of tp ranks (``model._moe_mlp``); on one device both values
+    # are the local dispatch.
     num_experts: int = 0
     num_experts_per_tok: int = 2
     moe_capacity_factor: float = 2.0
@@ -115,6 +116,8 @@ class EngineConfig:
     decode_chain: int = 8
     # Decode iterations per device dispatch; 0 inherits decode_chain.
     megastep_k: int = 0
+    # Prompt tokens from which an engine with an sp group prefills round
+    # the ring (``EngineCore._maybe_ring_prefill``); 0 turns it off.
     ring_prefill_threshold: int = 0
     scheduling: str = "waves"
     prefill_chunk: int = 0

@@ -71,7 +71,13 @@ dp its block of each decode megastep's lanes (every other dispatch runs
 whole on every dp rank), and on a pipeline stage its layers, prefill
 waves and mixed steps through the GPipe program and decode megasteps
 through the wavefront chain (:func:`_pp_prefill_and_sample`,
-:func:`_pp_decode_chain`).
+:func:`_pp_decode_chain`). A MoE preset's experts split over tp, in
+either expert-parallel dispatch (``model._moe_mlp``). An sp rank
+(``ops.ring_attention.SPMesh``) holds a whole replica: a long prompt's
+prefill goes round the ring of the ranks, each its chunk, and writes the
+whole prompt into every rank's pages (:meth:`EngineCore._maybe_ring_prefill`,
+eager, the step synchronous); every other dispatch runs whole on every
+rank and keeps its CUDA graph.
 
 Settings outside this slice are refused by name with the ``ROADMAP.md``
 item that brings them; nothing is silently substituted.
@@ -99,6 +105,7 @@ from dynamo_tpu_torch.engine.kv_quant import KV_DTYPES, kv_page_bytes, pack_kv_p
 from dynamo_tpu_torch.engine.model import (
     decode_tokens,
     embed_forward,
+    forward_ring_prefill,
     forward_tokens,
     init_cache,
     init_params,
@@ -179,11 +186,6 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig, device) -> Non
         raise ValueError(f"spec_k must be >= 1, got {engine_cfg.spec_k}")
     if engine_cfg.disk_kv_dir and engine_cfg.host_kv_blocks <= 0:
         raise ValueError("disk_kv_dir (G3) requires host_kv_blocks > 0 (G2)")
-    if engine_cfg.ring_prefill_threshold > 0:
-        raise ValueError(
-            "ring_prefill_threshold > 0 (sequence-parallel prefill) is not ported yet "
-            "(ROADMAP.md A12c)"
-        )
     bs = engine_cfg.block_size
     if engine_cfg.scheduling not in ("waves", "chunked"):
         raise ValueError(
@@ -246,19 +248,6 @@ def _check_fuse_tp(params: dict, tp: int) -> None:
         )
 
 
-def check_mesh(model_cfg: ModelConfig, mesh) -> None:
-    """Refuse what a dp x tp mesh does not serve yet, naming its
-    ``ROADMAP.md`` item: MoE over more than one rank (expert parallelism;
-    under dp a rank's lane block would also change the experts' capacity,
-    which JAX computes from the whole batch). Ring prefill has no mesh of
-    its own in the port (``check_slice`` refuses it)."""
-    if mesh.dp * mesh.tp > 1 and model_cfg.is_moe:
-        raise ValueError(
-            f"MoE preset {model_cfg.name!r} under a {mesh.dp}x{mesh.tp} (dp x tp) mesh "
-            "(expert parallelism) is not ported yet (ROADMAP.md A12d)"
-        )
-
-
 def check_pp(model_cfg: ModelConfig, engine_cfg: EngineConfig, pp: int) -> None:
     """The JAX engine's checks of a pp engine, with its messages: MoE and
     speculation are refused, pp divides the layers and the vocabulary, and
@@ -290,10 +279,10 @@ def check_pp(model_cfg: ModelConfig, engine_cfg: EngineConfig, pp: int) -> None:
 def refuse_on_mesh(core: "EngineCore", what: str) -> None:
     """Raise on a path an engine over more than one rank does not serve
     yet (ROADMAP.md A12d): a tp rank's pages hold its KV heads only, a pp
-    stage's its layers only, and a dp rank's forwards must pair with its
-    peers'."""
-    mesh = core.mesh if core.pp_mesh is None else core.pp_mesh
-    for axis in ("tp", "dp", "pp"):
+    stage's its layers only, and a dp or sp rank's forwards and cache
+    writes must pair with its peers'."""
+    for mesh, axis in ((core.mesh, "tp"), (core.mesh, "dp"), (core.pp_mesh, "pp"),
+                       (core.sp_mesh, "sp")):
         n = getattr(mesh, axis, 1) if mesh is not None else 1
         if n > 1:
             raise ValueError(
@@ -519,6 +508,24 @@ def _prefill_and_sample(
         kv_lens, block_tables, cu_q_lens, num_seqs, last_rows, cfg,
         mm_embeds=mm_embeds, mm_mask=mm_mask, mesh=mesh,
     )
+    toks = sample_seeded(
+        logits, seeds, counters, temperature, top_k, top_p,
+        need_mask=need_mask, all_greedy=all_greedy,
+    )
+    lps = token_logprobs(logits, toks) if want_logprobs else None
+    return toks, lps
+
+
+def _ring_prefill_and_sample(
+    params, cache, tokens, write_pages, write_offs, last_row: int,
+    seeds, counters, temperature, top_k, top_p,
+    *, need_mask, all_greedy=False, want_logprobs=False, cfg, sp_mesh,
+):
+    """One sequence-parallel prefill of a single long prompt (ring
+    attention over the sp ranks, ``model.forward_ring_prefill``) and its
+    first-token sampling, the same on every rank."""
+    logits = forward_ring_prefill(params, cache, tokens, write_pages, write_offs, last_row,
+                                  cfg, sp_mesh)
     toks = sample_seeded(
         logits, seeds, counters, temperature, top_k, top_p,
         need_mask=need_mask, all_greedy=all_greedy,
@@ -1092,6 +1099,7 @@ class EngineCore:
         device="cuda",
         mesh: Any = None,
         pp_mesh: Any = None,
+        sp_mesh: Any = None,
         on_stored: Callable[[list[int], int | None], None] | None = None,
         on_removed: Callable[[list[int]], None] | None = None,
         on_tier_stored: Callable[[list[int], int | None, str], None] | None = None,
@@ -1109,8 +1117,14 @@ class EngineCore:
         (the two exclude each other, as in JAX): this process is one
         stage, with its layers of ``params`` (a full dict is sliced here)
         and a cache of its layers; prefill waves and mixed steps run the
-        GPipe program and decode megasteps the wavefront chain. Every rank
-        must run the same steps in the same order
+        GPipe program and decode megasteps the wavefront chain. ``sp_mesh``
+        (``ops.ring_attention.SPMesh``) serves sequence-parallel ring
+        prefill instead (it excludes the other two, as in JAX): every rank
+        holds a whole replica of ``params`` and of the cache, a prompt of
+        at least ``ring_prefill_threshold`` tokens is prefilled round the
+        ring, each rank computing its chunk (:meth:`_maybe_ring_prefill`),
+        and every other dispatch runs whole on every rank with no
+        collective. Every rank must run the same steps in the same order
         (``backends/torch/multihost.py``). Over gloo every dispatch runs
         eagerly (a collective through the host cannot sit in a CUDA
         graph); over NCCL the collectives are captured. ``on_stored`` and
@@ -1122,10 +1136,23 @@ class EngineCore:
         JAX engine."""
         self.device = resolve_device(device)
         check_slice(model_cfg, engine_cfg, self.device)
+        if sp_mesh is not None:
+            # The JAX engine's refusals of an sp engine, with its messages.
+            if engine_cfg.scheduling == "chunked":
+                raise ValueError(
+                    "scheduling='chunked' is not wired for sp meshes yet; "
+                    "those engines keep 'waves'"
+                )
+            if engine_cfg.async_exec:
+                raise ValueError(
+                    "async_exec is not wired for sp meshes yet (the ring "
+                    "prefill path runs synchronously); sp engines keep the "
+                    "synchronous loop"
+                )
         self.mesh = mesh
         tp = dp = pp = 1
         if pp_mesh is not None:
-            if mesh is not None:
+            if mesh is not None or sp_mesh is not None:
                 raise ValueError(
                     "pp_mesh is mutually exclusive with mesh (tp/dp) and "
                     "sp_mesh for now (pp x tp composition: future work)"
@@ -1135,12 +1162,20 @@ class EngineCore:
         # A pipeline of one stage is the unpipelined engine.
         self.pp_mesh = pp_mesh if pp > 1 else None
         if mesh is not None:
-            check_mesh(model_cfg, mesh)
+            if sp_mesh is not None:
+                raise ValueError("sp_mesh (sequence parallel) and mesh (tp/dp) "
+                                 "are mutually exclusive for now")
             tp, dp = mesh.tp, mesh.dp
             for b in engine_cfg.decode_buckets:
                 if b % dp:
                     raise ValueError(f"decode bucket {b} not a multiple of dp={dp}")
-        ranked = mesh if mesh is not None and tp * dp > 1 else pp_mesh if pp > 1 else None
+        # The sequence-parallel group of the ring prefill, or None; ring
+        # prefills run so far (the JAX engine's observability counter).
+        self.sp_mesh = sp_mesh
+        self._ring_prefills = 0
+        sp = sp_mesh.sp if sp_mesh is not None else 1
+        ranked = (mesh if mesh is not None and tp * dp > 1 else pp_mesh if pp > 1
+                  else sp_mesh if sp > 1 else None)
         if ranked is not None and self.device != resolve_device(ranked.device):
             raise ValueError(f"rank {ranked.rank} runs on {ranked.device}, not {self.device}")
         # Pipeline stages, also the microbatch count M (the wavefront needs
@@ -1150,7 +1185,10 @@ class EngineCore:
         # and its layers (all at pp 1).
         self.local_cfg = stage_config(rank_config(model_cfg, tp), pp)
         # A collective through the host cannot be captured in a CUDA graph.
-        self._eager_only = ranked is not None and ranked.backend != comm.NCCL
+        # An sp rank's dispatches call none (the ring prefill, which does,
+        # runs eagerly outside the graphs), so they keep their graphs.
+        self._eager_only = (ranked is not None and ranked is not sp_mesh
+                            and ranked.backend != comm.NCCL)
         bs = engine_cfg.block_size
         for b in engine_cfg.prefill_buckets:
             if b % bs:
@@ -2521,11 +2559,93 @@ class EngineCore:
 
     def _plan_waves(self) -> _PlannedStep | None:
         """Prefill-priority scheduling: one prefill wave strictly before
-        any decode."""
+        any decode. On an sp engine a long prompt may take the ring path
+        instead, synchronously (sp engines keep the synchronous loop)."""
         prefills = [s for s in self.running if not self._eff_prefill_done(s)]
         if prefills:
+            t_wave = time.time()
+            ring_out = self._maybe_ring_prefill(prefills)
+            if ring_out is not None:
+                self._tracer.record(
+                    "engine_prefill_step", t_wave, time.time(),
+                    attrs={"seqs": len(prefills), "ring": True}, stat=True,
+                )
+                return _PlannedStep(core=self, commit_fn=lambda: ring_out, kind="prefill")
             return self._plan_prefill_wave(prefills)
         return self._plan_decode()
+
+    def _maybe_ring_prefill(self, prefills: list[Sequence]):
+        """Run one eligible long prompt through the sequence-parallel ring
+        path (each sp rank computes its chunk; the paged cache is written
+        in the same pass, so decode goes on on the paged path). Returns
+        the emitted (seq, output) pairs, or None to fall through to the
+        ragged wave. A prompt stays on the paged waves when a prefix of it
+        is cached or already prefilled, when it carries multimodal rows,
+        when it is shorter than the threshold, longer than the largest
+        bucket, or when its bucket does not split over the sp ranks."""
+        if self.sp_mesh is None or self.engine.ring_prefill_threshold <= 0:
+            return None
+        for seq in prefills:
+            if seq.prefilled or seq.committed_blocks:
+                continue  # cached prefix / mid-flight: the paged waves own it
+            if seq.mm_embeds is not None:
+                continue  # the multimodal splice is a paged-wave variant only
+            if seq.prompt_len < self.engine.ring_prefill_threshold:
+                continue
+            try:
+                T = self._bucket_for(seq.prompt_len)
+            except ValueError:
+                continue  # longer than the largest bucket: chunked waves
+            if T % self.sp_mesh.sp:
+                continue
+            return self._run_ring_prefill(seq, T)
+        return None
+
+    def _run_ring_prefill(self, seq: Sequence, T: int) -> list[tuple[Sequence, LLMEngineOutput]]:
+        """The ring prefill of ``seq`` in bucket ``T`` and its first token,
+        committed at once. It runs eagerly on the card too: it calls the
+        ring's collectives, which no graph holds over gloo."""
+        t0 = time.time()
+        self._mark_first_sched(seq, t0)
+        bs = self.engine.block_size
+        P_len = seq.prompt_len
+        tokens = np.zeros(T, np.int32)
+        tokens[:P_len] = seq.prompt
+        pos = np.arange(T, dtype=np.int32)
+        write_pages = np.full(T, self.engine.garbage_block, np.int32)
+        write_pages[:P_len] = np.asarray(seq.block_ids, np.int32)[pos[:P_len] // bs]
+        want_lp = seq.logprobs is not None
+        all_greedy = seq.sampling.temperature == 0.0
+        need_mask = seq.sampling.top_k > 0 or seq.sampling.top_p < 1.0
+        dev = lambda a: self._to_device(torch.from_numpy(np.asarray(a)))  # noqa: E731
+        toks, lps = _ring_prefill_and_sample(
+            self.params, self.cache, dev(tokens), dev(write_pages), dev(pos % bs), P_len - 1,
+            dev(np.asarray([seq.seed], np.int32)), dev(np.asarray([seq.generated], np.int32)),
+            dev(np.asarray([seq.sampling.temperature], np.float32)),
+            dev(np.asarray([seq.sampling.top_k], np.int32)),
+            dev(np.asarray([seq.sampling.top_p], np.float32)),
+            need_mask=need_mask and not all_greedy, all_greedy=all_greedy,
+            want_logprobs=want_lp, cfg=self.cfg, sp_mesh=self.sp_mesh,
+        )
+        pend = _PendingFetch(self, (toks, *(lps or ())))
+        self.exec_stats["single_step_dispatches"] += 1
+        self.exec_stats["forwards"] += 1
+        if self.device.type == "cuda":
+            self.exec_stats["eager_dispatches"] += 1
+        self._ring_prefills += 1
+        if self._ring_prefills == 1:
+            log.info("ring prefill active: %d-token prompt over sp=%d", P_len, self.sp_mesh.sp)
+        got, lps = pend.land()
+        self.exec_stats["prefill_s"] += time.time() - t0
+        self.exec_stats["prefill_tokens"] += P_len
+        tok = int(got[0])
+        completed = seq.hashed.extend(seq.prompt)
+        self._commit_completed(seq, completed)
+        seq.prefilled = seq.processed = P_len
+        lp = None
+        if want_lp and lps is not None:
+            lp = _lp_entry(tok, lps[0][0], lps[1][0], lps[2][0], seq.logprobs)
+        return [(seq, self._emit_first(seq, tok, lp))]
 
     def _decode_candidates(self) -> list[Sequence]:
         """Runnable decode lanes under the optimistic overlay. Lanes whose
@@ -4094,6 +4214,7 @@ class EngineCore:
             )
         descs = src.export_descriptors(request_id)
         first, second = (src, self) if id(src) < id(self) else (self, src)
+        # dynacheck: allow-lock-order(global id()-ordered acquisition — mutual pulls always take the lower-id core's lock first, so the pair can never deadlock)
         with first._step_lock, second._step_lock:
             seq = src._held.get(request_id)
             if seq is None:
@@ -4159,20 +4280,29 @@ class EngineCore:
         the collective backend ("none" on one rank), the collectives this
         process has called (all kinds; ``p2p_calls`` of them the stage hops
         sent and received) and those each forward of a tp rank calls (2 per
-        layer, and the logits' gather of an untied lm_head).
-        ``scheduler_stats`` carries the numbers."""
+        layer: the all-reduces after ``wo`` and the MLP, or under the
+        all-to-all expert dispatch 4: the ``wo`` all-reduce, two
+        all-to-alls and the tokens' gather; and the logits' gather of an
+        untied lm_head); an sp rank's ring prefills. ``scheduler_stats``
+        carries the numbers."""
         tp = self.mesh.tp if self.mesh is not None else 1
         dp = self.mesh.dp if self.mesh is not None else 1
-        ranked = self.pp_mesh if self._pp > 1 else self.mesh if tp * dp > 1 else None
+        sp = self.sp_mesh.sp if self.sp_mesh is not None else 1
+        ranked = (self.pp_mesh if self._pp > 1 else self.mesh if tp * dp > 1
+                  else self.sp_mesh if sp > 1 else None)
         return {
             "tp": tp,
             "dp": dp,
+            "sp": sp,
+            "ring_prefills": self._ring_prefills,
             "rank": ranked.rank if ranked is not None else 0,
             "comm_backend": ranked.backend if ranked is not None else "none",
             "collective_calls": sum(comm.calls.values()) if ranked is not None else 0,
             "p2p_calls": comm.calls["send"] + comm.calls["recv"] if self._pp > 1 else 0,
             "collectives_per_forward": (
-                0 if tp == 1 else 2 * self.cfg.num_layers + (0 if self.cfg.tie_embeddings else 1)),
+                0 if tp == 1 else
+                (4 if self.cfg.is_moe and self.cfg.moe_dispatch == "alltoall" else 2)
+                * self.cfg.num_layers + (0 if self.cfg.tie_embeddings else 1)),
         }
 
     def kv_cache_stats(self) -> dict:

@@ -66,6 +66,7 @@ class TorchEngine:
         self._wakeup.set()
         try:
             while True:
+                # dynalint: unbounded-ok — engine-local queue, producer in-process
                 item = await queue.get()
                 if item is _FINISHED:
                     return

@@ -14,7 +14,9 @@ layouts, so the JAX params pytree converts leaf for leaf
   ``jnp.dot(x, w)``.
 - MoE presets (Mixtral-style) replace ``wgu``/``w_down`` with
   ``w_router [L, h, E]`` and the expert stacks ``w_gate``/``w_up
-  [L, E, h, i]`` and ``w_down [L, E, i, h]`` (:func:`_moe_mlp`).
+  [L, E, h, i]`` and ``w_down [L, E, i, h]`` (:func:`_moe_mlp`; under
+  tp a rank holds ``E / tp`` experts, dispatched replicated or
+  all-to-all).
 - int8 weight-only quantization (``quant="int8"``): the projections and
   ``lm_head`` become ``{"w": int8, "scale": f32 [..., 1, out]}`` leaves,
   per output channel (:func:`quantize_weight`); embeddings, norms and
@@ -27,6 +29,9 @@ element is ``{"kv": int8 pages, "scale": f32 [n_pages, page_size, 2*n_kv]}``
 (``engine/kv_quant.py``). JAX's functions are pure and donate the cache;
 here :func:`write_kv` scatters the new rows into the layer's pages IN
 PLACE, which is what the donation bought there.
+
+Beside the ragged forward, :func:`forward_ring_prefill` prefills one
+long prompt over a sequence-parallel group (``ops/ring_attention.py``).
 
 Order of operations mirrors the JAX code exactly: products accumulate in
 f32 and are cast back to the model dtype at the same points, rms_norm
@@ -394,76 +399,220 @@ def _moe_capacity(N: int, cfg: ModelConfig) -> int:
     return max(1, min(N, int(-(-N * k * cfg.moe_capacity_factor // E))))
 
 
-def _moe_dispatch_local(xf, w_router, w_gate, w_up, w_down, cfg: ModelConfig) -> torch.Tensor:
-    """Sparse top-k MoE over every expert on one device: capacity-bounded
+def _moe_pair_capacity(n: int, cfg: ModelConfig, tp: int) -> int:
+    """The all-to-all dispatch's send capacity from one rank's ``n`` tokens
+    to each destination rank (static)."""
+    k = cfg.num_experts_per_tok
+    return max(1, min(n * k, int(-(-n * k * cfg.moe_capacity_factor // tp))))
+
+
+def _moe_route(xf, w_router, k: int):
+    """Top-k routing of ``xf`` ``[N, h]``: the f32 softmax over each token's
+    top-k router logits and the chosen expert ids, ``[N*k]`` each,
+    token-major with the top-k rank minor. Ties among router logits take
+    the lower expert first, as ``jax.lax.top_k``."""
+    router = _dot(xf, w_router)                                   # [N, E] f32
+    vals, idx = torch.sort(router, dim=-1, descending=True, stable=True)
+    return torch.softmax(vals[:, :k], dim=-1).reshape(-1), idx[:, :k].reshape(-1)
+
+
+def _slots(ids: torch.Tensor, valid: torch.Tensor, n: int) -> torch.Tensor:
+    """Each entry's rank among the valid entries of its id (ids ``< n``), in
+    entry order: the one-hot cumsum of the JAX functions."""
+    oh = ((ids[:, None] == torch.arange(n, device=ids.device)[None, :])
+          & valid[:, None]).to(torch.int32)
+    return (torch.cumsum(oh, dim=0) * oh).sum(dim=1) - 1
+
+
+def _experts(g: torch.Tensor, w_gate, w_up, w_down, dtype) -> torch.Tensor:
+    """The expert SwiGLUs of ``g`` ``[E', C, h]`` (one batch per expert of
+    the stacks): products in f32, SiLU on f32, the activation cast to the
+    model dtype before the down product; returns ``[E' * C, h]`` f32."""
+    gate = _bmm(g, w_gate)
+    up = _bmm(g, w_up)
+    act = F.silu(gate, inplace=True).mul_(up).to(dtype)
+    del gate, up
+    return _bmm(act, w_down).reshape(-1, g.shape[-1])
+
+
+def _moe_dispatch_local(xf, w_router, w_gate, w_up, w_down, cfg: ModelConfig,
+                        e_offset: int = 0, E_local: int | None = None) -> torch.Tensor:
+    """Sparse top-k MoE over the contiguous slice of ``E_local`` experts
+    from ``e_offset`` (every expert by default): capacity-bounded
     gather/scatter dispatch, each expert a dense ``[C, h]`` batch of its
-    assigned tokens. The JAX function's semantics exactly (its expert
-    slice of a mesh shard waits for A12d):
+    assigned tokens. Returns the f32 ``[N, h]`` sum of the slice's
+    weighted outputs (under expert parallelism the caller sums the
+    shards' partials). The JAX function's semantics exactly:
 
     - C comes from N, the forward's padded width (bucket padding rows
-      route and take slots too);
+      route and take slots too), and the global expert count;
     - entries are ordered token-major, top-k rank minor, and an entry's
       slot is its rank among the entries of its expert;
-    - ``keep = pos < C``: an entry past its expert's capacity is dropped
-      and adds zero (it lands in a garbage row);
+    - ``keep = local & pos < C``: an entry of another shard's expert, or
+      past its expert's capacity, adds zero (it lands in a garbage row);
     - the top-k values go through a softmax in f32, SiLU runs on f32
-      products, and the combine adds in f32 and casts at the end.
+      products, and the combine adds in f32.
 
     Every shape is static (no ``nonzero``, no boolean-mask indexing, no
-    host read), so the dispatch captures into a CUDA graph. Ties among
-    router logits take the lower expert first, as ``jax.lax.top_k``."""
+    host read), so the dispatch captures into a CUDA graph."""
     N, h = xf.shape
-    k, E = cfg.num_experts_per_tok, cfg.num_experts
+    k = cfg.num_experts_per_tok
+    E_local = cfg.num_experts if E_local is None else E_local
     C = _moe_capacity(N, cfg)
     dev = xf.device
 
-    router = _dot(xf, w_router)                                   # [N, E] f32
-    vals, idx = torch.sort(router, dim=-1, descending=True, stable=True)
-    probs = torch.softmax(vals[:, :k], dim=-1)
-
-    flat_e = idx[:, :k].reshape(-1)                               # [N*k] expert ids
+    probs, flat_e = _moe_route(xf, w_router, k)
+    flat_e = flat_e - e_offset                                    # [N*k] local expert ids
     flat_t = torch.arange(N * k, device=dev) // k                  # token of each entry
-    oh = (flat_e[:, None] == torch.arange(E, device=dev)[None, :]).to(torch.int32)
-    pos = (torch.cumsum(oh, dim=0) * oh).sum(dim=1) - 1           # [N*k]
-    keep = pos < C
-    # Each kept entry's row in the experts' [E * C, h] batch; a dropped
-    # one lands in the garbage row after it (the JAX function's garbage
+    local = (flat_e >= 0) & (flat_e < E_local)
+    pos = _slots(flat_e, local, E_local)
+    keep = local & (pos < C)
+    # Each kept entry's row in the experts' [E_local * C, h] batch; the
+    # others land in the garbage row after it (the JAX function's garbage
     # expert row and capacity slot).
-    slot = torch.where(keep, flat_e * C + pos, E * C)
+    slot = torch.where(keep, flat_e * C + pos, E_local * C)
 
-    gathered = torch.zeros((E * C + 1, h), dtype=xf.dtype, device=dev)
+    gathered = torch.zeros((E_local * C + 1, h), dtype=xf.dtype, device=dev)
     gathered[slot] = xf[flat_t]
-    g = gathered[: E * C].view(E, C, h)
-    gate = _bmm(g, w_gate)                                        # f32
-    up = _bmm(g, w_up)
-    act = F.silu(gate, inplace=True).mul_(up).to(xf.dtype)
-    del gate, up
-    down = _bmm(act, w_down).view(E * C, h)                       # f32
+    down = _experts(gathered[: E_local * C].view(E_local, C, h), w_gate, w_up, w_down, xf.dtype)
 
     # A dropped entry reads a clamped row and adds zero.
-    entry_out = torch.where(keep[:, None], down[slot.clamp(max=E * C - 1)], 0.0)
-    w_masked = torch.where(keep, probs.reshape(-1), 0.0)
-    out = (w_masked[:, None] * entry_out).reshape(N, k, h).sum(dim=1)
-    return out.to(xf.dtype)
+    entry_out = torch.where(keep[:, None], down[slot.clamp(max=E_local * C - 1)], 0.0)
+    w_masked = torch.where(keep, probs, 0.0)
+    return (w_masked[:, None] * entry_out).reshape(N, k, h).sum(dim=1)
+
+
+def _pack_a2a(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``x`` ``[tp, Cs, h]`` and the expert ids ``e`` ``[tp, Cs]`` i32 as one
+    byte tensor ``[tp, Cs, bytes]``: the outbound all-to-all is one call."""
+    return torch.cat([x.contiguous().view(torch.uint8).reshape(*x.shape[:2], -1),
+                      e.to(torch.int32).contiguous().view(torch.uint8)
+                      .reshape(*e.shape, 4)], dim=-1)
+
+
+def _unpack_a2a(buf: torch.Tensor, h: int, dtype: torch.dtype):
+    nb = buf.shape[-1] - 4
+    x = buf[..., :nb].contiguous().view(dtype).reshape(*buf.shape[:2], h)
+    return x, buf[..., nb:].contiguous().view(torch.int32).reshape(buf.shape[:2])
+
+
+def _moe_dispatch_a2a(xl, w_router, w_gate, w_up, w_down, cfg: ModelConfig, mesh,
+                      E_local: int) -> torch.Tensor:
+    """Token all-to-all EP dispatch over one tp rank's token slice ``xl``
+    ``[n, h]`` (the JAX function inside its ``shard_map``): the rank routes
+    its own tokens, packs one send buffer per destination rank, bounded by
+    the per-(source, destination) capacity ``Cs``, and one all-to-all
+    delivers each token (with its expert id) to the rank holding its
+    expert; after the expert SwiGLUs a second all-to-all returns the
+    outputs, in the model dtype, for the weighted f32 combine at the
+    source. Drops differ from the replicated mode's: capacity binds per
+    (source, destination) pair here, per expert there, so the two agree
+    only while nothing overflows (:func:`moe_overflow` tells)."""
+    n, h = xl.shape
+    tp = mesh.tp
+    k = cfg.num_experts_per_tok
+    Cs = _moe_pair_capacity(n, cfg, tp)
+    dev = xl.device
+
+    probs, flat_e = _moe_route(xl, w_router, k)                   # global expert ids
+    flat_t = torch.arange(n * k, device=dev) // k
+    dest = flat_e // E_local                                      # destination rank
+    pos = _slots(dest, torch.ones_like(dest, dtype=torch.bool), tp)
+    keep = pos < Cs
+    slot = torch.where(keep, dest * Cs + pos, tp * Cs)
+
+    send_x = torch.zeros((tp * Cs + 1, h), dtype=xl.dtype, device=dev)
+    send_x[slot] = xl[flat_t]
+    send_e = torch.full((tp * Cs + 1,), -1, dtype=torch.int32, device=dev)
+    send_e[slot] = (flat_e % E_local).to(torch.int32)
+    recv = comm.all_to_all(_pack_a2a(send_x[: tp * Cs].view(tp, Cs, h),
+                                     send_e[: tp * Cs].view(tp, Cs)), mesh)
+    r_x, r_e = _unpack_a2a(recv, h, xl.dtype)
+
+    # Local expert compute over everything received ([M, h], M = tp * Cs).
+    # No second capacity bound: the buffers are already source-bounded.
+    M = tp * Cs
+    r_x, r_e = r_x.reshape(M, h), r_e.reshape(M)
+    valid = r_e >= 0
+    pos2 = _slots(r_e, valid, E_local)
+    slot2 = torch.where(valid, r_e * M + pos2, E_local * M)
+    gathered = torch.zeros((E_local * M + 1, h), dtype=xl.dtype, device=dev)
+    gathered[slot2] = r_x
+    down = _experts(gathered[: E_local * M].view(E_local, M, h), w_gate, w_up, w_down, xl.dtype)
+    out_entries = torch.where(valid[:, None], down[slot2.clamp(max=E_local * M - 1)],
+                              0.0).to(xl.dtype)
+    back = comm.all_to_all(out_entries.view(tp, Cs, h), mesh).reshape(M, h)
+
+    entry_vals = torch.where(keep[:, None], back[slot.clamp(max=M - 1)].float(), 0.0)
+    w_masked = torch.where(keep, probs, 0.0)
+    return (w_masked[:, None] * entry_vals).reshape(n, k, h).sum(dim=1).to(xl.dtype)
+
+
+def moe_overflow(x: torch.Tensor, w_router, cfg: ModelConfig, tp: int = 1) -> dict:
+    """Whether any routed entry of the tokens ``x`` ``[N, h]`` (a whole
+    dispatch's) overflows its capacity: per expert (the replicated mode's
+    C from N) and per (source, destination) pair of ``tp`` token slices
+    (the all-to-all mode's Cs). The two modes drop differently under
+    saturation; this tells whether either dropped."""
+    N = x.shape[0]
+    k, E = cfg.num_experts_per_tok, cfg.num_experts
+    _, flat_e = _moe_route(x, w_router, k)
+    per_expert = torch.bincount(flat_e, minlength=E)
+    out = {"capacity": _moe_capacity(N, cfg), "max_per_expert": int(per_expert.max())}
+    out["replicated"] = out["max_per_expert"] > out["capacity"]
+    if tp > 1:
+        n = -(-N // tp)  # the all-to-all mode's slices, zero rows padding the last
+        _, ids = _moe_route(F.pad(x, (0, 0, 0, n * tp - N)), w_router, k)
+        dest = ids.view(tp, n * k) // (E // tp)
+        pair = torch.stack([torch.bincount(d, minlength=tp) for d in dest])
+        Cs = _moe_pair_capacity(n, cfg, tp)
+        out.update(pair_capacity=Cs, max_per_pair=int(pair.max()),
+                   alltoall=int(pair.max()) > Cs)
+    return out
 
 
 def _moe_mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig, mesh=None) -> torch.Tensor:
-    """Mixtral-style sparse MoE on one device: softmax over the top-k
-    router logits, weighted sum of the expert SwiGLUs
-    (:func:`_moe_dispatch_local` over every expert). The JAX function's
-    mesh branches (replicated and all-to-all expert parallelism) are not
-    ported (``ROADMAP.md`` A12d): a mesh of more than one rank raises.
-    Without one both ``moe_dispatch`` values are this local dispatch, as
-    in JAX."""
-    if mesh is not None and mesh.tp > 1:
-        raise ValueError(
-            "MoE under a mesh (expert parallelism, replicated or all-to-all "
-            "dispatch) is not ported yet (ROADMAP.md A12d)"
-        )
+    """Mixtral-style sparse MoE: softmax over the top-k router logits,
+    weighted sum of the expert SwiGLUs, capacity-bounded dispatch. Under
+    a mesh of tp ranks (expert parallelism: a rank holds ``E / tp``
+    experts, ``parallel/sharding.py``) the JAX function's two modes
+    (``cfg.moe_dispatch``):
+
+    - ``"replicated"`` (the default): every rank dispatches every token
+      to its own experts and the f32 partials are summed over tp (JAX
+      sums the shards' bf16 partials; gloo has no bf16 sum, and one
+      rounding of the f32 sum is the nearer result);
+    - ``"alltoall"``: the token axis, padded to a multiple of tp, splits
+      over the ranks, each slice travels to its experts and back
+      (:func:`_moe_dispatch_a2a`), and the slices are gathered over tp.
+
+    JAX hands the dispatch the whole batch on every device, so the
+    capacity comes from the whole N; under a dp rank's lane view the
+    lanes are gathered over dp first, dispatched whole, and the rank
+    keeps its block."""
     shape = x.shape
-    out = _moe_dispatch_local(
-        x.reshape(-1, shape[-1]), lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"], cfg,
-    )
+    xf = x.reshape(-1, shape[-1])
+    lanes = mesh is not None and mesh.lanes and mesh.dp > 1
+    if lanes:
+        n_own = xf.shape[0]
+        xf = comm.dp_gather(xf, mesh)
+    w = (lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"])
+    tp = mesh.tp if mesh is not None else 1
+    E_local = cfg.num_experts // tp
+    if tp == 1:
+        out = _moe_dispatch_local(xf, *w, cfg).to(xf.dtype)
+    elif cfg.moe_dispatch == "alltoall":
+        N = xf.shape[0]
+        n = -(-N // tp)  # the token axis must split evenly over tp
+        xp = F.pad(xf, (0, 0, 0, n * tp - N))
+        part = _moe_dispatch_a2a(xp[mesh.tp_rank * n : (mesh.tp_rank + 1) * n], *w, cfg, mesh,
+                                 E_local)
+        out = comm.all_gather(part, mesh, dim=0)[:N]
+    else:
+        part = _moe_dispatch_local(xf, *w, cfg, mesh.tp_rank * E_local, E_local)
+        out = comm.all_reduce(part, mesh).to(xf.dtype)
+    if lanes:
+        out = out[mesh.dp_rank * n_own : (mesh.dp_rank + 1) * n_own]
     return out.reshape(shape)
 
 
@@ -520,6 +669,33 @@ def _interleave_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig) -> torch.
     ).reshape(T, 2 * cfg.num_kv_heads, cfg.head_dim)
 
 
+def _attention_inputs(x: torch.Tensor, lp: dict, cfg: ModelConfig,
+                      rope_cs: tuple[torch.Tensor, torch.Tensor]):
+    """A layer's part before attention: attn-norm → fused qkv (with the
+    Qwen2-family bias) → rope. Returns q ``[T, H, d]``, k ``[T, n_kv,
+    d]`` and v ``[T, kv_size]``."""
+    T = x.shape[0]
+    y = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    qkv = _dot(y, lp["wqkv"])
+    if "bqkv" in lp:  # Qwen2-family qkv bias (fused column order)
+        qkv = qkv + lp["bqkv"]
+    q, k, v = split_qkv(qkv.to(x.dtype), cfg)
+    q = rope_apply(q.reshape(T, cfg.num_heads, cfg.head_dim), *rope_cs)
+    k = rope_apply(k.reshape(T, cfg.num_kv_heads, cfg.head_dim), *rope_cs)
+    return q, k, v
+
+
+def _attention_outputs(x: torch.Tensor, attn: torch.Tensor, lp: dict, cfg: ModelConfig,
+                       mesh=None, mlp=None) -> torch.Tensor:
+    """A layer's part after attention: ``wo`` (its partial products
+    summed over a mesh's ranks) into the residual, then mlp-norm → the MLP
+    (``mlp`` in place of :func:`_mlp`) into the residual."""
+    x = x + comm.all_reduce(_dot(attn.reshape(x.shape[0], cfg.q_size), lp["wo"]),
+                            mesh).to(x.dtype)
+    y = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    return x + (_mlp(y, lp, cfg, mesh) if mlp is None else mlp(y))
+
+
 def dense_layer(
     x: torch.Tensor,             # [T, h]
     lp: dict,                    # ONE layer's params
@@ -548,13 +724,7 @@ def dense_layer(
     K/V rows are gathered over dp before they are written, and
     ``write_pages``/``write_offs`` are every lane's."""
     T = x.shape[0]
-    y = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-    qkv = _dot(y, lp["wqkv"])
-    if "bqkv" in lp:  # Qwen2-family qkv bias (fused column order)
-        qkv = qkv + lp["bqkv"]
-    q, k, v = split_qkv(qkv.to(x.dtype), cfg)
-    q = rope_apply(q.reshape(T, cfg.num_heads, cfg.head_dim), *rope_cs)
-    k = rope_apply(k.reshape(T, cfg.num_kv_heads, cfg.head_dim), *rope_cs)
+    q, k, v = _attention_inputs(x, lp, cfg, rope_cs)
     kvn = _interleave_kv(k.reshape(T, cfg.kv_size), v, cfg)
     if mesh is not None and mesh.lanes:
         # Every dp rank writes every lane's rows: the caches stay equal.
@@ -570,11 +740,17 @@ def dense_layer(
         q, kv_pages, kv_lens, block_tables, cu_q_lens, num_seqs,
         sm_scale=cfg.head_dim ** -0.5, kv_scales=kv_scales, kernel=kernel,
     )
-    x = x + comm.all_reduce(_dot(attn.reshape(T, cfg.q_size), lp["wo"]), mesh).to(x.dtype)
-    return x + _mlp(rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), lp, cfg, mesh)
+    return _attention_outputs(x, attn, lp, cfg, mesh)
 
 
 # -- the unified forward ----------------------------------------------------
+
+def layer_params(layers: dict, l: int) -> dict:
+    """Layer ``l``'s slice of the stacked leaves (an int8 leaf's ``w`` and
+    ``scale`` alike)."""
+    return {name: {k: t[l] for k, t in w.items()} if isinstance(w, dict) else w[l]
+            for name, w in layers.items()}
+
 
 def forward_layers(
     x: torch.Tensor,             # [T, h]
@@ -603,12 +779,8 @@ def forward_layers(
         wp, wo = comm.dp_gather(torch.stack([wp, wo]), mesh, dim=1).unbind(0)
     lcfg = rank_config(cfg, mesh.tp) if mesh is not None else cfg
     for l in range(len(cache)):
-        lp = {
-            name: {k: t[l] for k, t in w.items()} if isinstance(w, dict) else w[l]
-            for name, w in layers.items()
-        }
         x = dense_layer(
-            x, lp, cache[l], wp, wo, kv_lens, block_tables, cu_q_lens,
+            x, layer_params(layers, l), cache[l], wp, wo, kv_lens, block_tables, cu_q_lens,
             num_seqs, lcfg, rope_cs, attention, kernel, mesh,
         )
     return x
@@ -681,6 +853,77 @@ def forward_tokens(
         mm_embeds, mm_mask, mesh,
     )
     return _logits(x[last_rows.long()], params, cfg, mesh)
+
+
+def _sp_moe_mlp(y: torch.Tensor, lp: dict, cfg: ModelConfig, sp_mesh, rows: slice):
+    """An sp rank's MoE MLP: the rows gathered over the sp ranks,
+    dispatched whole, the rank's ``rows`` kept."""
+    return _moe_mlp(comm.sp_gather(y, sp_mesh), lp, cfg)[rows]
+
+
+def forward_ring_prefill(
+    params: Params,
+    cache: tuple,                # every layer's pages (written in place)
+    tokens: torch.Tensor,        # [T] i32: ONE prompt, bucket-padded, the same on every rank
+    write_pages: torch.Tensor,   # [T] i32 (garbage page for pad rows)
+    write_offs: torch.Tensor,    # [T] i32
+    last_row: int,               # row of the prompt's last token
+    cfg: ModelConfig,
+    sp_mesh=None,
+) -> torch.Tensor:
+    """Sequence-parallel long-context prefill of one prompt (the JAX
+    function of this name): sp rank ``r`` computes rows ``[r*T/sp,
+    (r+1)*T/sp)`` through every layer (rms_norm, the fused qkv, rope at
+    the global positions, ring attention over the sp ranks, ``wo``, the
+    MLP) and returns the last-token logits ``[1, V]`` f32, the same on
+    every rank. Causal masking makes bucket padding safe: pad rows sit
+    after the last real token.
+
+    - Every rank writes every chunk's K/V rows into its own pages: its
+      own chunk, and each chunk as it passes through the ring, in the
+      bytes the owning rank computed. After the prefill every rank's
+      cache holds the whole prompt, the same bytes on every rank, and
+      decode goes on on the paged path everywhere (an int8 cache
+      quantizes the same rows alike).
+    - The rank whose chunk holds ``last_row`` computes the logits and
+      broadcasts them to the group, so every rank samples the same token.
+    - A MoE preset's capacity and slots depend on all T tokens in order
+      (JAX dispatches the whole prompt at once): the MoE input is
+      gathered over the sp ranks, dispatched whole, and each rank keeps
+      its rows."""
+    from dynamo_tpu_torch.ops.ring_attention import _ring_attention_local
+
+    T = tokens.shape[0]
+    sp, r = (sp_mesh.sp, sp_mesh.rank) if sp_mesh is not None else (1, 0)
+    if T % sp:
+        raise ValueError(f"sequence {T} not divisible by {sp}-way sp")
+    n = T // sp
+    rows = slice(r * n, (r + 1) * n)
+    positions = torch.arange(T, dtype=torch.int32, device=tokens.device)[rows]
+    wp, wo = write_pages.long(), write_offs.long()
+    x = params["embed"][tokens[rows].long()]
+    rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for l in range(cfg.num_layers):
+        lp = layer_params(params["layers"], l)
+        q, k, v = _attention_inputs(x, lp, cfg, rope_cs)
+
+        def write(src: int, kc: torch.Tensor, vc: torch.Tensor, cache_l=cache[l]) -> None:
+            seg = slice(src * n, (src + 1) * n)
+            kvn = _interleave_kv(kc.reshape(n, cfg.kv_size), vc.reshape(n, cfg.kv_size), cfg)
+            write_kv(cache_l, wp[seg], wo[seg], kvn)
+
+        attn = _ring_attention_local(q, k, v.reshape(n, cfg.num_kv_heads, cfg.head_dim),
+                                     sp_mesh, on_chunk=write)
+        x = _attention_outputs(x, attn, lp, cfg, mlp=functools.partial(
+            _sp_moe_mlp, lp=lp, cfg=cfg, sp_mesh=sp_mesh, rows=rows) if cfg.is_moe and sp > 1
+            else None)
+    owner = last_row // n
+    if r == owner:
+        last = x[last_row - owner * n : last_row - owner * n + 1]
+        logits = _logits(rms_norm(last, params["final_norm"], cfg.rms_norm_eps), params, cfg)
+    else:
+        logits = torch.empty((1, cfg.vocab_size), dtype=torch.float32, device=x.device)
+    return comm.sp_broadcast(logits, owner, sp_mesh) if sp > 1 else logits
 
 
 def embed_forward(

@@ -2,5 +2,5 @@
 parallelism (``sharding``), pipeline parallelism (``pipeline``), their
 collectives and stage hops (``comm``), joining the ranks (``multihost``)
 and memory planning (``placement``). Counterpart of
-``dynamo_tpu/parallel/``; sequence-parallel ring prefill is not ported
-yet (``ROADMAP.md`` A12c)."""
+``dynamo_tpu/parallel/``. Sequence-parallel ring prefill keeps its JAX
+home: ``ops/ring_attention.py``, its ring exchanges in ``comm``."""

@@ -10,8 +10,20 @@ pipeline (``dynamo_tpu/parallel/pipeline.py``). A PyTorch process drives
 one card, so the port runs one process per rank and calls them itself:
 
 - :func:`all_reduce` sums a rank's partial product over the tp ranks;
-- :func:`all_gather` joins the tp ranks' column blocks along the last axis;
+- :func:`all_gather` joins the tp ranks' column blocks along the last axis
+  (or their token slices along the first, after an all-to-all expert
+  dispatch);
+- :func:`all_to_all` sends a rank's ``i``-th block to rank ``i`` and joins
+  what each rank sent it, in rank order (``jax.lax.all_to_all`` of the
+  expert-parallel dispatch, ``engine/model._moe_dispatch_a2a``);
 - :func:`dp_gather` joins the dp ranks' lane blocks along an axis;
+- :func:`ring_exchange` passes a tensor one step round the ring of a
+  sequence-parallel group (the counterpart of ``ppermute`` in
+  ``dynamo_tpu/ops/ring_attention.py``): rank ``r`` sends to ``(r + 1) mod
+  sp`` and receives from ``(r - 1) mod sp``, the send started first
+  (``isend``) so that no two neighbours wait on each other;
+  :func:`sp_gather` joins the sp ranks' chunks and :func:`sp_broadcast`
+  replicates one rank's tensor on the others;
 - :func:`send_next` and :func:`recv_prev` hop an activation one pipeline
   stage forward (the counterpart of ``ppermute``). The stages form a
   chain, not a ring: stage ``s`` only sends to ``s + 1`` and receives
@@ -47,7 +59,8 @@ BACKENDS = (NCCL, GLOO, GLOO_HOST)
 
 # Collective calls since the last reset, by collective.
 calls = {"all_reduce": 0, "all_gather": 0, "dp_gather": 0, "send": 0, "recv": 0,
-         "broadcast": 0, "stage_gather": 0}
+         "broadcast": 0, "stage_gather": 0, "all_to_all": 0, "ring_send": 0, "ring_recv": 0,
+         "sp_gather": 0, "sp_broadcast": 0}
 
 
 def reset_calls() -> None:
@@ -123,13 +136,28 @@ def _gather(x: torch.Tensor, group, n: int, backend: str, dim: int) -> torch.Ten
     return torch.cat(parts, dim=dim).view(x.dtype)
 
 
-def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The tp ranks' ``x`` joined along the last axis in rank order (``x``
-    itself at tp = 1, with no call)."""
+def all_gather(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    """The tp ranks' ``x`` joined along ``dim`` (the last axis by default)
+    in rank order (``x`` itself at tp = 1, with no call)."""
     if mesh is None or mesh.tp == 1:
         return x
     calls["all_gather"] += 1
-    return _gather(x, mesh.group, mesh.tp, mesh.backend, -1)
+    return _gather(x, mesh.group, mesh.tp, mesh.backend, dim)
+
+
+def all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` ``[tp, ...]``: block ``i`` goes to tp rank ``i``; returns the
+    blocks the ranks sent this one, ``[tp, ...]`` in rank order (a copy,
+    never a sum: 2-byte floats travel as their bytes)."""
+    import torch.distributed as dist
+
+    calls["all_to_all"] += 1
+    src = _bits(x.contiguous())
+    if mesh.backend == GLOO_HOST:
+        src = src.cpu()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.group)
+    return out.to(x.device).view(x.dtype)
 
 
 def dp_gather(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
@@ -165,6 +193,64 @@ def recv_prev(shape: tuple, dtype: torch.dtype, mesh) -> torch.Tensor:
     return buf.to(mesh.device) if host else buf
 
 
+def ring_exchange(xs: list[torch.Tensor], mesh, between=None) -> list[torch.Tensor]:
+    """The tensors ``xs`` of the previous rank of the sp ring, on this
+    rank's device, after this rank's were sent to the next: the sends are
+    started first (``isend``, one per tensor), ``between()`` runs while
+    they travel (a block of the ring's attention), then the receives, then
+    the sends are waited for. A 2-byte float travels as its bytes."""
+    import torch.distributed as dist
+
+    sp, r = mesh.sp, mesh.rank
+    host = mesh.backend == GLOO_HOST
+    srcs = [_bits(x.contiguous()) for x in xs]
+    if host:  # through pinned buffers: a pageable copy of a chunk runs at a fraction of the rate
+        srcs = [torch.empty(s.shape, dtype=s.dtype, pin_memory=True).copy_(s) for s in srcs]
+    works = []
+    for s in srcs:
+        calls["ring_send"] += 1
+        works.append(dist.isend(s, (r + 1) % sp, group=mesh.group))
+    if between is not None:
+        between()
+    out = []
+    for x, s in zip(xs, srcs):
+        buf = torch.empty_like(s, pin_memory=host)
+        calls["ring_recv"] += 1
+        dist.recv(buf, (r - 1) % sp, group=mesh.group)
+        out.append((buf.to(x.device) if host else buf).view(x.dtype))
+    for work in works:
+        work.wait()
+    return out
+
+
+def sp_gather(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """The sp ranks' ``x`` (each its chunk of the sequence) joined along
+    ``dim`` in rank order."""
+    calls["sp_gather"] += 1
+    return _gather(x, mesh.group, mesh.sp, mesh.backend, dim)
+
+
+def sp_broadcast(x: torch.Tensor, src: int, mesh) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every sp rank (the others pass a tensor of
+    its shape and dtype; a copy, bit for bit)."""
+    calls["sp_broadcast"] += 1
+    return _broadcast(x, src, mesh)
+
+
+def _broadcast(x: torch.Tensor, src: int, mesh) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank of the mesh's group."""
+    import torch.distributed as dist
+
+    buf = _bits(x.contiguous())
+    if mesh.backend == GLOO_HOST:
+        host = buf.cpu()
+        dist.broadcast(host, src, group=mesh.group)
+        buf = host.to(x.device)
+    else:
+        dist.broadcast(buf, src, group=mesh.group)
+    return buf.view(x.dtype)
+
+
 def wait_sends(pending: list) -> None:
     """Wait for the sends :func:`send_next` started."""
     for work, _ in pending:
@@ -175,18 +261,8 @@ def wait_sends(pending: list) -> None:
 def exit_broadcast(x: torch.Tensor, mesh) -> torch.Tensor:
     """The last pipeline stage's ``x``, on every stage (in place; the
     other stages pass a tensor of its shape and dtype)."""
-    import torch.distributed as dist
-
     calls["broadcast"] += 1
-    src = mesh.pp - 1
-    buf = _bits(x.contiguous())
-    if mesh.backend == GLOO_HOST:
-        host = buf.cpu()
-        dist.broadcast(host, src, group=mesh.group)
-        buf = host.to(x.device)
-    else:
-        dist.broadcast(buf, src, group=mesh.group)
-    return buf.view(x.dtype)
+    return _broadcast(x, mesh.pp - 1, mesh)
 
 
 def stage_gather(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -100,7 +100,7 @@ def test_cpu_engine_leaves_jax_unimported():
         ({"disk_kv_dir": "kv"}, r"disk_kv_dir \(G3\) requires host_kv_blocks > 0 \(G2\)"),
         ({"kv_dtype": "int8", "host_kv_blocks": 16}, None),
         ({"host_kv_blocks": 16}, None),
-        ({"ring_prefill_threshold": 64}, "A12c"),
+        ({"ring_prefill_threshold": 64}, None),
     ],
     ids=["overrides0-A10", "overrides1-A10", "overrides2-A10", "overrides3-A12"],
 )
@@ -108,7 +108,8 @@ def test_unported_settings_refused(overrides, refusal, tmp_path):
     """What the slice does not serve is refused by the ROADMAP item that
     brings it. The host KV tier (A10) is served: those settings build an
     engine with the tier, and a disk directory without a host tier is
-    refused with the JAX engine's message."""
+    refused with the JAX engine's message. A ring-prefill threshold (A12c)
+    is served: without an sp mesh, as in JAX, no prompt takes the ring."""
     from dynamo_tpu_torch.backends.torch.main import build_engine
 
     if refusal is not None:
@@ -116,6 +117,10 @@ def test_unported_settings_refused(overrides, refusal, tmp_path):
             build_engine("tiny", overrides, device="cpu")
         return
     core, _ = build_engine("tiny", overrides, device="cpu")
+    if "ring_prefill_threshold" in overrides:
+        assert core.engine.ring_prefill_threshold == 64 and core.sp_mesh is None
+        assert core._maybe_ring_prefill([]) is None
+        return
     assert core.host_pool is not None and core.host_pool.capacity == 16
     assert core.allocator.on_evict == core._offload_block
     assert core.engine.kv_dtype == overrides.get("kv_dtype", "bf16")
@@ -164,26 +169,26 @@ def test_unknown_kv_dtype_and_quant_refused():
 
 
 def test_unported_models_and_meshes_refused():
-    """MoE presets are served (A11), tp meshes (A12, part 1) and dp meshes
-    (A12b); MoE under a tp or a dp mesh (expert parallelism, A12d) is
-    refused by name, and a dp = 2 mesh needs its ranks' process group."""
-    from types import SimpleNamespace
+    """MoE presets are served (A11), tp meshes (A12, part 1), dp meshes
+    (A12b) and MoE under a tp or a dp mesh (expert parallelism, A12d part
+    1, ``tests/test_torch_expert_parallel.py``); MoE under a pipeline is
+    refused with the JAX engine's message, and a dp = 2 mesh needs its
+    ranks' process group."""
+    import torch
 
     from dynamo_tpu_torch.backends.torch.main import build_engine
     from dynamo_tpu_torch.engine.config import tiny_engine, tiny_model, tiny_moe
     from dynamo_tpu_torch.engine.core import EngineCore
+    from dynamo_tpu_torch.parallel.pipeline import PPMesh
     from dynamo_tpu_torch.parallel.sharding import make_mesh
 
     core, _ = build_engine("tiny-moe", device="cpu")
     assert core.cfg.is_moe and "w_router" in core.params["layers"]
-    with pytest.raises(ValueError, match="A12d"):
+    with pytest.raises(ValueError, match="pipeline parallelism for MoE presets is not built yet"):
         EngineCore(tiny_moe(), tiny_engine(), device="cpu",
-                   mesh=SimpleNamespace(dp=2, tp=1))
+                   pp_mesh=PPMesh(2, 0, (torch.device("cpu"),) * 2, "gloo"))
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
-    with pytest.raises(ValueError, match="A12d"):
-        EngineCore(tiny_moe(), tiny_engine(), device="cpu",
-                   mesh=SimpleNamespace(dp=1, tp=2))
     # A tp = 1 mesh is one device: the engine serves it as without a mesh.
     mesh = make_mesh(tp=1, devices=["cpu"])
     assert EngineCore(tiny_model(), tiny_engine(), device="cpu", mesh=mesh).mesh is mesh

@@ -346,15 +346,28 @@ def test_worker_tp2_on_cpu_ranks_serves_tp1_tokens(tmp_path):
 
 @pytest.mark.parametrize("flags, item", [
     (["--dp", "2", "--role", "prefill"], "A12d"),
-    (["--pp", "2", "--preset", "tiny-moe", "--moe-dispatch", "alltoall"], "A12d"),
-    (["--sp", "2"], "A12c"),
+    (["--pp", "2", "--preset", "tiny-moe", "--moe-dispatch", "alltoall"], None),
+    (["--sp", "2"], None),
     (["--tp", "2", "--role", "prefill"], "A12d"),
-    (["--tp", "2", "--preset", "tiny-moe", "--moe-dispatch", "alltoall"], "A12d"),
+    (["--tp", "2", "--preset", "tiny-moe", "--moe-dispatch", "alltoall"], None),
 ], ids=["dp", "pp", "sp", "tp-prefill", "tp-moe-dispatch"])
 def test_worker_refusals_name_their_items(flags, item):
+    """A cross-mesh role names A12d. The flags whose items have landed
+    pass: ``--sp`` (A12c) and ``--moe-dispatch`` over ranks (A12d part 1);
+    a MoE preset under ``--pp`` is then refused as the JAX engine refuses
+    it (``check_pp``)."""
     args = worker_main._parser().parse_args(flags)
-    with pytest.raises(ValueError, match=item):
-        worker_main._refuse_unported(args)
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            worker_main._refuse_unported(args)
+        return
+    worker_main._refuse_unported(args)
+    if args.pp > 1:
+        from dynamo_tpu_torch.engine.core import check_pp
+
+        cfg, eng = worker_main.engine_configs(args.preset, {}, args.moe_dispatch)
+        with pytest.raises(ValueError, match="pipeline parallelism for MoE presets"):
+            check_pp(cfg, eng, args.pp)
 
 
 def test_rank_layout():

@@ -505,10 +505,11 @@ async def test_graceful_drain_publishes_cleared():
 # -- (h) what the port does not serve is refused by name ----------------------
 
 SERVED_ITEMS = {"A7", "A10", "A11"}  # ROADMAP items landed since their flags were refused
-# The multi-rank flags that A12 part 1 and A12b serve; the rest of A12
-# (A12c, A12d: ring prefill) is still refused, by messages that name it.
+# The multi-rank flags that A12 part 1, A12b and A12c serve; the rest of
+# A12 (A12d part 2: cross-mesh roles, embeddings on a mesh) is still
+# refused, by messages that name it.
 A12_SERVED = {("--tp", "2"), ("--pp", "2"), ("--nnodes", "2", "--dist-init-addr", "127.0.0.1:1"),
-              ("--local-cpu-devices", "4")}
+              ("--local-cpu-devices", "4"), ("--ring-prefill-threshold", "64")}
 
 
 @pytest.mark.parametrize(
@@ -540,12 +541,18 @@ def test_unported_cli_flags_refused(argv, item, monkeypatch):
     ``--tp 2`` or ``--pp 2`` on a node with no card and no device list
     raises before any rank starts, and ``--nnodes`` or
     ``--local-cpu-devices`` without the ``--tp`` whose ranks they place
-    raise."""
+    raise. They take ``--ring-prefill-threshold`` (A12c), which without
+    ``--sp`` routes nothing round a ring, as in JAX."""
     if item == "A12" and tuple(argv) in A12_SERVED:
         import torch
 
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         args = worker_main._parser().parse_args(argv)
+        if args.ring_prefill_threshold is not None:
+            worker_main._refuse_unported(args)
+            core, _ = build_engine("tiny", worker_main._overrides(args), device="cpu")
+            assert core.engine.ring_prefill_threshold == 64 and core.sp_mesh is None
+            return
         if args.tp * args.pp > 1:
             worker_main._refuse_unported(args)
             with pytest.raises(ValueError, match="list the ranks' devices explicitly"):

@@ -1,7 +1,8 @@
 """Rank processes for the port's parallel tests on the CPU.
 
 ``RankPair`` starts processes of this file, each one rank of a mesh over
-gloo (tp = 2 by default; any dp x tp mesh, or a pipeline of pp stages),
+gloo (tp = 2 by default; any dp x tp mesh, a pipeline of pp stages, or
+a sequence-parallel group of sp ranks),
 and sends them commands; a test's module-scoped fixture holds one pool
 for its file. A rank imports no jax and nothing of the JAX package: the
 tests hand it numpy arrays (JAX params pytrees mapped through
@@ -43,7 +44,7 @@ def free_port() -> int:
 class RankPair:
     """``world`` rank processes (two by default) and their command
     channels. ``axes`` names the mesh (``{"tp": world}`` by default;
-    ``{"dp": 2, "tp": 2}``, ``{"pp": 4}``). ``call(name, **kwargs)`` runs
+    ``{"dp": 2, "tp": 2}``, ``{"pp": 4}``, ``{"sp": 2}``). ``call(name, **kwargs)`` runs
     the command on every rank at once and returns the ranks' results in
     rank order; a rank's exception is raised here with its traceback.
     ``close()`` stops and joins the ranks, terminating any that do not
@@ -277,17 +278,21 @@ def _leaves(params) -> dict:
 
 class Rank:
     """One rank's commands (each a method), over this process's mesh: a dp x
-    tp ``mesh`` or a pipeline's ``pp_mesh`` (the other None)."""
+    tp ``mesh``, a pipeline's ``pp_mesh`` or an sp group's ``sp_mesh`` (the
+    others None)."""
 
     def __init__(self, rank: int, world: int, coordinator: str, axes: dict):
+        from dynamo_tpu_torch.ops.ring_attention import sequence_parallel_mesh
         from dynamo_tpu_torch.parallel.multihost import init_multihost
         from dynamo_tpu_torch.parallel.pipeline import make_pp_mesh
         from dynamo_tpu_torch.parallel.sharding import make_mesh
 
         init_multihost(coordinator, world, rank)
-        self.mesh = self.pp_mesh = None
+        self.mesh = self.pp_mesh = self.sp_mesh = None
         if "pp" in axes:
             self.pp_mesh = make_pp_mesh(axes["pp"], devices=["cpu"] * world)
+        elif "sp" in axes:
+            self.sp_mesh = sequence_parallel_mesh(axes["sp"], devices=["cpu"] * world)
         else:
             self.mesh = make_mesh(dp=axes.get("dp", 1), tp=axes.get("tp", 1),
                                   devices=["cpu"] * world)
@@ -299,7 +304,7 @@ class Rank:
         import sys as _sys
 
         bad = [m for m in _sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu")]
-        mesh = self.mesh or self.pp_mesh
+        mesh = self.mesh or self.pp_mesh or self.sp_mesh
         return {"rank": mesh.rank, "backend": mesh.backend, "leaked": bad}
 
     def forwards(self, tree, cfg, eng, prompt, chunks, blocks, decode_toks) -> list:
@@ -318,7 +323,7 @@ class Rank:
 
         params = None if tree is None else params_from_numpy(tree, cfg, "cpu", self.shard)
         return EngineCore(cfg, eng, params=params, seed=seed, device="cpu", mesh=self.mesh,
-                          pp_mesh=self.pp_mesh, **kw)
+                          pp_mesh=self.pp_mesh, sp_mesh=self.sp_mesh, **kw)
 
     def engine(self, cfg, eng, requests, tree=None, seed=0, more=(), eos=()) -> dict:
         """``requests`` (then each list of ``more``, one after another) through
@@ -363,6 +368,64 @@ class Rank:
             res["spans"] = [sp.attrs["pp_stages"] for sp in tracing.get_collector().stats()
                             if sp.name == "engine_megastep"]
         return res
+
+    def ring(self, q, k, v) -> dict:
+        """The port's ``ring_attention`` of numpy ``q``, ``k``, ``v`` (whole,
+        on every rank) over this rank's sp group, and the ring's calls."""
+        import torch
+
+        from dynamo_tpu_torch.ops.ring_attention import ring_attention
+        from dynamo_tpu_torch.parallel import comm
+
+        comm.reset_calls()
+        out = ring_attention(*map(torch.from_numpy, (q, k, v)), self.sp_mesh)
+        return {"out": out.numpy(), "calls": dict(comm.calls)}
+
+    def sp_engine(self, cfg, eng, batches, tree=None) -> dict:
+        """Each batch of ``batches`` (wire dicts) through this rank's sp
+        engine, one after another: the streams of each, the prefix-cache
+        gauges after each, the counters and a digest of the cache's bytes
+        but the garbage page's (pad rows land there in no defined order
+        on a card)."""
+        import hashlib
+
+        import torch
+
+        from dynamo_tpu_torch.parallel import comm
+
+        comm.reset_calls()
+        core = self.core(cfg, eng, tree)
+        streams, cached = [], []
+        for batch in batches:
+            streams.append(run_requests(core, batch))
+            cached.append(core.kv_cache_stats())
+        st = {**core.scheduler_stats(), **core.parallel_stats()}
+        digest = hashlib.sha256()
+        for layer in core.cache:
+            for t in (layer.values() if isinstance(layer, dict) else (layer,)):
+                digest.update(t[:-1].contiguous().view(torch.uint8).numpy().tobytes())
+        return {"streams": streams, "stats": st, "calls": dict(comm.calls),
+                "kv": cached, "cache_sha": digest.hexdigest()}
+
+    def moe_mlp(self, x, lp, cfg, dispatch) -> dict:
+        """The port's ``_moe_mlp`` of numpy ``x`` on this tp rank's experts of
+        the numpy layer ``lp`` (the router replicated), in ``dispatch``
+        mode, and its collectives."""
+        import dataclasses
+
+        import torch
+
+        from dynamo_tpu_torch.engine import model
+        from dynamo_tpu_torch.parallel import comm
+
+        tp, r = self.mesh.tp, self.mesh.tp_rank
+        E = cfg.num_experts // tp
+        w = {k: torch.from_numpy(v if k == "w_router" else v[r * E : (r + 1) * E])
+             for k, v in lp.items()}
+        comm.reset_calls()
+        out = model._moe_mlp(torch.from_numpy(x), w,
+                             dataclasses.replace(cfg, moe_dispatch=dispatch), self.mesh)
+        return {"out": out.numpy(), "calls": dict(comm.calls)}
 
     def build(self, preset, overrides) -> dict:
         """The worker's ``build_engine`` of ``preset`` on this rank's mesh:
