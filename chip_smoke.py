@@ -1309,10 +1309,20 @@ def serve(ra, card: str, int8=False) -> tuple[dict, dict, tuple | None]:
     after("the k=1 engine on its weights")
     modes = sync_against_async(core, reqs + [late], mode)
     after("the sync and async passes")
-    chunked = None if int8 else serve_chunked(ra, card, core)
-    after("the chunked phase")
-    spec = None if int8 else serve_spec(ra, card, core)
-    after("the speculation phase")
+    chunked = spec = None
+    if not int8:
+        # The chunked and speculation phases serve the first
+        # PARALLEL_LAYERS layers, on views of this engine's weights: their
+        # engines' warm-ups at full depth took a fifth of the time limit.
+        cut = cut_engine(core)
+        chunked = {"cut_warm_up": warm_up(cut, f"bf16, {PARALLEL_LAYERS} layers")}
+        chunked.update(serve_chunked(ra, card, cut))
+        after("the chunked phase")
+        spec = serve_spec(ra, card, cut)
+        after("the speculation phase")
+        del cut
+        gc.collect()
+        torch.cuda.empty_cache()
     tiers = None if int8 else serve_tiers(ra, card, core)
     after("the tier phase")
     pages = page_programs(core, mode)
@@ -2488,24 +2498,27 @@ def chunked_traffic(ra, core, name: str, streams, long_prompt) -> dict:
 
 
 def serve_chunked(ra, card: str, core) -> dict:
-    """The chunked phase, bf16, llama3-8b at full width and depth, on the
-    main path engine's weights: a chunked engine's (``CHUNKED_ENGINE``,
-    width 8) ``warm_up()`` (keys,
+    """The chunked phase, bf16, llama3-8b at full width, on ``core``'s
+    weights (the smoke: the main path's first ``PARALLEL_LAYERS`` layers,
+    :func:`cut_engine`): a chunked engine's (``CHUNKED_ENGINE``, width 8)
+    ``warm_up()`` (keys,
     capture seconds, memory); K1 at the dispatched mixed shapes; a T == S
     mixed batch through the forward; the mixed and fused replays against
     their eager bodies; chunked-prefill logits against one wave; then the
-    traffic (7 streams decoding, then the long prompt) under waves (the
-    main path's engine), chunked at the defaults (sync, then async), and
+    traffic (7 streams decoding, then the long prompt) under waves
+    (``core``, warm), chunked at the defaults (sync, then async), and
     chunked with ``max_num_batched_tokens`` 2048. The last two run on the
     same warm chunked engine with its configuration switched: the planners
     read ``async_exec`` and the token budget at every step, and every graph
     key a 2048-token budget can dispatch is one the default engine's
     warm-up captured (checked), so no setting captures while serving."""
-    from dynamo_tpu_torch.backends.torch.main import build_engine
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import EngineCore
 
     streams, long_prompt = chunked_prompts(core.cfg.vocab_size)
     res = {"shapes": check_mixed_shapes(ra)}
-    ccore, _ = build_engine("llama3-8b", CHUNKED_ENGINE, device="cuda", params=core.params)
+    ccore = EngineCore(core.cfg, EngineConfig(**CHUNKED_ENGINE), params=core.params,
+                       device="cuda")
     keys = [launch.key[0] for launch, _ in ccore._warm_up_launches()]
     res["warm_up"] = {**warm_up(ccore, "chunked"),
                       "keys": {k: keys.count(k) for k in sorted(set(keys))}}
@@ -2792,12 +2805,13 @@ def compare_streams(base: dict, run: dict, limit: float) -> list[dict]:
 
 
 def serve_spec(ra, card: str, core) -> dict:
-    """The speculation phase, bf16, llama3-8b at full width and depth, on
-    the main path engine's weights: K1 at the verify shapes, verify-forward
-    against one-token-forward logits, the rings' copy, a speculating
-    engine's ``warm_up()`` (waves, spec_k 4, device drafting allowed, at
-    width 8), then the phase's traffic with speculation off (the main path
-    engine, with top-2 log-probabilities on the greedy lanes), drafted on
+    """The speculation phase, bf16, llama3-8b at full width, on ``core``'s
+    weights (the smoke: the main path's first ``PARALLEL_LAYERS`` layers,
+    :func:`cut_engine`): K1 at the verify shapes, verify-forward against
+    one-token-forward logits, the rings' copy, a speculating engine's
+    ``warm_up()`` (waves, spec_k 4, device drafting allowed, at width 8),
+    then the phase's traffic with speculation off (``core``, warm, with
+    top-2 log-probabilities on the greedy lanes), drafted on
     the host (the requests' ``spec_decode`` turns device drafting off),
     sync and async, and drafted on the device, sync and async (the
     engine's configuration switched; the planners read ``async_exec`` at
@@ -2810,7 +2824,8 @@ def serve_spec(ra, card: str, core) -> dict:
     import dataclasses
 
     from dynamo_tpu_torch import tracing
-    from dynamo_tpu_torch.backends.torch.main import build_engine
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import EngineCore
     from dynamo_tpu_torch.tracing import core as tracing_core
 
     prompts = spec_prompts(core.cfg.vocab_size)
@@ -2818,7 +2833,7 @@ def serve_spec(ra, card: str, core) -> dict:
     res["logits"] = verify_logits(core, prompts)
     limit = res["logits"]["near_tie_limit"]
     scfg = dict(SPEC_ENGINE)
-    score, _ = build_engine("llama3-8b", scfg, device="cuda", params=core.params)
+    score = EngineCore(core.cfg, EngineConfig(**scfg), params=core.params, device="cuda")
     res["ring"] = ring_copy(score)
     keys = [launch.key[0] for launch, _ in score._warm_up_launches()]
     res["warm_up"] = {**warm_up(score, "speculation"),
@@ -3883,23 +3898,36 @@ def decode_logits(params, cfg, prompt, device, mesh=None) -> torch.Tensor:
     return out[0].float().cpu()
 
 
-def tp_reference(core) -> dict:
-    """The tp = 1 side of the tp, pipeline and sp phases, each on an engine
-    of its own over the main path's bf16 weights, every dispatch eager:
-    cut to their first ``PARALLEL_LAYERS`` layers (the cut checkpoint the
-    tp and pipeline phases serve; views of the main engine's leaves), the
-    serving prompts' greedy streams with top-2 log-probabilities, one
-    prompt's first-token logits and the logits of one decode step after
-    it; at all 32 layers (the checkpoint the sp phase serves), the sp
-    prompts' streams and the long sp prompt's logits."""
+def cut_engine(core, engine_cfg=None):
+    """An engine on views of ``core``'s first ``PARALLEL_LAYERS`` layers (its
+    embeddings, final norm and head shared), at full width: the model of
+    the cut checkpoint (:func:`write_cut_checkpoint`)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.core import EngineCore
 
     cfg = dataclasses.replace(core.cfg, num_layers=PARALLEL_LAYERS)
     params = {**core.params,
               "layers": {k: v[:PARALLEL_LAYERS] for k, v in core.params["layers"].items()}}
-    cut = eager_dispatches(EngineCore(cfg, EngineConfig(), params=params, device="cuda"))
+    return EngineCore(cfg, engine_cfg or EngineConfig(), params=params, device="cuda")
+
+
+def tp_reference(core) -> dict:
+    """The tp = 1 side of the tp, pipeline, sp and mesh disaggregation
+    phases, each on an engine of its own over the main path's bf16
+    weights, every dispatch eager: cut to their first ``PARALLEL_LAYERS``
+    layers (the cut checkpoint the tp, pipeline and mesh disaggregation
+    phases serve; :func:`cut_engine`), the serving prompts' greedy streams
+    with top-2 log-probabilities, one prompt's first-token logits and the
+    logits of one decode step after it, and the mesh disaggregation
+    phase's embedding; at all 32 layers (the checkpoint the sp phase
+    serves), the sp prompts' streams and the long sp prompt's logits."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import EngineCore
+
+    cut = eager_dispatches(cut_engine(core))
+    cfg, params = cut.cfg, cut.params
     streams = run_wires(cut, tp_wires(cfg.vocab_size))
+    embed = cut.embed(mesh_embed_prompt(cfg.vocab_size))
     del cut
     full = eager_dispatches(EngineCore(core.cfg, EngineConfig(num_kv_blocks=SP_KV_BLOCKS),
                                        params=core.params, device="cuda"))
@@ -3909,7 +3937,8 @@ def tp_reference(core) -> dict:
     torch.cuda.empty_cache()
     prompt = tp_logits_prompt(cfg.vocab_size)
     long_prompt = sp_wires(cfg.vocab_size)[0]["token_ids"]
-    return {"streams": streams, "logits": prompt_logits(params, cfg, prompt, "cuda"),
+    return {"streams": streams, "embed": embed,
+            "logits": prompt_logits(params, cfg, prompt, "cuda"),
             "decode_logits": decode_logits(params, cfg, prompt, "cuda"),
             "sp_streams": sp_streams,
             "sp_logits": prompt_logits(core.params, core.cfg, long_prompt, "cuda")}
@@ -4219,14 +4248,22 @@ def logits_agreement(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
     return {"cosine": cos, "max_abs_err": err, "rel_l2": rel}
 
 
-def pipeline_worker(card: str, ckpt: str, ref: dict, axis: str,
-                    preset: str = "llama3-8b") -> dict:
-    """One worker of the pipeline phase: ``python -m
-    dynamo_tpu_torch.backends.torch --{axis} 2 --tp-devices cuda:0,cuda:0
-    --model-path CKPT`` (``axis`` "pp": two stages of half the layers; "dp":
-    two replicas of all) serves the 8 serving prompts (greedy, top-2)
-    through the data plane, held to the tp = 1 engine's streams by the
-    near-tie rule. Each rank's K1 launches must be its layers x its
+def start_pipeline_worker(ckpt: str, axis: str, preset: str = "llama3-8b") -> dict:
+    """``python -m dynamo_tpu_torch.backends.torch --{axis} 2 --tp-devices
+    cuda:0,cuda:0 --model-path CKPT`` (``axis`` "pp": two stages of half
+    the layers; "dp": two replicas of all) and its store, started
+    (:func:`start_worker`)."""
+    return start_worker(preset, "cuda", [f"--{axis}", str(PIPE), "--tp-devices", PIPE_CARD_SHARE,
+                                         "--num-kv-blocks", str(PIPE_KV_BLOCKS), "--obs-publish",
+                                         "off", "--tokenizer", "byte"],
+                        env={"DYN_SYSTEM_ENABLED": "0"}, model_path=ckpt)
+
+
+def pipeline_worker(card: str, ckpt: str, ref: dict, axis: str, h: dict) -> dict:
+    """One worker of the pipeline phase (:func:`start_pipeline_worker`,
+    its handle ``h``, closed here) serves the 8 serving prompts (greedy,
+    top-2) through the data plane, held to the tp = 1 engine's streams by
+    the near-tie rule. Each rank's K1 launches must be its layers x its
     forwards, warm-up included (a pp stage counts one forward per
     microbatch it passes), with no graph captured and every dispatch eager
     (gloo through host memory); a stage must hop once per forward (pp =
@@ -4235,10 +4272,6 @@ def pipeline_worker(card: str, ckpt: str, ref: dict, axis: str,
 
     cfg = config_from_hf(ckpt)
     layers = cfg.num_layers // (PIPE if axis == "pp" else 1)
-    h = start_worker(preset, "cuda", [f"--{axis}", str(PIPE), "--tp-devices", PIPE_CARD_SHARE,
-                                      "--num-kv-blocks", str(PIPE_KV_BLOCKS), "--obs-publish",
-                                      "off", "--tokenizer", "byte"],
-                     env={"DYN_SYSTEM_ENABLED": "0"}, model_path=ckpt)
     try:
         got = asyncio.run(tp_traffic(f"127.0.0.1:{h['port']}", h["worker"],
                                      tp_wires(cfg.vocab_size)))
@@ -4310,10 +4343,11 @@ def pipeline_worker(card: str, ckpt: str, ref: dict, axis: str,
 
 
 def serve_pipeline(card: str, ckpt: str, ref: dict) -> dict:
-    """The pipeline phase: a ``--pp 2`` worker, then a ``--dp 2`` worker
-    (:func:`pipeline_worker`), each on the tp phase's llama3-8b checkpoint
-    (``PARALLEL_LAYERS`` layers) with both ranks on the one
-    card. Beside the pp worker two
+    """The pipeline phase: a ``--pp 2`` worker and a ``--dp 2`` worker,
+    started together (their start-ups are mostly the host's), then served
+    one after the other (:func:`pipeline_worker`), each on the tp phase's
+    llama3-8b checkpoint (``PARALLEL_LAYERS`` layers) with both ranks on
+    the one card. Beside the pp worker two
     rank processes of this script compute one prompt's first-token logits
     through the GPipe program and then one decode step's logits through
     the dp lanes (:func:`pipeline_logits_rank`), each held to the tp = 1
@@ -4326,8 +4360,11 @@ def serve_pipeline(card: str, ckpt: str, ref: dict) -> dict:
         [sys.executable, str(Path(__file__).resolve()), "--pipeline-logits-rank", str(r), addr,
          ckpt, out], cwd=ROOT, stdout=open(logs / f"logits_rank{r}.log", "w"),
         stderr=subprocess.STDOUT) for r in range(PIPE)]
+    hs: dict = {}
     try:
-        pp = pipeline_worker(card, ckpt, ref, "pp")
+        for axis in ("pp", "dp"):
+            hs[axis] = start_pipeline_worker(ckpt, axis)
+        pp = pipeline_worker(card, ckpt, ref, "pp", hs["pp"])
         for r, proc in enumerate(ranks):
             if proc.wait(600) != 0:
                 raise AssertionError(f"pipeline logits rank {r} exited with {proc.returncode}:\n"
@@ -4341,13 +4378,15 @@ def serve_pipeline(card: str, ckpt: str, ref: dict) -> dict:
             ref["logits"])
         dp_logits = torch.from_numpy(np.load(out + ".dp.npy"))
         t_dp = time.time()
-        dp = pipeline_worker(card, ckpt, ref, "dp")
+        dp = pipeline_worker(card, ckpt, ref, "dp", hs["dp"])
         dp["logits"] = logits_agreement(
             "dp logits: dp = 2 lanes against the tp = 1 engine, the decode step after "
             f"{TP_LOGITS_PROMPT} prompt tokens", dp_logits, ref["decode_logits"])
     finally:
         for proc in ranks:
             stop_process(proc, signal.SIGKILL, 10)
+        for h in hs.values():
+            close_worker(h)  # a worker whose phase did not run (closing twice is harmless)
     print(f"pipeline: the NCCL path (one card per stage or replica, hops and gathers captured "
           f"in CUDA graphs) was not run: this machine has {torch.cuda.device_count()} card",
           flush=True)
@@ -5575,12 +5614,14 @@ async def fetch_pages(client, worker_id: int, hashes: list[int]) -> tuple[list[b
 
 
 async def run_batches(store: str, namespace: str, component: str, worker_id: int,
-                      by_id: dict, tag: str, clear_also=()) -> dict:
+                      by_id: dict, tag: str, clear_also=(),
+                      kinds=("batch", "staggered")) -> dict:
     """The serving requests through the port's data-plane client to one
-    worker, all at once and then staggered, each run from cleared caches
-    (the worker's, and those of ``clear_also``: (component, worker id)
-    pairs). Request ids are unique over the phase, as a frontend makes
-    them: a prefill worker keys its holds and chunk cursors by them."""
+    worker, all at once and then staggered (``kinds``), each run from
+    cleared caches (the worker's, and those of ``clear_also``: (component,
+    worker id) pairs). Request ids are unique over the phase, as a
+    frontend makes them: a prefill worker keys its holds and chunk cursors
+    by them."""
     from dynamo_tpu_torch.runtime import DistributedRuntime
 
     rt = await DistributedRuntime.create(store)
@@ -5598,7 +5639,7 @@ async def run_batches(store: str, namespace: str, component: str, worker_id: int
                     pass
 
         runs = {}
-        for kind in ("batch", "staggered"):
+        for kind in kinds:
             async def open_stream(req, kind=kind):
                 req = {**req, "request_id": f"{tag}-{kind}-{req['request_id']}"}
                 return await clients[component].direct(worker_id, req)
@@ -5618,11 +5659,44 @@ async def run_batches(store: str, namespace: str, component: str, worker_id: int
         await rt.shutdown()
 
 
+async def page_checksums(rt, ids: dict, by_id: dict) -> tuple[dict, dict]:
+    """Every transferred page as the producer holds it: a sample of full
+    blocks of the last run's prompts (first, middle, last) read through
+    the prefill and the decode worker's ``kv_fetch`` endpoints (``ids``:
+    their instance ids), equal byte for byte. Returns the clients and the
+    pages' digests."""
+    import hashlib
+
+    from dynamo_tpu_torch.tokens import compute_seq_hashes
+
+    fetch = {
+        "prefill": await rt.namespace("dynamo").component("prefill").endpoint(
+            "kv_fetch").client(),
+        "decode": await rt.namespace("dynamo").component("backend").endpoint(
+            "kv_fetch").client(),
+    }
+    for c in fetch.values():
+        await c.wait_for_instances(1, timeout=60)
+    checksums = {}
+    for rid in DISAGG_CHECKSUMMED:
+        full = compute_seq_hashes(by_id[rid][1], PAGE)
+        for j in sorted({0, len(full) // 2, len(full) - 1}):
+            got = {}
+            for side in ("prefill", "decode"):
+                pages, _ = await fetch_pages(fetch[side], ids[side], [full[j]])
+                if len(pages) != 1:
+                    raise AssertionError(f"{side} holds no page for {rid} block {j}")
+                got[side] = hashlib.sha256(pages[0]).hexdigest()
+            checksums[f"{rid}[{j}]"] = got
+            if got["prefill"] != got["decode"]:
+                raise AssertionError(f"{rid} block {j}: prefill page {got['prefill']}, "
+                                     f"decode page {got['decode']}")
+    return fetch, checksums
+
+
 async def drive_disagg(store: str, base: str, procs: dict, logs: Path, vocab: int,
                        ids: dict, by_id: dict) -> dict:
     """The disaggregated half of the phase (see :func:`serve_disagg`)."""
-    import hashlib
-
     import aiohttp
 
     from dynamo_tpu_torch.runtime import DistributedRuntime
@@ -5632,31 +5706,7 @@ async def drive_disagg(store: str, base: str, procs: dict, logs: Path, vocab: in
                              clear_also=[("prefill", ids["prefill"])])
     rt = await DistributedRuntime.create(store)
     try:
-        # Every transferred page as the producer holds it: a sample of full
-        # blocks of the last run's prompts (first, middle, last) read
-        # through each side's kv_fetch endpoint.
-        fetch = {
-            "prefill": await rt.namespace("dynamo").component("prefill").endpoint(
-                "kv_fetch").client(),
-            "decode": await rt.namespace("dynamo").component("backend").endpoint(
-                "kv_fetch").client(),
-        }
-        for c in fetch.values():
-            await c.wait_for_instances(1, timeout=60)
-        checksums = {}
-        for rid in DISAGG_CHECKSUMMED:
-            full = compute_seq_hashes(by_id[rid][1], PAGE)
-            for j in sorted({0, len(full) // 2, len(full) - 1}):
-                got = {}
-                for side in ("prefill", "decode"):
-                    pages, _ = await fetch_pages(fetch[side], ids[side], [full[j]])
-                    if len(pages) != 1:
-                        raise AssertionError(f"{side} holds no page for {rid} block {j}")
-                    got[side] = hashlib.sha256(pages[0]).hexdigest()
-                checksums[f"{rid}[{j}]"] = got
-                if got["prefill"] != got["decode"]:
-                    raise AssertionError(f"{rid} block {j}: prefill page {got['prefill']}, "
-                                         f"decode page {got['decode']}")
+        fetch, checksums = await page_checksums(rt, ids, by_id)
         # The data plane's throughput for one page window, from the
         # prefill worker: its gather and landing included.
         window = compute_seq_hashes(by_id["long"][1], PAGE)[:FETCH_WINDOW]
@@ -5835,6 +5885,9 @@ def serve_disagg(card: str, model_path: str, device: str = "cuda") -> dict:
     blocks = pool["blocks_pulled"]
     summary = {
         "wall_s": wall_s, "workers_up_s": t_up - t_start,
+        # The aggregated worker's runs, the mesh phase's reference (taken
+        # out before the summary is printed).
+        "agg_runs": agg_runs,
         "streams": held, "checksums": got["checksums"],
         "ttft_ms": {k: col(k, "ttft_ms") for k in runs},
         "tpot_ms": {k: col(k, "tpot_ms") for k in runs},
@@ -5882,6 +5935,218 @@ def serve_disagg(card: str, model_path: str, device: str = "cuda") -> dict:
           f"{got['http']['ttft_ms']:.1f} ms; K1 launches by worker "
           f"{json.dumps(summary['kernel_launches'])}; the three workers up after "
           f"{summary['workers_up_s']:.1f} s, phase wall {wall_s:.1f} s", flush=True)
+    return summary
+
+
+# -- disaggregation on meshes: a tp = 2 prefill worker, a pp = 2 decode worker ---
+
+MESH_DISAGG_MODEL = "llama3-8b-mesh-disagg"
+MESH_KV_BLOCKS = 512      # each rank's pool: 8192 tokens (the 8 prompts hold ~8100)
+MESH_EMBED_LEN = 300      # the embedding's prompt
+MESH_EMBED_MIN_COSINE = TP_LOGITS_MIN_COSINE  # tp = 2 against tp = 1, both bf16 on the card
+
+
+def mesh_embed_prompt(vocab: int) -> list[int]:
+    return [int(t) for t in np.random.default_rng(77).integers(0, vocab, MESH_EMBED_LEN)]
+
+
+async def mesh_embedding(store: str, worker_id: int, prompt: list[int]) -> tuple[list, float]:
+    """One embedding request through the data plane to the prefill worker
+    (component ``prefill``), and its wall ms."""
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+
+    rt = await DistributedRuntime.create(store)
+    try:
+        client = await rt.namespace("dynamo").component("prefill").endpoint("generate").client()
+        await client.wait_for_instances(1, timeout=60)
+        t0 = time.perf_counter()
+        outs = [o async for o in await client.direct(
+            worker_id, {"embed": True, "token_ids": prompt, "request_id": "mesh-embed"})]
+        return outs[-1]["embedding"], 1e3 * (time.perf_counter() - t0)
+    finally:
+        await rt.shutdown()
+
+
+def serve_mesh_disagg(card: str, model_path: str, agg_runs: dict, embed_ref,
+                      device: str = "cuda", devices: str = PIPE_CARD_SHARE) -> dict:
+    """Disaggregated prefill and decode between workers of two ranks each,
+    every rank on the one card (gloo through host memory): a ``--role
+    prefill --tp 2`` worker (each rank its heads) and a ``--role decode
+    --pp 2`` worker (each stage its layers) on the disaggregation phase's
+    cut checkpoint (``model_path``), started together on a store of their
+    own. The serving phase's 8 requests go to the decode worker through
+    the data-plane client, all at once, from cleared caches; every prompt
+    prefills on the tp worker, whose pages are gathered whole to its rank
+    0 and scattered over the decode worker's stages. Held: the decode
+    worker's greedy streams against the disaggregation phase's aggregated
+    tp = 1 worker (``agg_runs``) under the near-tie rule; blocks imported
+    with no local recompute, no failed pull and none dropped; a sample of
+    pages equal byte for byte through both workers' ``kv_fetch``; one
+    embedding from the tp = 2 worker against the tp = 1 engine's
+    (``embed_ref``, cosine at least ``MESH_EMBED_MIN_COSINE``). Each rank's
+    K1 launches must be its layers x its forwards (warm-up and the
+    embedding's forward included). Prints each rank's K1 launches per
+    forward, the page collectives per request and their ms, the TTFT
+    against the aggregated worker's, each rank's peak memory and the
+    phase's seconds."""
+    from dynamo_tpu_torch.engine.loader import config_from_hf
+
+    t0 = time.time()
+    cfg = config_from_hf(model_path)
+    reqs, late, _ = serving_requests(cfg.vocab_size)
+    by_id = {r[0]: r for r in reqs + [late]}
+    greedy = {rid for rid, _, samp in by_id.values() if samp.get("temperature") == 0.0}
+    logs = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_disagg_"))
+    store_port = free_port()
+    store = f"127.0.0.1:{store_port}"
+    env = {**os.environ, "DYN_STORE_ADDRESS": store, "DYN_SYSTEM_ENABLED": "0"}
+    worker = [sys.executable, "-m", "dynamo_tpu_torch.backends.torch", "--model-path", model_path,
+              "--tokenizer", "byte", "--seed", "0", "--device", device, "--obs-publish", "off",
+              "--model-name", MESH_DISAGG_MODEL, "--tp-devices", devices,
+              "--num-kv-blocks", str(MESH_KV_BLOCKS)]
+    args = {"prefill": ["--role", "prefill", "--tp", "2"],
+            "decode": ["--role", "decode", "--pp", "2"]}
+    layers = {"prefill": cfg.num_layers, "decode": cfg.num_layers // 2}
+    procs: dict = {}
+    files = {name: open(logs / f"{name}.log", "w") for name in ("store", "prefill", "decode")}
+
+    async def serving() -> dict[str, int]:
+        return {n: int((await wait_for_log(logs / f"{n}.log",
+                                           rf"torch {n} worker (\d+) serving model",
+                                           procs[n], 600)).group(1)) for n in args}
+
+    async def checksums(ids) -> dict:
+        from dynamo_tpu_torch.runtime import DistributedRuntime
+
+        rt = await DistributedRuntime.create(store)
+        try:
+            return (await page_checksums(rt, ids, by_id))[1]
+        finally:
+            await rt.shutdown()
+
+    text = {}
+    try:
+        procs["store"] = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.runtime.store", "--port", str(store_port)],
+            cwd=ROOT, stdout=files["store"], stderr=subprocess.STDOUT)
+        wait_for_port(store_port, procs["store"], 30)
+        for name in args:
+            procs[name] = subprocess.Popen(worker + args[name], cwd=ROOT, stdout=files[name],
+                                           stderr=subprocess.STDOUT, env=env)
+        ids = asyncio.run(serving())
+        t_up = time.time()
+        runs = asyncio.run(run_batches(store, "dynamo", "backend", ids["decode"], by_id, "mesh",
+                                       clear_also=[("prefill", ids["prefill"])],
+                                       kinds=("batch",)))["batch"]
+        sums = asyncio.run(checksums(ids))
+        vec, embed_ms = asyncio.run(mesh_embedding(store, ids["prefill"],
+                                                   mesh_embed_prompt(cfg.vocab_size)))
+        t_traffic = time.time()
+        for name in ("decode", "prefill"):
+            stop_process(procs[name])
+            if procs[name].returncode != 0:
+                raise AssertionError(f"the mesh {name} worker exited with {procs[name].returncode}")
+            text[name] = (logs / f"{name}.log").read_text()
+    except BaseException:
+        for name in files:
+            print(f"mesh {name} log tail:\n"
+                  f"{(logs / f'{name}.log').read_text(errors='replace')[-6000:]}", file=sys.stderr)
+        raise
+    finally:
+        for name, proc in procs.items():
+            stop_process(proc, signal.SIGKILL if name != "store" else signal.SIGTERM, 10)
+        for f in files.values():
+            f.close()
+
+    held = hold_streams("the pp = 2 decode worker (tp = 2 prefill) against the tp = 1 "
+                        "aggregated worker", agg_runs["batch"], runs, greedy)
+    got = torch.tensor(vec, dtype=torch.float32)
+    want = torch.as_tensor(np.asarray(embed_ref), dtype=torch.float32)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+    finite = bool(torch.isfinite(got).all())
+    print(f"mesh embedding: the tp = 2 prefill worker against the tp = 1 engine, "
+          f"{MESH_EMBED_LEN} tokens: shape {tuple(got.shape)} finite={finite} cosine {cos:.6f} "
+          f"(limit {MESH_EMBED_MIN_COSINE}), max_abs_err {(got - want).abs().max().item():.4e}, "
+          f"{embed_ms:.1f} ms over the data plane", flush=True)
+    if not finite or got.shape != want.shape or cos < MESH_EMBED_MIN_COSINE:
+        raise AssertionError("the tp = 2 embedding disagrees with the tp = 1 engine's")
+
+    stats = {name: [rank_stats(text[name], rf"torch worker \d+"),
+                    rank_stats(text[name], "torch follower rank 1")] for name in args}
+    d = stats["decode"][0]
+    dis, pool, xfer = d["disagg"], d["kv_pool"], d["transfer"]
+    remote = dis["remote_prefills"]
+    if (xfer["imported_blocks"] == 0 or dis["recompute_fallbacks"] or pool["pulls_fallback"]
+            or dis["handoffs_fallback"] or xfer["dropped_blocks"]
+            or remote + dis["local_prefills"] != len(by_id) or remote == 0):
+        raise AssertionError(f"the mesh decode worker's transfers: {dis}, {pool}, {xfer}")
+    ranks = {}
+    for name, pair in stats.items():
+        embeds = 1 if name == "prefill" else 0  # the embedding's forward, on the tp worker
+        ranks[name] = []
+        for rank, st in enumerate(pair):
+            forwards = st["forwards"] + st["warm_up_forwards"] + embeds
+            k = st["kernel_launches"]
+            decode, tiled = (k["ragged_paged_attention_decode_launch"],
+                             k["ragged_paged_attention_tiled_launch"])
+            calls, secs = st["collectives"], st["page_collective_s"]
+            ok = (st["rank"] == rank
+                  and st["comm_backend"] == ("gloo-host" if device == "cuda" else "gloo")
+                  and st["attention_launches_int8"] == 0 and st["graph_captures"] == 0
+                  and (device != "cuda" or (decode + tiled == layers[name] * forwards
+                                            and tiled > 0)))
+            page = {c: calls[c] for c in ("page_gather", "page_scatter", "page_count")}
+            r = {"rank": rank, "forwards": st["forwards"],
+                 "warm_up_forwards": st["warm_up_forwards"], "decode_launches": decode,
+                 "tiled_launches": tiled, "k1_per_forward": (decode + tiled) / forwards,
+                 "page_collectives": page,
+                 "page_collectives_per_request": sum(page.values()) / remote,
+                 "page_collective_ms": {c: 1e3 * v for c, v in secs.items()},
+                 "page_collective_ms_per_request": 1e3 * sum(secs.values()) / remote,
+                 "peak_memory_gb": st.get("peak_memory_bytes", 0) / 1e9}
+            ranks[name].append(r)
+            print(f"mesh {name} rank {rank}: K1 launches decode {decode} + tiled {tiled} = "
+                  f"{r['k1_per_forward']:.2f} per forward over {forwards} forwards "
+                  f"({layers[name]} layers held); page collectives {page} "
+                  f"({r['page_collectives_per_request']:.2f} per request, "
+                  f"{r['page_collective_ms_per_request']:.1f} ms per request: "
+                  f"{json.dumps(r['page_collective_ms'])}); peak memory "
+                  f"{r['peak_memory_gb']:.2f} GB", flush=True)
+            if not ok:
+                raise AssertionError(f"mesh {name} rank {rank}'s counters: {st}")
+    ttft = {a["rid"]: (a["ttft_ms"], m["ttft_ms"]) for a in agg_runs["batch"] for m in runs
+            if a["rid"] == m["rid"]}
+    summary = {
+        "phase_s": time.time() - t0, "workers_up_s": t_up - t0, "traffic_s": t_traffic - t_up,
+        "streams": held, "checksums": sums,
+        "embed": {"cosine": cos, "ms": embed_ms},
+        "ttft_ms": ttft,
+        "ttft_ms_median": {"agg_tp1": float(np.median([a for a, _ in ttft.values()])),
+                           "mesh": float(np.median([m for _, m in ttft.values()]))},
+        "remote_prefills": remote, "imported_blocks": xfer["imported_blocks"],
+        "handoff": {k: dis[k] for k in ("handoffs_started", "handoffs_streamed",
+                                        "handoffs_fallback", "chunks_pulled")},
+        # Where a TTFT goes: the prefill worker's waves (its engine loop's
+        # wall), the decode worker's pulls (summed over the windows, which
+        # overlap across requests).
+        "prefill_loop_s": stats["prefill"][0]["prefill_loop_s"],
+        "prefill_forwards": stats["prefill"][0]["forwards"],
+        "pull_ms_total": pool["pull_ms_total"], "bytes_pulled": pool["bytes_pulled"],
+        "ranks": ranks,
+        "launches": {name: [{"ragged_paged_attention_decode_launch": r["decode_launches"],
+                             "ragged_paged_attention_tiled_launch": r["tiled_launches"]}
+                            for r in rs] for name, rs in ranks.items()},
+    }
+    print(f"mesh disagg phase on {card}: {remote} remote prefills on the tp = 2 worker, "
+          f"{xfer['imported_blocks']} blocks imported into the pp = 2 worker; greedy streams "
+          f"equal {held['equal']}/{held['streams']}; {len(sums)} pages equal through both "
+          f"workers' kv_fetch; TTFT median {summary['ttft_ms_median']['mesh']:.1f} ms against "
+          f"{summary['ttft_ms_median']['agg_tp1']:.1f} ms aggregated at tp = 1 (the prefill "
+          f"worker's {summary['prefill_forwards']} waves {summary['prefill_loop_s']:.2f} s, the "
+          f"pulls {pool['pull_ms_total']:.0f} ms for {pool['bytes_pulled'] / 1e6:.0f} MB; two ranks "
+          f"time-sharing one card, eager, pages through host memory: a proof of the paths, not "
+          f"a speed figure); workers up after {summary['workers_up_s']:.1f} s, traffic "
+          f"{summary['traffic_s']:.1f} s, phase {summary['phase_s']:.1f} s", flush=True)
     return summary
 
 
@@ -6253,7 +6518,11 @@ def main() -> int:
         print(f"before the disaggregation phase: {memory_line()}", flush=True)
         disagg = serve_disagg(card, ck["cut"]["dir"])
         lap("disaggregation")
+        agg_runs = disagg.pop("agg_runs")
         print(f"disagg summary: {json.dumps(disagg)}", flush=True)
+        mesh_disagg = serve_mesh_disagg(card, ck["cut"]["dir"], agg_runs, reference[3]["embed"])
+        lap("disaggregation on meshes")
+        print(f"mesh disagg summary: {json.dumps(mesh_disagg)}", flush=True)
         runner = doctor_and_runner(card)
         lap("doctor and runner")
         print(f"doctor and runner summary: {json.dumps(runner)}", flush=True)
@@ -6314,6 +6583,11 @@ def main() -> int:
                     # warm-up included.
                     extra["sp_path_launches_by_rank"] = [r[name] for r in sp["launches"]]
                     extra["ep_path_launches_by_rank"] = [r[name] for r in ep["launches"]]
+                    # The mesh disaggregation phase's tp = 2 prefill and pp
+                    # = 2 decode workers' ranks, warm-up included.
+                    extra["mesh_disagg_launches_by_rank"] = {
+                        role: [r[name] for r in rs]
+                        for role, rs in mesh_disagg["launches"].items()}
                 # The runner's worker (--out torch --preset llama3-8b), warm-up included.
                 extra["runner_phase_launches"] = runner["torch"]["kernel_launches"][name]
                 k1.append(kernel_entry(

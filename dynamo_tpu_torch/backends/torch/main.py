@@ -46,7 +46,11 @@ long prompt round a ring, each rank its chunk (exclusive with the other
 three, and with ``--nnodes``): local rank 0 of every node starts that node's
 other ranks, all join one process group (``--dist-init-addr``,
 ``--nnodes``, ``--node-rank`` across nodes), rank 0 serves and the others
-replay its steps (``backends/torch/multihost.py``). A rank takes
+replay its steps (``backends/torch/multihost.py``). On one node such a
+worker serves every role, ``kv_fetch``, peer pulls and embeddings, its
+pages gathered to and scattered from rank 0 whole; across nodes it keeps
+the JAX worker's refusals (the aggregated role only, no embeddings, no
+peer page serving, no held-block expiry). A rank takes
 ``cuda:{local rank}``; ``--tp-devices`` lists the node's ranks' devices
 instead, whatever the axes (``cuda:0,cuda:0`` shares one card, the
 collectives then going through host memory over gloo) and
@@ -479,7 +483,7 @@ async def _serve_kv_fetch(runtime, namespace: str, component: str, core: EngineC
         chunk = int(request.get(wire.KV_CHUNK_BLOCKS, 32))
         yield {
             wire.KV_VERSION: 2,
-            wire.KV_SHAPE: list(core._page_shape()),
+            wire.KV_SHAPE: list(core._page_shape(wire=True)),
             wire.KV_DTYPE: core.kv_wire_dtype,
         }
         sent = 0
@@ -518,6 +522,7 @@ async def run_torch_worker(
     model_path: str | None = None,
     mesh=None,
     parent_pid: int | None = None,
+    nnodes: int = 1,
 ) -> None:
     """Serve one worker until the runtime shuts down, in the JAX worker's
     roles (``aggregated``, ``prefill`` or ``decode``; ``component``
@@ -546,16 +551,20 @@ async def run_torch_worker(
     tokenizer files), else ``"byte"``.
 
     With a ``mesh`` of more than one rank (a dp x tp
-    ``parallel.sharding.Mesh`` or a pipeline's
-    ``parallel.pipeline.PPMesh``) this process is one rank of a
-    tensor-, data- or pipeline-parallel worker: rank 0 serves as above
-    through a :class:`~dynamo_tpu_torch.backends.torch.multihost.LeaderCore`,
+    ``parallel.sharding.Mesh``, a pipeline's ``parallel.pipeline.PPMesh``
+    or an sp group's ``ops.ring_attention.SPMesh``) this process is one
+    rank of a tensor-, data-, pipeline- or sequence-parallel worker: rank
+    0 serves as above through a
+    :class:`~dynamo_tpu_torch.backends.torch.multihost.LeaderCore`,
     publishing a step record before each step, and every other rank
-    replays them (:func:`_serve_follower`). Such a worker serves the
-    aggregated role only and neither serves ``kv_fetch`` nor pulls peer
-    prefixes (its pages hold one rank's heads or layers; ``ROADMAP.md``
-    A12d); ``held_block_ttl_s`` is 0. A follower started by its node's
-    local rank 0 (``parent_pid``) stops once that process is gone.
+    replays them (:func:`_serve_follower`), the page reads and imports
+    and the embeddings among them; followers serve nothing. On one node
+    such a worker serves every role, ``kv_fetch`` and peer pulls, and
+    expires held blocks on the leader's clock. Across nodes (``nnodes``
+    > 1) it keeps the JAX worker's refusals: the aggregated role only,
+    ``held_block_ttl_s`` 0, no embeddings, no ``kv_fetch`` and no peer
+    pulls. A follower started by its node's local rank 0 (``parent_pid``)
+    stops once that process is gone.
     """
     if tokenizer is None:
         tokenizer = model_path if model_path is not None else "byte"
@@ -565,15 +574,14 @@ async def run_torch_worker(
         component = "prefill" if role == "prefill" else "backend"
     world = _world(mesh)
     core_cls = core_kwargs = None
-    if world > 1:
+    if nnodes > 1:
+        # The JAX worker's refusals across nodes, with its messages.
         if role != "aggregated":
-            raise ValueError(
-                f"--role {role} on a {_mesh_name(mesh)} worker (cross-mesh disaggregation) "
-                "is not ported yet (ROADMAP.md A12d)"
-            )
+            raise ValueError("multi-host serving supports role=aggregated only")
         if (engine_overrides or {}).get("held_block_ttl_s", 0) != 0:
-            raise ValueError("held_block_ttl_s must be 0 on a worker of more than one rank")
+            raise ValueError("held_block_ttl_s must be 0 under multi-host")
         engine_overrides = dict(engine_overrides or {}, held_block_ttl_s=0)
+    if world > 1:
         if mesh.rank != 0:
             return await _serve_follower(
                 runtime, preset, namespace, component, engine_overrides, tokenizer, seed,
@@ -582,8 +590,8 @@ async def run_torch_worker(
             )
         from dynamo_tpu_torch.backends.torch.multihost import LeaderCore
 
-        core_cls, core_kwargs = LeaderCore, {"publish": _step_publisher(runtime, namespace,
-                                                                         component)}
+        core_cls, core_kwargs = LeaderCore, {
+            "publish": _step_publisher(runtime, namespace, component), "multihost": nnodes > 1}
     worker_id = runtime.primary_lease_id
     kv_pub = KvEventPublisher(runtime.store, namespace, component, worker_id)
     loop = asyncio.get_running_loop()
@@ -613,6 +621,9 @@ async def run_torch_worker(
         core_out.append(core)
     if world > 1:
         from dynamo_tpu_torch.backends.torch.multihost import barrier_name
+
+        # A staged job (a page read or import, an embedding) steps the loop.
+        core.wake = lambda: loop.call_soon_threadsafe(engine.wake)
         from dynamo_tpu_torch.runtime.barrier import LeaderBarrier
 
         # No step record may go out before every follower subscribes.
@@ -636,11 +647,12 @@ async def run_torch_worker(
     await metrics_pub.start()
 
     # Every role serves its blocks to peers; the aggregated and decode
-    # roles also pull them (a prefill worker serves but never pulls).
+    # roles also pull them (a prefill worker serves but never pulls). A
+    # worker across nodes does neither, as the JAX one.
     peer_kv: PeerKvClient | None = None
-    if world == 1:
+    if nnodes == 1:
         await _serve_kv_fetch(runtime, namespace, component, core)
-    if role != "prefill" and world == 1:
+    if role != "prefill" and nnodes == 1:
         fetch_client = await (
             runtime.namespace(namespace).component(component).endpoint("kv_fetch").client()
         )
@@ -824,6 +836,8 @@ async def run_torch_worker(
     finally:
         if consumer is not None:
             consumer.cancel()
+        if world > 1:
+            core.close()  # a page read or import still staged fails, not hangs
         # The engine's counters over the worker's life, one JSON object:
         # the launches of each K1 kernel include the warm-up's forwards.
         stats = {**_rank_stats(core, warm_up_forwards),
@@ -837,13 +851,14 @@ async def run_torch_worker(
 def _rank_stats(core: EngineCore, warm_up_forwards: int) -> dict:
     """The engine's counters over the process's life: the scheduler's, the
     warm-up's forwards, each K1 kernel's launches (warm-up included), the
-    collectives by kind and, on a card, the process's peak device memory."""
+    collectives by kind, the page collectives' seconds and, on a card, the
+    process's peak device memory."""
     from dynamo_tpu_torch.parallel import comm
 
     stats = {**core.scheduler_stats(), **core.parallel_stats(),
              "warm_up_forwards": warm_up_forwards,
              "kernel_launches": dict(ragged_attention.kernel_launches),
-             "collectives": dict(comm.calls)}
+             "collectives": dict(comm.calls), "page_collective_s": dict(comm.seconds)}
     if core.device.type == "cuda":
         stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated(core.device)
     return stats
@@ -964,7 +979,9 @@ async def _serve_prefill_role(runtime, namespace, component, core, engine, worke
         wc = int(wc) if wc is not None else None
         release = (not windowed) or bool(request.get(wire.KV_WINDOW_FINAL))
         try:
-            descs = core.export_descriptors(rid, start=ws, count=wc)
+            # Off the loop: a lockstep leader's step blocks on the loop's
+            # publishing its record, and this takes the step lock.
+            descs = await asyncio.to_thread(core.export_descriptors, rid, start=ws, count=wc)
         except KeyError:
             yield {wire.KV_ERROR: f"no held blocks for {rid}"}
             return
@@ -978,7 +995,7 @@ async def _serve_prefill_role(runtime, namespace, component, core, engine, worke
                        wire.KV_PAGES: pages}
         finally:
             if release:
-                core.release_held(rid)
+                await asyncio.to_thread(core.release_held, rid)
 
     transfer_ep = runtime.namespace(namespace).component(component).endpoint("kv_transfer")
     await transfer_ep.serve(kv_transfer_handler)
@@ -1374,9 +1391,8 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     if args.sp > 1 and args.tp * args.dp > 1:
         raise ValueError("--sp is mutually exclusive with --tp/--dp for now")
     many = _cli_world(args) > 1
-    if many and args.role != "aggregated":
-        raise ValueError(f"--role {args.role} with --tp, --dp, --pp or --sp > 1 (cross-mesh "
-                         "disaggregation) is not ported yet (ROADMAP.md A12d)")
+    if args.nnodes > 1 and args.role != "aggregated":
+        raise ValueError("multi-host serving supports role=aggregated only")
     if args.sp > 1 and args.nnodes > 1:
         raise ValueError("--sp (ring prefill) is not supported under --nnodes yet")
     if args.pp > 1 and args.nnodes > 1:
@@ -1577,6 +1593,7 @@ def _serve(args: argparse.Namespace, overrides: dict[str, Any], preset: str | No
             model_path=args.model_path,
             mesh=mesh,
             parent_pid=os.getppid() if args.local_rank > 0 else None,
+            nnodes=args.nnodes,
         )
 
     entry()

@@ -276,20 +276,6 @@ def check_pp(model_cfg: ModelConfig, engine_cfg: EngineConfig, pp: int) -> None:
             raise ValueError(f"decode bucket {b} not a multiple of pp microbatch count {pp}")
 
 
-def refuse_on_mesh(core: "EngineCore", what: str) -> None:
-    """Raise on a path an engine over more than one rank does not serve
-    yet (ROADMAP.md A12d): a tp rank's pages hold its KV heads only, a pp
-    stage's its layers only, and a dp or sp rank's forwards and cache
-    writes must pair with its peers'."""
-    for mesh, axis in ((core.mesh, "tp"), (core.mesh, "dp"), (core.pp_mesh, "pp"),
-                       (core.sp_mesh, "sp")):
-        n = getattr(mesh, axis, 1) if mesh is not None else 1
-        if n > 1:
-            raise ValueError(
-                f"{what} on a {axis}={n} engine is not ported yet (ROADMAP.md A12d)"
-            )
-
-
 def _leaf_tensor(w) -> torch.Tensor:
     """A leaf's weight tensor (an int8 leaf's ``w``)."""
     return w["w"] if isinstance(w, dict) else w
@@ -958,6 +944,24 @@ class _Landing:
         return a
 
 
+def _chain_order(where: list[tuple[bool, int]], dev_pages: list, tier_page) -> list:
+    """A hash chain's pages in its order: ``where`` gives each block's
+    (on the device, hash); device pages come from ``dev_pages`` in turn,
+    tier pages from ``tier_page(hash)``, whose None (evicted meanwhile)
+    ends the chain."""
+    out, dev = [], iter(dev_pages)
+    for on_dev, h in where:
+        page = next(dev) if on_dev else tier_page(h)
+        if page is None:
+            break
+        out.append(page)
+    return out
+
+
+def _tier_bytes(kv) -> bytes | None:
+    return None if kv is None else np.ascontiguousarray(kv).tobytes()
+
+
 def _landing(pages):
     """Start landing a page program's output (a tensor, or int8's
     ``{kv, scale}``)."""
@@ -1189,6 +1193,11 @@ class EngineCore:
         # runs eagerly outside the graphs), so they keep their graphs.
         self._eager_only = (ranked is not None and ranked is not sp_mesh
                             and ranked.backend != comm.NCCL)
+        # The mesh whose ranks share the KV pages (None for one rank): page
+        # export, import, peer serving and embeddings are collective
+        # methods on it, which every rank calls in the same order; rank 0
+        # holds the whole wire pages (``comm.page_gather``/``page_scatter``).
+        self._page_mesh = ranked
         bs = engine_cfg.block_size
         for b in engine_cfg.prefill_buckets:
             if b % bs:
@@ -1303,8 +1312,10 @@ class EngineCore:
         self._shed_outputs: list[tuple[Sequence, LLMEngineOutput]] = []
         self._max_waiting = engine_cfg.max_waiting
         # Deadline expiry reads the wall clock; ranks in lockstep turn it
-        # off (backends/torch/multihost.py).
+        # off (backends/torch/multihost.py). So does held-block expiry,
+        # which their leader decides on its own clock and journals.
         self.enforce_deadlines = True
+        self.expire_holds = True
         self.iterations = 0
         # Step-level spans (engine_prefill_step / engine_decode_step /
         # engine_megastep / engine_commit / host_gap ...), stat spans of
@@ -3537,18 +3548,24 @@ class EngineCore:
         """Release held prefills whose decode side never came (timeout,
         crash): abandoned holds would otherwise pin blocks until the
         allocator starves."""
-        if not self._held_deadline:
-            return
+        if self.expire_holds:
+            for rid in self._expired_holds():
+                self._expire_hold(rid)
+
+    def _expired_holds(self) -> list[str]:
+        """The held requests whose deadline has passed."""
         now = time.monotonic()
-        for rid in [r for r, d in self._held_deadline.items() if d < now]:
-            self._held_deadline.pop(rid, None)
-            seq = self._held.pop(rid, None)
-            if seq is not None:
-                log.warning(
-                    "releasing expired held blocks for %s (ttl %.0fs)",
-                    rid, self.engine.held_block_ttl_s,
-                )
-                self._release_blocks(seq)
+        return [r for r, d in self._held_deadline.items() if d < now]
+
+    def _expire_hold(self, rid: str) -> None:
+        self._held_deadline.pop(rid, None)
+        seq = self._held.pop(rid, None)
+        if seq is not None:
+            log.warning(
+                "releasing expired held blocks for %s (ttl %.0fs)",
+                rid, self.engine.held_block_ttl_s,
+            )
+            self._release_blocks(seq)
 
     def clear_kv_cache(self) -> int:
         """Drop every unpinned cached block; returns blocks cleared."""
@@ -3565,35 +3582,46 @@ class EngineCore:
         serving cache and the allocator are untouched. The scratch pages
         are in the model dtype whatever ``kv_dtype`` is, as in JAX. The
         forward runs eagerly and takes the step lock: a step's capture
-        must not see another thread's work on the card."""
-        refuse_on_mesh(self, "embeddings")
-        T = len(token_ids)
-        if T == 0:
+        must not see another thread's work on the card. On a mesh every
+        rank calls it: a tp rank runs its heads (all-reduced), a pipeline
+        stage its layers (the stages in turn, then the exit broadcast), a
+        dp or sp rank the whole model; every rank returns the embedding."""
+        self._check_embed(token_ids)
+        with self._step_lock, self._on_stream():
+            return self._embed_locked(token_ids)
+
+    def _check_embed(self, token_ids: list[int]) -> None:
+        if not token_ids:
             raise ValueError("empty input")
+        self._bucket_for(len(token_ids))
+
+    def _embed_locked(self, token_ids: list[int]) -> np.ndarray:
+        """:meth:`embed`'s forward (the caller holds the step lock, on the
+        engine's stream)."""
+        T = len(token_ids)
         bucket = self._bucket_for(T)
         bs = self.engine.block_size
-        with self._step_lock, self._on_stream():
-            if self._embed_scratch is None:
-                n = -(-self.engine.prefill_buckets[-1] // bs) + 1
-                shape = (n, bs, 2 * self.cfg.num_kv_heads, self.cfg.head_dim)
-                self._embed_scratch = tuple(
-                    torch.zeros(shape, dtype=self.cfg.torch_dtype, device=self.device)
-                    for _ in range(self.cfg.num_layers)
-                )
-            garbage = self._embed_scratch[0].shape[0] - 1
-            tokens = np.zeros(bucket, np.int32)
-            tokens[:T] = token_ids
-            write_pages = np.full(bucket, garbage, np.int32)
-            write_pages[:T] = np.arange(T) // bs
-            tables = np.full((1, garbage), garbage, np.int32)
-            tables[0, : -(-bucket // bs)] = np.arange(-(-bucket // bs))
-            dev = lambda a: self._to_device(torch.from_numpy(a))  # noqa: E731
-            pooled = embed_forward(
-                self.params, self._embed_scratch, dev(tokens),
-                dev(np.arange(bucket) < T), dev(write_pages), dev(tables),
-                self.cfg, self.engine,
+        if self._embed_scratch is None:
+            n = -(-self.engine.prefill_buckets[-1] // bs) + 1
+            shape = (n, bs, 2 * self.local_cfg.num_kv_heads, self.cfg.head_dim)
+            self._embed_scratch = tuple(
+                torch.zeros(shape, dtype=self.cfg.torch_dtype, device=self.device)
+                for _ in range(self.local_cfg.num_layers)
             )
-            return pooled.cpu().numpy()
+        garbage = self._embed_scratch[0].shape[0] - 1
+        tokens = np.zeros(bucket, np.int32)
+        tokens[:T] = token_ids
+        write_pages = np.full(bucket, garbage, np.int32)
+        write_pages[:T] = np.arange(T) // bs
+        tables = np.full((1, garbage), garbage, np.int32)
+        tables[0, : -(-bucket // bs)] = np.arange(-(-bucket // bs))
+        dev = lambda a: self._to_device(torch.from_numpy(a))  # noqa: E731
+        pooled = embed_forward(
+            self.params, self._embed_scratch, dev(tokens),
+            dev(np.arange(bucket) < T), dev(write_pages), dev(tables),
+            self.cfg, self.engine, mesh=self.pp_mesh or self.mesh,
+        )
+        return pooled.cpu().numpy()
 
     def warm_up(self) -> int:
         """Run every shape the engine serves once before it serves, every
@@ -3758,7 +3786,8 @@ class EngineCore:
 
     def _gather_pages(self, ids: list[int]):
         """The pages of blocks ``ids`` on the device, layer-major ``[n, L,
-        ps, 2kv, d]`` (int8: ``{kv, scale}`` leaves ``[n, L, ...]``)."""
+        ps, 2kv, d]`` (int8: ``{kv, scale}`` leaves ``[n, L, ...]``), this
+        rank's part of them on a mesh."""
         with self._on_stream():
             idx = self._index(ids)
             if self.engine.kv_quantized:
@@ -3767,6 +3796,16 @@ class EngineCore:
                     for k in ("kv", "scale")
                 }
             return torch.stack([c.index_select(0, idx) for c in self.cache], dim=1)
+
+    def _collect_pages(self, pages):
+        """Start landing a batch of this rank's pages (:meth:`_gather_pages`)
+        as whole wire pages: on a mesh gathered to rank 0
+        (``comm.page_gather``), None on the other ranks."""
+        if self._page_mesh is not None:
+            pages = comm.page_gather(pages, self._page_mesh)
+            if pages is None:
+                return None
+        return _landing(pages)
 
     def _scatter_pages(self, ids: list[int], pages) -> None:
         """Write host pages (``[n, L, ...]`` tensors, int8: ``{kv, scale}``)
@@ -3807,60 +3846,68 @@ class EngineCore:
             return "int8"
         return str(self.cfg.torch_dtype).removeprefix("torch.")
 
-    def _page_geometry(self) -> tuple[int, int, int, int]:
-        """(layers, page size, KV heads, head dim) of this rank's pages."""
-        return (
-            self.local_cfg.num_layers,
-            self.engine.block_size,
-            self.local_cfg.num_kv_heads,
-            self.cfg.head_dim,
-        )
+    def _page_geometry(self, wire: bool = False) -> tuple[int, int, int, int]:
+        """(layers, page size, KV heads, head dim) of this rank's pages, or
+        with ``wire`` of the whole page the transfer and the peer server
+        carry (every layer and KV head, whatever the mesh)."""
+        cfg = self.cfg if wire else self.local_cfg
+        return cfg.num_layers, self.engine.block_size, cfg.num_kv_heads, self.cfg.head_dim
 
-    def _page_shape(self) -> tuple[int, int, int, int]:
-        return (
-            self.local_cfg.num_layers,
-            self.engine.block_size,
-            2 * self.local_cfg.num_kv_heads,
-            self.cfg.head_dim,
-        )
+    def _page_shape(self, wire: bool = False) -> tuple[int, int, int, int]:
+        L, bs, kv, d = self._page_geometry(wire)
+        return L, bs, 2 * kv, d
 
-    def _stage_page(self, kv):
+    def _stage_page(self, kv, wire: bool = False):
         """One host-side page (the canonical tier/wire representation —
         packed uint8 for int8, a plain ``[L, ps, 2kv, d]`` array otherwise)
         as the views :meth:`_stack_staged` copies from, its size checked
-        against the local geometry: the page's bytes, or int8's unpacked
-        ``{kv, scale}`` (bit for bit, never re-quantized)."""
+        against this rank's geometry (``wire``: the whole page's): the
+        page's bytes, or int8's unpacked ``{kv, scale}`` (bit for bit, never
+        re-quantized)."""
         if self.engine.kv_quantized:
-            q8, sc = unpack_kv_page(kv, *self._page_geometry())
+            q8, sc = unpack_kv_page(kv, *self._page_geometry(wire))
             return {"kv": q8, "scale": sc}
         raw = _raw_bytes(kv)
-        want = int(np.prod(self._page_shape())) * self.cfg.torch_dtype.itemsize
+        want = int(np.prod(self._page_shape(wire))) * self.cfg.torch_dtype.itemsize
         if raw.size != want:
             raise ValueError(f"KV page of {raw.size} bytes, the local geometry takes {want}")
         return raw
 
-    def _stack_staged(self, pages: list, dtype: torch.dtype | None = None):
-        """Staged pages as one ``[n, L, ...]`` host batch (int8: ``{kv,
-        scale}``), each page copied once, into pinned memory on the card,
-        from which the scatter's copy to the device runs. ``dtype`` is the
-        float pages' dtype (default: the model's)."""
+    def _page_batch(self, n: int, wire: bool = False):
+        """An empty host batch of ``n`` pages (this rank's, or with ``wire``
+        whole ones), pinned on the card, from which a scatter's copy to the
+        device runs."""
         pin = self.device.type == "cuda"
-        n = len(pages)
+        shape = (n, *self._page_shape(wire))
         if self.engine.kv_quantized:
-            out = {}
-            for k, dt in (("kv", torch.int8), ("scale", torch.float32)):
-                t = torch.empty((n, *pages[0][k].shape), dtype=dt, pin_memory=pin)
-                view = t.numpy()
+            return {"kv": torch.empty(shape, dtype=torch.int8, pin_memory=pin),
+                    "scale": torch.empty(shape[:-1], dtype=torch.float32, pin_memory=pin)}
+        return torch.empty(shape, dtype=self.cfg.torch_dtype, pin_memory=pin)
+
+    def _stack_staged(self, pages: list, wire: bool = False):
+        """Staged pages (:meth:`_stage_page`) as one ``[n, L, ...]`` host
+        batch (:meth:`_page_batch`; int8: ``{kv, scale}``), each page copied
+        once."""
+        out = self._page_batch(len(pages), wire)
+        if self.engine.kv_quantized:
+            for k in ("kv", "scale"):
+                view = out[k].numpy()
                 for i, p in enumerate(pages):
                     view[i] = p[k]
-                out[k] = t
             return out
-        t = torch.empty((n, *self._page_shape()), dtype=dtype or self.cfg.torch_dtype,
-                        pin_memory=pin)
-        view = t.view(torch.uint8).numpy().reshape(n, -1)
+        view = out.view(torch.uint8).numpy().reshape(len(pages), -1)
         for i, p in enumerate(pages):
             view[i] = p
-        return t
+        return out
+
+    def _rank_pages(self, staged: list | None, n: int):
+        """This rank's part of ``n`` staged wire pages as a host batch: the
+        pages themselves on one rank; on a mesh rank 0's (``staged``; None
+        on the other ranks) split by ``comm.page_scatter``."""
+        if self._page_mesh is None:
+            return self._stack_staged(staged)
+        whole = self._stack_staged(staged, wire=True) if staged is not None else None
+        return comm.page_scatter(whole, self._page_batch(n), self._page_mesh)
 
     def _fetch_page_bytes(self, pages, n: int) -> list[bytes]:
         """Land a gather of ``n`` pages (:func:`_landing`) and serialize
@@ -3916,6 +3963,15 @@ class EngineCore:
     # chunk's gather and its copy to pinned memory are enqueued under the
     # step lock, on the engine's stream; the wait for the copy runs
     # unlocked (held blocks are pinned and cannot be rewritten).
+    #
+    # On a mesh the wire page is still the whole combined page: reading
+    # pages, importing them, serving them to peers and embedding are
+    # collective methods, which every rank calls in the same order (a
+    # lockstep leader journals them, backends/torch/multihost.py); the
+    # allocator's calls are the same on every rank, so every rank picks the
+    # same blocks, and the pages' bytes travel through comm.page_gather and
+    # comm.page_scatter. Descriptors, cursors and prefix probes read host
+    # state only and run on any one rank.
 
     KV_WIRE_VERSION = 2
 
@@ -3935,19 +3991,20 @@ class EngineCore:
     ) -> list[dict]:
         """Phase 1: descriptor snapshot of a held prefill's committed
         blocks (``start``/``count``: a committed-block window, for the
-        streaming handoff). The hold stays until :meth:`release_held`."""
-        refuse_on_mesh(self, "exporting held blocks (disaggregated prefill)")
+        streaming handoff). The hold stays until :meth:`release_held`.
+        The page is the whole model's on any mesh; ``layout["tp"]`` is
+        this producer's tp, as in JAX."""
         with self._step_lock:
             seq = self._held.get(request_id) or self._streaming_seq(request_id)
             if seq is None:
                 raise KeyError(f"no held blocks for request {request_id}")
             self._touch_hold(request_id)
-            shape = list(self._page_shape())
+            shape = list(self._page_shape(wire=True))
             dtype = self.kv_wire_dtype
             layout = {
                 "kind": "combined_kv_page",
                 "block_size": self.engine.block_size,
-                "tp": 1,
+                "tp": self.mesh.tp if self.mesh is not None else 1,
                 "kv_dtype": self.engine.kv_dtype,
             }
             if self.engine.kv_quantized:
@@ -3973,67 +4030,98 @@ class EngineCore:
 
     def read_held_pages(self, request_id: str, start: int, count: int) -> list[bytes]:
         """Phase 2: a chunk of a held prefill's committed pages as raw
-        bytes (``[L, block_size, 2*n_kv, d]`` each, int8: packed)."""
-        refuse_on_mesh(self, "exporting held blocks (disaggregated prefill)")
-        with self._step_lock:
-            seq = self._held.get(request_id) or self._streaming_seq(request_id)
-            if seq is None:
-                raise KeyError(f"no held blocks for request {request_id}")
-            self._touch_hold(request_id)
-            # Committed blocks only: export_descriptors describes exactly
-            # those, and the consumer zips data frames against them.
-            ids = seq.block_ids[: seq.committed_blocks][start : start + count]
-            if not ids:
-                return []
-            pages = _landing(self._gather_pages(ids))
-        return self._fetch_page_bytes(pages, len(ids))
+        bytes (``[L, block_size, 2*n_kv, d]`` each, int8: packed). On a
+        mesh every rank calls it; rank 0 returns the pages, the others
+        ``[]``."""
+        with self._step_lock, self._on_stream():
+            pages, n = self._held_pages(request_id, start, count)
+        return self._fetch_page_bytes(pages, n) if pages is not None else []
+
+    def _held_pages(self, request_id: str, start: int, count: int):
+        """:meth:`read_held_pages`' gather, landing started (the caller
+        holds the step lock): (the landing or None, pages)."""
+        seq = self._held.get(request_id) or self._streaming_seq(request_id)
+        if seq is None:
+            raise KeyError(f"no held blocks for request {request_id}")
+        self._touch_hold(request_id)
+        # Committed blocks only: export_descriptors describes exactly
+        # those, and the consumer zips data frames against them.
+        ids = seq.block_ids[: seq.committed_blocks][start : start + count]
+        if not ids:
+            return None, 0
+        return self._collect_pages(self._gather_pages(ids)), len(ids)
 
     def read_cached_pages(self, hashes: list[int]) -> list[bytes]:
         """Non-destructive read of the longest locally held prefix of a
         hash chain, for peer serving. Device blocks are pinned under one
         step-lock acquisition and gathered at once; offload-tier blocks
         are read from host RAM or disk. Stops at the first hash held
-        nowhere."""
-        refuse_on_mesh(self, "serving cached pages to peers (kv_fetch)")
-        where: list[tuple[str, int]] = []  # ("dev", block_idx) | ("off", hash)
-        dev_hashes: list[int] = []
-        pages = None
-        with self._step_lock:
-            dev_ids: list[int] = []
-            for h in hashes:
-                if self.allocator.is_cached(h):
-                    got = self.allocator.acquire_cached([h])  # pins
-                    if got:
-                        where.append(("dev", len(dev_ids)))
-                        dev_ids.append(got[0])
-                        dev_hashes.append(h)
-                        continue
-                if self.offload is not None and self.offload.contains(h):
-                    where.append(("off", h))
-                    continue
+        nowhere. On a mesh every rank calls it: each reads its part of the
+        pages where it holds them (on the device, or in its own tier), the
+        chain ends where any rank's does, and rank 0 returns the whole
+        pages, the others ``[]``."""
+        with self._step_lock, self._on_stream():
+            out = self._cached_pages(hashes)
+        return out() if out is not None else []
+
+    def _cached_pages(self, hashes: list[int]) -> Callable[[], list[bytes]] | None:
+        """:meth:`read_cached_pages` under the step lock: the device blocks
+        are read (gathers enqueued, their landing started) and their pins
+        released; returns what serializes the pages, to call unlocked (None:
+        nothing to return on this rank). On one rank the offload tiers are
+        read there, unlocked, so that a disk read never stalls a step; on a
+        mesh they are read here, since every rank must agree on one page
+        count (``comm.page_count``) before the pages' gather."""
+        where: list[tuple[bool, int]] = []  # (on the device, hash)
+        for h in hashes:
+            if self.allocator.enable_prefix_caching and self.allocator.is_cached(h):
+                where.append((True, h))
+            elif self.offload is not None and self.offload.contains(h):
+                where.append((False, h))
+            else:
                 break
-            if dev_ids:
-                pages = _landing(self._gather_pages(dev_ids))
+        mesh = self._page_mesh
+        tier: dict[int, Any] = {}
+        if mesh is not None:
+            for i, (on_dev, h) in enumerate(where):
+                if not on_dev:
+                    kv = self.offload.peek(h)
+                    if kv is None:  # evicted between contains() and peek()
+                        where = where[:i]
+                        break
+                    tier[h] = kv
+            where = where[: comm.page_count(len(where), mesh)]
+        if not where:
+            return None
+        dev_hashes = [h for on_dev, h in where if on_dev]
+        # Pinned and released as the JAX engine does (the release refreshes
+        # the blocks' LRU position); the gathers are enqueued on the
+        # engine's stream before any later step can rewrite them.
+        dev_ids = self.allocator.acquire_cached(dev_hashes)
         try:
-            dev_bytes = (
-                self._fetch_page_bytes(pages, len(dev_hashes)) if pages is not None else None
-            )
-            out: list[bytes] = []
-            for kind, ref in where:
-                if kind == "dev":
-                    out.append(dev_bytes[ref])
-                else:
-                    kv = self.offload.peek(ref)
-                    if kv is None:
-                        break  # evicted between contains() and peek()
-                    # Offload tiers store the canonical wire buffer.
-                    out.append(np.ascontiguousarray(kv).tobytes())
-            return out
+            dev = _landing(self._gather_pages(dev_ids)) if dev_ids else None
         finally:
-            # A raise above must not leave pins behind.
             if dev_hashes:
-                with self._step_lock:
-                    self.allocator.release(dev_hashes)
+                self.allocator.release(dev_hashes)
+        if mesh is None:
+
+            def serialize() -> list[bytes]:
+                got = self._fetch_page_bytes(dev, len(dev_ids)) if dev is not None else []
+                # Offload tiers store the canonical wire buffer.
+                return _chain_order(where, got, lambda h: _tier_bytes(self.offload.peek(h)))
+
+            return serialize
+        # On a mesh: this rank's parts, device and tier pages in chain
+        # order, as one host batch, gathered to rank 0.
+        if isinstance(dev, dict):
+            host = {k: v.land() for k, v in dev.items()}
+            dev_pages = [{k: v[j] for k, v in host.items()} for j in range(len(dev_ids))]
+        else:
+            host = dev.land() if dev is not None else None
+            dev_pages = [_raw_bytes(host[j]) for j in range(len(dev_ids))]
+        staged = _chain_order(where, dev_pages, lambda h: self._stage_page(tier[h]))
+        pages = self._collect_pages(self._stack_staged(staged))
+        return None if pages is None else lambda: self._fetch_page_bytes(pages, len(staged))
 
     def cached_prefix_tokens(self, token_ids: list[int]) -> int:
         """Locally cached leading tokens."""
@@ -4086,17 +4174,20 @@ class EngineCore:
 
     def release_held(self, request_id: str) -> None:
         with self._step_lock:
-            self._held_deadline.pop(request_id, None)
-            seq = self._held.pop(request_id, None)
-            if seq is not None:
-                self._release_blocks(seq)
-                return
-            # Still running (a streaming handoff abandoned early): drop the
-            # hold, so _finish releases the blocks at once and
-            # _streaming_seq serves no more windows.
-            seq = self._streaming_seq(request_id)
-            if seq is not None:
-                seq.hold_blocks = False
+            self._release_held_locked(request_id)
+
+    def _release_held_locked(self, request_id: str) -> None:
+        self._held_deadline.pop(request_id, None)
+        seq = self._held.pop(request_id, None)
+        if seq is not None:
+            self._release_blocks(seq)
+            return
+        # Still running (a streaming handoff abandoned early): drop the
+        # hold, so _finish releases the blocks at once and
+        # _streaming_seq serves no more windows.
+        seq = self._streaming_seq(request_id)
+        if seq is not None:
+            seq.hold_blocks = False
 
     def import_blocks(self, blocks: list[dict]) -> ImportResult:
         """Write transferred KV pages into the local cache as inactive
@@ -4110,11 +4201,21 @@ class EngineCore:
         int8 pages arrive as the canonical packed buffer and scatter bit
         for bit, never re-quantized; a mismatch where either side is int8
         fails fast. A float mismatch (bf16 producer, f32 consumer) is
-        cast on the host."""
-        refuse_on_mesh(self, "importing transferred blocks (disaggregated decode)")
-        expected = self._page_shape()
+        cast on the host.
+
+        On a mesh every rank calls it with the same descriptors; only rank
+        0's carry the pages (the others' ``kv`` is ignored, and may be
+        absent), and each rank writes its part (``comm.page_scatter``)."""
+        staged = self._stage_imports(blocks)
+        with self._step_lock, self._on_stream():
+            return self._import_locked(blocks, staged)
+
+    def _stage_imports(self, blocks: list[dict]) -> list | None:
+        """Check each descriptor's geometry and dtype against this engine's
+        (every rank) and stage its page on the host (rank 0; None on the
+        other ranks of a mesh)."""
+        expected = self._page_shape(wire=True)
         local = self.cfg.torch_dtype
-        staged: list[tuple[int, int | None, Any]] = []
         for blk in blocks:
             shape = tuple(blk[wire.IMP_SHAPE])
             if shape != expected:
@@ -4142,6 +4243,11 @@ class EngineCore:
                 )
             if not self.engine.kv_quantized and wire_dtype not in _WIRE_DTYPES:
                 raise ValueError(f"unknown KV page dtype {wire_dtype!r}")
+        if self._page_mesh is not None and self._page_mesh.rank != 0:
+            return None
+        staged = []
+        for blk in blocks:
+            wire_dtype = str(blk[wire.IMP_DTYPE])
             if not self.engine.kv_quantized and _WIRE_DTYPES[wire_dtype] != local:
                 # A float fleet of mixed precision (a bf16 producer, an f32
                 # consumer): cast on the host, before staging.
@@ -4150,29 +4256,34 @@ class EngineCore:
             else:
                 page = blk[wire.IMP_KV]
             # Validates the page's size (int8: the packed size).
-            staged.append((blk[wire.IMP_HASH], blk[wire.IMP_PARENT], self._stage_page(page)))
+            staged.append(self._stage_page(page, wire=True))
+        return staged
 
-        with self._step_lock:
-            ids: list[int] = []
-            pages: list = []
-            pending: list[tuple[int, int, int | None]] = []
-            skipped = 0
-            for h, parent, page in staged:
-                if self.allocator.is_cached(h):
-                    skipped += 1
-                    continue
-                try:
-                    bid = self.allocator.alloc_for_import()
-                except OutOfBlocksError:
-                    break
-                ids.append(bid)
-                pages.append(page)
-                pending.append((bid, h, parent))
-            if ids:
-                self._scatter_pages(ids, self._stack_staged(pages))
-                for bid, h, parent in pending:
-                    self.allocator.register_inactive(bid, h, parent)
-            return self._account_transfer(len(staged), len(ids), skipped)
+    def _import_locked(self, blocks: list[dict], staged: list | None) -> ImportResult:
+        """:meth:`import_blocks` under the step lock: the allocator picks the
+        blocks (the same on every rank), then one scatter writes them."""
+        ids: list[int] = []
+        rows: list[int] = []
+        pending: list[tuple[int, int, int | None]] = []
+        skipped = 0
+        for i, blk in enumerate(blocks):
+            h = blk[wire.IMP_HASH]
+            if self.allocator.is_cached(h):
+                skipped += 1
+                continue
+            try:
+                bid = self.allocator.alloc_for_import()
+            except OutOfBlocksError:
+                break
+            ids.append(bid)
+            rows.append(i)
+            pending.append((bid, h, blk[wire.IMP_PARENT]))
+        if ids:
+            mine = [staged[i] for i in rows] if staged is not None else None
+            self._scatter_pages(ids, self._rank_pages(mine, len(ids)))
+            for bid, h, parent in pending:
+                self.allocator.register_inactive(bid, h, parent)
+        return self._account_transfer(len(blocks), len(ids), skipped)
 
     def _account_transfer(self, total: int, imported: int, skipped: int) -> ImportResult:
         """Update transfer_stats for one import call (the caller holds the
@@ -4192,14 +4303,27 @@ class EngineCore:
             )
         return ImportResult(imported=imported, skipped=skipped, dropped=dropped)
 
+    def _mesh_shape(self) -> tuple[int, int, int, int]:
+        """(dp, tp, pp, sp) of this engine's ranks."""
+        m = self.mesh
+        return (m.dp if m is not None else 1, m.tp if m is not None else 1, self._pp,
+                self.sp_mesh.sp if self.sp_mesh is not None else 1)
+
     def import_blocks_direct(self, src: "EngineCore", request_id: str) -> ImportResult:
         """Device-direct KV pull from a source core on the same device:
         one gather out of the source cache and one in-place scatter into
         this one per layer, no host staging. Both step locks are held for
-        the copy, taken in id() order so mutual pulls cannot deadlock."""
-        refuse_on_mesh(self, "importing transferred blocks (disaggregated decode)")
+        the copy, taken in id() order so mutual pulls cannot deadlock. On a
+        mesh both cores' meshes must be the same, and every rank calls it
+        with its own pair, copying its own part of the pages."""
         if src is self:
             raise ValueError("cannot direct-import from self")
+        if src._mesh_shape() != self._mesh_shape():
+            dp, tp, pp, sp = src._mesh_shape()
+            raise ValueError(
+                f"direct import needs matching meshes (source dp={dp} tp={tp} pp={pp} "
+                f"sp={sp}, this core {self._mesh_shape()}); use the staged wire path instead"
+            )
         if src.device != self.device:
             raise ValueError(
                 f"direct import needs both caches on one device ({src.device} vs "

@@ -2,9 +2,12 @@
 
 Counterpart of ``dynamo_tpu/engine/engine.py``'s ``TpuEngine``, with the
 same surface: ``generate(wire_dict, context) -> async iterator of wire
-dicts``. The engine loop runs each ``step()`` in a worker thread
-(``asyncio.to_thread``) — device work blocks, and the event loop must stay
-live to accept requests and stream tokens. Host-side scheduler state is
+dicts``. The engine loop runs each ``step()`` on a thread of its own
+(``_step_pool``) — device work blocks, and the event loop must stay live
+to accept requests and stream tokens. Not the loop's default executor: a
+lockstep leader's page reads, imports and embeddings block a thread of
+that pool each until the next step runs them, so a step queued behind
+them would never come. Host-side scheduler state is
 only touched inside ``step()``; intake goes through the core's inbox.
 Each request files the JAX engine's three spans (``sched_admit``,
 ``prefill``, ``decode``) under the "engine" service, parented through the
@@ -17,6 +20,7 @@ import asyncio
 import logging
 import time
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from typing import AsyncIterator
 
 from dynamo_tpu_torch import tracing
@@ -35,6 +39,7 @@ class TorchEngine:
         self._queues: dict[str, asyncio.Queue] = {}
         self._wakeup = asyncio.Event()
         self._loop_task: asyncio.Task | None = None
+        self._step_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="engine-step")
         self._tracer = tracing.get_tracer("engine")
 
     async def generate(self, request: dict, context: Context) -> AsyncIterator[dict]:
@@ -122,6 +127,12 @@ class TorchEngine:
 
     # -- engine loop -------------------------------------------------------
 
+    def wake(self) -> None:
+        """Step the core again: it has work the loop has not seen (a
+        lockstep leader's staged job). Call on the event loop."""
+        self._ensure_loop()
+        self._wakeup.set()
+
     def _ensure_loop(self) -> None:
         if self._loop_task is None or self._loop_task.done():
             self._loop_task = asyncio.create_task(self._run())
@@ -132,7 +143,8 @@ class TorchEngine:
                 self._wakeup.clear()
                 await self._wakeup.wait()
             try:
-                outputs = await asyncio.to_thread(self.core.step)
+                outputs = await asyncio.get_running_loop().run_in_executor(
+                    self._step_pool, self.core.step)
             except Exception:
                 log.exception("engine step failed")
                 for q in list(self._queues.values()):

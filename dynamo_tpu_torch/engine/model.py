@@ -942,18 +942,35 @@ def embed_forward(
     pooling of the final-norm hidden states; returns the ``[h]`` f32
     embedding. Bucket-padded rows write the garbage page and sit after
     every valid row, so causal masking keeps them out of the valid rows'
-    attention; pooling masks them out of the mean."""
+    attention; pooling masks them out of the mean. Under a tp ``mesh``
+    (``parallel.sharding.Mesh``) ``params`` and ``scratch`` are this rank's
+    heads; under a pipeline's (``parallel.pipeline.PPMesh``) this stage's
+    layers: stage 0 embeds the tokens, each stage runs its layers on what
+    the one before sent it, the last pools, and the exit broadcast hands
+    every stage the embedding."""
     T = tokens.shape[0]
     dev = tokens.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)
-    x = forward_hidden(
-        params, scratch, tokens, positions, write_pages, positions % engine.block_size,
-        torch.full((1,), T, dtype=torch.int32, device=dev), block_tables,
-        torch.tensor([0, T], dtype=torch.int32, device=dev),
-        torch.ones(1, dtype=torch.int32, device=dev), cfg, attention, mesh=mesh,
-    )
+    ops = (positions, write_pages, positions % engine.block_size,
+           torch.full((1,), T, dtype=torch.int32, device=dev), block_tables,
+           torch.tensor([0, T], dtype=torch.int32, device=dev),
+           torch.ones(1, dtype=torch.int32, device=dev))
     w = valid.float()[:, None]
-    return (x.float() * w).sum(dim=0) / torch.clamp_min(w.sum(), 1.0)
+    if getattr(mesh, "pp", 1) == 1:
+        x = forward_hidden(params, scratch, tokens, *ops, cfg, attention, mesh=mesh)
+        return (x.float() * w).sum(dim=0) / torch.clamp_min(w.sum(), 1.0)
+    if mesh.stage == 0:
+        x = params["embed"][tokens.long()]
+    else:
+        x = comm.recv_prev((T, cfg.hidden_size), cfg.torch_dtype, mesh)
+    x = forward_layers(x, params["layers"], scratch, *ops, cfg, attention)
+    pooled = torch.zeros(cfg.hidden_size, dtype=torch.float32, device=dev)
+    if mesh.stage < mesh.pp - 1:
+        comm.wait_sends([comm.send_next(x, mesh)])
+    else:
+        x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        pooled = (x.float() * w).sum(dim=0) / torch.clamp_min(w.sum(), 1.0)
+    return comm.exit_broadcast(pooled, mesh)
 
 
 def decode_tokens(

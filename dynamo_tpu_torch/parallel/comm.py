@@ -32,7 +32,17 @@ one card, so the port runs one process per rank and calls them itself:
   can wait on each other;
 - :func:`exit_broadcast` replicates the last stage's rows on every stage
   (the counterpart of a ``psum`` with one contributor, so bit for bit);
-- :func:`stage_gather` joins the stages' vocab slices of the logits.
+- :func:`stage_gather` joins the stages' vocab slices of the logits;
+- :func:`page_gather` joins the ranks' parts of a batch of KV pages on
+  rank 0, and :func:`page_scatter` hands each rank its part of rank 0's
+  batch: the disaggregated transfer's and the peer page server's wire
+  page is the whole combined page ``[L, bs, 2*n_kv, d]``, and a tp rank
+  holds its slice of the combined heads, a pipeline stage its layers, a
+  dp or sp rank a whole replica (JAX's GSPMD gathers and re-splits the
+  page, ``dynamo_tpu/engine/core.py`` ``read_held_pages``);
+  :func:`page_count` agrees how many pages every rank can serve. They run
+  eagerly, outside any CUDA graph, and their host wall time is summed
+  in ``seconds``.
 
 The backend follows from the ranks' devices (:func:`choose_backend`) and
 is fixed when the mesh is built, never on a failure: NCCL when every
@@ -50,6 +60,7 @@ launches.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Sequence
 
 import torch
@@ -60,12 +71,17 @@ BACKENDS = (NCCL, GLOO, GLOO_HOST)
 # Collective calls since the last reset, by collective.
 calls = {"all_reduce": 0, "all_gather": 0, "dp_gather": 0, "send": 0, "recv": 0,
          "broadcast": 0, "stage_gather": 0, "all_to_all": 0, "ring_send": 0, "ring_recv": 0,
-         "sp_gather": 0, "sp_broadcast": 0}
+         "sp_gather": 0, "sp_broadcast": 0, "page_gather": 0, "page_scatter": 0,
+         "page_count": 0}
+# Host wall seconds of the page collectives since the last reset.
+seconds = {"page_gather": 0.0, "page_scatter": 0.0}
 
 
 def reset_calls() -> None:
     for name in calls:
         calls[name] = 0
+    for name in seconds:
+        seconds[name] = 0.0
 
 
 def choose_backend(devices: Sequence[Any], ranks_per_node: int | None = None) -> str:
@@ -299,3 +315,108 @@ def warm_up(mesh) -> None:
             t.fill_(float(mesh.stage))
         if mesh.stage + 1 < mesh.pp:
             dist.send(t, mesh.stage + 1, group=mesh.group)
+
+
+# -- KV pages -------------------------------------------------------------
+#
+# A batch of pages is ``[n, L, bs, 2*n_kv, d]`` (int8: ``{"kv": that, "scale":
+# [n, L, bs, 2*n_kv]}``): a tp rank holds its slice of axis 3 (its combined
+# heads, in rank order), a pipeline stage its slice of axis 1 (its layers),
+# a dp or sp rank the whole page.
+
+
+def _page_split(mesh) -> tuple[int, int, Any] | None:
+    """(the axis of a page batch ``mesh`` splits, its parts, the group of
+    the ranks that hold rank 0's parts), or None where a rank holds whole
+    pages."""
+    if getattr(mesh, "pp", 1) > 1:
+        return 1, mesh.pp, mesh.group
+    if getattr(mesh, "tp", 1) > 1:
+        return 3, mesh.tp, mesh.group
+    return None
+
+
+def _leaves(pages) -> dict:
+    return pages if isinstance(pages, dict) else {None: pages}
+
+
+def _unleaves(leaves: dict):
+    return leaves[None] if None in leaves else leaves
+
+
+def _page_device(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` where the backend moves it: on the rank's card for NCCL, on the
+    host for gloo."""
+    return x.to(mesh.device) if mesh.backend == NCCL else x.cpu()
+
+
+def page_count(n: int, mesh) -> int:
+    """The least of every rank's ``n``: how many pages of a hash chain every
+    rank can read (a page missed on one rank's tier ends the chain for all,
+    so that their allocators pin the same blocks)."""
+    import torch.distributed as dist
+
+    calls["page_count"] += 1
+    t = _page_device(torch.tensor([n], dtype=torch.int64), mesh)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t.item())
+
+
+def page_gather(pages, mesh):
+    """Rank 0's whole pages from every rank's part (``pages``: this rank's
+    batch, a tensor or int8's ``{kv, scale}``), joined in rank order on the
+    host (on rank 0's card over NCCL); None on every other rank. A rank
+    whose parts rank 0 does not need (a dp replica but the first, an sp
+    rank but rank 0) calls nothing. A 2-byte float travels as its bytes."""
+    import torch.distributed as dist
+
+    split = _page_split(mesh)
+    if split is None or getattr(mesh, "dp_rank", 0) != 0:
+        return pages if mesh.rank == 0 else None
+    axis, n, group = split
+    t0 = time.perf_counter()
+    calls["page_gather"] += 1
+    out = {}
+    for k, x in _leaves(pages).items():
+        src = _page_device(_bits(x.contiguous()), mesh)
+        parts = [torch.empty_like(src) for _ in range(n)] if mesh.rank == 0 else None
+        dist.gather(src, parts, dst=0, group=group)
+        if mesh.rank == 0:
+            out[k] = torch.cat(parts, dim=axis).view(x.dtype)
+    seconds["page_gather"] += time.perf_counter() - t0
+    return _unleaves(out) if mesh.rank == 0 else None
+
+
+def page_scatter(pages, out, mesh):
+    """This rank's part of rank 0's whole pages ``pages`` (None on the other
+    ranks), received into ``out`` (a host batch of this rank's part, a
+    tensor or int8's ``{kv, scale}``; over NCCL a batch on the card like
+    it is returned instead). Every rank of the world takes part: a tp
+    rank gets its heads (each dp replica the same), a stage its layers, a
+    dp or sp rank the whole pages. A 2-byte float travels as its bytes."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    split = _page_split(mesh)
+    t0 = time.perf_counter()
+    calls["page_scatter"] += 1
+    got = {}
+    whole = _leaves(pages) if pages is not None else None
+    for k, buf in _leaves(out).items():
+        dst = _page_device(_bits(buf), mesh) if mesh.backend == NCCL else _bits(buf)
+        parts = None
+        if whole is not None:
+            x = _bits(whole[k])
+            if split is None:
+                chunks = [x] * world
+            else:
+                axis, n, _ = split
+                # The parts along the axis, in rank order; a dp replica's
+                # ranks take the first replica's (rank r holds tp shard r % tp).
+                chunks = [c.contiguous() for c in torch.chunk(x, n, dim=axis)]
+                chunks = [chunks[r % n] for r in range(world)]
+            parts = [_page_device(c, mesh) for c in chunks]
+        dist.scatter(dst, parts, src=0)
+        got[k] = dst.view(buf.dtype)
+    seconds["page_scatter"] += time.perf_counter() - t0
+    return _unleaves(got)

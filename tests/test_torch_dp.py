@@ -184,10 +184,21 @@ def test_lockstep_on_dp_ranks_and_pp_stages(pools, mesh):
 
 @pytest.mark.parametrize("mesh", ["dp2", "pp2"])
 def test_mesh_refusals_name_their_items(pools, mesh):
-    """A dp or pp engine refuses embeddings, block export and import and
-    serving its pages to peers, each naming ROADMAP.md A12d and its axis."""
-    for msg in pools(mesh).call("refusals", cfg=tiny_model(), eng=tiny_engine())[0]:
-        assert "A12d" in msg and f"{mesh[:2]}=2" in msg, msg
+    """What a dp or pp engine once refused by ROADMAP.md A12d it serves:
+    an embedding (the same on both ranks), a held prefill's export (the
+    whole pages on rank 0: a dp replica's own, a pipeline's stages'
+    layers joined), their import into a second core of the mesh and its
+    pages read back for a peer byte for byte, and the same through a
+    direct import (each rank copying its own part), each core holding the
+    five blocks cached, on both ranks."""
+    eng = tiny_engine()
+    lead, follow = pools(mesh).call("mesh_paths", cfg=tiny_model(), eng=eng)
+    np.testing.assert_array_equal(lead["embed"], follow["embed"])
+    assert lead["blocks"] == len(lead["pages"]) == lead["imported"] == follow["imported"] == 5
+    assert lead["back"] == lead["direct_back"] == lead["pages"]
+    assert follow["pages"] == follow["back"] == follow["direct_back"] == []
+    assert lead["direct"] == follow["direct"] == 5
+    assert lead["used"] == follow["used"] == [5, 5, 5]
 
 
 def test_worker_dp_and_pp_on_cpu_ranks_serve_single_tokens(tmp_path):

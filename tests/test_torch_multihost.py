@@ -187,11 +187,22 @@ def test_lockstep_cancel_and_rejected_add(ranks):
 
 
 def test_mesh_refusals_name_their_items(ranks):
-    """A tp = 2 engine refuses embeddings, block export and import and
-    serving its pages to peers, each naming ROADMAP.md A12d."""
+    """What a tp = 2 engine once refused by ROADMAP.md A12d it serves:
+    an embedding (the same on both ranks), a held prefill's export (the
+    whole pages on rank 0, none on rank 1), their import into a second
+    tp = 2 core and that core's pages read back for a peer byte for
+    byte, and the same through a direct import (each rank copying its own
+    heads), each core holding the five blocks cached, on both ranks."""
     tcfg = dataclasses.replace(tiny_model(), **UNTIED)
-    for msg in ranks.call("refusals", cfg=tcfg, eng=tiny_engine())[0]:
-        assert "A12d" in msg and "tp=2" in msg, msg
+    eng = tiny_engine()
+    lead, follow = ranks.call("mesh_paths", cfg=tcfg, eng=eng)
+    np.testing.assert_array_equal(lead["embed"], follow["embed"])
+    assert lead["embed"].shape == (tcfg.hidden_size,)
+    assert lead["blocks"] == len(lead["pages"]) == lead["imported"] == follow["imported"] == 5
+    assert lead["back"] == lead["direct_back"] == lead["pages"]
+    assert follow["pages"] == follow["back"] == follow["direct_back"] == []
+    assert lead["direct"] == follow["direct"] == 5
+    assert lead["used"] == follow["used"] == [5, 5, 5]
 
 
 # -- the loader ---------------------------------------------------------------
@@ -345,17 +356,19 @@ def test_worker_tp2_on_cpu_ranks_serves_tp1_tokens(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--dp", "2", "--role", "prefill"], "A12d"),
+    (["--dp", "2", "--role", "prefill"], None),
     (["--pp", "2", "--preset", "tiny-moe", "--moe-dispatch", "alltoall"], None),
     (["--sp", "2"], None),
-    (["--tp", "2", "--role", "prefill"], "A12d"),
+    (["--tp", "2", "--role", "prefill", "--nnodes", "2"],
+     "multi-host serving supports role=aggregated only"),
     (["--tp", "2", "--preset", "tiny-moe", "--moe-dispatch", "alltoall"], None),
 ], ids=["dp", "pp", "sp", "tp-prefill", "tp-moe-dispatch"])
 def test_worker_refusals_name_their_items(flags, item):
-    """A cross-mesh role names A12d. The flags whose items have landed
-    pass: ``--sp`` (A12c) and ``--moe-dispatch`` over ranks (A12d part 1);
-    a MoE preset under ``--pp`` is then refused as the JAX engine refuses
-    it (``check_pp``)."""
+    """A role on a mesh of one node passes (A12d part 2); across nodes it
+    is refused with the JAX worker's message. The other flags whose items
+    have landed pass: ``--sp`` (A12c) and ``--moe-dispatch`` over ranks
+    (A12d part 1); a MoE preset under ``--pp`` is then refused as the JAX
+    engine refuses it (``check_pp``)."""
     args = worker_main._parser().parse_args(flags)
     if item is not None:
         with pytest.raises(ValueError, match=item):

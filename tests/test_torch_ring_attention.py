@@ -196,13 +196,16 @@ def test_sp_engine_refusals_are_jax(case):
     (["--sp", "2", "--dp", "2"], "--sp is mutually exclusive with --tp/--dp for now"),
     (["--sp", "2", "--pp", "2"], "--pp is mutually exclusive with --tp/--dp/--sp for now"),
     (["--sp", "2", "--nnodes", "2"], "--sp (ring prefill) is not supported under --nnodes yet"),
-    (["--sp", "2", "--role", "prefill"], "ROADMAP.md A12d"),
-    (["--sp", "2", "--role", "decode"], "ROADMAP.md A12d"),
+    (["--sp", "2", "--role", "prefill", "--nnodes", "2"],
+     "multi-host serving supports role=aggregated only"),
+    (["--sp", "2", "--role", "decode", "--nnodes", "2"],
+     "multi-host serving supports role=aggregated only"),
 ], ids=["tp", "dp", "pp", "nnodes", "prefill", "decode"])
 def test_worker_sp_refusals(flags, want):
     """The worker's refusals of ``--sp`` beside other axes are the JAX
     worker's messages (``build_engine``'s for the meshes, ``run_jax_worker``'s
-    under ``--nnodes``); a cross-mesh role names A12d."""
+    under ``--nnodes``, where a role but the aggregated one is refused
+    first, as there; on one node an sp worker serves every role)."""
     args = worker_main._parser().parse_args(flags)
     with pytest.raises(ValueError) as err:
         worker_main._refuse_unported(args)

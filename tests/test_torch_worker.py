@@ -505,9 +505,9 @@ async def test_graceful_drain_publishes_cleared():
 # -- (h) what the port does not serve is refused by name ----------------------
 
 SERVED_ITEMS = {"A7", "A10", "A11"}  # ROADMAP items landed since their flags were refused
-# The multi-rank flags that A12 part 1, A12b and A12c serve; the rest of
-# A12 (A12d part 2: cross-mesh roles, embeddings on a mesh) is still
-# refused, by messages that name it.
+# The multi-rank flags that A12 part 1, A12b and A12c serve (A12d serves
+# the roles and embeddings on them since; across nodes a role is refused
+# with the JAX worker's message).
 A12_SERVED = {("--tp", "2"), ("--pp", "2"), ("--nnodes", "2", "--dist-init-addr", "127.0.0.1:1"),
               ("--local-cpu-devices", "4"), ("--ring-prefill-threshold", "64")}
 

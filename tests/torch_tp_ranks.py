@@ -180,6 +180,14 @@ def run_requests(core, requests: list[dict], max_steps: int = 500) -> dict[str, 
     return streams
 
 
+def _remote_wire(rid: str, prompt: list[int]) -> dict:
+    """A greedy remote-decode prefill request: one token, its blocks held
+    for a decode side."""
+    return {"model": "t", "token_ids": prompt, "request_id": rid,
+            "sampling": {"temperature": 0.0}, "stop": {"max_tokens": 1, "ignore_eos": True},
+            "kv_transfer_params": {"do_remote_decode": True}}
+
+
 def drive(core, requests: list[dict], max_steps: int = 4000) -> tuple[dict, dict, dict]:
     """Every request (wire dicts) added at once, then steps until all have
     finished: (tokens, finish reasons, logprob entries) by request id, as
@@ -517,20 +525,121 @@ class Rank:
         """:func:`tier_round_trip` on this rank's engines."""
         return tier_round_trip(lambda e: self.core(cfg, e, tree), eng, tier_eng, prompt, noise)
 
-    def refusals(self, cfg, eng) -> list[str]:
-        """The message of each path a tp = 2 engine refuses (ROADMAP.md
-        A12d): embeddings, block export and import, serving cached pages."""
+    def mesh_paths(self, cfg, eng) -> dict:
+        """What a mesh engine once refused, served (every rank calls each):
+        an embedding, a held prefill's export, its import into a second
+        core and the imported pages read back for a peer, and its direct
+        import into a third (each rank copying its own part) read back."""
+        from dynamo_tpu_torch.runtime import wire
+
         core = self.core(cfg, eng)
-        out = []
-        for call in (lambda: core.embed([1, 2, 3]), lambda: core.export_descriptors("r"),
-                     lambda: core.read_held_pages("r", 0, 1), lambda: core.import_blocks([]),
-                     lambda: core.read_cached_pages([1])):
-            try:
-                call()
-                out.append("")
-            except ValueError as e:
-                out.append(str(e))
-        return out
+        vec = core.embed([1, 2, 3])
+        held = _remote_wire("h", list(range(5, 45)))
+        run_requests(core, [held])
+        descs = core.export_descriptors("h")
+        hashes = [d[wire.IMP_HASH] for d in descs]
+        pages = core.read_held_pages("h", 0, len(descs))
+        direct = self.core(cfg, eng)
+        n_direct = direct.import_blocks_direct(core, "h").imported
+        core.release_held("h")
+        dst = self.core(cfg, eng)
+        res = dst.import_blocks([dict(d, kv=p) for d, p in zip(descs, pages)] or descs)
+        return {"embed": vec, "blocks": len(descs), "pages": pages, "imported": res.imported,
+                "back": dst.read_cached_pages(hashes), "direct": n_direct,
+                "direct_back": direct.read_cached_pages(hashes),
+                "used": [c.allocator.used_blocks for c in (core, dst, direct)]}
+
+    def prefill_export(self, cfg, eng, req, tree=None) -> dict:
+        """``req`` (a remote-decode wire dict) prefilled on this rank's core:
+        its tokens, descriptors and held pages (rank 0's; ``[]`` on the
+        others) and the collectives."""
+        from dynamo_tpu_torch.parallel import comm
+
+        comm.reset_calls()
+        core = self.core(cfg, eng, tree)
+        rid = req["request_id"]
+        tokens = run_requests(core, [req])[rid]
+        descs = core.export_descriptors(rid)
+        pages = core.read_held_pages(rid, 0, len(descs))
+        core.release_held(rid)
+        return {"tokens": tokens, "descs": descs, "pages": pages, "calls": dict(comm.calls)}
+
+    def import_decode(self, cfg, eng, blocks, req, tree=None) -> dict:
+        """``blocks`` imported into a fresh core of this rank (every rank
+        passes the same; only rank 0's pages are read), read back for a
+        peer (rank 0's; ``[]`` on the others), a digest of the rank's own
+        part of each imported page, then ``req`` decoded over them: its
+        tokens and cached prompt tokens, and the collectives."""
+        import hashlib
+
+        from dynamo_tpu_torch.engine.core import _host_numpy
+        from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+        from dynamo_tpu_torch.parallel import comm
+        from dynamo_tpu_torch.runtime import wire
+
+        comm.reset_calls()
+        core = self.core(cfg, eng, tree)
+        res = core.import_blocks(blocks)
+        hashes = [b[wire.IMP_HASH] for b in blocks]
+        back = core.read_cached_pages(hashes)
+        mine = core._gather_pages([core.allocator._by_hash[h].block_id for h in hashes])
+        digest = hashlib.sha256()
+        for leaf in (mine.values() if isinstance(mine, dict) else (mine,)):
+            digest.update(np.ascontiguousarray(_host_numpy(leaf)).tobytes())
+        seq = core.add_request(PreprocessedRequest.from_wire(req))
+        tokens = []
+        while core.has_work():
+            for s, out in core.step():
+                if s is seq:
+                    tokens.extend(out.token_ids)
+        return {"imported": res.imported, "back": back, "digest": digest.hexdigest(),
+                "tokens": tokens, "cached_tokens": seq.num_cached_tokens,
+                "calls": dict(comm.calls)}
+
+    def embed(self, cfg, eng, tokens, tree=None) -> dict:
+        """``EngineCore.embed`` of ``tokens`` on this rank's core, and its
+        collectives."""
+        from dynamo_tpu_torch.parallel import comm
+
+        core = self.core(cfg, eng, tree)
+        comm.reset_calls()
+        return {"embed": core.embed(tokens), "calls": dict(comm.calls)}
+
+    def tier_pages(self, cfg, eng, tier_eng, prompt, noise) -> dict:
+        """The pp counterpart of the JAX package's tier round trip of
+        ``read_cached_pages``: ``prompt``'s greedy stream on a plain engine,
+        then on a tiered one: its prefix's pages read for a peer on the
+        device, again once ``noise`` (batches of prompts) has pushed them to
+        this rank's host and disk tiers, and again after the prompt, sent
+        again, onboarded them; this rank's tier bytes of each prefix block."""
+        from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+        def req(p, rid):
+            return {"model": "t", "token_ids": list(p), "request_id": rid,
+                    "sampling": {"temperature": 0.0},
+                    "stop": {"max_tokens": 6, "ignore_eos": True}}
+
+        ref = run_requests(self.core(cfg, eng), [req(prompt, "ref")])["ref"]
+        core = self.core(cfg, tier_eng)
+        seq = core.add_request(PreprocessedRequest.from_wire(req(prompt, "a")))
+        while core.has_work():
+            core.step()
+        prefix = seq.prompt_hashes[: (len(prompt) - 1) // tier_eng.block_size]
+        w0 = core.read_cached_pages(prefix)
+        for i, batch in enumerate(noise):
+            run_requests(core, [req(p, f"n{i}-{j}") for j, p in enumerate(batch)])
+        core.offload.flush()
+        tier = {}
+        for h in prefix:
+            kv = (core.host_pool._blocks[h].kv if h in core.host_pool
+                  else core.disk_pool.peek(h) if h in core.disk_pool else None)
+            tier[h] = None if kv is None else kv.tobytes()
+        w_tier = core.read_cached_pages(prefix)
+        again = run_requests(core, [req(prompt, "b")])["b"]
+        return {"ref": ref, "again": again, "prefix": prefix, "w0": w0, "w_tier": w_tier,
+                "w1": core.read_cached_pages(prefix), "tier": tier,
+                "geometry": core._page_geometry(),
+                "onboards": core.host_pool.stats.onboards + core.disk_pool.stats.onboards}
 
     def load(self, path, quant=None, dtype="float32") -> dict:
         import torch
@@ -593,6 +702,75 @@ class Rank:
             for seq, out in core.step():
                 emitted.append((seq.request_id, list(out.token_ids), out.finish_reason))
         return {"emitted": emitted, "records": records, "counter": core._req_counter}
+
+
+    def lockstep_transfer(self, cfg, eng, requests, held, ttl_held) -> dict:
+        """Rank 0 is a LeaderCore whose records reach the other ranks by
+        broadcast; they apply each and step. The leader runs ``requests``
+        and the remote-decode ``held``; once ``held`` holds its blocks, a
+        second thread reads them (``read_held_pages``) while the main
+        thread steps the rest; then ``ttl_held`` holds its blocks past the
+        engine's ``held_block_ttl_s``, and a step's snapshot expires the
+        hold. Every rank returns its allocator's state and the ops of the
+        records; the leader also the pages read and the release it
+        journaled."""
+        import time
+
+        import torch.distributed as dist
+
+        from dynamo_tpu_torch.backends.torch.multihost import (
+            LeaderCore,
+            apply_record,
+            follower_mode,
+        )
+        from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+
+        def send(record):
+            dist.broadcast_object_list([record], src=0)
+
+        ops: list[str] = []
+        out: dict = {}
+        if self.rank == 0:
+            core = LeaderCore(cfg, eng, seed=0, device="cpu", mesh=self.mesh,
+                              pp_mesh=self.pp_mesh, sp_mesh=self.sp_mesh,
+                              publish=lambda r: (ops.extend(o["op"] for o in r["ops"]), send(r)))
+            for r in (*requests, held):
+                core.add_request(PreprocessedRequest.from_wire(r))
+            while held["request_id"] not in core._held:
+                core.step()
+            descs = core.export_descriptors(held["request_id"])
+            box: list = []
+            reader = threading.Thread(target=lambda: box.append(
+                core.read_held_pages(held["request_id"], 0, len(descs))))
+            reader.start()
+            for _ in range(4000):
+                if not (reader.is_alive() or core.has_work()):
+                    break
+                core.step()
+            reader.join(timeout=10)
+            assert not reader.is_alive(), "the page read never completed"
+            core.release_held(held["request_id"])
+            core.add_request(PreprocessedRequest.from_wire(ttl_held))
+            while core.has_work():
+                core.step()
+            time.sleep(eng.held_block_ttl_s + 0.05)
+            core.step()  # its snapshot journals the expiry
+            send(None)
+            out = {"pages": box[0], "blocks": len(descs)}
+        else:
+            core = self.core(cfg, eng)
+            follower_mode(core)
+            while True:
+                box = [None]
+                dist.broadcast_object_list(box, src=0)
+                if box[0] is None:
+                    break
+                ops.extend(o["op"] for o in box[0]["ops"])
+                apply_record(core, box[0])
+                core.step()
+        a = core.allocator
+        return {**out, "ops": ops, "held": sorted(core._held), "free": list(a._free),
+                "inactive": list(a._inactive), "snapshot": a.snapshot()}
 
 
 def _serve(rank: int, world: int, coordinator: str, port: int, axes: dict) -> None:
