@@ -23,7 +23,11 @@ planted fault (K2: the self position dropped, a tile dropped, the combine
 dropping the last split, two splits overlapping by a page, int8 V with
 K's scale); K1 also at Qwen2-7B's head layout (28 query heads over 4 KV
 heads, a group of 7: the decode form and a 2048-token tiled wave, with
-the planted faults), (4) runs K2's own path, that
+the planted faults) and K1's head_dim-64 instances (Llama-3.2-1B's 32/8
+heads of 64: the serving decode form, the 8192 wave and a 2048 mixed
+step with bf16 pages, the decode form with int8 pages; Qwen2.5-0.5B's
+14/2: the decode form and a 2048 wave; each with the planted faults),
+(4) runs K2's own path, that
 int8-page against bf16-page decode-attention comparison, through
 ``paged_attention``, (5) serves 8 requests through
 ``build_engine("llama3-8b")`` and ``TorchEngine.generate`` at full width
@@ -88,7 +92,13 @@ its 28 layers (:func:`serve_qwen2`: greedy streams, the weights written
 as a ``qwen2`` checkpoint and loaded back, every leaf equal, the same
 streams from the loaded engine) and a GGUF file written and read back
 (:func:`gguf_round_trip`: F32, F16 and BF16 tensors, the config, the
-tokenizer), then the tp, pipeline and sp phases (:func:`serve_tp`,
+tokenizer), then Llama-3.2-1B's published shape at full width and depth
+from a checkpoint of seeded weights (:func:`serve_llama32_1b`: 16 K1
+launches per forward, all head_dim-64 instances, inside graph replays,
+logits and greedy streams against the same engine with the plain
+attention) and the port's SLA profiler (:func:`sla_profile`: ``python -m
+dynamo_tpu_torch.tools.profile_sla --preset llama3-1b``, its profile
+loaded by the port's planner), then the tp, pipeline and sp phases (:func:`serve_tp`,
 :func:`serve_pipeline`, :func:`serve_sp`: the main path's first 8 layers
 from a checkpoint by ``--tp 2``, ``--pp 2``, ``--dp 2`` and ``--sp 2``
 workers, both ranks on the one card, streams and one prompt's logits
@@ -166,6 +176,7 @@ Without a card it exits non-zero at once and prints no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -259,15 +270,15 @@ def compare(got, want, n_real: int) -> tuple[float, float, bool]:
     return rel, err, rel <= ROW_REL_TOL and not got[n_real:].any().item()
 
 
-def attention_batch(q_lens, kv_lens, S, pages_per_seq, T, gen, n_q=N_Q, n_kv=N_KV):
-    """Ragged operands on the card: sequence s owns q rows cu[s]..cu[s+1]-1
+def attention_batch(q_lens, kv_lens, S, pages_per_seq, T, gen, n_q=N_Q, n_kv=N_KV, d=HEAD_DIM):
+    """Ragged operands on the card at head_dim ``d``: sequence s owns q rows cu[s]..cu[s+1]-1
     and its own pages; rows past cu[num_seqs] and table entries past a
     sequence's pages point at the garbage page. Returns the positional
     operands and the keyword ones (none for bf16 pages)."""
     dev = "cuda"
     n_pages = sum(-(-L // PAGE) for L in kv_lens) + 1
-    q = torch.randn(T, n_q, HEAD_DIM, device=dev, generator=gen).bfloat16()
-    kv = torch.randn(n_pages, PAGE, 2 * n_kv, HEAD_DIM, device=dev, generator=gen).bfloat16()
+    q = torch.randn(T, n_q, d, device=dev, generator=gen).bfloat16()
+    kv = torch.randn(n_pages, PAGE, 2 * n_kv, d, device=dev, generator=gen).bfloat16()
     perm = torch.randperm(n_pages - 1, device=dev, generator=gen).to(torch.int32)
     tables = torch.full((S, pages_per_seq), n_pages - 1, dtype=torch.int32, device=dev)
     off = 0
@@ -293,7 +304,7 @@ def quantized(args, kw):
     return (args[0], kv8, *args[2:]), {**kw, "kv_scales": scales}
 
 
-def attention_bound(q_lens, kv_lens, T, int8=False, n_q=N_Q, n_kv=N_KV):
+def attention_bound(q_lens, kv_lens, T, int8=False, n_q=N_Q, n_kv=N_KV, d=HEAD_DIM):
     """Least time for this call's work: each input byte the data needs
     read once (q rows, the visible K/V rows and, for int8 pages, their
     scales, the table entries in use), the output written once; operations
@@ -301,17 +312,17 @@ def attention_bound(q_lens, kv_lens, T, int8=False, n_q=N_Q, n_kv=N_KV):
     as 2)."""
     kv_rows = sum(kv_lens)
     pages = sum(-(-L // PAGE) for L in kv_lens)
-    row_bytes = HEAD_DIM + SCALE_BYTES if int8 else HEAD_DIM * 2
+    row_bytes = d + SCALE_BYTES if int8 else d * 2
     nbytes = (
-        sum(q_lens) * n_q * HEAD_DIM * 2        # q (bf16)
+        sum(q_lens) * n_q * d * 2               # q (bf16)
         + kv_rows * 2 * n_kv * row_bytes        # K and V rows (+ scales)
-        + T * n_q * HEAD_DIM * 2                # out (bf16)
+        + T * n_q * d * 2                       # out (bf16)
         + 4 * (pages + 2 * len(kv_lens) + 2)    # tables, kv_lens, cu, num_seqs
     )
     visible = sum(
         min(L - q + i + 1, L) for q, L in zip(q_lens, kv_lens) for i in range(q)
     )
-    ops = 4 * visible * n_q * HEAD_DIM
+    ops = 4 * visible * n_q * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -331,14 +342,14 @@ def sdpa_yardstick(args, kw, q_lens, kv_lens):
 
     F = torch.nn.functional
     q, kv, _, tables, cu, _ = args
-    n_q, n_kv = q.shape[1], kv.shape[2] // 2
+    n_q, n_kv, d = q.shape[1], kv.shape[2] // 2, q.shape[2]
     group = n_q // n_kv
     cu_h = cu.tolist()
 
     def contiguous(s, L):
         pos = torch.arange(L, device=q.device)
         slots = tables[s].long()[pos // PAGE] * PAGE + pos % PAGE
-        rows = kv.reshape(-1, 2 * n_kv, HEAD_DIM)[slots]
+        rows = kv.reshape(-1, 2 * n_kv, d)[slots]
         if "kv_scales" in kw:
             rows = dequantize_kv(rows, kw["kv_scales"].reshape(-1, 2 * n_kv)[slots]).bfloat16()
         k, v = (rows[:, i::2].repeat_interleave(group, dim=1).transpose(0, 1) for i in (0, 1))
@@ -346,7 +357,7 @@ def sdpa_yardstick(args, kw, q_lens, kv_lens):
 
     if all(n == 1 for n in q_lens):
         B, L = len(q_lens), max(kv_lens)
-        k = torch.zeros(B, n_q, L, HEAD_DIM, dtype=torch.bfloat16, device=q.device)
+        k = torch.zeros(B, n_q, L, d, dtype=torch.bfloat16, device=q.device)
         v = torch.zeros_like(k)
         for s, n in enumerate(kv_lens):
             k[s, :, :n], v[s, :, :n] = contiguous(s, n)
@@ -374,9 +385,9 @@ def hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms, 
     """Both K1 kernels, forced, on one batch against the plain output
     ``want``, each timed with the L2 flushed; the yardstick beside them.
     Raises if either disagrees."""
-    scale = HEAD_DIM ** -0.5
-    n_q, n_kv = args[0].shape[1], args[1].shape[2] // 2
-    bound_ms, bound_by = attention_bound(q_lens, kv_lens, T, int8, n_q, n_kv)
+    n_q, n_kv, d = args[0].shape[1], args[1].shape[2] // 2, args[0].shape[2]
+    scale = d ** -0.5
+    bound_ms, bound_by = attention_bound(q_lens, kv_lens, T, int8, n_q, n_kv, d)
     sdpa_ms = cold_ms(sdpa_yardstick(args, kw, q_lens, kv_lens), reps)
     torch.cuda.empty_cache()
     out = []
@@ -388,7 +399,7 @@ def hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms, 
         del got
         ms = cold_ms(run, reps)
         out.append(dict(
-            shape=name, kernel=kernel, n_q=n_q, n_kv=n_kv, T=T, S=args[3].shape[0],
+            shape=name, kernel=kernel, n_q=n_q, n_kv=n_kv, head_dim=d, T=T, S=args[3].shape[0],
             num_seqs=len(q_lens),
             max_kv_len=max(kv_lens), ok=ok, max_row_rel_err=rel, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -519,30 +530,42 @@ PLANTED_FAULTS_K2_INT8 = {
 }
 
 
+# K1's entry points of each page type: a planted copy of the K1 source
+# instantiates only the page type its fault runs on (half the compile).
+K1_ENTRY_LINES = {False: ("K1_BF16_ENTRY_POINTS(, 128)", "K1_BF16_ENTRY_POINTS(_hd64, 64)"),
+                  True: ("K1_INT8_ENTRY_POINTS(, 128)", "K1_INT8_ENTRY_POINTS(_hd64, 64)")}
+
+
 def build_planted(tmp: str) -> dict:
     """Start one nvcc per planted fault (each a copy of its kernel's source
-    with one edit) and return ``{fault: future of the loaded library}``."""
+    with one edit; a K1 copy without the other page type's entry points)
+    and return ``{fault: future of the loaded library}``."""
     from dynamo_tpu_torch.ops import _build
 
-    def build(source, name, old, new):
+    def build(source, name, old, new, drop):
         text = (_build.CSRC_DIR / source).read_text()
-        if text.count(old) != 1:
-            raise AssertionError(f"planted fault {name}: its anchor is not in {source} once")
+        for anchor in (old, *drop):
+            if text.count(anchor) != 1:
+                raise AssertionError(f"planted fault {name}: {anchor!r} is not in {source} once")
+        for line in drop:
+            text = text.replace(line, "")
         src = Path(tmp, f"{name}.cu")
         src.write_text(text.replace(old, new))
         _build.build(src, src.with_suffix(".so"))
         return ctypes.CDLL(str(src.with_suffix(".so")))
 
-    jobs = [("ragged_paged_attention.cu", f) for table in (PLANTED_FAULTS, PLANTED_FAULTS_INT8)
+    jobs = [("ragged_paged_attention.cu", f, K1_ENTRY_LINES[not int8])
+            for int8, table in ((False, PLANTED_FAULTS), (True, PLANTED_FAULTS_INT8))
             for f in table.values()]
-    jobs += [("paged_attention.cu", PLANTED_FAULTS_K2), ("paged_attention.cu", PLANTED_FAULTS_K2_INT8)]
-    names = [name for _, faults in jobs for name in faults]
+    jobs += [("paged_attention.cu", PLANTED_FAULTS_K2, ()),
+             ("paged_attention.cu", PLANTED_FAULTS_K2_INT8, ())]
+    names = [name for _, faults, _ in jobs for name in faults]
     if len(set(names)) != len(names):
         raise AssertionError(f"planted-fault names repeat: {sorted(names)}")
     pool = ThreadPoolExecutor(len(names))
     futures = {
-        name: pool.submit(build, source, name, old, new)
-        for source, faults in jobs for name, (old, new) in faults.items()
+        name: pool.submit(build, source, name, old, new, drop)
+        for source, faults, drop in jobs for name, (old, new) in faults.items()
     }
     pool.shutdown(wait=False)
     return futures
@@ -555,14 +578,13 @@ def check_planted_faults(ra, batches, libs, faults, int8=False) -> dict:
     found = {}
     for kernel, table in faults.items():
         for name in table:
-            entries = ra.bind(libs[name].result(), int8)
-            rels = {
-                shape: compare(
-                    ra.launch(entries, *args, sm_scale=HEAD_DIM ** -0.5, kernel=kernel, **kw),
-                    want, n_real,
-                )[0]
-                for shape, args, kw, want, n_real in batches
-            }
+            def run(args, kw):
+                d = args[0].shape[2]
+                entries = ra.bind(libs[name].result(), int8, d)
+                return ra.launch(entries, *args, sm_scale=d ** -0.5, kernel=kernel, **kw)
+
+            rels = {shape: compare(run(args, kw), want, n_real)[0]
+                    for shape, args, kw, want, n_real in batches}
             found[name] = max(rels.values())
             caught = not found[name] <= ROW_REL_TOL  # a NaN fails the limit too
             print(f"planted fault {name} ({kernel} kernel): max_row_rel_err by batch "
@@ -573,13 +595,15 @@ def check_planted_faults(ra, batches, libs, faults, int8=False) -> dict:
     return found
 
 
-def plain_by_row_chunks(ra, args, kw, q_lens, rows=64):
-    """The plain version over a batch too large for it in one call: each
-    run of ``rows`` query rows of a sequence goes through it alone, as the
-    last rows of that sequence cut at the chunk's end (same absolute
-    positions, same visible keys), so each call materialises at most
-    ``rows`` x 2048 positions."""
+def plain_by_row_chunks(ra, args, kw, q_lens, rows=64, ref=None):
+    """The plain version (``ref``, by default ``ragged_paged_attention_ref``)
+    over a batch too large for it in one call: each run of ``rows`` query
+    rows of a sequence goes through it alone, as the last rows of that
+    sequence cut at the chunk's end (same absolute positions, same visible
+    keys), so each call materialises at most ``rows`` x 2048 positions."""
+    ref = ref or ra.ragged_paged_attention_ref
     q, kv, lens, tables, cu, _ = args
+    page = kv.shape[1]
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=q.device)  # noqa: E731
     lens_h, cu_h = lens.tolist(), cu.tolist()
     out = torch.zeros_like(q)
@@ -588,9 +612,9 @@ def plain_by_row_chunks(ra, args, kw, q_lens, rows=64):
             b = min(a + rows, ql)
             kv_len = lens_h[s] - ql + b
             r0, r1 = cu_h[s] + a, cu_h[s] + b
-            out[r0:r1] = ra.ragged_paged_attention_ref(
-                q[r0:r1], kv, i32([kv_len]), tables[s : s + 1, : -(-kv_len // PAGE)],
-                i32([0, b - a]), i32([1]), sm_scale=HEAD_DIM ** -0.5, **kw,
+            out[r0:r1] = ref(
+                q[r0:r1], kv, i32([kv_len]), tables[s : s + 1, : -(-kv_len // page)],
+                i32([0, b - a]), i32([1]), sm_scale=q.shape[2] ** -0.5, **kw,
             )
     return out
 
@@ -623,30 +647,35 @@ QWEN_DECODE_LENS = [2048, 1700, 1200, 900, 513, 300, 64, 33]
 QWEN_PREFILL_LENS = [1024, 600, 300, 124]  # one 2048-token wave
 
 
-def check_attention_geometry(ra, planted, cases, n_q, n_kv, tag, seed) -> tuple[list[dict], dict]:
-    """Both K1 kernels, bf16 pages, at a head layout (``n_q`` query heads
-    over ``n_kv`` KV heads) on each case ``(name, q_lens, kv_lens, T, reps[,
-    S])`` of S slots (8 by default) of 256 pages (a decode form of T <= 8
-    against the plain version in one call, larger T in row chunks), then
-    every planted fault of the bf16 kernels on all the batches, which the
-    comparison must catch."""
+def check_attention_geometry(ra, planted, cases, n_q, n_kv, tag, seed, d=HEAD_DIM,
+                             int8=False) -> tuple[list[dict], dict]:
+    """Both K1 kernels, bf16 pages (or with ``int8`` the same pages
+    quantized), at a head layout (``n_q`` query heads over ``n_kv`` KV
+    heads of ``d``) on each case ``(name, q_lens, kv_lens, T, reps[, S])``
+    of S slots (8 by default) of 256 pages (a decode form of T <= 8 against
+    the plain version in one call, larger T in row chunks), then every
+    planted fault of those kernels' instances on all the batches, which
+    the comparison must catch."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    scale = HEAD_DIM ** -0.5
+    scale = d ** -0.5
     results, batches = [], []
     for name, q_lens, kv_lens, T, reps, *slots in cases:
         args, kw = attention_batch(q_lens, kv_lens, *(slots or [8]), 256, T, gen, n_q=n_q,
-                                   n_kv=n_kv)
+                                   n_kv=n_kv, d=d)
+        if int8:
+            args, kw = quantized(args, kw)
         if T <= 8:
             plain = lambda: ra.ragged_paged_attention_ref(*args, sm_scale=scale, **kw)  # noqa: E731
         else:
             plain = lambda: plain_by_row_chunks(ra, args, kw, q_lens)  # noqa: E731
         want = plain()
         plain_ms = cold_ms(plain, 3 if T <= 8 else 1)
-        results += hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, False, reps, plain_ms,
+        results += hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms,
                            tag)
         batches.append((name, args, kw, want, sum(q_lens)))
         torch.cuda.empty_cache()
-    faults = check_planted_faults(ra, batches, planted, PLANTED_FAULTS)
+    faults = check_planted_faults(ra, batches, planted,
+                                  PLANTED_FAULTS_INT8 if int8 else PLANTED_FAULTS, int8)
     del batches
     torch.cuda.empty_cache()
     return results, faults
@@ -712,6 +741,41 @@ def check_pipeline_attention(ra, planted, decode_lens, prompt_lens) -> tuple[lis
         ("pp2_dp2_decode4", [1] * 4, decode_lens[:4], 4, 20, 4),
         ("pp2_microbatch4096", q_lens, kv_lens, 4096, 5),
     ), N_Q, N_KV, "attention pp2/dp2", seed=4)
+
+
+# K1's head_dim-64 instances. Llama-3.2-1B's published attention: 32 query
+# heads over 8 KV heads of 64 (llama3-8b's group of 4 at half the head dim);
+# Qwen2.5-0.5B's: 14 over 2 (a group of 7, padded to 8 by the decode
+# template). The serving engine's shapes, as for llama3-8b: S = 8 slots of
+# 256 pages, the serving decode form, the 8192 wave, a 2048 mixed step.
+HD64 = 64
+QWEN25_N_Q, QWEN25_N_KV = 14, 2
+
+
+def check_head_dim64_attention(ra, planted, decode_lens, prompt_lens) -> tuple[dict, dict]:
+    """Both K1 kernels' head_dim-64 instances against the plain version:
+    at Llama-3.2-1B's 32/8 heads the serving decode form (T = S = 8), the
+    serving prefill wave (T 8192) and a T 2048 mixed step (a 512-token
+    chunk next to 7 decode rows), with bf16 pages and with int8 pages; at
+    Qwen2.5-0.5B's 14/2 heads the decode form and a T 2048 wave. Each
+    page type's planted faults run on its batches; returns the records by
+    page type and every fault's largest row error by geometry."""
+    ctx = [n + 48 for n in CHUNKED_STREAM_LENS]
+    cases = (
+        ("hd64_decode_serving8", [1] * 8, decode_lens, 8, 20),
+        ("hd64_prefill_wave8192", prompt_lens, prompt_lens, 8192, 5),
+        ("hd64_mixed2048_chunk512", [1] * 7 + [512], ctx + [512], 2048, 10),
+    )
+    shapes, faults = check_attention_geometry(ra, planted, cases, N_Q, N_KV, "attention hd64",
+                                              seed=5, d=HD64)
+    shapes8, faults8 = check_attention_geometry(ra, planted, cases, N_Q, N_KV,
+                                                "attention hd64 int8", seed=6, d=HD64, int8=True)
+    qwen, qwen_faults = check_attention_geometry(ra, planted, (
+        ("qwen25_decode8", [1] * 8, QWEN_DECODE_LENS, 8, 20),
+        ("qwen25_prefill2048", QWEN_PREFILL_LENS, QWEN_PREFILL_LENS, 2048, 10),
+    ), QWEN25_N_Q, QWEN25_N_KV, "attention qwen2.5 hd64", seed=7, d=HD64)
+    return {"bf16": shapes + qwen, "int8": shapes8}, {
+        "bf16": faults, "int8": faults8, "qwen25": qwen_faults}
 
 
 # -- K2: paged decode attention ----------------------------------------------
@@ -1239,8 +1303,8 @@ def serve(ra, card: str, int8=False) -> tuple[dict, dict, tuple | None]:
     results = asyncio.run(serve_concurrent(engine, Context, reqs, late))
     serve_s = time.time() - t_serve
     launches, other = (ra.launches_int8, ra.launches) if int8 else (ra.launches, ra.launches_int8)
-    by_entry = {ra.ENTRY_NAMES[k, int8]: ra.kernel_launches[ra.ENTRY_NAMES[k, int8]]
-                for k in K1_KERNELS}
+    by_entry = {name: ra.kernel_launches[name]
+                for name in (ra.INSTANCE_NAMES[k, int8, 128] for k in K1_KERNELS)}
     captures = core.scheduler_stats()["graph_captures"]
     st = {k: v - before[k] for k, v in core.scheduler_stats().items()}
     forwards = st["forwards"]
@@ -1462,11 +1526,7 @@ def near_tie_streams(name: str, want: dict, got: dict, exact: bool = False) -> d
                 raise AssertionError(f"{name}: {rid} is not equal (tokens part at {j}, or a "
                                      f"log-probability differs)")
         return {"streams": len(want), "equal": len(want), "parted": [], "limit": 0.0}
-    limit = 0.0
-    for rid, w in want.items():
-        j = first_divergence(w["tokens"], got[rid]["tokens"])
-        for x, y in list(zip(w["logprobs"], got[rid]["logprobs"]))[:j]:
-            limit = max(limit, abs(x["logprob"] - y["logprob"]))
+    limit = logprob_limit(want, got)
     if limit > NEAR_TIE_CEILING:
         raise AssertionError(f"{name}: log-probabilities differ by {limit:.4e} before any stream "
                              f"parts, above the ceiling {NEAR_TIE_CEILING}")
@@ -1485,6 +1545,17 @@ def near_tie_streams(name: str, want: dict, got: dict, exact: bool = False) -> d
                                  f"{gap:.4e} exceeds {limit:.4e}")
     return {"streams": len(want), "equal": len(want) - len(parted), "parted": parted,
             "limit": limit}
+
+
+def logprob_limit(want: dict, got: dict) -> float:
+    """The largest difference between two runs' log-probabilities of the
+    same token at the same position before their streams part."""
+    limit = 0.0
+    for rid, w in want.items():
+        j = first_divergence(w["tokens"], got[rid]["tokens"])
+        for x, y in list(zip(w["logprobs"], got[rid]["logprobs"]))[:j]:
+            limit = max(limit, abs(x["logprob"] - y["logprob"]))
+    return limit
 
 
 def launches_of(ra) -> dict:
@@ -2254,7 +2325,7 @@ def check_t_equal_s_forward(ra, core) -> dict:
             layer0.update(args=(q.clone(), kv.clone(), lens, tables, cu, ns), want=want)
         return got
 
-    tiled = ra.ENTRY_NAMES["tiled", False]
+    tiled = ra.INSTANCE_NAMES["tiled", False, 128]
     before = ra.kernel_launches[tiled]
     logits = model.forward_tokens(core.params, cache, *ops, core.cfg, attention=attention)
     launched = ra.kernel_launches[tiled] - before
@@ -2450,8 +2521,8 @@ def chunked_traffic(ra, core, name: str, streams, long_prompt) -> dict:
     got = asyncio.run(streams_then_long(
         TorchEngine(core), Context, streams, long_prompt,
         lambda: {k: core.exec_stats[k] for k in mixed_keys}))
-    by_entry = {ra.ENTRY_NAMES[k, False]: ra.kernel_launches[ra.ENTRY_NAMES[k, False]]
-                for k in K1_KERNELS}
+    by_entry = {name: ra.kernel_launches[name]
+                for name in (ra.INSTANCE_NAMES[k, False, 128] for k in K1_KERNELS)}
     launches = ra.launches
     st = core.scheduler_stats()
     d = {k: st[k] - before[k] for k in ("forwards", "dispatches", "graph_replays", "graph_captures",
@@ -2738,8 +2809,8 @@ def spec_traffic(ra, core, name: str, prompts, spec, logprobs=None) -> dict:
     t0 = time.perf_counter()
     got = asyncio.run(spec_batch(TorchEngine(core), Context, prompts, name, spec, logprobs))
     wall = time.perf_counter() - t0
-    by_entry = {ra.ENTRY_NAMES[k, False]: ra.kernel_launches[ra.ENTRY_NAMES[k, False]]
-                for k in K1_KERNELS}
+    by_entry = {name: ra.kernel_launches[name]
+                for name in (ra.INSTANCE_NAMES[k, False, 128] for k in K1_KERNELS)}
     st, sst = core.scheduler_stats(), core.spec_decode_stats()
     totals1 = tracing.get_collector().phase_totals().get("engine/spec_draft", (0.0, 0.0))
     d = {k: st[k] - before[k] for k in keys}
@@ -3224,6 +3295,300 @@ def serve_qwen2(ra, card: str, device: str = "cuda", layers: int = QWEN_LAYERS) 
     return {"layers": layers, "launches": launches, "forwards": stats["forwards"],
             "checkpoint": {k: v for k, v in ck.items() if k != "dir"},
             "phase_s": time.time() - t0}
+
+
+# Llama-3.2-1B's published shape (its config.json: 16 layers, hidden 2048,
+# FFN 8192, 32 query heads over 8 KV heads of head_dim 64, vocab 128256,
+# rope theta 500000, tied embeddings; its llama3 rope_scaling is read by
+# neither package, so both compute plain RoPE), seeded bf16 weights: the
+# checkpoint a user serves with --model-path, through K1's head_dim-64
+# instances. Its references: the same engine with the plain attention on
+# the card (in row chunks, :func:`plain_attention`), every dispatch eager,
+# once with the tiled kernel's arithmetic on its calls (P rounded to bf16)
+# and once in f32 throughout.
+LLAMA32_1B_PROMPT_LENS = (100, 148, 200, 300, 420, 560, 700, 900)
+LLAMA32_1B_TOKENS = 64
+
+
+def llama32_1b_config():
+    from dynamo_tpu_torch.engine.config import ModelConfig
+
+    return ModelConfig(name="llama", vocab_size=128256, hidden_size=2048,
+                       intermediate_size=8192, num_layers=16, num_heads=32, num_kv_heads=8,
+                       head_dim=64, rope_theta=500000.0, rms_norm_eps=1e-5, tie_embeddings=True)
+
+
+def llama32_1b_wires(vocab: int) -> list[dict]:
+    rng = np.random.default_rng(32)
+    return [{"model": "llama3.2-1b", "token_ids": [int(t) for t in rng.integers(1, vocab, n)],
+             "request_id": f"l{i}", "sampling": {"temperature": 0.0},
+             "stop": {"max_tokens": LLAMA32_1B_TOKENS, "ignore_eos": True},
+             "output": {"logprobs": 2}}
+            for i, n in enumerate(LLAMA32_1B_PROMPT_LENS)]
+
+
+def generate_wires(core, wires: list[dict]) -> dict:
+    """The requests sent at once through ``TorchEngine.generate`` (a facade
+    of ``core`` for this event loop: asyncio objects bind to one): each
+    one's tokens and logprob entries (each with its top 2)."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(engine, w):
+        toks, lps = [], []
+        async for out in engine.generate(dict(w), Context(w["request_id"])):
+            toks += out["token_ids"]
+            lps += out.get("logprobs") or []
+        return w["request_id"], {"tokens": toks, "logprobs": lps}
+
+    async def every():
+        engine = TorchEngine(core)
+        return dict(await asyncio.gather(*(one(engine, w) for w in wires)))
+
+    out = asyncio.run(every())
+    if any(len(g["tokens"]) != LLAMA32_1B_TOKENS for g in out.values()):
+        raise AssertionError(f"stream lengths {[len(g['tokens']) for g in out.values()]}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_attention(ra, tiled_arithmetic=False):
+    """Within it, a CUDA call of K1's wrapper runs the plain version on the
+    card instead, in one call where it gathers at most 64 x 8192 positions
+    (a decode iteration), else each sequence's rows 64 at a time
+    (:func:`plain_by_row_chunks`: the engine's 8192-row waves in one call
+    would gather 8192 x 8192), and launches no kernel. With
+    ``tiled_arithmetic`` the calls of the tiled kernel's form take the
+    plain version of its arithmetic (``ragged_paged_attention_tiled_ref``:
+    P rounded to bf16 for PV), the decode form's the f32 one."""
+    def plain(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *, sm_scale,
+              kv_scales=None, kernel=None):
+        form = kernel or ra.kernel_for(q.shape[0], page_indices.shape[0])
+        ref = (ra.ragged_paged_attention_tiled_ref if tiled_arithmetic and form == "tiled"
+               else ra.ragged_paged_attention_ref)
+        if q.shape[0] * page_indices.shape[1] * kv_pages.shape[1] <= 64 * 8192:  # decode rows
+            return ref(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+                       sm_scale=sm_scale, kv_scales=kv_scales)
+        if sm_scale != q.shape[2] ** -0.5:
+            raise AssertionError(f"sm_scale {sm_scale} is not head_dim ** -0.5")
+        cu = cu_q_lens.tolist()
+        q_lens = [cu[s + 1] - cu[s] for s in range(int(num_seqs.item()))]
+        kw = {} if kv_scales is None else {"kv_scales": kv_scales}
+        return plain_by_row_chunks(ra, (q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs),
+                                   kw, q_lens, ref=ref)
+
+    cuda, ra.ragged_paged_attention_cuda = ra.ragged_paged_attention_cuda, plain
+    try:
+        yield
+    finally:
+        ra.ragged_paged_attention_cuda = cuda
+
+
+def hd64_launches(ra, int8: bool) -> dict:
+    """K1's head_dim-64 launches of one page type since the last reset,
+    and every other instance's."""
+    mine = {ra.INSTANCE_NAMES[k, int8, HD64] for k in K1_KERNELS}
+    got = launches_of(ra)
+    return ({k: got.get(k, 0) for k in sorted(mine)},
+            {k: n for k, n in got.items() if k not in mine})
+
+
+def serve_llama32_1b(ra, card: str, device: str = "cuda") -> dict:
+    """Llama-3.2-1B's published shape at full width and depth, seeded bf16
+    weights written as a checkpoint (deleted whatever happens), loaded
+    through ``build_engine(None, model_path=...)`` at the engine defaults
+    (waves, megastep k = 8, CUDA graphs captured at first use): 8 requests
+    through ``TorchEngine.generate`` once to capture, then again from a
+    cleared prefix cache with the launch counts at 0 (16 K1 launches per
+    forward, all head_dim-64 instances, every dispatch a graph replay),
+    the last-token logits against the plain attention (``check_logits``),
+    the same requests with int8 KV pages on the same weights (the int8
+    head_dim-64 instances, their logits held the same way), and the
+    greedy streams under the near-tie rule against the same engine with
+    the plain attention, every dispatch eager, the tiled kernel's calls
+    in its arithmetic (P rounded to bf16 for PV). The same engine in f32
+    throughout is the witness: where the kernel's streams part from it,
+    whether the plain version with bf16 P parts there the same way."""
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import EngineCore
+    from dynamo_tpu_torch.engine.model import init_params
+
+    t0 = time.time()
+    cfg = llama32_1b_config()
+    path = Path(tempfile.mkdtemp(prefix="chip_smoke_llama32_1b_"))
+    try:
+        params = init_params(cfg, 0, device)
+        ck = write_hf_checkpoint(params, cfg, "llama", path)
+        del params
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        core, _ = build_engine(None, model_path=str(path), seed=0, device=device)
+        sync(device)
+        build_s = time.time() - t1
+        if core.cfg != cfg:
+            raise AssertionError(f"config.json read back as {core.cfg}, written {cfg}")
+        wires = llama32_1b_wires(cfg.vocab_size)
+        t1 = time.time()
+        generate_wires(core, wires)  # its graphs captured at first use
+        capture_pass_s = time.time() - t1
+        core.clear_kv_cache()
+        before = dict(core.scheduler_stats())
+        ra.reset_launches()
+        t1 = time.time()
+        got = generate_wires(core, wires)
+        serve_s = time.time() - t1
+        mine, others = hd64_launches(ra, int8=False)
+        st = {k: v - before[k] for k, v in core.scheduler_stats().items()}
+        per_forward = sum(mine.values()) / st["forwards"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+        if device == "cuda" and (
+                sum(mine.values()) != cfg.num_layers * st["forwards"] or others
+                or min(mine.values()) == 0):
+            raise AssertionError(f"K1 launches {mine} (other instances {others}) over "
+                                 f"{st['forwards']} forwards of {cfg.num_layers} layers")
+        if device == "cuda" and (st["graph_replays"] != st["dispatches"] or st["graph_captures"]):
+            raise AssertionError(f"{st['graph_replays']} graph replays for {st['dispatches']} "
+                                 f"dispatches, {st['graph_captures']} captures on the second pass")
+        decode_ms = 1e3 * st["decode_loop_s"] / st["decode_iterations"]
+        print(f"llama3.2-1b shape ({cfg.num_layers} layers, {cfg.num_heads}/{cfg.num_kv_heads} "
+              f"heads x {cfg.head_dim}) from a checkpoint on {card}: built in {build_s:.1f} s, "
+              f"capture pass {capture_pass_s:.1f} s ({before['graph_captures']} graphs), "
+              f"{len(got)} requests in {serve_s:.2f} s; K1 launches {mine} = "
+              f"{per_forward:.2f} per forward over {st['forwards']} forwards; graph replays "
+              f"{st['graph_replays']} of {st['dispatches']} dispatches; decode "
+              f"{decode_ms:.3f} ms per iteration ({st['decode_iterations']} iterations); peak "
+              f"memory {peak_gb} GB", flush=True)
+        logits = check_logits(core, wires[3]["token_ids"][:64])
+
+        core8 = EngineCore(cfg, EngineConfig(kv_dtype="int8"), params=core.params, device=device)
+        ra.reset_launches()
+        st8_before = dict(core8.scheduler_stats())
+        run_wires(core8, wires)
+        mine8, others8 = hd64_launches(ra, int8=True)
+        forwards8 = core8.scheduler_stats()["forwards"] - st8_before["forwards"]
+        if device == "cuda" and (sum(mine8.values()) != cfg.num_layers * forwards8 or others8
+                                 or min(mine8.values()) == 0):
+            raise AssertionError(f"int8 KV: K1 launches {mine8} (others {others8}) over "
+                                 f"{forwards8} forwards")
+        print(f"llama3.2-1b shape, int8 KV pages on the same weights: K1 launches {mine8} over "
+              f"{forwards8} forwards", flush=True)
+        logits8 = check_logits(core8, wires[3]["token_ids"][:64])
+        del core8
+        gc.collect()
+
+        ref = eager_dispatches(EngineCore(cfg, EngineConfig(), params=core.params, device=device))
+        t1 = time.time()
+        with plain_attention(ra, tiled_arithmetic=True):
+            want = generate_wires(ref, wires)
+        ref_s = time.time() - t1
+        streams = near_tie_streams("llama3.2-1b: K1 head_dim 64 against the plain attention "
+                                   "in the tiled kernel's arithmetic", want, got)
+        print(f"llama3.2-1b shape: greedy streams against the plain attention in the tiled "
+              f"kernel's arithmetic (eager, {ref_s:.1f} s): {streams['equal']} of "
+              f"{streams['streams']} equal, parted "
+              f"{[(x['rid'], x['position'], round(x['gap'], 6)) for x in streams['parted']]}, "
+              f"log-probabilities differ by up to {streams['limit']:.4e} before", flush=True)
+        ref.clear_kv_cache()
+        with plain_attention(ra):
+            want32 = generate_wires(ref, wires)
+        witness = p_rounding_witness(want32, got, want)
+        print(f"llama3.2-1b shape: against the plain attention in f32 throughout, the kernel's "
+              f"streams part {[(w['rid'], w['kernel']) for w in witness['parted']]} and the "
+              f"plain version with bf16 P "
+              f"{[(w['rid'], w['plain_bf16_p']) for w in witness['parted']]} (position, f32's "
+              f"token, the other's, f32's top-2 gap); {witness['same']} of {len(witness['parted'])} part at the "
+              f"same position on the same token; log-probabilities before parting differ by "
+              f"up to {witness['limits']['kernel']:.4e} (the kernel) and "
+              f"{witness['limits']['plain_bf16_p']:.4e} (bf16 P alone), partings at a top-2 gap "
+              f"above that limit {witness['above_limit']}; phase {time.time() - t0:.1f} s",
+              flush=True)
+        del ref, core
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return {"launches": mine, "forwards": st["forwards"], "launches_per_forward": per_forward,
+            "int8_launches": mine8, "int8_forwards": forwards8,
+            "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
+            "decode_ms_per_iteration": decode_ms, "peak_memory_gb": peak_gb,
+            "logits_cosine": logits["cosine"], "int8_logits_cosine": logits8["cosine"],
+            "streams": streams, "f32_witness": witness, "build_s": build_s,
+            "checkpoint": ck, "phase_s": time.time() - t0}
+
+
+def p_rounding_witness(want32: dict, got: dict, bf16_p: dict) -> dict:
+    """Where the kernel's greedy streams (``got``) part from the plain
+    attention in f32 (``want32``), and where the plain attention with the
+    tiled kernel's bf16 P (``bf16_p``) parts from it: each stream that
+    either parts, as (position, f32's token, the other's token, f32's
+    top-2 gap there) or None, how many part at the same position on the
+    same token, how many of each part at a gap above its limit (the gap
+    rule's failures), and each one's
+    log-probability limit against f32 (:func:`logprob_limit`): the plain
+    version's, with P's rounding the only change, is what that rounding
+    alone moves. The kernel's must stay under ``NEAR_TIE_CEILING``."""
+    limits = {"kernel": logprob_limit(want32, got), "plain_bf16_p": logprob_limit(want32, bf16_p)}
+    if limits["kernel"] > NEAR_TIE_CEILING:
+        raise AssertionError(f"K1 against the plain attention in f32: log-probabilities differ "
+                             f"by {limits['kernel']:.4e} before any stream parts, above the "
+                             f"ceiling {NEAR_TIE_CEILING}")
+    parted = []
+    for rid, w in want32.items():
+        pair = {}
+        for key, other in (("kernel", got[rid]["tokens"]), ("plain_bf16_p", bf16_p[rid]["tokens"])):
+            j = first_divergence(w["tokens"], other)
+            top = w["logprobs"][j]["top"] if j is not None else None
+            pair[key] = None if j is None else (j, w["tokens"][j], other[j],
+                                                top[0][1] - top[1][1])
+        if pair["kernel"] or pair["plain_bf16_p"]:
+            parted.append({"rid": rid, **pair})
+    return {"parted": parted, "limits": limits,
+            "same": sum(x["kernel"] is not None and x["kernel"] == x["plain_bf16_p"]
+                        for x in parted),
+            "above_limit": {k: sum(x[k] is not None and x[k][3] > limits[k] for x in parted)
+                            for k in limits}}
+
+
+def sla_profile(card: str, device: str = "cuda") -> dict:
+    """The port's SLA profiler as a user runs it (``python -m
+    dynamo_tpu_torch.tools.profile_sla --preset llama3-1b``, short grids),
+    its profile loaded by the port's planner, and the plan for one
+    observation printed."""
+    from dynamo_tpu_torch.planner.perf_interpolation import from_profile
+    from dynamo_tpu_torch.planner.planner_core import (
+        Observation,
+        Planner,
+        RecordingConnector,
+        SlaTargets,
+    )
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sla_") as tmp:
+        out = Path(tmp, "profile.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch.tools.profile_sla", "--preset", "llama3-1b",
+             "--isl-grid", "128", "512", "--concurrency-grid", "1", "8", "--device", device,
+             "--out", str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"profile_sla exited {proc.returncode}: {proc.stderr[-3000:]}")
+        profile = json.loads(out.read_text())
+    pf, dc = from_profile(profile)
+    obs = Observation(request_rate=4.0, mean_isl=512, mean_osl=128)
+    sla = SlaTargets(ttft_s=0.5, itl_s=0.05)
+    plan = Planner(pf, dc, RecordingConnector(), sla=sla).compute_plan(obs)
+    print(f"SLA profile on {card} (llama3-1b preset, 16 x 128 heads): {json.dumps(profile)}; "
+          f"planner at {obs} under {sla}: {plan}; {time.time() - t0:.1f} s with the process's "
+          f"start", flush=True)
+    if not (all(t > 0 for t in profile["prefill"]["ttft_s"])
+            and all(t > 0 for t in profile["decode"]["itl_s"])
+            and plan.prefill_replicas >= 1 and plan.decode_replicas >= 1):
+        raise AssertionError(f"profile {profile} or plan {plan} is not usable")
+    return {"profile": profile, "plan": dataclasses.asdict(plan), "phase_s": time.time() - t0}
 
 
 GGUF_TOKENS = ["<s>", "</s>", "<unk>", "▁hello", "▁world", "▁", "he", "llo"] + [
@@ -6246,9 +6611,14 @@ def finish_runner(h: dict, timeout: float) -> dict:
             "served_after_s": h["served_after_s"], "log": h["log"]}
 
 
+# The runner's torch worker: llama3-8b at full width, its first 8 layers
+# (``--num-layers``; the main path serves all 32).
+RUNNER_LAYERS = 8
+
+
 def doctor_and_runner(card: str, device: str = "cuda", preset: str = "llama3-8b") -> dict:
     """``python -m dynamo_tpu_torch.run --in batch --out torch --preset
-    llama3-8b`` (at full width and depth, its worker warmed up as a
+    llama3-8b --num-layers 8`` (at full width, its worker warmed up as a
     default worker) on the worker phase's 8 prompts as text, 64 tokens
     each; while its worker builds and warms up, ``--in batch --out echo``,
     ``--in text --out mocker --speedup-ratio 100`` and the doctor
@@ -6286,7 +6656,9 @@ def doctor_and_runner(card: str, device: str = "cuda", preset: str = "llama3-8b"
 
         # The torch worker builds and warms up while the echo and mocker
         # runs and the doctor run (one after another would add their ~13 s).
+        cfg = dataclasses.replace(PRESETS[preset](), num_layers=RUNNER_LAYERS)
         h = start_runner(batch_args("worker", ["--out", "torch", "--preset", preset,
+                                               "--num-layers", str(cfg.num_layers),
                                                "--device", device]),
                          logs, "worker", r"serving model")
         with ThreadPoolExecutor(3) as pool:
@@ -6311,7 +6683,6 @@ def doctor_and_runner(card: str, device: str = "cuda", preset: str = "llama3-8b"
                                  f"{torch_run['log'].read_text()[-4000:]}")
         built = worker_build_s({"logs": logs, "args": ["--out", "torch"]})
         stats = worker_stats(torch_run["log"])
-        cfg = PRESETS[preset]()
         kernels = stats["kernel_launches"]
         # Warm-up alone launches both K1 kernels: the traffic must have
         # run forwards of its own and committed a token for every prompt.
@@ -6342,7 +6713,8 @@ def doctor_and_runner(card: str, device: str = "cuda", preset: str = "llama3-8b"
               f"{preset}: {t['completions']} completions of {MAX_TOKENS} tokens at most "
               f"({t['committed_tokens']} tokens committed) in {t['wall_s']:.1f} s; its worker served after {served:.1f} s (engine built in "
               f"{build_s:.2f} s, warmed up in {warm_s:.2f} s, the rest {t['rest_s']:.1f} s; the "
-              f"echo and mocker runs and the doctor ran meanwhile); K1 launches {kernels} = "
+              f"echo and mocker runs and the doctor ran meanwhile; {cfg.num_layers} layers); "
+              f"K1 launches {kernels} = "
               f"{cfg.num_layers} x ({t['forwards']} forwards + {t['warm_up_forwards']} at "
               f"warm-up); graph captures {t['graph_captures']}", flush=True)
         return res
@@ -6433,6 +6805,10 @@ def main() -> int:
         shapes += pipe_shapes
         print(f"K1 at the pp = 2 and dp = 2 shapes (T = S = 4, a 4096-row microbatch), with the "
               f"planted faults: {time.time() - t0:.1f} s", flush=True)
+        t0 = time.time()
+        hd64_shapes, hd64_faults = check_head_dim64_attention(ra, planted, decode_lens, prompt_lens)
+        print(f"K1's head_dim-64 instances at Llama-3.2-1B's 32/8 and Qwen2.5-0.5B's 14/2 heads, "
+              f"bf16 and int8, with the planted faults: {time.time() - t0:.1f} s", flush=True)
         k2_shapes, k2_batches = check_paged_attention_kernel(pa)
         k2_faults = check_k2_planted_faults(pa, k2_batches, planted)
         del k2_batches
@@ -6495,6 +6871,12 @@ def main() -> int:
             print(f"GGUF summary: {json.dumps(gguf)} in {time.time() - t0:.2f} s", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
+        llama32 = serve_llama32_1b(ra, card)
+        lap("Llama-3.2-1B shape (head_dim 64)")
+        print(f"llama3.2-1b summary: {json.dumps(llama32)}", flush=True)
+        sla = sla_profile(card)
+        lap("SLA profile")
+        print(f"sla summary: {json.dumps(sla)}", flush=True)
         tp = serve_tp(card, ck["cut"]["dir"], reference[3])
         lap("tensor parallelism")
         print(f"tp summary: {json.dumps(tp)}", flush=True)
@@ -6551,7 +6933,7 @@ def main() -> int:
                 if int8:
                     bf16 = next(x for x in shapes if x["kernel"] == kernel and x["shape"] == main_shape)
                     extra["int8_vs_bf16"] = main_rec["ms"] / bf16["ms"]
-                name = ra.ENTRY_NAMES[kernel, int8]
+                name = ra.INSTANCE_NAMES[kernel, int8, 128]
                 # The frontend phase's two workers, warm-up included (their
                 # processes start with the counts at 0).
                 extra["frontend_phase_launches"] = sum(
@@ -6592,8 +6974,34 @@ def main() -> int:
                 extra["runner_phase_launches"] = runner["torch"]["kernel_launches"][name]
                 k1.append(kernel_entry(
                     name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
-                    main_rec, pages="int8" if int8 else "bf16", **extra,
+                    main_rec, pages="int8" if int8 else "bf16", head_dim=HEAD_DIM, **extra,
                     planted_faults_row_rel_err={f: planted_of[f] for f in table[kernel]},
+                ))
+        # The head_dim-64 instances: launches from the Llama-3.2-1B-shaped
+        # phase (bf16 KV: its measured pass; int8 KV: its pass on the same
+        # weights); main shapes the serving decode form for the decode
+        # kernel and the 8192 wave for the tiled one.
+        for int8, counts_of, table in ((False, llama32["launches"], PLANTED_FAULTS),
+                                       (True, llama32["int8_launches"], PLANTED_FAULTS_INT8)):
+            got = hd64_shapes["int8" if int8 else "bf16"]
+            for kernel in K1_KERNELS:
+                main_shape = ("hd64_prefill_wave8192" if kernel == "tiled"
+                              else "hd64_decode_serving8")
+                own = [x for x in got if x["kernel"] == kernel]
+                main_rec = next(x for x in own if x["shape"] == main_shape)
+                name = ra.INSTANCE_NAMES[kernel, int8, HD64]
+                faults_of = hd64_faults["int8" if int8 else "bf16"]
+                if int8:
+                    bf16 = next(x for x in hd64_shapes["bf16"]
+                                if x["kernel"] == kernel and x["shape"] == main_shape)
+                    extra = {"int8_vs_bf16": main_rec["ms"] / bf16["ms"]}
+                else:
+                    extra = {"qwen25_planted_faults_row_rel_err": {
+                        f: hd64_faults["qwen25"][f] for f in table[kernel]}}
+                k1.append(kernel_entry(
+                    name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
+                    main_rec, pages="int8" if int8 else "bf16", head_dim=HD64, **extra,
+                    planted_faults_row_rel_err={f: faults_of[f] for f in table[kernel]},
                 ))
         print(f"smoke wall {time.time() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": k1 + [

@@ -1509,7 +1509,7 @@ def _overrides(args: argparse.Namespace) -> dict[str, Any]:
     }
 
 
-def _cut_preset(preset: str | None, num_layers: int) -> None:
+def cut_preset(preset: str | None, num_layers: int) -> None:
     """``--num-layers``: the preset's random weights cut to its first
     ``num_layers`` layers, for this process (a depth cut for one card;
     every rank's process parses the same arguments and cuts alike). A
@@ -1532,7 +1532,7 @@ def main(argv: list[str] | None = None) -> None:
     preset = None if args.model_path is not None else args.preset  # --model-path replaces it
     # Before joining the fleet.
     if args.num_layers is not None:
-        _cut_preset(preset, args.num_layers)
+        cut_preset(preset, args.num_layers)
     model_cfg, engine_cfg = engine_configs(preset, overrides, args.moe_dispatch, args.model_path)
     check_slice(model_cfg, engine_cfg, device="cpu" if args.local_cpu_devices else args.device)
     world = _cli_world(args)

@@ -78,10 +78,12 @@ def check_kernels(device: str) -> bool:
         from dynamo_tpu_torch.ops import _build, paged_attention, ragged_attention
 
         nvcc = _build.nvcc_path()
-        ragged_attention.bind(_build.load("ragged_paged_attention"))
-        ragged_attention.bind(_build.load("ragged_paged_attention"), int8=True)
+        for d in ragged_attention.KERNEL_HEAD_DIMS:
+            for int8 in (False, True):
+                ragged_attention.bind(_build.load("ragged_paged_attention"), int8, d)
         paged_attention.bind(_build.load("paged_attention"))
-        return _line(True, "CUDA kernels", f"{nvcc}; ragged_paged_attention.cu (K1) and "
+        return _line(True, "CUDA kernels", f"{nvcc}; ragged_paged_attention.cu (K1, head_dim "
+                     f"{' and '.join(map(str, ragged_attention.KERNEL_HEAD_DIMS))}) and "
                      f"paged_attention.cu (K2) built and loaded")
     except Exception as e:  # noqa: BLE001
         return _line(False, "CUDA kernels", str(e))

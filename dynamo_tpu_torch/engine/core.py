@@ -169,11 +169,12 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig, device) -> Non
     ``ROADMAP.md`` item that brings it, a KV dtype or scheduler that does
     not exist, and chunked-scheduling and speculation settings the JAX
     engine refuses. On a ``cuda`` device, also a model whose attention
-    the card's kernel (K1) cannot run: it takes bf16 queries, head_dim
-    ``KERNEL_HEAD_DIM`` and a GQA group up to ``KERNEL_MAX_GROUP``. The
-    JAX package serves such a model through its plain reference; the
-    port refuses it, so the kernel never gives way to the plain version
-    on the card. The check reads the configs alone, so it needs no card."""
+    the card's kernel (K1) cannot run: it takes bf16 queries, a head_dim
+    it has an instance for (``KERNEL_HEAD_DIMS``: 64 and 128) and a GQA
+    group up to ``KERNEL_MAX_GROUP``. The JAX package serves such a model
+    through its plain reference; the port refuses it, so the kernel never
+    gives way to the plain version on the card. The check reads the
+    configs alone, so it needs no card."""
     if engine_cfg.kv_dtype not in KV_DTYPES:
         raise ValueError(
             f"unknown kv_dtype {engine_cfg.kv_dtype!r} (expected one of {KV_DTYPES})"
@@ -220,9 +221,9 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig, device) -> Non
         why = []
         if model_cfg.dtype != "bfloat16":
             why.append(f"dtype {model_cfg.dtype} (K1 takes bfloat16)")
-        if model_cfg.head_dim != ragged_attention.KERNEL_HEAD_DIM:
-            why.append(f"head_dim {model_cfg.head_dim} "
-                       f"(K1 takes {ragged_attention.KERNEL_HEAD_DIM})")
+        if model_cfg.head_dim not in ragged_attention.KERNEL_HEAD_DIMS:
+            why.append(f"head_dim {model_cfg.head_dim} (K1 is built for "
+                       f"{' and '.join(map(str, ragged_attention.KERNEL_HEAD_DIMS))})")
         if (model_cfg.num_heads % model_cfg.num_kv_heads
                 or model_cfg.num_heads // model_cfg.num_kv_heads
                 > ragged_attention.KERNEL_MAX_GROUP):

@@ -45,13 +45,15 @@ def nvcc_path() -> str:
     )
 
 
-def build(src: Path, out: Path) -> None:
-    """Compile one source into the shared library ``out``; raises with the
-    compiler's output if nvcc fails. The library appears under its name
-    only once complete, so a concurrent process never loads half a file."""
+def build(src: Path, out: Path, extra_flags: tuple[str, ...] = ()) -> str:
+    """Compile one source into the shared library ``out`` (``extra_flags``
+    after the port's, e.g. ``-Xptxas -v`` for the compiler's register
+    report) and return the compiler's output; raises with it if nvcc
+    fails. The library appears under its name only once complete, so a
+    concurrent process never loads half a file."""
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -59,6 +61,7 @@ def build(src: Path, out: Path) -> None:
             f"nvcc failed on {src.name} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
+    return proc.stdout + proc.stderr
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -22,8 +22,9 @@ and attends every cache position ``<=`` its own.
 :func:`ragged_paged_attention` dispatches on the tensors' device: CPU
 tensors take the plain PyTorch version :func:`ragged_paged_attention_ref`
 (the tests), CUDA tensors launch a hand-written kernel of
-``csrc/ragged_paged_attention.cu`` (its bf16 or its int8 instance) or
-raise. Nothing falls back. The source has two kernels, each right on any
+``csrc/ragged_paged_attention.cu`` (its bf16 or its int8 instance, built
+for head_dim 64 and for 128: :data:`KERNEL_HEAD_DIMS`) or raise. Nothing
+falls back. The source has two kernels, each right on any
 ragged layout: the split-KV decode kernel, planned by
 :func:`decode_split_plan`, a block per (query row, kv head, split), fast
 where each sequence has one query row (the engine's decode form,
@@ -51,23 +52,30 @@ from dynamo_tpu_torch.ops import _build
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
-# The kernels' fixed geometry (csrc/ragged_paged_attention.cu).
-KERNEL_HEAD_DIM = 128
+# The kernels' geometry (csrc/ragged_paged_attention.cu): an instance of
+# each kernel per head dim here, and one GQA group limit.
+KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 8
 TILE_M = 128               # tiled kernel: query rows x group heads per block
+TILE_N = 64                # tiled kernel: K/V positions per tile
+LOG2E = 1.4426950408889634
 DECODE_BLOCKS_PER_SM = 16  # decode plan: blocks it aims for, per SM
 MIN_SPLIT_POSITIONS = 256  # decode plan: the least cache positions per split
 
-# The C entry point of each (kernel, int8 pages) pair.
-ENTRY_NAMES = {
-    (kernel, int8): f"ragged_paged_attention_{'int8_' if int8 else ''}{kernel}_launch"
-    for kernel in ("decode", "tiled") for int8 in (False, True)
+
+# The C entry point of each instance, by (kernel, int8 pages, head dim):
+# head_dim 128's names carry no head dim.
+INSTANCE_NAMES = {
+    (kernel, int8, d): (f"ragged_paged_attention_{'int8_' if int8 else ''}{kernel}"
+                        f"{'' if d == 128 else f'_hd{d}'}_launch")
+    for d in KERNEL_HEAD_DIMS for kernel in ("decode", "tiled") for int8 in (False, True)
 }
-# Kernel launches since the last reset, by C entry point: the wrapper adds
-# one per launch and nowhere else, so a run can show which path it took.
+# Kernel launches since the last reset, by C entry point (one per
+# instance): the wrapper adds one per launch and nowhere else, so a run
+# can show which path, and which head dim's instance, it took.
 # ``launches`` and ``launches_int8`` (module attributes) are their sums by
-# page type.
-kernel_launches = dict.fromkeys(ENTRY_NAMES.values(), 0)
+# page type over the head dims.
+kernel_launches = dict.fromkeys(INSTANCE_NAMES.values(), 0)
 
 
 def reset_launches() -> None:
@@ -78,7 +86,7 @@ def reset_launches() -> None:
 def __getattr__(name: str) -> int:
     if name in ("launches", "launches_int8"):
         int8 = name == "launches_int8"
-        return sum(kernel_launches[e] for (_, i8), e in ENTRY_NAMES.items() if i8 == int8)
+        return sum(kernel_launches[e] for (_, i8, _), e in INSTANCE_NAMES.items() if i8 == int8)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -106,12 +114,12 @@ def decode_split_plan(num_tokens: int, n_kv: int, pages_per_seq: int, page_size:
     return -(-pages_per_seq // per), per
 
 
-def decode_scratch_shapes(num_tokens: int, n_q: int, n_kv: int,
-                          n_splits: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+def decode_scratch_shapes(num_tokens: int, n_q: int, n_kv: int, n_splits: int,
+                          head_dim: int = 128) -> tuple[tuple[int, ...], tuple[int, ...]]:
     """Shapes of the decode kernel's f32 partials: ``o`` and ``(m, l)`` of
     every (row, kv head, split, group head)."""
     head = (num_tokens, n_kv, n_splits, n_q // n_kv)
-    return (*head, KERNEL_HEAD_DIM), (*head, 2)
+    return (*head, head_dim), (*head, 2)
 
 
 def tiled_plan(num_tokens: int, max_seqs: int, group: int) -> tuple[int, int]:
@@ -185,6 +193,67 @@ def ragged_paged_attention_ref(
     w = torch.softmax(s, dim=-1)
     w = torch.where(valid_row[:, None, None, None], w, torch.zeros_like(w))
     out = torch.einsum("thgs,tshd->thgd", w, v)
+    return out.reshape(T, n_q, d).to(q.dtype)
+
+
+def ragged_paged_attention_tiled_ref(
+    q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *, sm_scale: float,
+    kv_scales=None, kernel=None, p_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Plain version of the tiled kernel's arithmetic on the reference's
+    gather: scores in the log2 domain (int8 pages: times each position's
+    K scale), an online softmax over ``TILE_N``-position tiles from
+    position 0 (each tile's P taken against the running max through it),
+    P rounded to ``p_dtype`` for PV (int8 pages: P times each position's
+    V scale, then rounded, against the raw int8 V), and the row sum of the
+    unrounded P. At ``p_dtype=torch.float32`` it is
+    :func:`ragged_paged_attention_ref` up to f32 order; at bf16 it differs
+    from it by the kernel's rounding of P alone, so where that rounding
+    decides something (a greedy pick at a near-tie) the kernel is held to
+    this. Like the reference it serves every layout (``kernel`` changes
+    nothing). Tests and ``chip_smoke.py`` only: nothing on the main path
+    calls it."""
+    T, n_q, d = q.shape
+    n_pages, page_size, n_comb, _ = kv_pages.shape
+    n_kv = n_comb // 2
+    group = n_q // n_kv
+    S, pps = page_indices.shape
+    span = pps * page_size
+    n_tiles = -(-span // TILE_N)
+    dev = q.device
+    cu, lens = cu_q_lens.long(), kv_lens.long()
+    t = torch.arange(T, dtype=torch.long, device=dev)
+    seq_id = (t[:, None] >= cu[None, 1:]).sum(dim=1).clamp(max=S - 1)
+    valid_row = t < cu.index_select(0, num_seqs.long())
+    abs_pos = lens[seq_id] - (cu[seq_id + 1] - cu[seq_id]) + (t - cu[seq_id])
+
+    offs = torch.arange(page_size, dtype=torch.long, device=dev)
+    slots = (page_indices.long()[seq_id][:, :, None] * page_size + offs).reshape(T, span)
+    raw = kv_pages.reshape(n_pages * page_size, n_comb, d)[slots]   # [T, span, 2*n_kv, d]
+    k, v = raw[:, :, 0::2].float(), raw[:, :, 1::2].float()
+    qg = q.reshape(T, n_kv, group, d).float()
+    x = torch.einsum("thgd,tshd->thgs", qg, k) * (sm_scale * LOG2E)  # [T, n_kv, group, span]
+    if kv_scales is not None:
+        sc = kv_scales.reshape(n_pages * page_size, n_comb)[slots]     # [T, span, 2*n_kv]
+        x = x * sc[:, :, 0::2].transpose(1, 2)[:, :, None, :]
+        v_scale = sc[:, :, 1::2].transpose(1, 2)[:, :, None, :]
+    pos = torch.arange(span, dtype=torch.long, device=dev)
+    seen = (pos <= abs_pos[:, None]) & (pos < lens[seq_id][:, None]) & valid_row[:, None]
+    x = x.masked_fill(~seen[:, None, None, :], float("-inf"))
+    tiles = lambda a, fill: torch.nn.functional.pad(  # noqa: E731
+        a, (0, n_tiles * TILE_N - span), value=fill).unflatten(-1, (n_tiles, TILE_N))
+    x = tiles(x, float("-inf"))                                          # [..., tiles, TILE_N]
+    run = torch.cummax(x.amax(dim=-1), dim=-1).values
+    m = torch.nan_to_num(run, neginf=0.0)    # the kernel's m_use: 0 while nothing is seen
+    p = torch.exp2(x - m[..., None])
+    # Each tile's share scaled to the final max, as the kernel's alphas do.
+    rescale = torch.exp2((m - m[..., -1:]).clamp(max=0.0))[..., None]
+    l_row = (p * rescale).sum(dim=(-2, -1))
+    if kv_scales is not None:
+        p = p * tiles(v_scale, 0.0)
+    p = (p.to(p_dtype).float() * rescale).flatten(-2)[..., :span]
+    o = torch.einsum("thgs,tshd->thgd", p, v)
+    out = torch.where(l_row[..., None] > 0, o / l_row.clamp(min=1e-30)[..., None], 0.0)
     return out.reshape(T, n_q, d).to(q.dtype)
 
 
@@ -291,9 +360,10 @@ def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs
         )
     T, n_q, d = q.shape
     n_comb = kv_pages.shape[2]
-    if d != KERNEL_HEAD_DIM or kv_pages.shape[3] != d:
+    if d not in KERNEL_HEAD_DIMS or kv_pages.shape[3] != d:
         raise ValueError(
-            f"the CUDA kernel is built for head_dim {KERNEL_HEAD_DIM}, got {d}"
+            f"the CUDA kernel is built for head_dim in {KERNEL_HEAD_DIMS}, got q's {d} and "
+            f"kv_pages' {kv_pages.shape[3]}"
         )
     if n_comb % 2 or n_q % (n_comb // 2) or n_q // (n_comb // 2) > KERNEL_MAX_GROUP:
         raise ValueError(
@@ -313,22 +383,23 @@ def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs
 
 
 class Entries(NamedTuple):
-    """The two C entry points of one page type of a built
+    """The two C entry points of one page type and head dim of a built
     ``ragged_paged_attention.cu``, typed."""
 
     decode: object  # split-KV decode (+ combine)
     tiled: object   # query-tiled tensor-core kernel
 
 
-def bind(lib: ctypes.CDLL, int8: bool = False) -> Entries:
-    """The C entry points of a built ``ragged_paged_attention.cu``: the
-    bf16-page ones, or with ``int8`` the ones that also take ``kv_scales``."""
+def bind(lib: ctypes.CDLL, int8: bool = False, head_dim: int = 128) -> Entries:
+    """The C entry points of a built ``ragged_paged_attention.cu`` at
+    ``head_dim``: the bf16-page ones, or with ``int8`` the ones that also
+    take ``kv_scales``."""
     pages = [ctypes.c_void_p] * (2 if int8 else 1)
-    decode = getattr(lib, ENTRY_NAMES["decode", int8])
+    decode = getattr(lib, INSTANCE_NAMES["decode", int8, head_dim])
     decode.argtypes = [ctypes.c_void_p] + pages + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
-    tiled = getattr(lib, ENTRY_NAMES["tiled", int8])
+    tiled = getattr(lib, INSTANCE_NAMES["tiled", int8, head_dim])
     tiled.argtypes = [ctypes.c_void_p] + pages + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
@@ -344,7 +415,8 @@ def sm_count(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(kernel: str, num_tokens: int, n_q: int, n_kv: int, page_size: int,
-                pages_per_seq: int, max_seqs: int, sms: int) -> tuple[tuple[int, ...], int, int]:
+                pages_per_seq: int, max_seqs: int, sms: int,
+                head_dim: int = 128) -> tuple[tuple[int, ...], int, int]:
     """What ``kernel``'s C entry point takes besides pointers, worked out
     once per shape: its int arguments (the dims, then the plan), and the
     f32 counts of the decode plan's ``o`` and ``(m, l)`` partials (0 when
@@ -357,20 +429,20 @@ def launch_plan(kernel: str, num_tokens: int, n_q: int, n_kv: int, page_size: in
     n_splits, per = decode_split_plan(num_tokens, n_kv, pages_per_seq, page_size, sms)
     if n_splits == 1:
         return (*dims, n_splits, per), 0, 0
-    o_shape, ml_shape = decode_scratch_shapes(num_tokens, n_q, n_kv, n_splits)
+    o_shape, ml_shape = decode_scratch_shapes(num_tokens, n_q, n_kv, n_splits, head_dim)
     return (*dims, n_splits, per), math.prod(o_shape), math.prod(ml_shape)
 
 
 def launch(entries: Entries, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
            sm_scale: float, kernel: str, kv_scales=None) -> torch.Tensor:
     """Run ``kernel`` ("decode" or "tiled") from ``entries`` (bound with
-    ``int8=kv_scales is not None``) on checked operands, on the current
+    ``int8=kv_scales is not None`` at q's head dim) on checked operands, on the current
     stream, into a fresh output; the decode plan's scratch is one f32
     allocation here, ``(m, l)`` after ``o``."""
-    T, n_q, _ = q.shape
+    T, n_q, d = q.shape
     S, pps = page_indices.shape
     ints, n_o, n_ml = launch_plan(kernel, T, n_q, kv_pages.shape[2] // 2, kv_pages.shape[1],
-                                  pps, S, sm_count(q.get_device()))
+                                  pps, S, sm_count(q.get_device()), d)
     out = torch.empty_like(q)
     ptrs = [q.data_ptr(), kv_pages.data_ptr()]
     if kv_scales is not None:
@@ -393,7 +465,7 @@ def launch(entries: Entries, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_
     return out
 
 
-_kernels: dict[bool, Entries] = {}  # bound once each, at the first CUDA call
+_kernels: dict[tuple[bool, int], Entries] = {}  # by (int8, head dim), bound at first use
 
 
 def ragged_paged_attention_cuda(
@@ -401,7 +473,8 @@ def ragged_paged_attention_cuda(
     kv_scales=None, kernel: str | None = None,
 ) -> torch.Tensor:
     """Launch a hand-written Hopper kernel on the current stream: the
-    bf16-page instance, or the int8 one when ``kv_scales`` is given;
+    instance of q's head dim (one of :data:`KERNEL_HEAD_DIMS`; any other
+    raises) for bf16 pages, or for int8 pages when ``kv_scales`` is given;
     ``kernel`` ("decode" or "tiled") picks the kernel, None the one
     :func:`kernel_for` picks from the shapes."""
     if not q.is_cuda:
@@ -409,16 +482,16 @@ def ragged_paged_attention_cuda(
     _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, kv_scales)
     if q.shape[0] == 0:
         return torch.empty_like(q)
-    int8 = kv_scales is not None
-    entries = _kernels.get(int8)
+    int8, d = kv_scales is not None, q.shape[2]
+    entries = _kernels.get((int8, d))
     if entries is None:
-        entries = _kernels[int8] = bind(_build.load("ragged_paged_attention"), int8)
+        entries = _kernels[int8, d] = bind(_build.load("ragged_paged_attention"), int8, d)
     kernel = kernel or kernel_for(q.shape[0], page_indices.shape[0])
     out = launch(
         entries, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
         sm_scale=sm_scale, kv_scales=kv_scales, kernel=kernel,
     )
-    kernel_launches[ENTRY_NAMES[kernel, int8]] += 1
+    kernel_launches[INSTANCE_NAMES[kernel, int8, d]] += 1
     return out
 
 

@@ -9,7 +9,8 @@ input surface (``--in http|text|batch``, ``--out torch|mocker|echo|dyn://…``):
     python -m dynamo_tpu_torch.run --in batch --out mocker --input prompts.jsonl
 
 ``--out torch`` starts the port's worker (``run_torch_worker``) on the card,
-or with ``--device cpu`` on the plain versions; a model the card's
+or with ``--device cpu`` on the plain versions (``--num-layers N``: the
+preset's first N layers, as the worker's flag); a model the card's
 attention kernel cannot run (the f32 ``tiny`` presets) is refused on
 ``cuda`` before anything starts. ``--out dyn://namespace`` skips the
 embedded worker and serves whatever workers are registered on an
@@ -254,12 +255,21 @@ def main() -> None:
     ap.add_argument("--output", default=None, help="in=batch: output JSONL")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="out=torch: the worker's device (cpu: the plain versions)")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="out=torch: serve the preset's first N layers (a depth cut of its "
+                         "random weights, as the worker's --num-layers)")
     args = ap.parse_args()
     if args.out == "torch":
-        from dynamo_tpu_torch.backends.torch.main import engine_configs, use_one_malloc_arena
+        from dynamo_tpu_torch.backends.torch.main import (
+            cut_preset,
+            engine_configs,
+            use_one_malloc_arena,
+        )
         from dynamo_tpu_torch.engine.core import check_slice
 
         use_one_malloc_arena()  # before any thread: the worker's engine steps on one
+        if args.num_layers is not None:
+            cut_preset(args.preset, args.num_layers)
         # Refused before the store or the worker starts.
         check_slice(*engine_configs(args.preset), device=args.device)
     logging.basicConfig(level=logging.INFO)

@@ -114,7 +114,7 @@ def test_launch_counters_grow_on_replay():
     assert all(len(t) == 24 for t in toks.values())
     assert st["graph_replays"] - replays == st["dispatches"] > 0
     assert ra.launches == CFG.num_layers * st["forwards"]
-    assert min(ra.kernel_launches[ra.ENTRY_NAMES[k, False]] for k in ("decode", "tiled")) > 0
+    assert min(ra.kernel_launches[ra.INSTANCE_NAMES[k, False, 128]] for k in ("decode", "tiled")) > 0
 
 
 def test_async_streams_equal_sync_and_every_dispatch_replays():

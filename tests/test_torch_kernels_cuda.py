@@ -7,7 +7,8 @@ PyTorch; ``tests/conftest.py`` imports jax, so there run it without it::
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
 K1 has two kernels (split-KV decode and query-tiled); each runs forced on
-every case, plus the edges of their plans. K2 (split-KV paged decode and
+every case, plus the edges of their plans, at head_dim 128 and in its
+head_dim-64 instances. K2 (split-KV paged decode and
 its combine) runs its planned split count and, forced, one split and one
 page per split on every case.
 
@@ -52,16 +53,17 @@ def _card():
     return torch.device("cuda")
 
 
-def make_batch(q_lens, kv_lens, S, pages_per_seq, n_kv, group, seed, pad=5):
-    """bf16 operands on the card: sequence s owns q rows cu[s]..cu[s+1]-1
-    and its own pages; table entries past its pages and the ``pad`` rows
-    past the last sequence point at the garbage page (the last one)."""
+def make_batch(q_lens, kv_lens, S, pages_per_seq, n_kv, group, seed, pad=5, d=D):
+    """bf16 operands on the card at head_dim ``d``: sequence s owns q rows
+    cu[s]..cu[s+1]-1 and its own pages; table entries past its pages and
+    the ``pad`` rows past the last sequence point at the garbage page (the
+    last one)."""
     dev = _card()
     rng = np.random.default_rng(seed)
     n_pages = S * pages_per_seq + 1
     T = sum(q_lens) + pad
-    q = rng.standard_normal((T, n_kv * group, D)).astype(np.float32)
-    kv = rng.standard_normal((n_pages, PAGE, 2 * n_kv, D)).astype(np.float32)
+    q = rng.standard_normal((T, n_kv * group, d)).astype(np.float32)
+    kv = rng.standard_normal((n_pages, PAGE, 2 * n_kv, d)).astype(np.float32)
     perm = rng.permutation(n_pages - 1).astype(np.int32)
     tables = np.full((S, pages_per_seq), n_pages - 1, np.int32)
     off = 0
@@ -153,7 +155,7 @@ def test_each_kernel_matches_plain(case, kernel, pages):
     kw = {}
     if pages == "int8":
         kv, kw["kv_scales"] = quantize_kv(kv)
-    name = ra.ENTRY_NAMES[kernel, pages == "int8"]
+    name = ra.INSTANCE_NAMES[kernel, pages == "int8", 128]
     before = ra.kernel_launches[name]
     got = ra.ragged_paged_attention_cuda(q, kv, *ops, sm_scale=D ** -0.5, kernel=kernel, **kw)
     assert ra.kernel_launches[name] == before + 1
@@ -162,6 +164,78 @@ def test_each_kernel_matches_plain(case, kernel, pages):
     rel = _row_rel(got[:n], want[:n])
     assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
     assert not got[n:].any(), "rows past the last sequence are zero"
+
+
+# K1 at head_dim 64 (Llama-3.2-1B's 32 x 64 heads, Qwen2.5-0.5B's 14 / 2,
+# TinyLlama, SmolLM2): its own instances, on every case above and two at
+# those models' head layouts.
+HD64 = 64
+HD64_CASES = {
+    **CASES, **EDGE_CASES,
+    # q_lens, kv_lens, S, pages_per_seq, n_kv, group
+    "llama32_1b_decode": ([1] * 8, [148, 300, 513, 700, 1024, 1500, 1800, 2048], 8, 64, 8, 4),
+    "qwen25_05b_group7": ([1, 40, 1, 64], [150, 40, 70, 200], 4, 8, 2, 7),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("kernel", ["decode", "tiled"])
+@pytest.mark.parametrize("case", list(HD64_CASES))
+def test_head_dim64_kernel_matches_plain(case, kernel, pages):
+    """Both kernels' head_dim-64 instances, forced, in both page types, on
+    every case; the launch counts the head_dim-64 instance alone."""
+    q_lens, kv_lens, *rest = HD64_CASES[case]
+    if kv_lens is None:
+        kv_lens = _split_edge_lens()
+    q, kv, *ops = make_batch(q_lens, kv_lens, *rest, seed=10, d=HD64)
+    kw = {}
+    if pages == "int8":
+        kv, kw["kv_scales"] = quantize_kv(kv)
+    name = ra.INSTANCE_NAMES[kernel, pages == "int8", HD64]
+    before = dict(ra.kernel_launches)
+    got = ra.ragged_paged_attention_cuda(q, kv, *ops, sm_scale=HD64 ** -0.5, kernel=kernel, **kw)
+    assert {k: n - before[k] for k, n in ra.kernel_launches.items() if n != before[k]} == {name: 1}
+    want = ra.ragged_paged_attention_ref(q, kv, *ops, sm_scale=HD64 ** -0.5, **kw)
+    n = sum(q_lens)
+    rel = _row_rel(got[:n], want[:n])
+    assert rel <= ROW_REL_TOL, f"max row relative error {rel:.3e}"
+    assert not got[n:].any(), "rows past the last sequence are zero"
+
+
+# The tiled kernel against the plain version of its own arithmetic (P
+# rounded to bf16 for PV, ``ragged_paged_attention_tiled_ref``): apart by
+# the output's bf16 rounding and the order of f32 sums, well inside the
+# 1e-2 it is held to against the f32 plain version.
+TILED_ARITHMETIC_TOL = 4e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [HD64, D])
+@pytest.mark.parametrize("case", list(CASES))
+def test_tiled_kernel_matches_its_arithmetic(case, d, pages):
+    q_lens, kv_lens, *rest = CASES[case]
+    q, kv, *ops = make_batch(q_lens, kv_lens, *rest, seed=12, d=d)
+    kw = {"sm_scale": d ** -0.5}
+    if pages == "int8":
+        kv, kw["kv_scales"] = quantize_kv(kv)
+    got = ra.ragged_paged_attention_cuda(q, kv, *ops, kernel="tiled", **kw)
+    want = ra.ragged_paged_attention_tiled_ref(q, kv, *ops, **kw)
+    n = sum(q_lens)
+    rel = _row_rel(got[:n], want[:n])
+    assert rel <= TILED_ARITHMETIC_TOL, f"max row relative error {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 96, 256])
+def test_other_head_dims_raise_on_the_card(d):
+    """A head dim with no instance raises on CUDA tensors: no plain fallback."""
+    args = make_batch([3, 1], [3, 40], 2, 2, 2, 4, seed=11, d=d)
+    before = dict(ra.kernel_launches)
+    with pytest.raises(ValueError, match="head_dim"):
+        ra.ragged_paged_attention(*args, sm_scale=d ** -0.5)
+    assert ra.kernel_launches == before
 
 
 # The smoke's serving prompts (100-2000 tokens) 48 tokens into decode;
@@ -183,7 +257,7 @@ def test_serving_decode_shape(pages):
     kw = {}
     if pages == "int8":
         kv, kw["kv_scales"] = quantize_kv(kv)
-    name = ra.ENTRY_NAMES["decode", pages == "int8"]
+    name = ra.INSTANCE_NAMES["decode", pages == "int8", 128]
     before = ra.kernel_launches[name]
     got = ra.ragged_paged_attention(q, kv, *ops, sm_scale=D ** -0.5, **kw)
     assert ra.kernel_launches[name] == before + 1
@@ -209,7 +283,7 @@ def test_mixed_rows_at_t_equal_s_take_the_stated_kernel(pages):
         kv, kw["kv_scales"] = quantize_kv(kv)
     want = ra.ragged_paged_attention_ref(q, kv, *ops, sm_scale=D ** -0.5, **kw)
     for kernel, ran in (("tiled", "tiled"), (None, "decode")):
-        name = ra.ENTRY_NAMES[ran, pages == "int8"]
+        name = ra.INSTANCE_NAMES[ran, pages == "int8", 128]
         before = ra.kernel_launches[name]
         got = ra.ragged_paged_attention(q, kv, *ops, sm_scale=D ** -0.5, kernel=kernel, **kw)
         assert ra.kernel_launches[name] == before + 1, kernel

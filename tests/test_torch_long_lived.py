@@ -210,12 +210,12 @@ def _without_iteration(chunks):
             for c in chunks]
 
 
-# -- the card's attention kernel takes bf16, head_dim 128, a group up to 8 -----
+# -- the card's attention kernel takes bf16, head_dim 64 or 128, a group up to 8 --
 
 REFUSED = {
     "tiny": ("dtype float32", "head_dim 16"),
     "tiny-moe": ("dtype float32", "head_dim 16"),
-    "bf16-head64": ("head_dim 64",),
+    "bf16-head96": ("head_dim 96",),
     "f32-head128": ("dtype float32",),
     "group16": ("32 query heads over 2 KV heads",),
 }
@@ -225,7 +225,8 @@ def _model(name):
     if name in PRESETS:
         return PRESETS[name]()
     base = PRESETS["llama3-1b"]()
-    return {"bf16-head64": dataclasses.replace(base, head_dim=64),
+    return {"bf16-head96": dataclasses.replace(base, head_dim=96),
+            "bf16-head64": dataclasses.replace(base, head_dim=64),
             "f32-head128": dataclasses.replace(base, dtype="float32"),
             "group16": dataclasses.replace(base, num_heads=32, num_kv_heads=2)}[name]
 
@@ -243,6 +244,11 @@ def test_model_k1_cannot_run_refused_on_cuda(name):
 @pytest.mark.parametrize("preset", ["llama3-8b", "llama3-1b", "qwen2-7b", "mixtral-8x7b"])
 def test_models_k1_runs_pass_on_cuda(preset):
     check_slice(*engine_configs(preset), device="cuda")
+
+
+def test_head_dim64_passes_on_cuda():
+    """K1 has a head_dim-64 instance: a bf16 model at head_dim 64 is served."""
+    check_slice(_model("bf16-head64"), tiny_engine(), device="cuda")
 
 
 def test_refused_before_the_engine_is_built(monkeypatch):

@@ -130,7 +130,7 @@ def test_kv_scales_refused():
     "bad, match",
     [
         ({"dtype": torch.float32}, "bf16"),
-        ({"d": 64}, "head_dim"),
+        ({"d": 96}, "head_dim"),  # built for 64 and 128 only
         ({"n_q": 36}, "head layout"),
         ({"table_dtype": torch.int64}, "int32"),
         ({"scales": torch.ones(3, 32, 16)}, "int8 pages"),
@@ -153,3 +153,36 @@ def test_kernel_operand_checks(bad, match):
     ns = torch.tensor([2], dtype=torch.int32)
     with pytest.raises((TypeError, ValueError), match=match):
         ra._check_cuda_operands(q, kv, lens, tables, cu, ns, bad.get("scales"))
+
+
+def check_tiled_arithmetic(q, kv, lens, tables, cu, ns, int8: bool) -> float:
+    """``ragged_paged_attention_tiled_ref`` on numpy operands against the
+    plain version: with P unrounded (f32) equal up to f32 order (atol =
+    rtol = 1e-5); with P in bf16, the tiled kernel's rounding, apart by
+    more than nothing and within the kernels' row limit (largest relative
+    L2 error of an output vector 1e-2); padded rows zero. Returns that
+    largest error."""
+    from dynamo_tpu_torch.engine.kv_quant import quantize_kv as quantize
+
+    args = [torch.from_numpy(a) for a in (q, kv, lens, tables, cu, ns)]
+    kw = {"sm_scale": q.shape[2] ** -0.5}
+    if int8:
+        args[1], kw["kv_scales"] = quantize(args[1])
+    want = ra.ragged_paged_attention_ref(*args, **kw)
+    unrounded = ra.ragged_paged_attention_tiled_ref(*args, **kw, p_dtype=torch.float32)
+    np.testing.assert_allclose(unrounded.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
+    got = ra.ragged_paged_attention_tiled_ref(*args, **kw)
+    n = int(cu[int(ns[0])])
+    rel = ((got[:n] - want[:n]).norm(dim=-1) / want[:n].norm(dim=-1).clamp_min(1e-12)).max()
+    assert 0 < rel.item() <= 1e-2
+    assert not got[n:].any(), "rows past the last sequence are zero"
+    return rel.item()
+
+
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_tiled_arithmetic_is_plain_but_for_p_rounding(case, pages):
+    """The plain version of the tiled kernel's arithmetic (online softmax
+    over 64-position tiles, P rounded to bf16 for PV) differs from the
+    plain version by that rounding alone."""
+    check_tiled_arithmetic(*make_batch(*CASES[case], seed=3), int8=pages == "int8")

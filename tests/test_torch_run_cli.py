@@ -148,3 +148,13 @@ def test_torch_entry_points_use_one_malloc_arena():
                  if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
         assert "use_one_malloc_arena" in calls, rel
         assert calls.index("use_one_malloc_arena") < calls.index("check_slice"), rel
+
+
+def test_num_layers_cuts_a_preset_within_its_depth():
+    """``--num-layers`` reaches the worker's preset cut before anything
+    starts: a depth past the preset's own is refused."""
+    proc = _run(["dynamo_tpu_torch.run", "--in", "text", "--out", "torch", "--preset", "tiny",
+                 "--num-layers", "99", "--device", "cpu", "--prompt", "hi"], timeout=120)
+    assert proc.returncode != 0
+    assert "--num-layers 99 cuts a preset's layers, not those of 'tiny'" in proc.stderr
+    assert not proc.stdout.strip()

@@ -94,9 +94,9 @@ def test_launch_counts_by_page_type():
     try:
         ra.reset_launches()
         assert (ra.launches, ra.launches_int8) == (0, 0)
-        ra.kernel_launches[ra.ENTRY_NAMES["decode", False]] += 3
-        ra.kernel_launches[ra.ENTRY_NAMES["tiled", False]] += 1
-        ra.kernel_launches[ra.ENTRY_NAMES["tiled", True]] += 2
+        ra.kernel_launches[ra.INSTANCE_NAMES["decode", False, 128]] += 3
+        ra.kernel_launches[ra.INSTANCE_NAMES["tiled", False, 128]] += 1
+        ra.kernel_launches[ra.INSTANCE_NAMES["tiled", True, 128]] += 2
         assert (ra.launches, ra.launches_int8) == (4, 2)
     finally:
         ra.kernel_launches.update(saved)

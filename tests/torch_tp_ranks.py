@@ -17,6 +17,7 @@ serves commands until it is told to stop.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -711,11 +712,13 @@ class Rank:
         second thread reads them (``read_held_pages``) while the main
         thread steps the rest; then ``ttl_held`` holds its blocks past the
         engine's ``held_block_ttl_s``, and a step's snapshot expires the
-        hold. Every rank returns its allocator's state and the ops of the
+        hold. The hold deadlines read a clock of this command's own
+        (:func:`core_clock`), which stands still until the ``ttl_held``
+        phase moves it past the TTL: how long the steps take on the host
+        decides nothing, so the read's hold cannot expire while the read
+        runs. Every rank returns its allocator's state and the ops of the
         records; the leader also the pages read and the release it
         journaled."""
-        import time
-
         import torch.distributed as dist
 
         from dynamo_tpu_torch.backends.torch.multihost import (
@@ -730,47 +733,71 @@ class Rank:
 
         ops: list[str] = []
         out: dict = {}
-        if self.rank == 0:
-            core = LeaderCore(cfg, eng, seed=0, device="cpu", mesh=self.mesh,
-                              pp_mesh=self.pp_mesh, sp_mesh=self.sp_mesh,
-                              publish=lambda r: (ops.extend(o["op"] for o in r["ops"]), send(r)))
-            for r in (*requests, held):
-                core.add_request(PreprocessedRequest.from_wire(r))
-            while held["request_id"] not in core._held:
-                core.step()
-            descs = core.export_descriptors(held["request_id"])
-            box: list = []
-            reader = threading.Thread(target=lambda: box.append(
-                core.read_held_pages(held["request_id"], 0, len(descs))))
-            reader.start()
-            for _ in range(4000):
-                if not (reader.is_alive() or core.has_work()):
-                    break
-                core.step()
-            reader.join(timeout=10)
-            assert not reader.is_alive(), "the page read never completed"
-            core.release_held(held["request_id"])
-            core.add_request(PreprocessedRequest.from_wire(ttl_held))
-            while core.has_work():
-                core.step()
-            time.sleep(eng.held_block_ttl_s + 0.05)
-            core.step()  # its snapshot journals the expiry
-            send(None)
-            out = {"pages": box[0], "blocks": len(descs)}
-        else:
-            core = self.core(cfg, eng)
-            follower_mode(core)
-            while True:
-                box = [None]
-                dist.broadcast_object_list(box, src=0)
-                if box[0] is None:
-                    break
-                ops.extend(o["op"] for o in box[0]["ops"])
-                apply_record(core, box[0])
-                core.step()
+        with core_clock() as now:
+            if self.rank == 0:
+                core = LeaderCore(cfg, eng, seed=0, device="cpu", mesh=self.mesh,
+                                  pp_mesh=self.pp_mesh, sp_mesh=self.sp_mesh,
+                                  publish=lambda r: (ops.extend(o["op"] for o in r["ops"]),
+                                                     send(r)))
+                for r in (*requests, held):
+                    core.add_request(PreprocessedRequest.from_wire(r))
+                while held["request_id"] not in core._held:
+                    core.step()
+                descs = core.export_descriptors(held["request_id"])
+                box: list = []
+                reader = threading.Thread(target=lambda: box.append(
+                    core.read_held_pages(held["request_id"], 0, len(descs))))
+                reader.start()
+                for _ in range(4000):
+                    if not (reader.is_alive() or core.has_work()):
+                        break
+                    core.step()
+                reader.join(timeout=10)
+                assert not reader.is_alive(), "the page read never completed"
+                core.release_held(held["request_id"])
+                core.add_request(PreprocessedRequest.from_wire(ttl_held))
+                while core.has_work():
+                    core.step()
+                now[0] += eng.held_block_ttl_s + 0.05  # past the TTL on the core's clock
+                core.step()  # its snapshot journals the expiry
+                send(None)
+                out = {"pages": box[0], "blocks": len(descs)}
+            else:
+                core = self.core(cfg, eng)
+                follower_mode(core)
+                while True:
+                    box = [None]
+                    dist.broadcast_object_list(box, src=0)
+                    if box[0] is None:
+                        break
+                    ops.extend(o["op"] for o in box[0]["ops"])
+                    apply_record(core, box[0])
+                    core.step()
         a = core.allocator
         return {**out, "ops": ops, "held": sorted(core._held), "free": list(a._free),
                 "inactive": list(a._inactive), "snapshot": a.snapshot()}
+
+
+@contextlib.contextmanager
+def core_clock():
+    """``time.monotonic`` as ``dynamo_tpu_torch.engine.core`` reads it (the
+    hold deadlines), replaced by a clock that stands still until the
+    caller adds seconds to the yielded ``[now]``; the module's own ``time``
+    comes back on exit."""
+    import time
+    import types
+
+    from dynamo_tpu_torch.engine import core as core_mod
+
+    now = [time.monotonic()]
+    clock = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time)
+                                     if not k.startswith("_")})
+    clock.monotonic = lambda: now[0]
+    core_mod.time = clock
+    try:
+        yield now
+    finally:
+        core_mod.time = time
 
 
 def _serve(rank: int, world: int, coordinator: str, port: int, axes: dict) -> None:
