@@ -26,8 +26,12 @@ heads, a group of 7: the decode form and a 2048-token tiled wave, with
 the planted faults) and K1's head_dim-64 instances (Llama-3.2-1B's 32/8
 heads of 64: the serving decode form, the 8192 wave and a 2048 mixed
 step with bf16 pages, the decode form with int8 pages; Qwen2.5-0.5B's
-14/2: the decode form and a 2048 wave; each with the planted faults),
-(4) runs K2's own path, that
+14/2: the decode form and a 2048 wave; each with the planted faults) and
+K1's generic instance (``csrc/ragged_paged_attention_generic.cu``, the
+models the fast instances do not take; :func:`check_generic_attention`:
+f32 at the tiny presets' 4/2 heads of 16 within 1e-5, fp16 at llama3-8b's,
+bf16 at Falcon3-7B's 12/4 of 256, at groups of 12 and 16 and at head_dim
+96, int8 pages beside them; five planted faults), (4) runs K2's own path, that
 int8-page against bf16-page decode-attention comparison, through
 ``paged_attention``, (5) serves 8 requests through
 ``build_engine("llama3-8b")`` and ``TorchEngine.generate`` at full width
@@ -79,12 +83,12 @@ image's prefill eager, no capture, tokens and log-probabilities equal
 with every dispatch eager, other streams without the image or with
 another, the repeat cached and equal up to a near-tie) on the bf16
 engine; with the llama3-8b engines freed, the MoE
-phase (:func:`serve_moe`: 16 of Mixtral-8x7B's 32 layers at full width,
+phase (:func:`serve_moe`: ``MOE_LAYERS`` of Mixtral-8x7B's 32 layers at full width,
 bf16, one layer's MoE MLP against its f32 CPU version, warm-up, 8
-prompts in one wave with TTFT and decode ms beside their bounds, K1 at 16
-launches per forward, graph against eager with tokens and
+prompts in one wave with TTFT and decode ms beside their bounds, K1 at
+``MOE_LAYERS`` launches per forward, graph against eager with tokens and
 log-probabilities equal, the idle share, a chunked mixed step), the EP
-phase (:func:`serve_ep`: those 8 layers by a ``--tp 2`` worker, its
+phase (:func:`serve_ep`: those layers by a ``--tp 2`` worker, its
 experts split over two ranks on the one card, a solo stream bit for bit
 an in-process tp = 2 engine's, both dispatch modes' logits compared by
 two side ranks), then Qwen2-7B at full width, 4 of
@@ -96,12 +100,20 @@ tokenizer), then Llama-3.2-1B's published shape at full width and depth
 from a checkpoint of seeded weights (:func:`serve_llama32_1b`: 16 K1
 launches per forward, all head_dim-64 instances, inside graph replays,
 logits and greedy streams against the same engine with the plain
-attention) and the port's SLA profiler (:func:`sla_profile`: ``python -m
+attention), the f32 tiny presets through K1's generic instance
+(:func:`serve_f32_presets`: ``tiny`` at the defaults, chunked, n-gram
+speculation and int8 KV, and ``tiny-moe``, each after ``warm_up()``
+against the same engine on the CPU: logits within 1e-4, streams up to
+near-ties, every dispatch a graph replay), Falcon3-7B's and
+Mistral-Large-2's published shapes and llama3-8b's at fp16
+(:func:`serve_generic_shapes`: one generic launch per layer per forward in
+graph replays, logits and streams against the plain attention) and the
+port's SLA profiler (:func:`sla_profile`: ``python -m
 dynamo_tpu_torch.tools.profile_sla --preset llama3-1b``, its profile
 loaded by the port's planner), then the tp, pipeline and sp phases (:func:`serve_tp`,
-:func:`serve_pipeline`, :func:`serve_sp`: the main path's first 8 layers
-from a checkpoint by ``--tp 2``, ``--pp 2``, ``--dp 2`` and ``--sp 2``
-workers, both ranks on the one card, streams and one prompt's logits
+:func:`serve_pipeline`, :func:`serve_sp`: the main path's first 4 layers
+from a checkpoint by ``--tp 2``, ``--pp 2`` and ``--dp 2`` workers, all
+32 by ``--sp 2`` ones, both ranks on the one card, streams and one prompt's logits
 held to the tp = 1 engine's), (6) runs the worker process:
 the port's store (``python -m dynamo_tpu_torch.runtime.store``) and
 ``python -m dynamo_tpu_torch.backends.torch --model-name llama3-8b
@@ -155,8 +167,8 @@ blocks imported with no recompute and no failed pull), (9) runs the
 doctor (:func:`doctor_phase`: ``python -m dynamo_tpu_torch.check``
 against a store it starts, exit 0, K1 launched by its engine check) and
 the single-command runner (:func:`doctor_and_runner`: ``python -m
-dynamo_tpu_torch.run`` with ``--out torch --preset llama3-8b`` at full
-width and depth on the worker phase's 8 prompts as text, ``--out echo``,
+dynamo_tpu_torch.run --out torch`` with no ``--preset`` and no
+``--device``, the f32 ``tiny`` preset on the card, on 8 prompts as text, ``--out echo``,
 ``--out mocker`` and the doctor beside its worker's start-up, one
 completion per prompt, the torch run's worker start-up split and its K1
 launches from its exit counters), and (10)
@@ -199,7 +211,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 (and fp16) tensor-core peak
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 SCALE_BYTES = 4             # one f32 scale per (slot, combined head) of int8 pages
 N_Q, N_KV, HEAD_DIM, PAGE = 32, 8, 128, 32  # llama3-8b attention geometry
@@ -258,32 +270,48 @@ def cold_ms(fn, reps: int) -> float:
     return sum(start.elapsed_time(end) for start, end in pairs) / reps
 
 
+def timed_once(fn):
+    """``fn()`` and its device time in ms (CUDA events around the one
+    call, after a flush of the L2 as in :func:`cold_ms`)."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8, device="cuda"))
+    _FLUSH[0].add_(1)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 # -- kernel against its plain version --------------------------------------
 
-def compare(got, want, n_real: int) -> tuple[float, float, bool]:
+def compare(got, want, n_real: int, tol: float = ROW_REL_TOL) -> tuple[float, float, bool]:
     """(largest relative L2 error of an output vector, largest absolute
-    error, ok): ok when the first is within ROW_REL_TOL and every padded
-    row past the ``n_real`` real ones is zero."""
+    error, ok): ok when the first is within ``tol`` and every padded row
+    past the ``n_real`` real ones is zero."""
     g, w = got[:n_real].float(), want[:n_real].float()
     rel = ((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-12)).max().item()
     err = (got.float() - want.float()).abs().max().item()
-    return rel, err, rel <= ROW_REL_TOL and not got[n_real:].any().item()
+    return rel, err, rel <= tol and not got[n_real:].any().item()
 
 
-def attention_batch(q_lens, kv_lens, S, pages_per_seq, T, gen, n_q=N_Q, n_kv=N_KV, d=HEAD_DIM):
-    """Ragged operands on the card at head_dim ``d``: sequence s owns q rows cu[s]..cu[s+1]-1
+def attention_batch(q_lens, kv_lens, S, pages_per_seq, T, gen, n_q=N_Q, n_kv=N_KV, d=HEAD_DIM,
+                    dtype=torch.bfloat16, page=PAGE):
+    """Ragged operands on the card at head_dim ``d``, q and pages in
+    ``dtype``, ``page`` positions a page: sequence s owns q rows cu[s]..cu[s+1]-1
     and its own pages; rows past cu[num_seqs] and table entries past a
     sequence's pages point at the garbage page. Returns the positional
-    operands and the keyword ones (none for bf16 pages)."""
+    operands and the keyword ones (none for pages of q's type)."""
     dev = "cuda"
-    n_pages = sum(-(-L // PAGE) for L in kv_lens) + 1
-    q = torch.randn(T, n_q, d, device=dev, generator=gen).bfloat16()
-    kv = torch.randn(n_pages, PAGE, 2 * n_kv, d, device=dev, generator=gen).bfloat16()
+    n_pages = sum(-(-L // page) for L in kv_lens) + 1
+    q = torch.randn(T, n_q, d, device=dev, generator=gen).bfloat16().to(dtype)
+    kv = torch.randn(n_pages, page, 2 * n_kv, d, device=dev, generator=gen).bfloat16().to(dtype)
     perm = torch.randperm(n_pages - 1, device=dev, generator=gen).to(torch.int32)
     tables = torch.full((S, pages_per_seq), n_pages - 1, dtype=torch.int32, device=dev)
     off = 0
     for s, L in enumerate(kv_lens):
-        npg = -(-L // PAGE)
+        npg = -(-L // page)
         tables[s, :npg] = perm[off : off + npg]
         off += npg
     lens = np.zeros(S, np.int32)
@@ -304,26 +332,29 @@ def quantized(args, kw):
     return (args[0], kv8, *args[2:]), {**kw, "kv_scales": scales}
 
 
-def attention_bound(q_lens, kv_lens, T, int8=False, n_q=N_Q, n_kv=N_KV, d=HEAD_DIM):
+def attention_bound(q_lens, kv_lens, T, int8=False, n_q=N_Q, n_kv=N_KV, d=HEAD_DIM,
+                    itemsize=2, ops_per_s=BF16_OPS_PER_S, page=PAGE):
     """Least time for this call's work: each input byte the data needs
     read once (q rows, the visible K/V rows and, for int8 pages, their
     scales, the table entries in use), the output written once; operations
     4 * visible positions * n_q * d (QK^T and PV, a multiply-add counted
-    as 2)."""
+    as 2) over ``ops_per_s``, the card's peak for q's type (the bf16
+    tensor cores' by default). q, out and pages of q's type have
+    ``itemsize`` bytes an element."""
     kv_rows = sum(kv_lens)
-    pages = sum(-(-L // PAGE) for L in kv_lens)
-    row_bytes = d + SCALE_BYTES if int8 else d * 2
+    pages = sum(-(-L // page) for L in kv_lens)
+    row_bytes = d + SCALE_BYTES if int8 else d * itemsize
     nbytes = (
-        sum(q_lens) * n_q * d * 2               # q (bf16)
+        sum(q_lens) * n_q * d * itemsize        # q
         + kv_rows * 2 * n_kv * row_bytes        # K and V rows (+ scales)
-        + T * n_q * d * 2                       # out (bf16)
+        + T * n_q * d * itemsize                # out
         + 4 * (pages + 2 * len(kv_lens) + 2)    # tables, kv_lens, cu, num_seqs
     )
     visible = sum(
         min(L - q + i + 1, L) for q, L in zip(q_lens, kv_lens) for i in range(q)
     )
     ops = 4 * visible * n_q * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -333,7 +364,7 @@ K1_KERNELS = ("decode", "tiled")
 def sdpa_yardstick(args, kw, q_lens, kv_lens):
     """A yardstick of a different function: dense causal
     ``scaled_dot_product_attention`` on the same rows with each sequence's
-    K/V laid out contiguously (bf16; int8 pages dequantized; kv heads
+    K/V laid out contiguously (in q's type; int8 pages dequantized; kv heads
     repeated for the group). A decode batch is one call, padded to the
     longest row with a key mask; other batches one call per sequence
     (``is_causal`` where q_len == kv_len, a lower-right mask otherwise).
@@ -342,22 +373,22 @@ def sdpa_yardstick(args, kw, q_lens, kv_lens):
 
     F = torch.nn.functional
     q, kv, _, tables, cu, _ = args
-    n_q, n_kv, d = q.shape[1], kv.shape[2] // 2, q.shape[2]
+    n_q, n_kv, d, page = q.shape[1], kv.shape[2] // 2, q.shape[2], kv.shape[1]
     group = n_q // n_kv
     cu_h = cu.tolist()
 
     def contiguous(s, L):
         pos = torch.arange(L, device=q.device)
-        slots = tables[s].long()[pos // PAGE] * PAGE + pos % PAGE
+        slots = tables[s].long()[pos // page] * page + pos % page
         rows = kv.reshape(-1, 2 * n_kv, d)[slots]
         if "kv_scales" in kw:
-            rows = dequantize_kv(rows, kw["kv_scales"].reshape(-1, 2 * n_kv)[slots]).bfloat16()
+            rows = dequantize_kv(rows, kw["kv_scales"].reshape(-1, 2 * n_kv)[slots]).to(q.dtype)
         k, v = (rows[:, i::2].repeat_interleave(group, dim=1).transpose(0, 1) for i in (0, 1))
         return k, v                                                    # [n_q, L, d]
 
     if all(n == 1 for n in q_lens):
         B, L = len(q_lens), max(kv_lens)
-        k = torch.zeros(B, n_q, L, d, dtype=torch.bfloat16, device=q.device)
+        k = torch.zeros(B, n_q, L, d, dtype=q.dtype, device=q.device)
         v = torch.zeros_like(k)
         for s, n in enumerate(kv_lens):
             k[s, :, :n], v[s, :, :n] = contiguous(s, n)
@@ -381,21 +412,25 @@ def sdpa_yardstick(args, kw, q_lens, kv_lens):
                     for qq, kk, vv, m, c in calls]
 
 
-def hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms, tag):
-    """Both K1 kernels, forced, on one batch against the plain output
-    ``want``, each timed with the L2 flushed; the yardstick beside them.
-    Raises if either disagrees."""
+def hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms, tag,
+            kernels=K1_KERNELS, tol=ROW_REL_TOL, ops_per_s=BF16_OPS_PER_S):
+    """``kernels`` (both K1 kernels by default), forced, on one batch
+    against the plain output ``want`` within ``tol``, each timed with the
+    L2 flushed; the yardstick beside them; the bound at ``ops_per_s``.
+    Raises if one disagrees."""
     n_q, n_kv, d = args[0].shape[1], args[1].shape[2] // 2, args[0].shape[2]
     scale = d ** -0.5
-    bound_ms, bound_by = attention_bound(q_lens, kv_lens, T, int8, n_q, n_kv, d)
+    bound_ms, bound_by = attention_bound(q_lens, kv_lens, T, int8, n_q, n_kv, d,
+                                         itemsize=args[0].element_size(), ops_per_s=ops_per_s,
+                                         page=args[1].shape[1])
     sdpa_ms = cold_ms(sdpa_yardstick(args, kw, q_lens, kv_lens), reps)
     torch.cuda.empty_cache()
     out = []
-    for kernel in K1_KERNELS:
+    for kernel in kernels:
         run = lambda: ra.ragged_paged_attention_cuda(*args, sm_scale=scale, kernel=kernel, **kw)  # noqa: E731
         got = run()
         torch.cuda.synchronize()
-        rel, err, ok = compare(got, want, sum(q_lens))
+        rel, err, ok = compare(got, want, sum(q_lens), tol)
         del got
         ms = cold_ms(run, reps)
         out.append(dict(
@@ -405,7 +440,8 @@ def hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms, 
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             yardstick_sdpa_ms=sdpa_ms,
         ))
-        print(f"{tag} {kernel} {name}: ok={ok} max_row_rel_err={rel:.3e} max_abs_err={err:.3e} "
+        print(f"{tag} {kernel} {name}: ok={ok} max_row_rel_err={rel:.3e} (limit {tol:g}) "
+              f"max_abs_err={err:.3e} "
               f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by}); "
               f"kernel/bound {ms / bound_ms:.1f}x; kernel/plain {ms / plain_ms:.4f}", flush=True)
         if not ok:
@@ -536,10 +572,16 @@ K1_ENTRY_LINES = {False: ("K1_BF16_ENTRY_POINTS(, 128)", "K1_BF16_ENTRY_POINTS(_
                   True: ("K1_INT8_ENTRY_POINTS(, 128)", "K1_INT8_ENTRY_POINTS(_hd64, 64)")}
 
 
+# The planted copies' nvcc runs at a lower CPU priority, so that the port's
+# own sources, built beside them, are done first.
+LOW_PRIORITY = ("nice", "-n", "10")
+
+
 def build_planted(tmp: str) -> dict:
     """Start one nvcc per planted fault (each a copy of its kernel's source
-    with one edit; a K1 copy without the other page type's entry points)
-    and return ``{fault: future of the loaded library}``."""
+    with one edit; a K1 copy without the other page type's entry points),
+    at a lower CPU priority, and return ``{fault: future of the loaded
+    library}``: each check waits for the copies it runs."""
     from dynamo_tpu_torch.ops import _build
 
     def build(source, name, old, new, drop):
@@ -551,7 +593,7 @@ def build_planted(tmp: str) -> dict:
             text = text.replace(line, "")
         src = Path(tmp, f"{name}.cu")
         src.write_text(text.replace(old, new))
-        _build.build(src, src.with_suffix(".so"))
+        _build.build(src, src.with_suffix(".so"), prefix=LOW_PRIORITY)
         return ctypes.CDLL(str(src.with_suffix(".so")))
 
     jobs = [("ragged_paged_attention.cu", f, K1_ENTRY_LINES[not int8])
@@ -560,6 +602,7 @@ def build_planted(tmp: str) -> dict:
     jobs += [("paged_attention.cu", PLANTED_FAULTS_K2, ()),
              ("paged_attention.cu", PLANTED_FAULTS_K2_INT8, ())]
     names = [name for _, faults, _ in jobs for name in faults]
+    names += [*PLANTED_FAULTS_GENERIC, *PLANTED_FAULTS_GENERIC_INT8]
     if len(set(names)) != len(names):
         raise AssertionError(f"planted-fault names repeat: {sorted(names)}")
     pool = ThreadPoolExecutor(len(names))
@@ -567,6 +610,7 @@ def build_planted(tmp: str) -> dict:
         name: pool.submit(build, source, name, old, new, drop)
         for source, faults, drop in jobs for name, (old, new) in faults.items()
     }
+    futures.update(build_planted_generic(tmp, pool))
     pool.shutdown(wait=False)
     return futures
 
@@ -776,6 +820,218 @@ def check_head_dim64_attention(ra, planted, decode_lens, prompt_lens) -> tuple[d
     ), QWEN25_N_Q, QWEN25_N_KV, "attention qwen2.5 hd64", seed=7, d=HD64)
     return {"bf16": shapes + qwen, "int8": shapes8}, {
         "bf16": faults, "int8": faults8, "qwen25": qwen_faults}
+
+
+# -- K1's generic instance (csrc/ragged_paged_attention_generic.cu) -------------
+
+# What the fast instances do not take: f32 and fp16, head dims other than 64
+# and 128, groups above 8. Each case runs the form the engine states for it
+# (the decode kernel on decode forms, the tiled one on waves and mixed
+# steps), against the plain version on the same operands: f32 within 1e-5
+# (no rounding on either side but the order of f32 sums), the others within
+# ROW_REL_TOL (the output's rounding). Bounds take the card's peak for q's
+# type (989 TFLOP/s for fp16 and bf16, 67 for f32); beside them, a design
+# ceiling at the f32 CUDA cores' 67 TFLOP/s, the units the generic kernels
+# use (no tensor core).
+GENERIC_SRC = "ragged_paged_attention_generic.cu"
+GENERIC_TOL = {torch.float32: 1e-5, torch.float16: ROW_REL_TOL, torch.bfloat16: ROW_REL_TOL}
+TINY_N_Q, TINY_N_KV, TINY_HD, TINY_PAGE = 4, 2, 16, 8   # the tiny presets' attention
+TINY_DECODE_LENS = [40, 75, 100, 130, 160, 190, 220, 256]
+TINY_PROMPT_LENS = [30, 25, 20, 15, 12, 10, 8, 6]       # one 128-token wave
+FALCON3_N_Q, FALCON3_N_KV, FALCON3_HD = 12, 4, 256      # Falcon3-7B
+MISTRAL_N_Q, MISTRAL_N_KV = 96, 8                       # Mistral-Large-Instruct-2407
+L405_TP8_N_Q, L405_TP8_N_KV = 16, 1                     # Llama-3.1-405B's 128/8 at tp = 8
+
+
+def hold_generic(ra, case, dtype, n_q, n_kv, d, gen, tag, page=PAGE, int8=False):
+    """One case ``(name, q_lens, kv_lens, T, kernel, reps[, S, pages_per_seq])``
+    of the generic instance: its batch in ``dtype`` (int8 pages with
+    ``int8``), the plain version (a decode form in one call, larger T in
+    row chunks; above T = 128 run once, its time that call's, the L2
+    flushed before it), and the stated kernel held to it by
+    :func:`hold_k1` within ``GENERIC_TOL``, its bound at the card's peak
+    for ``dtype``, the CUDA cores' f32 ceiling beside it. Returns its
+    record and the batch for the planted faults."""
+    name, q_lens, kv_lens, T, kernel, reps, *rest = case
+    S, pps = rest or (8, 256)
+    args, kw = attention_batch(q_lens, kv_lens, S, pps, T, gen, n_q=n_q, n_kv=n_kv, d=d,
+                               dtype=dtype, page=page)
+    if int8:
+        args, kw = quantized(args, kw)
+    entry = ra.k1_instance(dtype, int8, d, n_q // n_kv, kernel)
+    if entry not in ra.GENERIC_INSTANCE_NAMES.values():
+        raise AssertionError(f"{tag} {name}: {entry} is not the generic instance")
+    if T <= 8:
+        plain = lambda: ra.ragged_paged_attention_ref(*args, sm_scale=d ** -0.5, **kw)  # noqa: E731
+    else:
+        plain = lambda: plain_by_row_chunks(ra, args, kw, q_lens)  # noqa: E731
+    if T <= 128:  # cheap: a warm-up call, then one timed
+        want = plain()
+        plain_ms = cold_ms(plain, 1)
+    else:
+        want, plain_ms = timed_once(plain)
+    rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    (rec,) = hold_k1(ra, name, args, kw, want, q_lens, kv_lens, T, int8, reps, plain_ms, tag,
+                     kernels=(kernel,), tol=GENERIC_TOL[dtype], ops_per_s=rate)
+    core_ms, core_by = attention_bound(q_lens, kv_lens, T, int8, n_q, n_kv, d,
+                                       itemsize=args[0].element_size(),
+                                       ops_per_s=F32_OPS_PER_S, page=page)
+    if core_ms != rec["bound_ms"]:
+        print(f"{tag} {kernel} {name}: the CUDA cores' f32 ceiling (a design figure, not the "
+              f"bound) {core_ms:.4f} ms ({core_by}); kernel/ceiling {rec['ms'] / core_ms:.1f}x",
+              flush=True)
+    rec |= dict(entry=entry, q_dtype=str(dtype).removeprefix("torch."),
+                pages="int8" if int8 else "q", row_rel_tol=GENERIC_TOL[dtype],
+                f32_core_ceiling_ms=core_ms)
+    return rec, (name, args, kw, want, sum(q_lens), kernel, GENERIC_TOL[dtype])
+
+
+# Faults planted in copies of the generic source: each copy keeps only the
+# entry points its batches run (f32 and bf16; their int8 ones for the int8
+# fault) and holds one fault, caught when the comparison fails it on at
+# least one of the batches it runs on. A fault may edit more than one
+# place (both kernels' walks).
+GENERIC_ENTRY_LINES = {
+    tag: f"K1_GENERIC_ENTRY_POINTS({tag}, {qt}, {kv})" for tag, qt, kv in (
+        ("f32", "float", "float"), ("f16", "__half", "__half"),
+        ("bf16", "__nv_bfloat16", "__nv_bfloat16"), ("f32_int8", "float", "int8_t"),
+        ("f16_int8", "__half", "int8_t"), ("bf16_int8", "__nv_bfloat16", "int8_t"))
+}
+PLANTED_FAULTS_GENERIC = {
+    "generic_drops_second_tile": (
+        ("  for (int base = c0; base < c1; base += kTileN) {\n",
+         "  for (int base = c0; base < c1; base += kTileN) {\n    if (base == c0 + kTileN) continue;\n"),
+        ("      const int base = kt * kTileN;\n",
+         "      const int base = kt * kTileN;\n      if (kt == 1) continue;\n"),
+    ),
+    "generic_misses_own_position": (
+        ("return min(kv_len - q_len + i + 1, kv_len);", "return min(kv_len - q_len + i, kv_len);"),
+    ),
+    "generic_sees_next_position": (
+        ("return min(kv_len - q_len + i + 1, kv_len);",
+         "return min(kv_len - q_len + i + 2, kv_len);"),
+    ),
+    "generic_combine_drops_last_split": (
+        ("min(n_splits, (row_vis + split_len - 1) / split_len)",
+         "max(1, min(n_splits, (row_vis + split_len - 1) / split_len) - 1)"),
+    ),
+}
+PLANTED_FAULTS_GENERIC_INT8 = {
+    "generic_v_takes_k_scale": (
+        ("kv_scales[slot * 2 * n_kv + 2 * h + is_v]", "kv_scales[slot * 2 * n_kv + 2 * h]"),
+    ),
+}
+
+
+def build_planted_generic(tmp: str, pool) -> dict:
+    """Start one nvcc per planted fault of the generic source on ``pool``;
+    ``{fault: future of the loaded library}``."""
+    from dynamo_tpu_torch.ops import _build
+
+    def build(name, edits, keep):
+        text = (_build.CSRC_DIR / GENERIC_SRC).read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"planted fault {name}: {old!r} is not in {GENERIC_SRC} once")
+            text = text.replace(old, new)
+        for tag, line in GENERIC_ENTRY_LINES.items():
+            if text.count(line) != 1:
+                raise AssertionError(f"{line!r} is not in {GENERIC_SRC} once")
+            if tag not in keep:
+                text = text.replace(line, "")
+        src = Path(tmp, f"{name}.cu")
+        src.write_text(text)
+        _build.build(src, src.with_suffix(".so"), prefix=LOW_PRIORITY)
+        return ctypes.CDLL(str(src.with_suffix(".so")))
+
+    futures = {name: pool.submit(build, name, edits, ("f32", "bf16"))
+               for name, edits in PLANTED_FAULTS_GENERIC.items()}
+    futures.update({name: pool.submit(build, name, edits, ("f32_int8", "bf16_int8"))
+                    for name, edits in PLANTED_FAULTS_GENERIC_INT8.items()})
+    return futures
+
+
+def check_generic_planted_faults(ra, batches, libs, faults) -> dict:
+    """Each planted fault's copy of the generic source, on every batch of
+    its page type, with the batch's stated kernel: the comparison must
+    fail each on at least one batch. Returns each fault's largest row
+    error over the limit of its batch (above 1: caught)."""
+    found = {}
+    for name in faults:
+        def run(args, kw, kernel):
+            entries = ra.bind_generic(libs[name].result(), args[0].dtype, "kv_scales" in kw)
+            return ra.launch(entries, *args, sm_scale=args[0].shape[2] ** -0.5, kernel=kernel,
+                             **kw)
+
+        ratios = {shape: compare(run(args, kw, kernel), want, n_real, tol)[0] / tol
+                  for shape, args, kw, want, n_real, kernel, tol in batches}
+        found[name] = max(ratios.values())
+        caught = not found[name] <= 1.0  # a NaN fails the limit too
+        print(f"planted fault {name} (generic instance): max_row_rel_err over its limit by batch "
+              + ", ".join(f"{k} {v:.3e}" for k, v in ratios.items()) + f"; caught={caught}",
+              flush=True)
+        if not caught:
+            raise AssertionError(f"the comparison passes planted fault {name}")
+    return found
+
+
+def check_generic_attention(ra, planted, decode_lens, prompt_lens) -> tuple[list[dict], dict]:
+    """K1's generic instance against the plain version at the shapes the
+    models it opens to the card give it (the serving engine's: S = 8 slots
+    of 256 pages of 32 positions; tiny's 8 slots of 32 pages of 8):
+    f32 at the tiny presets' 4/2 heads of 16 (the decode form, a 128-token
+    wave, a mixed step of a 32-token chunk and 7 decode rows; int8 pages
+    with f32 q on the decode form and the wave); fp16 at llama3-8b's 32/8
+    of 128 (the serving decode form, a 2048 wave); bf16 at Falcon3-7B's
+    12/4 of 256 (the serving decode form, the 8192 wave, a 2048 mixed step;
+    int8 pages on the decode form and the wave), at Mistral-Large-2's
+    group of 12 (96/8 of 128) and a Llama-3.1-405B tp = 8 rank's group of
+    16 (16/1 of 128) on the decode form and a 2048 wave, and at head_dim
+    96 (32/8) on the decode form. Then the planted faults on the tiny and
+    Falcon3 batches. Returns the records and the faults' ratios."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ctx = [n + 48 for n in CHUNKED_STREAM_LENS]
+    tiny_ctx = [n + 16 for n in TINY_PROMPT_LENS[:7]]
+    tiny = ("tiny_decode8", [1] * 8, TINY_DECODE_LENS, 8, "decode", 20, 8, 32)
+    tiny_wave = ("tiny_wave128", TINY_PROMPT_LENS, TINY_PROMPT_LENS, 128, "tiled", 20, 8, 32)
+    tiny_mixed = ("tiny_mixed64_chunk32", [1] * 7 + [32], tiny_ctx + [32], 64, "tiled", 20, 8, 32)
+    serving = ("decode_serving8", [1] * 8, decode_lens, 8, "decode", 20)
+    wave2048 = ("prefill2048", QWEN_PREFILL_LENS, QWEN_PREFILL_LENS, 2048, "tiled", 10)
+    falcon = (
+        ("falcon3_decode_serving8", [1] * 8, decode_lens, 8, "decode", 20),
+        ("falcon3_prefill_wave8192", prompt_lens, prompt_lens, 8192, "tiled", 5),
+    )
+    plan = (  # (cases, dtype, n_q, n_kv, d, page, int8, tag)
+        ((tiny, tiny_wave, tiny_mixed), torch.float32, TINY_N_Q, TINY_N_KV, TINY_HD, TINY_PAGE,
+         False, "attention generic f32 tiny"),
+        ((tiny, tiny_wave), torch.float32, TINY_N_Q, TINY_N_KV, TINY_HD, TINY_PAGE, True,
+         "attention generic f32 tiny int8"),
+        ((serving, wave2048), torch.float16, N_Q, N_KV, HEAD_DIM, PAGE, False,
+         "attention generic fp16 llama3-8b"),
+        (falcon + (("falcon3_mixed2048_chunk512", [1] * 7 + [512], ctx + [512], 2048, "tiled",
+                    10),), torch.bfloat16, FALCON3_N_Q, FALCON3_N_KV, FALCON3_HD, PAGE, False,
+         "attention generic bf16 falcon3"),
+        (falcon, torch.bfloat16, FALCON3_N_Q, FALCON3_N_KV, FALCON3_HD, PAGE, True,
+         "attention generic bf16 falcon3 int8"),
+        ((serving, wave2048), torch.bfloat16, MISTRAL_N_Q, MISTRAL_N_KV, HEAD_DIM, PAGE, False,
+         "attention generic bf16 group12"),
+        ((serving, wave2048), torch.bfloat16, L405_TP8_N_Q, L405_TP8_N_KV, HEAD_DIM, PAGE, False,
+         "attention generic bf16 group16"),
+        ((serving,), torch.bfloat16, N_Q, N_KV, 96, PAGE, False, "attention generic bf16 hd96"),
+    )
+    records, batches = [], {False: [], True: []}
+    for cases, dtype, n_q, n_kv, d, page, int8, tag in plan:
+        for case in cases:
+            rec, batch = hold_generic(ra, case, dtype, n_q, n_kv, d, gen, tag, page, int8)
+            records.append({**rec, "geometry": tag.removeprefix("attention generic ")})
+            if "tiny" in tag or "falcon3" in tag:
+                batches[int8].append(batch)
+            torch.cuda.empty_cache()
+    faults = check_generic_planted_faults(ra, batches[False], planted, PLANTED_FAULTS_GENERIC)
+    faults |= check_generic_planted_faults(ra, batches[True], planted, PLANTED_FAULTS_GENERIC_INT8)
+    del batches
+    torch.cuda.empty_cache()
+    return records, faults
 
 
 # -- K2: paged decode attention ----------------------------------------------
@@ -3144,10 +3400,11 @@ def checkpoint_round_trip(core, model_type: str, device: str) -> dict:
     return out
 
 
-DISAGG_LAYERS = 8  # the disaggregation phase's depth: its 3 workers' warm-ups, in turn on the card
-# The tp and pipeline phases' depth: they serve the same cut checkpoint,
-# to keep the smoke within its time limit on a slow host (the sp phase
-# serves all 32 layers).
+DISAGG_LAYERS = 4  # the disaggregation phase's depth: its 3 workers' warm-ups, in turn on the card
+# The tp and pipeline phases' depth (and the chunked and speculation
+# phases' engine over the main path's first layers): they serve the same
+# cut checkpoint, to keep the smoke within its time limit on a slow host
+# (the sp phase serves all 32 layers).
 PARALLEL_LAYERS = DISAGG_LAYERS
 
 
@@ -3552,6 +3809,286 @@ def p_rounding_witness(want32: dict, got: dict, bf16_p: dict) -> dict:
                         for x in parted),
             "above_limit": {k: sum(x[k] is not None and x[k][3] > limits[k] for x in parted)
                             for k in limits}}
+
+
+# -- models K1's generic instance opens to the card ------------------------------
+
+# The f32 tiny presets in process, on the card against the same engine on the
+# CPU (the plain versions) on the same weights: each engine of F32_ENGINES
+# at the tiny engine shape, 8 requests of F32_PROMPT_LENS tokens (the odd
+# ones quote a segment three times, so that n-gram drafts exist), 6 greedy
+# and 2 seeded, F32_TOKENS new each. Logits within F32_LOGITS_ATOL: f32
+# throughout on both sides (TF32 off, the attention's P unrounded), so only
+# the order of f32 sums differs.
+F32_ENGINES = (  # (label, preset, engine overrides)
+    ("tiny", "tiny", {}),
+    ("tiny chunked", "tiny", {"scheduling": "chunked"}),
+    ("tiny ngram", "tiny", {"spec_decode": "ngram", "spec_k": 4}),
+    ("tiny int8 KV", "tiny", {"kv_dtype": "int8"}),
+    ("tiny-moe", "tiny-moe", {}),
+)
+F32_PROMPT_LENS = (12, 20, 28, 36, 9, 17, 33, 40)
+F32_TOKENS = 24
+F32_SEEDED = {6: {"temperature": 0.7, "seed": 31}, 7: {"temperature": 0.9, "seed": 32}}
+F32_LOGITS_ATOL = 1e-4
+
+
+def f32_wires(vocab: int) -> list[dict]:
+    rng = np.random.default_rng(16)
+    wires = []
+    for i, n in enumerate(F32_PROMPT_LENS):
+        if i % 2:
+            seg = [int(t) for t in rng.integers(1, vocab, -(-n // 3))]
+            prompt = (seg * 3)[:n]
+        else:
+            prompt = [int(t) for t in rng.integers(1, vocab, n)]
+        wires.append({"model": "tiny", "token_ids": prompt, "request_id": f"f{i}",
+                      "sampling": F32_SEEDED.get(i, {"temperature": 0.0}),
+                      "stop": {"max_tokens": F32_TOKENS, "ignore_eos": True},
+                      "output": {"logprobs": 2}})
+    return wires
+
+
+def tree_to(tree, device):
+    """A params tree (dicts of tensors, int8 ``{w, scale}`` pairs, plain
+    values) with every tensor copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def generic_launches(ra, tag: str, int8: bool) -> tuple[dict, dict]:
+    """K1's launches since the last reset of the generic instance for q of
+    ``tag`` over its pages (int8 with ``int8``), and every other one's."""
+    mine = {ra.GENERIC_INSTANCE_NAMES[k, tag, int8] for k in K1_KERNELS}
+    got = launches_of(ra)
+    return ({k: got.get(k, 0) for k in sorted(mine)},
+            {k: n for k, n in got.items() if k not in mine})
+
+
+def serve_f32_presets(ra, card: str, device: str = "cuda") -> dict:
+    """``build_engine("tiny")`` at the engine defaults (waves, megastep k =
+    8, CUDA graphs), chunked, n-gram speculation and int8 KV, and
+    ``build_engine("tiny-moe")``, each on the card after ``warm_up()``
+    against the same engine on the CPU on the same weights (drawn on the
+    card, copied): last-token logits within F32_LOGITS_ATOL; greedy and
+    seeded streams equal up to near-ties under the measured limit
+    (``near_tie_streams``); every forward's K1 launches the generic f32
+    instance's (int8 pages for the int8 engine), one per layer, every
+    dispatch a graph replay, no capture after warm-up."""
+    from dynamo_tpu_torch.backends.torch.main import build_engine
+
+    t0 = time.time()
+    out = {}
+    for label, preset, overrides in F32_ENGINES:
+        t1 = time.time()
+        core, _ = build_engine(preset, dict(overrides), seed=0, device=device)
+        cpu, _ = build_engine(preset, dict(overrides), params=tree_to(core.params, "cpu"),
+                              device="cpu")
+        cfg = core.cfg
+        wires = f32_wires(cfg.vocab_size)
+        got_logits, want_logits = (
+            prompt_logits(c.params, cfg, wires[0]["token_ids"], c.device,
+                          kv_dtype=c.engine.kv_dtype) for c in (core, cpu))
+        logits_diff = (got_logits - want_logits).abs().max().item()
+        warm = warm_up(core, label) if device == "cuda" else {}
+        before = dict(core.scheduler_stats())
+        ra.reset_launches()
+        got = run_wires(core, wires)
+        st = {k: v - before[k] for k, v in core.scheduler_stats().items()
+              if isinstance(v, (int, float))}
+        int8 = overrides.get("kv_dtype") == "int8"
+        mine, others = generic_launches(ra, "f32", int8)
+        want = run_wires(cpu, wires)
+        streams = near_tie_streams(f"{label}: card against the CPU", want, got)
+        rec = {"launches": mine, "forwards": st["forwards"],
+               "launches_per_forward": sum(mine.values()) / max(1, st["forwards"]),
+               "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
+               "graph_captures": st["graph_captures"], "logits_max_abs_diff": logits_diff,
+               "streams": streams, "warm_up_s": warm.get("warm_up_s"),
+               "spec_drafted": st.get("spec_drafted_tokens"), "phase_s": time.time() - t1}
+        out[label] = rec
+        print(f"f32 {label} on {card} against the CPU: logits max |diff| {logits_diff:.3e} "
+              f"(limit {F32_LOGITS_ATOL:g}); K1 launches {mine} = "
+              f"{rec['launches_per_forward']:.2f} per forward over {st['forwards']} forwards "
+              f"(other instances {others}); graph replays {st['graph_replays']} of "
+              f"{st['dispatches']} dispatches, {st['graph_captures']} captures after warm-up; "
+              f"streams {streams['equal']} of {streams['streams']} equal, parted "
+              f"{[(x['rid'], x['position'], x['gap']) for x in streams['parted']]}, "
+              f"log-probabilities differ by up to {streams['limit']:.4e} before; "
+              f"{rec['phase_s']:.1f} s", flush=True)
+        if logits_diff > F32_LOGITS_ATOL or not torch.isfinite(got_logits).all():
+            raise AssertionError(f"f32 {label}: logits differ from the CPU's by {logits_diff:.3e}")
+        if device == "cuda" and (
+                sum(mine.values()) != cfg.num_layers * st["forwards"] or others
+                or min(mine.values()) == 0 or st["graph_replays"] != st["dispatches"]
+                or st["graph_captures"]):
+            raise AssertionError(f"f32 {label}: K1 launches {mine} (others {others}) over "
+                                 f"{st['forwards']} forwards of {cfg.num_layers} layers; "
+                                 f"{st['graph_replays']} replays of {st['dispatches']} "
+                                 f"dispatches, {st['graph_captures']} captures")
+        del core, cpu
+        gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t0
+    return out
+
+
+# Published shapes served at full width from a config.json holding the
+# published values (the depth cut), with seeded weights drawn on the card,
+# at the engine defaults (waves, megastep k = 8, CUDA graphs captured at
+# first use by a first pass): Falcon3-7B-Base (tiiuae/Falcon3-7B-Base,
+# model_type llama: head_dim 256, 12 query heads over 4) at 4 of its 28
+# layers, Mistral-Large-Instruct-2407 (a group of 12: 96 over 8 of 128) at
+# 2 of 88. The llama3-8b shape at fp16 (2 of 32 layers) gives the fp16
+# instance its path. Requests: Llama-3.2-1B's phase's 8 prompts.
+FALCON3_7B = dict(
+    architectures=["LlamaForCausalLM"], model_type="llama", hidden_size=3072,
+    intermediate_size=23040, num_attention_heads=12, num_key_value_heads=4, head_dim=256,
+    vocab_size=131072, rope_theta=1000042.0, rms_norm_eps=1e-6, tie_word_embeddings=False,
+    max_position_embeddings=32768, hidden_act="silu", torch_dtype="bfloat16",
+    num_hidden_layers=4)  # cut: 28 in the published config
+MISTRAL_LARGE_2 = dict(
+    architectures=["MistralForCausalLM"], model_type="mistral", hidden_size=12288,
+    intermediate_size=28672, num_attention_heads=96, num_key_value_heads=8, head_dim=128,
+    vocab_size=32768, rope_theta=1000000.0, rms_norm_eps=1e-5, tie_word_embeddings=False,
+    max_position_embeddings=131072, hidden_act="silu", torch_dtype="bfloat16",
+    num_hidden_layers=2)  # cut: 88 in the published config
+PUBLISHED_LAYERS = {"falcon3-7b": 28, "mistral-large-2407": 88}
+
+
+def published_config(hf: dict):
+    """The port's ModelConfig of a config.json holding ``hf``, read through
+    ``config_from_hf`` from a temp dir (deleted)."""
+    from dynamo_tpu_torch.engine.loader import config_from_hf
+
+    path = Path(tempfile.mkdtemp(prefix="chip_smoke_config_"))
+    try:
+        (path / "config.json").write_text(json.dumps(hf))
+        return config_from_hf(path)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def serve_generic_shape(ra, card: str, label: str, cfg, int8_pass=False, streams=True,
+                        device: str = "cuda") -> dict:
+    """One model the generic instance opens to the card, seeded weights on
+    the card at the engine defaults: 8 requests through
+    ``TorchEngine.generate`` once to capture the graphs, then again from a
+    cleared prefix cache with the launch counts at 0 (one generic launch per
+    layer per forward of q's type, every dispatch a graph replay), decode
+    ms per iteration and peak memory; the last-token logits against the
+    plain attention (``check_logits``); with ``int8_pass`` the same
+    requests with int8 KV on the same weights (the generic int8
+    instances); with ``streams`` the greedy streams under the near-tie rule
+    against the same engine with the plain attention, every dispatch
+    eager."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import EngineCore
+    from dynamo_tpu_torch.engine.model import init_params
+
+    t0 = time.time()
+    tag = ra.GENERIC_Q_DTYPES[cfg.torch_dtype]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    core = EngineCore(cfg, EngineConfig(), params=init_params(cfg, 0, device), device=device)
+    sync(device)
+    build_s = time.time() - t0
+    wires = llama32_1b_wires(cfg.vocab_size)
+    t1 = time.time()
+    generate_wires(core, wires)  # its graphs captured at first use
+    capture_pass_s = time.time() - t1
+    core.clear_kv_cache()
+    before = dict(core.scheduler_stats())
+    ra.reset_launches()
+    t1 = time.time()
+    got = generate_wires(core, wires)
+    serve_s = time.time() - t1
+    mine, others = generic_launches(ra, tag, False)
+    st = {k: v - before[k] for k, v in core.scheduler_stats().items() if isinstance(v, (int, float))}
+    per_forward = sum(mine.values()) / st["forwards"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+    decode_ms = 1e3 * st["decode_loop_s"] / st["decode_iterations"]
+    print(f"{label} ({cfg.num_layers} layers, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+          f"{cfg.head_dim}, {cfg.dtype}) on {card}: built in {build_s:.1f} s, capture pass "
+          f"{capture_pass_s:.1f} s ({before['graph_captures']} graphs), {len(got)} requests in "
+          f"{serve_s:.2f} s; K1 launches {mine} = {per_forward:.2f} per forward over "
+          f"{st['forwards']} forwards (other instances {others}); graph replays "
+          f"{st['graph_replays']} of {st['dispatches']} dispatches; decode {decode_ms:.3f} ms per "
+          f"iteration ({st['decode_iterations']} iterations); peak memory {peak_gb} GB",
+          flush=True)
+    if device == "cuda" and (sum(mine.values()) != cfg.num_layers * st["forwards"] or others
+                             or min(mine.values()) == 0):
+        raise AssertionError(f"{label}: K1 launches {mine} (others {others}) over "
+                             f"{st['forwards']} forwards of {cfg.num_layers} layers")
+    if device == "cuda" and (st["graph_replays"] != st["dispatches"] or st["graph_captures"]):
+        raise AssertionError(f"{label}: {st['graph_replays']} graph replays for "
+                             f"{st['dispatches']} dispatches, {st['graph_captures']} captures on "
+                             f"the second pass")
+    logits = check_logits(core, wires[3]["token_ids"][:64])
+    out = {"launches": mine, "forwards": st["forwards"], "launches_per_forward": per_forward,
+           "graph_replays": st["graph_replays"], "dispatches": st["dispatches"],
+           "decode_ms_per_iteration": decode_ms, "peak_memory_gb": peak_gb,
+           "logits_cosine": logits["cosine"], "build_s": build_s}
+    if int8_pass:
+        core8 = EngineCore(cfg, EngineConfig(kv_dtype="int8"), params=core.params, device=device)
+        ra.reset_launches()
+        st8 = dict(core8.scheduler_stats())
+        run_wires(core8, wires)
+        mine8, others8 = generic_launches(ra, tag, True)
+        forwards8 = core8.scheduler_stats()["forwards"] - st8["forwards"]
+        print(f"{label}, int8 KV pages on the same weights: K1 launches {mine8} over {forwards8} "
+              f"forwards (other instances {others8})", flush=True)
+        if device == "cuda" and (sum(mine8.values()) != cfg.num_layers * forwards8 or others8
+                                 or min(mine8.values()) == 0):
+            raise AssertionError(f"{label} int8 KV: K1 launches {mine8} (others {others8}) over "
+                                 f"{forwards8} forwards")
+        out |= {"int8_launches": mine8, "int8_forwards": forwards8,
+                "int8_logits_cosine": check_logits(core8, wires[3]["token_ids"][:64])["cosine"]}
+        del core8
+        gc.collect()
+    if streams:
+        ref = eager_dispatches(EngineCore(cfg, EngineConfig(), params=core.params, device=device))
+        t1 = time.time()
+        with plain_attention(ra):
+            want = generate_wires(ref, wires)
+        held = near_tie_streams(f"{label}: K1's generic instance against the plain attention",
+                                want, got)
+        print(f"{label}: greedy streams against the plain attention (eager, "
+              f"{time.time() - t1:.1f} s): {held['equal']} of {held['streams']} equal, parted "
+              f"{[(x['rid'], x['position'], round(x['gap'], 6)) for x in held['parted']]}, "
+              f"log-probabilities differ by up to {held['limit']:.4e} before", flush=True)
+        out["streams"] = held
+        del ref
+    del core
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t0
+    print(f"{label}: phase {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def serve_generic_shapes(ra, card: str) -> dict:
+    """Falcon3-7B's and Mistral-Large-2's published shapes (their
+    config.json values, the depth cut) and llama3-8b's at fp16, each
+    through :func:`serve_generic_shape`."""
+    from dynamo_tpu_torch.engine.config import llama3_8b
+
+    falcon = published_config(FALCON3_7B)
+    mistral = published_config(MISTRAL_LARGE_2)
+    if (falcon.head_dim, falcon.num_heads, falcon.num_kv_heads, falcon.tie_embeddings) != (
+            256, 12, 4, False) or mistral.num_heads // mistral.num_kv_heads != 12:
+        raise AssertionError(f"config.json read back as {falcon} / {mistral}")
+    return {
+        "falcon3-7b": serve_generic_shape(ra, card, "falcon3-7b shape", falcon, int8_pass=True),
+        "mistral-large-2407": serve_generic_shape(ra, card, "mistral-large-2407 shape", mistral),
+        "llama3-8b-fp16": serve_generic_shape(
+            ra, card, "llama3-8b shape at fp16",
+            dataclasses.replace(llama3_8b(), num_layers=2, dtype="float16"), streams=False),
+    }
 
 
 def sla_profile(card: str, device: str = "cuda") -> dict:
@@ -4211,15 +4748,15 @@ def tp_logits_prompt(vocab: int) -> list[int]:
     return [int(t) for t in np.random.default_rng(99).integers(0, vocab, TP_LOGITS_PROMPT)]
 
 
-def prompt_logits(params, cfg, prompt, device, mesh=None) -> torch.Tensor:
+def prompt_logits(params, cfg, prompt, device, mesh=None, kv_dtype="bf16") -> torch.Tensor:
     """f32 logits ``[V]`` of the token after ``prompt``: one forward over a
-    scratch cache of its own (``check_logits``' operands), on this rank's
-    shard under a ``mesh``."""
+    scratch cache of its own (``check_logits``' operands; pages of
+    ``kv_dtype``), on this rank's shard under a ``mesh``."""
     from dynamo_tpu_torch.engine import model
     from dynamo_tpu_torch.engine.config import EngineConfig
 
     nb = max(8, -(-len(prompt) // 16))  # the scratch pages: the prompt's, 8 at least
-    eng = EngineConfig(num_kv_blocks=nb, max_model_len=max(256, 16 * nb))
+    eng = EngineConfig(num_kv_blocks=nb, max_model_len=max(256, 16 * nb), kv_dtype=kv_dtype)
     n, bs = len(prompt), eng.block_size
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)  # noqa: E731
     pos = list(range(n))
@@ -6556,14 +7093,18 @@ def doctor_phase(device: str = "cuda") -> dict:
             "wall_s": wall_s}
 
 
+# The runner's prompts: 8 chat texts that, with the chat template and
+# MAX_TOKENS new tokens, fit the default ``tiny`` preset's 256-token context.
+RUNNER_PROMPT_LENS = (20, 40, 60, 80, 100, 120, 30, 50)
+
+
 def runner_prompts() -> list[str]:
-    """The worker phase's 8 prompts as chat text of the same lengths (the
-    runner takes text; a prompt of n lowercase letters and spaces is n
-    tokens of the byte tokenizer, before the chat template)."""
-    reqs, late, _ = serving_requests(1 << 17)
+    """8 prompts of RUNNER_PROMPT_LENS characters as chat text (the runner
+    takes text; a prompt of n lowercase letters and spaces is n tokens of
+    the byte tokenizer, before the chat template)."""
     rng = np.random.default_rng(1234)
     alphabet = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
-    return ["".join(rng.choice(alphabet, len(p))) for _, p, _ in reqs + [late]]
+    return ["".join(rng.choice(alphabet, n)) for n in RUNNER_PROMPT_LENS]
 
 
 def start_runner(args: list[str], logs: Path, name: str,
@@ -6611,23 +7152,21 @@ def finish_runner(h: dict, timeout: float) -> dict:
             "served_after_s": h["served_after_s"], "log": h["log"]}
 
 
-# The runner's torch worker: llama3-8b at full width, its first 8 layers
-# (``--num-layers``; the main path serves all 32).
-RUNNER_LAYERS = 8
-
-
-def doctor_and_runner(card: str, device: str = "cuda", preset: str = "llama3-8b") -> dict:
-    """``python -m dynamo_tpu_torch.run --in batch --out torch --preset
-    llama3-8b --num-layers 8`` (at full width, its worker warmed up as a
-    default worker) on the worker phase's 8 prompts as text, 64 tokens
-    each; while its worker builds and warms up, ``--in batch --out echo``,
-    ``--in text --out mocker --speedup-ratio 100`` and the doctor
-    (:func:`doctor_phase`) run beside it. Each runner exits 0 with one
-    completion per prompt; the torch run's worker start-up is split into
-    its engine's build and warm-up (its own log line) and the rest, and
-    its exit counters show K1's two kernels launched once per layer of
-    every forward."""
+def doctor_and_runner(card: str, device: str | None = None) -> dict:
+    """``python -m dynamo_tpu_torch.run --in batch --out torch`` with no
+    ``--preset`` and no ``--device``: the defaults, the f32 ``tiny`` preset
+    on the card (K1's generic instance; ``device`` names another device
+    for a rehearsal), its worker warmed up as a default worker, on 8
+    prompts, 64 tokens each; while its worker builds and warms up, ``--in
+    batch --out echo``, ``--in text --out mocker --speedup-ratio 100`` and
+    the doctor (:func:`doctor_phase`, its engine line the tiny preset on
+    the card) run beside it. Each runner exits 0 with one completion per
+    prompt; the torch run's worker start-up is split into its engine's
+    build and warm-up (its own log line) and the rest, and its exit
+    counters show K1's generic f32 instance, both kernels, launched once
+    per layer of every forward."""
     from dynamo_tpu_torch.engine.config import PRESETS
+    from dynamo_tpu_torch.ops import ragged_attention as ra
 
     logs = Path(tempfile.mkdtemp(prefix="chip_smoke_runner_"))
     h = None
@@ -6656,18 +7195,16 @@ def doctor_and_runner(card: str, device: str = "cuda", preset: str = "llama3-8b"
 
         # The torch worker builds and warms up while the echo and mocker
         # runs and the doctor run (one after another would add their ~13 s).
-        cfg = dataclasses.replace(PRESETS[preset](), num_layers=RUNNER_LAYERS)
-        h = start_runner(batch_args("worker", ["--out", "torch", "--preset", preset,
-                                               "--num-layers", str(cfg.num_layers),
-                                               "--device", device]),
-                         logs, "worker", r"serving model")
+        cfg = PRESETS["tiny"]()  # the runner's default preset
+        h = start_runner(batch_args("worker", ["--out", "torch", *(
+            ["--device", device] if device else [])]), logs, "worker", r"serving model")
         with ThreadPoolExecutor(3) as pool:
             echo_f = pool.submit(lambda: finish_runner(start_runner(
                 batch_args("echo", ["--out", "echo"]), logs, "echo"), 120))
             mock_f = pool.submit(lambda: finish_runner(start_runner(
                 ["--in", "text", "--out", "mocker", "--speedup-ratio", "100",
                  "--prompt", prompts[2], "--max-tokens", "16"], logs, "mocker"), 120))
-            doctor_f = pool.submit(doctor_phase, device)
+            doctor_f = pool.submit(doctor_phase, device or "cuda")
             echo, mock, res["doctor"] = echo_f.result(), mock_f.result(), doctor_f.result()
         if not all(row["completion"].startswith("<|user|>") for row in completions("echo")):
             raise AssertionError("runner echo: a completion is not its prompt echoed")
@@ -6690,11 +7227,12 @@ def doctor_and_runner(card: str, device: str = "cuda", preset: str = "llama3-8b"
             raise AssertionError(f"the runner's worker served no traffic: {stats['forwards']} "
                                  f"forwards, {stats['committed_tokens']} tokens committed for "
                                  f"{len(prompts)} prompts")
-        if device == "cuda" and (
+        generic = [ra.GENERIC_INSTANCE_NAMES[k, "f32", False] for k in K1_KERNELS]
+        if device is None and (
                 stats["attention_launches"]
                 != cfg.num_layers * (stats["forwards"] + stats["warm_up_forwards"])
-                or min(kernels[k] for k in ("ragged_paged_attention_decode_launch",
-                                            "ragged_paged_attention_tiled_launch")) == 0):
+                or min(kernels[k] for k in generic) == 0
+                or sum(kernels[k] for k in generic) != stats["attention_launches"]):
             raise AssertionError(f"the runner's worker: K1 launches do not match its "
                                  f"forwards: {stats}")
         build_s, warm_s = built["build_s"], built["warm_up_s"]
@@ -6709,12 +7247,13 @@ def doctor_and_runner(card: str, device: str = "cuda", preset: str = "llama3-8b"
         }
         t = res["torch"]
         print(f"runner on {card}: echo {len(prompts)} completions in {echo['wall_s']:.1f} s; "
-              f"mocker {mock['stdout'].strip()!r} in {mock['wall_s']:.1f} s; torch --preset "
-              f"{preset}: {t['completions']} completions of {MAX_TOKENS} tokens at most "
+              f"mocker {mock['stdout'].strip()!r} in {mock['wall_s']:.1f} s; torch with no "
+              f"--preset and no --device (tiny, f32): {t['completions']} completions of "
+              f"{MAX_TOKENS} tokens at most "
               f"({t['committed_tokens']} tokens committed) in {t['wall_s']:.1f} s; its worker served after {served:.1f} s (engine built in "
               f"{build_s:.2f} s, warmed up in {warm_s:.2f} s, the rest {t['rest_s']:.1f} s; the "
               f"echo and mocker runs and the doctor ran meanwhile; {cfg.num_layers} layers); "
-              f"K1 launches {kernels} = "
+              f"K1 launches {({k: n for k, n in kernels.items() if n})} = "
               f"{cfg.num_layers} x ({t['forwards']} forwards + {t['warm_up_forwards']} at "
               f"warm-up); graph captures {t['graph_captures']}", flush=True)
         return res
@@ -6768,15 +7307,17 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         # Every kernel and every planted fault's copy: one nvcc each, all
-        # started together.
+        # started together; the planted copies at a lower priority, each
+        # awaited where its check first runs it.
         t0 = time.time()
-        planted = build_planted(tmp)
-        with ThreadPoolExecutor(2) as pool:
-            list(pool.map(_build.load, ("ragged_paged_attention", "paged_attention")))
-        for fut in planted.values():
-            fut.result()
-        print(f"kernel build: ragged_paged_attention.cu, paged_attention.cu and "
-              f"{len(planted)} planted-fault copies in {time.time() - t0:.1f} s", flush=True)
+        sources = ("ragged_paged_attention", "ragged_paged_attention_generic", "paged_attention")
+        with ThreadPoolExecutor(len(sources)) as pool:
+            built = pool.map(_build.load, sources)
+            planted = build_planted(tmp)
+            list(built)
+        print(f"kernel build: {', '.join(f'{n}.cu' for n in sources)} in "
+              f"{time.time() - t0:.1f} s; {len(planted)} planted-fault copies building",
+              flush=True)
 
         reqs, late, _ = serving_requests(llama3_8b().vocab_size)
         prompt_lens = [len(p) for _, p, _ in reqs]
@@ -6809,10 +7350,17 @@ def main() -> int:
         hd64_shapes, hd64_faults = check_head_dim64_attention(ra, planted, decode_lens, prompt_lens)
         print(f"K1's head_dim-64 instances at Llama-3.2-1B's 32/8 and Qwen2.5-0.5B's 14/2 heads, "
               f"bf16 and int8, with the planted faults: {time.time() - t0:.1f} s", flush=True)
+        t0 = time.time()
+        generic_shapes, generic_faults = check_generic_attention(ra, planted, decode_lens,
+                                                                 prompt_lens)
+        print(f"K1's generic instance (f32, fp16, bf16; head_dim 16, 96, 128, 256; groups 2-16), "
+              f"with its planted faults: {time.time() - t0:.1f} s", flush=True)
         k2_shapes, k2_batches = check_paged_attention_kernel(pa)
         k2_faults = check_k2_planted_faults(pa, k2_batches, planted)
         del k2_batches
         torch.cuda.empty_cache()
+        for fut in planted.values():
+            fut.result()
     lap("kernel build and checks")
 
     k2 = k2_path(pa)
@@ -6874,6 +7422,12 @@ def main() -> int:
         llama32 = serve_llama32_1b(ra, card)
         lap("Llama-3.2-1B shape (head_dim 64)")
         print(f"llama3.2-1b summary: {json.dumps(llama32)}", flush=True)
+        f32_presets = serve_f32_presets(ra, card)
+        lap("tiny and tiny-moe in f32 (K1's generic instance)")
+        print(f"f32 presets summary: {json.dumps(f32_presets)}", flush=True)
+        generic_paths = serve_generic_shapes(ra, card)
+        lap("Falcon3-7B, Mistral-Large-2 and fp16 shapes (K1's generic instance)")
+        print(f"generic shapes summary: {json.dumps(generic_paths)}", flush=True)
         sla = sla_profile(card)
         lap("SLA profile")
         print(f"sla summary: {json.dumps(sla)}", flush=True)
@@ -6970,8 +7524,6 @@ def main() -> int:
                     extra["mesh_disagg_launches_by_rank"] = {
                         role: [r[name] for r in rs]
                         for role, rs in mesh_disagg["launches"].items()}
-                # The runner's worker (--out torch --preset llama3-8b), warm-up included.
-                extra["runner_phase_launches"] = runner["torch"]["kernel_launches"][name]
                 k1.append(kernel_entry(
                     name, k1_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name], own,
                     main_rec, pages="int8" if int8 else "bf16", head_dim=HEAD_DIM, **extra,
@@ -7003,6 +7555,42 @@ def main() -> int:
                     main_rec, pages="int8" if int8 else "bf16", head_dim=HD64, **extra,
                     planted_faults_row_rel_err={f: faults_of[f] for f in table[kernel]},
                 ))
+        # The generic instance's records: launches from the engine phases
+        # that run each (the f32 tiny engine at the defaults and its int8 KV
+        # one; Falcon3-7B's shape, bf16 and int8 KV, Mistral-Large-2's beside
+        # it; llama3-8b's at fp16); main shapes the serving decode form for
+        # the decode kernel and the largest wave for the tiled one.
+        generic_src = f"dynamo_tpu_torch/csrc/{GENERIC_SRC}"
+        falcon_run = generic_paths["falcon3-7b"]
+        for tag, int8, counts_of, geometry in (
+            ("f32", False, f32_presets["tiny"]["launches"], "f32 tiny"),
+            ("f32", True, f32_presets["tiny int8 KV"]["launches"], "f32 tiny int8"),
+            ("f16", False, generic_paths["llama3-8b-fp16"]["launches"], "fp16 llama3-8b"),
+            ("bf16", False, falcon_run["launches"], "bf16 falcon3"),
+            ("bf16", True, falcon_run["int8_launches"], "bf16 falcon3 int8"),
+        ):
+            for kernel in K1_KERNELS:
+                name = ra.GENERIC_INSTANCE_NAMES[kernel, tag, int8]
+                own = [x for x in generic_shapes if x["entry"] == name]
+                main_rec = max((x for x in own if x["geometry"] == geometry),
+                               key=lambda x: x["T"] if kernel == "tiled" else -x["T"])
+                extra = {}
+                if name in generic_paths["mistral-large-2407"]["launches"]:
+                    extra["mistral_large_2_path_launches"] = (
+                        generic_paths["mistral-large-2407"]["launches"][name])
+                if not int8 and tag == "f32":
+                    extra["f32_preset_path_launches"] = {
+                        label: r["launches"].get(name, 0) for label, r in f32_presets.items()
+                        if isinstance(r, dict)}
+                    # The runner's worker (its defaults: tiny, f32), warm-up included.
+                    extra["runner_phase_launches"] = runner["torch"]["kernel_launches"][name]
+                k1.append(kernel_entry(
+                    name, generic_src, "dynamo_tpu/ops/ragged_attention.py:163", counts_of[name],
+                    own, main_rec, pages="int8" if int8 else tag, head_dim=main_rec["head_dim"],
+                    row_rel_tol=main_rec["row_rel_tol"], **extra,
+                    planted_faults_row_rel_err_over_limit={
+                        f: generic_faults[f] for f in (PLANTED_FAULTS_GENERIC_INT8 if int8
+                                                       else PLANTED_FAULTS_GENERIC)}))
         print(f"smoke wall {time.time() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": k1 + [
             kernel_entry("paged_attention_launch", k2_src, "dynamo_tpu/ops/paged_attention.py:216",

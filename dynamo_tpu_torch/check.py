@@ -9,10 +9,10 @@ to run on a card:
     python -m dynamo_tpu_torch.check [--store-address HOST:PORT] [--device cpu]
 
 On ``cuda`` (the default) a machine without a card fails the device line:
-the doctor never moves to the CPU on its own. The engine check there runs
-a small bf16 model the card's attention kernel (K1) takes and reports K1's
-launches; ``--device cpu`` runs the f32 ``tiny`` model on the plain
-versions and skips the card's lines. ``grpc`` is optional: without it
+the doctor never moves to the CPU on its own. The engine check runs the
+f32 ``tiny`` model, on the card through K1's generic instance (it reports
+K1's launches), with ``--device cpu`` on the plain versions, which also
+skips the card's lines. ``grpc`` is optional: without it
 only the KServe gRPC frontend cannot start.
 """
 
@@ -20,15 +20,11 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import dataclasses
 import importlib
 import sys
 
 REQUIRED = ("torch", "numpy", "aiohttp", "msgpack", "xxhash", "pydantic")
 OPTIONAL = {"grpc": "the KServe gRPC frontend cannot start"}
-# The card's engine check: llama3-1b's attention (16 query heads, 8 KV
-# heads, head_dim 128, bf16), cut to 2 of its 16 layers.
-CARD_MODEL_LAYERS = 2
 
 
 def _line(ok: bool, label: str, detail: str = "") -> bool:
@@ -71,7 +67,7 @@ def check_cuda(device: str) -> bool:
 
 
 def check_kernels(device: str) -> bool:
-    """nvcc, and both kernel libraries built from ``csrc/`` and bound."""
+    """nvcc, and the three kernel libraries built from ``csrc/`` and bound."""
     if device == "cpu":
         return _line(True, "CUDA kernels", "skipped (--device cpu)")
     try:
@@ -81,9 +77,14 @@ def check_kernels(device: str) -> bool:
         for d in ragged_attention.KERNEL_HEAD_DIMS:
             for int8 in (False, True):
                 ragged_attention.bind(_build.load("ragged_paged_attention"), int8, d)
+        for dtype in ragged_attention.GENERIC_Q_DTYPES:
+            for int8 in (False, True):
+                ragged_attention.bind_generic(_build.load("ragged_paged_attention_generic"),
+                                              dtype, int8)
         paged_attention.bind(_build.load("paged_attention"))
         return _line(True, "CUDA kernels", f"{nvcc}; ragged_paged_attention.cu (K1, head_dim "
-                     f"{' and '.join(map(str, ragged_attention.KERNEL_HEAD_DIMS))}) and "
+                     f"{' and '.join(map(str, ragged_attention.KERNEL_HEAD_DIMS))}), "
+                     f"ragged_paged_attention_generic.cu (K1's generic instance) and "
                      f"paged_attention.cu (K2) built and loaded")
     except Exception as e:  # noqa: BLE001
         return _line(False, "CUDA kernels", str(e))
@@ -102,7 +103,7 @@ def check_native() -> bool:
 
 def check_engine(device: str) -> bool:
     try:
-        from dynamo_tpu_torch.engine.config import EngineConfig, llama3_1b, tiny_engine, tiny_model
+        from dynamo_tpu_torch.engine.config import tiny_engine, tiny_model
         from dynamo_tpu_torch.engine.core import EngineCore
         from dynamo_tpu_torch.llm.protocols.common import (
             PreprocessedRequest,
@@ -111,15 +112,9 @@ def check_engine(device: str) -> bool:
         )
         from dynamo_tpu_torch.ops import ragged_attention
 
-        if device == "cpu":
-            name = "tiny model, f32, plain versions"
-            core = EngineCore(tiny_model(), tiny_engine(), seed=0, device="cpu")
-        else:
-            name = f"llama3-1b attention, {CARD_MODEL_LAYERS} of 16 layers, bf16"
-            cfg = dataclasses.replace(llama3_1b(), num_layers=CARD_MODEL_LAYERS)
-            engine = EngineConfig(num_kv_blocks=64, max_num_seqs=8, max_model_len=512,
-                                  prefill_buckets=(128,), decode_buckets=(8,))
-            core = EngineCore(cfg, engine, seed=0, device=device)
+        name = "tiny model, f32, " + ("plain versions" if device == "cpu"
+                                       else "K1's generic instance")
+        core = EngineCore(tiny_model(), tiny_engine(), seed=0, device=device)
         core.add_request(
             PreprocessedRequest(
                 model="doctor", token_ids=[1, 2, 3], request_id="doctor",

@@ -168,13 +168,13 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig, device) -> Non
     """Refuse every setting the port does not serve yet, naming the
     ``ROADMAP.md`` item that brings it, a KV dtype or scheduler that does
     not exist, and chunked-scheduling and speculation settings the JAX
-    engine refuses. On a ``cuda`` device, also a model whose attention
-    the card's kernel (K1) cannot run: it takes bf16 queries, a head_dim
-    it has an instance for (``KERNEL_HEAD_DIMS``: 64 and 128) and a GQA
-    group up to ``KERNEL_MAX_GROUP``. The JAX package serves such a model
-    through its plain reference; the port refuses it, so the kernel never
-    gives way to the plain version on the card. The check reads the
-    configs alone, so it needs no card."""
+    engine refuses. On a ``cuda`` device, also a model whose attention no
+    instance of the card's kernel (K1) runs (``ragged_attention.
+    card_refusals``): the generic instance takes f32, fp16 and bf16, any
+    head_dim that is a multiple of 8 up to 256 and any whole GQA group. The
+    JAX package serves such a model through its plain reference; the port
+    refuses it, so the kernel never gives way to the plain version on the
+    card. The check reads the configs alone, so it needs no card."""
     if engine_cfg.kv_dtype not in KV_DTYPES:
         raise ValueError(
             f"unknown kv_dtype {engine_cfg.kv_dtype!r} (expected one of {KV_DTYPES})"
@@ -218,17 +218,8 @@ def check_slice(model_cfg: ModelConfig, engine_cfg: EngineConfig, device) -> Non
             "budget or shrink decode_buckets"
         )
     if torch.device(device).type == "cuda":
-        why = []
-        if model_cfg.dtype != "bfloat16":
-            why.append(f"dtype {model_cfg.dtype} (K1 takes bfloat16)")
-        if model_cfg.head_dim not in ragged_attention.KERNEL_HEAD_DIMS:
-            why.append(f"head_dim {model_cfg.head_dim} (K1 is built for "
-                       f"{' and '.join(map(str, ragged_attention.KERNEL_HEAD_DIMS))})")
-        if (model_cfg.num_heads % model_cfg.num_kv_heads
-                or model_cfg.num_heads // model_cfg.num_kv_heads
-                > ragged_attention.KERNEL_MAX_GROUP):
-            why.append(f"{model_cfg.num_heads} query heads over {model_cfg.num_kv_heads} KV heads "
-                       f"(K1 takes a whole GQA group up to {ragged_attention.KERNEL_MAX_GROUP})")
+        why = ragged_attention.card_refusals(model_cfg.torch_dtype, model_cfg.head_dim,
+                                             model_cfg.num_heads, model_cfg.num_kv_heads)
         if why:
             raise ValueError(
                 f"model {model_cfg.name!r} cannot run on the card's attention kernel: "

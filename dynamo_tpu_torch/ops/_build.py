@@ -28,8 +28,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two dicts below
 _libs: dict[str, ctypes.CDLL] = {}
+_source_locks: dict[str, threading.Lock] = {}  # one build of a source at a time
 
 
 def nvcc_path() -> str:
@@ -45,15 +46,17 @@ def nvcc_path() -> str:
     )
 
 
-def build(src: Path, out: Path, extra_flags: tuple[str, ...] = ()) -> str:
+def build(src: Path, out: Path, extra_flags: tuple[str, ...] = (),
+          prefix: tuple[str, ...] = ()) -> str:
     """Compile one source into the shared library ``out`` (``extra_flags``
     after the port's, e.g. ``-Xptxas -v`` for the compiler's register
-    report) and return the compiler's output; raises with it if nvcc
-    fails. The library appears under its name only once complete, so a
-    concurrent process never loads half a file."""
+    report; nvcc run under ``prefix``, e.g. ``("nice", "-n", "10")``) and
+    return the compiler's output; raises with it if nvcc fails. The
+    library appears under its name only once complete, so a concurrent
+    process never loads half a file."""
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)],
+        [*prefix, nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -65,9 +68,16 @@ def build(src: Path, out: Path, extra_flags: tuple[str, ...] = ()) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use. Two
+    sources build at once from two threads; one source builds once."""
     with _lock:
         lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        source_lock = _source_locks.setdefault(name, threading.Lock())
+    with source_lock:
+        with _lock:
+            lib = _libs.get(name)
         if lib is None:
             src = CSRC_DIR / f"{name}.cu"
             digest = hashlib.sha256(
@@ -77,5 +87,7 @@ def load(name: str) -> ctypes.CDLL:
             if not path.is_file():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 build(src, path)
-            lib = _libs[name] = ctypes.CDLL(str(path))
+            lib = ctypes.CDLL(str(path))
+            with _lock:
+                _libs[name] = lib
         return lib

@@ -21,10 +21,15 @@ and attends every cache position ``<=`` its own.
 
 :func:`ragged_paged_attention` dispatches on the tensors' device: CPU
 tensors take the plain PyTorch version :func:`ragged_paged_attention_ref`
-(the tests), CUDA tensors launch a hand-written kernel of
-``csrc/ragged_paged_attention.cu`` (its bf16 or its int8 instance, built
-for head_dim 64 and for 128: :data:`KERNEL_HEAD_DIMS`) or raise. Nothing
-falls back. The source has two kernels, each right on any
+(the tests), CUDA tensors launch a hand-written kernel or raise; nothing
+falls back. :func:`k1_instance` names the instance: a fast one of
+``csrc/ragged_paged_attention.cu`` (bf16 q, bf16 or int8 pages, head_dim
+64 or 128 (:data:`KERNEL_HEAD_DIMS`), a GQA group up to
+:data:`KERNEL_MAX_GROUP`), else the generic one of
+``csrc/ragged_paged_attention_generic.cu`` (q in f32, fp16 or bf16, pages
+of q's type or int8, any head_dim that is a multiple of 8 up to
+:data:`GENERIC_MAX_HEAD_DIM`, any group; f32 CUDA-core arithmetic, P
+unrounded). Each source has two kernels, each right on any
 ragged layout: the split-KV decode kernel, planned by
 :func:`decode_split_plan`, a block per (query row, kv head, split), fast
 where each sequence has one query row (the engine's decode form,
@@ -52,10 +57,17 @@ from dynamo_tpu_torch.ops import _build
 
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
-# The kernels' geometry (csrc/ragged_paged_attention.cu): an instance of
-# each kernel per head dim here, and one GQA group limit.
+# The fast kernels' geometry (csrc/ragged_paged_attention.cu): an
+# instance of each kernel per head dim here, and one GQA group limit.
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 8
+# The generic instance (csrc/ragged_paged_attention_generic.cu): q and out
+# in these types (their tags name its entry points), pages of q's type or
+# int8, head_dim a multiple of 8 up to this, any group. Its f32 instance
+# keeps everything in f32 (P unrounded), and the matrix products around it
+# stay full f32: nothing in the port turns TF32 on.
+GENERIC_Q_DTYPES = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16"}
+GENERIC_MAX_HEAD_DIM = 256
 TILE_M = 128               # tiled kernel: query rows x group heads per block
 TILE_N = 64                # tiled kernel: K/V positions per tile
 LOG2E = 1.4426950408889634
@@ -70,12 +82,19 @@ INSTANCE_NAMES = {
                         f"{'' if d == 128 else f'_hd{d}'}_launch")
     for d in KERNEL_HEAD_DIMS for kernel in ("decode", "tiled") for int8 in (False, True)
 }
+# The generic instance's C entry points, by (kernel, q type tag, int8 pages).
+GENERIC_INSTANCE_NAMES = {
+    (kernel, tag, int8): f"ragged_paged_attention_generic_{tag}{'_int8' if int8 else ''}_{kernel}_launch"
+    for tag in GENERIC_Q_DTYPES.values() for kernel in ("decode", "tiled") for int8 in (False, True)
+}
+_PAGE_INT8 = {**{e: i8 for (_, i8, _), e in INSTANCE_NAMES.items()},
+              **{e: i8 for (_, _, i8), e in GENERIC_INSTANCE_NAMES.items()}}
 # Kernel launches since the last reset, by C entry point (one per
-# instance): the wrapper adds one per launch and nowhere else, so a run
-# can show which path, and which head dim's instance, it took.
+# instance, fast and generic): the wrapper adds one per launch and nowhere
+# else, so a run can show which path, and which instance, it took.
 # ``launches`` and ``launches_int8`` (module attributes) are their sums by
-# page type over the head dims.
-kernel_launches = dict.fromkeys(INSTANCE_NAMES.values(), 0)
+# page type over all instances.
+kernel_launches = dict.fromkeys(_PAGE_INT8, 0)
 
 
 def reset_launches() -> None:
@@ -86,8 +105,55 @@ def reset_launches() -> None:
 def __getattr__(name: str) -> int:
     if name in ("launches", "launches_int8"):
         int8 = name == "launches_int8"
-        return sum(kernel_launches[e] for (_, i8, _), e in INSTANCE_NAMES.items() if i8 == int8)
+        return sum(n for e, n in kernel_launches.items() if _PAGE_INT8[e] == int8)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def card_refusals(q_dtype: torch.dtype, head_dim: int, n_q: int, n_kv: int) -> list[str]:
+    """Why no K1 instance runs attention of this type and head layout on
+    the card (empty when one does): a q dtype outside
+    :data:`GENERIC_Q_DTYPES`, a head_dim that is not a multiple of 8 up to
+    :data:`GENERIC_MAX_HEAD_DIM`, query heads that are not whole groups of
+    the KV heads. The JAX package serves such models through its plain
+    reference; the port refuses them on the card."""
+    why = []
+    if q_dtype not in GENERIC_Q_DTYPES:
+        why.append(f"dtype {str(q_dtype).removeprefix('torch.')} (K1 takes float32, float16 "
+                   f"or bfloat16)")
+    if head_dim < 8 or head_dim % 8 or head_dim > GENERIC_MAX_HEAD_DIM:
+        why.append(f"head_dim {head_dim} (K1 takes a multiple of 8 up to {GENERIC_MAX_HEAD_DIM})")
+    if n_kv < 1 or n_q % n_kv:
+        why.append(f"{n_q} query heads over {n_kv} KV heads (K1 takes whole GQA groups)")
+    return why
+
+
+def k1_instance(q_dtype: torch.dtype, int8: bool, head_dim: int, group: int,
+                kernel: str = "decode") -> str:
+    """The C entry point (and launch counter) that runs ``kernel``
+    ("decode" or "tiled") on the card for q of ``q_dtype`` over bf16 pages
+    or, with ``int8``, int8 pages, at ``head_dim`` and a GQA ``group``: a
+    fast instance exactly where one runs (bf16 q, head_dim in
+    :data:`KERNEL_HEAD_DIMS`, group up to :data:`KERNEL_MAX_GROUP`), the
+    generic instance elsewhere; raises ``ValueError`` naming what no
+    instance runs (:func:`card_refusals`)."""
+    if kernel not in ("decode", "tiled"):
+        raise ValueError(f"kernel must be 'decode' or 'tiled', got {kernel!r}")
+    if (q_dtype == torch.bfloat16 and head_dim in KERNEL_HEAD_DIMS
+            and 1 <= group <= KERNEL_MAX_GROUP):
+        return INSTANCE_NAMES[kernel, int8, head_dim]
+    why = card_refusals(q_dtype, head_dim, group, 1)
+    if group < 1:
+        why.append(f"a GQA group of {group}")
+    if why:
+        raise ValueError(f"no K1 instance runs on the card: {'; '.join(why)}")
+    return GENERIC_INSTANCE_NAMES[kernel, GENERIC_Q_DTYPES[q_dtype], int8]
+
+
+def generic_tile_m(head_dim: int) -> int:
+    """M rows (query row x group head) of one pass of the generic tiled
+    kernel: its register tile holds 64 O floats a thread, so 128 rows up to
+    head_dim 128 and 64 above."""
+    return 128 if head_dim <= 128 else 64
 
 
 def kernel_for(num_tokens: int, max_seqs: int) -> str:
@@ -122,13 +188,15 @@ def decode_scratch_shapes(num_tokens: int, n_q: int, n_kv: int, n_splits: int,
     return (*head, head_dim), (*head, 2)
 
 
-def tiled_plan(num_tokens: int, max_seqs: int, group: int) -> tuple[int, int]:
+def tiled_plan(num_tokens: int, max_seqs: int, group: int,
+               tile_m: int = TILE_M) -> tuple[int, int]:
     """``(n_blocks, rows_per_tile)`` of the tiled grid ``(n_blocks, n_kv)``:
-    a block takes ``rows_per_tile = TILE_M // group`` query rows of one
-    sequence; sequence s has ``ceil(q_len_s / rows_per_tile)`` tiles, at
-    most ``ceil(T / rows_per_tile) + S`` in all, and the blocks past the
-    real tiles zero the padded rows."""
-    rows = TILE_M // group
+    a block takes ``rows_per_tile = tile_m // group`` query rows of one
+    sequence (at least 1: a group above ``tile_m`` takes the generic
+    kernel's passes); sequence s has ``ceil(q_len_s / rows_per_tile)``
+    tiles, at most ``ceil(T / rows_per_tile) + S`` in all, and the blocks
+    past the real tiles zero the padded rows."""
+    rows = max(1, tile_m // group)
     return -(-num_tokens // rows) + max_seqs, rows
 
 
@@ -319,15 +387,32 @@ def ragged_paged_attention_split_ref(
 
 
 def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
-                         kv_scales=None):
+                         kv_scales=None, kernel: str = "decode") -> str:
+    """Raise on operands that no K1 instance takes; return the C entry
+    point that runs ``kernel`` on them (:func:`k1_instance`, the one owner
+    of the instances' limits)."""
     dev = q.device
-    page_dtype = torch.bfloat16 if kv_scales is None else torch.int8
-    if q.dtype != torch.bfloat16 or kv_pages.dtype != page_dtype:
-        raise TypeError(
-            f"ragged_paged_attention kernel takes bf16 q and {page_dtype} pages "
-            f"{'with' if kv_scales is not None else 'without'} kv_scales, got "
-            f"{q.dtype} / {kv_pages.dtype}"
+    if q.dim() != 3 or kv_pages.dim() != 4:
+        raise ValueError(
+            f"q must be [T, n_q, d] and kv_pages [n_pages, page_size, 2*n_kv, d], "
+            f"got {tuple(q.shape)} / {tuple(kv_pages.shape)}"
         )
+    T, n_q, d = q.shape
+    n_comb = kv_pages.shape[2]
+    if n_comb % 2 or n_q % (n_comb // 2):
+        raise ValueError(
+            f"unsupported head layout: n_q={n_q}, combined kv heads={n_comb} "
+            f"(need an even count whose half divides n_q)"
+        )
+    name = k1_instance(q.dtype, kv_scales is not None, d, n_q // (n_comb // 2), kernel)
+    if kv_scales is not None and kv_pages.dtype != torch.int8:
+        raise TypeError(f"ragged_paged_attention kernel takes int8 pages with kv_scales, "
+                        f"got {kv_pages.dtype} pages")
+    if kv_scales is None and kv_pages.dtype != q.dtype:
+        raise TypeError(f"ragged_paged_attention kernel takes pages of q's type without "
+                        f"kv_scales, got {q.dtype} / {kv_pages.dtype}")
+    if kv_pages.shape[3] != d:
+        raise ValueError(f"head_dim: q's {d} and kv_pages' {kv_pages.shape[3]} differ")
     if kv_scales is not None:
         if kv_scales.dtype != torch.float32:
             raise TypeError(f"kv_scales must be float32, got {kv_scales.dtype}")
@@ -338,38 +423,21 @@ def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs
             )
         if kv_scales.device != dev or not kv_scales.is_contiguous() or kv_scales.data_ptr() % 8:
             raise ValueError(f"kv_scales must be contiguous and 8-byte aligned on {dev}")
-    for name, a in (
+    for arg, a in (
         ("kv_lens", kv_lens), ("page_indices", page_indices),
         ("cu_q_lens", cu_q_lens), ("num_seqs", num_seqs),
     ):
         if a.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {a.dtype}")
-    for name, a in (
+            raise TypeError(f"{arg} must be int32, got {a.dtype}")
+    for arg, a in (
         ("q", q), ("kv_pages", kv_pages), ("kv_lens", kv_lens),
         ("page_indices", page_indices), ("cu_q_lens", cu_q_lens),
         ("num_seqs", num_seqs),
     ):
         if a.device != dev:
-            raise ValueError(f"{name} is on {a.device}, q on {dev}")
+            raise ValueError(f"{arg} is on {a.device}, q on {dev}")
         if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if q.dim() != 3 or kv_pages.dim() != 4:
-        raise ValueError(
-            f"q must be [T, n_q, d] and kv_pages [n_pages, page_size, 2*n_kv, d], "
-            f"got {tuple(q.shape)} / {tuple(kv_pages.shape)}"
-        )
-    T, n_q, d = q.shape
-    n_comb = kv_pages.shape[2]
-    if d not in KERNEL_HEAD_DIMS or kv_pages.shape[3] != d:
-        raise ValueError(
-            f"the CUDA kernel is built for head_dim in {KERNEL_HEAD_DIMS}, got q's {d} and "
-            f"kv_pages' {kv_pages.shape[3]}"
-        )
-    if n_comb % 2 or n_q % (n_comb // 2) or n_q // (n_comb // 2) > KERNEL_MAX_GROUP:
-        raise ValueError(
-            f"unsupported head layout: n_q={n_q}, combined kv heads={n_comb} "
-            f"(need an even count and a GQA group <= {KERNEL_MAX_GROUP})"
-        )
+            raise ValueError(f"{arg} must be contiguous")
     S = page_indices.shape[0]
     if page_indices.dim() != 2 or kv_lens.shape != (S,) or cu_q_lens.shape != (S + 1,):
         raise ValueError(
@@ -380,14 +448,17 @@ def _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs
         raise ValueError("num_seqs must be i32[1] and S >= 1")
     if kv_pages.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("q and kv_pages must be 16-byte aligned")
+    return name
 
 
 class Entries(NamedTuple):
-    """The two C entry points of one page type and head dim of a built
-    ``ragged_paged_attention.cu``, typed."""
+    """The two C entry points of one instance, typed: of one page type and
+    head dim of a built ``ragged_paged_attention.cu``, or (``generic``) of
+    one q type and page type of ``ragged_paged_attention_generic.cu``."""
 
     decode: object  # split-KV decode (+ combine)
-    tiled: object   # query-tiled tensor-core kernel
+    tiled: object   # query-tiled kernel
+    generic: bool = False  # takes the generic plan (:func:`generic_launch_plan`)
 
 
 def bind(lib: ctypes.CDLL, int8: bool = False, head_dim: int = 128) -> Entries:
@@ -406,6 +477,23 @@ def bind(lib: ctypes.CDLL, int8: bool = False, head_dim: int = 128) -> Entries:
     for fn in (decode, tiled):
         fn.restype = ctypes.c_int
     return Entries(decode, tiled)
+
+
+def bind_generic(lib: ctypes.CDLL, q_dtype: torch.dtype, int8: bool = False) -> Entries:
+    """The C entry points of a built ``ragged_paged_attention_generic.cu``
+    for q (and out) of ``q_dtype`` over pages of that type or, with
+    ``int8``, int8 pages: each takes ``kv_scales`` (null without int8) and
+    the head dim."""
+    tag = GENERIC_Q_DTYPES[q_dtype]
+    decode = getattr(lib, GENERIC_INSTANCE_NAMES["decode", tag, int8])
+    decode.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                      ctypes.c_void_p]
+    tiled = getattr(lib, GENERIC_INSTANCE_NAMES["tiled", tag, int8])
+    tiled.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float,
+                                                                    ctypes.c_void_p]
+    for fn in (decode, tiled):
+        fn.restype = ctypes.c_int
+    return Entries(decode, tiled, generic=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -433,20 +521,39 @@ def launch_plan(kernel: str, num_tokens: int, n_q: int, n_kv: int, page_size: in
     return (*dims, n_splits, per), math.prod(o_shape), math.prod(ml_shape)
 
 
+@functools.lru_cache(maxsize=None)
+def generic_launch_plan(kernel: str, num_tokens: int, n_q: int, n_kv: int, head_dim: int,
+                        page_size: int, pages_per_seq: int, max_seqs: int,
+                        sms: int) -> tuple[tuple[int, ...], int, int]:
+    """:func:`launch_plan` for the generic instance: the head dim follows
+    ``n_kv`` in its ints, and its tiled plan takes :func:`generic_tile_m`
+    M rows a block."""
+    ints, n_o, n_ml = launch_plan(kernel, num_tokens, n_q, n_kv, page_size, pages_per_seq,
+                                  max_seqs, sms, head_dim)
+    if kernel == "tiled":
+        ints = (*ints[:6], *tiled_plan(num_tokens, max_seqs, n_q // n_kv,
+                                       generic_tile_m(head_dim)))
+    return (*ints[:3], head_dim, *ints[3:]), n_o, n_ml
+
+
 def launch(entries: Entries, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, *,
            sm_scale: float, kernel: str, kv_scales=None) -> torch.Tensor:
     """Run ``kernel`` ("decode" or "tiled") from ``entries`` (bound with
-    ``int8=kv_scales is not None`` at q's head dim) on checked operands, on the current
+    ``int8=kv_scales is not None`` at q's head dim, or by
+    :func:`bind_generic` for q's type) on checked operands, on the current
     stream, into a fresh output; the decode plan's scratch is one f32
     allocation here, ``(m, l)`` after ``o``."""
     T, n_q, d = q.shape
     S, pps = page_indices.shape
-    ints, n_o, n_ml = launch_plan(kernel, T, n_q, kv_pages.shape[2] // 2, kv_pages.shape[1],
-                                  pps, S, sm_count(q.get_device()), d)
+    n_kv, page, sms = kv_pages.shape[2] // 2, kv_pages.shape[1], sm_count(q.get_device())
+    if entries.generic:
+        ints, n_o, n_ml = generic_launch_plan(kernel, T, n_q, n_kv, d, page, pps, S, sms)
+    else:
+        ints, n_o, n_ml = launch_plan(kernel, T, n_q, n_kv, page, pps, S, sms, d)
     out = torch.empty_like(q)
     ptrs = [q.data_ptr(), kv_pages.data_ptr()]
-    if kv_scales is not None:
-        ptrs.append(kv_scales.data_ptr())
+    if kv_scales is not None or entries.generic:
+        ptrs.append(None if kv_scales is None else kv_scales.data_ptr())
     ptrs += [kv_lens.data_ptr(), page_indices.data_ptr(), cu_q_lens.data_ptr(),
              num_seqs.data_ptr(), out.data_ptr()]
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -465,7 +572,10 @@ def launch(entries: Entries, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_
     return out
 
 
-_kernels: dict[tuple[bool, int], Entries] = {}  # by (int8, head dim), bound at first use
+_GENERIC_NAMES = frozenset(GENERIC_INSTANCE_NAMES.values())
+# Bound at first use: the fast instances by (int8, head dim), the generic
+# one by ("generic", q dtype, int8).
+_kernels: dict[tuple, Entries] = {}
 
 
 def ragged_paged_attention_cuda(
@@ -473,25 +583,30 @@ def ragged_paged_attention_cuda(
     kv_scales=None, kernel: str | None = None,
 ) -> torch.Tensor:
     """Launch a hand-written Hopper kernel on the current stream: the
-    instance of q's head dim (one of :data:`KERNEL_HEAD_DIMS`; any other
-    raises) for bf16 pages, or for int8 pages when ``kv_scales`` is given;
-    ``kernel`` ("decode" or "tiled") picks the kernel, None the one
-    :func:`kernel_for` picks from the shapes."""
+    instance :func:`k1_instance` names for q's type, the page type (int8
+    when ``kv_scales`` is given), the head dim and the group (a fast one, or
+    the generic one; what neither runs raises ``ValueError``); ``kernel``
+    ("decode" or "tiled") picks the kernel, None the one :func:`kernel_for`
+    picks from the shapes."""
     if not q.is_cuda:
         raise ValueError("ragged_paged_attention_cuda needs CUDA tensors")
-    _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs, kv_scales)
+    kernel = kernel or kernel_for(q.shape[0], page_indices.shape[0])
+    name = _check_cuda_operands(q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
+                                kv_scales, kernel)
     if q.shape[0] == 0:
         return torch.empty_like(q)
-    int8, d = kv_scales is not None, q.shape[2]
-    entries = _kernels.get((int8, d))
+    int8, d, generic = kv_scales is not None, q.shape[2], name in _GENERIC_NAMES
+    key = ("generic", q.dtype, int8) if generic else (int8, d)
+    entries = _kernels.get(key)
     if entries is None:
-        entries = _kernels[int8, d] = bind(_build.load("ragged_paged_attention"), int8, d)
-    kernel = kernel or kernel_for(q.shape[0], page_indices.shape[0])
+        entries = _kernels[key] = (
+            bind_generic(_build.load("ragged_paged_attention_generic"), q.dtype, int8) if generic
+            else bind(_build.load("ragged_paged_attention"), int8, d))
     out = launch(
         entries, q, kv_pages, kv_lens, page_indices, cu_q_lens, num_seqs,
         sm_scale=sm_scale, kv_scales=kv_scales, kernel=kernel,
     )
-    kernel_launches[INSTANCE_NAMES[kernel, int8, d]] += 1
+    kernel_launches[name] += 1
     return out
 
 

@@ -265,13 +265,13 @@ def main() -> None:
             engine_configs,
             use_one_malloc_arena,
         )
-        from dynamo_tpu_torch.engine.core import check_slice
+        from dynamo_tpu_torch.engine.core import check_slice, resolve_device
 
         use_one_malloc_arena()  # before any thread: the worker's engine steps on one
         if args.num_layers is not None:
             cut_preset(args.preset, args.num_layers)
         # Refused before the store or the worker starts.
-        check_slice(*engine_configs(args.preset), device=args.device)
+        check_slice(*engine_configs(args.preset), device=resolve_device(args.device))
     logging.basicConfig(level=logging.INFO)
     asyncio.run(_amain(args))
 

@@ -12,8 +12,9 @@ Llama-3.2-1B's rope theta) written from a seed, whose config both
 packages read alike, whose f32 logits equal the JAX forward's within 1e-4,
 and whose bf16 engine streams the JAX engine's greedy tokens up to the
 near-ties of ``tests/test_torch_loader.py``; and the card's slice check,
-which reads configs alone: head_dim 64 and 128 pass, other head dims, a
-GQA group above 8 and f32 are refused by name.
+which reads configs alone: head_dim 64 and 128 pass, and so do the
+shapes K1's generic instance takes (head_dim 96, 16 and 256, a GQA group
+above 8, f32); head dims no instance runs (100, 264) are refused by name.
 """
 
 import asyncio
@@ -99,21 +100,28 @@ def test_tiled_arithmetic_at_head_dim64(case, pages):
 
 def test_head_dim64_instances_are_named_and_planned():
     """Each head dim has its own four C entry points and launch counters
-    (128's keep their names); the decode plan's scratch follows the head
-    dim; head_dim-64 operands pass the kernel's checks, 96 does not."""
+    (128's keep their names; the generic instance's count apart); the
+    decode plan's scratch follows the head dim; the operand check names
+    the fast head_dim-64 instance for head_dim-64 operands, the generic one
+    at 48, and refuses 100."""
     assert set(ra.KERNEL_HEAD_DIMS) == {64, 128}
     assert ra.INSTANCE_NAMES["decode", False, 128] == "ragged_paged_attention_decode_launch"
     assert ra.INSTANCE_NAMES["tiled", True, 64] == "ragged_paged_attention_int8_tiled_hd64_launch"
-    assert set(ra.kernel_launches) == set(ra.INSTANCE_NAMES.values())
-    assert len(ra.kernel_launches) == 8
+    assert set(ra.kernel_launches) - set(ra.GENERIC_INSTANCE_NAMES.values()) == set(
+        ra.INSTANCE_NAMES.values())
+    assert len(ra.INSTANCE_NAMES) == 8
     ints, n_o, n_ml = ra.launch_plan("decode", 8, 32, 8, 32, 256, 8, 132, head_dim=64)
     assert n_o == 8 * 8 * ints[6] * 4 * 64 and n_ml == 8 * 8 * ints[6] * 4 * 2
     bf16 = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731
     q, kv, lens, tables, cu, ns = _attention_batch([3, 1], [5, 7], 2, 2, 8, 2, seed=3)
-    ra._check_cuda_operands(bf16(q), bf16(kv), *map(torch.from_numpy, (lens, tables, cu, ns)))
-    with pytest.raises(ValueError, match="head_dim"):
-        ra._check_cuda_operands(bf16(q[..., :48]), bf16(kv[..., :48]),
-                                *map(torch.from_numpy, (lens, tables, cu, ns)))
+    ints = [torch.from_numpy(a) for a in (lens, tables, cu, ns)]
+    assert ra._check_cuda_operands(bf16(q), bf16(kv), *ints) == ra.INSTANCE_NAMES[
+        "decode", False, 64]
+    assert ra._check_cuda_operands(bf16(q[..., :48]), bf16(kv[..., :48]), *ints) == (
+        ra.GENERIC_INSTANCE_NAMES["decode", "bf16", False])
+    q100, kv100 = np.zeros((*q.shape[:2], 100)), np.zeros((*kv.shape[:3], 100))
+    with pytest.raises(ValueError, match="head_dim 100"):
+        ra._check_cuda_operands(bf16(q100), bf16(kv100), *ints)
 
 
 # -- a head_dim-64 llama checkpoint, as the JAX worker serves one ------------------
@@ -224,18 +232,22 @@ LLAMA32_1B = ModelConfig(  # Llama-3.2-1B's published config.json
     LLAMA32_1B,
     dataclasses.replace(LLAMA32_1B, num_heads=14, num_kv_heads=2, hidden_size=896),  # Qwen2.5-0.5B
     dataclasses.replace(LLAMA32_1B, head_dim=128, num_heads=16),
-], ids=["llama3.2-1b", "qwen2.5-0.5b-heads", "head_dim128"])
+    # K1's generic instance:
+    dataclasses.replace(LLAMA32_1B, head_dim=96),
+    dataclasses.replace(LLAMA32_1B, head_dim=16),
+    dataclasses.replace(LLAMA32_1B, head_dim=256),
+    dataclasses.replace(LLAMA32_1B, num_heads=9, num_kv_heads=1),
+    dataclasses.replace(LLAMA32_1B, dtype="float32"),
+], ids=["llama3.2-1b", "qwen2.5-0.5b-heads", "head_dim128", "head_dim96", "head_dim16",
+        "head_dim256", "group9", "f32"])
 def test_slice_check_accepts_head_dim64_on_cuda(cfg):
     check_slice(cfg, tiny_engine(), device="cuda")
 
 
 @pytest.mark.parametrize("over, why", [
-    ({"head_dim": 96}, "head_dim 96 (K1 is built for 64 and 128)"),
-    ({"head_dim": 16}, "head_dim 16 (K1 is built for 64 and 128)"),
-    ({"head_dim": 256}, "head_dim 256 (K1 is built for 64 and 128)"),
-    ({"num_heads": 9, "num_kv_heads": 1}, "9 query heads over 1 KV heads"),
-    ({"dtype": "float32"}, "dtype float32 (K1 takes bfloat16)"),
-], ids=["head_dim96", "head_dim16", "head_dim256", "group9", "f32"])
+    ({"head_dim": 100}, "head_dim 100 (K1 takes a multiple of 8 up to 256)"),
+    ({"head_dim": 264}, "head_dim 264 (K1 takes a multiple of 8 up to 256)"),
+], ids=["head_dim100", "head_dim264"])
 def test_slice_check_refuses_by_name_on_cuda(over, why):
     cfg = dataclasses.replace(LLAMA32_1B, **over)
     with pytest.raises(ValueError, match="cannot run on the card's attention kernel") as err:

@@ -8,7 +8,9 @@ PyTorch; ``tests/conftest.py`` imports jax, so there run it without it::
 
 K1 has two kernels (split-KV decode and query-tiled); each runs forced on
 every case, plus the edges of their plans, at head_dim 128 and in its
-head_dim-64 instances. K2 (split-KV paged decode and
+head_dim-64 instances, and in its generic instance (f32, fp16 and bf16 q,
+pages of q's type or int8, head_dim 16 to 256, groups 2 to 96), held at
+1e-5 in f32 (no rounding but the order of f32 sums) and 1e-2 otherwise. K2 (split-KV paged decode and
 its combine) runs its planned split count and, forced, one split and one
 page per split on every case.
 
@@ -228,9 +230,10 @@ def test_tiled_kernel_matches_its_arithmetic(case, d, pages):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("d", [20, 100, 264])
 def test_other_head_dims_raise_on_the_card(d):
-    """A head dim with no instance raises on CUDA tensors: no plain fallback."""
+    """A head dim no instance takes (not a multiple of 8, or above 256)
+    raises on CUDA tensors: no plain fallback."""
     args = make_batch([3, 1], [3, 40], 2, 2, 2, 4, seed=11, d=d)
     before = dict(ra.kernel_launches)
     with pytest.raises(ValueError, match="head_dim"):
@@ -402,3 +405,61 @@ def test_kernel_refuses_what_it_does_not_take():
         ra.ragged_paged_attention(args[0].float(), *args[1:], sm_scale=0.1)
     with pytest.raises(ValueError, match="on cpu"):
         ra.ragged_paged_attention(args[0], args[1], args[2].cpu(), *args[3:], sm_scale=0.1)
+
+
+# K1's generic instance (csrc/ragged_paged_attention_generic.cu): the
+# models the fast instances do not take.
+GENERIC_CASES = {
+    # q_lens, kv_lens, S, pages_per_seq, n_kv, group, head_dim
+    "tiny_mixed": ([70, 1, 33, 1], [90, 140, 33, 1], 4, 8, 2, 2, 16),
+    "tiny_q_len_zero": ([20, 0, 1, 0, 40], [60, 50, 80, 20, 40], 5, 4, 2, 2, 16),
+    "falcon3_decode": ([1, 1, 1], [2049, 700, 33], 3, 80, 4, 3, 256),
+    "falcon3_prefill": ([100, 37, 64], [100, 37, 200], 3, 8, 4, 3, 256),
+    "hd96": ([20, 1, 1], [50, 90, 1], 3, 3, 8, 4, 96),
+    "llama_f32_shapes": ([32, 1, 64], [64, 96, 128], 3, 4, 8, 4, 128),
+    "group12": ([1, 40, 1], [150, 40, 70], 3, 5, 2, 12, 128),
+    "group16": ([1, 1, 30], [130, 40, 30], 3, 5, 1, 16, 128),
+    "group96_hd256": ([3, 1], [50, 80], 2, 3, 1, 96, 256),  # the tiled kernel's passes
+}
+GENERIC_TOL = {"f32": 1e-5, "f16": ROW_REL_TOL, "bf16": ROW_REL_TOL}
+DTYPES = {"f32": torch.float32, "f16": torch.float16, "bf16": torch.bfloat16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["q", "int8"])
+@pytest.mark.parametrize("kernel", ["decode", "tiled"])
+@pytest.mark.parametrize("case, dtype", [
+    (case, dtype) for case in GENERIC_CASES for dtype in DTYPES
+    # bf16 at llama3-8b's heads is the fast instances' (the tests above)
+    if not (case == "llama_f32_shapes" and dtype == "bf16")])
+def test_generic_instance_matches_plain(case, dtype, kernel, pages):
+    """The generic instance, each kernel forced, against the plain version
+    on the same operands (f32 products in full f32): the launch counts its
+    own entry point alone; padded rows are zero."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q_lens, kv_lens, S, pps, n_kv, group, d = GENERIC_CASES[case]
+    q, kv, *ops = make_batch(q_lens, kv_lens, S, pps, n_kv, group, seed=20, d=d)
+    q, kv = q.to(DTYPES[dtype]), kv.to(DTYPES[dtype])
+    kw = {"sm_scale": d ** -0.5}
+    if pages == "int8":
+        kv, kw["kv_scales"] = quantize_kv(kv)
+    name = ra.k1_instance(q.dtype, pages == "int8", d, group, kernel)
+    assert name == ra.GENERIC_INSTANCE_NAMES[kernel, dtype, pages == "int8"]
+    before = dict(ra.kernel_launches)
+    got = ra.ragged_paged_attention_cuda(q, kv, *ops, kernel=kernel, **kw)
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in ra.kernel_launches.items() if n != before[k]} == {name: 1}
+    want = ra.ragged_paged_attention_ref(q, kv, *ops, **kw)
+    n = sum(q_lens)
+    rel = _row_rel(got[:n], want[:n])
+    assert rel <= GENERIC_TOL[dtype], f"max row relative error {rel:.3e}"
+    assert not got[n:].any(), "rows past the last sequence are zero"
+
+
+@pytest.mark.cuda
+def test_generic_instance_refuses_another_q_dtype():
+    args = make_batch([3, 1], [3, 40], 2, 2, 2, 3, seed=11, d=96)
+    before = dict(ra.kernel_launches)
+    with pytest.raises(ValueError, match="dtype float64"):
+        ra.ragged_paged_attention(args[0].double(), args[1].double(), *args[2:], sm_scale=0.1)
+    assert ra.kernel_launches == before

@@ -15,10 +15,12 @@ engine step the first chunk names (``meta.iteration``), a count of each
 engine's life: what a whole-chunk comparison of a long-lived engine
 against a fresh worker trips on.
 
-The second: on ``cuda`` a model whose dtype is not bf16, whose head_dim is
-not the kernel's or whose GQA group the kernel does not take raises a
-``ValueError`` that says why, from the configs alone (no card needed);
-the JAX package serves such models through its plain reference.
+The second: on ``cuda`` the configs alone (no card needed) say which
+models K1 serves: the f32 tiny presets, head_dim 96 and groups above 8
+through its generic instance; a model no instance runs (head_dim 264,
+query heads that are not whole groups) raises a ``ValueError`` that says
+why before its engine is built. The JAX package serves such models
+through its plain reference.
 """
 
 import asyncio
@@ -210,14 +212,12 @@ def _without_iteration(chunks):
             for c in chunks]
 
 
-# -- the card's attention kernel takes bf16, head_dim 64 or 128, a group up to 8 --
+# -- the card's attention kernel: fast instances, the generic one, refusals --
 
 REFUSED = {
-    "tiny": ("dtype float32", "head_dim 16"),
-    "tiny-moe": ("dtype float32", "head_dim 16"),
-    "bf16-head96": ("head_dim 96",),
-    "f32-head128": ("dtype float32",),
-    "group16": ("32 query heads over 2 KV heads",),
+    "bf16-head264": ("head_dim 264",),
+    "bf16-head100": ("head_dim 100",),
+    "partial-group": ("32 query heads over 3 KV heads",),
 }
 
 
@@ -228,7 +228,10 @@ def _model(name):
     return {"bf16-head96": dataclasses.replace(base, head_dim=96),
             "bf16-head64": dataclasses.replace(base, head_dim=64),
             "f32-head128": dataclasses.replace(base, dtype="float32"),
-            "group16": dataclasses.replace(base, num_heads=32, num_kv_heads=2)}[name]
+            "group16": dataclasses.replace(base, num_heads=32, num_kv_heads=2),
+            "bf16-head264": dataclasses.replace(base, head_dim=264),
+            "bf16-head100": dataclasses.replace(base, head_dim=100),
+            "partial-group": dataclasses.replace(base, num_heads=32, num_kv_heads=3)}[name]
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -241,7 +244,8 @@ def test_model_k1_cannot_run_refused_on_cuda(name):
     check_slice(cfg, tiny_engine(), device="cpu")  # the plain versions serve it
 
 
-@pytest.mark.parametrize("preset", ["llama3-8b", "llama3-1b", "qwen2-7b", "mixtral-8x7b"])
+@pytest.mark.parametrize("preset", ["llama3-8b", "llama3-1b", "qwen2-7b", "mixtral-8x7b", "tiny",
+                                    "tiny-moe"])
 def test_models_k1_runs_pass_on_cuda(preset):
     check_slice(*engine_configs(preset), device="cuda")
 
@@ -251,18 +255,31 @@ def test_head_dim64_passes_on_cuda():
     check_slice(_model("bf16-head64"), tiny_engine(), device="cuda")
 
 
+@pytest.mark.parametrize("name", ["bf16-head96", "f32-head128", "group16"])
+def test_generic_instance_models_pass_on_cuda(name):
+    """Models the fast instances do not take (head_dim 96, f32, a group of
+    16) pass: K1's generic instance runs them."""
+    cfg = _model(name)
+    check_slice(cfg, tiny_engine(), device="cuda")
+    from dynamo_tpu_torch.ops import ragged_attention as ra
+
+    assert "generic" in ra.k1_instance(cfg.torch_dtype, False, cfg.head_dim,
+                                       cfg.num_heads // cfg.num_kv_heads)
+
+
 def test_refused_before_the_engine_is_built(monkeypatch):
-    """With a card present, ``build_engine`` refuses the tiny preset before
-    drawing a weight, and the worker's CLI before joining the fleet."""
+    """With a card present, ``build_engine`` refuses a model no K1 instance
+    runs (the tiny preset at head_dim 264) before drawing a weight, and the
+    worker's CLI before joining the fleet."""
     drawn = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(worker_main, "init_params_quantized", lambda *a: drawn.append(a))
     monkeypatch.setattr(worker_main, "EngineCore", lambda *a, **k: drawn.append(a))
-    with pytest.raises(ValueError, match="head_dim 16"):
+    monkeypatch.setitem(PRESETS, "tiny", lambda: dataclasses.replace(tiny_model(), head_dim=264))
+    with pytest.raises(ValueError, match="head_dim 264"):
         build_engine("tiny")
-    with pytest.raises(ValueError, match="head_dim 16"):
+    with pytest.raises(ValueError, match="head_dim 264"):
         build_engine("tiny", quant="int8")
-    with pytest.raises(ValueError, match="dtype float32"):
-        worker_main.main(["--model-name", "t", "--preset", "tiny-moe"])
+    with pytest.raises(ValueError, match="head_dim 264"):
+        worker_main.main(["--model-name", "t", "--preset", "tiny"])
     assert not drawn
-    assert tiny_model().head_dim == 16

@@ -56,14 +56,23 @@ def test_both_planners_plan_from_it(profile, package):
 
 def test_cuda_refuses_without_a_card_or_for_f32(monkeypatch, tmp_path):
     """``--device cuda`` never runs on the CPU: without a card it raises;
-    with one, the f32 ``tiny`` preset is refused before a sweep (K1 takes
-    bf16)."""
+    with one, the f32 ``tiny`` preset passes the card's check (K1's generic
+    instance runs it) and a model no K1 instance runs (the tiny preset at
+    head_dim 264) is refused before a sweep."""
+    import dataclasses
+
     import torch
+
+    from dynamo_tpu_torch.engine.config import PRESETS, EngineConfig
+    from dynamo_tpu_torch.engine.core import check_slice
 
     out = str(tmp_path / "p.json")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         profile_sla.main(["--preset", "tiny", "--quick", "--out", out])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    check_slice(PRESETS["tiny"](), EngineConfig(), "cuda")
+    tiny = PRESETS["tiny"]
+    monkeypatch.setitem(PRESETS, "tiny", lambda: dataclasses.replace(tiny(), head_dim=264))
     with pytest.raises(ValueError, match="cannot run on the card's attention kernel"):
         profile_sla.main(["--preset", "tiny", "--quick", "--out", out])

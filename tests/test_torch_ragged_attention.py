@@ -129,8 +129,8 @@ def test_kv_scales_refused():
 @pytest.mark.parametrize(
     "bad, match",
     [
-        ({"dtype": torch.float32}, "bf16"),
-        ({"d": 96}, "head_dim"),  # built for 64 and 128 only
+        ({"dtype": torch.float64}, "dtype float64"),  # no instance takes it
+        ({"d": 100}, "head_dim 100"),  # not a multiple of 8
         ({"n_q": 36}, "head layout"),
         ({"table_dtype": torch.int64}, "int32"),
         ({"scales": torch.ones(3, 32, 16)}, "int8 pages"),
